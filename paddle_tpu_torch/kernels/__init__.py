@@ -1,0 +1,14 @@
+"""Hand-written CUDA kernels for the ops whose JAX counterparts are Pallas
+kernels, each beside its plain PyTorch version.
+
+Counterpart of ``paddle_tpu/kernels/``. ``build`` compiles
+``paddle_tpu_torch/csrc/*.cu`` at first use; a wrapper runs the plain
+version for a CPU tensor and launches its kernel for a CUDA tensor.
+``KERNELS`` maps each kernel's name to its launch handle (with its
+launch count).
+"""
+
+from paddle_tpu_torch.kernels.flash_attention import FLASH_FWD
+from paddle_tpu_torch.kernels.paged_attention import PAGED_DECODE
+
+KERNELS = {"flash_fwd": FLASH_FWD, "paged_decode": PAGED_DECODE}

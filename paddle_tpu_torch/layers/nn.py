@@ -1,0 +1,190 @@
+"""Core NN layers.
+
+Counterpart of ``paddle_tpu/layers/nn.py`` for the layers this slice
+calls, with the reference's names, signatures and parameter naming.
+"""
+
+import numpy as np
+
+from paddle_tpu_torch import initializer as init_mod
+from paddle_tpu_torch.layer_helper import LayerHelper
+from paddle_tpu_torch.layers.ops import relu  # noqa: F401  (re-export)
+from paddle_tpu_torch.param_attr import ParamAttr
+
+__all__ = [
+    "dynamic_update_slice",
+    "fc",
+    "embedding",
+    "layer_norm",
+    "elementwise_add",
+    "elementwise_sub",
+    "elementwise_mul",
+    "elementwise_div",
+    "reduce_sum",
+    "scale",
+    "reshape",
+    "transpose",
+    "gather",
+    "relu",
+]
+
+
+def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
+       act=None, is_test=False, name=None):
+    """Fully-connected layer: mul + bias + activation (one input)."""
+    helper = LayerHelper("fc", param_attr=param_attr, bias_attr=bias_attr,
+                         act=act, name=name)
+    if isinstance(input, (list, tuple)):
+        raise NotImplementedError(
+            "fc over several inputs (a sum op) is not ported yet")
+    in_features = 1
+    for d in input.shape[num_flatten_dims:]:
+        in_features *= int(d)
+    w = helper.create_parameter(attr=helper.param_attr,
+                                shape=[in_features, size], dtype=input.dtype)
+    tmp = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="mul",
+        inputs={"X": [input], "Y": [w]},
+        outputs={"Out": [tmp]},
+        attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1},
+    )
+    pre_act = helper.append_bias_op(tmp, dim_start=num_flatten_dims)
+    return helper.append_activation(pre_act)
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype="float32"):
+    """lookup_table layer."""
+    helper = LayerHelper("embedding", param_attr=param_attr)
+    w = helper.create_parameter(attr=helper.param_attr, shape=list(size),
+                                dtype=dtype, is_bias=False)
+    out = helper.create_variable_for_type_inference(dtype)
+    if padding_idx is None:
+        padding_idx = -1
+    elif padding_idx < 0:
+        padding_idx = size[0] + padding_idx
+    helper.append_op(
+        type="lookup_table",
+        inputs={"W": [w], "Ids": [input]},
+        outputs={"Out": [out]},
+        attrs={"is_sparse": is_sparse, "is_distributed": is_distributed,
+               "padding_idx": padding_idx},
+    )
+    return out
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    helper = LayerHelper("layer_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    norm_size = int(np.prod([int(d) for d in input.shape[begin_norm_axis:]]))
+    inputs = {"X": [input]}
+    if scale:
+        inputs["Scale"] = [helper.create_parameter(
+            attr=helper.param_attr, shape=[norm_size], dtype=dtype,
+            default_initializer=init_mod.ConstantInitializer(1.0))]
+    if shift:
+        inputs["Bias"] = [helper.create_parameter(
+            attr=helper.bias_attr or ParamAttr(), shape=[norm_size],
+            dtype=dtype, is_bias=True)]
+    out = helper.create_variable_for_type_inference(dtype)
+    mean = helper.create_variable_for_type_inference(dtype,
+                                                     stop_gradient=True)
+    var = helper.create_variable_for_type_inference(dtype,
+                                                    stop_gradient=True)
+    helper.append_op(
+        type="layer_norm",
+        inputs=inputs,
+        outputs={"Y": [out], "Mean": [mean], "Variance": [var]},
+        attrs={"epsilon": epsilon, "begin_norm_axis": begin_norm_axis},
+    )
+    return helper.append_activation(out)
+
+
+def _elementwise_layer(op_type):
+    def fn(x, y, axis=-1, act=None, name=None):
+        from paddle_tpu_torch.layers.math_ops import elementwise_binary
+
+        return elementwise_binary(op_type, x, y, axis=axis, act=act,
+                                  name=name)
+
+    fn.__name__ = op_type
+    return fn
+
+
+elementwise_add = _elementwise_layer("elementwise_add")
+elementwise_sub = _elementwise_layer("elementwise_sub")
+elementwise_mul = _elementwise_layer("elementwise_mul")
+elementwise_div = _elementwise_layer("elementwise_div")
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper("reduce_sum", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if dim is None:
+        attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
+    else:
+        attrs = {"dim": [dim] if isinstance(dim, int) else list(dim),
+                 "keep_dim": keep_dim, "reduce_all": False}
+    helper.append_op(type="reduce_sum", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
+          name=None):
+    helper = LayerHelper("scale", act=act, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="scale",
+        inputs={"X": [x]},
+        outputs={"Out": [out]},
+        attrs={"scale": float(scale), "bias": float(bias),
+               "bias_after_scale": bias_after_scale},
+    )
+    return helper.append_activation(out)
+
+
+def reshape(x, shape, actual_shape=None, act=None, inplace=False,
+            name=None):
+    helper = LayerHelper("reshape", act=act, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="reshape", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"shape": list(shape)})
+    return helper.append_activation(out)
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="transpose", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": list(perm)})
+    return out
+
+
+def gather(input, index):
+    helper = LayerHelper("gather")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="gather",
+                     inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def dynamic_update_slice(x, update, index, axis=0, out=None, name=None):
+    """Write ``update`` into ``x`` at position ``index`` (a [1] int
+    tensor) along ``axis``. Pass ``out=x`` bound to a persistable var for
+    the in-place state-update form the executor threads across runs."""
+    helper = LayerHelper("dynamic_update_slice", name=name)
+    if out is None:
+        out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="dynamic_update_slice",
+        inputs={"X": [x], "Update": [update], "Index": [index]},
+        outputs={"Out": [out]},
+        attrs={"axis": int(axis)},
+    )
+    return out

@@ -1,0 +1,36 @@
+"""Tensor layers: fill_constant, assign.
+
+Counterpart of ``paddle_tpu/layers/tensor.py`` for the layers this slice
+calls.
+"""
+
+from paddle_tpu_torch import framework
+from paddle_tpu_torch.layer_helper import LayerHelper
+
+__all__ = ["assign", "fill_constant"]
+
+
+def assign(input, output=None):
+    if not isinstance(input, framework.Variable):
+        raise TypeError(
+            "assign takes a Variable in this slice of the port (the "
+            "assign_value form for numpy arrays is not ported yet)")
+    helper = LayerHelper("assign")
+    if output is None:
+        output = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="assign", inputs={"X": [input]},
+                     outputs={"Out": [output]})
+    return output
+
+
+def fill_constant(shape, dtype, value, force_cpu=False, out=None):
+    helper = LayerHelper("fill_constant")
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="fill_constant",
+        outputs={"Out": [out]},
+        attrs={"shape": list(shape), "dtype": dtype, "value": float(value)},
+    )
+    out.stop_gradient = True
+    return out

@@ -1,0 +1,496 @@
+"""Transformer encoder-decoder for machine translation.
+
+Counterpart of ``paddle_tpu/models/transformer.py`` for the serving
+slice: the training ``build`` (forward, for shapes and parameter names),
+the position-encoding tables, the paged slot decoder (greedy) and the
+coalesced copy-on-write program. Every builder mints the reference's
+variable and parameter names, so parameters bind by name across the two
+packages and across this package's programs.
+"""
+
+import numpy as np
+
+import paddle_tpu_torch as fluid
+from paddle_tpu_torch import flags, unique_name
+from paddle_tpu_torch.kernels.paged_attention import pages_for
+from paddle_tpu_torch.ops.sampling_ops import RNG_PARITY_TODO
+
+_TRAINING_SLICE = ("%s comes with the training slice of the port "
+                   "(ROADMAP.md); build with dropout=0.0, "
+                   "label_smooth_eps=0.0")
+
+
+def _ffn(x, d_model, d_inner, name):
+    h = fluid.layers.fc(input=x, size=d_inner, num_flatten_dims=2,
+                        act="relu", name=name + "_fc1")
+    return fluid.layers.fc(input=h, size=d_model, num_flatten_dims=2,
+                           name=name + "_fc2")
+
+
+def _prenorm(x, name):
+    return fluid.layers.layer_norm(x, begin_norm_axis=2, name=name + "_ln")
+
+
+def _residual(x, y, dropout, is_test, name):
+    if dropout:
+        raise NotImplementedError(_TRAINING_SLICE % "dropout")
+    return fluid.layers.elementwise_add(x, y)
+
+
+def _self_attention_block(x, mask, n_head, d_model, dropout, is_test, name):
+    attn = fluid.layers.multi_head_attention(
+        _prenorm(x, name + "_attn"), None, None,
+        d_key=d_model // n_head, d_value=d_model // n_head,
+        d_model=d_model, n_head=n_head, mask=mask, is_test=is_test,
+        name=name + "_mha")
+    return _residual(x, attn, dropout, is_test, name + "_res1")
+
+
+def encoder_layer(x, mask, n_head, d_model, d_inner, dropout, is_test, name):
+    x = _self_attention_block(x, mask, n_head, d_model, dropout, is_test,
+                              name)
+    ff = _ffn(_prenorm(x, name + "_ffn"), d_model, d_inner, name + "_ffn")
+    return _residual(x, ff, dropout, is_test, name + "_res2")
+
+
+def decoder_layer(x, enc_out, cross_mask, n_head, d_model, d_inner,
+                  dropout, is_test, name):
+    self_attn = fluid.layers.multi_head_attention(
+        _prenorm(x, name + "_sattn"), None, None,
+        d_key=d_model // n_head, d_value=d_model // n_head,
+        d_model=d_model, n_head=n_head, causal=True, is_test=is_test,
+        name=name + "_smha")
+    x = _residual(x, self_attn, dropout, is_test, name + "_res1")
+    cross = fluid.layers.multi_head_attention(
+        _prenorm(x, name + "_cattn"), enc_out, enc_out,
+        d_key=d_model // n_head, d_value=d_model // n_head,
+        d_model=d_model, n_head=n_head, mask=cross_mask, is_test=is_test,
+        name=name + "_cmha")
+    x = _residual(x, cross, dropout, is_test, name + "_res2")
+    ff = _ffn(_prenorm(x, name + "_ffn"), d_model, d_inner, name + "_ffn")
+    return _residual(x, ff, dropout, is_test, name + "_res3")
+
+
+def build(src_vocab_size=1000, trg_vocab_size=1000, max_length=64,
+          n_layer=2, n_head=4, d_model=128, d_inner=512, dropout=0.1,
+          label_smooth_eps=0.1, is_test=False):
+    """Returns (avg_cost, feeds, extras), as the reference. Feeds:
+    src_word [B,S], src_len [B,1], trg_word [B,T], trg_len [B,1],
+    label [B,T]. This slice runs the forward only: dropout and label
+    smoothing (training) raise until the training slice lands."""
+    if label_smooth_eps:
+        raise NotImplementedError(_TRAINING_SLICE % "label smoothing")
+    if flags.get("fused_ce"):
+        raise NotImplementedError(_TRAINING_SLICE % "FLAGS_fused_ce")
+    src = fluid.layers.data("src_word", shape=[max_length], dtype="int64")
+    src_len = fluid.layers.data("src_len", shape=[1], dtype="int64")
+    trg = fluid.layers.data("trg_word", shape=[max_length], dtype="int64")
+    label = fluid.layers.data("label", shape=[max_length], dtype="int64")
+
+    src_mask = fluid.layers.sequence_mask(src_len, maxlen=max_length,
+                                          dtype="float32")
+    src_emb = fluid.layers.embedding(
+        input=src, size=[src_vocab_size, d_model],
+        param_attr=fluid.ParamAttr(name="src_emb"))
+    src_emb = fluid.layers.scale(src_emb, scale=d_model ** 0.5)
+    enc_in = fluid.layers.add_position_encoding(src_emb)
+
+    trg_emb = fluid.layers.embedding(
+        input=trg, size=[trg_vocab_size, d_model],
+        param_attr=fluid.ParamAttr(name="trg_emb"))
+    trg_emb = fluid.layers.scale(trg_emb, scale=d_model ** 0.5)
+    dec_in = fluid.layers.add_position_encoding(trg_emb)
+
+    enc = enc_in
+    for i in range(n_layer):
+        enc = encoder_layer(enc, src_mask, n_head, d_model, d_inner,
+                            dropout, is_test, "enc_%d" % i)
+    enc = _prenorm(enc, "enc_final")
+
+    dec = dec_in
+    for i in range(n_layer):
+        dec = decoder_layer(dec, enc, src_mask, n_head, d_model, d_inner,
+                            dropout, is_test, "dec_%d" % i)
+    dec = _prenorm(dec, "dec_final")
+
+    logits = fluid.layers.fc(input=dec, size=trg_vocab_size,
+                             num_flatten_dims=2, name="proj_logits")
+    flat_logits = fluid.layers.reshape(logits, shape=[-1, trg_vocab_size])
+    flat_label = fluid.layers.reshape(label, shape=[-1, 1])
+    cost = fluid.layers.softmax_with_cross_entropy(flat_logits, flat_label)
+
+    trg_len = fluid.layers.data("trg_len", shape=[1], dtype="int64")
+    trg_mask = fluid.layers.sequence_mask(trg_len, maxlen=max_length,
+                                          dtype="float32")
+    cost = fluid.layers.reshape(cost, shape=[-1, max_length])
+    masked = fluid.layers.elementwise_mul(cost, trg_mask)
+    total = fluid.layers.reduce_sum(masked)
+    denom = fluid.layers.reduce_sum(trg_mask)
+    avg_cost = fluid.layers.elementwise_div(total, denom)
+    feeds = [src, src_len, trg, trg_len, label]
+    return avg_cost, feeds, {"logits": logits}
+
+
+def position_encoding_row(t, d_model, dtype="float32"):
+    """Host mirror of the add_position_encoding table's row ``t``."""
+    i = np.arange(d_model // 2, dtype=np.float64)
+    angle = float(t) / np.power(10000.0, 2.0 * i / d_model)
+    return np.concatenate([np.sin(angle), np.cos(angle)]).astype(
+        dtype)[None, :]
+
+
+def position_encoding_table(max_length, d_model, dtype="float32"):
+    """The full [max_length, d_model] sinusoid table, row-exact with
+    ``position_encoding_row``; fed once to the paged decoder's init
+    program."""
+    return np.concatenate(
+        [position_encoding_row(t, d_model, dtype=dtype)
+         for t in range(int(max_length))], axis=0)
+
+
+def _check_greedy(sampler):
+    """This slice decodes greedily; any stochastic sampler needs the
+    RNG-parity item first."""
+    if sampler is None:
+        return
+    if isinstance(sampler, dict):
+        strategy = sampler.get("strategy", "greedy")
+        temperature = float(sampler.get("temperature", 1.0))
+    else:
+        strategy = getattr(sampler, "strategy", "greedy")
+        temperature = float(getattr(sampler, "temperature", 1.0))
+    if strategy not in ("greedy", "temperature", "top_k"):
+        raise ValueError("sampler strategy must be greedy/temperature/"
+                         "top_k, got %r" % (strategy,))
+    if strategy != "greedy" and temperature > 0.0:
+        raise NotImplementedError(RNG_PARITY_TODO)
+
+
+def build_paged_slot_decoder(num_slots, src_vocab_size=1000,
+                             trg_vocab_size=1000, max_length=64, n_layer=2,
+                             n_head=4, d_model=128, d_inner=512, page_size=8,
+                             num_pages=None, num_groups=None, bos_id=1,
+                             eos_id=2, sampler=None, beam_width=1,
+                             speculative=0):
+    """Block-paged continuous-batching decode (greedy). The slots' self
+    K/V live in a page pool ``[num_pages, H, page_size, dh]`` shared
+    through a per-slot page table; cross K/V are pooled per group
+    ``[num_groups, H, T, dh]``; the step program is a self-contained
+    loop body (token choice, position advance and the next token's
+    embedding all in the program), so ``Executor.run_multi_step`` runs K
+    decode tokens per call.
+
+    Returns ``(init_prog, admit_prog, join_prog, prefill_prog,
+    table_prog, step_prog, token_name)`` exactly as the reference (see
+    its docstring for each program's feeds). The beam
+    (``beam_width > 1``) and speculative (``speculative > 0``) variants
+    and stochastic samplers are later slices and raise here. Build under
+    the training ``build()``'s fresh ``unique_name`` scope; parameters
+    bind by name."""
+    if int(beam_width) != 1:
+        raise NotImplementedError(
+            "beam decode (beam_width > 1) comes with a later slice "
+            "(ROADMAP.md A7)")
+    if int(speculative):
+        raise NotImplementedError(
+            "speculative decode comes with a later slice (ROADMAP.md A7)")
+    _check_greedy(sampler)
+    nn = fluid.layers
+    S, T, D = int(num_slots), int(max_length), int(d_model)
+    dh = D // n_head
+    ps = int(page_size)
+    npp = pages_for(T, ps)
+    P = int(num_pages) if num_pages else 1 + S * npp
+    G = int(num_groups) if num_groups else S
+
+    def heads(x):
+        return nn.transpose(nn.reshape(x, shape=[0, 0, n_head, dh]),
+                            perm=[0, 2, 1, 3])
+
+    def merge(x):
+        return nn.reshape(nn.transpose(x, perm=[0, 2, 1, 3]),
+                          shape=[0, 0, n_head * dh])
+
+    def proj(x, size, name):
+        return nn.fc(x, size, num_flatten_dims=2, bias_attr=False, name=name)
+
+    with unique_name.guard({}):
+        init = fluid.Program()
+        with fluid.program_guard(init, fluid.Program()):
+            blk = init.global_block()
+
+            def persist(name, value, dtype="float32"):
+                out = blk.create_var(name=name, shape=None, dtype=dtype,
+                                     persistable=True)
+                nn.assign(value, output=out)
+
+            pe = nn.data("pe_table", shape=[T, D], dtype="float32",
+                         append_batch_size=False)
+            persist("pgd_pe_table", pe)
+            mask0 = nn.fill_constant([G, T], "float32", 0.0)
+            mask0 = nn.dynamic_update_slice(
+                mask0, nn.fill_constant([G, 1], "float32", 1.0),
+                nn.fill_constant([1], "int64", 0), axis=1)
+            persist("pgd_src_mask", mask0)
+            for i in range(n_layer):
+                for kind in ("kcross", "vcross"):
+                    persist("pgd_%s_%d" % (kind, i), nn.fill_constant(
+                        [G, n_head, T, dh], "float32", 0.0))
+                for kind in ("kpool", "vpool"):
+                    persist("pgd_%s_%d" % (kind, i), nn.fill_constant(
+                        [P, n_head, ps, dh], "float32", 0.0))
+            persist("pgd_group_of",
+                    nn.fill_constant([S, 1], "int64", 0), "int64")
+            persist("pgd_table",
+                    nn.fill_constant([S, npp], "int64", 0), "int64")
+            persist("pgd_pos",
+                    nn.fill_constant([S, 1], "int64", 0), "int64")
+            persist("pgd_tok",
+                    nn.fill_constant([S, 1], "int64", bos_id), "int64")
+            persist("pgd_done",
+                    nn.fill_constant([S, 1], "int64", 1), "int64")
+
+        def slot_state_feeds():
+            """The feeds admit/join share for one member's registration."""
+            slot = nn.data("slot_idx", shape=[1], dtype="int64",
+                           append_batch_size=False)
+            gidx = nn.data("group_idx", shape=[1], dtype="int64",
+                           append_batch_size=False)
+            page_row = nn.data("page_row", shape=[npp], dtype="int64")
+            start_tok = nn.data("start_tok", shape=[1], dtype="int64")
+            start_pos = nn.data("start_pos", shape=[1], dtype="int64")
+            return slot, gidx, page_row, start_tok, start_pos
+
+        def register_member(blk, slot, gidx, page_row, start_tok,
+                            start_pos):
+            """Install one slot's group id, table row and loop state."""
+            def srow(name, value):
+                p = blk.create_var(
+                    name=name,
+                    shape=[S, npp] if name == "pgd_table" else [S, 1],
+                    dtype="int64", persistable=True)
+                nn.dynamic_update_slice(p, value, slot, axis=0, out=p)
+
+            srow("pgd_group_of", nn.reshape(gidx, shape=[1, 1]))
+            srow("pgd_table", page_row)
+            srow("pgd_tok", start_tok)
+            srow("pgd_pos", start_pos)
+            srow("pgd_done", nn.fill_constant([1, 1], "int64", 0))
+
+        admit = fluid.Program()
+        with fluid.program_guard(admit, fluid.Program()):
+            blk = admit.global_block()
+            src = nn.data("src_word", shape=[T], dtype="int64")
+            src_len = nn.data("src_len", shape=[1], dtype="int64")
+            member_feeds = slot_state_feeds()
+            gidx = member_feeds[1]
+            src_mask = nn.sequence_mask(src_len, maxlen=T, dtype="float32")
+            emb = nn.embedding(input=src, size=[src_vocab_size, D],
+                               param_attr=fluid.ParamAttr(name="src_emb"))
+            enc = nn.add_position_encoding(nn.scale(emb, scale=D ** 0.5))
+            for i in range(n_layer):
+                enc = encoder_layer(enc, src_mask, n_head, D, d_inner,
+                                    0.0, True, "enc_%d" % i)
+            enc = _prenorm(enc, "enc_final")
+
+            def grow(name, shape, value):
+                p = blk.create_var(name=name, shape=shape, dtype="float32",
+                                   persistable=True)
+                nn.dynamic_update_slice(p, value, gidx, axis=0, out=p)
+
+            grow("pgd_src_mask", [G, T], src_mask)
+            for i in range(n_layer):
+                kc = heads(proj(enc, dh * n_head, "dec_%d_cmha_k" % i))
+                vc = heads(proj(enc, dh * n_head, "dec_%d_cmha_v" % i))
+                grow("pgd_kcross_%d" % i, [G, n_head, T, dh], kc)
+                grow("pgd_vcross_%d" % i, [G, n_head, T, dh], vc)
+            register_member(blk, *member_feeds)
+
+        join = fluid.Program()
+        with fluid.program_guard(join, fluid.Program()):
+            register_member(join.global_block(), *slot_state_feeds())
+
+        prefill = fluid.Program()
+        # a FRESH name scope: the prefill program re-creates the
+        # decoder's parameter-owning layers exactly as the step program
+        # will, and both must get the training build's .w_0/.w_1 names
+        with unique_name.guard({}), \
+                fluid.program_guard(prefill, fluid.Program()):
+            blk = prefill.global_block()
+            pword = nn.data("prefix_word", shape=[T], dtype="int64")
+            plen = nn.data("prefix_len", shape=[1], dtype="int64")
+            wfrom = nn.data("write_from", shape=[1], dtype="int64")
+            slot = nn.data("slot_idx", shape=[1], dtype="int64",
+                           append_batch_size=False)
+            gidx = nn.data("group_idx", shape=[1], dtype="int64",
+                           append_batch_size=False)
+
+            def pvar(name, shape, dtype="float32"):
+                return blk.create_var(name=name, shape=shape, dtype=dtype,
+                                      persistable=True)
+
+            row = nn.gather(pvar("pgd_table", [S, npp], "int64"), slot)
+            mask_row = nn.gather(pvar("pgd_src_mask", [G, T]), gidx)
+            pe_all = nn.reshape(pvar("pgd_pe_table", [T, D]),
+                                shape=[1, T, D])
+            emb = nn.embedding(input=pword, size=[trg_vocab_size, D],
+                               param_attr=fluid.ParamAttr(name="trg_emb"))
+            h = nn.elementwise_add(nn.scale(emb, scale=D ** 0.5), pe_all)
+            for i in range(n_layer):
+                name = "dec_%d" % i
+                kpool = pvar("pgd_kpool_%d" % i, [P, n_head, ps, dh])
+                vpool = pvar("pgd_vpool_%d" % i, [P, n_head, ps, dh])
+                nx = _prenorm(h, name + "_sattn")
+                k1 = heads(proj(nx, dh * n_head, name + "_smha_k"))
+                v1 = heads(proj(nx, dh * n_head, name + "_smha_v"))
+                # every layer's K/V for the whole prefix lands in one op
+                fluid.layers.paged_kv_prefill(kpool, vpool, k1, v1, row,
+                                              wfrom, plen)
+                if i == n_layer - 1:
+                    break  # nothing deeper reads the rest of this block
+                q = heads(proj(nx, dh * n_head, name + "_smha_q"))
+                att = fluid.layers.scaled_dot_product_attention(
+                    q, k1, v1, causal=True, sm_scale=dh ** -0.5)
+                h = nn.elementwise_add(
+                    h, proj(merge(att), D, name + "_smha_o"))
+                nx2 = _prenorm(h, name + "_cattn")
+                q2 = heads(proj(nx2, dh * n_head, name + "_cmha_q"))
+                kc = nn.gather(pvar("pgd_kcross_%d" % i,
+                                    [G, n_head, T, dh]), gidx)
+                vc = nn.gather(pvar("pgd_vcross_%d" % i,
+                                    [G, n_head, T, dh]), gidx)
+                ctx = fluid.layers.scaled_dot_product_attention(
+                    q2, kc, vc, mask=mask_row, sm_scale=dh ** -0.5)
+                h = nn.elementwise_add(
+                    h, proj(merge(ctx), D, name + "_cmha_o"))
+                ff = _ffn(_prenorm(h, name + "_ffn"), D, d_inner,
+                          name + "_ffn")
+                h = nn.elementwise_add(h, ff)
+
+        table = fluid.Program()
+        with fluid.program_guard(table, fluid.Program()):
+            blk = table.global_block()
+            slot = nn.data("slot_idx", shape=[1], dtype="int64",
+                           append_batch_size=False)
+            page_row = nn.data("page_row", shape=[npp], dtype="int64")
+            t = blk.create_var(name="pgd_table", shape=[S, npp],
+                               dtype="int64", persistable=True)
+            nn.dynamic_update_slice(t, page_row, slot, axis=0, out=t)
+
+        step = fluid.Program()
+        with fluid.program_guard(step, fluid.Program()):
+            blk = step.global_block()
+
+            def pvar(name, shape, dtype="float32"):
+                return blk.create_var(name=name, shape=shape, dtype=dtype,
+                                      persistable=True)
+
+            tok = pvar("pgd_tok", [S, 1], "int64")
+            pos = pvar("pgd_pos", [S, 1], "int64")
+            done = pvar("pgd_done", [S, 1], "int64")
+            ptable = pvar("pgd_table", [S, npp], "int64")
+            group_of = pvar("pgd_group_of", [S, 1], "int64")
+            pe_table = pvar("pgd_pe_table", [T, D])
+            src_mask = pvar("pgd_src_mask", [G, T])
+            # resident tokens per slot AFTER this step's write: pos + 1
+            # for live slots, 0 for done/unoccupied ones (the kernel then
+            # reads no page for them)
+            live_row = nn.elementwise_sub(
+                nn.fill_constant([S, 1], "int64", 1), done)
+            lengths = nn.elementwise_mul(
+                fluid.layers.increment(pos, value=1, in_place=False),
+                live_row)
+            emb = nn.embedding(input=tok, size=[trg_vocab_size, D],
+                               param_attr=fluid.ParamAttr(name="trg_emb"))
+            emb = nn.reshape(emb, shape=[0, 1, D])  # [S, 1, D]
+            pe_row = nn.reshape(
+                nn.gather(pe_table, nn.reshape(pos, shape=[-1])),
+                shape=[0, 1, D])
+            h = nn.elementwise_add(nn.scale(emb, scale=D ** 0.5), pe_row)
+            for i in range(n_layer):
+                name = "dec_%d" % i
+                kpool = pvar("pgd_kpool_%d" % i, [P, n_head, ps, dh])
+                vpool = pvar("pgd_vpool_%d" % i, [P, n_head, ps, dh])
+                nx = _prenorm(h, name + "_sattn")
+                q = heads(proj(nx, dh * n_head, name + "_smha_q"))
+                k1 = heads(proj(nx, dh * n_head, name + "_smha_k"))
+                v1 = heads(proj(nx, dh * n_head, name + "_smha_v"))
+                kpool, vpool = fluid.layers.paged_kv_write(
+                    kpool, vpool, k1, v1, ptable, pos)
+                att = fluid.layers.paged_attention(
+                    q, kpool, vpool, ptable, lengths, sm_scale=dh ** -0.5)
+                h = nn.elementwise_add(
+                    h, proj(merge(att), D, name + "_smha_o"))
+                nx2 = _prenorm(h, name + "_cattn")
+                q2 = heads(proj(nx2, dh * n_head, name + "_cmha_q"))
+                ctx = fluid.layers.grouped_cross_attention(
+                    q2, pvar("pgd_kcross_%d" % i, [G, n_head, T, dh]),
+                    pvar("pgd_vcross_%d" % i, [G, n_head, T, dh]),
+                    group_of, src_mask, sm_scale=dh ** -0.5)
+                h = nn.elementwise_add(
+                    h, proj(merge(ctx), D, name + "_cmha_o"))
+                ff = _ffn(_prenorm(h, name + "_ffn"), D, d_inner,
+                          name + "_ffn")
+                h = nn.elementwise_add(h, ff)
+            h = _prenorm(h, "dec_final")
+            logits = nn.fc(h, trg_vocab_size, num_flatten_dims=2,
+                           name="proj_logits")
+            tok_new, pos_new, done_new = fluid.layers.slot_decode_sample(
+                logits, pos, done=done, eos_id=eos_id, max_length=T)
+            # thread the loop state: the next iteration embeds the token
+            # chosen here, no host in the loop
+            nn.assign(tok_new, output=tok)
+            nn.assign(pos_new, output=pos)
+            nn.assign(done_new, output=done)
+    return init, admit, join, prefill, table, step, tok_new.name
+
+
+def build_cow_batch_prog(num_slots, max_length, n_layer, n_head, d_model,
+                         page_size, num_pages, pairs):
+    """One coalesced copy-on-write dispatch: copy ``pairs`` KV page pairs
+    across every layer's pools, then install the affected slots' final
+    table rows (every copy lands before any repoint). Feeds:
+    ``src_pages``/``dst_pages``/``slot_idxs`` ``[pairs]`` int64 and
+    ``page_rows [pairs, npp]``. Pad entries are ``(src=0, dst=0)``
+    trash-page self-copies bound to an unchanged row, a no-op by
+    construction. ``pairs`` is a rung of the session's bucket ladder."""
+    nn = fluid.layers
+    S, T = int(num_slots), int(max_length)
+    dh = int(d_model) // int(n_head)
+    ps = int(page_size)
+    npp = pages_for(T, ps)
+    P = int(num_pages)
+    n = int(pairs)
+    if n < 1:
+        raise ValueError("build_cow_batch_prog needs pairs >= 1")
+    with unique_name.guard({}):
+        prog = fluid.Program()
+        with fluid.program_guard(prog, fluid.Program()):
+            blk = prog.global_block()
+            src_pages = nn.data("src_pages", shape=[n], dtype="int64",
+                                append_batch_size=False)
+            dst_pages = nn.data("dst_pages", shape=[n], dtype="int64",
+                                append_batch_size=False)
+            slot_idxs = nn.data("slot_idxs", shape=[n], dtype="int64",
+                                append_batch_size=False)
+            page_rows = nn.data("page_rows", shape=[n, npp],
+                                dtype="int64", append_batch_size=False)
+            idxs = [nn.fill_constant([1], "int64", i) for i in range(n)]
+            for i in range(n_layer):
+                kpool = blk.create_var(name="pgd_kpool_%d" % i,
+                                       shape=[P, n_head, ps, dh],
+                                       dtype="float32", persistable=True)
+                vpool = blk.create_var(name="pgd_vpool_%d" % i,
+                                       shape=[P, n_head, ps, dh],
+                                       dtype="float32", persistable=True)
+                for j in range(n):
+                    fluid.layers.paged_copy_page(
+                        kpool, vpool, nn.gather(src_pages, idxs[j]),
+                        nn.gather(dst_pages, idxs[j]))
+            t = blk.create_var(name="pgd_table", shape=[S, npp],
+                               dtype="int64", persistable=True)
+            for j in range(n):
+                nn.dynamic_update_slice(
+                    t, nn.gather(page_rows, idxs[j]),
+                    nn.gather(slot_idxs, idxs[j]), axis=0, out=t)
+    return prog
