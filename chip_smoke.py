@@ -8,12 +8,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    (one ``nvcc`` per source, in parallel) and prints the build time and
    each kernel's registers and spills;
 3. holds each kernel against its plain PyTorch version on the same CUDA
-   tensors, at the shapes the serving path gives it and at edge cases,
+   tensors, at the shapes the serving and training paths give it and at
+   edge cases,
    printing each case's max abs error beside its tolerance, then times
    kernel, plain version and (where one exists) the one-call PyTorch
    equivalent: device time per call, from CUDA events around replays of
    a CUDA graph of 30 calls (no host launch cost in the time) that cycle
-   through input copies larger than the L2 cache;
+   through input copies larger than the L2 cache; the library time of the
+   backward pair (autograd's backward of ``scaled_dot_product_attention``,
+   which a graph cannot hold) from CUDA events around 30 eager calls, each
+   far longer than its launch;
 4. serves 64 greedy requests through ``SlotDecodeSession(paged=True)`` at
    the full width of the Transformer-base configuration (6 layers,
    d_model 512, 8 heads, d_inner 2048, vocab 32000, max_length 256;
@@ -23,7 +27,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    page pool drained;
 5. serves 4 requests through the same configuration on the card and on
    the CPU (plain versions) and gates on the first decode step's logits;
-   token agreement is printed, not gated.
+   token agreement is printed, not gated;
+6. trains the same configuration as the JAX package's bench.py does
+   (dropout 0.1, label smoothing 0.1, ``Adam(2e-4)``, random_seed 7,
+   batch 64 of ragged lengths, fp32): 2 warm-up steps, then 20 steps with
+   each kernel's launch count reset just before and read just after. It
+   gates on finite losses, a loss that falls by 0.1 nat, and 18 launches
+   of each backward kernel and 36 of the forward per step, and profiles
+   one more step (device time by kernel, device busy share);
+7. trains 3 Adam steps of the same model (dropout 0, batch 4,
+   ``set_deterministic_params`` weights) on the card and on the CPU and
+   gates on each step's loss; the first step's gradients are compared and
+   printed.
 
 A line of its own before the last holds the kernels' JSON record; the
 last line is ``{"ok": true, "device": {...}}``. Any failure exits nonzero
@@ -36,6 +51,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -52,6 +68,14 @@ N_REQUESTS, SEED = 64, 2024
 K1_TOL = 1e-4     # fp32 sums over up to 256 keys in another order
 K2_TOL = 1e-4
 LOGITS_TOL = 1e-3  # fp32 through 6 layers, card against CPU
+
+# training, as bench.py:240-266 configures Transformer-base
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_SEED = 64, 2, 20, 7
+LR, DROPOUT, LABEL_SMOOTH = 2e-4, 0.1, 0.1
+TRAIN_TOKEN_IDS = 1000   # tokens drawn from ids 1..1000 of the vocab
+LOSS_DROP = 0.1          # nats: mean of steps 16-20 below step 1
+CVC_BATCH, CVC_STEPS = 4, 3
+TRAIN_LOSS_TOL = 1e-3    # fp32 losses through 6 layers, card against CPU
 
 
 def fail(msg):
@@ -107,6 +131,27 @@ def copies(kw, n=3):
 
     return [kw] + [{k: v.clone() if isinstance(v, torch.Tensor) else v
                     for k, v in kw.items()} for _ in range(n - 1)]
+
+
+def eager_ms(fn, inputs, iters=30):
+    """Device milliseconds per call of ``fn(i)`` from CUDA events around
+    ``iters`` eager calls that cycle through ``len(inputs)`` copies, after
+    one warm-up call on each. For calls whose device time is far above
+    their host launch cost (the host then runs ahead of the card), where
+    a CUDA graph cannot hold the call (autograd's backward)."""
+    import torch
+
+    for i in range(len(inputs)):
+        fn(i)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for j in range(iters):
+        fn(j % len(inputs))
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def bound(nbytes, flops):
@@ -166,6 +211,37 @@ def flash_cases(torch, gen):
             q=rnd(2, 3, 45, 40), k=rnd(2, 3, 45, 40), v=rnd(2, 3, 45, 40),
             causal=True)),
     ]
+
+
+def train_flash_cases(torch, gen):
+    """(name, kwargs for flash_forward) at the train step's three calls:
+    encoder self-attention and decoder cross-attention (ragged key mask
+    of the source lengths) and decoder self-attention (causal)."""
+    dev = "cuda"
+    dh = D_MODEL // N_HEAD
+    shape = (TRAIN_BATCH, N_HEAD, MAX_LEN, dh)
+
+    def qkv():
+        return {n: torch.randn(*shape, generator=gen, device=dev)
+                for n in ("q", "k", "v")}
+
+    lens = torch.randint(16, MAX_LEN + 1, (TRAIN_BATCH,), generator=gen,
+                         device=dev)
+    mask = (torch.arange(MAX_LEN, device=dev)[None, :]
+            < lens[:, None]).float()
+    return [("train_self_masked", dict(qkv(), kv_mask=mask)),
+            ("train_causal", dict(qkv(), causal=True)),
+            ("train_cross_masked", dict(qkv(), kv_mask=mask.clone()))]
+
+
+def bwd_inputs(torch, fa, kw, gen):
+    """The backward's arguments for a forward case: the forward kernel's
+    output and LSE, and a random output gradient."""
+    out, lse = fa.flash_forward(**kw)
+    dout = torch.randn(out.shape, generator=gen, device=out.device)
+    return dict(q=kw["q"], k=kw["k"], v=kw["v"], kv_mask=kw.get("kv_mask"),
+                out=out, lse=lse, dout=dout, causal=kw.get("causal", False),
+                kv_group=kw.get("kv_group", 1), window=kw.get("window", 0))
 
 
 def paged_case(torch, gen, S, H, dh, ps, lengths):
@@ -238,6 +314,40 @@ def kernel_phase(torch):
         if not err <= K1_TOL:
             fail("flash_fwd %s: error %.3e above %.0e" % (name, err, K1_TOL))
         worst["flash_fwd"] = max(worst["flash_fwd"], err)
+    # the backward pair at the train step's shapes and at B1's edge cases
+    # (decode's T=1 shape included), plus T != S
+    dev = "cuda"
+    t_ne_s = dict(q=torch.randn(2, 4, 19, 64, generator=gen, device=dev),
+                  k=torch.randn(2, 4, 37, 64, generator=gen, device=dev),
+                  v=torch.randn(2, 4, 37, 64, generator=gen, device=dev),
+                  kv_mask=(torch.arange(37, device=dev)[None, :]
+                           < torch.tensor([[37], [5]], device=dev)).float())
+    worst["flash_bwd_dkv"] = worst["flash_bwd_dq"] = 0.0
+    for name, kw in (train_flash_cases(torch, gen) + flash_cases(torch, gen)
+                     + [("T19_S37_masked", t_ne_s)]):
+        args = bwd_inputs(torch, fa, kw, gen)
+        dq, dk, dv = fa.flash_backward(**args)
+        rq, rk, rv = fa.flash_backward_plain(**args)
+        torch.cuda.synchronize()
+        dead = args["lse"] <= fa.MASKED_ROW_LSE
+        if dead.any() and dq[dead].abs().max().item() != 0.0:
+            fail("flash_bwd_dq %s: a dead row's dq is not exactly 0" % name)
+        m = args["kv_mask"]
+        if m is not None and (m == 0).any():
+            off = (m == 0)[:, None, :].expand(dk.shape[:3])
+            if max(dk[off].abs().max().item(), dv[off].abs().max().item()):
+                fail("flash_bwd_dkv %s: a masked key's dk/dv is not exactly "
+                     "0" % name)
+        e_kv = max((dk - rk).abs().max().item(), (dv - rv).abs().max().item())
+        e_q = (dq - rq).abs().max().item()
+        print("kernel flash_bwd_dkv/dq %-19s max_abs_err %.3e / %.3e  tol "
+              "%.0e  dead_rows %d" % (name, e_kv, e_q, K1_TOL,
+                                      int(dead.sum())))
+        if not (e_kv <= K1_TOL and e_q <= K1_TOL):
+            fail("flash_bwd %s: error %.3e / %.3e above %.0e"
+                 % (name, e_kv, e_q, K1_TOL))
+        worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], e_kv)
+        worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], e_q)
     for name, kw in paged_cases(torch, gen):
         out = pa.paged_attention(**kw)
         ref = pa.paged_attention_plain(**kw)
@@ -254,8 +364,56 @@ def kernel_phase(torch):
     return worst
 
 
+def sdpa_backend(torch, F, q, k, v, mask):
+    """The backend ``scaled_dot_product_attention`` picks for these
+    inputs: the first in PyTorch's priority order that takes them."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    members = SDPBackend.__members__
+    order = ["FLASH_ATTENTION", "EFFICIENT_ATTENTION", "MATH"]
+    try:
+        by_value = {int(b): n for n, b in members.items()}
+        order = [by_value[int(i)] for i in torch._C._get_sdp_priority_order()]
+    except (AttributeError, KeyError, TypeError):
+        pass  # an older torch: its documented default order
+    for name in order:
+        if name in ("ERROR", "OVERRIDEABLE"):
+            continue
+        try:
+            # a backend that refuses the inputs warns why, then raises
+            with warnings.catch_warnings(), sdpa_kernel([members[name]]):
+                warnings.simplefilter("ignore")
+                F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        except RuntimeError:
+            continue
+        return name
+    return "none"
+
+
+def sdpa_backward_ms(torch, F, bwd):
+    """(backend, ms) of the backward of ``scaled_dot_product_attention``
+    on the same fp32 inputs, key mask and output gradient as the kernels:
+    ``torch.autograd.grad`` of a forward run once, timed eagerly."""
+    ins = []
+    for a in bwd:
+        q, k, v = (a[n].detach().requires_grad_() for n in ("q", "k", "v"))
+        mask = (a["kv_mask"] > 0)[:, None, None, :]
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        ins.append((out, (q, k, v), a["dout"]))
+    q, k, v = ins[0][1]
+    backend = sdpa_backend(torch, F, q, k, v,
+                           (bwd[0]["kv_mask"] > 0)[:, None, None, :])
+
+    def call(i):
+        out, leaves, dout = ins[i]
+        torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+    return backend, eager_ms(call, ins)
+
+
 def timing_phase(torch):
-    """Kernel, plain version and library times at the serving shapes."""
+    """Kernel, plain version and library times at the serving and
+    training shapes."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -315,6 +473,60 @@ def timing_phase(torch):
         NUM_SLOTS, N_HEAD, MAX_LEN, dh, generator=gen, device="cuda"),
         dim=0, index=torch.randperm(NUM_SLOTS, device="cuda")))
     rows["gather_k_pool_gof_ms"] = cuda_ms(torch.index_select, pools)
+
+    # B1, B2, B3 at the train step's shape, [64,8,256,64], with the
+    # source key mask (12 of a step's 18 attention calls); work and bytes
+    # count the valid keys only
+    tcases = dict(train_flash_cases(torch, gen))
+    kw_t = copies(tcases["train_self_masked"])
+    B, T = TRAIN_BATCH, MAX_LEN
+    vis = float(kw_t[0]["kv_mask"].sum())  # valid keys, summed over batch
+    qbytes = 4.0 * B * N_HEAD * T * dh      # one [B,H,T,d] tensor
+    kvbytes = 4.0 * vis * N_HEAD * dh       # the valid rows of k (or v)
+    rowbytes = 4.0 * B * N_HEAD * T         # lse or delta
+    mbytes = 4.0 * B * T
+    shape_t = "q/k/v [%d,%d,%d,%d], key mask (%d of %d keys valid)" % (
+        B, N_HEAD, T, dh, vis, B * T)
+    rows["flash_fwd_train"] = dict(
+        shape=shape_t, ms=cuda_ms(fa.flash_forward, kw_t),
+        plain_ms=cuda_ms(fa.flash_forward_plain, kw_t),
+        library_ms=cuda_ms(F.scaled_dot_product_attention,
+                           sdpa_inputs(kw_t)),
+        bound=bound(2 * qbytes + 2 * kvbytes + rowbytes + mbytes,
+                    4.0 * T * vis * N_HEAD * dh))
+
+    def bwd_rows(suffix, cases, pairs, shape, with_library):
+        """dkv and dq rows for one set of inputs; ``pairs`` counts the
+        visible (query, key) pairs over batch and heads."""
+        bwd = [bwd_inputs(torch, fa, c, gen) for c in cases]
+        for a in bwd:
+            a["delta"] = (a["dout"] * a["out"]).sum(dim=-1)
+        kern = [dict(q=a["q"], k=a["k"], v=a["v"], kv_mask=a["kv_mask"],
+                     dout=a["dout"], lse=a["lse"], delta=a["delta"],
+                     causal=a["causal"], sm_scale=dh ** -0.5) for a in bwd]
+        plain = [{n: a[n] for n in ("q", "k", "v", "kv_mask", "out", "lse",
+                                     "dout", "causal")} for a in bwd]
+        plain_ms = cuda_ms(fa.flash_backward_plain, plain)
+        backend, lib_ms = (sdpa_backward_ms(torch, F, bwd) if with_library
+                           else (None, None))
+        kvb = 4.0 * dh * (pairs / T if not bwd[0]["causal"]
+                          else B * N_HEAD * T)  # k/v rows read, each
+        mb = mbytes if bwd[0]["kv_mask"] is not None else 0.0
+        rows["flash_bwd_dkv" + suffix] = dict(
+            shape=shape, ms=cuda_ms(fa.flash_bwd_dkv, kern),
+            plain_ms=plain_ms, library_ms=lib_ms, backend=backend,
+            bound=bound(2 * qbytes + 2 * kvb + 2 * rowbytes + mb
+                        + 2 * qbytes, 8.0 * pairs * dh))
+        rows["flash_bwd_dq" + suffix] = dict(
+            shape=shape, ms=cuda_ms(fa.flash_bwd_dq, kern),
+            plain_ms=plain_ms, library_ms=lib_ms, backend=backend,
+            bound=bound(2 * qbytes + 2 * kvb + 2 * rowbytes + mb
+                        + qbytes, 6.0 * pairs * dh))
+
+    bwd_rows("", kw_t, T * vis * N_HEAD, shape_t, True)
+    bwd_rows("_causal", copies(tcases["train_causal"]),
+             B * N_HEAD * T * (T + 1) / 2.0,
+             "q/k/v [%d,%d,%d,%d], causal" % (B, N_HEAD, T, dh), False)
     return rows
 
 
@@ -465,6 +677,164 @@ def card_vs_cpu_phase(np, torch, fluid, exe, scope, main):
     return err
 
 
+# -- training phases ------------------------------------------------------------
+
+def build_train(fluid, dropout):
+    """Transformer-base's train program as bench.py:240-266 builds it:
+    (main, startup, loss, [(param, grad)])."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = TRAIN_SEED
+    with unique_name.guard({}), fluid.program_guard(main, startup):
+        loss, _, _ = transformer.build(
+            src_vocab_size=VOCAB, trg_vocab_size=VOCAB, max_length=MAX_LEN,
+            n_layer=N_LAYER, n_head=N_HEAD, d_model=D_MODEL,
+            d_inner=D_INNER, dropout=dropout, label_smooth_eps=LABEL_SMOOTH)
+        _, params_grads = fluid.optimizer.Adam(
+            learning_rate=LR).minimize(loss)
+    return main, startup, loss, params_grads
+
+
+def train_feed(np, batch):
+    """One fixed batch, fed at every step as bench.py:270-285 does: tokens
+    from ids 1..1000, ``label`` a copy of ``src_word``, source and target
+    lengths uniform in 16..256 (the key masks and the loss mask are
+    live)."""
+    rng = np.random.RandomState(SEED)
+    src = rng.randint(1, TRAIN_TOKEN_IDS + 1, (batch, MAX_LEN))
+    return {
+        "src_word": src.astype("int64"),
+        "src_len": rng.randint(16, MAX_LEN + 1, (batch, 1)).astype("int64"),
+        "trg_word": rng.randint(1, TRAIN_TOKEN_IDS + 1,
+                                (batch, MAX_LEN)).astype("int64"),
+        "trg_len": rng.randint(16, MAX_LEN + 1, (batch, 1)).astype("int64"),
+        "label": src.astype("int64").copy(),
+    }
+
+
+def profile_step(torch, exe, main, feed, loss, scope):
+    """One more train step under torch.profiler: device time by kernel
+    (top 8) and the device's busy share of the step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # the kernels themselves (CPU-side ops also carry their kernels' time)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if not events:
+        print("train profile: no device time in the trace (not measured)")
+        return
+    print("train profile: step wall %.1f ms under the profiler, device busy "
+          "%.1f ms (%.1f %%)" % (wall_ms, busy_ms, 100.0 * busy_ms / wall_ms))
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print("train profile: %8.2f ms %5d calls  %s"
+              % (e.self_device_time_total / 1e3, e.count, e.key[:90]))
+
+
+def train_phase(np, torch, fluid, exe, kernels):
+    main, startup, loss, _ = build_train(fluid, DROPOUT)
+    ops = main.global_block().ops
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    n_params = sum(int(np.prod(p.shape))
+                   for p in main.global_block().all_parameters())
+    print("train: Transformer-base program of %d ops (%d startup ops), %.1f M "
+          "parameters, batch %d x %d, dropout %.1f, label smoothing %.1f, "
+          "Adam(%g)" % (len(ops), len(startup.global_block().ops),
+                        n_params / 1e6, TRAIN_BATCH, MAX_LEN, DROPOUT,
+                        LABEL_SMOOTH, LR))
+    feed = train_feed(np, TRAIN_BATCH)
+    dec_tokens = int(feed["trg_len"].sum())
+    for _ in range(TRAIN_WARMUP):
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+    for k in kernels.values():
+        k.launches = 0
+    losses, step_ms, per_step = [], [], []
+    for i in range(TRAIN_STEPS):
+        before = [kernels[n].launches for n in names]
+        t0 = time.perf_counter()
+        (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(np.asarray(lv).reshape(-1)[0]))
+        per_step.append(tuple(kernels[n].launches - b
+                              for n, b in zip(names, before)))
+        print("train step %2d: loss %.6f  wall %.1f ms  launches %s"
+              % (i + 1, losses[-1], step_ms[-1], dict(zip(names,
+                                                          per_step[-1]))))
+    launches = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    mean_ms = float(np.mean(step_ms))
+    print("train: %d steps, mean %.1f ms/step (min %.1f, max %.1f), %d "
+          "decoder tokens per step (non-pad): %.0f decoder tokens/s; peak "
+          "memory %.2f GiB" % (TRAIN_STEPS, mean_ms, min(step_ms),
+                               max(step_ms), dec_tokens,
+                               dec_tokens / mean_ms * 1e3, peak / 2 ** 30))
+    print("train: kernel launches over the %d steps %s"
+          % (TRAIN_STEPS, json.dumps(launches)))
+    if not np.isfinite(losses).all():
+        fail("a train loss is not finite: %s" % losses)
+    n_attn = 3 * N_LAYER
+    if any(c != (2 * n_attn, n_attn, n_attn) for c in per_step):
+        fail("per-step launches %s, expected flash_fwd %d, flash_bwd_dkv %d, "
+             "flash_bwd_dq %d" % (per_step, 2 * n_attn, n_attn, n_attn))
+    late = float(np.mean(losses[15:20]))
+    print("train: loss step 1 %.6f, mean of steps 16-20 %.6f (gate: %.1f "
+          "nat lower)" % (losses[0], late, LOSS_DROP))
+    if not late <= losses[0] - LOSS_DROP:
+        fail("the train loss did not fall by %.1f nat" % LOSS_DROP)
+    profile_step(torch, exe, main, feed, loss, scope)
+    return launches
+
+
+def train_card_vs_cpu_phase(np, torch, fluid, exe):
+    from paddle_tpu_torch.testing import set_deterministic_params
+
+    main, startup, loss, params_grads = build_train(fluid, 0.0)
+    feed = {k: v[:CVC_BATCH] for k, v in train_feed(np, TRAIN_BATCH).items()}
+    grad_names = [g.name for _, g in params_grads]
+    losses, grads = {}, {}
+    for dev, ex in (("card", exe), ("cpu", fluid.Executor(fluid.CPUPlace()))):
+        scope = fluid.Scope()
+        ex.run(startup, scope=scope)
+        set_deterministic_params(main, scope, parameters_only=True)
+        losses[dev] = []
+        for i in range(CVC_STEPS):
+            out = ex.run(main, feed=feed, scope=scope,
+                         fetch_list=[loss] + (grad_names if i == 0 else []))
+            losses[dev].append(float(np.asarray(out[0]).reshape(-1)[0]))
+            if i == 0:
+                grads[dev] = out[1:]
+    err = max(abs(a - b) for a, b in zip(losses["card"], losses["cpu"]))
+    g_err = max(float(np.abs(a - b).max())
+                for a, b in zip(grads["card"], grads["cpu"]))
+    g_mag = max(float(np.abs(a).max()) for a in grads["cpu"])
+    print("train card vs cpu: batch %d, %d Adam steps, losses card %s cpu %s: "
+          "max abs diff %.3e  tol %.0e" % (CVC_BATCH, CVC_STEPS,
+                                           losses["card"], losses["cpu"],
+                                           err, TRAIN_LOSS_TOL))
+    print("train card vs cpu: step 1 gradients of %d parameters: max abs diff "
+          "%.3e (largest gradient entry %.3e)"
+          % (len(grad_names), g_err, g_mag))
+    if not np.isfinite(losses["card"]).all() or not err <= TRAIN_LOSS_TOL:
+        fail("card and CPU train losses disagree: %.3e" % err)
+    return err
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "paddle_tpu_torch")):
         fail("paddle_tpu_torch/ is not beside chip_smoke.py: run it from "
@@ -497,13 +867,21 @@ def main():
 
     worst = kernel_phase(torch)
     timing = timing_phase(torch)
-    for name in ("flash_fwd", "flash_fwd_encoder", "paged_decode"):
+    for name in ("flash_fwd", "flash_fwd_encoder", "paged_decode",
+                 "flash_fwd_train", "flash_bwd_dkv", "flash_bwd_dq",
+                 "flash_bwd_dkv_causal", "flash_bwd_dq_causal"):
         r = timing[name]
-        print("time %-18s %s: kernel %.4f ms, plain %.4f ms, library %s, "
-              "bound %.4f ms (%s)"
-              % (name, r["shape"], r["ms"], r["plain_ms"],
-                 "%.4f ms" % r["library_ms"] if r["library_ms"] is not None
-                 else "none", r["bound"][0], r["bound"][1]))
+        lib = ("%.4f ms" % r["library_ms"] if r["library_ms"] is not None
+               else "none")
+        if r.get("backend"):
+            lib += " (backward of scaled_dot_product_attention, backend %s)" \
+                % r["backend"]
+        plain = "plain %.4f ms" % r["plain_ms"]
+        if name.startswith("flash_bwd"):
+            plain += " (the pair)"
+        print("time %-20s %s: kernel %.4f ms, %s, library %s, bound %.4f ms "
+              "(%s)" % (name, r["shape"], r["ms"], plain, lib, r["bound"][0],
+                        r["bound"][1]))
     print("time gather k_pool[gof] [%d,%d,%d,%d]: %.4f ms"
           % (NUM_SLOTS, N_HEAD, MAX_LEN, D_MODEL // N_HEAD,
              timing["gather_k_pool_gof_ms"]))
@@ -516,18 +894,34 @@ def main():
           % (time.perf_counter() - t0))
     launches = serve_phase(np, torch, exe, scope, KERNELS)
     card_vs_cpu_phase(np, torch, fluid, exe, scope, main_prog)
+    scope = main_prog = None
+    torch.cuda.empty_cache()
+    train_launches = train_phase(np, torch, fluid, exe, KERNELS)
+    train_card_vs_cpu_phase(np, torch, fluid, exe)
+
+    def bwd_record(name, line):
+        t = timing[name]
+        return dict(name=name, route="cuda",
+                    source="paddle_tpu_torch/csrc/flash_bwd.cu",
+                    replaces="paddle_tpu/kernels/flash_attention.py:%d" % line,
+                    launches=train_launches[name], max_abs_err=worst[name],
+                    ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
+                    bound_by=t["bound"][1], library_ms=t["library_ms"])
 
     record = {"kernels": [
         dict(name="flash_fwd", route="cuda",
              source="paddle_tpu_torch/csrc/flash_fwd.cu",
              replaces="paddle_tpu/kernels/flash_attention.py:91",
-             launches=launches["flash_fwd"],
+             # the serving run's launches and the training run's
+             launches=launches["flash_fwd"] + train_launches["flash_fwd"],
              max_abs_err=worst["flash_fwd"],
              ms=timing["flash_fwd"]["ms"],
              plain_ms=timing["flash_fwd"]["plain_ms"],
              bound_ms=timing["flash_fwd"]["bound"][0],
              bound_by=timing["flash_fwd"]["bound"][1],
              library_ms=timing["flash_fwd"]["library_ms"]),
+        bwd_record("flash_bwd_dkv", 302),
+        bwd_record("flash_bwd_dq", 376),
         dict(name="paged_decode", route="cuda",
              source="paddle_tpu_torch/csrc/paged_decode.cu",
              replaces="paddle_tpu/kernels/paged_attention.py:184",

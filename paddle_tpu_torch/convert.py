@@ -1,11 +1,14 @@
-"""Carry weights into the port.
+"""Carry weights and training state into the port.
 
 ``params_from_numpy(program, scope, arrays, device)`` writes every
 parameter of ``program`` into ``scope`` as a tensor on ``device``, from a
 mapping of parameter name to array (for instance read out of the JAX
-package's scope with ``np.asarray(scope.get_value(name))``). Both
-packages mint the same parameter names, so this is a lookup; a missing
-name or a shape that differs raises.
+package's scope with ``np.asarray(scope.get_value(name))``).
+``persistables_from_numpy`` does the same for every persistable variable
+the program's ops read, optimizer accumulators and learning rate
+included, so a JAX training run continues in the port. Both packages
+mint the same names (optimizer.py:68 for accumulators), so this is a
+lookup; a missing name or a shape that differs raises.
 """
 
 import numpy as np
@@ -14,18 +17,31 @@ import torch
 from paddle_tpu_torch.core.types import device_dtype
 
 
-def params_from_numpy(program, scope, arrays, device):
+def _carry(variables, scope, arrays, device, who):
     device = torch.device(device)
-    for param in program.global_block().all_parameters():
-        if param.name not in arrays:
-            raise KeyError("params_from_numpy: no array for parameter %r"
-                           % param.name)
-        arr = np.asarray(arrays[param.name])
-        if tuple(arr.shape) != tuple(param.shape):
+    for var in variables:
+        if var.name not in arrays:
+            raise KeyError("%s: no array for %r" % (who, var.name))
+        arr = np.asarray(arrays[var.name])
+        if tuple(arr.shape) != tuple(var.shape):
             raise ValueError(
-                "params_from_numpy: %r has shape %s in the program but %s "
-                "in the arrays" % (param.name, tuple(param.shape),
-                                   tuple(arr.shape)))
-        scope.set_value(param.name, torch.from_numpy(
-            np.array(arr)).to(dtype=device_dtype(param.dtype),
-                                          device=device))
+                "%s: %r has shape %s in the program but %s in the arrays"
+                % (who, var.name, tuple(var.shape), tuple(arr.shape)))
+        scope.set_value(var.name, torch.from_numpy(np.array(arr)).to(
+            dtype=device_dtype(var.dtype), device=device))
+
+
+def params_from_numpy(program, scope, arrays, device):
+    _carry(program.global_block().all_parameters(), scope, arrays, device,
+           "params_from_numpy")
+
+
+def persistables_from_numpy(program, scope, arrays, device):
+    """Every persistable variable that an op of ``program`` reads or
+    writes: parameters, optimizer accumulators, the learning rate."""
+    block = program.global_block()
+    used = {n for op in block.ops
+            for n in op.input_arg_names() + op.output_arg_names()}
+    _carry([v for v in block.vars.values() if v.persistable
+            and v.name in used], scope, arrays, device,
+           "persistables_from_numpy")

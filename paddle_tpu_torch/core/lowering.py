@@ -53,10 +53,29 @@ class BlockLowerer(object):
                     state_out.append(name)
         return state_in, state_out
 
-    def lower_into(self, env, device, seed):
-        """Run every op's lowering against env (name -> tensor)."""
-        for op in self.block.ops:
+    def release_plan(self, keep):
+        """For each op, the variable names no later op reads or writes and
+        ``keep`` does not hold: the environment drops them right after
+        that op, so a train step holds an intermediate only while it is
+        needed (what XLA's buffer liveness does for the JAX package)."""
+        last = {}
+        for i, op in enumerate(self.block.ops):
+            for name in _valid(op.input_arg_names() + op.output_arg_names()):
+                last[name] = i
+        plan = [[] for _ in self.block.ops]
+        for name, i in last.items():
+            if name not in keep:
+                plan[i].append(name)
+        return plan
+
+    def lower_into(self, env, device, seed, release):
+        """Run every op's lowering against env (name -> tensor), dropping
+        each variable after its last use (``release``, a
+        :meth:`release_plan`)."""
+        for op, names in zip(self.block.ops, release):
             self.lower_op(op, env, device, seed)
+            for name in names:
+                env.pop(name, None)
         return env
 
     def lower_op(self, op, env, device, seed):

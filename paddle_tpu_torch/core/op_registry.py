@@ -3,9 +3,19 @@
 Counterpart of ``paddle_tpu/core/op_registry.py`` (``op_registry.h:190``
 registrar parity). Each op registers a *lowering*: a plain function on
 torch tensors, ``lower(ctx, ins, attrs) -> outputs``, that the eager
-``BlockLowerer`` calls op by op. Gradient synthesis (``<type>_grad`` ops)
-comes with the training slice; ``grad`` is recorded for schema parity.
+``BlockLowerer`` calls op by op.
+
+Gradients: an op registered with ``grad="auto"`` gets a synthesized
+``<type>_grad`` op (``ensure_auto_grad_op``) whose lowering re-runs the
+forward lowering on detached leaves that require grad and differentiates
+it with ``torch.autograd.grad``, as the JAX package re-traces the forward
+under ``jax.vjp``. XLA's CSE removes that forward rerun inside one jitted
+step; the eager port pays for it (PERF.md). A lowering that wraps a
+``torch.autograd.Function`` (the flash attention kernels) gets that
+Function's backward.
 """
+
+import torch
 
 
 class LowerContext(object):
@@ -119,3 +129,97 @@ def normalize_outputs(opdef, result):
                 % (opdef.type, len(result), len(slots)))
         return {s: [r] for s, r in zip(slots, result)}
     return {slots[0]: [result]}
+
+
+# ---------------------------------------------------------------------------
+# Generic vjp-based gradient lowering (op_registry.py:179-322)
+# ---------------------------------------------------------------------------
+
+
+def lower_grad_via_vjp(fwd_def, ctx, ins, attrs, out_grads,
+                       wanted_input_grads):
+    """Lower a ``<type>_grad`` op by differentiating the forward lowering.
+
+    ins: forward inputs, dict slot -> list[tensor].
+    out_grads: dict fwd-output-slot -> list[tensor or None] (None, or a
+      missing entry, is a zero cotangent).
+    wanted_input_grads: dict fwd-input-slot -> list[bool].
+
+    Returns dict fwd-input-slot -> list[tensor or None]; a wanted float
+    input the outputs do not depend on gets zeros, as jax.vjp gives.
+    """
+    diff_index = []  # (slot, i): wanted AND floating point
+    for slot, arrs in ins.items():
+        wants = wanted_input_grads.get(slot, [False] * len(arrs))
+        for i, a in enumerate(arrs):
+            if i < len(wants) and wants[i] and a.is_floating_point():
+                diff_index.append((slot, i))
+    if not diff_index:
+        return {}
+
+    local = {s: list(v) for s, v in ins.items()}
+    leaves = []
+    with torch.enable_grad():
+        for slot, i in diff_index:
+            leaf = local[slot][i].detach().requires_grad_(True)
+            local[slot][i] = leaf
+            leaves.append(leaf)
+        outs = normalize_outputs(fwd_def, fwd_def.lower(ctx, local, attrs))
+        ys, cots = [], []
+        for oslot, refs in outs.items():
+            gs = out_grads.get(oslot, [])
+            for j, ref in enumerate(refs):
+                g = gs[j] if j < len(gs) else None
+                # only float outputs that depend on a leaf take a
+                # cotangent; a zero cotangent contributes nothing
+                if g is None or ref is None or not ref.requires_grad:
+                    continue
+                ys.append(ref)
+                cots.append(g.to(ref.dtype).reshape(ref.shape))
+        grads = (torch.autograd.grad(ys, leaves, cots, allow_unused=True)
+                 if ys else [None] * len(leaves))
+
+    out = {}
+    for (slot, i), leaf, g in zip(diff_index, leaves, grads):
+        if slot not in out:
+            out[slot] = [None] * len(ins[slot])
+        out[slot][i] = torch.zeros_like(leaf) if g is None else g
+    return out
+
+
+def ensure_auto_grad_op(fwd_type):
+    """Register (once) the synthesized ``<type>_grad`` operator whose
+    lowering differentiates the forward rule. GradOpDescMaker analog."""
+    gtype = fwd_type + "_grad"
+    if gtype in _REGISTRY:
+        return _REGISTRY[gtype]
+    fwd = get_op_def(fwd_type)
+    if fwd.grad is None:
+        raise ValueError("op %r has no gradient" % fwd_type)
+
+    g_inputs = list(fwd.inputs)
+    for s in fwd.outputs:
+        g_inputs.append(s)
+        star = "*" if s.startswith("*") else ""
+        g_inputs.append(star + s.lstrip("*") + "@GRAD")
+    g_outputs = [
+        ("*" if s.startswith("*") else "") + s.lstrip("*") + "@GRAD"
+        for s in fwd.inputs
+    ]
+
+    def lower(ctx, ins, attrs):
+        op = ctx.op
+        fwd_ins = {s: ins[s] for s in fwd.input_slots() if s in ins}
+        out_grads = {o: ins[o + "@GRAD"] for o in fwd.output_slots()
+                     if (o + "@GRAD") in ins}
+        wanted = {}
+        for s in fwd.input_slots():
+            names = op.output(s + "@GRAD")
+            if any(names):
+                wanted[s] = [bool(n) for n in names]
+        gres = lower_grad_via_vjp(fwd, ctx, fwd_ins, attrs, out_grads,
+                                  wanted)
+        return {s + "@GRAD": gs for s, gs in gres.items()}
+
+    return register_op(gtype, inputs=g_inputs, outputs=g_outputs,
+                       lower=lower, grad=None)

@@ -11,7 +11,10 @@ package scans the step inside one executable).
 State is updated in place where an op says so: the paged-KV ops write
 into the pool tensors the Scope holds (saving a whole pool copy per layer
 per token), so a scope value and the run's environment are the same
-tensor object throughout.
+tensor object throughout. Every other variable leaves the run's
+environment after the last op that uses it, unless it is fetched or
+written back (``BlockLowerer.release_plan``): a Transformer train step
+holds each activation only until its grad op has read it.
 """
 
 import contextlib
@@ -62,8 +65,9 @@ class Executor(object):
             torch.backends.cudnn.allow_tf32 = False
         self._run_counter = 0
         self._base_seed = np.random.randint(0, 2 ** 31 - 1)
-        # (id(program), version, feed names, scope names) -> (program,
-        # state_in, state_out); the program ref guards against id reuse
+        # (id(program), version, feed names, scope names, fetch names) ->
+        # (program, state_in, state_out, release plan); the program ref
+        # guards against id reuse
         self._analysis = {}
 
     # -- shared run plumbing -------------------------------------------------
@@ -95,16 +99,18 @@ class Executor(object):
             s = s._parent
         return names
 
-    def _analyze(self, program, feeds, scope):
+    def _analyze(self, program, feeds, scope, fetch_names):
         scope_names = frozenset(self._scope_names(scope))
-        key = (id(program), program._version, frozenset(feeds), scope_names)
+        key = (id(program), program._version, frozenset(feeds), scope_names,
+               tuple(fetch_names))
         hit = self._analysis.get(key)
         if hit is not None and hit[0] is program:
-            return hit[1], hit[2]
-        state_in, state_out = BlockLowerer(program, 0).analyze(
-            scope_names, set(feeds))
-        self._analysis[key] = (program, state_in, state_out)
-        return state_in, state_out
+            return hit[1:]
+        lowerer = BlockLowerer(program, 0)
+        state_in, state_out = lowerer.analyze(scope_names, set(feeds))
+        release = lowerer.release_plan(set(fetch_names) | set(state_out))
+        self._analysis[key] = (program, state_in, state_out, release)
+        return state_in, state_out, release
 
     def _gather_state(self, state_in, scope):
         state = {}
@@ -135,10 +141,10 @@ class Executor(object):
         return [v.name if isinstance(v, framework.Variable) else str(v)
                 for v in fetch_list]
 
-    def _step(self, lowerer, state, feeds, fetch_names, seed):
+    def _step(self, lowerer, state, feeds, fetch_names, seed, release):
         env = dict(state)
         env.update(feeds)
-        lowerer.lower_into(env, self.device, seed)
+        lowerer.lower_into(env, self.device, seed, release)
         fetches = []
         for n in fetch_names:
             if n not in env:
@@ -154,11 +160,12 @@ class Executor(object):
         scope = scope or global_scope()
         feeds = self._prepare_feeds(program, feed or {})
         fetch_names = self._fetch_names(fetch_list or [])
-        state_in, state_out = self._analyze(program, feeds, scope)
+        state_in, state_out, release = self._analyze(program, feeds, scope,
+                                                     fetch_names)
         state = self._gather_state(state_in, scope)
         lowerer = BlockLowerer(program, 0, is_test=program._is_test)
         env, fetches = self._step(lowerer, state, feeds, fetch_names,
-                                  self._run_seed(program))
+                                  self._run_seed(program), release)
         for n in state_out:
             if n in env:
                 scope.set_value(n, env[n])
@@ -180,7 +187,8 @@ class Executor(object):
         scope = scope or global_scope()
         feeds = self._prepare_feeds(program, feed or {})
         fetch_names = self._fetch_names(fetch_list or [])
-        state_in, state_out = self._analyze(program, feeds, scope)
+        state_in, state_out, release = self._analyze(program, feeds, scope,
+                                                     fetch_names)
         extra_out = set(state_out) - set(state_in)
         if extra_out:
             raise RuntimeError(
@@ -192,7 +200,7 @@ class Executor(object):
         per_step = []
         for i in range(steps):
             env, fetches = self._step(lowerer, state, feeds, fetch_names,
-                                      seed * 131 + i)
+                                      seed * 131 + i, release)
             for n in state_out:
                 state[n] = env[n]
             per_step.append(fetches)

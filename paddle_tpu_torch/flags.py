@@ -3,10 +3,10 @@
 Counterpart of ``paddle_tpu/flags.py``: the same flag names, defaults and
 ``FLAGS_<name>`` parsing, so a deployment's environment configures both
 packages alike. Most flags steer subsystems later slices port; the port
-reads ``attention_impl`` and ``paged_attention`` today: "auto" and "pallas"
-launch the hand-written kernel for a CUDA tensor, and "reference" is
-refused for a CUDA tensor (the port has no hidden path to the plain
-versions on the card).
+reads ``attention_impl``, ``paged_attention`` and ``flash_backward``
+today: "auto" and "pallas" launch the hand-written kernels for a CUDA
+tensor, and "reference" is refused for a CUDA tensor (the port has no
+hidden path to the plain versions on the card).
 """
 
 import os
@@ -35,6 +35,10 @@ _DEFS = {
     # paged-decode kernel, "reference" raises (kernels/paged_attention.py)
     "paged_attention": ("auto", str),
     "beam_reorder": ("rebind", str),
+    # the gradient of flash attention: "pallas" runs the flash_bwd
+    # kernels on a CUDA tensor (their plain version on a CPU tensor);
+    # "reference" differentiates the plain forward with autograd, on CPU
+    # tensors only (kernels/flash_attention.py)
     "flash_backward": ("pallas", str),
     "exec_cache_dir": ("", str),
     "exec_cache_max_bytes": (-1, int),

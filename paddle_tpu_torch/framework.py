@@ -9,6 +9,7 @@ that has to read a value (a data-dependent shape) gives its op an
 """
 
 import contextlib
+import copy
 
 import torch
 
@@ -26,6 +27,7 @@ from paddle_tpu_torch.core.types import (
 _DYN_SENTINEL = 557
 
 OP_ROLE_ATTR_NAME = "op_role"
+OP_ROLE_VAR_ATTR_NAME = "op_role_var"
 
 
 class OpRole(object):
@@ -132,6 +134,8 @@ class Operator(object):
         self.attrs = dict(attrs or {})
         prog = block.program
         self.attrs.setdefault(OP_ROLE_ATTR_NAME, prog._op_role)
+        if prog._op_role_var and OP_ROLE_VAR_ATTR_NAME not in self.attrs:
+            self.attrs[OP_ROLE_VAR_ATTR_NAME] = list(prog._op_role_var)
         if "__rng_id__" not in self.attrs:
             self.attrs["__rng_id__"] = prog._next_rng_id()
 
@@ -258,6 +262,7 @@ class Program(object):
         self._rng_counter = 0
         self._is_test = False
         self._op_role = OpRole.Forward
+        self._op_role_var = []
 
     def global_block(self):
         return self.blocks[0]
@@ -274,6 +279,33 @@ class Program(object):
     def _next_rng_id(self):
         self._rng_counter += 1
         return self._rng_counter
+
+    @contextlib.contextmanager
+    def _optimized_guard(self, param_and_grads):
+        """Ops appended inside are stamped ``op_role = Optimize`` and
+        ``op_role_var = [param, grad]`` names (framework.py:472)."""
+        prev_role, prev_var = self._op_role, self._op_role_var
+        self._op_role = OpRole.Optimize
+        self._op_role_var = [
+            v.name if isinstance(v, Variable) else v for v in param_and_grads
+        ]
+        try:
+            yield
+        finally:
+            self._op_role, self._op_role_var = prev_role, prev_var
+
+    def clone(self, for_test=False):
+        """Deep copy; ``for_test`` flips every ``is_test`` attr (dropout's
+        inference behaviour), as framework.py:493 does."""
+        p = copy.deepcopy(self)
+        if for_test:
+            p._is_test = True
+            for block in p.blocks:
+                for op in block.ops:
+                    if "is_test" in op.attrs:
+                        op.attrs["is_test"] = True
+        p._bump_version()
+        return p
 
     def __repr__(self):
         lines = []
@@ -338,6 +370,10 @@ def _infer_op_shapes(block, op):
                 -1 if (had_dynamic and d != 0 and d % _DYN_SENTINEL == 0)
                 else int(d) for d in t.shape)
             v.dtype = canonical_dtype(t.dtype)
+
+
+def grad_var_name(name):
+    return name + "@GRAD"
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,12 @@ version for a CPU tensor and launches its kernel for a CUDA tensor.
 launch count).
 """
 
-from paddle_tpu_torch.kernels.flash_attention import FLASH_FWD
+from paddle_tpu_torch.kernels.flash_attention import (
+    FLASH_BWD_DKV,
+    FLASH_BWD_DQ,
+    FLASH_FWD,
+)
 from paddle_tpu_torch.kernels.paged_attention import PAGED_DECODE
 
-KERNELS = {"flash_fwd": FLASH_FWD, "paged_decode": PAGED_DECODE}
+KERNELS = {"flash_fwd": FLASH_FWD, "flash_bwd_dkv": FLASH_BWD_DKV,
+           "flash_bwd_dq": FLASH_BWD_DQ, "paged_decode": PAGED_DECODE}

@@ -81,6 +81,31 @@ class LayerHelper(object):
             init(sp, startup_block)
         return param
 
+    def create_global_variable(self, shape, dtype, persistable=True,
+                               name=None, initializer=None,
+                               stop_gradient=True):
+        """A variable in the main program's global block, its initializer
+        op (when given) in the startup program's (layer_helper.py:92)."""
+        gb = self.main_program.global_block()
+        var = gb.create_var(
+            name=name or unique_name.generate(self.name + ".global"),
+            shape=shape, dtype=dtype, persistable=persistable,
+            stop_gradient=stop_gradient)
+        if initializer is not None:
+            self.set_variable_initializer(var, initializer)
+        return var
+
+    def set_variable_initializer(self, var, initializer):
+        """Mirror ``var`` into the startup program with its initializer
+        op, once (layer_helper.py:111)."""
+        startup_block = self.startup_program.global_block()
+        if not startup_block.has_var(var.name):
+            sv = startup_block.create_var(
+                name=var.name, shape=var.shape, dtype=var.dtype,
+                persistable=True)
+            initializer(sv, startup_block)
+        return var
+
     def append_op(self, **kwargs):
         return self.block.append_op(
             type=kwargs["type"],

@@ -12,6 +12,7 @@ from paddle_tpu_torch.layers.ops import relu  # noqa: F401  (re-export)
 from paddle_tpu_torch.param_attr import ParamAttr
 
 __all__ = [
+    "dropout",
     "dynamic_update_slice",
     "fc",
     "embedding",
@@ -70,6 +71,25 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
         outputs={"Out": [out]},
         attrs={"is_sparse": is_sparse, "is_distributed": is_distributed,
                "padding_idx": padding_idx},
+    )
+    return out
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    """Dropout layer (nn.py:175): a nonzero ``seed`` pins the op's draws."""
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mask = helper.create_variable_for_type_inference(x.dtype,
+                                                     stop_gradient=True)
+    helper.append_op(
+        type="dropout",
+        inputs={"X": [x]},
+        outputs={"Out": [out], "Mask": [mask]},
+        attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+               "fix_seed": seed is not None,
+               "seed": seed if seed is not None else 0,
+               "dropout_implementation": dropout_implementation},
     )
     return out
 

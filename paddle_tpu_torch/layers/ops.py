@@ -1,12 +1,12 @@
 """Thin layer wrappers for single-in/single-out ops.
 
 Counterpart of ``paddle_tpu/layers/ops.py`` (generated from op schemas)
-for the activations this slice runs.
+for the activations the port runs.
 """
 
 from paddle_tpu_torch.layer_helper import LayerHelper
 
-__all__ = ["relu"]
+__all__ = ["relu", "log_softmax"]
 
 
 def _unary(op_type):
@@ -22,3 +22,4 @@ def _unary(op_type):
 
 
 relu = _unary("relu")
+log_softmax = _unary("log_softmax")

@@ -1,7 +1,7 @@
 """Transformer encoder-decoder for machine translation.
 
-Counterpart of ``paddle_tpu/models/transformer.py`` for the serving
-slice: the training ``build`` (forward, for shapes and parameter names),
+Counterpart of ``paddle_tpu/models/transformer.py`` for the training and
+serving slices: the training ``build`` (dropout, label-smoothed loss),
 the position-encoding tables, the paged slot decoder (greedy) and the
 coalesced copy-on-write program. Every builder mints the reference's
 variable and parameter names, so parameters bind by name across the two
@@ -14,10 +14,6 @@ import paddle_tpu_torch as fluid
 from paddle_tpu_torch import flags, unique_name
 from paddle_tpu_torch.kernels.paged_attention import pages_for
 from paddle_tpu_torch.ops.sampling_ops import RNG_PARITY_TODO
-
-_TRAINING_SLICE = ("%s comes with the training slice of the port "
-                   "(ROADMAP.md); build with dropout=0.0, "
-                   "label_smooth_eps=0.0")
 
 
 def _ffn(x, d_model, d_inner, name):
@@ -33,7 +29,7 @@ def _prenorm(x, name):
 
 def _residual(x, y, dropout, is_test, name):
     if dropout:
-        raise NotImplementedError(_TRAINING_SLICE % "dropout")
+        y = fluid.layers.dropout(y, dropout_prob=dropout, is_test=is_test)
     return fluid.layers.elementwise_add(x, y)
 
 
@@ -76,12 +72,12 @@ def build(src_vocab_size=1000, trg_vocab_size=1000, max_length=64,
           label_smooth_eps=0.1, is_test=False):
     """Returns (avg_cost, feeds, extras), as the reference. Feeds:
     src_word [B,S], src_len [B,1], trg_word [B,T], trg_len [B,1],
-    label [B,T]. This slice runs the forward only: dropout and label
-    smoothing (training) raise until the training slice lands."""
-    if label_smooth_eps:
-        raise NotImplementedError(_TRAINING_SLICE % "label smoothing")
+    label [B,T]. ``FLAGS_fused_ce`` raises: its fused op and the bf16
+    casts come with a later slice (ROADMAP.md A3)."""
     if flags.get("fused_ce"):
-        raise NotImplementedError(_TRAINING_SLICE % "FLAGS_fused_ce")
+        raise NotImplementedError(
+            "FLAGS_fused_ce: the fused label-smoothed cross entropy is not "
+            "ported yet (ROADMAP.md A3)")
     src = fluid.layers.data("src_word", shape=[max_length], dtype="int64")
     src_len = fluid.layers.data("src_len", shape=[1], dtype="int64")
     trg = fluid.layers.data("trg_word", shape=[max_length], dtype="int64")
@@ -117,7 +113,18 @@ def build(src_vocab_size=1000, trg_vocab_size=1000, max_length=64,
                              num_flatten_dims=2, name="proj_logits")
     flat_logits = fluid.layers.reshape(logits, shape=[-1, trg_vocab_size])
     flat_label = fluid.layers.reshape(label, shape=[-1, 1])
+    # smoothed cross entropy in factored form (models/transformer.py:
+    # 146-170): (1-eps) * hardCE + (eps/V) * (-sum_i logp_i)
     cost = fluid.layers.softmax_with_cross_entropy(flat_logits, flat_label)
+    if label_smooth_eps:
+        neg_sum_logp = fluid.layers.scale(
+            fluid.layers.reduce_sum(fluid.layers.log_softmax(flat_logits),
+                                    dim=-1, keep_dim=True),
+            scale=-1.0)
+        cost = fluid.layers.elementwise_add(
+            fluid.layers.scale(cost, scale=1.0 - label_smooth_eps),
+            fluid.layers.scale(neg_sum_logp,
+                               scale=label_smooth_eps / trg_vocab_size))
 
     trg_len = fluid.layers.data("trg_len", shape=[1], dtype="int64")
     trg_mask = fluid.layers.sequence_mask(trg_len, maxlen=max_length,

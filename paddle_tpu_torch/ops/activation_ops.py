@@ -1,4 +1,4 @@
-"""Activation ops: relu.
+"""Activation ops: relu and log_softmax.
 
 Counterpart of ``paddle_tpu/ops/activation_ops.py`` for the ops this
 slice runs.
@@ -13,4 +13,13 @@ register_op(
     inputs=["X"],
     outputs=["Out"],
     lower=lambda ctx, ins, attrs: torch.relu(ins["X"][0]),
+)
+
+register_op(
+    "log_softmax",
+    inputs=["X"],
+    outputs=["Out"],
+    attrs={"axis": -1},
+    lower=lambda ctx, ins, attrs: torch.log_softmax(
+        ins["X"][0], dim=attrs.get("axis", -1)),
 )

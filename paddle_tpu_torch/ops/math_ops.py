@@ -1,4 +1,4 @@
-"""Dense math ops: mul / elementwise / scale / reduce_sum.
+"""Dense math ops: mul / elementwise / sum / scale / reduce_sum.
 
 Counterpart of ``paddle_tpu/ops/math_ops.py`` for the ops this slice
 runs. A plain matrix product goes to ``torch.matmul`` (fp32, TF32 off),
@@ -54,6 +54,16 @@ for _name, _fn in [
         attrs={"axis": -1},
         lower=_elementwise(_fn),
     )
+
+
+# ``sum`` adds its inputs left to right; backward.py emits it to add up
+# the gradient contributions of a variable read more than once
+register_op(
+    "sum",
+    inputs=["*X"],
+    outputs=["Out"],
+    lower=lambda ctx, ins, attrs: sum(ins["X"][1:], ins["X"][0]),
+)
 
 
 def _lower_scale(ctx, ins, attrs):

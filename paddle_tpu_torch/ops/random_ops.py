@@ -1,10 +1,12 @@
-"""Random initializer ops: uniform_random and gaussian_random.
+"""Random ops: uniform_random, gaussian_random and dropout.
 
-Counterpart of ``paddle_tpu/ops/random_ops.py`` for the initializers.
-Each draw uses the op's own ``torch.Generator`` (``LowerContext.rng``),
-seeded from the run seed and the op id, or from a nonzero ``seed`` attr.
-Torch's bits are not jax's: parity tests copy parameters across instead
-of comparing draws.
+Counterpart of ``paddle_tpu/ops/random_ops.py`` for the initializers and
+dropout. Each draw uses the op's own ``torch.Generator``
+(``LowerContext.rng``), seeded from the run seed and the op's
+``__rng_id__``, or from a nonzero ``seed`` attr; a ``dropout_grad`` op
+carries its forward's ``__rng_id__``, so it replays the same mask.
+Torch's bits are not jax's: parity tests copy parameters across and run
+dropout at 0 instead of comparing draws.
 """
 
 import torch
@@ -41,4 +43,39 @@ register_op(
         attrs.get("mean", 0.0), attrs.get("std", 1.0),
         generator=ctx.rng()),
     grad=None,
+)
+
+
+def _lower_dropout(ctx, ins, attrs):
+    """Downgrade-in-infer by default (train: ``x * mask``; test:
+    ``x * (1 - p)``); ``upscale_in_train`` scales the kept entries by
+    ``1 / (1 - p)`` in training and passes ``x`` through in test."""
+    x = ins["X"][0]
+    p = float(attrs.get("dropout_prob", 0.5))
+    upscale = attrs.get("dropout_implementation",
+                        "downgrade_in_infer") == "upscale_in_train"
+    if ctx.is_test:
+        return {"Out": x if upscale else x * (1.0 - p),
+                "Mask": torch.ones_like(x)}
+    keep = torch.rand(x.shape, generator=ctx.rng(),
+                      device=x.device) < (1.0 - p)
+    mask = keep.to(x.dtype)
+    if not upscale:
+        out = x * mask
+    elif p >= 1.0:
+        out = torch.zeros_like(x)
+    else:
+        out = x * mask / (1.0 - p)
+    return {"Out": out, "Mask": mask}
+
+
+register_op(
+    "dropout",
+    inputs=["X"],
+    outputs=["Out", "Mask"],
+    attrs={"dropout_prob": 0.5, "is_test": False, "seed": 0,
+           "fix_seed": False,
+           "dropout_implementation": "downgrade_in_infer"},
+    lower=_lower_dropout,
+    intermediate_outputs=("Mask",),
 )

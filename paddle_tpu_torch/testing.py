@@ -15,17 +15,24 @@ import hashlib
 import numpy as np
 import torch
 
+from paddle_tpu_torch.framework import Parameter
+
 
 def _seed_of(name):
     return int.from_bytes(
         hashlib.md5(name.encode("utf-8")).digest()[:4], "little")
 
 
-def set_deterministic_params(program, scope, scale=0.1):
+def set_deterministic_params(program, scope, scale=0.1,
+                             parameters_only=False):
     """Overwrite every float persistable of ``program`` that ``scope``
-    holds with seeded numpy values, on the device it already lives on."""
+    holds with seeded numpy values, on the device it already lives on.
+    ``parameters_only`` leaves every other persistable (an optimizer's
+    accumulators and learning rate) as the startup program set it."""
     for var in program.global_block().vars.values():
         if not getattr(var, "persistable", False):
+            continue
+        if parameters_only and not isinstance(var, Parameter):
             continue
         cur = scope.get_value(var.name)
         if cur is None:
