@@ -7,7 +7,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 2. builds the hand-written CUDA kernels from ``paddle_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel) and prints the build time and
    each kernel's registers and spills;
-3. holds each kernel against its plain PyTorch version on the same CUDA
+3. holds each kernel (flash forward, the flash backward pair, paged
+   decode, tree decode) against its plain PyTorch version on the same CUDA
    tensors, at the shapes the serving and training paths give it and at
    edge cases,
    printing each case's max abs error beside its tolerance, then times
@@ -28,14 +29,33 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 5. serves 4 requests through the same configuration on the card and on
    the CPU (plain versions) and gates on the first decode step's logits;
    token agreement is printed, not gated;
-6. trains the same configuration as the JAX package's bench.py does
+6. serves the same 64 requests through ``steps=1`` sessions with
+   ``speculative=3``: (a) under ``FLAGS_speculative=off`` (the sequential
+   oracle, whose streams are recorded), (b) with the n-gram drafter, (c)
+   with a replay drafter defined here, which proposes each request's
+   recorded continuation with every 4th draft token replaced from a seed
+   (random weights give the n-gram drafter next to nothing to accept, and
+   no trained weights exist here), and (d) 8 requests with the model
+   drafter. Each prints decode tokens/s, wall time, verify dispatches,
+   proposed, accepted, acceptance rate and committed tokens per slot per
+   dispatch. Gates: every live slot commits 1 to k + 1 tokens per
+   dispatch; the tree kernel launches n_layer times per verify dispatch;
+   the pool drains; (c) accepts tokens; one verify dispatch fed the
+   sequential path's own next k tokens gives logits within 1e-3 of the
+   k + 1 sequential steps'; a request whose stream differs from (a)'s
+   fails the run only if the sequential path's top-2 logit margin at the
+   first differing position exceeds 1e-3 (on the card the two paths sum
+   in other orders, and a near-tie may flip an argmax);
+7. serves 4 requests speculatively (n-gram drafter) on the card and on the
+   CPU and gates on the first verify dispatch's anchor-node logits;
+8. trains the same configuration as the JAX package's bench.py does
    (dropout 0.1, label smoothing 0.1, ``Adam(2e-4)``, random_seed 7,
    batch 64 of ragged lengths, fp32): 2 warm-up steps, then 20 steps with
    each kernel's launch count reset just before and read just after. It
    gates on finite losses, a loss that falls by 0.1 nat, and 18 launches
    of each backward kernel and 36 of the forward per step, and profiles
    one more step (device time by kernel, device busy share);
-7. trains 3 Adam steps of the same model (dropout 0, batch 4,
+9. trains 3 Adam steps of the same model (dropout 0, batch 4,
    ``set_deterministic_params`` weights) on the card and on the CPU and
    gates on each step's loss; the first step's gradients are compared and
    printed.
@@ -67,6 +87,11 @@ N_REQUESTS, SEED = 64, 2024
 
 K1_TOL = 1e-4     # fp32 sums over up to 256 keys in another order
 K2_TOL = 1e-4
+K5_TOL = 1e-4
+SPEC_K = 3                 # draft tokens per slot; the tree has SPEC_K + 1 nodes
+SPEC_MODEL_REQUESTS = 8    # requests of the model-drafter run
+SPEC_LOGITS_TOL = 1e-3     # verify logits against the sequential steps'
+MARGIN_TOL = 1e-3          # a top-2 logit margin below this may flip
 LOGITS_TOL = 1e-3  # fp32 through 6 layers, card against CPU
 
 # training, as bench.py:240-266 configures Transformer-base
@@ -183,6 +208,10 @@ def flash_cases(torch, gen):
         ("decode_cross_T1", dict(
             q=rnd(NUM_SLOTS, N_HEAD, 1, dh), k=rnd(NUM_SLOTS, N_HEAD, 256, dh),
             v=rnd(NUM_SLOTS, N_HEAD, 256, dh), kv_mask=mask(src_lens, 256))),
+        ("verify_cross_T4", dict(
+            q=rnd(NUM_SLOTS, N_HEAD, SPEC_K + 1, dh),
+            k=rnd(NUM_SLOTS, N_HEAD, 256, dh),
+            v=rnd(NUM_SLOTS, N_HEAD, 256, dh), kv_mask=mask(src_lens, 256))),
         ("encoder_masked", dict(
             q=rnd(1, N_HEAD, 256, dh), k=rnd(1, N_HEAD, 256, dh),
             v=rnd(1, N_HEAD, 256, dh), kv_mask=mask([197], 256))),
@@ -291,12 +320,82 @@ def paged_cases(torch, gen):
     ]
 
 
+def tree_case(torch, gen, S, H, N, dh, ps, max_len, bases, branched=False):
+    """Random pools, a ragged table covering each live slot's committed
+    rows and tree (page 0 is the trash page; a finished slot, base -1,
+    keeps an all-trash row), and chain or random branched ancestor
+    masks."""
+    from paddle_tpu_torch.kernels.paged_attention import pages_for
+    from paddle_tpu_torch.serving.speculative import tree_from_parents
+
+    npp = pages_for(max_len, ps)
+    P = 1 + S * npp
+    dev = "cuda"
+    cpu = torch.Generator().manual_seed(S * 1009 + N * 31 + ps)
+    table = torch.zeros(S, npp, dtype=torch.int64)
+    order = torch.randperm(P - 1, generator=cpu) + 1
+    nxt = 0
+    for s, b in enumerate(bases):
+        k = pages_for(min(b + N, npp * ps), ps) if b >= 0 else 0
+        for p in range(k):
+            table[s, p] = int(order[nxt])
+            nxt += 1
+        for p in range(k, npp):
+            table[s, p] = table[s, max(k - 1, 0)]
+    anc = torch.tril(torch.ones(N, N, dtype=torch.int64)).repeat(S, 1, 1)
+    if branched:
+        for s in range(S):
+            parents = [-1] + [int(torch.randint(0, i, (1,), generator=cpu))
+                              for i in range(1, N)]
+            anc[s] = torch.from_numpy(tree_from_parents(parents))
+    return dict(
+        q=torch.randn(S, H, N, dh, generator=gen, device=dev),
+        k_pool=torch.randn(P, H, ps, dh, generator=gen, device=dev),
+        v_pool=torch.randn(P, H, ps, dh, generator=gen, device=dev),
+        page_table=table.to(dev),
+        base_lens=torch.tensor(bases, dtype=torch.int64, device=dev),
+        anc=anc.to(dev), max_length=max_len)
+
+
+def tree_cases(torch, gen):
+    """The verify dispatch's shape (32 slots, 8 heads, 4 nodes, ragged
+    bases up to 252) and the edges: base 0, finished slots, trees that
+    straddle max_length, branched masks, page sizes 4 and 1, 1 and 8
+    nodes (and 19: more than one walk), head dims 40 and 128."""
+    dh = D_MODEL // N_HEAD
+    N = SPEC_K + 1
+    ragged = [int(x) for x in torch.randint(
+        0, MAX_LEN - N + 1, (NUM_SLOTS,),
+        generator=torch.Generator().manual_seed(11))]
+    ragged[0], ragged[7] = MAX_LEN - N, 0
+    return [
+        ("verify_ragged_ps16", tree_case(torch, gen, NUM_SLOTS, N_HEAD, N, dh,
+                                         PAGE_SIZE, MAX_LEN, ragged)),
+        ("edges_branched", tree_case(torch, gen, 8, 2, N, dh, PAGE_SIZE,
+                                     MAX_LEN, [0, -1, 254, 253, 252, 17, -1,
+                                               100], True)),
+        ("ps4_branched", tree_case(torch, gen, 5, 2, N, 16, 4, 32,
+                                   [7, 0, 25, 30, -1], True)),
+        ("ps1", tree_case(torch, gen, 4, 2, N, dh, 1, 40, [7, 0, 38, -1])),
+        ("nodes_1", tree_case(torch, gen, 4, 2, 1, dh, PAGE_SIZE, MAX_LEN,
+                              [7, 0, 254, -1])),
+        ("nodes_8_branched", tree_case(torch, gen, 4, 2, 8, dh, PAGE_SIZE,
+                                       MAX_LEN, [7, 0, 250, -1], True)),
+        ("nodes_19_branched", tree_case(torch, gen, 3, 2, 19, dh, PAGE_SIZE,
+                                        MAX_LEN, [7, 0, 240], True)),
+        ("head_dim_40", tree_case(torch, gen, 4, 3, N, 40, PAGE_SIZE, MAX_LEN,
+                                  [100, 0, 253, -1], True)),
+        ("head_dim_128", tree_case(torch, gen, 4, 2, N, 128, PAGE_SIZE,
+                                   MAX_LEN, [100, 0, 253, -1], True)),
+    ]
+
+
 def kernel_phase(torch):
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    worst = {"flash_fwd": 0.0, "paged_decode": 0.0}
+    worst = {"flash_fwd": 0.0, "paged_decode": 0.0, "tree_decode": 0.0}
     for name, kw in flash_cases(torch, gen):
         out, lse = fa.flash_forward(**kw)
         ref, ref_lse = fa.flash_forward_plain(**kw)
@@ -361,6 +460,19 @@ def kernel_phase(torch):
         if not err <= K2_TOL:
             fail("paged_decode %s: error %.3e above %.0e" % (name, err, K2_TOL))
         worst["paged_decode"] = max(worst["paged_decode"], err)
+    for name, kw in tree_cases(torch, gen):
+        out = pa.paged_tree_attention(**kw)
+        ref = pa.paged_tree_attention_plain(**kw)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        dead = kw["base_lens"] < 0
+        if dead.any() and out[dead].abs().max().item() != 0.0:
+            fail("tree_decode %s: a finished slot is not exactly 0" % name)
+        print("kernel tree_decode %-20s max_abs_err %.3e  tol %.0e  dead %d"
+              % (name, err, K5_TOL, int(dead.sum())))
+        if not (torch.isfinite(out).all() and err <= K5_TOL):
+            fail("tree_decode %s: error %.3e above %.0e" % (name, err, K5_TOL))
+        worst["tree_decode"] = max(worst["tree_decode"], err)
     return worst
 
 
@@ -443,6 +555,19 @@ def timing_phase(torch):
         plain_ms=cuda_ms(fa.flash_forward_plain, kw),
         library_ms=cuda_ms(F.scaled_dot_product_attention, sdpa_inputs(kw)),
         bound=bound(nbytes, 4.0 * vis * N_HEAD * dh))
+    # K1 as the verify dispatch calls it: the tree's 4 query rows per slot
+    kw_v = copies(cases["verify_cross_T4"])
+    nq = SPEC_K + 1
+    rows["flash_fwd_verify"] = dict(
+        shape="q [%d,%d,%d,%d], k/v [%d,%d,%d,%d], key mask"
+        % (NUM_SLOTS, N_HEAD, nq, dh, NUM_SLOTS, N_HEAD, S, dh),
+        ms=cuda_ms(fa.flash_forward, kw_v),
+        plain_ms=cuda_ms(fa.flash_forward_plain, kw_v),
+        library_ms=cuda_ms(F.scaled_dot_product_attention, sdpa_inputs(kw_v)),
+        bound=bound(4 * (2 * kw_v[0]["q"].numel() + 2 * vis * N_HEAD * dh
+                         + kw_v[0]["kv_mask"].numel()
+                         + NUM_SLOTS * N_HEAD * nq),
+                    4.0 * nq * vis * N_HEAD * dh))
     # K1 at the encoder's shape (one admission, one layer)
     kw_e = copies(cases["encoder_masked"])
     vis_e = float(kw_e[0]["kv_mask"].sum())
@@ -468,6 +593,27 @@ def timing_phase(torch):
         library_ms=None,
         bound=bound(acc["hbm_bytes"] + table_bytes,
                     4.0 * acc["resident_tokens"] * N_HEAD * dh))
+    # K5 at the verify dispatch's shape. Bytes from this run's own bases:
+    # a slot reads the pages below ceil(min(base + N, max_len) / page) once
+    # for all N queries; plus the N query and output rows, the masks, the
+    # table entries read and the bases
+    kw5 = copies(dict(tree_cases(torch, gen))["verify_ragged_ps16"])
+    bases = kw5[0]["base_lens"].tolist()
+    scan = [min(b + nq, MAX_LEN) if b >= 0 else 0 for b in bases]
+    acc5 = pa.grid_accounting(scan, PAGE_SIZE, N_HEAD, dh, MAX_LEN)
+    qo_bytes = 2 * 4 * NUM_SLOTS * N_HEAD * nq * dh
+    index_bytes = 8 * (acc5["valid_pages"] + NUM_SLOTS
+                       + NUM_SLOTS * nq * nq)
+    rows["tree_decode"] = dict(
+        shape="%d slots, bases %d..%d (mean %.0f), %d nodes, H %d, dh %d, "
+        "page_size %d" % (NUM_SLOTS, min(bases), max(bases),
+                          sum(bases) / len(bases), nq, N_HEAD, dh, PAGE_SIZE),
+        ms=cuda_ms(pa.paged_tree_attention, kw5),
+        plain_ms=cuda_ms(pa.paged_tree_attention_plain, kw5),
+        library_ms=None,
+        bound=bound(2 * acc5["valid_pages"] * acc5["page_bytes"] + qo_bytes
+                    + index_bytes,
+                    4.0 * nq * acc5["resident_tokens"] * N_HEAD * dh))
     # the group gather ahead of every cross-attention call (k_pool[gof])
     pools = copies(dict(input=torch.randn(
         NUM_SLOTS, N_HEAD, MAX_LEN, dh, generator=gen, device="cuda"),
@@ -581,16 +727,17 @@ def generated_tokens(row, prefix):
     return len(row) - start
 
 
-def serve_phase(np, torch, exe, scope, kernels):
-    src, lens, prefixes = requests(np)
-    sess = session(exe, scope, NUM_SLOTS)
+def run_requests(np, torch, sess, kernels, src, lens, prefixes):
+    """Serve the requests through ``sess`` (enqueue all, pump until every
+    result is taken) with every kernel's launch count set to 0 just
+    before. Returns (token matrix, wall seconds, launches, peak pages)."""
+    n = len(src)
     torch.cuda.synchronize()
     for k in kernels.values():
         k.launches = 0
     t0 = time.perf_counter()
-    order = {sess.enqueue(src[i], lens[i], prefixes[i]): i
-             for i in range(N_REQUESTS)}
-    out = np.full((N_REQUESTS, MAX_LEN), EOS, dtype="int64")
+    order = {sess.enqueue(src[i], lens[i], prefixes[i]): i for i in range(n)}
+    out = np.full((n, MAX_LEN), EOS, dtype="int64")
     want, peak_pages = set(order), 0
     while want:
         sess.pump()
@@ -602,6 +749,15 @@ def serve_phase(np, torch, exe, scope, kernels):
                 want.discard(rid)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    return out, wall, launches, peak_pages
+
+
+def serve_phase(np, torch, exe, scope, kernels):
+    src, lens, prefixes = requests(np)
+    sess = session(exe, scope, NUM_SLOTS)
+    out, wall, launches, peak_pages = run_requests(
+        np, torch, sess, kernels, src, lens, prefixes)
     launches = {name: k.launches for name, k in kernels.items()}
     n_prefix = sum(p is not None for p in prefixes)
     generated = sum(generated_tokens(out[i], prefixes[i])
@@ -677,6 +833,358 @@ def card_vs_cpu_phase(np, torch, fluid, exe, scope, main):
     return err
 
 
+# -- speculative phases ---------------------------------------------------------
+
+def spec_session(exe, scope, num_slots, drafter):
+    from paddle_tpu_torch.serving.generation import SlotDecodeSession
+
+    return SlotDecodeSession(
+        exe, num_slots=num_slots, max_length=MAX_LEN, d_model=D_MODEL,
+        paged=True, page_size=PAGE_SIZE, steps=1, eos_id=EOS, scope=scope,
+        speculative={"k": SPEC_K, "drafter": drafter}, src_vocab_size=VOCAB,
+        trg_vocab_size=VOCAB, n_layer=N_LAYER, n_head=N_HEAD,
+        d_inner=D_INNER)
+
+
+class ReplayDrafter(object):
+    """A drafter with a known, non-trivial acceptance at random weights:
+    it proposes each slot's continuation from the streams a sequential
+    run of the same requests recorded (request ids count from 0 in
+    enqueue order), with every 4th draft token it hands out replaced by
+    a token drawn from a seed. Same ``propose`` / ``forget`` /
+    ``state_dict`` interface as the package's drafters."""
+
+    kind = "replay"
+
+    def __init__(self, np, sess, num_slots, streams, k, seed):
+        self._np, self._sess, self._streams, self.k = np, sess, streams, int(k)
+        self._S = int(num_slots)
+        self._rng = np.random.RandomState(seed)
+        self._handed_out = 0
+
+    def forget(self, slot):
+        pass
+
+    def state_dict(self):
+        return {"handed_out": self._handed_out}
+
+    def propose(self, states):
+        np = self._np
+        draft = np.full((self._S, self.k), EOS, dtype="int64")
+        for slot in sorted(states):
+            row = self._streams[self._sess._owner[slot]]
+            pos = int(states[slot]["pos"])
+            for j in range(self.k):
+                if pos + 1 + j < MAX_LEN:
+                    draft[slot, j] = row[pos + 1 + j]
+                self._handed_out += 1
+                if self._handed_out % 4 == 0:
+                    draft[slot, j] = self._rng.randint(3, VOCAB)
+        return draft
+
+
+def host_timers(sess):
+    """Host wall seconds spent inside the session's admissions
+    (``admit_pending``), its ``step()`` calls and, inside those, the
+    copy-on-write / rebind dispatch and the drafter. A dispatch with no
+    fetch only enqueues its kernels, so device time shows up in the next
+    call that fetches: this splits the HOST's time, not the card's."""
+    spent = {"admit": 0.0, "step": 0.0, "cow": 0.0, "draft": 0.0}
+
+    def wrap(obj, attr, key):
+        fn = getattr(obj, attr)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[key] += time.perf_counter() - t0
+
+        setattr(obj, attr, timed)
+
+    wrap(sess, "admit_pending", "admit")
+    wrap(sess, "step", "step")
+    wrap(sess, "_dispatch_cow", "cow")
+    wrap(sess._spec_drafter, "propose", "draft")
+    return spent
+
+
+def check_commits(sess):
+    """Wrap the session's bookkeeping of a verify dispatch so that every
+    live slot's committed count is held to 1..k+1; returns the list the
+    per-dispatch totals (live slots, committed tokens) go to."""
+    per_dispatch, consume = [], sess._consume_spec
+
+    def checked(tok_seq, acc_len):
+        live = list(sess._live)
+        bad = [(s, int(acc_len[s])) for s in live
+               if not 1 <= int(acc_len[s]) <= SPEC_K + 1]
+        if bad:
+            fail("verify dispatch %d: (slot, committed) %s outside 1..%d"
+                 % (sess.spec_dispatches, bad, SPEC_K + 1))
+        per_dispatch.append((len(live), int(sum(acc_len[s] for s in live))))
+        return consume(tok_seq, acc_len)
+
+    sess._consume_spec = checked
+    return per_dispatch
+
+
+def spec_run(np, torch, flags, exe, scope, kernels, name, drafter, reqs,
+             mode="on", replay_streams=None, num_slots=None):
+    """One speculative session over ``reqs`` under FLAGS_speculative =
+    ``mode``; prints its lines, checks its gates, returns (tokens,
+    launches, the session)."""
+    src, lens, prefixes = reqs
+    num_slots = num_slots or NUM_SLOTS
+    flags.set_flag("speculative", mode)
+    sess = spec_session(exe, scope.new_scope(), num_slots, drafter)
+    if replay_streams is not None:
+        sess._spec_drafter = ReplayDrafter(np, sess, num_slots,
+                                           replay_streams, SPEC_K, SEED + 3)
+    per_dispatch = check_commits(sess)
+    spent = host_timers(sess)
+    out, wall, launches, peak = run_requests(np, torch, sess, kernels, src,
+                                             lens, prefixes)
+    flags.set_flag("speculative", "on")
+    generated = sum(generated_tokens(out[i], prefixes[i])
+                    for i in range(len(src)))
+    slot_dispatches = sum(n for n, _ in per_dispatch)
+    committed = sum(c for _, c in per_dispatch)
+    print("spec %-7s %d requests, %d slots, k %d: wall %.3f s, %d tokens, "
+          "decode %.1f tokens/s; %d step() calls, %d verify dispatches, "
+          "proposed %d, accepted %d, acceptance %.4f, committed per slot "
+          "per dispatch %.3f"
+          % (name + ":", len(src), num_slots, SPEC_K, wall, generated,
+             generated / wall, sess.steps_done, sess.spec_dispatches,
+             sess.spec_proposed, sess.spec_accepted,
+             sess.spec_accepted / max(sess.spec_proposed, 1),
+             committed / max(slot_dispatches, 1)))
+    steps = max(sess.steps_done, 1)
+    print("spec %-7s host time: admissions %.3f s, step() calls %.3f s (%.2f "
+          "ms each: COW and rebind dispatch %.2f, drafter %.2f, program and "
+          "bookkeeping %.2f), queue and results %.3f s"
+          % (name + ":", spent["admit"], spent["step"],
+             1e3 * spent["step"] / steps, 1e3 * spent["cow"] / steps,
+             1e3 * spent["draft"] / steps,
+             1e3 * (spent["step"] - spent["cow"] - spent["draft"]) / steps,
+             wall - spent["admit"] - spent["step"]))
+    print("spec %-7s kernel launches %s; page pool peak %d, after drain %d "
+          "in use, conserved %s; COW dispatches %d"
+          % (name + ":", json.dumps(launches), peak, sess.pages_in_use,
+             sess.pool_conserved, sess.cow_dispatches))
+    if sess.pages_in_use != 0 or not sess.pool_conserved:
+        fail("spec %s: the page pool did not drain" % name)
+    if not ((out >= 0) & (out < VOCAB)).all() or not (out[:, 0] == 1).all():
+        fail("spec %s: token matrix out of range or not bos-led" % name)
+    if launches["tree_decode"] != N_LAYER * sess.spec_dispatches:
+        fail("spec %s: tree_decode launched %d times, expected n_layer x "
+             "verify dispatches = %d" % (name, launches["tree_decode"],
+                                         N_LAYER * sess.spec_dispatches))
+    if mode == "off":
+        if sess.spec_dispatches or launches["paged_decode"] != \
+                N_LAYER * sess.decode_steps:
+            fail("spec off: %d verify dispatches, paged_decode launched %d "
+                 "times for %d decode steps"
+                 % (sess.spec_dispatches, launches["paged_decode"],
+                    sess.decode_steps))
+    elif not sess.spec_dispatches or sess.decode_steps:
+        fail("spec %s: %d verify dispatches, %d sequential steps"
+             % (name, sess.spec_dispatches, sess.decode_steps))
+    return out, launches, sess
+
+
+def top2_margin(np, exe, scope, reqs, i, row, p):
+    """The sequential path's top-2 logit margin for request ``i`` at token
+    position ``p``, given the stream ``row`` up to there: the tokens
+    before ``p`` are forced as a prefix, and the first decode step's
+    logits are read."""
+    src, lens, prefixes = reqs
+    sess_scope = scope.new_scope()
+    sess = session(exe, sess_scope, 1)
+    sess.admit(src[i], lens[i], prefix_tokens=[int(t) for t in row[1:p]])
+    (lg,) = exe.run(sess.step_program,
+                    fetch_list=[logits_name(sess.step_program)],
+                    scope=sess_scope)
+    top = np.sort(np.asarray(lg).reshape(-1))[-2:]
+    return float(top[1] - top[0])
+
+
+def compare_streams(np, exe, scope, reqs, name, out, ref):
+    """Streams of a speculative run against the sequential run's: prints
+    the count of equal requests; a differing request fails the run unless
+    the sequential path's two best logits at its first differing position
+    lie within MARGIN_TOL (then another summation order may flip the
+    argmax, and everything after it follows)."""
+    differing = [i for i in range(len(ref)) if (out[i] != ref[i]).any()]
+    print("spec %-7s %d of %d requests stream the sequential run's tokens"
+          % (name + ":", len(ref) - len(differing), len(ref)))
+    for i in differing:
+        p = int(np.argmax(out[i] != ref[i]))
+        margin = top2_margin(np, exe, scope, reqs, i, ref[i], p)
+        print("spec %-7s request %d differs first at position %d (%d against "
+              "%d); the sequential path's top-2 logit margin there is %.3e "
+              "(tol %.0e)" % (name + ":", i, p, out[i][p], ref[i][p], margin,
+                              MARGIN_TOL))
+        if not margin <= MARGIN_TOL:
+            fail("spec %s: request %d left the sequential stream at a "
+                 "position with a clear argmax (margin %.3e)"
+                 % (name, i, margin))
+    return len(ref) - len(differing)
+
+
+def provision_tree(sess):
+    """Provision (and copy-on-write split) every live slot's next k + 1
+    storage positions, as ``step()`` does before a verify dispatch."""
+    sess._dispatch_cow(sess._cow_window(
+        [(slot, st["pos"]) for slot, st in sess._live.items()],
+        span=SPEC_K + 1))
+
+
+def verify_dispatch_logits(np, exe, sess, draft):
+    """One verify dispatch of a speculative session run by hand, so that
+    its ``[S, N, V]`` logits can be fetched: the tree's span is
+    provisioned, then the verify program runs on ``draft``. The host
+    mirrors do not advance."""
+    provision_tree(sess)
+    (lg,) = exe.run(sess._spec_prog, feed={
+        "spec_draft": np.asarray(draft, "int64"),
+        "spec_parent": sess._spec_parent, "spec_anc": sess._spec_anc},
+        fetch_list=[logits_name(sess._spec_prog)], scope=sess._scope)
+    return np.asarray(lg)
+
+
+def verify_logits_phase(np, flags, exe, scope, reqs, warm_steps=10):
+    """From one mid-stream state, the verify dispatch against the
+    sequential path: two sessions admit the same 32 requests and take
+    ``warm_steps`` sequential steps; then one runs k + 1 more sequential
+    steps (logits and tokens fetched), the other ONE verify dispatch fed
+    those steps' first k tokens as its draft chain. Node j's logits must
+    agree with sequential step j's."""
+    src, lens, prefixes = reqs
+    flags.set_flag("speculative", "off")
+    pair = []
+    for _ in range(2):
+        sess = spec_session(exe, scope.new_scope(), NUM_SLOTS, "ngram")
+        for i in range(NUM_SLOTS):
+            sess.admit(src[i], lens[i], prefix_tokens=prefixes[i])
+        for _ in range(warm_steps):
+            sess.step()
+        pair.append(sess)
+    flags.set_flag("speculative", "on")
+    seq, ver = pair
+    if sorted(seq._live) != sorted(ver._live) or len(seq._live) < NUM_SLOTS // 2:
+        fail("verify logits: the two sessions are not in one mid-stream state")
+    # the sequential side: k + 1 steps of the step program, span provisioned
+    provision_tree(seq)
+    step_lg, step_tok = [], []
+    for _ in range(SPEC_K + 1):
+        lg, tok = exe.run(seq.step_program, fetch_list=[
+            logits_name(seq.step_program), seq._fetch_name], scope=seq._scope)
+        step_lg.append(np.asarray(lg)[:, 0, :])
+        step_tok.append(np.asarray(tok).reshape(-1))
+    done = np.asarray(seq._scope.get_value("pgd_done").cpu()).reshape(-1)
+    live = np.asarray([s for s in sorted(seq._live) if not done[s]])
+    draft = np.stack(step_tok[:SPEC_K], axis=1)  # [S, k]
+    tree_lg = verify_dispatch_logits(np, exe, ver, draft)  # [S, N, V]
+    errs = [float(np.abs(tree_lg[live, j] - step_lg[j][live]).max())
+            for j in range(SPEC_K + 1)]
+    print("verify logits: %d slots live through %d sequential steps after %d "
+          "warm steps; logits %s; max_abs_err per node %s  tol %.0e"
+          % (len(live), SPEC_K + 1, warm_steps, tuple(tree_lg.shape),
+             ["%.3e" % e for e in errs], SPEC_LOGITS_TOL))
+    if len(live) < NUM_SLOTS // 2 or not np.isfinite(tree_lg[live]).all() \
+            or not max(errs) <= SPEC_LOGITS_TOL:
+        fail("verify logits disagree with the sequential steps': %s" % errs)
+    return max(errs)
+
+
+def dispatch_profile_phase(np, torch, flags, exe, scope, reqs, warm_steps=10):
+    """One sequential step and one verify dispatch of a full session (32
+    live slots, mid-stream) under the profiler: what the card does while
+    the host interprets a dispatch. Each profiled call's pages are
+    provisioned just before it, so it holds the drafter, the program and
+    the bookkeeping but no copy-on-write / rebind dispatch (whose host
+    time the ``spec`` lines give)."""
+    src, lens, prefixes = reqs
+    flags.set_flag("speculative", "off")
+    sess = spec_session(exe, scope.new_scope(), NUM_SLOTS, "ngram")
+    for i in range(NUM_SLOTS):
+        sess.admit(src[i], lens[i], prefix_tokens=prefixes[i])
+    for _ in range(warm_steps):
+        sess.step()
+    provision_tree(sess)
+    profile_call(torch, "sequential step", sess.step, top=6)
+    flags.set_flag("speculative", "on")
+    sess.step()  # the verify path's lazy set-up stays out of the profile
+    provision_tree(sess)
+    profile_call(torch, "verify dispatch", sess.step, top=6)
+
+
+def speculative_phase(np, torch, fluid, exe, scope, kernels):
+    from paddle_tpu_torch import flags
+
+    reqs = requests(np)
+    few = tuple(x[:SPEC_MODEL_REQUESTS] for x in reqs)
+    off, launches_o, _ = spec_run(np, torch, flags, exe, scope, kernels,
+                                  "off", "ngram", reqs, mode="off")
+    ngram, launches, _ = spec_run(np, torch, flags, exe, scope, kernels,
+                                  "ngram", "ngram", reqs)
+    replay, launches_r, sess_r = spec_run(
+        np, torch, flags, exe, scope, kernels, "replay", "ngram", reqs,
+        replay_streams=off)
+    if not sess_r.spec_accepted > 0:
+        fail("spec replay: no draft token was accepted")
+    model, launches_m, _ = spec_run(
+        np, torch, flags, exe, scope, kernels, "model", "model", few,
+        num_slots=SPEC_MODEL_REQUESTS)
+    compare_streams(np, exe, scope, reqs, "ngram", ngram, off)
+    compare_streams(np, exe, scope, reqs, "replay", replay, off)
+    compare_streams(np, exe, scope, few, "model", model,
+                    off[:SPEC_MODEL_REQUESTS])
+    verify_logits_phase(np, flags, exe, scope, reqs)
+    dispatch_profile_phase(np, torch, flags, exe, scope, reqs)
+    return {n: launches_o[n] + launches[n] + launches_r[n] + launches_m[n]
+            for n in launches}
+
+
+def spec_card_vs_cpu_phase(np, torch, fluid, exe, scope, main):
+    """4 requests through the speculative session (n-gram drafter) on the
+    card and on the CPU (plain versions): gate on the first verify
+    dispatch's anchor-node logits; token agreement is printed."""
+    from paddle_tpu_torch.convert import params_from_numpy
+    from paddle_tpu_torch.core.scope import Scope
+
+    src, lens, prefixes = requests(np)
+    idx = [0, 1, 2, 3]  # request 0 carries a forced prefix
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    cpu_scope = Scope()
+    params_from_numpy(main, cpu_scope, {
+        p.name: scope.get_value(p.name).cpu().numpy()
+        for p in main.global_block().all_parameters()}, "cpu")
+    logits, tokens = {}, {}
+    for dev, ex, sc in (("card", exe, scope), ("cpu", cpu_exe, cpu_scope)):
+        sess = spec_session(ex, sc.new_scope(), len(idx), "ngram")
+        for i in idx:
+            sess.admit(src[i], lens[i], prefix_tokens=prefixes[i])
+        draft = sess._spec_drafter.propose(sess._live)
+        logits[dev] = verify_dispatch_logits(np, ex, sess, draft)[:, 0, :]
+        sess = spec_session(ex, sc.new_scope(), len(idx), "ngram")
+        tokens[dev] = sess.generate(src[idx], lens[idx],
+                                    [prefixes[i] for i in idx])
+    err = float(np.abs(logits["card"] - logits["cpu"]).max())
+    print("spec card vs cpu: first verify dispatch, anchor-node logits %s "
+          "max_abs_err %.3e  tol %.0e" % (tuple(logits["card"].shape), err,
+                                          LOGITS_TOL))
+    if not np.isfinite(logits["card"]).all() or not err <= LOGITS_TOL:
+        fail("card and CPU verify logits disagree: %.3e" % err)
+    same = tokens["card"] == tokens["cpu"]
+    print("spec card vs cpu: tokens equal %d of %d positions (printed, not "
+          "gated: a near-tie argmax flip cascades)"
+          % (int(same.sum()), same.size))
+    return err
+
+
 # -- training phases ------------------------------------------------------------
 
 def build_train(fluid, dropout):
@@ -714,9 +1222,11 @@ def train_feed(np, batch):
     }
 
 
-def profile_step(torch, exe, main, feed, loss, scope):
-    """One more train step under torch.profiler: device time by kernel
-    (top 8) and the device's busy share of the step's wall time."""
+def profile_call(torch, label, fn, top=8):
+    """``fn()`` under torch.profiler: prints its wall time, the device's
+    busy share of it and the device time by kernel (the ``top`` largest);
+    returns (wall ms, device busy ms), or None where the trace holds no
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -724,7 +1234,7 @@ def profile_step(torch, exe, main, feed, loss, scope):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # the kernels themselves (CPU-side ops also carry their kernels' time)
@@ -733,13 +1243,17 @@ def profile_step(torch, exe, main, feed, loss, scope):
               and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     if not events:
-        print("train profile: no device time in the trace (not measured)")
-        return
-    print("train profile: step wall %.1f ms under the profiler, device busy "
-          "%.1f ms (%.1f %%)" % (wall_ms, busy_ms, 100.0 * busy_ms / wall_ms))
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        print("train profile: %8.2f ms %5d calls  %s"
-              % (e.self_device_time_total / 1e3, e.count, e.key[:90]))
+        print("%s profile: no device time in the trace (not measured)"
+              % label)
+        return None
+    print("%s profile: wall %.1f ms under the profiler, device busy %.2f ms "
+          "(%.1f %%), %d kernel launches"
+          % (label, wall_ms, busy_ms, 100.0 * busy_ms / wall_ms,
+             sum(e.count for e in events)))
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        print("%s profile: %8.3f ms %5d calls  %s"
+              % (label, e.self_device_time_total / 1e3, e.count, e.key[:90]))
+    return wall_ms, busy_ms
 
 
 def train_phase(np, torch, fluid, exe, kernels):
@@ -797,7 +1311,8 @@ def train_phase(np, torch, fluid, exe, kernels):
           "nat lower)" % (losses[0], late, LOSS_DROP))
     if not late <= losses[0] - LOSS_DROP:
         fail("the train loss did not fall by %.1f nat" % LOSS_DROP)
-    profile_step(torch, exe, main, feed, loss, scope)
+    profile_call(torch, "train", lambda: exe.run(
+        main, feed=feed, fetch_list=[loss], scope=scope))
     return launches
 
 
@@ -867,8 +1382,8 @@ def main():
 
     worst = kernel_phase(torch)
     timing = timing_phase(torch)
-    for name in ("flash_fwd", "flash_fwd_encoder", "paged_decode",
-                 "flash_fwd_train", "flash_bwd_dkv", "flash_bwd_dq",
+    for name in ("flash_fwd", "flash_fwd_verify", "flash_fwd_encoder",
+                 "paged_decode", "tree_decode", "flash_fwd_train", "flash_bwd_dkv", "flash_bwd_dq",
                  "flash_bwd_dkv_causal", "flash_bwd_dq_causal"):
         r = timing[name]
         lib = ("%.4f ms" % r["library_ms"] if r["library_ms"] is not None
@@ -894,6 +1409,8 @@ def main():
           % (time.perf_counter() - t0))
     launches = serve_phase(np, torch, exe, scope, KERNELS)
     card_vs_cpu_phase(np, torch, fluid, exe, scope, main_prog)
+    spec_launches = speculative_phase(np, torch, fluid, exe, scope, KERNELS)
+    spec_card_vs_cpu_phase(np, torch, fluid, exe, scope, main_prog)
     scope = main_prog = None
     torch.cuda.empty_cache()
     train_launches = train_phase(np, torch, fluid, exe, KERNELS)
@@ -912,8 +1429,9 @@ def main():
         dict(name="flash_fwd", route="cuda",
              source="paddle_tpu_torch/csrc/flash_fwd.cu",
              replaces="paddle_tpu/kernels/flash_attention.py:91",
-             # the serving run's launches and the training run's
-             launches=launches["flash_fwd"] + train_launches["flash_fwd"],
+             # the serving, speculative and training runs' launches
+             launches=launches["flash_fwd"] + spec_launches["flash_fwd"]
+             + train_launches["flash_fwd"],
              max_abs_err=worst["flash_fwd"],
              ms=timing["flash_fwd"]["ms"],
              plain_ms=timing["flash_fwd"]["plain_ms"],
@@ -925,12 +1443,22 @@ def main():
         dict(name="paged_decode", route="cuda",
              source="paddle_tpu_torch/csrc/paged_decode.cu",
              replaces="paddle_tpu/kernels/paged_attention.py:184",
-             launches=launches["paged_decode"],
+             launches=launches["paged_decode"] + spec_launches["paged_decode"],
              max_abs_err=worst["paged_decode"],
              ms=timing["paged_decode"]["ms"],
              plain_ms=timing["paged_decode"]["plain_ms"],
              bound_ms=timing["paged_decode"]["bound"][0],
              bound_by=timing["paged_decode"]["bound"][1],
+             library_ms=None),
+        dict(name="tree_decode", route="cuda",
+             source="paddle_tpu_torch/csrc/tree_decode.cu",
+             replaces="paddle_tpu/kernels/paged_attention.py:386",
+             launches=spec_launches["tree_decode"],
+             max_abs_err=worst["tree_decode"],
+             ms=timing["tree_decode"]["ms"],
+             plain_ms=timing["tree_decode"]["plain_ms"],
+             bound_ms=timing["tree_decode"]["bound"][0],
+             bound_by=timing["tree_decode"]["bound"][1],
              library_ms=None),
     ]}
     print(card)

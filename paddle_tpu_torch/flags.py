@@ -3,10 +3,11 @@
 Counterpart of ``paddle_tpu/flags.py``: the same flag names, defaults and
 ``FLAGS_<name>`` parsing, so a deployment's environment configures both
 packages alike. Most flags steer subsystems later slices port; the port
-reads ``attention_impl``, ``paged_attention`` and ``flash_backward``
-today: "auto" and "pallas" launch the hand-written kernels for a CUDA
-tensor, and "reference" is refused for a CUDA tensor (the port has no
-hidden path to the plain versions on the card).
+reads ``attention_impl``, ``paged_attention``, ``tree_attention``,
+``flash_backward`` and ``speculative`` today. For the kernel flags "auto"
+and "pallas" launch the hand-written kernels for a CUDA tensor, and
+"reference" is refused for a CUDA tensor (the port has no hidden path to
+the plain versions on the card).
 """
 
 import os
@@ -57,7 +58,11 @@ _DEFS = {
     "dispatch_retries": (0, int),
     "retry_backoff_s": (0.05, float),
     "chaos_spec": ("", str),
+    # a speculative SlotDecodeSession reads it at every step(): "off" sends
+    # the session through the plain sequential step (serving/generation.py)
     "speculative": ("on", str),
+    # paged_tree_attention on a CUDA tensor: "auto" or "pallas" launch the
+    # tree-decode kernel, "reference" raises (kernels/paged_attention.py)
     "tree_attention": ("auto", str),
     "fused_ce": (False, bool),
     "request_tracing": (False, bool),

@@ -13,7 +13,11 @@ from paddle_tpu_torch.kernels.flash_attention import (
     FLASH_BWD_DQ,
     FLASH_FWD,
 )
-from paddle_tpu_torch.kernels.paged_attention import PAGED_DECODE
+from paddle_tpu_torch.kernels.paged_attention import (
+    PAGED_DECODE,
+    TREE_DECODE,
+)
 
 KERNELS = {"flash_fwd": FLASH_FWD, "flash_bwd_dkv": FLASH_BWD_DKV,
-           "flash_bwd_dq": FLASH_BWD_DQ, "paged_decode": PAGED_DECODE}
+           "flash_bwd_dq": FLASH_BWD_DQ, "paged_decode": PAGED_DECODE,
+           "tree_decode": TREE_DECODE}

@@ -1,5 +1,6 @@
-"""Ragged paged-attention decode: a hand-written CUDA kernel and its plain
-PyTorch version, plus the pool write and the page accounting.
+"""Ragged paged-attention decode and speculative tree verify: two
+hand-written CUDA kernels, each beside its plain PyTorch version, plus the
+pool writes and the page accounting.
 
 Counterpart of ``paddle_tpu/kernels/paged_attention.py``. The KV cache is
 a page pool ``[num_pages, H, page_size, dh]`` shared by every slot
@@ -12,10 +13,19 @@ package's once-per-process fallback to its reference path
 (paged_attention.py:50-91) is deliberately not carried over: a kernel
 that fails here raises.
 
-``paged_kv_write`` updates the pools IN PLACE (the JAX version returns
-new pools): the executor binds the result back onto the same scope
-variables, and writing in place saves a whole pool copy per layer per
-token.
+``paged_tree_attention`` scores the N nodes of a speculation tree per
+slot (the anchor token plus the drafted ones, laid out linearly in the
+slot's write pages) in one call: it launches ``csrc/tree_decode.cu``
+(which replaces the TPU's ``_tree_decode_kernel``) for CUDA tensors and
+runs ``paged_tree_attention_plain`` for CPU tensors, and for nothing else.
+The JAX package's once-per-process switch of the tree kernel to its
+reference (``_trip_tree_fallback``, paged_attention.py:110, and the
+``try/except`` at :510-518) is deliberately not carried over either.
+
+``paged_kv_write``, ``paged_kv_write_block`` and ``paged_kv_compact``
+update the pools IN PLACE (the JAX versions return new pools): the
+executor binds the result back onto the same scope variables, and writing
+in place saves a whole pool copy per layer per token.
 """
 
 import ctypes
@@ -33,6 +43,12 @@ PAGED_DECODE = Kernel("paddle_paged_decode_f32", [
     ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_float, ctypes.c_void_p,
+])
+TREE_DECODE = Kernel("paddle_tree_decode_f32", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
 ])
 
 
@@ -65,24 +81,35 @@ def paged_attention_plain(q, k_pool, v_pool, page_table, lengths,
     return torch.where(dead, torch.zeros_like(out), out).to(q.dtype)
 
 
-def _check(q, k_pool, v_pool, page_table, lengths):
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("page_table", page_table), ("lengths", lengths)):
-        if t.device != q.device or t.device.type != "cuda":
-            raise ValueError("paged_attention: %s is on %s; the kernel "
-                             "needs every input on one CUDA device"
-                             % (name, t.device))
+def _check_tensors(who, floats, ints):
+    """What both kernels ask of their inputs: every tensor on one CUDA
+    device and contiguous, ``floats`` float32, ``ints`` int64. Both are
+    lists of (name, tensor); the first float is the query."""
+    device = floats[0][1].device
+    for name, t in floats + ints:
+        if t.device != device or t.device.type != "cuda":
+            raise ValueError("%s: %s is on %s; the kernel needs every input "
+                             "on one CUDA device" % (who, name, t.device))
         if not t.is_contiguous():
-            raise ValueError("paged_attention: %s must be contiguous"
-                             % name)
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+            raise ValueError("%s: %s must be contiguous" % (who, name))
+    for name, t in floats:
         if t.dtype != torch.float32:
-            raise TypeError("paged_attention: %s is %s; this kernel takes "
-                            "float32 only" % (name, t.dtype))
-    for name, t in (("page_table", page_table), ("lengths", lengths)):
+            raise TypeError("%s: %s is %s; this kernel takes float32 only"
+                            % (who, name, t.dtype))
+    for name, t in ints:
         if t.dtype != torch.int64:
-            raise TypeError("paged_attention: %s must be int64, got %s"
-                            % (name, t.dtype))
+            raise TypeError("%s: %s must be int64, got %s"
+                            % (who, name, t.dtype))
+    dh = floats[0][1].shape[-1]
+    if dh > MAX_HEAD_DIM:
+        raise ValueError("%s: head dim %d > %d is not supported"
+                         % (who, dh, MAX_HEAD_DIM))
+
+
+def _check(q, k_pool, v_pool, page_table, lengths):
+    _check_tensors("paged_attention",
+                   [("q", q), ("k_pool", k_pool), ("v_pool", v_pool)],
+                   [("page_table", page_table), ("lengths", lengths)])
     S, H, dh = q.shape
     if (k_pool.dim() != 4 or k_pool.shape != v_pool.shape
             or k_pool.shape[1] != H or k_pool.shape[3] != dh
@@ -93,9 +120,6 @@ def _check(q, k_pool, v_pool, page_table, lengths):
             "do not fit q [S,H,dh], pools [P,H,ps,dh], table [S,npp], "
             "lengths [S]" % (tuple(q.shape), tuple(k_pool.shape),
                              tuple(page_table.shape), tuple(lengths.shape)))
-    if dh > MAX_HEAD_DIM:
-        raise ValueError("paged_attention: head dim %d > %d is not "
-                         "supported" % (dh, MAX_HEAD_DIM))
 
 
 def paged_attention(q, k_pool, v_pool, page_table, lengths, sm_scale=None):
@@ -139,6 +163,162 @@ def paged_kv_write(k_pool, v_pool, k_new, v_new, page_table, positions):
     offsets = pos % ps
     k_pool[page_ids, :, offsets, :] = k_new.to(k_pool.dtype)
     v_pool[page_ids, :, offsets, :] = v_new.to(v_pool.dtype)
+    return k_pool, v_pool
+
+
+def paged_tree_attention_plain(q, k_pool, v_pool, page_table, base_lens,
+                               anc, sm_scale=None, max_length=None):
+    """The tree kernel's function in plain PyTorch. Each slot holds
+    ``base_lens[s]`` committed rows at storage positions ``0..base-1``
+    and N tree nodes at ``base..base+N-1`` (node 0 is the anchor). Query
+    node ``n`` sees every committed row, and tree row ``j`` where
+    ``anc[s, n, j]`` is nonzero (the mask carries the diagonal) and the
+    row's storage position lies below ``max_length``. Gathers each
+    slot's pages into ``[S, H, npp * page_size, dh]``, masks, softmax,
+    weighted sum.
+
+    q ``[S, H, N, dh]``; base_lens ``[S]`` (-1 marks a finished slot: no
+    visible key, output exactly 0); anc ``[S, N, N]``. Returns
+    ``[S, H, N, dh]``."""
+    S, H, N, dh = q.shape
+    ps = k_pool.shape[2]
+    npp = page_table.shape[1]
+    L = npp * ps
+    if sm_scale is None:
+        sm_scale = dh ** -0.5
+    if max_length is None:
+        max_length = L
+    table = page_table.to(torch.int64)
+    ks = k_pool[table].permute(0, 2, 1, 3, 4).reshape(S, H, L, dh)
+    vs = v_pool[table].permute(0, 2, 1, 3, 4).reshape(S, H, L, dh)
+    s = torch.einsum("shnd,shtd->shnt", q.float() * sm_scale, ks.float())
+    t = torch.arange(L, device=q.device)[None, :]            # [1, L]
+    base = base_lens.to(torch.int64).reshape(S, 1)            # [S, 1]
+    tj = t - base                                             # [S, L]
+    in_tree = (tj >= 0) & (tj < N) & (t < int(max_length)) & (base >= 0)
+    idx = tj.clamp(0, N - 1)[:, None, :].expand(S, N, L)
+    anc_g = torch.gather(anc.reshape(S, N, N) > 0, 2, idx)    # [S, N, L]
+    visible = (t < base)[:, None, :] | (in_tree[:, None, :] & anc_g)
+    vis4 = visible[:, None, :, :]                             # [S,1,N,L]
+    s = torch.where(vis4, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("shnt,shtd->shnd", p, vs.float())
+    dead = ~vis4.any(dim=-1, keepdim=True)
+    return torch.where(dead, torch.zeros_like(out), out).to(q.dtype)
+
+
+def _check_tree(q, k_pool, v_pool, page_table, base_lens, anc):
+    _check_tensors("paged_tree_attention",
+                   [("q", q), ("k_pool", k_pool), ("v_pool", v_pool)],
+                   [("page_table", page_table), ("base_lens", base_lens),
+                    ("anc", anc)])
+    if q.dim() != 4:
+        raise ValueError("paged_tree_attention: q must be [S,H,N,dh], got %s"
+                         % (tuple(q.shape),))
+    S, H, N, dh = q.shape
+    if (k_pool.dim() != 4 or k_pool.shape != v_pool.shape
+            or k_pool.shape[1] != H or k_pool.shape[3] != dh
+            or page_table.dim() != 2 or page_table.shape[0] != S
+            or tuple(base_lens.shape) != (S,)
+            or tuple(anc.shape) != (S, N, N)):
+        raise ValueError(
+            "paged_tree_attention: shapes q %s, pools %s, table %s, "
+            "base_lens %s, anc %s do not fit q [S,H,N,dh], pools "
+            "[P,H,ps,dh], table [S,npp], base_lens [S], anc [S,N,N]"
+            % (tuple(q.shape), tuple(k_pool.shape), tuple(page_table.shape),
+               tuple(base_lens.shape), tuple(anc.shape)))
+
+
+def paged_tree_attention(q, k_pool, v_pool, page_table, base_lens, anc,
+                         sm_scale=None, max_length=None):
+    """Speculative tree verify over the paged pool: one call scores all N
+    tree nodes of every slot against its committed rows plus the node's
+    own root path (:func:`paged_tree_attention_plain` states the layout).
+    q ``[S, H, N, dh]``; pools ``[P, H, page_size, dh]``; page_table
+    ``[S, npp]``, base_lens ``[S]`` and anc ``[S, N, N]`` int64. CPU
+    tensors run the plain version; CUDA tensors launch the
+    ``tree_decode`` kernel or raise."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if max_length is None:
+        max_length = page_table.shape[1] * k_pool.shape[2]
+    if q.device.type == "cpu":
+        return paged_tree_attention_plain(q, k_pool, v_pool, page_table,
+                                          base_lens, anc, sm_scale,
+                                          max_length)
+    _check_tree(q, k_pool, v_pool, page_table, base_lens, anc)
+    S, H, N, dh = q.shape
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    TREE_DECODE.launch(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        page_table.data_ptr(), base_lens.data_ptr(), anc.data_ptr(),
+        out.data_ptr(), S, H, N, int(k_pool.shape[2]), dh,
+        int(page_table.shape[1]), int(max_length), float(sm_scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    return out
+
+
+def paged_kv_write_block(k_pool, v_pool, k_new, v_new, page_table,
+                         positions):
+    """Speculative tree write, IN PLACE: row ``i`` of slot ``s``
+    (``k_new``/``v_new`` ``[S, H, N, dh]``) lands at storage position
+    ``positions[s, i]`` through the table. A row whose position lies
+    outside the table's coverage (``pos >= npp * page_size``) goes to the
+    trash page instead of a live row, like every row of a finished slot
+    (whose table row is all trash). Returns the (updated) pools."""
+    ps = k_pool.shape[2]
+    S = k_new.shape[0]
+    npp = page_table.shape[1]
+    pos = positions.to(torch.int64)
+    in_range = pos < npp * ps
+    page_idx = (pos // ps).clamp(0, npp - 1)
+    rows = torch.arange(S, device=pos.device)[:, None]
+    zero = torch.zeros_like(pos)
+    page_ids = torch.where(in_range,
+                           page_table.to(torch.int64)[rows, page_idx], zero)
+    offsets = torch.where(in_range, pos % ps, zero)
+    k_pool[page_ids, :, offsets, :] = k_new.permute(0, 2, 1, 3).to(
+        k_pool.dtype)
+    v_pool[page_ids, :, offsets, :] = v_new.permute(0, 2, 1, 3).to(
+        v_pool.dtype)
+    return k_pool, v_pool
+
+
+def paged_kv_compact(k_pool, v_pool, page_table, base, path, accept_len):
+    """Survivor commit of the accepted tree path, IN PLACE: the K/V row of
+    node ``path[s, j]`` moves from storage ``base + path[s, j]`` to the
+    canonical position ``base + j``, for ``1 <= j < accept_len[s]``. The
+    anchor (j = 0), rows at or past ``accept_len``, rows already in place
+    and finished slots (``base = -1``) write to the trash page. Every
+    source row is gathered into a temporary BEFORE any row is written, so
+    overlapping source and destination rows read the pre-compaction pool,
+    as the JAX package's functional scatter does. Returns the pools."""
+    ps = k_pool.shape[2]
+    S, N = path.shape
+    npp = page_table.shape[1]
+    L = npp * ps
+    table = page_table.to(torch.int64)
+    path = path.to(torch.int64)
+    j_idx = torch.arange(N, device=path.device)[None, :]
+    base_i = base.to(torch.int64).reshape(S, 1)
+    src_pos = base_i + path
+    dst_pos = base_i + j_idx
+    active = ((j_idx >= 1) & (j_idx < accept_len.to(torch.int64).reshape(S, 1))
+              & (dst_pos < L) & (src_pos < L) & (base_i >= 0)
+              & (path != j_idx))
+    rows = torch.arange(S, device=path.device)[:, None]
+    sp = src_pos.clamp(0, L - 1)
+    s_page, s_off = table[rows, sp // ps], sp % ps
+    k_rows = k_pool[s_page, :, s_off, :]                      # [S,N,H,dh]
+    v_rows = v_pool[s_page, :, s_off, :]
+    dp = dst_pos.clamp(0, L - 1)
+    zero = torch.zeros_like(dp)
+    d_page = torch.where(active, table[rows, dp // ps], zero)
+    d_off = torch.where(active, dp % ps, zero)
+    k_pool[d_page, :, d_off, :] = k_rows
+    v_pool[d_page, :, d_off, :] = v_rows
     return k_pool, v_pool
 
 

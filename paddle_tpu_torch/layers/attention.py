@@ -1,5 +1,5 @@
-"""Attention layers: scaled dot-product, multi-head, and the paged-decode
-family.
+"""Attention layers: scaled dot-product, multi-head, the paged-decode
+family and the speculative verify family.
 
 Counterpart of ``paddle_tpu/layers/attention.py`` for the layers this
 slice calls, with the reference's names and signatures.
@@ -14,8 +14,12 @@ __all__ = [
     "paged_kv_write",
     "paged_kv_prefill",
     "paged_copy_page",
+    "paged_tree_attention",
+    "paged_spec_kv_write",
+    "paged_spec_kv_compact",
     "grouped_cross_attention",
     "slot_decode_sample",
+    "slot_speculative_accept",
     "add_position_encoding",
 ]
 
@@ -149,10 +153,67 @@ def paged_copy_page(k_pool, v_pool, src_page, dst_page, name=None):
     return k_pool, v_pool
 
 
+def paged_tree_attention(query, k_pool, v_pool, page_table, base_lens,
+                         anc, sm_scale=None, max_length=0, impl="auto",
+                         name=None):
+    """Speculative tree-verify attention over the paged pool.
+
+    ``query`` [S, H, N, dh]: N speculation-tree nodes per slot, laid out
+    linearly in the slot's write pages at storage positions
+    ``base .. base + N - 1``; ``base_lens`` [S] (or [S, 1]) committed
+    rows per slot (-1 marks a done slot: output exactly 0); ``anc``
+    [S, N, N] ancestor mask (diagonal included). Node ``n`` attends every
+    committed row plus its own root path."""
+    helper = LayerHelper("paged_tree_attention", name=name)
+    out = helper.create_variable_for_type_inference(query.dtype)
+    helper.append_op(
+        type="paged_tree_attention",
+        inputs={"Q": [query], "KPool": [k_pool], "VPool": [v_pool],
+                "PageTable": [page_table], "BaseLens": [base_lens],
+                "Anc": [anc]},
+        outputs={"Out": [out]},
+        attrs={"sm_scale": float(sm_scale or 0.0), "impl": impl,
+               "max_length": int(max_length)},
+    )
+    return out
+
+
+def paged_spec_kv_write(k_pool, v_pool, k_new, v_new, page_table, pos,
+                        name=None):
+    """Tree write of the verify step: all N tree nodes' K/V rows
+    ``[S, H, N, dh]`` land at storage positions ``pos[s] .. pos[s] + N -
+    1`` through the table (rows past the table's coverage go to the trash
+    page). In-place state on the pools."""
+    helper = LayerHelper("paged_spec_kv_write", name=name)
+    helper.append_op(
+        type="paged_spec_kv_write",
+        inputs={"KPool": [k_pool], "VPool": [v_pool], "KNew": [k_new],
+                "VNew": [v_new], "PageTable": [page_table], "Pos": [pos]},
+        outputs={"KOut": [k_pool], "VOut": [v_pool]},
+    )
+    return k_pool, v_pool
+
+
+def paged_spec_kv_compact(k_pool, v_pool, page_table, pos, path,
+                          accept_len, name=None):
+    """Survivor commit of the accepted speculation path: storage row
+    ``pos + j`` receives tree node ``path[s, j]``'s K/V row for
+    ``1 <= j < accept_len[s]``. In-place state on the pools."""
+    helper = LayerHelper("paged_spec_kv_compact", name=name)
+    helper.append_op(
+        type="paged_spec_kv_compact",
+        inputs={"KPool": [k_pool], "VPool": [v_pool],
+                "PageTable": [page_table], "Pos": [pos], "Path": [path],
+                "AcceptLen": [accept_len]},
+        outputs={"KOut": [k_pool], "VOut": [v_pool]},
+    )
+    return k_pool, v_pool
+
+
 def grouped_cross_attention(query, k_pool, v_pool, group_of, mask,
                             sm_scale=None, impl="auto", name=None):
     """Group-indexed cross attention for the paged decode step:
-    ``query`` [S, H, 1, dh]; pools [G, H, T_src, dh]; ``group_of`` [S, 1]
+    ``query`` [S, H, 1, dh] ([S, H, N, dh] in the verify step); pools [G, H, T_src, dh]; ``group_of`` [S, 1]
     group ids; ``mask`` [G, T_src] validity rows."""
     helper = LayerHelper("grouped_cross_attention", name=name)
     out = helper.create_variable_for_type_inference(query.dtype)
@@ -198,6 +259,46 @@ def slot_decode_sample(logits, pos, done=None, strategy="greedy",
                "eos_id": int(eos_id), "max_length": int(max_length)},
     )
     return tok, new_pos, new_done
+
+
+def slot_speculative_accept(logits, nodes, parent, pos, done,
+                            strategy="greedy", temperature=1.0, top_k=0,
+                            base_seed=0, eos_id=2, max_length=0,
+                            name=None):
+    """In-graph accept/reject walk of speculative decoding
+    (``ops/speculative_ops.py``): the sequential token rule replayed down
+    the speculation tree, committing the longest draft prefix the target
+    itself would emit plus one correction or bonus token. ``logits``
+    [S, N, V]; ``nodes``/``parent`` [S, N]; returns ``(anchor_tok [S,1],
+    tok_seq [S,N], accept_len [S,1], path [S,N], new_pos [S,1],
+    new_done [S,1])``."""
+    if int(max_length) < 2:
+        raise ValueError(
+            "slot_speculative_accept needs max_length >= 2 (the decode "
+            "budget), got %r" % (max_length,))
+    if strategy == "top_k" and int(top_k) < 1:
+        raise ValueError(
+            "slot_speculative_accept strategy 'top_k' needs top_k >= 1 "
+            "— 0 would silently sample the full vocabulary")
+    helper = LayerHelper("slot_speculative_accept", name=name)
+    anchor = helper.create_variable_for_type_inference("int64")
+    tok_seq = helper.create_variable_for_type_inference("int64")
+    accept_len = helper.create_variable_for_type_inference("int64")
+    path = helper.create_variable_for_type_inference("int64")
+    new_pos = helper.create_variable_for_type_inference("int64")
+    new_done = helper.create_variable_for_type_inference("int64")
+    helper.append_op(
+        type="slot_speculative_accept",
+        inputs={"Logits": [logits], "Nodes": [nodes], "Parent": [parent],
+                "Pos": [pos], "Done": [done]},
+        outputs={"Out": [anchor], "TokSeq": [tok_seq],
+                 "AcceptLen": [accept_len], "Path": [path],
+                 "PosOut": [new_pos], "DoneOut": [new_done]},
+        attrs={"strategy": strategy, "temperature": float(temperature),
+               "top_k": int(top_k), "base_seed": int(base_seed),
+               "eos_id": int(eos_id), "max_length": int(max_length)},
+    )
+    return anchor, tok_seq, accept_len, path, new_pos, new_done
 
 
 def add_position_encoding(input, alpha=1.0, beta=1.0, name=None):

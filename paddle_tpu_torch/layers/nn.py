@@ -21,6 +21,7 @@ __all__ = [
     "elementwise_sub",
     "elementwise_mul",
     "elementwise_div",
+    "elementwise_min",
     "reduce_sum",
     "scale",
     "reshape",
@@ -139,6 +140,7 @@ elementwise_add = _elementwise_layer("elementwise_add")
 elementwise_sub = _elementwise_layer("elementwise_sub")
 elementwise_mul = _elementwise_layer("elementwise_mul")
 elementwise_div = _elementwise_layer("elementwise_div")
+elementwise_min = _elementwise_layer("elementwise_min")
 
 
 def reduce_sum(input, dim=None, keep_dim=False, name=None):

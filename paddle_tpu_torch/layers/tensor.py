@@ -1,4 +1,4 @@
-"""Tensor layers: fill_constant, assign.
+"""Tensor layers: fill_constant, assign, concat.
 
 Counterpart of ``paddle_tpu/layers/tensor.py`` for the layers this slice
 calls.
@@ -7,7 +7,7 @@ calls.
 from paddle_tpu_torch import framework
 from paddle_tpu_torch.layer_helper import LayerHelper
 
-__all__ = ["assign", "fill_constant"]
+__all__ = ["assign", "concat", "fill_constant"]
 
 
 def assign(input, output=None):
@@ -21,6 +21,14 @@ def assign(input, output=None):
     helper.append_op(type="assign", inputs={"X": [input]},
                      outputs={"Out": [output]})
     return output
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op(type="concat", inputs={"X": list(input)},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
 
 
 def fill_constant(shape, dtype, value, force_cpu=False, out=None):

@@ -2,8 +2,9 @@
 
 Counterpart of ``paddle_tpu/models/transformer.py`` for the training and
 serving slices: the training ``build`` (dropout, label-smoothed loss),
-the position-encoding tables, the paged slot decoder (greedy) and the
-coalesced copy-on-write program. Every builder mints the reference's
+the position-encoding tables, the paged slot decoder (greedy) with its
+speculative verify program, the draft decoder and the coalesced
+copy-on-write program. Every build function mints the reference's
 variable and parameter names, so parameters bind by name across the two
 packages and across this package's programs.
 """
@@ -156,8 +157,8 @@ def position_encoding_table(max_length, d_model, dtype="float32"):
 
 
 def _check_greedy(sampler):
-    """This slice decodes greedily; any stochastic sampler needs the
-    RNG-parity item first."""
+    """The port decodes greedily; any stochastic sampler needs the
+    RNG-parity item first (ROADMAP.md A6)."""
     if sampler is None:
         return
     if isinstance(sampler, dict):
@@ -189,18 +190,34 @@ def build_paged_slot_decoder(num_slots, src_vocab_size=1000,
 
     Returns ``(init_prog, admit_prog, join_prog, prefill_prog,
     table_prog, step_prog, token_name)`` exactly as the reference (see
-    its docstring for each program's feeds). The beam
-    (``beam_width > 1``) and speculative (``speculative > 0``) variants
-    and stochastic samplers are later slices and raise here. Build under
-    the training ``build()``'s fresh ``unique_name`` scope; parameters
-    bind by name."""
+    its docstring for each program's feeds).
+
+    ``speculative=K`` (K >= 1) ALSO builds the verify program, the
+    tree-attention dispatch that scores the anchor plus K host-drafted
+    tokens in one target forward and commits the longest accepted prefix
+    in the program. ``spec_step_prog`` feeds ``spec_draft [S, K]`` draft
+    tokens, ``spec_parent [S, N]`` tree parents and ``spec_anc [S, N, N]``
+    ancestor mask (N = K + 1, node 0 the anchor). It embeds all N nodes
+    at their LOGICAL positions (``pos + depth``), writes every node's K/V
+    into the slot's write pages at storage ``pos .. pos + N - 1``
+    (``paged_spec_kv_write``; done slots go to the trash page), runs
+    ``paged_tree_attention``, then ``slot_speculative_accept`` and one
+    ``paged_spec_kv_compact`` per layer. The return value grows to
+    ``(init, admit, join, prefill, table, step, spec_step, fetches)``
+    with ``fetches = {"token", "spec_token_seq", "spec_accept_len"}``;
+    the plain ``step_prog`` stays as the ``FLAGS_speculative=off`` oracle.
+
+    Beam decode (``beam_width > 1``, ROADMAP.md A7) and stochastic
+    samplers (ROADMAP.md A6) raise here. Build under the training
+    ``build()``'s fresh ``unique_name`` scope; parameters bind by
+    name."""
     if int(beam_width) != 1:
         raise NotImplementedError(
-            "beam decode (beam_width > 1) comes with a later slice "
-            "(ROADMAP.md A7)")
-    if int(speculative):
-        raise NotImplementedError(
-            "speculative decode comes with a later slice (ROADMAP.md A7)")
+            "beam decode (beam_width > 1) is not ported yet (ROADMAP.md "
+            "A7: ops/beam_search_ops.py and the lane-tiled session)")
+    n_spec = int(speculative)
+    if n_spec < 0:
+        raise ValueError("speculative must be >= 0, got %d" % n_spec)
     _check_greedy(sampler)
     nn = fluid.layers
     S, T, D = int(num_slots), int(max_length), int(d_model)
@@ -220,6 +237,43 @@ def build_paged_slot_decoder(num_slots, src_vocab_size=1000,
 
     def proj(x, size, name):
         return nn.fc(x, size, num_flatten_dims=2, bias_attr=False, name=name)
+
+    def pvar_of(blk):
+        def pvar(name, shape, dtype="float32"):
+            return blk.create_var(name=name, shape=shape, dtype=dtype,
+                                  persistable=True)
+
+        return pvar
+
+    def decode_stack(pvar, h, group_of, src_mask, self_attend):
+        """The decoder layers over ``h`` ``[S, n, D]`` (n = 1 in the step
+        program, the tree's N in the verify program) and the logits
+        projection. ``self_attend(q, k1, v1, kpool, vpool)`` writes the
+        new K/V rows into the layer's pools and attends over them."""
+        for i in range(n_layer):
+            name = "dec_%d" % i
+            kpool = pvar("pgd_kpool_%d" % i, [P, n_head, ps, dh])
+            vpool = pvar("pgd_vpool_%d" % i, [P, n_head, ps, dh])
+            nx = _prenorm(h, name + "_sattn")
+            q = heads(proj(nx, dh * n_head, name + "_smha_q"))
+            k1 = heads(proj(nx, dh * n_head, name + "_smha_k"))
+            v1 = heads(proj(nx, dh * n_head, name + "_smha_v"))
+            att = self_attend(q, k1, v1, kpool, vpool)
+            h = nn.elementwise_add(
+                h, proj(merge(att), D, name + "_smha_o"))
+            nx2 = _prenorm(h, name + "_cattn")
+            q2 = heads(proj(nx2, dh * n_head, name + "_cmha_q"))
+            ctx = fluid.layers.grouped_cross_attention(
+                q2, pvar("pgd_kcross_%d" % i, [G, n_head, T, dh]),
+                pvar("pgd_vcross_%d" % i, [G, n_head, T, dh]),
+                group_of, src_mask, sm_scale=dh ** -0.5)
+            h = nn.elementwise_add(
+                h, proj(merge(ctx), D, name + "_cmha_o"))
+            ff = _ffn(_prenorm(h, name + "_ffn"), D, d_inner, name + "_ffn")
+            h = nn.elementwise_add(h, ff)
+        h = _prenorm(h, "dec_final")
+        return nn.fc(h, trg_vocab_size, num_flatten_dims=2,
+                     name="proj_logits")
 
     with unique_name.guard({}):
         init = fluid.Program()
@@ -323,7 +377,7 @@ def build_paged_slot_decoder(num_slots, src_vocab_size=1000,
         # will, and both must get the training build's .w_0/.w_1 names
         with unique_name.guard({}), \
                 fluid.program_guard(prefill, fluid.Program()):
-            blk = prefill.global_block()
+            pvar = pvar_of(prefill.global_block())
             pword = nn.data("prefix_word", shape=[T], dtype="int64")
             plen = nn.data("prefix_len", shape=[1], dtype="int64")
             wfrom = nn.data("write_from", shape=[1], dtype="int64")
@@ -331,11 +385,6 @@ def build_paged_slot_decoder(num_slots, src_vocab_size=1000,
                            append_batch_size=False)
             gidx = nn.data("group_idx", shape=[1], dtype="int64",
                            append_batch_size=False)
-
-            def pvar(name, shape, dtype="float32"):
-                return blk.create_var(name=name, shape=shape, dtype=dtype,
-                                      persistable=True)
-
             row = nn.gather(pvar("pgd_table", [S, npp], "int64"), slot)
             mask_row = nn.gather(pvar("pgd_src_mask", [G, T]), gidx)
             pe_all = nn.reshape(pvar("pgd_pe_table", [T, D]),
@@ -386,12 +435,7 @@ def build_paged_slot_decoder(num_slots, src_vocab_size=1000,
 
         step = fluid.Program()
         with fluid.program_guard(step, fluid.Program()):
-            blk = step.global_block()
-
-            def pvar(name, shape, dtype="float32"):
-                return blk.create_var(name=name, shape=shape, dtype=dtype,
-                                      persistable=True)
-
+            pvar = pvar_of(step.global_block())
             tok = pvar("pgd_tok", [S, 1], "int64")
             pos = pvar("pgd_pos", [S, 1], "int64")
             done = pvar("pgd_done", [S, 1], "int64")
@@ -414,34 +458,15 @@ def build_paged_slot_decoder(num_slots, src_vocab_size=1000,
                 nn.gather(pe_table, nn.reshape(pos, shape=[-1])),
                 shape=[0, 1, D])
             h = nn.elementwise_add(nn.scale(emb, scale=D ** 0.5), pe_row)
-            for i in range(n_layer):
-                name = "dec_%d" % i
-                kpool = pvar("pgd_kpool_%d" % i, [P, n_head, ps, dh])
-                vpool = pvar("pgd_vpool_%d" % i, [P, n_head, ps, dh])
-                nx = _prenorm(h, name + "_sattn")
-                q = heads(proj(nx, dh * n_head, name + "_smha_q"))
-                k1 = heads(proj(nx, dh * n_head, name + "_smha_k"))
-                v1 = heads(proj(nx, dh * n_head, name + "_smha_v"))
+
+            def write_and_attend(q, k1, v1, kpool, vpool):
                 kpool, vpool = fluid.layers.paged_kv_write(
                     kpool, vpool, k1, v1, ptable, pos)
-                att = fluid.layers.paged_attention(
+                return fluid.layers.paged_attention(
                     q, kpool, vpool, ptable, lengths, sm_scale=dh ** -0.5)
-                h = nn.elementwise_add(
-                    h, proj(merge(att), D, name + "_smha_o"))
-                nx2 = _prenorm(h, name + "_cattn")
-                q2 = heads(proj(nx2, dh * n_head, name + "_cmha_q"))
-                ctx = fluid.layers.grouped_cross_attention(
-                    q2, pvar("pgd_kcross_%d" % i, [G, n_head, T, dh]),
-                    pvar("pgd_vcross_%d" % i, [G, n_head, T, dh]),
-                    group_of, src_mask, sm_scale=dh ** -0.5)
-                h = nn.elementwise_add(
-                    h, proj(merge(ctx), D, name + "_cmha_o"))
-                ff = _ffn(_prenorm(h, name + "_ffn"), D, d_inner,
-                          name + "_ffn")
-                h = nn.elementwise_add(h, ff)
-            h = _prenorm(h, "dec_final")
-            logits = nn.fc(h, trg_vocab_size, num_flatten_dims=2,
-                           name="proj_logits")
+
+            logits = decode_stack(pvar, h, group_of, src_mask,
+                                  write_and_attend)
             tok_new, pos_new, done_new = fluid.layers.slot_decode_sample(
                 logits, pos, done=done, eos_id=eos_id, max_length=T)
             # thread the loop state: the next iteration embeds the token
@@ -449,7 +474,195 @@ def build_paged_slot_decoder(num_slots, src_vocab_size=1000,
             nn.assign(tok_new, output=tok)
             nn.assign(pos_new, output=pos)
             nn.assign(done_new, output=done)
+
+        if n_spec:
+            Nn = n_spec + 1
+            spec = fluid.Program()
+            # like prefill: the verify program re-creates the decoder's
+            # parameter-owning layers, so a FRESH name scope keeps the
+            # .w_0/.w_1 suffixes aligned with the training build
+            with unique_name.guard({}), \
+                    fluid.program_guard(spec, fluid.Program()):
+                pvar = pvar_of(spec.global_block())
+                # concrete shapes: the slot axis is fixed at S
+                draft = nn.data("spec_draft", shape=[S, n_spec],
+                                dtype="int64", append_batch_size=False)
+                par = nn.data("spec_parent", shape=[S, Nn], dtype="int64",
+                              append_batch_size=False)
+                anc = nn.data("spec_anc", shape=[S, Nn, Nn], dtype="int64",
+                              append_batch_size=False)
+                tok = pvar("pgd_tok", [S, 1], "int64")
+                pos = pvar("pgd_pos", [S, 1], "int64")
+                done = pvar("pgd_done", [S, 1], "int64")
+                ptable = pvar("pgd_table", [S, npp], "int64")
+                group_of = pvar("pgd_group_of", [S, 1], "int64")
+                pe_table = pvar("pgd_pe_table", [T, D])
+                src_mask = pvar("pgd_src_mask", [G, T])
+                live_row = nn.elementwise_sub(
+                    nn.fill_constant([S, 1], "int64", 1), done)
+                # the tree kernel's ragged bound: a LIVE slot's committed
+                # storage is [0, pos) and its tree occupies pos .. pos +
+                # N - 1; -1 marks a done slot (zero output, no page read)
+                base = nn.elementwise_sub(
+                    nn.elementwise_mul(
+                        fluid.layers.increment(pos, value=1,
+                                               in_place=False),
+                        live_row),
+                    nn.fill_constant([S, 1], "int64", 1))
+                # a done slot's whole tree writes to the trash page
+                write_table = nn.elementwise_mul(ptable, live_row)
+                nodes_tok = nn.concat([tok, draft], axis=1)  # [S, N]
+                # depth of node i = |ancestors| - 1 (anc carries the
+                # diagonal and the anchor column); its LOGICAL position is
+                # pos + depth, clamped into the PE table like the
+                # sequential position clamp
+                depth = nn.elementwise_sub(
+                    nn.reduce_sum(anc, dim=2),
+                    nn.fill_constant([1, 1], "int64", 1))
+                logical = nn.elementwise_min(
+                    nn.elementwise_add(pos, depth),
+                    nn.fill_constant([1, 1], "int64", T - 1))
+                pe_rows = nn.reshape(
+                    nn.gather(pe_table, nn.reshape(logical, shape=[-1])),
+                    shape=[S, Nn, D])
+                emb = nn.embedding(
+                    input=nodes_tok, size=[trg_vocab_size, D],
+                    param_attr=fluid.ParamAttr(name="trg_emb"))
+                h = nn.elementwise_add(nn.scale(emb, scale=D ** 0.5),
+                                       pe_rows)
+                spec_pools = []
+
+                def write_and_attend_tree(q, k1, v1, kpool, vpool):
+                    kpool, vpool = fluid.layers.paged_spec_kv_write(
+                        kpool, vpool, k1, v1, write_table, pos)
+                    spec_pools.append((kpool, vpool))
+                    return fluid.layers.paged_tree_attention(
+                        q, kpool, vpool, ptable, base, anc,
+                        sm_scale=dh ** -0.5, max_length=T)
+
+                spec_logits = decode_stack(pvar, h, group_of, src_mask,
+                                           write_and_attend_tree)  # [S,N,V]
+                (spec_anchor, spec_seq, spec_acc, spec_path, spec_pos,
+                 spec_done) = fluid.layers.slot_speculative_accept(
+                    spec_logits, nodes_tok, par, pos, done, eos_id=eos_id,
+                    max_length=T)
+                # survivor commit AFTER the walk (attention read the
+                # pre-commit tree layout) and BEFORE the state assigns
+                for kpool, vpool in spec_pools:
+                    fluid.layers.paged_spec_kv_compact(
+                        kpool, vpool, write_table, pos, spec_path, spec_acc)
+                nn.assign(spec_anchor, output=tok)
+                nn.assign(spec_pos, output=pos)
+                nn.assign(spec_done, output=done)
+            fetches = {"token": tok_new.name,
+                       "spec_token_seq": spec_seq.name,
+                       "spec_accept_len": spec_acc.name}
+            return init, admit, join, prefill, table, step, spec, fetches
     return init, admit, join, prefill, table, step, tok_new.name
+
+
+def build_draft_decoder(num_slots, trg_vocab_size=1000, max_length=64,
+                        n_head=4, d_model=128, d_inner=None, page_size=8,
+                        num_pages=None, eos_id=2):
+    """The small DRAFT transformer of speculative decoding: a 1-layer
+    decoder-only LM (no cross attention) that shares the target's token
+    embedding (``trg_emb``) and position table (``pgd_pe_table``) and runs
+    over the SAME paged geometry: its own K/V pools
+    ``pgd_draft_{k,v}pool_0 [P, H, ps, dh]`` indexed through the target's
+    ``pgd_table`` row per slot, so its cache residency follows the slots'
+    page residency with no bookkeeping of its own.
+
+    ``step_prog`` feeds ``draft_tok``/``draft_pos``/``draft_live``
+    ``[S, 1]`` and fetches the greedy next token ``[S, 1]`` (rows that
+    are not live write to the trash page, attend nothing and emit eos).
+    Correctness never depends on this model: the accept walk chooses
+    every committed token from TARGET logits, so a stale or randomly
+    initialised draft only lowers the acceptance rate. For the same
+    reason the draft pools sit OUTSIDE copy-on-write.
+
+    Returns ``(init_prog, step_prog, step_startup_prog, token_name)``.
+    ``init_prog`` zero-allocates the draft pools and runs after the paged
+    decoder's. ``step_startup_prog`` initialises EVERY parameter the step
+    program touches, the shared ``trg_emb`` included, so a session runs
+    it only for the variables its scope lacks
+    (``serving.speculative.DraftModelDrafter``)."""
+    nn = fluid.layers
+    S, T, D = int(num_slots), int(max_length), int(d_model)
+    dh = D // int(n_head)
+    ps = int(page_size)
+    npp = pages_for(T, ps)
+    P = int(num_pages) if num_pages else 1 + S * npp
+    di = int(d_inner) if d_inner else 2 * D
+
+    def heads(x):
+        return nn.transpose(nn.reshape(x, shape=[0, 0, n_head, dh]),
+                            perm=[0, 2, 1, 3])
+
+    def proj(x, size, name):
+        return nn.fc(x, size, num_flatten_dims=2, bias_attr=False, name=name)
+
+    with unique_name.guard({}):
+        init = fluid.Program()
+        with fluid.program_guard(init, fluid.Program()):
+            blk = init.global_block()
+            for kind in ("kpool", "vpool"):
+                out = blk.create_var(name="pgd_draft_%s_0" % kind,
+                                     shape=None, dtype="float32",
+                                     persistable=True)
+                nn.assign(nn.fill_constant([P, n_head, ps, dh], "float32",
+                                           0.0), output=out)
+
+        step = fluid.Program()
+        step_startup = fluid.Program()
+        with fluid.program_guard(step, step_startup):
+            blk = step.global_block()
+
+            def pvar(name, shape, dtype="float32"):
+                return blk.create_var(name=name, shape=shape, dtype=dtype,
+                                      persistable=True)
+
+            dtok = nn.data("draft_tok", shape=[S, 1], dtype="int64",
+                           append_batch_size=False)
+            dpos = nn.data("draft_pos", shape=[S, 1], dtype="int64",
+                           append_batch_size=False)
+            dlive = nn.data("draft_live", shape=[S, 1], dtype="int64",
+                            append_batch_size=False)
+            ptable = pvar("pgd_table", [S, npp], "int64")
+            pe_table = pvar("pgd_pe_table", [T, D])
+            kpool = pvar("pgd_draft_kpool_0", [P, n_head, ps, dh])
+            vpool = pvar("pgd_draft_vpool_0", [P, n_head, ps, dh])
+            ddone = nn.elementwise_sub(
+                nn.fill_constant([S, 1], "int64", 1), dlive)
+            lengths = nn.elementwise_mul(
+                fluid.layers.increment(dpos, value=1, in_place=False),
+                dlive)
+            write_table = nn.elementwise_mul(ptable, dlive)
+            emb = nn.embedding(input=dtok, size=[trg_vocab_size, D],
+                               param_attr=fluid.ParamAttr(name="trg_emb"))
+            emb = nn.reshape(emb, shape=[0, 1, D])
+            pe_row = nn.reshape(
+                nn.gather(pe_table, nn.reshape(dpos, shape=[-1])),
+                shape=[0, 1, D])
+            h = nn.elementwise_add(nn.scale(emb, scale=D ** 0.5), pe_row)
+            nx = _prenorm(h, "draft_dec_sattn")
+            q = heads(proj(nx, dh * n_head, "draft_dec_smha_q"))
+            k1 = heads(proj(nx, dh * n_head, "draft_dec_smha_k"))
+            v1 = heads(proj(nx, dh * n_head, "draft_dec_smha_v"))
+            kpool, vpool = fluid.layers.paged_kv_write(
+                kpool, vpool, k1, v1, write_table, dpos)
+            att = fluid.layers.paged_attention(
+                q, kpool, vpool, ptable, lengths, sm_scale=dh ** -0.5)
+            att = nn.reshape(nn.transpose(att, perm=[0, 2, 1, 3]),
+                             shape=[0, 0, n_head * dh])
+            h = nn.elementwise_add(h, proj(att, D, "draft_dec_smha_o"))
+            ff = _ffn(_prenorm(h, "draft_dec_ffn"), D, di, "draft_dec_ffn")
+            h = nn.elementwise_add(h, ff)
+            h = _prenorm(h, "draft_final")
+            logits = nn.fc(h, trg_vocab_size, num_flatten_dims=2,
+                           name="draft_proj_logits")
+            dtok_new, _, _ = fluid.layers.slot_decode_sample(
+                logits, dpos, done=ddone, eos_id=eos_id, max_length=T)
+    return init, step, step_startup, dtok_new.name
 
 
 def build_cow_batch_prog(num_slots, max_length, n_layer, n_head, d_model,

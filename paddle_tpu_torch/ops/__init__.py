@@ -16,4 +16,5 @@ from paddle_tpu_torch.ops import control_flow_ops  # noqa: F401
 from paddle_tpu_torch.ops import attention_ops  # noqa: F401
 from paddle_tpu_torch.ops import sequence_ops  # noqa: F401
 from paddle_tpu_torch.ops import sampling_ops  # noqa: F401
+from paddle_tpu_torch.ops import speculative_ops  # noqa: F401
 from paddle_tpu_torch.ops import optimizer_ops  # noqa: F401

@@ -1,12 +1,14 @@
 """Attention ops: scaled_dot_product_attention, grouped_cross_attention,
-paged_attention, the paged KV writes and add_position_encoding.
+paged_attention, paged_tree_attention, the paged KV writes and
+add_position_encoding.
 
 Counterpart of ``paddle_tpu/ops/attention_ops.py`` for the ops this slice
 runs. The attention ops call the hand-written kernels
 (``kernels/flash_attention.py``, ``kernels/paged_attention.py``): on a
 CUDA tensor they launch the kernel, on a CPU tensor they run its plain
-version. ``FLAGS_attention_impl`` / ``FLAGS_paged_attention`` (or the
-op's ``impl`` attr) set to ``reference`` are refused for CUDA tensors:
+version. ``FLAGS_attention_impl`` / ``FLAGS_paged_attention`` /
+``FLAGS_tree_attention`` (or the op's ``impl`` attr) set to
+``reference`` are refused for CUDA tensors:
 the port has no path from the card to the plain versions.
 
 The paged KV writes (``paged_kv_write``, ``paged_kv_prefill``,
@@ -25,6 +27,7 @@ from paddle_tpu_torch.kernels.flash_attention import flash_attention
 from paddle_tpu_torch.kernels.paged_attention import (
     paged_attention,
     paged_kv_write,
+    paged_tree_attention,
 )
 
 
@@ -105,12 +108,43 @@ register_op(
 )
 
 
+def _lower_paged_tree_attention(ctx, ins, attrs):
+    """Speculative tree-verify attention: N tree nodes per slot, laid out
+    linearly in the slot's write pages, each attending the committed
+    prefix plus its own ancestor path (``kernels/paged_attention.py``
+    ``paged_tree_attention``). ``FLAGS_tree_attention=reference`` names
+    the plain version, which CPU tensors run anyway."""
+    q = ins["Q"][0]  # [S, H, N, dh]
+    _kernel_impl(attrs, "tree_attention", q)
+    S, _, N, _ = q.shape
+    table = ins["PageTable"][0].reshape(S, -1).to(torch.int64).contiguous()
+    base = ins["BaseLens"][0].reshape(-1).to(torch.int64).contiguous()
+    anc = ins["Anc"][0].reshape(S, N, N).to(torch.int64).contiguous()
+    return paged_tree_attention(
+        q.contiguous(), ins["KPool"][0], ins["VPool"][0], table, base, anc,
+        sm_scale=attrs.get("sm_scale", 0.0) or None,
+        max_length=int(attrs.get("max_length", 0)) or None)
+
+
+register_op(
+    "paged_tree_attention",
+    inputs=["Q", "KPool", "VPool", "PageTable", "BaseLens", "Anc"],
+    outputs=["Out"],
+    attrs={"sm_scale": 0.0, "impl": "auto", "max_length": 0},
+    lower=_lower_paged_tree_attention,
+    grad=None,
+    no_grad_inputs=("PageTable", "BaseLens", "Anc"),
+    infer_shape=_same_shape_as_q,
+)
+
+
 def _lower_grouped_cross_attention(ctx, ins, attrs):
     """Each slot attends over its GROUP's cross K/V row: the group rows
     are gathered to ``[S, H, T_src, dh]`` (the reference's
     ``k_pool[gof]``, attention_ops.py:227-229) and handed to the flash
-    kernel with one query row per slot and the group's key mask."""
-    q = ins["Q"][0]  # [S, H, 1, dh]
+    kernel with the slot's query rows (one in the decode step, the tree's
+    N in the verify step) and the group's key mask."""
+    q = ins["Q"][0]  # [S, H, 1 or N, dh]
     _kernel_impl(attrs, "attention_impl", q)
     gof = ins["GroupOf"][0].reshape(-1).to(torch.int64)
     k = ins["KPool"][0].index_select(0, gof)

@@ -1,4 +1,5 @@
-"""Dense math ops: mul / elementwise / sum / scale / reduce_sum.
+"""Dense math ops: mul / elementwise (add, sub, mul, div, min) / sum / scale /
+reduce_sum.
 
 Counterpart of ``paddle_tpu/ops/math_ops.py`` for the ops this slice
 runs. A plain matrix product goes to ``torch.matmul`` (fp32, TF32 off),
@@ -46,6 +47,7 @@ for _name, _fn in [
     ("elementwise_sub", torch.sub),
     ("elementwise_mul", torch.mul),
     ("elementwise_div", torch.div),
+    ("elementwise_min", torch.minimum),
 ]:
     register_op(
         _name,

@@ -1,11 +1,14 @@
 """Decode-loop token selection: slot_decode_sample (greedy).
 
-Counterpart of ``paddle_tpu/ops/sampling_ops.py`` ``slot_decode_sample``
-and ``slot_lifecycle_advance``. This slice ports the greedy strategy;
-temperature and top-k sampling key jax's threefry stream on (seed, slot,
-position), and reproducing those bits is the RNG-parity item of
-ROADMAP.md, so the port raises for them instead of sampling other
-tokens.
+Counterpart of ``paddle_tpu/ops/sampling_ops.py`` ``slot_decode_sample``,
+``sample_step_tokens`` and ``slot_lifecycle_advance``. The port carries
+the greedy strategy; temperature and top-k sampling key jax's threefry
+stream on (seed, slot, position), and reproducing those bits is the
+RNG-parity item of ROADMAP.md (A6), so the port raises for them instead
+of sampling other tokens. ``sample_step_tokens`` is the one token rule
+the plain step and the speculative accept walk
+(``ops/speculative_ops.py``) share, which is what makes a speculative
+stream equal to the sequential one.
 """
 
 import torch
@@ -15,7 +18,7 @@ from paddle_tpu_torch.core.op_registry import register_op
 RNG_PARITY_TODO = (
     "sampled decode (temperature / top_k) needs jax-threefry-exact random "
     "bits, which the port does not have yet (ROADMAP.md, A6 RNG parity); "
-    "this slice serves greedy decoding only")
+    "the port serves greedy decoding only")
 
 
 def slot_lifecycle_advance(pos_flat, was_done, tok, eos, max_len):
@@ -31,13 +34,20 @@ def slot_lifecycle_advance(pos_flat, was_done, tok, eos, max_len):
     return new_pos, new_done
 
 
+def sample_step_tokens(lg, strategy, temperature):
+    """The token choice of one decode position over ``[S, V]`` float32
+    logits: argmax for the greedy strategy (or a temperature of 0),
+    returning the first maximum on ties as ``jnp.argmax`` does. Any
+    stochastic strategy raises (``RNG_PARITY_TODO``). Returns flat
+    ``[S]`` int64 tokens, with no eos forcing."""
+    if strategy != "greedy" and float(temperature) > 0.0:
+        raise NotImplementedError(RNG_PARITY_TODO)
+    return torch.argmax(lg, dim=-1)
+
+
 def _lower_slot_decode_sample(ctx, ins, attrs):
     """Greedy per-slot token choice over ``[S, 1, V]`` logits, eos forced
-    on finished slots, then the lifecycle step. ``argmax`` returns the
-    first maximum on ties, as ``jnp.argmax`` does."""
-    strategy = attrs.get("strategy", "greedy")
-    if strategy != "greedy" and float(attrs.get("temperature", 1.0)) > 0.0:
-        raise NotImplementedError(RNG_PARITY_TODO)
+    on finished slots, then the lifecycle step."""
     max_len = int(attrs.get("max_length", 0))
     if max_len < 2:
         raise ValueError(
@@ -47,7 +57,8 @@ def _lower_slot_decode_sample(ctx, ins, attrs):
     lg = ins["Logits"][0][:, 0, :].to(torch.float32)
     pos = ins["Pos"][0]
     pos_flat = pos.reshape(-1)
-    tok = torch.argmax(lg, dim=-1)
+    tok = sample_step_tokens(lg, attrs.get("strategy", "greedy"),
+                             attrs.get("temperature", 1.0))
     done_in = ins.get("Done", [None])[0]
     if done_in is not None:
         was_done = done_in.reshape(-1) > 0

@@ -1,5 +1,5 @@
-"""Tensor manipulation ops: fill / assign / reshape / transpose / gather /
-lookup_table / dynamic_update_slice.
+"""Tensor manipulation ops: fill / assign / reshape / transpose / concat /
+gather / lookup_table / dynamic_update_slice.
 
 Counterpart of ``paddle_tpu/ops/tensor_ops.py`` for the ops this slice
 runs. Every lowering here is shape-pure (no value is read on the host),
@@ -70,6 +70,15 @@ register_op(
     outputs=["Out"],
     attrs={"axis": []},
     lower=_lower_transpose,
+)
+
+register_op(
+    "concat",
+    inputs=["*X"],
+    outputs=["Out"],
+    attrs={"axis": 0},
+    lower=lambda ctx, ins, attrs: torch.cat(ins["X"],
+                                            dim=attrs.get("axis", 0)),
 )
 
 

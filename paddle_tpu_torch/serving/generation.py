@@ -12,24 +12,30 @@ trash page unoccupied slots write into); decode attention reads only
 each slot's resident pages.
 
 Ported here: ``admit`` (with ``prefix_tokens``, through the causal
-prefill program), ``step`` (``steps >= 1``), ``generate`` and the queue
-under it (``enqueue``/``admit_pending``/``pump``/``take_result``), page
-provisioning and release, the copy-on-write ladder's warmup and growth
-rebinds, and the typed rejects ``NoFreeSlotError`` and
-``NoFreePageError``. Later slices (ROADMAP.md): sampled decode (RNG
-parity), ``admit_group`` forks with real COW pairs, the prefix cache,
-beam and speculative decode, snapshots, degradation, tracing and
-metrics, and the dense (unpaged) layout.
+prefill program), ``admit_group`` (forks of one source that share its
+cross K/V group and its prefix pages until copy-on-write splits them),
+``step`` (``steps >= 1``), speculative decode (``speculative=K``:
+draft-then-verify, 1 to K + 1 tokens per slot per dispatch, with the
+``FLAGS_speculative=off`` oracle), ``generate`` and the queue under it
+(``enqueue``/``admit_pending``/``pump``/``take_result``), page
+provisioning and release, the coalesced copy-on-write dispatch, and the
+typed rejects ``NoFreeSlotError``, ``NoFreePageError`` and
+``NoFreeGroupError``. Not ported yet (ROADMAP.md): sampled decode (A6,
+RNG parity), the prefix cache, snapshots, degradation and the captured
+CUDA graph (A5), beam decode (A7), tracing and metrics (A9), and the
+dense (unpaged) layout.
 """
 
 from collections import deque
 
 import numpy as np
 
+from paddle_tpu_torch import flags
 from paddle_tpu_torch.analysis.lint import suggest_buckets
 from paddle_tpu_torch.kernels.paged_attention import pages_for
 from paddle_tpu_torch.models import transformer
 from paddle_tpu_torch.ops.sampling_ops import RNG_PARITY_TODO
+from paddle_tpu_torch.serving import speculative as _spec_mod
 from paddle_tpu_torch.serving.kv_pool import (
     NoFreeGroupError,
     NoFreePageError,
@@ -47,7 +53,7 @@ class NoFreeSlotError(ServingError):
 
 
 class Sampler(object):
-    """Token-selection spec for the decode loop. This slice serves
+    """Token-selection spec for the decode loop. The port serves
     ``"greedy"`` (argmax); temperature and top-k sampling raise
     ``NotImplementedError`` until the port reproduces jax's random bits
     (ROADMAP.md, A6 RNG parity)."""
@@ -86,18 +92,49 @@ class SlotDecodeSession(object):
     ``num_slots``). ``decoder_cfg`` forwards to the builder
     (``src_vocab_size``, ``trg_vocab_size``, ``n_layer``, ``n_head``,
     ``d_inner``).
+
+    ``speculative=K`` (or ``{"k": K, "drafter": "ngram" | "model",
+    ...}``; ``steps=1``) decodes by draft-then-verify: a host drafter
+    proposes K tokens per slot, ONE tree-attention dispatch of the target
+    verifies them and commits the longest prefix the target itself would
+    have chosen (1 to K + 1 tokens per dispatch). Token streams equal the
+    same session's under ``FLAGS_speculative=off``: the drafter moves
+    throughput, never content. ``spec_dispatches``, ``spec_proposed`` and
+    ``spec_accepted`` count verify dispatches, draft tokens offered and
+    draft tokens committed. See ``serving/speculative.py``.
     """
 
     def __init__(self, exe, num_slots, max_length=64, d_model=128,
                  bos_id=1, eos_id=2, scope=None, paged=False,
                  page_size=8, num_pages=None, num_groups=None, steps=1,
-                 sampler=None, prefix_cache_pages=0, **decoder_cfg):
+                 sampler=None, prefix_cache_pages=0, speculative=None,
+                 **decoder_cfg):
         if not paged:
             raise NotImplementedError(
                 "the dense slot layout is not ported; pass paged=True")
         if prefix_cache_pages:
             raise NotImplementedError(
-                "the prefix cache comes with a later slice (ROADMAP.md)")
+                "the prefix cache is not ported yet (ROADMAP.md A5)")
+        # speculative decode config: int K (n-gram drafter) or a dict
+        # {"k": K, "drafter": "ngram"|"model", ...drafter kwargs}
+        if speculative is None:
+            spec_cfg = {}
+        elif isinstance(speculative, dict):
+            spec_cfg = dict(speculative)
+        else:
+            spec_cfg = {"k": int(speculative)}
+        self._spec_k = int(spec_cfg.get("k", 0) or 0)
+        self.spec_proposed = 0    # draft tokens offered
+        self.spec_accepted = 0    # draft tokens committed
+        self.spec_dispatches = 0  # verify dispatches run
+        if self._spec_k < 0:
+            raise ValueError("speculative k must be >= 0 (0 disables), "
+                             "got %d" % self._spec_k)
+        if self._spec_k and int(steps) != 1:
+            raise ValueError(
+                "speculative decode needs steps=1: drafting and accept "
+                "bookkeeping happen on the host BETWEEN dispatches (each "
+                "dispatch already advances up to k + 1 tokens)")
         self._exe = exe
         self._scope = scope
         self._S, self._T, self._D = int(num_slots), int(max_length), \
@@ -115,12 +152,21 @@ class SlotDecodeSession(object):
                 "num_pages=%d cannot cover even ONE sequence: the pool "
                 "needs 1 trash page + ceil(max_length / page_size) = %d "
                 "pages" % (self._P, 1 + self._npp))
-        (self._init_prog, self._admit_prog, self._join_prog,
-         self._prefill_prog, self._table_prog, self._step_prog,
-         self._fetch_name) = transformer.build_paged_slot_decoder(
+        built = transformer.build_paged_slot_decoder(
             num_slots, max_length=max_length, d_model=d_model,
             page_size=self._ps, num_pages=self._P, num_groups=self._G,
-            bos_id=bos_id, eos_id=eos_id, sampler=sampler, **decoder_cfg)
+            bos_id=bos_id, eos_id=eos_id, sampler=sampler,
+            speculative=self._spec_k, **decoder_cfg)
+        if self._spec_k:
+            (self._init_prog, self._admit_prog, self._join_prog,
+             self._prefill_prog, self._table_prog, self._step_prog,
+             self._spec_prog, spec_fetches) = built
+            self._spec_fetches = dict(spec_fetches)
+            self._fetch_name = self._spec_fetches["token"]
+        else:
+            (self._init_prog, self._admit_prog, self._join_prog,
+             self._prefill_prog, self._table_prog, self._step_prog,
+             self._fetch_name) = built
         self._run(self._init_prog, {
             "pe_table": transformer.position_encoding_table(self._T,
                                                             self._D)}, [])
@@ -128,11 +174,18 @@ class SlotDecodeSession(object):
         self._slot_pages = {}  # slot -> [page ids], ordered by index
         self._slot_group = {}  # slot -> group id
         self._free_groups = list(range(self._G - 1, -1, -1))
+        self._group_members = {}  # group id -> set(slot)
         # reservation-based admission control: every live slot has its
         # worst-case pages reserved up front (a counter; pages are still
-        # acquired lazily), so provisioning mid-flight never fails and an
-        # oversubscribed pool rejects at admit() instead
+        # acquired lazily), so provisioning and copy-on-write mid-flight
+        # never fail and an oversubscribed pool rejects at admit()
+        # instead. Pages LEAKED by a failed rollback or COW dispatch
+        # (kept allocated, so a device row that may have been committed
+        # can never write into a recycled page) shrink the capacity.
         self._reserved_pages = 0
+        self._leaked_pages = 0
+        self.cow_dispatches = 0   # coalesced COW / rebind dispatches
+        self.cow_pairs = 0        # real (src, dst) page copies dispatched
         # the copy-on-write / growth-rebind programs form a bucket ladder
         # (one program per rung, padded up), each run once now on a
         # pad-only window: trash-page self-copies bound to slot 0's
@@ -148,6 +201,33 @@ class SlotDecodeSession(object):
                 "slot_idxs": np.zeros(rung, "int64"),
                 "page_rows": np.zeros((rung, self._npp), "int64"),
             }, [])
+        # speculative decode: the drafter and the (static) chain-tree
+        # feeds. The plain step program stays built: FLAGS_speculative is
+        # read at EVERY step, so the off oracle flips mid-session.
+        self._spec_drafter = None
+        if self._spec_k:
+            kind = str(spec_cfg.get("drafter", "ngram"))
+            if kind == "ngram":
+                self._spec_drafter = _spec_mod.NgramDrafter(
+                    self._S, self._spec_k, eos_id=self._eos,
+                    order=int(spec_cfg.get("order", 3)))
+            elif kind == "model":
+                self._spec_drafter = _spec_mod.DraftModelDrafter(
+                    exe, self._S, self._spec_k,
+                    trg_vocab_size=int(decoder_cfg.get("trg_vocab_size",
+                                                       1000)),
+                    max_length=self._T, n_head=self._n_head,
+                    d_model=self._D, page_size=self._ps,
+                    num_pages=self._P, eos_id=self._eos, scope=scope,
+                    d_inner=spec_cfg.get("draft_d_inner"))
+            else:
+                raise ValueError(
+                    "speculative drafter must be 'ngram' or 'model', got "
+                    "%r" % (kind,))
+            parent, anc = _spec_mod.chain_tree(self._spec_k)
+            self._spec_nodes = self._spec_k + 1
+            self._spec_parent = np.tile(parent[None, :], (self._S, 1))
+            self._spec_anc = np.tile(anc[None, :, :], (self._S, 1, 1))
         self._free = list(range(self._S - 1, -1, -1))
         self._live = {}  # slot -> {"trg": [T] int64, "pos": int}
         self._pending = deque()  # {"id", "src" [1, T], "len", "prefix"}
@@ -195,30 +275,89 @@ class SlotDecodeSession(object):
             self._cow_progs[rung] = prog
         return prog
 
-    def _dispatch_rebinds(self, slots):
-        """ONE dispatch of the COW program that installs the grown table
-        rows of ``slots``. No page is shared in this slice (no forks, no
-        prefix cache), so every entry's copy is the trash page onto
-        itself, a no-op; the list pads up the rung ladder by repeating
-        its first slot, whose row is rewritten unchanged."""
-        if not slots:
+    def _cow_copies(self, slot, pos, pending, span):
+        """Copy-on-write scan for one dispatch: every page this slot will
+        WRITE in positions ``[pos, pos + span)`` that is still shared
+        (refcount > 1: a fork sibling holds it) is swapped for a freshly
+        acquired private page. Returns the ``[(src, dst)]`` pairs to
+        copy; the slot's page list is already repointed. ``pending`` maps
+        a source page to the derefs earlier pairs of the same window have
+        planned (the window derefs only after its one dispatch lands), so
+        the LAST holder writes in place: N sharers cost N - 1 copies."""
+        pages = self._slot_pages[slot]
+        first = int(pos) // self._ps
+        last = min(int(pos) + span - 1, self._T - 1) // self._ps
+        copies = []
+        for i in range(first, min(last + 1, len(pages))):
+            pg = pages[i]
+            if self._pool.refcount(pg) - pending.get(pg, 0) > 1:
+                dst = self._pool.acquire()
+                copies.append((pg, dst))
+                pages[i] = dst
+                pending[pg] = pending.get(pg, 0) + 1
+        return copies
+
+    def _cow_window(self, slots_positions, span=None):
+        """One dispatch window's COW pairs and growth rebinds for
+        ``[(slot, write_pos)]``: the page lists are repointed here, the
+        device catches up in ONE ``_dispatch_cow`` call. ``span`` is the
+        number of positions the dispatch writes per slot (default
+        ``steps``; a verify dispatch writes its whole k + 1 node tree)."""
+        window = []
+        span = self._steps if span is None else int(span)
+        pending = {}  # src -> derefs planned by this window's pairs
+        for slot, pos in slots_positions:
+            grew = self._provision(slot, pos + span)
+            copies = self._cow_copies(slot, pos, pending, span)
+            window.extend((slot, src, dst) for src, dst in copies)
+            if grew and not copies:
+                window.append((slot, 0, 0))  # rebind-only entry
+        return window
+
+    def _dispatch_cow(self, window):
+        """ONE coalesced dispatch for a step window's COW pairs and
+        growth rebinds. ``window`` is ``[(slot, src, dst)]``;
+        ``(slot, 0, 0)`` entries only rebind (a slot whose row grew; the
+        trash-page self-copy they carry is a no-op). The window pads up
+        the rung ladder by repeating its first slot, every copy lands
+        before any repoint, and each slot's FINAL row rides the same
+        program.
+
+        A FAILED dispatch may or may not have taken effect on the device,
+        so the host puts every shared source back in its slot's row and
+        LEAKS every destination page of the window: were the rows
+        written, they point at those pages, and recycling one would hand
+        a later sequence a page a stale row still writes."""
+        if not window:
             return
-        n = len(slots)
+        n = len(window)
         rung = next((r for r in self._cow_rungs if r >= n),
                     self._cow_rungs[-1])
         if rung < n:  # above the top rung: split
-            self._dispatch_rebinds(slots[:rung])
-            self._dispatch_rebinds(slots[rung:])
+            self._dispatch_cow(window[:rung])
+            self._dispatch_cow(window[rung:])
             return
-        entries = list(slots) + [slots[0]] * (rung - n)
-        self._run(self._cow_prog(rung), {
-            "src_pages": np.zeros(rung, "int64"),
-            "dst_pages": np.zeros(rung, "int64"),
-            "slot_idxs": np.asarray(entries, "int64"),
-            "page_rows": np.concatenate(
-                [self._page_row(self._slot_pages[s]) for s in entries],
-                axis=0),
-        }, [])
+        entries = list(window) + [(window[0][0], 0, 0)] * (rung - n)
+        copies = [e for e in window if e[1] or e[2]]
+        try:
+            self._run(self._cow_prog(rung), {
+                "src_pages": np.asarray([e[1] for e in entries], "int64"),
+                "dst_pages": np.asarray([e[2] for e in entries], "int64"),
+                "slot_idxs": np.asarray([e[0] for e in entries], "int64"),
+                "page_rows": np.concatenate(
+                    [self._page_row(self._slot_pages[e[0]])
+                     for e in entries], axis=0),
+            }, [])
+        except BaseException:
+            for slot, src_pg, dst_pg in copies:
+                pages = self._slot_pages[slot]
+                pages[pages.index(dst_pg)] = src_pg
+                self._leaked_pages += 1  # stays allocated for good
+            raise
+        for _slot, src_pg, _dst in copies:
+            self._pool.deref(src_pg)
+        self.cow_dispatches += 1
+        self.cow_pairs += len(copies)
 
     def _write_table_row(self, slot, pages):
         self._run(self._table_prog, {
@@ -227,14 +366,24 @@ class SlotDecodeSession(object):
         }, [])
 
     def _release_pages(self, slot):
-        """Recycle a finished slot's pages: its table row points back at
-        the trash page FIRST (a done slot still steps, and its writes must
-        never land in a recycled page), then every reference drops; the
-        group id frees with it."""
+        """Recycle a finished slot's references: its table row points
+        back at the trash page FIRST (a done slot still steps, and its
+        writes must never land in a recycled page), then every page
+        reference drops (a page frees when its LAST reference goes). The
+        slot's group loses a member; the group id frees with its last."""
         self._write_table_row(slot, [])
         for pg in self._slot_pages.pop(slot):
             self._pool.deref(pg)
-        self._free_groups.append(self._slot_group.pop(slot))
+        if self._spec_drafter is not None:
+            # the slot's next occupant must not inherit this one's
+            # draft-cache watermark
+            self._spec_drafter.forget(slot)
+        gid = self._slot_group.pop(slot)
+        members = self._group_members[gid]
+        members.discard(slot)
+        if not members:
+            del self._group_members[gid]
+            self._free_groups.append(gid)
         self._reserved_pages -= pages_for(self._T, self._ps)
 
     @property
@@ -246,6 +395,11 @@ class SlotDecodeSession(object):
     def pages_in_use(self):
         """Pages referenced by live slots."""
         return self._pool.allocated_count
+
+    @property
+    def shared_pages(self):
+        """Pages with refcount > 1 (fork sharing in flight)."""
+        return self._pool.shared_count
 
     @property
     def pool_conserved(self):
@@ -286,41 +440,68 @@ class SlotDecodeSession(object):
         occupied and :class:`NoFreePageError` / :class:`NoFreeGroupError`
         when the pools cannot cover the admission; a reject leaves the
         session exactly as it was."""
-        if not self._free:
-            raise NoFreeSlotError("all %d slots occupied; step() until "
-                                  "one frees" % self._S)
+        return self.admit_group(src, n=1, src_len=src_len,
+                                prefix_tokens=prefix_tokens)[0]
+
+    def admit_group(self, src, n=1, src_len=None, prefix_tokens=None):
+        """Admit ``n`` continuations of ONE source as a fork group: one
+        encoder forward, one group-pooled set of cross-attention K/V rows
+        shared by every member, and, with a forced prefix, one prefill
+        whose pages every member references until copy-on-write splits
+        their tails. Members take the lowest free slots in order, so a
+        member decodes what a solo admission into the same slot decodes.
+        Returns the member slot ids in admission order. Any failure
+        mid-admission rolls the whole group back (table rows to the trash
+        page FIRST, then references, slots, group and reservations)."""
+        n = int(n)
+        if n < 1:
+            raise ValueError("admit_group needs n >= 1, got %d" % n)
+        if len(self._free) < n:
+            raise NoFreeSlotError(
+                "admit_group(n=%d): only %d of %d slots free; step() until "
+                "more free" % (n, len(self._free), self._S))
         if not self._free_groups:
-            raise NoFreeGroupError("all %d cross-K/V groups occupied"
-                                   % self._G)
+            raise NoFreeGroupError(
+                "all %d cross-K/V groups occupied; step() until a group's "
+                "last member completes" % self._G)
         src = np.asarray(src, dtype="int64").reshape(1, self._T)
         length = self._T if src_len is None else int(np.ravel(src_len)[0])
         prefix = self._full_prefix(prefix_tokens)
         L = len(prefix)
         worst = pages_for(self._T, self._ps)
-        capacity = self._P - 1
-        if self._reserved_pages + worst > capacity:
+        capacity = self._P - 1 - self._leaked_pages
+        if self._reserved_pages + n * worst > capacity:
             raise NoFreePageError(
-                "KV pool cannot reserve %d pages for a new sequence (%d of "
-                "%d already reserved); step() until a sequence completes"
-                % (worst, self._reserved_pages, capacity))
-        self._reserved_pages += worst
+                "KV pool cannot reserve %d pages for %d new sequence(s) "
+                "(%d of %d already reserved); step() until a sequence "
+                "completes" % (n * worst, n, self._reserved_pages,
+                               capacity))
+        self._reserved_pages += n * worst
         gid = self._free_groups.pop()
-        slot = self._take_slot()
-        self._slot_pages[slot] = []
-        self._slot_group[slot] = gid
+        slots = []
+        start_feed = {
+            "group_idx": np.asarray([gid], dtype="int64"),
+            "start_tok": np.asarray([[prefix[-1]]], dtype="int64"),
+            "start_pos": np.asarray([[L - 1]], dtype="int64"),
+        }
+        # decode-ahead coverage for the first dispatch: the prefill
+        # writes positions [0, L-1), the first step() [L-1, L-1+steps)
+        cover = min(L - 1 + self._steps, self._T)
         try:
-            # decode-ahead coverage for the first dispatch: the prefill
-            # writes positions [0, L-1), the first step() [L-1, L-1+steps)
-            self._provision(slot, min(L - 1 + self._steps, self._T))
-            self._run(self._admit_prog, {
+            # member 0: encoder forward and (any) prefill
+            slot0 = self._take_slot()
+            slots.append(slot0)
+            pages = self._slot_pages[slot0] = []
+            self._slot_group[slot0] = gid
+            self._provision(slot0, cover)
+            feed = {
                 "src_word": src,
                 "src_len": np.asarray([[length]], dtype="int64"),
-                "slot_idx": np.asarray([slot], dtype="int64"),
-                "group_idx": np.asarray([gid], dtype="int64"),
-                "page_row": self._page_row(self._slot_pages[slot]),
-                "start_tok": np.asarray([[prefix[-1]]], dtype="int64"),
-                "start_pos": np.asarray([[L - 1]], dtype="int64"),
-            }, [])
+                "slot_idx": np.asarray([slot0], dtype="int64"),
+                "page_row": self._page_row(pages),
+            }
+            feed.update(start_feed)
+            self._run(self._admit_prog, feed, [])
             if L > 1:
                 pw = np.full((1, self._T), self._eos, dtype="int64")
                 pw[0, :L] = prefix
@@ -328,38 +509,146 @@ class SlotDecodeSession(object):
                     "prefix_word": pw,
                     "prefix_len": np.asarray([[L]], dtype="int64"),
                     "write_from": np.asarray([[0]], dtype="int64"),
-                    "slot_idx": np.asarray([slot], dtype="int64"),
+                    "slot_idx": np.asarray([slot0], dtype="int64"),
                     "group_idx": np.asarray([gid], dtype="int64"),
                 }, [])
+            # members 1..n-1 fork by reference. Shared: exactly the pages
+            # that hold PREFIX content (full pages and the partial tail);
+            # decode-ahead pages past the prefix are private per member
+            # (sharing an empty page would only buy a certain COW copy).
+            shared = pages[:pages_for(max(L - 1, 0), self._ps)]
+            for _ in range(1, n):
+                s = self._take_slot()
+                slots.append(s)
+                mpages = []
+                for pg in shared:
+                    self._pool.ref(pg)
+                    mpages.append(pg)
+                self._slot_pages[s] = mpages
+                self._slot_group[s] = gid
+                self._provision(s, cover)
+                jfeed = {
+                    "slot_idx": np.asarray([s], dtype="int64"),
+                    "page_row": self._page_row(mpages),
+                }
+                jfeed.update(start_feed)
+                self._run(self._join_prog, jfeed, [])
         except BaseException:
-            # the row goes back to the trash page before its pages free
-            self._release_pages(slot)
-            self._free.append(slot)
+            self._rollback_admission(slots, gid, n)
             raise
-        trg = np.full(self._T, self._eos, dtype="int64")
-        trg[:L] = prefix
-        self._live[slot] = {"trg": trg, "pos": L - 1}
-        return slot
+        self._group_members[gid] = set(slots)
+        for s in slots:
+            trg = np.full(self._T, self._eos, dtype="int64")
+            trg[:L] = prefix
+            self._live[s] = {"trg": trg, "pos": L - 1}
+        return slots
+
+    def _rollback_admission(self, slots, gid, n):
+        """A failed admission must leave NO device table row pointing at
+        pages that go back to the free list: each admitted slot's row is
+        pointed at the trash page FIRST (the order ``_release_pages``
+        uses), THEN its page references drop. If even the repoint fails,
+        the pages are LEAKED (kept allocated and taken off the
+        reservation capacity): a smaller pool can be lived with, a
+        recycled page that a stale row writes cannot. The free slots are
+        restored exactly, so a retried admission lands in the same
+        slots."""
+        for s in slots:
+            pages = self._slot_pages.pop(s, None)
+            self._slot_group.pop(s, None)
+            if pages is None:
+                continue
+            try:
+                self._write_table_row(s, [])
+            except BaseException:
+                self._leaked_pages += len(set(pages))
+                continue
+            for pg in pages:
+                self._pool.deref(pg)
+        for s in reversed(slots):
+            self._free.append(s)
+        self._free_groups.append(gid)
+        self._reserved_pages -= n * pages_for(self._T, self._ps)
 
     def step(self):
-        """Advance every in-flight sequence ``steps`` tokens (one
-        ``run_multi_step`` call) and return ``{slot: [T] int64 tokens}``
-        for the sequences that finished (their slots and pages are free
-        again). No-op ({}) when nothing is in flight."""
+        """Advance every in-flight sequence: ``steps`` tokens through one
+        ``run_multi_step`` call, or, in a speculative session (unless
+        ``FLAGS_speculative=off``), 1 to k + 1 tokens through one verify
+        dispatch. Returns ``{slot: [T] int64 tokens}`` for the sequences
+        that finished (their slots and pages are free again). No-op ({})
+        when nothing is in flight."""
         if not self._live:
             return {}
+        # the oracle: FLAGS_speculative=off routes this very session
+        # through the plain sequential step, and flips mid-stream
+        if self._spec_k and flags.get("speculative") != "off":
+            out = self._step_speculative()
+        else:
+            out = self._step_plain()
+        self.steps_done += 1
+        return out
+
+    def _step_plain(self):
         # step j writes K/V at pos + j: every live slot's table covers
-        # pos + steps before the loop starts, all rebinds in one dispatch
-        self._dispatch_rebinds([
-            slot for slot, st in self._live.items()
-            if self._provision(slot, st["pos"] + self._steps)])
+        # pos + steps before the loop starts, and any page the dispatch
+        # will WRITE that is still shared is copy-on-write split first,
+        # all in one dispatch
+        self._dispatch_cow(self._cow_window(
+            [(slot, st["pos"]) for slot, st in self._live.items()]))
         (toks,) = self._exe.run_multi_step(
             self._step_prog, self._steps, feed={},
             fetch_list=[self._fetch_name], scope=self._scope,
             stack_fetches=True)
-        self.steps_done += 1
         self.decode_steps += self._steps
         return self._consume_tokens(np.asarray(toks))  # [K, S, 1]
+
+    def _step_speculative(self):
+        """One draft-then-verify round: host drafting, ONE target
+        dispatch that scores the anchor and k draft tokens as a tree in
+        the slot's write pages, accept and commit in the program, then
+        the host's bookkeeping by each slot's accept length."""
+        # the verify dispatch writes the whole tree, storage positions
+        # [pos, pos + N): COW and provisioning cover that span BEFORE the
+        # drafter runs (the model drafter reads the same page tables)
+        self._dispatch_cow(self._cow_window(
+            [(slot, st["pos"]) for slot, st in self._live.items()],
+            span=self._spec_nodes))
+        draft = self._spec_drafter.propose(self._live)
+        tok_seq, acc_len = self._run(self._spec_prog, {
+            "spec_draft": draft.astype("int64"),
+            "spec_parent": self._spec_parent,
+            "spec_anc": self._spec_anc,
+        }, [self._spec_fetches["spec_token_seq"],
+            self._spec_fetches["spec_accept_len"]])
+        tok_seq = np.asarray(tok_seq).reshape(self._S, self._spec_nodes)
+        acc_len = np.asarray(acc_len).reshape(self._S)
+        self.spec_proposed += self._spec_k * len(self._live)
+        self.spec_accepted += int(sum(max(int(acc_len[s]) - 1, 0)
+                                      for s in self._live))
+        self.spec_dispatches += 1
+        return self._consume_spec(tok_seq, acc_len)
+
+    def _finish(self, slot, finished):
+        finished[slot] = self._live.pop(slot)["trg"]
+        self._free.append(slot)
+        self._release_pages(slot)
+
+    def _consume_spec(self, tok_seq, acc_len):
+        """Apply one verify dispatch's commits to the live slots: exactly
+        ``acc_len[slot]`` tokens per slot (entries past that are eos
+        padding, NOT tokens)."""
+        finished = {}
+        for slot in list(self._live):
+            st = self._live[slot]
+            for j in range(int(acc_len[slot])):
+                t = st["pos"]
+                nxt = int(tok_seq[slot, j])
+                st["trg"][t + 1] = nxt
+                st["pos"] = t + 1
+                if nxt == self._eos or t + 1 == self._T - 1:
+                    self._finish(slot, finished)
+                    break
+        return finished
 
     def _consume_tokens(self, toks):
         """Apply a ``[K, S, 1]`` token trajectory to the live slots, the
@@ -375,10 +664,7 @@ class SlotDecodeSession(object):
                 st["trg"][t + 1] = nxt
                 st["pos"] = t + 1
                 if nxt == self._eos or t + 1 == self._T - 1:
-                    finished[slot] = st["trg"]
-                    del self._live[slot]
-                    self._free.append(slot)
-                    self._release_pages(slot)
+                    self._finish(slot, finished)
         return finished
 
     # -- request queue -------------------------------------------------------

@@ -29,6 +29,8 @@ MODULES = [
     "paddle_tpu_torch.kernels.build",
     "paddle_tpu_torch.models.transformer",
     "paddle_tpu_torch.serving.generation",
+    "paddle_tpu_torch.serving.speculative",
+    "paddle_tpu_torch.ops.speculative_ops",
 ]
 
 

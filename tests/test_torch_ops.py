@@ -111,6 +111,22 @@ def _cases():
          {"Softmax": ["sm"], "Loss": ["o"]}, {}, "close"),
         ("reduce_sum", {"X": [("x", _f(r, 3, 4, 2))]}, {"Out": ["o"]},
          {"dim": [1], "keep_dim": True, "reduce_all": False}, "close"),
+        # what the speculative verify program adds: concat, elementwise_min
+        # and int64 arithmetic on positions, depths and page ids
+        ("concat", {"X": [("a", _i([[1], [4]])), ("b", _i([[7, 8], [9, 3]]))]},
+         {"Out": ["o"]}, {"axis": 1}, "exact"),
+        ("elementwise_min", {"X": [("x", _i([[3, 9, 6], [7, 2, 8]]))],
+                             "Y": [("y", _i([[6]]))]},
+         {"Out": ["o"]}, {"axis": -1}, "exact"),
+        ("elementwise_add", {"X": [("x", _i([[3], [250]]))],
+                             "Y": [("y", _i([[0, 1, 2], [0, 1, 1]]))]},
+         {"Out": ["o"]}, {"axis": -1}, "exact"),
+        ("elementwise_mul", {"X": [("x", _i([[5, 6, 6], [2, 2, 2]]))],
+                             "Y": [("y", _i([[1], [0]]))]},
+         {"Out": ["o"]}, {"axis": -1}, "exact"),
+        ("reduce_sum", {"X": [("x", _i(np.tril(np.ones((2, 3, 3)))))]},
+         {"Out": ["o"]},
+         {"dim": [2], "keep_dim": False, "reduce_all": False}, "exact"),
         ("uniform_random", {}, {"Out": ["o"]},
          {"shape": [64, 8], "min": -0.5, "max": 0.25, "seed": 3,
           "dtype": "float32"}, "random"),
@@ -169,6 +185,15 @@ def _cases():
 CASES = _cases()
 
 
+def _ids(cases):
+    """The op type, numbered from its second case on."""
+    seen, ids = {}, []
+    for c in cases:
+        seen[c[0]] = seen.get(c[0], 0) + 1
+        ids.append(c[0] if seen[c[0]] == 1 else "%s_%d" % (c[0], seen[c[0]]))
+    return ids
+
+
 def _run(pkg, op_type, ins, outs, attrs):
     prog = pkg.Program()
     blk = prog.global_block()
@@ -193,8 +218,10 @@ def _run(pkg, op_type, ins, outs, attrs):
 
 
 def test_cases_cover_every_op_type_of_the_slice():
-    """The 24 op types the paged serving programs run, plus the four
-    that ``transformer.build()`` appends, and nothing missing from the
+    """The 24 op types the paged serving programs run, the four that
+    ``transformer.build()`` appends and the two plain ops the speculative
+    verify program adds (its own ops are in
+    tests/test_torch_speculative_ops.py), and nothing missing from the
     port's registry."""
     covered = {c[0] for c in CASES}
     serving = {
@@ -207,11 +234,11 @@ def test_cases_cover_every_op_type_of_the_slice():
         "slot_decode_sample", "transpose", "paged_copy_page"}
     build = {"softmax_with_cross_entropy", "reduce_sum", "elementwise_div",
              "uniform_random"}
-    assert serving | build <= covered
+    assert serving | build | {"concat", "elementwise_min"} <= covered
     assert covered <= set(t_registry.registered_ops())
 
 
-@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+@pytest.mark.parametrize("case", CASES, ids=_ids(CASES))
 def test_op_matches_jax(case):
     op_type, ins, outs, attrs, mode = case
     want = _run(jfluid, op_type, ins, outs, attrs)
