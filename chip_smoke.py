@@ -8,7 +8,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    (one ``nvcc`` per source, in parallel) and prints the build time and
    each kernel's registers and spills;
 3. holds each kernel (flash forward, the flash backward pair, paged
-   decode, tree decode) against its plain PyTorch version on the same CUDA
+   decode, tree decode; the recurrences in step 10) against its plain PyTorch version on the same CUDA
    tensors, at the shapes the serving and training paths give it and at
    edge cases,
    printing each case's max abs error beside its tolerance, then times
@@ -58,7 +58,26 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 9. trains 3 Adam steps of the same model (dropout 0, batch 4,
    ``set_deterministic_params`` weights) on the card and on the CPU and
    gates on each step's loss; the first step's gradients are compared and
-   printed.
+   printed;
+10. the RNN path. Right after step 3 it holds the LSTM and GRU recurrence
+   kernels against their plain versions (the stacked network's shapes at
+   widths 512 and 64, the MT encoder's reverse pass, and edge cases: D 40
+   and 1100, B 5 and 3, T 1, rows of length 0, an initial state, every
+   activation code; tolerance 1e-4, relative to max(1, |ref|) where relu
+   or identity activations grow the values) and times both, with
+   ``torch.nn.LSTM`` (cuDNN; the device time of its kernels from a
+   profiler trace) beside the LSTM kernel at full lengths without
+   peepholes. After step 9 it trains ``stacked_lstm.build``
+   (sequence length 80, dictionary 5000, width 512, 3 layers, batch 32,
+   lengths 16..80, Adam) on synthetic separable sentiment data for 2 + 20
+   steps, gating on finite losses, a 0.1 nat fall and 6 lstm_cell
+   launches per step (each layer's forward and its rerun in the grad op),
+   profiles one step, runs the trained model's ``clone(for_test=True)``
+   program 10 times (3 launches per run), trains the same network with
+   ``dynamic_gru`` (6 gru_cell launches per step), runs 5 steps of the
+   machine-translation graph at ``build()``'s defaults (4 lstm_cell
+   launches per step), and compares the stacked LSTM's predictions (1e-4)
+   and 3 train losses (1e-3) on the card and on the CPU.
 
 A line of its own before the last holds the kernels' JSON record; the
 last line is ``{"ok": true, "device": {...}}``. Any failure exits nonzero
@@ -101,6 +120,19 @@ TRAIN_TOKEN_IDS = 1000   # tokens drawn from ids 1..1000 of the vocab
 LOSS_DROP = 0.1          # nats: mean of steps 16-20 below step 1
 CVC_BATCH, CVC_STEPS = 4, 3
 TRAIN_LOSS_TOL = 1e-3    # fp32 losses through 6 layers, card against CPU
+
+# the RNN path: stacked_lstm as benchmark/fluid_benchmark.py:139-147 trains
+# it (sequence length 80, dictionary 5000, --batch_size 32) at the
+# lstm_size / emb_dim 512 of the upstream stacked_dynamic_lstm recipe
+RNN_BATCH, RNN_SEQ, RNN_DICT, RNN_HID, RNN_STACK = 32, 80, 5000, 512, 3
+RNN_PKG_HID = 64     # the width fluid_benchmark.py --model stacked_lstm runs
+RNN_MIN_LEN = 16     # ragged lengths 16..80: the masks are live
+RNN_LR = 1e-3
+RNN_WARMUP, RNN_STEPS, RNN_INFER_RUNS = 2, 20, 10
+MT_BATCH, MT_SEQ, MT_STEPS = 32, 32, 5   # machine_translation.build()
+RNN_TOL = 1e-4       # fp32 sums of D terms in another order, over T steps
+RNN_CVC_BATCH = 4
+RNN_PRED_TOL = 1e-4  # card against CPU stacked-LSTM predictions
 
 
 def fail(msg):
@@ -177,6 +209,28 @@ def eager_ms(fn, inputs, iters=30):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, inputs, iters=10):
+    """Device milliseconds per call of ``fn(i)``: the time of its kernels,
+    summed from a torch.profiler trace of ``iters`` calls cycling through
+    ``inputs`` (after one warm-up call on each), so the host's launch
+    cost does not enter it. For a library call with many launches that a
+    CUDA graph may not hold (cuDNN's LSTM)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(len(inputs)):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for j in range(iters):
+            fn(j % len(inputs))
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    return busy_us / 1e3 / iters
 
 
 def bound(nbytes, flops):
@@ -1350,6 +1404,479 @@ def train_card_vs_cpu_phase(np, torch, fluid, exe):
     return err
 
 
+# -- the RNN path: B6 (lstm_cell) and B7 (gru_cell) ------------------------------
+
+def rnn_lens(torch, gen, batch, seq, low):
+    return torch.randint(low, seq + 1, (batch,), generator=gen,
+                         device="cuda")
+
+
+def rnn_case_tensors(torch, gen, B, T, D, gates, lens, init, reverse):
+    """The tensors every recurrence case has: inputs scaled so that the
+    gate sums stay O(1), the step mask of ``lens`` (time-flipped for a
+    reverse pass, as the op flips it) and an optional initial state."""
+    def rnd(*shape, s=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * s
+
+    if isinstance(lens, list):
+        lens = torch.tensor(lens, device="cuda")
+    mask = None
+    if lens is not None:
+        mask = (torch.arange(T, device="cuda")[None, :]
+                < lens[:, None]).float()
+        if reverse:
+            mask = mask.flip(1)
+    return dict(xw=rnd(B, T, gates * D, s=0.5),
+                w=rnd(D, gates * D, s=D ** -0.5), bias=rnd(gates * D, s=0.1),
+                mask=mask, h0=rnd(B, D, s=0.5) if init else None,
+                peep=rnd(3, D, s=0.1), c0=rnd(B, D, s=0.5) if init else None)
+
+
+def lstm_case(torch, gen, B, T, D, peep=True, lens=None, init=False,
+              reverse=False, acts=("sigmoid", "tanh", "tanh")):
+    """kwargs of ``lstm_cell_forward`` (and ``lstm_reference``)."""
+    t = rnn_case_tensors(torch, gen, B, T, D, 4, lens, init, reverse)
+    return dict(xw=t["xw"], w_h=t["w"], bias=t["bias"],
+                peephole=t["peep"] if peep else None, mask=t["mask"], h0=t["h0"],
+                c0=t["c0"], gate_act=acts[0], cell_act=acts[1],
+                cand_act=acts[2])
+
+
+def gru_case(torch, gen, B, T, D, lens=None, init=False, reverse=False,
+             acts=("sigmoid", "tanh"), sliced=True):
+    """kwargs of ``gru_cell_forward`` (and ``gru_reference``); ``sliced``
+    passes the gate and candidate weights as column slices of one
+    ``[D, 3D]`` weight, as ``dynamic_gru`` does."""
+    t = rnn_case_tensors(torch, gen, B, T, D, 3, lens, init, reverse)
+    w_gate, w_cand = t["w"][:, :2 * D], t["w"][:, 2 * D:]
+    if not sliced:
+        w_gate, w_cand = w_gate.contiguous(), w_cand.contiguous()
+    return dict(xw=t["xw"], w_gate=w_gate, w_cand=w_cand, bias=t["bias"],
+                mask=t["mask"], h0=t["h0"], gate_act=acts[0],
+                cand_act=acts[1])
+
+
+def lstm_cases(torch, gen):
+    """(name, kwargs, relative tolerance?) at the main path's shapes and
+    the edge cases: D not a multiple of 32, D above the block's 1024
+    threads, B not a multiple of the kernel's 4 rows, T = 1, rows of
+    length 0, every activation code, with and without peepholes, mask,
+    initial state and reverse."""
+    B, T = RNN_BATCH, RNN_SEQ
+    ragged = rnn_lens(torch, gen, B, T, RNN_MIN_LEN)
+    mt_lens = rnn_lens(torch, gen, MT_BATCH, MT_SEQ, 8)
+    edge = [6, 4, 6, 2, 5]
+    return [
+        ("stacked_D512", lstm_case(torch, gen, B, T, RNN_HID, lens=ragged),
+         False),
+        ("full_nopeep_D512", lstm_case(torch, gen, B, T, RNN_HID,
+                                       peep=False), False),
+        ("stacked_D64", lstm_case(torch, gen, B, T, RNN_PKG_HID,
+                                  lens=ragged), False),
+        ("mt_reverse_D64", lstm_case(torch, gen, MT_BATCH, MT_SEQ, 64,
+                                     peep=False, lens=mt_lens, reverse=True),
+         False),
+        ("D40_B5_T7_len0_h0c0", lstm_case(torch, gen, 5, 7, 40,
+                                          lens=[7, 3, 0, 5, 1], init=True),
+         False),
+        ("D1100_B3_T3_h0c0", lstm_case(torch, gen, 3, 3, 1100, init=True),
+         False),
+        ("T1_B6_D96_nopeep", lstm_case(torch, gen, 6, 1, 96, peep=False,
+                                       lens=[1, 0, 1, 1, 0, 1]), False),
+        ("acts_tanh_relu_identity", lstm_case(
+            torch, gen, 5, 6, 48, lens=edge,
+            acts=("tanh", "relu", "identity")), True),
+        ("acts_relu_identity_sigmoid", lstm_case(
+            torch, gen, 5, 6, 48, lens=edge, init=True,
+            acts=("relu", "identity", "sigmoid")), True),
+        ("acts_identity_sigmoid_relu", lstm_case(
+            torch, gen, 5, 6, 48, lens=edge, peep=False,
+            acts=("identity", "sigmoid", "relu")), True),
+    ]
+
+
+def gru_cases(torch, gen):
+    B, T = RNN_BATCH, RNN_SEQ
+    ragged = rnn_lens(torch, gen, B, T, RNN_MIN_LEN)
+    edge = [6, 4, 6, 2, 5]
+    return [
+        ("net_D512", gru_case(torch, gen, B, T, RNN_HID, lens=ragged), False),
+        ("net_D64", gru_case(torch, gen, B, T, RNN_PKG_HID, lens=ragged),
+         False),
+        ("D40_B5_T7_len0_h0_reverse", gru_case(
+            torch, gen, 5, 7, 40, lens=[7, 3, 0, 5, 1], init=True,
+            reverse=True), False),
+        ("D1100_B3_T3_contiguous", gru_case(torch, gen, 3, 3, 1100,
+                                            sliced=False), False),
+        ("T1_B6_D96", gru_case(torch, gen, 6, 1, 96, lens=[1, 0, 1, 1, 0, 1]),
+         False),
+        ("acts_tanh_relu", gru_case(torch, gen, 5, 6, 48, lens=edge,
+                                    acts=("tanh", "relu")), True),
+        ("acts_relu_identity", gru_case(torch, gen, 5, 6, 48, lens=edge,
+                                        init=True,
+                                        acts=("relu", "identity")), True),
+        ("acts_identity_sigmoid", gru_case(torch, gen, 5, 6, 48,
+                                           acts=("identity", "sigmoid")),
+         True),
+    ]
+
+
+def rnn_check(torch, kname, name, outs, refs, kw, relative):
+    """Max abs error of a recurrence case over its outputs (over max(1,
+    max |ref|) where ``relative``: relu and identity activations grow the
+    values); rows of length 0 must hold their initial state exactly."""
+    err = max((o - r).abs().max().item() for o, r in zip(outs, refs))
+    scale = max(1.0, max(r.abs().max().item() for r in refs))
+    shown = err / scale if relative else err
+    mask = kw["mask"]
+    dead = (mask.sum(dim=1) == 0) if mask is not None else None
+    n_dead = int(dead.sum()) if dead is not None else 0
+    if n_dead:
+        for o, init in zip(outs, (kw["h0"], kw.get("c0"))):
+            want = (init[dead] if init is not None
+                    else torch.zeros_like(o[dead][:, 0]))
+            if not torch.equal(o[dead], want[:, None, :].expand_as(o[dead])):
+                fail("%s %s: a row of length 0 left its initial state"
+                     % (kname, name))
+    print("kernel %s %-28s max_abs_err %.3e%s  tol %.0e  rows of length 0 "
+          "%d" % (kname, name, err, (" (relative %.3e, |ref| up to %.3g)"
+                                     % (shown, scale)) if relative else "",
+                  RNN_TOL, n_dead))
+    if not (all(torch.isfinite(o).all() for o in outs)
+            and shown <= RNN_TOL):
+        fail("%s %s: error %.3e above %.0e" % (kname, name, shown, RNN_TOL))
+    return err
+
+
+def rnn_kernel_phase(torch):
+    """B6 and B7 against their plain versions on the same CUDA tensors;
+    returns the worst absolute error of each over its absolute-tolerance
+    cases."""
+    from paddle_tpu_torch.kernels import gru_cell as gc
+    from paddle_tpu_torch.kernels import lstm_cell as lc
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    worst = {"lstm_cell": 0.0, "gru_cell": 0.0}
+    for kname, cases, kern, plain in (
+            ("lstm_cell", lstm_cases(torch, gen), lc.lstm_cell_forward,
+             lc.lstm_reference),
+            ("gru_cell", gru_cases(torch, gen), gc.gru_cell_forward,
+             gc.gru_reference)):
+        for name, kw, relative in cases:
+            outs, refs = kern(**kw), plain(**kw)
+            torch.cuda.synchronize()
+            if kname == "gru_cell":
+                outs, refs = (outs,), (refs,)
+            err = rnn_check(torch, kname, name, outs, refs, kw, relative)
+            if not relative:
+                worst[kname] = max(worst[kname], err)
+    return worst
+
+
+def rnn_timing_phase(torch):
+    """Kernel, plain version, bound and library times of B6 and B7 at
+    the stacked network's shape (ragged lengths, B6 with peepholes: no
+    library call computes it) and, for B6, at full lengths without
+    peepholes beside ``torch.nn.LSTM`` (cuDNN, which also does the input
+    product that B6 leaves outside), at widths 512 and 64."""
+    from paddle_tpu_torch.kernels import gru_cell as gc
+    from paddle_tpu_torch.kernels import lstm_cell as lc
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    B, T = RNN_BATCH, RNN_SEQ
+    rows = {}
+    for D in (RNN_HID, RNN_PKG_HID):
+        ragged = rnn_lens(torch, gen, B, T, RNN_MIN_LEN)
+        V = float(ragged.sum())  # valid steps: the work these inputs need
+        span = "lengths %d..%d (%d of %d steps valid)" % (
+            int(ragged.min()), int(ragged.max()), V, B * T)
+        kw = copies(lstm_case(torch, gen, B, T, D, lens=ragged))
+        rows["lstm_cell_D%d" % D] = dict(
+            shape="xw [%d,%d,%d], peepholes, %s" % (B, T, 4 * D, span),
+            ms=cuda_ms(lc.lstm_cell_forward, kw),
+            plain_ms=cuda_ms(lc.lstm_reference, kw, iters=6, reps=3),
+            library_ms=None,
+            bound=bound(4.0 * (V * 4 * D + 2 * B * T * D + 4 * D * D + 7 * D
+                               + B * T), 8.0 * V * D * D))
+        kw = copies(lstm_case(torch, gen, B, T, D, peep=False))
+        lstm = torch.nn.LSTM(D, D, batch_first=True).cuda()
+        xs = [torch.randn(B, T, D, generator=gen, device="cuda")
+              for _ in range(3)]
+        with torch.no_grad():
+            lib_ms = device_ms(torch, lambda i: lstm(xs[i]), xs)
+        rows["lstm_cell_D%d_full" % D] = dict(
+            shape="xw [%d,%d,%d], no peepholes, full lengths" % (B, T, 4 * D),
+            ms=cuda_ms(lc.lstm_cell_forward, kw),
+            plain_ms=cuda_ms(lc.lstm_reference, kw, iters=6, reps=3),
+            library_ms=lib_ms,
+            bound=bound(4.0 * (B * T * 4 * D + 2 * B * T * D + 4 * D * D
+                               + 4 * D), 8.0 * B * T * D * D))
+        kw = copies(gru_case(torch, gen, B, T, D, lens=ragged))
+        rows["gru_cell_D%d" % D] = dict(
+            shape="xw [%d,%d,%d], %s" % (B, T, 3 * D, span),
+            ms=cuda_ms(gc.gru_cell_forward, kw),
+            plain_ms=cuda_ms(gc.gru_reference, kw, iters=6, reps=3),
+            library_ms=None,
+            bound=bound(4.0 * (V * 3 * D + B * T * D + 3 * D * D + 3 * D
+                               + B * T), 6.0 * V * D * D))
+    return rows
+
+
+def sentiment_batches(np, n, batch, seq, seed):
+    """``n`` feeds of the synthetic separable sentiment data of
+    tests/test_models_rnn.py:10 (class 0 draws its tokens from the low
+    half of the dictionary, class 1 from the high half), lengths uniform
+    in 16..seq; made in bulk before the timed steps."""
+    rng = np.random.RandomState(seed)
+    feeds = []
+    for _ in range(n):
+        lens = rng.randint(RNN_MIN_LEN, seq + 1, batch)
+        labels = rng.randint(0, 2, (batch, 1))
+        words = np.zeros((batch, seq), "int64")
+        for i in range(batch):
+            lo, hi = ((2, RNN_DICT // 2) if labels[i, 0] == 0
+                      else (RNN_DICT // 2, RNN_DICT - 1))
+            words[i, :lens[i]] = rng.randint(lo, hi, lens[i])
+        feeds.append({"words": words,
+                      "length": lens.reshape(-1, 1).astype("int64"),
+                      "label": labels.astype("int64")})
+    return feeds
+
+
+def gru_net(fluid, seq, hid, stacked):
+    """The stacked network of models/stacked_lstm.py with dynamic_gru in
+    place of dynamic_lstm, from the public layers (no model of the
+    package uses dynamic_gru)."""
+    layers = fluid.layers
+    data = layers.data(name="words", shape=[seq], dtype="int64")
+    length = layers.data(name="length", shape=[1], dtype="int64")
+    label = layers.data(name="label", shape=[1], dtype="int64")
+    emb = layers.embedding(input=data, size=[RNN_DICT, hid])
+    fc = layers.fc(input=emb, size=hid * 3, num_flatten_dims=2)
+    inputs = [fc, layers.dynamic_gru(input=fc, size=hid, length=length)]
+    for _ in range(2, stacked + 1):
+        fc = layers.fc(input=inputs, size=hid * 3, num_flatten_dims=2)
+        inputs = [fc, layers.dynamic_gru(input=fc, size=hid, length=length)]
+    pooled = [layers.sequence_pool(input=x, pool_type="max", length=length)
+              for x in inputs]
+    prediction = layers.fc(input=pooled, size=2, act="softmax")
+    loss = layers.mean(layers.cross_entropy(input=prediction, label=label))
+    return loss, {"predict": prediction,
+                  "accuracy": layers.accuracy(input=prediction, label=label)}
+
+
+def build_rnn(fluid, cell, hid=RNN_HID):
+    """(main, startup, inference program, loss, outs) of the stacked
+    network (``stacked_lstm.build`` for "lstm", :func:`gru_net` for
+    "gru") with Adam; the inference program is
+    ``clone(for_test=True)`` of the forward program."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import stacked_lstm
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = TRAIN_SEED
+    with unique_name.guard({}), fluid.program_guard(main, startup):
+        if cell == "lstm":
+            loss, _, outs = stacked_lstm.build(
+                seq_len=RNN_SEQ, dict_size=RNN_DICT, emb_dim=hid,
+                hid_dim=hid, stacked_num=RNN_STACK)
+        else:
+            loss, outs = gru_net(fluid, RNN_SEQ, hid, RNN_STACK)
+        infer = main.clone(for_test=True)
+        fluid.optimizer.Adam(learning_rate=RNN_LR).minimize(loss)
+    return main, startup, infer, loss, outs
+
+
+def rnn_train_phase(np, torch, fluid, exe, kernels, cell):
+    """Trains the stacked network at width 512 (2 warm-up, 20 timed
+    steps, a fresh batch each step); gates on finite losses, a loss that
+    falls by 0.1 nat (mean of the last 5 steps below the first warm-up
+    step) and 2 x 3 launches of the cell's kernel per step.
+    Returns (launches in the timed steps, scope, inference program,
+    outs)."""
+    kname = "lstm_cell" if cell == "lstm" else "gru_cell"
+    main, startup, infer, loss, outs = build_rnn(fluid, cell)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    n_params = sum(int(np.prod(p.shape))
+                   for p in main.global_block().all_parameters())
+    feeds = sentiment_batches(np, RNN_WARMUP + RNN_STEPS + 2, RNN_BATCH,
+                              RNN_SEQ, SEED)
+    print("rnn %s train: program of %d ops, %.2f M parameters, batch %d x "
+          "%d, %d layers of width %d, Adam(%g)"
+          % (cell, len(main.global_block().ops), n_params / 1e6, RNN_BATCH,
+             RNN_SEQ, RNN_STACK, RNN_HID, RNN_LR))
+    # the separable data is learnt fast: the loss falls from the first
+    # warm-up step on
+    first = [float(np.asarray(exe.run(main, feed=f, fetch_list=[loss],
+                                      scope=scope)[0]).reshape(-1)[0])
+             for f in feeds[:RNN_WARMUP]][0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    losses, step_ms, per_step, tokens = [], [], [], []
+    for i, f in enumerate(feeds[RNN_WARMUP:RNN_WARMUP + RNN_STEPS]):
+        before = kernels[kname].launches
+        t0 = time.perf_counter()
+        (lv,) = exe.run(main, feed=f, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(np.asarray(lv).reshape(-1)[0]))
+        per_step.append(kernels[kname].launches - before)
+        tokens.append(int(f["length"].sum()))
+        print("rnn %s train step %2d: loss %.6f  wall %.1f ms  %s launches "
+              "%d" % (cell, i + 1, losses[-1], step_ms[-1], kname,
+                      per_step[-1]))
+    launches = kernels[kname].launches
+    peak = torch.cuda.max_memory_allocated()
+    mean_ms = float(np.mean(step_ms))
+    print("rnn %s train: %d steps, mean %.1f ms/step (min %.1f, max %.1f), "
+          "%.0f non-pad tokens/s; peak memory %.2f GiB"
+          % (cell, RNN_STEPS, mean_ms, min(step_ms), max(step_ms),
+             sum(tokens) / sum(step_ms) * 1e3, peak / 2 ** 30))
+    if not np.isfinite(losses).all():
+        fail("a %s train loss is not finite: %s" % (cell, losses))
+    if any(c != 2 * RNN_STACK for c in per_step):
+        fail("%s per-step launches %s, expected 2 x %d (each layer's "
+             "forward and its rerun inside the grad op)"
+             % (kname, per_step, RNN_STACK))
+    late = float(np.mean(losses[-5:]))
+    print("rnn %s train: loss of the first warm-up step %.6f, timed step 1 "
+          "%.6f, mean of steps 16-20 %.6f (gate: %.1f nat below the first)"
+          % (cell, first, losses[0], late, LOSS_DROP))
+    if not late <= first - LOSS_DROP:
+        fail("the %s train loss did not fall by %.1f nat" % (cell, LOSS_DROP))
+    profile_call(torch, "rnn %s train" % cell, lambda: exe.run(
+        main, feed=feeds[-2], fetch_list=[loss], scope=scope))
+    return launches, scope, infer, outs, feeds[-1]
+
+
+def rnn_infer_phase(np, torch, exe, kernels, scope, infer, outs, feed):
+    """The trained stacked LSTM's inference program on one batch,
+    ``RNN_INFER_RUNS`` times: predictions/s and stacked_num launches of
+    lstm_cell per run."""
+    exe.run(infer, feed=feed, fetch_list=[outs["predict"]], scope=scope)
+    torch.cuda.synchronize()
+    kernels["lstm_cell"].launches = 0
+    t0 = time.perf_counter()
+    for _ in range(RNN_INFER_RUNS):
+        pred, acc = exe.run(infer, feed=feed, scope=scope,
+                            fetch_list=[outs["predict"], outs["accuracy"]])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels["lstm_cell"].launches
+    pred = np.asarray(pred)
+    print("rnn lstm infer: %d runs of batch %d: %.1f ms per run, %.0f "
+          "predictions/s, accuracy on an unseen batch %.3f, lstm_cell "
+          "launches %d" % (RNN_INFER_RUNS, RNN_BATCH,
+                           wall / RNN_INFER_RUNS * 1e3,
+                           RNN_INFER_RUNS * RNN_BATCH / wall,
+                           float(np.asarray(acc).reshape(-1)[0]), launches))
+    if launches != RNN_STACK * RNN_INFER_RUNS:
+        fail("lstm_cell launched %d times in %d inference runs, expected %d"
+             % (launches, RNN_INFER_RUNS, RNN_STACK * RNN_INFER_RUNS))
+    if (pred.shape != (RNN_BATCH, 2) or not np.isfinite(pred).all()
+            or not np.allclose(pred.sum(axis=1), 1.0, atol=1e-5)):
+        fail("stacked LSTM predictions are not a [%d, 2] softmax"
+             % RNN_BATCH)
+    return launches
+
+
+def mt_phase(np, torch, fluid, exe, kernels):
+    """The machine-translation training graph at build()'s defaults (64
+    wide, sequence length 32, batch 32, ragged source lengths), a few
+    Adam steps: 4 lstm_cell launches per step (the forward and the
+    reverse encoder pass, each rerun inside its grad op)."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import machine_translation as mt
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = TRAIN_SEED
+    with unique_name.guard({}), fluid.program_guard(main, startup):
+        loss, _, _ = mt.build()
+        fluid.optimizer.Adam(learning_rate=RNN_LR).minimize(loss)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED)
+    tgt_len = rng.randint(8, MT_SEQ + 1, MT_BATCH)
+    feed = {
+        "source_sequence": rng.randint(1, 1000, (MT_BATCH, MT_SEQ)),
+        "source_length": rng.randint(8, MT_SEQ + 1, (MT_BATCH, 1)),
+        "target_sequence": rng.randint(1, 1000, (MT_BATCH, MT_SEQ)),
+        "label": rng.randint(1, 1000, (MT_BATCH, MT_SEQ)),
+        "label_mask": (np.arange(MT_SEQ)[None, :]
+                       < tgt_len[:, None]).astype("float32"),
+    }
+    feed = {k: v.astype("int64") if v.dtype.kind == "i" else v
+            for k, v in feed.items()}
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    torch.cuda.synchronize()
+    kernels["lstm_cell"].launches = 0
+    losses, step_ms, per_step = [], [], []
+    for _ in range(MT_STEPS):
+        before = kernels["lstm_cell"].launches
+        t0 = time.perf_counter()
+        (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(np.asarray(lv).reshape(-1)[0]))
+        per_step.append(kernels["lstm_cell"].launches - before)
+    launches = kernels["lstm_cell"].launches
+    print("rnn mt train: %d ops, batch %d x %d, %d steps: losses %s, mean "
+          "%.1f ms/step, lstm_cell launches per step %s"
+          % (len(main.global_block().ops), MT_BATCH, MT_SEQ, MT_STEPS,
+             ["%.5f" % v for v in losses], float(np.mean(step_ms)), per_step))
+    if not np.isfinite(losses).all():
+        fail("a machine-translation loss is not finite: %s" % losses)
+    if any(c != 4 for c in per_step):
+        fail("lstm_cell launched %s times per MT step, expected 4"
+             % per_step)
+    return launches
+
+
+def rnn_card_vs_cpu_phase(np, torch, fluid, exe):
+    """The stacked LSTM at full width, batch 4, on the card and on the
+    CPU from the same state: the startup's weights (Xavier, drawn on the
+    card; ``set_deterministic_params``' scale saturates the softmax at
+    width 512) and Adam's state, carried to the CPU with
+    ``convert.persistables_from_numpy``. Inference predictions, then 3
+    Adam steps' losses."""
+    from paddle_tpu_torch.convert import persistables_from_numpy
+
+    main, startup, infer, loss, outs = build_rnn(fluid, "lstm")
+    feeds = sentiment_batches(np, CVC_STEPS, RNN_CVC_BATCH, RNN_SEQ, SEED + 1)
+    card = fluid.Scope()
+    exe.run(startup, scope=card)
+    state = {v.name: card.get_value(v.name).cpu().numpy()
+             for v in main.global_block().vars.values()
+             if v.persistable and card.get_value(v.name) is not None}
+    cpu = fluid.Scope()
+    persistables_from_numpy(main, cpu, state, "cpu")
+    preds, losses = {}, {}
+    for dev, ex, scope in (("card", exe, card),
+                           ("cpu", fluid.Executor(fluid.CPUPlace()), cpu)):
+        (preds[dev],) = ex.run(infer, feed=feeds[0], scope=scope,
+                               fetch_list=[outs["predict"]])
+        losses[dev] = [float(np.asarray(ex.run(
+            main, feed=f, fetch_list=[loss], scope=scope)[0]).reshape(-1)[0])
+            for f in feeds]
+    p_err = float(np.abs(np.asarray(preds["card"])
+                         - np.asarray(preds["cpu"])).max())
+    err = max(abs(a - b) for a, b in zip(losses["card"], losses["cpu"]))
+    print("rnn card vs cpu: batch %d, predictions (first row %s) max abs "
+          "diff %.3e  tol %.0e; %d Adam steps, losses card %s cpu %s: max "
+          "abs diff %.3e  tol %.0e"
+          % (RNN_CVC_BATCH, np.asarray(preds["cpu"])[0].tolist(), p_err,
+             RNN_PRED_TOL, CVC_STEPS, losses["card"], losses["cpu"], err,
+             TRAIN_LOSS_TOL))
+    if not p_err <= RNN_PRED_TOL:
+        fail("card and CPU stacked-LSTM predictions disagree: %.3e" % p_err)
+    if not np.isfinite(losses["card"]).all() or not err <= TRAIN_LOSS_TOL:
+        fail("card and CPU stacked-LSTM losses disagree: %.3e" % err)
+    return err
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "paddle_tpu_torch")):
         fail("paddle_tpu_torch/ is not beside chip_smoke.py: run it from "
@@ -1377,8 +1904,8 @@ def main():
     print("kernel build: %.1f s (%s)" % (time.perf_counter() - t0,
                                           os.path.basename(kbuild.library_path())))
     for line in kbuild.build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            print("ptxas: " + line.strip())
+        if "registers" in line or "spill" in line or "entry function" in line:
+            print("ptxas: " + line.strip()[:120])
 
     worst = kernel_phase(torch)
     timing = timing_phase(torch)
@@ -1400,6 +1927,16 @@ def main():
     print("time gather k_pool[gof] [%d,%d,%d,%d]: %.4f ms"
           % (NUM_SLOTS, N_HEAD, MAX_LEN, D_MODEL // N_HEAD,
              timing["gather_k_pool_gof_ms"]))
+    worst.update(rnn_kernel_phase(torch))
+    rnn_timing = rnn_timing_phase(torch)
+    for name, r in sorted(rnn_timing.items()):
+        lib = ("%.4f ms (torch.nn.LSTM, cuDNN, input product included; "
+               "its kernels' device time)"
+               % r["library_ms"] if r["library_ms"] is not None else "none")
+        print("time %-20s %s: kernel %.4f ms, plain %.4f ms, library %s, "
+              "bound %.4f ms (%s)" % (name, r["shape"], r["ms"],
+                                      r["plain_ms"], lib, r["bound"][0],
+                                      r["bound"][1]))
 
     exe = fluid.Executor()  # the card: CUDAPlace(0)
     scope = fluid.Scope()
@@ -1415,6 +1952,15 @@ def main():
     torch.cuda.empty_cache()
     train_launches = train_phase(np, torch, fluid, exe, KERNELS)
     train_card_vs_cpu_phase(np, torch, fluid, exe)
+    torch.cuda.empty_cache()
+    lstm_train, scope, infer, outs, feed = rnn_train_phase(
+        np, torch, fluid, exe, KERNELS, "lstm")
+    lstm_infer = rnn_infer_phase(np, torch, exe, KERNELS, scope, infer, outs,
+                                 feed)
+    scope = None
+    gru_train = rnn_train_phase(np, torch, fluid, exe, KERNELS, "gru")[0]
+    mt_launches = mt_phase(np, torch, fluid, exe, KERNELS)
+    rnn_card_vs_cpu_phase(np, torch, fluid, exe)
 
     def bwd_record(name, line):
         t = timing[name]
@@ -1423,6 +1969,15 @@ def main():
                     replaces="paddle_tpu/kernels/flash_attention.py:%d" % line,
                     launches=train_launches[name], max_abs_err=worst[name],
                     ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
+                    bound_by=t["bound"][1], library_ms=t["library_ms"])
+
+    def rnn_record(name, source, line, launches):
+        t = rnn_timing[name + "_D%d" % RNN_HID]
+        return dict(name=name, route="cuda",
+                    source="paddle_tpu_torch/csrc/%s.cu" % name,
+                    replaces="paddle_tpu/kernels/%s:%d" % (source, line),
+                    launches=launches, max_abs_err=worst[name], ms=t["ms"],
+                    plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
                     bound_by=t["bound"][1], library_ms=t["library_ms"])
 
     record = {"kernels": [
@@ -1460,6 +2015,10 @@ def main():
              bound_ms=timing["tree_decode"]["bound"][0],
              bound_by=timing["tree_decode"]["bound"][1],
              library_ms=None),
+        # the stacked LSTM's inference and training runs and the MT steps
+        rnn_record("lstm_cell", "lstm_cell.py", 94,
+                   lstm_infer + lstm_train + mt_launches),
+        rnn_record("gru_cell", "gru_cell.py", 55, gru_train),
     ]}
     print(card)
     print(json.dumps(record))

@@ -4,7 +4,8 @@ Counterpart of ``paddle_tpu/flags.py``: the same flag names, defaults and
 ``FLAGS_<name>`` parsing, so a deployment's environment configures both
 packages alike. Most flags steer subsystems later slices port; the port
 reads ``attention_impl``, ``paged_attention``, ``tree_attention``,
-``flash_backward`` and ``speculative`` today. For the kernel flags "auto"
+``flash_backward``, ``speculative``, ``use_pallas_lstm`` and
+``use_pallas_gru`` today. For the attention kernel flags "auto"
 and "pallas" launch the hand-written kernels for a CUDA tensor, and
 "reference" is refused for a CUDA tensor (the port has no hidden path to
 the plain versions on the card).
@@ -25,6 +26,11 @@ _DEFS = {
     "reader_queue_speed_test_mode": (False, bool),
     "rpc_deadline": (180000, int),
     "remat_gradients": (False, bool),
+    # dynamic_lstm / dynamic_gru on a CPU tensor: True runs fused_lstm /
+    # fused_gru (the plain loop there) when the op has no initial state,
+    # as the JAX package routes them. On a CUDA tensor both ops launch
+    # the lstm_cell / gru_cell kernel whatever these say, H0 / C0 or not
+    # (ops/rnn_ops.py)
     "use_pallas_lstm": (False, bool),
     "use_pallas_gru": (False, bool),
     "conv_nhwc": (False, bool),

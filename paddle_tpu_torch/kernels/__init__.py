@@ -13,6 +13,8 @@ from paddle_tpu_torch.kernels.flash_attention import (
     FLASH_BWD_DQ,
     FLASH_FWD,
 )
+from paddle_tpu_torch.kernels.gru_cell import GRU_CELL
+from paddle_tpu_torch.kernels.lstm_cell import LSTM_CELL
 from paddle_tpu_torch.kernels.paged_attention import (
     PAGED_DECODE,
     TREE_DECODE,
@@ -20,4 +22,5 @@ from paddle_tpu_torch.kernels.paged_attention import (
 
 KERNELS = {"flash_fwd": FLASH_FWD, "flash_bwd_dkv": FLASH_BWD_DKV,
            "flash_bwd_dq": FLASH_BWD_DQ, "paged_decode": PAGED_DECODE,
-           "tree_decode": TREE_DECODE}
+           "tree_decode": TREE_DECODE, "lstm_cell": LSTM_CELL,
+           "gru_cell": GRU_CELL}

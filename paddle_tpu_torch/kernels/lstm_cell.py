@@ -1,0 +1,205 @@
+"""Fused LSTM recurrence: a hand-written CUDA kernel beside its plain
+PyTorch version.
+
+Counterpart of ``paddle_tpu/kernels/lstm_cell.py``. The input product
+x @ W_x of all steps stays outside (one large GEMM); ``fused_lstm`` runs
+the sequential part over the pre-projected inputs ``xw [B, T, 4D]``. For
+a CPU tensor it runs :func:`lstm_reference`, the plain loop over T. For a
+CUDA tensor it launches ``csrc/lstm_cell.cu`` (which replaces the TPU's
+``_lstm_kernel``) through :class:`LSTMCellFunction`, or raises. The
+kernel's gradient recomputes through :func:`lstm_reference` under
+autograd, as the JAX package's ``_fused_bwd`` recomputes through its XLA
+scan under ``jax.vjp``: the JAX package has no backward Pallas kernel
+here, so neither has the port. Unlike the JAX entry point, ``fused_lstm``
+also takes an initial state ``h0`` / ``c0``, so that on the card a
+``dynamic_lstm`` with ``H0`` / ``C0`` runs the kernel too.
+"""
+
+import ctypes
+
+import torch
+
+from paddle_tpu_torch.kernels.build import Kernel
+
+ACT_CODES = {"sigmoid": 0, "tanh": 1, "relu": 2, "identity": 3}
+_ACTS = {
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "relu": torch.relu,
+    "identity": lambda v: v,
+}
+
+LSTM_CELL = Kernel("paddle_lstm_cell_f32", [ctypes.c_void_p] * 9 + [
+    ctypes.c_int] * 6 + [ctypes.c_void_p])
+
+
+def check_acts(who, names):
+    for name in names:
+        if name not in _ACTS:
+            raise ValueError("%s: unsupported activation %r" % (who, name))
+
+
+def lstm_reference(xw, w_h, bias, peephole=None, h0=None, c0=None,
+                   mask=None, gate_act="sigmoid", cell_act="tanh",
+                   cand_act="tanh"):
+    """The kernel's function in plain PyTorch, a loop over T with the math
+    of ``lstm_cell.py:50-91``. xw ``[B, T, 4D]`` (bias NOT added); w_h
+    ``[D, 4D]``; bias ``[4D]``; peephole None or (w_ic, w_fc, w_oc), each
+    ``[D]`` (or a ``[3, D]`` tensor); h0 / c0 ``[B, D]`` (zeros when
+    None); mask None or ``[B, T]`` (1 = valid step). Returns (hidden,
+    cell), each ``[B, T, D]``."""
+    ga, ca, na = _ACTS[gate_act], _ACTS[cell_act], _ACTS[cand_act]
+    b, t_len = xw.shape[0], xw.shape[1]
+    d = w_h.shape[0]
+    if t_len == 0:
+        empty = xw.new_zeros((b, 0, d))
+        return empty, empty.clone()
+    h = xw.new_zeros((b, d)) if h0 is None else h0
+    c = xw.new_zeros((b, d)) if c0 is None else c0
+    hs, cs = [], []
+    for t in range(t_len):
+        gates = xw[:, t] + h @ w_h + bias
+        gi, gf, gc, go = gates.split(d, dim=1)
+        if peephole is not None:
+            gi = gi + c * peephole[0]
+            gf = gf + c * peephole[1]
+        i_v = ga(gi)
+        f_v = ga(gf)
+        c_new = f_v * c + i_v * na(gc)
+        if peephole is not None:
+            go = go + c_new * peephole[2]
+        h_new = ga(go) * ca(c_new)
+        if mask is not None:
+            m = mask[:, t:t + 1]
+            h_new = h_new * m + h * (1.0 - m)
+            c_new = c_new * m + c * (1.0 - m)
+        h, c = h_new, c_new
+        hs.append(h)
+        cs.append(c)
+    return torch.stack(hs, dim=1), torch.stack(cs, dim=1)
+
+
+def check_cuda(who, tensors):
+    """What the recurrence kernels ask of their inputs: every given tensor
+    float32 and on one CUDA device; ``tensors`` is a list of (name,
+    tensor or None, shape)."""
+    device = tensors[0][1].device
+    for name, t, shape in tensors:
+        if t is None:
+            continue
+        if t.device != device or t.device.type != "cuda":
+            raise ValueError("%s: %s is on %s; the kernel needs every input "
+                             "on one CUDA device" % (who, name, t.device))
+        if t.dtype != torch.float32:
+            raise TypeError("%s: %s is %s; this kernel takes float32 only"
+                            % (who, name, t.dtype))
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError("%s: %s has shape %s, expected %s"
+                             % (who, name, tuple(t.shape), tuple(shape)))
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def lstm_cell_forward(xw, w_h, bias, peephole=None, h0=None, c0=None,
+                      mask=None, gate_act="sigmoid", cell_act="tanh",
+                      cand_act="tanh"):
+    """Launch the ``lstm_cell`` kernel (B6) on CUDA tensors: (hidden,
+    cell), each ``[B, T, D]``; the arguments of :func:`lstm_reference`,
+    with ``peephole`` a ``[3, D]`` tensor or None and mask float32.
+    Inputs are made contiguous here."""
+    check_acts("lstm_cell", (gate_act, cell_act, cand_act))
+    b, t_len, d4 = xw.shape
+    d = w_h.shape[0]
+    check_cuda("lstm_cell", [
+        ("xw", xw, (b, t_len, 4 * d)), ("w_h", w_h, (d, 4 * d)),
+        ("bias", bias, (4 * d,)), ("peephole", peephole, (3, d)),
+        ("mask", mask, (b, t_len)), ("h0", h0, (b, d)), ("c0", c0, (b, d))])
+    xw, w_h, bias = xw.contiguous(), w_h.contiguous(), bias.contiguous()
+    peephole, mask, h0, c0 = (t.contiguous() if t is not None else None
+                              for t in (peephole, mask, h0, c0))
+    hidden = torch.empty((b, t_len, d), dtype=xw.dtype, device=xw.device)
+    cell = torch.empty_like(hidden)
+    if hidden.numel() == 0:
+        return hidden, cell
+    LSTM_CELL.launch(
+        xw.data_ptr(), w_h.data_ptr(), bias.data_ptr(), _ptr(peephole),
+        _ptr(mask), _ptr(h0), _ptr(c0), hidden.data_ptr(), cell.data_ptr(),
+        b, t_len, d, ACT_CODES[gate_act], ACT_CODES[cell_act],
+        ACT_CODES[cand_act],
+        torch.cuda.current_stream(xw.device).cuda_stream)
+    return hidden, cell
+
+
+def recompute_grads(ctx, fn, inputs, cotangents):
+    """The gradients of ``fn(*inputs)`` for the inputs ``ctx`` marks as
+    needing one, by rerunning ``fn`` (the plain version) under autograd;
+    None for the rest."""
+    wanted = [i for i, t in enumerate(inputs)
+              if t is not None and ctx.needs_input_grad[i]]
+    if not wanted:
+        return [None] * len(inputs)
+    local = list(inputs)
+    with torch.enable_grad():
+        for i in wanted:
+            local[i] = inputs[i].detach().requires_grad_(True)
+        outs = fn(*local)
+        grads = torch.autograd.grad(outs, [local[i] for i in wanted],
+                                    cotangents, allow_unused=True)
+    result = [None] * len(inputs)
+    for i, g in zip(wanted, grads):
+        result[i] = torch.zeros_like(inputs[i]) if g is None else g
+    return result
+
+
+class LSTMCellFunction(torch.autograd.Function):
+    """:func:`lstm_cell_forward` with the plain loop's gradient: the
+    backward reruns :func:`lstm_reference` on the saved inputs under
+    autograd. Written in the ``forward`` + ``setup_context`` form, which
+    ``torch.func`` transforms require and plain autograd takes too."""
+
+    @staticmethod
+    def forward(xw, w_h, bias, peep, h0, c0, mask, acts):
+        return lstm_cell_forward(xw, w_h, bias, peep, h0, c0, mask, *acts)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        *tensors, acts = inputs
+        ctx.save_for_backward(*tensors)
+        ctx.acts = acts
+
+    @staticmethod
+    def backward(ctx, g_hidden, g_cell):
+        grads = recompute_grads(
+            ctx, lambda *a: lstm_reference(*a, *ctx.acts),
+            ctx.saved_tensors, (g_hidden, g_cell))
+        return tuple(grads) + (None,)
+
+
+def fused_lstm(xw, w_h, bias, peephole=None, mask=None, gate_act="sigmoid",
+               cell_act="tanh", cand_act="tanh", h0=None, c0=None):
+    """Fused LSTM over pre-projected inputs (``lstm_cell.py:233``).
+
+    xw ``[B, T, 4D]`` (= x @ W_x, WITHOUT bias); w_h ``[D, 4D]``; bias
+    ``[4D]``; peephole optional (w_ic, w_fc, w_oc), each ``[D]``; mask
+    optional ``[B, T]`` validity; h0 / c0 optional ``[B, D]`` (zeros when
+    absent). Returns (hidden, cell), each ``[B, T, D]``; differentiable.
+    CPU tensors run :func:`lstm_reference`; CUDA tensors launch the
+    ``lstm_cell`` kernel or raise."""
+    check_acts("fused_lstm", (gate_act, cell_act, cand_act))
+    d4 = xw.shape[2]
+    d = w_h.shape[0]
+    if d4 != 4 * d or w_h.shape[1] != 4 * d:
+        raise ValueError(
+            "fused_lstm: xw last dim %d / w_h %s inconsistent with 4*D"
+            % (d4, tuple(w_h.shape)))
+    bias = bias.reshape(-1)
+    if xw.device.type == "cpu":
+        return lstm_reference(xw, w_h, bias, peephole, h0, c0, mask,
+                              gate_act, cell_act, cand_act)
+    peep = torch.stack(list(peephole)) if peephole is not None else None
+    if mask is not None:
+        mask = mask.to(torch.float32)
+    return LSTMCellFunction.apply(xw, w_h, bias, peep, h0, c0, mask,
+                                  (gate_act, cell_act, cand_act))

@@ -13,3 +13,5 @@ from paddle_tpu_torch.layers.control_flow import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.loss import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.sequence import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.attention import *  # noqa: F401,F403
+from paddle_tpu_torch.layers.metric_op import *  # noqa: F401,F403
+from paddle_tpu_torch.layers.rnn import *  # noqa: F401,F403

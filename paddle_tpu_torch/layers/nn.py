@@ -28,30 +28,45 @@ __all__ = [
     "transpose",
     "gather",
     "relu",
+    "softmax",
+    "mean",
+    "topk",
 ]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
        act=None, is_test=False, name=None):
-    """Fully-connected layer: mul + bias + activation (one input)."""
+    """Fully-connected layer (nn.py:88-136): one mul per input, each with
+    its own weight, a ``sum`` of the products when there are several,
+    then the bias and the activation."""
     helper = LayerHelper("fc", param_attr=param_attr, bias_attr=bias_attr,
                          act=act, name=name)
-    if isinstance(input, (list, tuple)):
-        raise NotImplementedError(
-            "fc over several inputs (a sum op) is not ported yet")
-    in_features = 1
-    for d in input.shape[num_flatten_dims:]:
-        in_features *= int(d)
-    w = helper.create_parameter(attr=helper.param_attr,
-                                shape=[in_features, size], dtype=input.dtype)
-    tmp = helper.create_variable_for_type_inference(input.dtype)
-    helper.append_op(
-        type="mul",
-        inputs={"X": [input], "Y": [w]},
-        outputs={"Out": [tmp]},
-        attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1},
-    )
-    pre_act = helper.append_bias_op(tmp, dim_start=num_flatten_dims)
+    inputs = input if isinstance(input, (list, tuple)) else [input]
+    param_attrs = helper.param_attr
+    if not isinstance(param_attrs, (list, tuple)):
+        param_attrs = [param_attrs] * len(inputs)
+    mul_results = []
+    for inp, attr in zip(inputs, param_attrs):
+        in_features = 1
+        for d in inp.shape[num_flatten_dims:]:
+            in_features *= int(d)
+        w = helper.create_parameter(attr=attr, shape=[in_features, size],
+                                    dtype=inp.dtype)
+        tmp = helper.create_variable_for_type_inference(inp.dtype)
+        helper.append_op(
+            type="mul",
+            inputs={"X": [inp], "Y": [w]},
+            outputs={"Out": [tmp]},
+            attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1},
+        )
+        mul_results.append(tmp)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(inputs[0].dtype)
+        helper.append_op(type="sum", inputs={"X": mul_results},
+                         outputs={"Out": [pre_bias]})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
 
 
@@ -210,3 +225,29 @@ def dynamic_update_slice(x, update, index, axis=0, out=None, name=None):
         attrs={"axis": int(axis)},
     )
     return out
+
+
+def softmax(input, use_cudnn=False, name=None):
+    helper = LayerHelper("softmax", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference(
+        "int64", stop_gradient=True)
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs={"k": k})
+    return values, indices

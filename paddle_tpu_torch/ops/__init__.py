@@ -2,8 +2,8 @@
 
 Counterpart of ``paddle_tpu/ops/``. Importing this package registers
 every op the port carries so far; each lowering is a plain function on
-torch tensors, and the attention ops call the hand-written kernels in
-``paddle_tpu_torch/kernels/``.
+torch tensors, and the attention and recurrent ops call the hand-written
+kernels in ``paddle_tpu_torch/kernels/``.
 """
 
 from paddle_tpu_torch.ops import math_ops  # noqa: F401
@@ -18,3 +18,6 @@ from paddle_tpu_torch.ops import sequence_ops  # noqa: F401
 from paddle_tpu_torch.ops import sampling_ops  # noqa: F401
 from paddle_tpu_torch.ops import speculative_ops  # noqa: F401
 from paddle_tpu_torch.ops import optimizer_ops  # noqa: F401
+from paddle_tpu_torch.ops import metric_ops  # noqa: F401
+from paddle_tpu_torch.ops import rnn_ops  # noqa: F401
+from paddle_tpu_torch.ops import seq2seq_ops  # noqa: F401

@@ -1,4 +1,4 @@
-"""Activation ops: relu and log_softmax.
+"""Activation ops: relu, log_softmax, sigmoid, tanh and softmax.
 
 Counterpart of ``paddle_tpu/ops/activation_ops.py`` for the ops this
 slice runs.
@@ -22,4 +22,15 @@ register_op(
     attrs={"axis": -1},
     lower=lambda ctx, ins, attrs: torch.log_softmax(
         ins["X"][0], dim=attrs.get("axis", -1)),
+)
+
+for _name, _fn in (("sigmoid", torch.sigmoid), ("tanh", torch.tanh)):
+    register_op(_name, inputs=["X"], outputs=["Out"],
+                lower=lambda ctx, ins, attrs, fn=_fn: fn(ins["X"][0]))
+
+register_op(
+    "softmax",
+    inputs=["X"],
+    outputs=["Out"],
+    lower=lambda ctx, ins, attrs: torch.softmax(ins["X"][0], dim=-1),
 )

@@ -1,7 +1,7 @@
-"""Loss ops: softmax_with_cross_entropy.
+"""Loss ops: softmax_with_cross_entropy, cross_entropy.
 
-Counterpart of ``paddle_tpu/ops/loss_ops.py`` for the ops this slice
-runs. Only the forward is ported; the training slice adds the grads.
+Counterpart of ``paddle_tpu/ops/loss_ops.py`` for the ops the port runs;
+their grads are the registry's ``<type>_grad`` ops.
 """
 
 import torch
@@ -35,4 +35,26 @@ register_op(
     lower=_lower_softmax_xent,
     no_grad_inputs=("Label",),
     intermediate_outputs=("Softmax",),
+)
+
+
+def _lower_cross_entropy(ctx, ins, attrs):
+    x, label = ins["X"][0], ins["Label"][0]
+    eps = 1e-8
+    if attrs.get("soft_label", False):
+        return -torch.sum(label * torch.log(torch.clamp_min(x, eps)),
+                          dim=-1, keepdim=True)
+    if label.dim() > 1 and label.shape[-1] == 1:
+        label = label.squeeze(-1)
+    p = torch.gather(x, -1, label.to(torch.int64)[..., None])
+    return -torch.log(torch.clamp_min(p, eps))
+
+
+register_op(
+    "cross_entropy",
+    inputs=["X", "Label"],
+    outputs=["Y"],
+    attrs={"soft_label": False, "ignore_index": -100},
+    lower=_lower_cross_entropy,
+    no_grad_inputs=("Label",),
 )

@@ -1,5 +1,5 @@
 """Dense math ops: mul / elementwise (add, sub, mul, div, min) / sum / scale /
-reduce_sum.
+reduce_sum / mean.
 
 Counterpart of ``paddle_tpu/ops/math_ops.py`` for the ops this slice
 runs. A plain matrix product goes to ``torch.matmul`` (fp32, TF32 off),
@@ -102,4 +102,11 @@ register_op(
     outputs=["Out"],
     attrs={"dim": [0], "keep_dim": False, "reduce_all": False},
     lower=_lower_reduce_sum,
+)
+
+register_op(
+    "mean",
+    inputs=["X"],
+    outputs=["Out"],
+    lower=lambda ctx, ins, attrs: torch.mean(ins["X"][0]).reshape(1),
 )

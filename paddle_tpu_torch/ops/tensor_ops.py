@@ -1,5 +1,5 @@
 """Tensor manipulation ops: fill / assign / reshape / transpose / concat /
-gather / lookup_table / dynamic_update_slice.
+gather / lookup_table / dynamic_update_slice / top_k.
 
 Counterpart of ``paddle_tpu/ops/tensor_ops.py`` for the ops this slice
 runs. Every lowering here is shape-pure (no value is read on the host),
@@ -147,4 +147,19 @@ register_op(
     attrs={"axis": 0},
     lower=_lower_dynamic_update_slice,
     no_grad_inputs=("Index",),
+)
+
+
+def _lower_top_k(ctx, ins, attrs):
+    vals, idx = torch.topk(ins["X"][0], int(attrs.get("k", 1)), dim=-1)
+    return {"Out": vals, "Indices": idx}
+
+
+register_op(
+    "top_k",
+    inputs=["X"],
+    outputs=["Out", "Indices"],
+    attrs={"k": 1},
+    lower=_lower_top_k,
+    intermediate_outputs=("Indices",),
 )

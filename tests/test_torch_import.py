@@ -31,6 +31,13 @@ MODULES = [
     "paddle_tpu_torch.serving.generation",
     "paddle_tpu_torch.serving.speculative",
     "paddle_tpu_torch.ops.speculative_ops",
+    "paddle_tpu_torch.kernels.lstm_cell",
+    "paddle_tpu_torch.kernels.gru_cell",
+    "paddle_tpu_torch.ops.rnn_ops",
+    "paddle_tpu_torch.ops.seq2seq_ops",
+    "paddle_tpu_torch.layers.rnn",
+    "paddle_tpu_torch.models.stacked_lstm",
+    "paddle_tpu_torch.models.machine_translation",
 ]
 
 

@@ -179,6 +179,38 @@ def _cases():
                    "Mask": [("m", np.asarray([[1] * 6, [1] * 2 + [0] * 4],
                                              "float32"))]},
                   {"Out": ["o"]}, {"sm_scale": 0.25}, "close"))
+    # the RNN slice's op breadth (the recurrences themselves are in
+    # tests/test_torch_rnn.py)
+    for op_type in ("sigmoid", "tanh", "softmax", "mean"):
+        cases.append((op_type, {"X": [("x", _f(r, 3, 5))]}, {"Out": ["o"]},
+                      {}, "close"))
+    probs = np.asarray([[0.7, 0.2, 0.1], [0.1, 0.3, 0.6], [0.5, 0.5, 0.0]],
+                       "float32")
+    cases.append(("cross_entropy", {"X": [("x", probs)],
+                                    "Label": [("l", _i([[0], [1], [2]]))]},
+                  {"Y": ["o"]}, {}, "close"))
+    cases.append(("cross_entropy", {"X": [("x", probs)],
+                                    "Label": [("l", probs[::-1].copy())]},
+                  {"Y": ["o"]}, {"soft_label": True}, "close"))
+    cases.append(("top_k", {"X": [("x", _f(r, 4, 6))]},
+                  {"Out": ["o"], "Indices": ["i"]}, {"k": 2}, "exact"))
+    cases.append(("accuracy", {"Out": [("v", _f(r, 4, 2))],
+                               "Indices": [("i", _i([[0, 2], [1, 0], [2, 1],
+                                                     [3, 1]]))],
+                               "Label": [("l", _i([[2], [1], [0], [3]]))]},
+                  {"Accuracy": ["a"], "Correct": ["c"], "Total": ["t"]}, {},
+                  "exact"))
+    seq = _f(r, 3, 5, 4)
+    for ptype in ("SUM", "AVERAGE", "SQRT", "MAX", "LAST", "FIRST"):
+        cases.append(("sequence_pool",
+                      {"X": [("x", seq)], "Length": [("len",
+                                                      _i([[5], [2], [0]]))]},
+                      {"Out": ["o"], "MaxIndex": ["mi"]},
+                      {"pooltype": ptype}, "close"))
+    for ptype in ("AVERAGE", "MAX", "LAST"):
+        cases.append(("sequence_pool", {"X": [("x", seq)]},
+                      {"Out": ["o"], "MaxIndex": ["mi"]},
+                      {"pooltype": ptype}, "close"))
     return cases
 
 
@@ -221,8 +253,8 @@ def test_cases_cover_every_op_type_of_the_slice():
     """The 24 op types the paged serving programs run, the four that
     ``transformer.build()`` appends and the two plain ops the speculative
     verify program adds (its own ops are in
-    tests/test_torch_speculative_ops.py), and nothing missing from the
-    port's registry."""
+    tests/test_torch_speculative_ops.py), the RNN models' eight plain ops,
+    and nothing missing from the port's registry."""
     covered = {c[0] for c in CASES}
     serving = {
         "add_position_encoding", "assign", "dynamic_update_slice",
@@ -234,7 +266,9 @@ def test_cases_cover_every_op_type_of_the_slice():
         "slot_decode_sample", "transpose", "paged_copy_page"}
     build = {"softmax_with_cross_entropy", "reduce_sum", "elementwise_div",
              "uniform_random"}
-    assert serving | build | {"concat", "elementwise_min"} <= covered
+    rnn = {"sigmoid", "tanh", "softmax", "mean", "cross_entropy", "top_k",
+           "accuracy", "sequence_pool"}
+    assert serving | build | rnn | {"concat", "elementwise_min"} <= covered
     assert covered <= set(t_registry.registered_ops())
 
 
