@@ -10,7 +10,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 3. holds each kernel (flash forward, the flash backward pair, paged
    decode, tree decode; the recurrences in step 10) against its plain PyTorch version on the same CUDA
    tensors, at the shapes the serving and training paths give it and at
-   edge cases,
+   edge cases (for the flash forward also the first 32- and 64-row
+   tiles, T and S off multiples of 64, an all-zero key tile between
+   valid ones, a row with every key masked, head dim 128, GQA and a
+   window at T 256; each case with its launch plan),
    printing each case's max abs error beside its tolerance, then times
    kernel, plain version and (where one exists) the one-call PyTorch
    equivalent: device time per call, from CUDA events around replays of
@@ -62,9 +65,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 10. the RNN path. Right after step 3 it holds the LSTM and GRU recurrence
    kernels against their plain versions (the stacked network's shapes at
    widths 512 and 64, the MT encoder's reverse pass, and edge cases: D 40
-   and 1100, B 5 and 3, T 1, rows of length 0, an initial state, every
+   and 1100, both sides of B6's regime switch, D 1400 (its W_h slice
+   read from L2), B 1, 3, 5 and 33, hidden units not a multiple of the
+   units per block, T 1, rows of length 0, an initial state, every
    activation code; tolerance 1e-4, relative to max(1, |ref|) where relu
-   or identity activations grow the values) and times both, with
+   or identity activations grow the values; each B6 case with its launch
+   plan) and times both (B6 also at the MT encoder's shape), with
    ``torch.nn.LSTM`` (cuDNN; the device time of its kernels from a
    profiler trace) beside the LSTM kernel at full lengths without
    peepholes. After step 9 it trains ``stacked_lstm.build``
@@ -79,7 +85,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    launches per step), and compares the stacked LSTM's predictions (1e-4)
    and 3 train losses (1e-3) on the card and on the CPU.
 
-A line of its own before the last holds the kernels' JSON record; the
+A line of its own before the last holds the kernels' JSON record (for
+flash_fwd and lstm_cell also every timed shape: ms, bound, plain and
+library ms, and the main path's launches at that shape); the
 last line is ``{"ok": true, "device": {...}}``. Any failure exits nonzero
 before that line. The script needs one CUDA card and the rest of the
 repository beside it: without either it fails at once.
@@ -133,6 +141,20 @@ MT_BATCH, MT_SEQ, MT_STEPS = 32, 32, 5   # machine_translation.build()
 RNN_TOL = 1e-4       # fp32 sums of D terms in another order, over T steps
 RNN_CVC_BATCH = 4
 RNN_PRED_TOL = 1e-4  # card against CPU stacked-LSTM predictions
+
+
+def kernel_symbol(line):
+    """A kernel's name and template arguments from a ptxas "Compiling
+    entry function '<mangled>'" line (lstm_cell_kernel<4, true, true>)."""
+    import re
+
+    m = re.search(r"\d+([a-z_]+_kernel)(?:I(.*?)E)?E", line)
+    if not m:
+        return line.strip()[:120]
+    args = re.findall(r"L([ib])(\d+)E", (m.group(2) or "") + "E")
+    shown = ", ".join(v if t == "i" else ("true" if v == "1" else "false")
+                      for t, v in args)
+    return "%s<%s>" % (m.group(1), shown) if shown else m.group(1)
 
 
 def fail(msg):
@@ -296,6 +318,47 @@ def flash_cases(torch, gen):
     ]
 
 
+def flash_tile_cases(torch, gen):
+    """(name, kwargs for flash_forward) for B1's multi-row tiles (T > 4):
+    the first 32- and 64-row tiles, T and S off multiples of 64, a key
+    mask with an all-zero 64-key tile between valid ones, a batch row
+    with every key masked, head dim 128, GQA and a window at T 256."""
+    dev = "cuda"
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def qkv(B, H, T, S, d, Hkv=None):
+        return dict(q=rnd(B, H, T, d), k=rnd(B, Hkv or H, S, d),
+                    v=rnd(B, Hkv or H, S, d))
+
+    hole = torch.ones(2, 200, device=dev)
+    hole[:, 64:128] = 0.0
+    hole[1, 190:] = 0.0
+    dead = torch.ones(3, 130, device=dev)
+    dead[1] = 0.0
+    return [
+        ("T5_first_tile", qkv(2, 4, 5, 5, 64)),
+        ("T65_causal", dict(qkv(2, 4, 65, 65, 64), causal=True)),
+        ("T65_B33_H4", dict(qkv(33, 4, 65, 65, 64))),
+        ("T100_S77_masked", dict(qkv(2, 4, 100, 77, 64), kv_mask=(
+            torch.arange(77, device=dev)[None, :]
+            < torch.tensor([[77], [40]], device=dev)).float())),
+        ("T200_zero_tile_mid", dict(qkv(2, 4, 200, 200, 64), kv_mask=hole)),
+        ("T130_row_all_masked", dict(qkv(3, 4, 130, 130, 64),
+                                     kv_mask=dead)),
+        ("T256_head_dim_128", dict(qkv(2, 4, 256, 256, 128), causal=True)),
+        ("T256_head_dim_128_bq64", dict(qkv(9, 4, 256, 256, 128),
+                                        kv_mask=hole[:1, :].repeat(
+                                            9, 2)[:, :256].contiguous())),
+        ("T256_gqa_window", dict(qkv(2, 8, 256, 256, 64, Hkv=4),
+                                 kv_group=2, window=40)),
+        ("T256_window_causal", dict(qkv(2, 8, 256, 256, 64), causal=True,
+                                    window=70)),
+        ("T70_head_dim_33", dict(qkv(2, 3, 70, 70, 33))),
+    ]
+
+
 def train_flash_cases(torch, gen):
     """(name, kwargs for flash_forward) at the train step's three calls:
     encoder self-attention and decoder cross-attention (ragged key mask
@@ -448,9 +511,15 @@ def kernel_phase(torch):
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import paged_attention as pa
 
+    from paddle_tpu_torch.kernels.build import device_limits
+
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {"flash_fwd": 0.0, "paged_decode": 0.0, "tree_decode": 0.0}
-    for name, kw in flash_cases(torch, gen):
+    n_sm = device_limits("cuda")[0]
+    for name, kw in flash_cases(torch, gen) + flash_tile_cases(torch, gen):
+        B, H, T = kw["q"].shape[:3]
+        print("plan flash_fwd %-22s %s" % (name, fa.flash_plan(B, H, T,
+                                                                n_sm)))
         out, lse = fa.flash_forward(**kw)
         ref, ref_lse = fa.flash_forward_plain(**kw)
         torch.cuda.synchronize()
@@ -695,6 +764,18 @@ def timing_phase(torch):
         bound=bound(2 * qbytes + 2 * kvbytes + rowbytes + mbytes,
                     4.0 * T * vis * N_HEAD * dh))
 
+    # B1 at the decoder self-attention's shape: causal, no key mask
+    kw_c = copies(tcases["train_causal"])
+    pairs_c = B * N_HEAD * T * (T + 1) / 2.0
+    rows["flash_fwd_train_causal"] = dict(
+        shape="q/k/v [%d,%d,%d,%d], causal" % (B, N_HEAD, T, dh),
+        ms=cuda_ms(fa.flash_forward, kw_c),
+        plain_ms=cuda_ms(fa.flash_forward_plain, kw_c),
+        library_ms=cuda_ms(
+            lambda q, k, v, causal: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal), kw_c),
+        bound=bound(4 * qbytes + rowbytes, 4.0 * pairs_c * dh))
+
     def bwd_rows(suffix, cases, pairs, shape, with_library):
         """dkv and dq rows for one set of inputs; ``pairs`` counts the
         visible (query, key) pairs over batch and heads."""
@@ -728,6 +809,19 @@ def timing_phase(torch):
              B * N_HEAD * T * (T + 1) / 2.0,
              "q/k/v [%d,%d,%d,%d], causal" % (B, N_HEAD, T, dh), False)
     return rows
+
+
+def kernel_counts(kernels):
+    """Every kernel's launch count since its reset and, beside them,
+    ``flash_fwd``'s by shape class (``flash_fwd/decode`` T = 1,
+    ``/verify`` T <= 4, else ``/causal`` or ``/full``) from the counts
+    its wrapper keeps by (T, causal) where it launches."""
+    out = {name: k.launches for name, k in kernels.items()}
+    for (t, causal), n in sorted(kernels["flash_fwd"].by_key.items()):
+        label = "flash_fwd/" + ("decode" if t == 1 else "verify" if t <= 4
+                                else "causal" if causal else "full")
+        out[label] = out.get(label, 0) + n
+    return out
 
 
 # -- session phases -------------------------------------------------------------
@@ -788,7 +882,7 @@ def run_requests(np, torch, sess, kernels, src, lens, prefixes):
     n = len(src)
     torch.cuda.synchronize()
     for k in kernels.values():
-        k.launches = 0
+        k.reset()
     t0 = time.perf_counter()
     order = {sess.enqueue(src[i], lens[i], prefixes[i]): i for i in range(n)}
     out = np.full((n, MAX_LEN), EOS, dtype="int64")
@@ -803,8 +897,7 @@ def run_requests(np, torch, sess, kernels, src, lens, prefixes):
                 want.discard(rid)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in kernels.items()}
-    return out, wall, launches, peak_pages
+    return out, wall, kernel_counts(kernels), peak_pages
 
 
 def serve_phase(np, torch, exe, scope, kernels):
@@ -812,7 +905,6 @@ def serve_phase(np, torch, exe, scope, kernels):
     sess = session(exe, scope, NUM_SLOTS)
     out, wall, launches, peak_pages = run_requests(
         np, torch, sess, kernels, src, lens, prefixes)
-    launches = {name: k.launches for name, k in kernels.items()}
     n_prefix = sum(p is not None for p in prefixes)
     generated = sum(generated_tokens(out[i], prefixes[i])
                     for i in range(N_REQUESTS))
@@ -1198,8 +1290,9 @@ def speculative_phase(np, torch, fluid, exe, scope, kernels):
                     off[:SPEC_MODEL_REQUESTS])
     verify_logits_phase(np, flags, exe, scope, reqs)
     dispatch_profile_phase(np, torch, flags, exe, scope, reqs)
-    return {n: launches_o[n] + launches[n] + launches_r[n] + launches_m[n]
-            for n in launches}
+    runs = (launches_o, launches, launches_r, launches_m)
+    return {n: sum(r.get(n, 0) for r in runs)
+            for n in set().union(*runs)}
 
 
 def spec_card_vs_cpu_phase(np, torch, fluid, exe, scope, main):
@@ -1330,7 +1423,7 @@ def train_phase(np, torch, fluid, exe, kernels):
     torch.cuda.reset_peak_memory_stats()
     names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
     for k in kernels.values():
-        k.launches = 0
+        k.reset()
     losses, step_ms, per_step = [], [], []
     for i in range(TRAIN_STEPS):
         before = [kernels[n].launches for n in names]
@@ -1344,7 +1437,7 @@ def train_phase(np, torch, fluid, exe, kernels):
         print("train step %2d: loss %.6f  wall %.1f ms  launches %s"
               % (i + 1, losses[-1], step_ms[-1], dict(zip(names,
                                                           per_step[-1]))))
-    launches = {n: k.launches for n, k in kernels.items()}
+    launches = kernel_counts(kernels)
     peak = torch.cuda.max_memory_allocated()
     mean_ms = float(np.mean(step_ms))
     print("train: %d steps, mean %.1f ms/step (min %.1f, max %.1f), %d "
@@ -1456,13 +1549,27 @@ def gru_case(torch, gen, B, T, D, lens=None, init=False, reverse=False,
                 cand_act=acts[1])
 
 
+def lstm_regime_limit():
+    """The largest width that ``lstm_plan`` runs in regime (a) (all of
+    W_h in one block) at batch 5 on this card."""
+    from paddle_tpu_torch.kernels.build import device_limits
+    from paddle_tpu_torch.kernels.lstm_cell import lstm_plan
+
+    limits = device_limits("cuda")
+    return max(D for D in range(1, 257)
+               if lstm_plan(5, D, *limits)["regime"] == "a")
+
+
 def lstm_cases(torch, gen):
     """(name, kwargs, relative tolerance?) at the main path's shapes and
-    the edge cases: D not a multiple of 32, D above the block's 1024
-    threads, B not a multiple of the kernel's 4 rows, T = 1, rows of
-    length 0, every activation code, with and without peepholes, mask,
-    initial state and reverse."""
+    the edge cases: D not a multiple of 32, both sides of the plan's
+    regime switch, a W_h slice that stays resident (D 1100) and one that
+    is read from L2 (D 1400), B 1 and 33, hidden units not a multiple
+    of the units per block, T = 1, rows of length 0, every activation
+    code, with and without peepholes, mask, initial state and
+    reverse."""
     B, T = RNN_BATCH, RNN_SEQ
+    lim = lstm_regime_limit()
     ragged = rnn_lens(torch, gen, B, T, RNN_MIN_LEN)
     mt_lens = rnn_lens(torch, gen, MT_BATCH, MT_SEQ, 8)
     edge = [6, 4, 6, 2, 5]
@@ -1480,6 +1587,26 @@ def lstm_cases(torch, gen):
                                           lens=[7, 3, 0, 5, 1], init=True),
          False),
         ("D1100_B3_T3_h0c0", lstm_case(torch, gen, 3, 3, 1100, init=True),
+         False),
+        ("D%d_B5_T7_regime_a_limit" % lim, lstm_case(
+            torch, gen, 5, 7, lim, lens=[7, 3, 0, 5, 1], init=True), False),
+        ("D%d_B5_T7_regime_b" % (lim + 1), lstm_case(
+            torch, gen, 5, 7, lim + 1, lens=[7, 3, 0, 5, 1], init=True),
+         False),
+        ("D1400_B3_T3_streamed", lstm_case(torch, gen, 3, 3, 1400,
+                                           init=True), False),
+        ("B1_D512_T9", lstm_case(torch, gen, 1, 9, 512), False),
+        ("B33_D512_T9_h0c0", lstm_case(torch, gen, 33, 9, 512, init=True,
+                                       lens=rnn_lens(torch, gen, 33, 9, 0)),
+         False),
+        ("B7_D515_T5_units_ragged", lstm_case(torch, gen, 7, 5, 515,
+                                              lens=[5, 0, 3, 5, 1, 2, 4]),
+         False),
+        # rows in several passes per block; h staged in k-chunks
+        ("B300_D512_T4_passes", lstm_case(torch, gen, 300, 4, 512,
+                                          init=True), False),
+        ("B32_D1100_T3_chunks", lstm_case(torch, gen, 32, 3, 1100,
+                                          lens=rnn_lens(torch, gen, 32, 3, 0)),
          False),
         ("T1_B6_D96_nopeep", lstm_case(torch, gen, 6, 1, 96, peep=False,
                                        lens=[1, 0, 1, 1, 0, 1]), False),
@@ -1548,6 +1675,42 @@ def rnn_check(torch, kname, name, outs, refs, kw, relative):
     return err
 
 
+def plan_line(lc, B, D):
+    """B6's launch plan for batch B and width D on this card, in words."""
+    from paddle_tpu_torch.kernels.build import device_limits
+
+    p = lc.lstm_plan(B, D, *device_limits("cuda"))
+    return ("regime %s%s, %d blocks x %d threads, %d units x %d rows per "
+            "block, %d B shared%s" % (
+                p["regime"], " (cooperative)" if p["regime"] == "b" else "",
+                p["blocks"], p["threads"], p["units"], p["rows"], p["smem"],
+                {"shared": "", "registers": ", W_h in registers",
+                 "l2": ", W_h slice read from L2"}[p["w"]]))
+
+
+def lstm_layout_phase():
+    """B6's plans against the kernel: at every batch and width below,
+    the threads, shared-memory bytes and blocks of ``lstm_plan`` (its
+    ``lstm_layout``) equal those csrc/lstm_cell.cu derives from the
+    plan's choices (``kernel_layout``), and the kernel takes the plan."""
+    from paddle_tpu_torch.kernels import lstm_cell as lc
+    from paddle_tpu_torch.kernels.build import device_limits
+
+    limits = device_limits("cuda")
+    shapes = [(B, D) for B in (1, 3, 5, 32, 33, 300)
+              for D in list(range(1, 200)) + [256, 512, 515, 1100, 1400,
+                                              2048]]
+    for B, D in shapes:
+        plan = lc.lstm_plan(B, D, *limits)
+        want = (plan["threads"], plan["smem"], plan["blocks"])
+        got = lc.kernel_layout(B, D, plan)
+        if got != want:
+            fail("lstm_cell B %d D %d: the plan's (threads, smem, blocks) "
+                 "%s, the kernel's %s" % (B, D, want, got))
+    print("lstm_cell layout: the plan's threads, shared bytes and blocks "
+          "equal the kernel's at %d (batch, width) pairs" % len(shapes))
+
+
 def rnn_kernel_phase(torch):
     """B6 and B7 against their plain versions on the same CUDA tensors;
     returns the worst absolute error of each over its absolute-tolerance
@@ -1563,6 +1726,9 @@ def rnn_kernel_phase(torch):
             ("gru_cell", gru_cases(torch, gen), gc.gru_cell_forward,
              gc.gru_reference)):
         for name, kw, relative in cases:
+            if kname == "lstm_cell":
+                print("plan lstm_cell %-28s %s" % (name, plan_line(
+                    lc, kw["xw"].shape[0], kw["w_h"].shape[0])))
             outs, refs = kern(**kw), plain(**kw)
             torch.cuda.synchronize()
             if kname == "gru_cell":
@@ -1611,6 +1777,23 @@ def rnn_timing_phase(torch):
             library_ms=lib_ms,
             bound=bound(4.0 * (B * T * 4 * D + 2 * B * T * D + 4 * D * D
                                + 4 * D), 8.0 * B * T * D * D))
+        if D == RNN_PKG_HID:
+            # the MT encoder's reverse pass, as mt_phase runs it
+            lens = rnn_lens(torch, gen, MT_BATCH, MT_SEQ, 8)
+            Vm = float(lens.sum())
+            kw = copies(lstm_case(torch, gen, MT_BATCH, MT_SEQ, D,
+                                  peep=False, lens=lens, reverse=True))
+            rows["lstm_cell_mt"] = dict(
+                shape="xw [%d,%d,%d], no peepholes, reverse, lengths %d..%d "
+                "(%d of %d steps valid)" % (
+                    MT_BATCH, MT_SEQ, 4 * D, int(lens.min()),
+                    int(lens.max()), Vm, MT_BATCH * MT_SEQ),
+                ms=cuda_ms(lc.lstm_cell_forward, kw),
+                plain_ms=cuda_ms(lc.lstm_reference, kw, iters=6, reps=3),
+                library_ms=None,
+                bound=bound(4.0 * (Vm * 4 * D + 2 * MT_BATCH * MT_SEQ * D
+                                   + 4 * D * D + 4 * D + MT_BATCH * MT_SEQ),
+                            8.0 * Vm * D * D))
         kw = copies(gru_case(torch, gen, B, T, D, lens=ragged))
         rows["gru_cell_D%d" % D] = dict(
             shape="xw [%d,%d,%d], %s" % (B, T, 3 * D, span),
@@ -1714,7 +1897,7 @@ def rnn_train_phase(np, torch, fluid, exe, kernels, cell):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.values():
-        k.launches = 0
+        k.reset()
     losses, step_ms, per_step, tokens = [], [], [], []
     for i, f in enumerate(feeds[RNN_WARMUP:RNN_WARMUP + RNN_STEPS]):
         before = kernels[kname].launches
@@ -1758,7 +1941,7 @@ def rnn_infer_phase(np, torch, exe, kernels, scope, infer, outs, feed):
     lstm_cell per run."""
     exe.run(infer, feed=feed, fetch_list=[outs["predict"]], scope=scope)
     torch.cuda.synchronize()
-    kernels["lstm_cell"].launches = 0
+    kernels["lstm_cell"].reset()
     t0 = time.perf_counter()
     for _ in range(RNN_INFER_RUNS):
         pred, acc = exe.run(infer, feed=feed, scope=scope,
@@ -1812,7 +1995,7 @@ def mt_phase(np, torch, fluid, exe, kernels):
             for k, v in feed.items()}
     exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
     torch.cuda.synchronize()
-    kernels["lstm_cell"].launches = 0
+    kernels["lstm_cell"].reset()
     losses, step_ms, per_step = [], [], []
     for _ in range(MT_STEPS):
         before = kernels["lstm_cell"].launches
@@ -1904,13 +2087,17 @@ def main():
     print("kernel build: %.1f s (%s)" % (time.perf_counter() - t0,
                                           os.path.basename(kbuild.library_path())))
     for line in kbuild.build_log().splitlines():
-        if "registers" in line or "spill" in line or "entry function" in line:
-            print("ptxas: " + line.strip()[:120])
+        if "entry function" in line:
+            print("ptxas: %s" % kernel_symbol(line))
+        elif "registers" in line or "spill" in line:
+            print("ptxas:   " + line.strip()[:120])
+    lstm_layout_phase()
 
     worst = kernel_phase(torch)
     timing = timing_phase(torch)
     for name in ("flash_fwd", "flash_fwd_verify", "flash_fwd_encoder",
-                 "paged_decode", "tree_decode", "flash_fwd_train", "flash_bwd_dkv", "flash_bwd_dq",
+                 "paged_decode", "tree_decode", "flash_fwd_train",
+                 "flash_fwd_train_causal", "flash_bwd_dkv", "flash_bwd_dq",
                  "flash_bwd_dkv_causal", "flash_bwd_dq_causal"):
         r = timing[name]
         lib = ("%.4f ms" % r["library_ms"] if r["library_ms"] is not None
@@ -1929,6 +2116,10 @@ def main():
              timing["gather_k_pool_gof_ms"]))
     worst.update(rnn_kernel_phase(torch))
     rnn_timing = rnn_timing_phase(torch)
+    from paddle_tpu_torch.kernels import lstm_cell as lc
+    for D in (RNN_HID, RNN_PKG_HID):
+        print("plan lstm_cell B %d D %d: %s" % (RNN_BATCH, D, plan_line(
+            lc, RNN_BATCH, D)))
     for name, r in sorted(rnn_timing.items()):
         lib = ("%.4f ms (torch.nn.LSTM, cuDNN, input product included; "
                "its kernels' device time)"
@@ -1980,19 +2171,67 @@ def main():
                     plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
                     bound_by=t["bound"][1], library_ms=t["library_ms"])
 
+    def shape_rows(table, names_launches, launches_of):
+        """Every timed shape of a kernel: its numbers and the launches of
+        the main path's calls at that shape (0: timed only)."""
+        out = []
+        for name, n in names_launches:
+            t = table[name]
+            out.append(dict(row=name, shape=t["shape"], launches=n,
+                            launches_of=launches_of if n else "timed only",
+                            ms=t["ms"], plain_ms=t["plain_ms"],
+                            bound_ms=t["bound"][0], bound_by=t["bound"][1],
+                            library_ms=t["library_ms"]))
+        return out
+
+    def both(label):
+        return launches.get(label, 0) + spec_launches.get(label, 0)
+
+    flash_shapes = shape_rows(timing, [
+        ("flash_fwd", both("flash_fwd/decode")),
+        ("flash_fwd_verify", both("flash_fwd/verify")),
+        ("flash_fwd_encoder", both("flash_fwd/full")),
+        ("flash_fwd_train", train_launches.get("flash_fwd/full", 0)),
+        ("flash_fwd_train_causal", train_launches.get("flash_fwd/causal",
+                                                      0))],
+        "the launches at this shape class in the serving and speculative "
+        "runs' request windows or the training phase's timed steps, "
+        "counted by the wrapper where it launches")
+    # the causal calls of those request windows: the decoder over a
+    # forced prefix at admission (paged prefill), a shape not timed here
+    flash_shapes.append(dict(
+        row="flash_fwd_prefix", launches=both("flash_fwd/causal"),
+        shape="causal, T > 4: the decoder over a forced prefix at admission",
+        launches_of="the serving and speculative runs' request windows; "
+        "not timed", ms=None, plain_ms=None, bound_ms=None, bound_by=None,
+        library_ms=None))
+    flash_total = (launches["flash_fwd"] + spec_launches["flash_fwd"]
+                   + train_launches["flash_fwd"])
+    if sum(r["launches"] for r in flash_shapes) != flash_total:
+        fail("flash_fwd's launches by shape class %s do not add up to its "
+             "%d launches" % ([r["launches"] for r in flash_shapes],
+                              flash_total))
+    lstm_shapes = shape_rows(rnn_timing, [
+        ("lstm_cell_D%d" % RNN_HID, lstm_infer + lstm_train),
+        ("lstm_cell_D%d_full" % RNN_HID, 0),
+        ("lstm_cell_D%d" % RNN_PKG_HID, 0),
+        ("lstm_cell_D%d_full" % RNN_PKG_HID, 0),
+        ("lstm_cell_mt", mt_launches)],
+        "the stacked LSTM's training and inference runs (D 512) or the MT "
+        "steps (the MT shape)")
     record = {"kernels": [
         dict(name="flash_fwd", route="cuda",
              source="paddle_tpu_torch/csrc/flash_fwd.cu",
              replaces="paddle_tpu/kernels/flash_attention.py:91",
              # the serving, speculative and training runs' launches
-             launches=launches["flash_fwd"] + spec_launches["flash_fwd"]
-             + train_launches["flash_fwd"],
+             launches=flash_total,
              max_abs_err=worst["flash_fwd"],
              ms=timing["flash_fwd"]["ms"],
              plain_ms=timing["flash_fwd"]["plain_ms"],
              bound_ms=timing["flash_fwd"]["bound"][0],
              bound_by=timing["flash_fwd"]["bound"][1],
-             library_ms=timing["flash_fwd"]["library_ms"]),
+             library_ms=timing["flash_fwd"]["library_ms"],
+             shapes=flash_shapes),
         bwd_record("flash_bwd_dkv", 302),
         bwd_record("flash_bwd_dq", 376),
         dict(name="paged_decode", route="cuda",
@@ -2016,8 +2255,9 @@ def main():
              bound_by=timing["tree_decode"]["bound"][1],
              library_ms=None),
         # the stacked LSTM's inference and training runs and the MT steps
-        rnn_record("lstm_cell", "lstm_cell.py", 94,
-                   lstm_infer + lstm_train + mt_launches),
+        dict(rnn_record("lstm_cell", "lstm_cell.py", 94,
+                        lstm_infer + lstm_train + mt_launches),
+             shapes=lstm_shapes),
         rnn_record("gru_cell", "gru_cell.py", 55, gru_train),
     ]}
     print(card)

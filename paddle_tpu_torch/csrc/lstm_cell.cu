@@ -11,170 +11,631 @@
 // 3 identity), and a masked step carries h and c through unchanged
 // (h = h_new * m + h_prev * (1 - m), as the reference writes it). The
 // TPU kernel keeps the [B, 4D] gates tile and h, c in VMEM across its
-// (batch block, T) grid; here T is a loop inside one block and the same
-// state never leaves the SM.
+// (batch block, T) grid; here T is a loop inside a persistent kernel.
 //
 // What bounds it on this card: operations. A step does 2 * B * D * 4D
 // flops against 4 * (4D + 2D) bytes per row of xw, h and c, so at the
 // main shape (B 32, T 80, D 512) the floor is 5.37 GFLOP over the fp32
-// rate of 67 TFLOP/s, 0.080 ms; its bytes (xw, h, c and W_h once) take
-// 0.011 ms.
+// rate of 67 TFLOP/s, 0.080 ms (1 us per step); its bytes (xw, h, c and
+// W_h once) take 0.011 ms. What stands between a step and that floor is
+// reading W_h (16 * D^2 bytes) again every step and the step-to-step
+// dependency, so the design keeps W_h in shared memory for all T steps
+// and spreads it over the SMs. Two regimes, chosen by `lstm_plan` in
+// kernels/lstm_cell.py from (B, D, the SM count, the per-block
+// shared-memory limit); the wrapper passes the plan's choices, and
+// `plan_layout` below derives the block's layout from them:
 //
-// What the design does: one block owns kRows batch rows for all T steps.
-// h lives in shared memory, double-buffered, so one __syncthreads() per
-// step suffices (a step reads one buffer and writes the other); c lives
-// in shared memory too, each entry touched by one thread only. Thread j
-// owns hidden unit j (and j + blockDim.x, ... when D exceeds the block):
-// it sums the four gates of its unit for all kRows rows over k < D,
-// reading W_h[k, g * D + j] (neighbouring threads on neighbouring
-// addresses; W_h stays in L2 after the first step) and h[r][k] from
-// shared memory as a broadcast, then applies the gate math and writes
-// hidden[b, t, j] and cell[b, t, j]. This keeps only ceil(B / kRows)
-// SMs busy and streams all of W_h through each of them once per step,
-// so it runs far above its bound. A persistent design that splits the
-// 4D columns across SMs, keeps each SM's W_h slice resident in shared
-// memory and meets at a grid barrier per step is later work.
+// (a) batch split, where all of W_h plus two h buffers of the block's
+//     rows and the product's sums fit one block (about 16 * D^2 +
+//     8 * rows * D bytes; on an H100 up to D 119 at one row per block).
+//     A block owns
+//     `rows` batch rows for all T steps, loads W_h once and keeps h
+//     double-buffered in shared memory; no grid barrier. At B 32, one
+//     row per block: 32 blocks.
+// (b) column split, above that. A block owns `units` hidden units with
+//     all four of their gate columns (so the gate math and the peepholes
+//     stay local) and `rows` batch rows; its W_h slice [D, 4 * units]
+//     stays in shared memory. The plan splits the rows as far as the
+//     slice still fits (D 512, B 32: 16 units x 8 rows, 128 KB, 32 x 4 =
+//     128 blocks), which cuts the h that every block stages each step.
+//     Each step every block stages h_{t-1} of its rows from
+//     hidden[:, t - 1] (h0 at t = 0) with 16-byte cp.async through L2
+//     (never the non-coherent path: other blocks wrote it), in k-chunks
+//     where many rows would not fit, computes its gates, writes
+//     hidden[:, t, units] and cell[:, t, units], and meets the others at
+//     a grid barrier (cooperative_groups). The kernel is launched
+//     cooperatively with at most one block per SM, so the grid is
+//     co-resident or the launch is refused and the wrapper raises. Where
+//     even a 1/SMs slice of W_h does not fit (D above about 1,300), the
+//     slice is read from L2 every step instead; every SM still works.
+//
+// Both regimes share the inner product: a thread owns one hidden unit,
+// RT batch rows (1 or 4) and one k-quad phase of 4 * kw (four lanes 8
+// apart in a warp, times kw warp groups); per k-quad it loads the unit's
+// four gate weights of four k as float4s (W_h interleaved by gate in
+// shared memory) and each row's four h as one float4, then does
+// 16 * RT FMAs. Each quarter-warp reads consecutive float4s (no bank
+// conflict). Two shuffles finish a warp group's sum; the groups' sums go
+// through shared memory to the gate threads, one (row, unit) per thread,
+// consecutive threads on consecutive units, so a few dense warps do the
+// gate math and their loads and stores coalesce. The activations take
+// no branches (sigmoid through the ex2 and rcp special functions, tanh
+// as 2 sigmoid(2x) - 1, relu / identity blended in), so the independent
+// ones overlap on the step's critical path. At small D (64 at B 32) a
+// thread's share of W_h fits in registers (32 floats) and the product
+// reads only h from shared memory. With one pass over the block's rows
+// a gate thread keeps c and h in registers and loads the next step's xw
+// and mask right after its gate math, a step ahead of their use. One
+// step costs one barrier for the sums plus the step's own (__syncthreads
+// in (a), the grid barrier in (b)).
 
+#include <algorithm>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kRows = 4;          // batch rows per block
-constexpr int kMaxThreads = 1024;
-constexpr int kMaxSmem = 227 * 1024;
+constexpr int kMaxCombos = 128;   // (unit, row group) pairs: 512 threads
+constexpr int kMaxThreads = 4 * kMaxCombos;
+constexpr int kMaxWarpGroups = 4;  // k-shares
 
-__device__ __forceinline__ float activate(int code, float x) {
-  switch (code) {
-    case 0: return 1.f / (1.f + expf(-x));
-    case 1: return tanhf(x);
-    case 2: return fmaxf(x, 0.f);
-    default: return x;
+struct LstmArgs {
+  const float* xw;
+  const float* w_h;
+  const float* bias;
+  const float* peep;
+  const float* mask;
+  const float* h0;
+  const float* c0;
+  float* hidden;  // read back by other blocks: not __restrict__, no __ldg
+  float* cell;
+  int B, T, D;
+  int gate_act, cell_act, cand_act;
+  int units;   // hidden units per block
+  int rows;    // batch rows per block (regime a) or B (regime b)
+  int groups;  // row groups of RT rows per pass
+  int kc;      // k columns of h staged at once (regime b)
+  int rs;      // row stride of h in shared memory, in floats
+  int vec_h;   // D % 4 == 0 and aligned h: 16-byte cp.async staging
+  int kw;      // warp groups that split k (k-quad phases: 4 * kw)
+};
+
+// An activation code (0 sigmoid, 1 tanh, 2 relu, 3 identity) as
+// numbers, so that a step's activations run without branches and the
+// independent ones overlap: ka = 1 (sigmoid) or 2 (tanh = 2 sigmoid(2x)
+// - 1) for the smooth ones, else 0 with lo = 0 (relu) or -inf
+// (identity); kl = -ka / ln 2 scales x for ex2.
+struct Act {
+  float ka, kl, lo;
+};
+
+__host__ __device__ __forceinline__ Act act_of(int code) {
+  const float ka = code == 0 ? 1.f : code == 1 ? 2.f : 0.f;
+  return Act{ka, -ka * 1.4426950408889634f, code == 2 ? 0.f : -INFINITY};
+}
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// sigmoid(ka x) through the special-function unit (two approximate
+// instructions, within 1e-6 of torch.sigmoid / torch.tanh; an overflowing
+// exponential gives 1 / inf = 0, so an infinite input gives 0 or 1), or
+// the exact relu / identity branch, picked by a select (no branch): both
+// are computed, and neither is multiplied by 0, which would turn inf
+// into NaN
+__device__ __forceinline__ float activate(Act f, float x) {
+  const float s = rcp_approx(1.f + ex2_approx(f.kl * x));
+  const float smooth = fmaf(f.ka, s, 1.f - f.ka);
+  return f.ka != 0.f ? smooth : fmaxf(x, f.lo);
+}
+
+// Row stride (floats) of h in shared memory ([rows][k]) for `cols` k
+// columns: rounded up to 4 (float4 loads) with an odd count of float4s,
+// so rows of different row groups fall in different banks.
+__host__ __device__ __forceinline__ int row_stride(int cols) {
+  const int quads = (cols + 3) / 4;
+  return 4 * (quads % 2 ? quads : quads + 1);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(src_bytes));
+}
+
+// Where W_h lives during the steps: shared memory, read from L2 each
+// step (a slice too large for shared memory), or registers (regime (a)
+// at small D: a thread's unit and k-quads, kRegQuads float4s x 4).
+enum WMode { kWShared = 0, kWL2 = 1, kWRegs = 2 };
+constexpr int kRegQuads = 2;
+
+// acc[i][g] += sum over the k-quads phase, phase + phases, ... below nq4
+// of the chunk of h[row i of group rg][k] * W_h[k0 + k, g * D + u]
+template <int RT, bool W_SMEM>
+__device__ __forceinline__ void accumulate(
+    float (&acc)[RT][4], const float4* w_s, const float* __restrict__ w_h,
+    const float* h_s, int k0, int nq4, int phase, int phases, int ul, int u,
+    int U, int D, int rg, int rs) {
+  const float* hr = h_s + (size_t)rg * RT * rs;
+#pragma unroll 2
+  for (int kq = phase; kq < nq4; kq += phases) {
+    const int c = 4 * kq;
+    float4 w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (W_SMEM) {
+        w[j] = w_s[(size_t)(k0 + c + j) * U + ul];
+      } else {
+        const int k = k0 + c + j;
+        w[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (k < D && u < D) {
+          const float* row = w_h + (size_t)k * 4 * D + u;
+          w[j] = make_float4(__ldg(row), __ldg(row + D), __ldg(row + 2 * D),
+                             __ldg(row + 3 * D));
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const float4 h4 =
+          *reinterpret_cast<const float4*>(hr + (size_t)i * rs + c);
+      const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][0] = fmaf(hv[j], w[j].x, acc[i][0]);
+        acc[i][1] = fmaf(hv[j], w[j].y, acc[i][1]);
+        acc[i][2] = fmaf(hv[j], w[j].z, acc[i][2]);
+        acc[i][3] = fmaf(hv[j], w[j].w, acc[i][3]);
+      }
+    }
   }
 }
 
-template <int RB>
-__global__ void __launch_bounds__(kMaxThreads)
-lstm_cell_kernel(const float* __restrict__ xw, const float* __restrict__ w_h,
-                 const float* __restrict__ bias,
-                 const float* __restrict__ peep,
-                 const float* __restrict__ mask,
-                 const float* __restrict__ h0, const float* __restrict__ c0,
-                 float* __restrict__ hidden, float* __restrict__ cell,
-                 int B, int T, int D, int gate_act, int cell_act,
-                 int cand_act) {
-  extern __shared__ float smem[];
-  float* h_buf = smem;               // [2][RB][D]
-  float* c_s = smem + 2 * RB * D;    // [RB][D]
-  const int b0 = blockIdx.x * RB;
-  const int rows = min(RB, B - b0);
-  const int D4 = 4 * D;
+// The same sum with the thread's W_h in registers: wr[n][j] holds the
+// four gates of k = 4 (phase + n * phases) + j.
+template <int RT>
+__device__ __forceinline__ void accumulate_regs(
+    float (&acc)[RT][4], const float4 (&wr)[kRegQuads][4], const float* h_s,
+    int nq4, int phase, int phases, int rg, int rs) {
+  const float* hr = h_s + (size_t)rg * RT * rs;
+#pragma unroll
+  for (int n = 0; n < kRegQuads; ++n) {
+    const int kq = phase + n * phases;
+    if (kq >= nq4) break;
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const float4 h4 =
+          *reinterpret_cast<const float4*>(hr + (size_t)i * rs + 4 * kq);
+      const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][0] = fmaf(hv[j], wr[n][j].x, acc[i][0]);
+        acc[i][1] = fmaf(hv[j], wr[n][j].y, acc[i][1]);
+        acc[i][2] = fmaf(hv[j], wr[n][j].z, acc[i][2]);
+        acc[i][3] = fmaf(hv[j], wr[n][j].w, acc[i][3]);
+      }
+    }
+  }
+}
 
-  for (int idx = threadIdx.x; idx < RB * D; idx += blockDim.x) {
-    const int r = idx / D;
-    const size_t g = (size_t)(b0 + r) * D + idx % D;
-    const bool live = r < rows;
-    h_buf[idx] = live && h0 ? h0[g] : 0.f;
-    h_buf[RB * D + idx] = 0.f;
-    c_s[idx] = live && c0 ? c0[g] : 0.f;
+// COOP: regime (b), else regime (a). WM: where W_h lives (WMode; regime
+// (a) takes shared memory or registers, (b) shared memory or L2).
+template <int RT, bool COOP, int WM>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+lstm_cell_kernel(LstmArgs a) {
+  extern __shared__ float4 smem4[];
+  const int D = a.D, T = a.T, B = a.B, U = a.units, rs = a.rs;
+  const int D4 = 4 * D;
+  const int Dp = (D + 3) / 4 * 4;
+  float4* w_s = smem4;  // [Dp][U], rows >= D zero
+  float* h_s =
+      reinterpret_cast<float*>(smem4 + (WM == kWShared ? (size_t)Dp * U : 0));
+  // the product's sums, one block per warp group, after the h buffers
+  float* red_s = h_s + (size_t)(COOP ? 1 : 2) * a.groups * RT * rs;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int combos = U * a.groups;
+  const int group_warps = (combos + 7) / 8;
+  const int wg = (tid >> 5) / group_warps;  // warp group: a k-share
+  const int q = lane >> 3;
+  const int phase = wg * 4 + q;             // k-quad phase
+  const int phases = 4 * a.kw;
+  // (unit, row group) pair of the product
+  const int slot = ((tid >> 5) % group_warps) * 8 + (lane & 7);
+  const int ul = slot % U;
+  const int rg = slot / U;
+  // block = (unit group, row block); regime (a) has one unit group
+  const int unit_groups = (D + U - 1) / U;
+  const int u0 = (blockIdx.x % unit_groups) * U;
+  const int u = u0 + ul;
+  const int row0 = (blockIdx.x / unit_groups) * a.rows;
+  const int rows_blk = min(a.rows, B - row0);
+  const int pass_rows = a.groups * RT;
+  const int passes = (rows_blk + pass_rows - 1) / pass_rows;
+  const bool one_pass = passes == 1;
+  const int red_stride = group_warps * 8 * RT * 4;  // floats per warp group
+
+  float4 wr[kRegQuads][4];
+  if constexpr (WM == kWRegs) {
+#pragma unroll
+    for (int n = 0; n < kRegQuads; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = 4 * (phase + n * phases) + j;
+        wr[n][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (k < D && u < D && slot < combos) {
+          const float* row = a.w_h + (size_t)k * D4 + u;
+          wr[n][j] = make_float4(row[0], row[D], row[2 * D], row[3 * D]);
+        }
+      }
+  }
+  if (WM == kWShared) {
+    // W_h[k, g * D + u] -> w_s[k][u - u0].{x,y,z,w}[g]
+#pragma unroll 4
+    for (int idx = tid; idx < Dp * U; idx += blockDim.x) {
+      const int k = idx / U, j = u0 + idx % U;
+      float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (j < D && k < D) {
+        const float* row = a.w_h + (size_t)k * D4 + j;
+        w = make_float4(row[0], row[D], row[2 * D], row[3 * D]);
+      }
+      w_s[idx] = w;
+    }
+  }
+  if (!COOP) {
+    // both h buffers [2][pass_rows][rs]: h0 (or 0) in the first, 0 in the
+    // second and in every pad
+    const int buf_size = pass_rows * rs;
+    for (int idx = tid; idx < 2 * buf_size; idx += blockDim.x) {
+      const int r = (idx % buf_size) / rs, k = idx % rs;
+      float v = 0.f;
+      if (idx < buf_size && r < rows_blk && k < D && a.h0)
+        v = a.h0[(size_t)(row0 + r) * D + k];
+      h_s[idx] = v;
+    }
   }
   __syncthreads();
 
+  // the gate math of (row e_rl, unit ue) of a pass is done by thread
+  // e = e_rl * U + e_ul: consecutive threads on consecutive units, so its
+  // loads and stores coalesce and a few dense warps do it; the product's
+  // sums reach it through shared memory
+  const int e_rl = tid / U, e_ul = tid % U;
+  const int ue = u0 + e_ul;
+  const bool gate_live = tid < U * pass_rows && ue < D;
+  const float bi = gate_live ? a.bias[ue] : 0.f;
+  const float bf = gate_live ? a.bias[D + ue] : 0.f;
+  const float bc = gate_live ? a.bias[2 * D + ue] : 0.f;
+  const float bo = gate_live ? a.bias[3 * D + ue] : 0.f;
+  const float pi = gate_live && a.peep ? a.peep[ue] : 0.f;
+  const float pf = gate_live && a.peep ? a.peep[D + ue] : 0.f;
+  const float po = gate_live && a.peep ? a.peep[2 * D + ue] : 0.f;
+  const Act gate_f = act_of(a.gate_act), cell_f = act_of(a.cell_act),
+            cand_f = act_of(a.cand_act);
+
+  // with one pass a thread does the gate math of the same (row, unit) at
+  // every step: c and h stay in registers, and the next step's inputs
+  // are loaded right after this step's gate math (no register copies,
+  // which would wait for the loads), a whole step before their use
+  float c_reg = 0.f, h_reg = 0.f;
+  float x0 = 0.f, x1 = 0.f, x2 = 0.f, x3 = 0.f, m = 1.f;
+  if (one_pass && gate_live && e_rl < rows_blk) {
+    const int r = row0 + e_rl;
+    c_reg = a.c0 ? a.c0[(size_t)r * D + ue] : 0.f;
+    h_reg = a.h0 ? a.h0[(size_t)r * D + ue] : 0.f;
+    const float* x = a.xw + (size_t)r * T * D4 + ue;
+    x0 = x[0]; x1 = x[D]; x2 = x[2 * D]; x3 = x[3 * D];
+    if (a.mask) m = a.mask[(size_t)r * T];
+  }
+
   for (int t = 0; t < T; ++t) {
-    const float* h_cur = h_buf + (t & 1) * RB * D;
-    float* h_nxt = h_buf + ((t + 1) & 1) * RB * D;
-    for (int j = threadIdx.x; j < D; j += blockDim.x) {
-      float acc[RB][4];
-#pragma unroll
-      for (int r = 0; r < RB; ++r)
-#pragma unroll
-        for (int g = 0; g < 4; ++g) acc[r][g] = 0.f;
-      const float* wj = w_h + j;
-#pragma unroll 4
-      for (int k = 0; k < D; ++k) {
-        const float* wk = wj + (size_t)k * D4;
-        const float w0 = wk[0], w1 = wk[D], w2 = wk[2 * D], w3 = wk[3 * D];
-#pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          const float hk = h_cur[r * D + k];
-          acc[r][0] = fmaf(hk, w0, acc[r][0]);
-          acc[r][1] = fmaf(hk, w1, acc[r][1]);
-          acc[r][2] = fmaf(hk, w2, acc[r][2]);
-          acc[r][3] = fmaf(hk, w3, acc[r][3]);
+    const float* h_cur = h_s + (size_t)(t & 1) * pass_rows * rs;  // (a)
+    float* h_nxt = h_s + (size_t)((t + 1) & 1) * pass_rows * rs;
+    for (int p = 0; p < passes; ++p) {
+      const int prow0 = row0 + p * pass_rows;
+      const int prows = min(pass_rows, row0 + rows_blk - prow0);
+      const int r = prow0 + e_rl;
+      const bool owner = gate_live && e_rl < prows;
+      const size_t row = (size_t)r * T + t;
+      float c_prev = c_reg, h_prev = h_reg;
+      if (owner && !one_pass) {
+        const float* x = a.xw + row * D4 + ue;
+        x0 = x[0]; x1 = x[D]; x2 = x[2 * D]; x3 = x[3 * D];
+        m = a.mask ? a.mask[row] : 1.f;
+        if (t == 0) {
+          c_prev = a.c0 ? a.c0[(size_t)r * D + ue] : 0.f;
+          h_prev = a.h0 ? a.h0[(size_t)r * D + ue] : 0.f;
+        } else {
+          c_prev = __ldcg(a.cell + (row - 1) * D + ue);
+          h_prev = __ldcg(a.hidden + (row - 1) * D + ue);
         }
       }
-      const float bi = bias[j], bf = bias[D + j], bc = bias[2 * D + j],
-                  bo = bias[3 * D + j];
-      const float pi = peep ? peep[j] : 0.f;
-      const float pf = peep ? peep[D + j] : 0.f;
-      const float po = peep ? peep[2 * D + j] : 0.f;
+      float acc[RT][4];
 #pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        if (r >= rows) break;
-        const size_t row = (size_t)(b0 + r) * T + t;
-        const float* x = xw + row * D4;
-        float gi = (x[j] + acc[r][0]) + bi;
-        float gf = (x[D + j] + acc[r][1]) + bf;
-        const float gc = (x[2 * D + j] + acc[r][2]) + bc;
-        float go = (x[3 * D + j] + acc[r][3]) + bo;
-        const float c_prev = c_s[r * D + j];
-        const float h_prev = h_cur[r * D + j];
-        if (peep) {
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int g = 0; g < 4; ++g) acc[i][g] = 0.f;
+      if constexpr (COOP) {
+        for (int k0 = 0; k0 < D; k0 += a.kc) {
+          const int kn = min(a.kc, D - k0);
+          const int nq4 = (kn + 3) / 4;
+          __syncthreads();  // the last chunk's readers are done
+          // h_{t-1}[pass rows, k0 : k0 + kn] from hidden[:, t - 1] (h0 at
+          // t = 0), through L2: other blocks wrote it before the barrier
+          if (a.vec_h) {
+            for (int idx = tid; idx < pass_rows * nq4; idx += blockDim.x) {
+              const int rr = idx / nq4, c = 4 * (idx % nq4);
+              const size_t b = prow0 + rr;
+              // 0 bytes from an aligned valid address: zeros
+              const float* src = a.hidden;
+              int n = 0;
+              if (rr < prows && (t > 0 || a.h0)) {
+                src = t > 0 ? a.hidden + (b * T + t - 1) * D + k0 + c
+                            : a.h0 + b * D + k0 + c;
+                n = 16;
+              }
+              cp_async16(h_s + (size_t)rr * rs + c, src, n);
+            }
+            asm volatile("cp.async.commit_group;\n" ::);
+            asm volatile("cp.async.wait_group 0;\n" ::);
+          } else {
+            for (int idx = tid; idx < pass_rows * 4 * nq4;
+                 idx += blockDim.x) {
+              const int rr = idx / (4 * nq4), c = idx % (4 * nq4);
+              const size_t b = prow0 + rr;
+              float v = 0.f;
+              if (rr < prows && c < kn) {
+                if (t > 0)
+                  v = __ldcg(a.hidden + (b * T + t - 1) * D + k0 + c);
+                else if (a.h0)
+                  v = a.h0[b * D + k0 + c];
+              }
+              h_s[(size_t)rr * rs + c] = v;
+            }
+          }
+          __syncthreads();
+          if (slot < combos)
+            accumulate<RT, WM == kWShared>(acc, w_s, a.w_h, h_s, k0, nq4,
+                                           phase, phases, ul, u, U, D, rg,
+                                           rs);
+        }
+      } else {
+        if (slot < combos) {
+          if constexpr (WM == kWRegs)
+            accumulate_regs<RT>(acc, wr, h_cur, Dp / 4, phase, phases, rg,
+                                rs);
+          else
+            accumulate<RT, true>(acc, w_s, a.w_h, h_cur, 0, Dp / 4, phase,
+                                 phases, ul, u, U, D, rg, rs);
+        }
+      }
+      // the four k-quad phases are lanes 8 apart
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          acc[i][g] += __shfl_xor_sync(0xffffffffu, acc[i][g], 8);
+          acc[i][g] += __shfl_xor_sync(0xffffffffu, acc[i][g], 16);
+        }
+      // every warp group's sums to shared memory, for the gate threads
+      if (q == 0 && slot < combos) {
+        float* dst = red_s + (size_t)wg * red_stride + slot * RT * 4;
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+#pragma unroll
+          for (int g = 0; g < 4; ++g) dst[i * 4 + g] = acc[i][g];
+      }
+      __syncthreads();
+      if (owner) {
+        const float* src =
+            red_s + ((e_rl / RT) * U + e_ul) * RT * 4 + (e_rl % RT) * 4;
+        float s0 = src[0], s1 = src[1], s2 = src[2], s3 = src[3];
+#pragma unroll
+        for (int w = 1; w < kMaxWarpGroups; ++w) {
+          if (w < a.kw) {
+            const float* sw = src + (size_t)w * red_stride;
+            s0 += sw[0]; s1 += sw[1]; s2 += sw[2]; s3 += sw[3];
+          }
+        }
+        if (!COOP) h_prev = h_cur[(size_t)e_rl * rs + ue];
+        float gi = (x0 + s0) + bi;
+        float gf = (x1 + s1) + bf;
+        const float gc = (x2 + s2) + bc;
+        float go = (x3 + s3) + bo;
+        if (a.peep) {
           gi += c_prev * pi;
           gf += c_prev * pf;
         }
-        const float iv = activate(gate_act, gi);
-        const float fv = activate(gate_act, gf);
-        float c_new = fv * c_prev + iv * activate(cand_act, gc);
-        if (peep) go += c_new * po;
-        const float ov = activate(gate_act, go);
-        float h_new = ov * activate(cell_act, c_new);
-        if (mask) {
-          const float m = mask[row];
+        const float iv = activate(gate_f, gi);
+        const float fv = activate(gate_f, gf);
+        float c_new = fv * c_prev + iv * activate(cand_f, gc);
+        if (a.peep) go += c_new * po;
+        const float ov = activate(gate_f, go);
+        float h_new = ov * activate(cell_f, c_new);
+        if (a.mask) {
           h_new = h_new * m + h_prev * (1.f - m);
           c_new = c_new * m + c_prev * (1.f - m);
         }
-        h_nxt[r * D + j] = h_new;
-        c_s[r * D + j] = c_new;
-        hidden[row * D + j] = h_new;
-        cell[row * D + j] = c_new;
+        if (!COOP) h_nxt[(size_t)e_rl * rs + ue] = h_new;
+        c_reg = c_new;
+        h_reg = h_new;
+        a.hidden[row * D + ue] = h_new;
+        a.cell[row * D + ue] = c_new;
+        if (one_pass && t + 1 < T) {
+          const float* x = a.xw + (row + 1) * D4 + ue;
+          x0 = x[0]; x1 = x[D]; x2 = x[2 * D]; x3 = x[3 * D];
+          if (a.mask) m = a.mask[row + 1];
+        }
       }
     }
-    __syncthreads();
+    if constexpr (COOP)
+      cg::this_grid().sync();
+    else
+      __syncthreads();
   }
+}
+
+template <int RT, bool COOP, int WM>
+int launch(const LstmArgs& args, int blocks, int threads, size_t smem,
+           cudaStream_t stream) {
+  auto kernel = lstm_cell_kernel<RT, COOP, WM>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  if (!COOP) {
+    kernel<<<blocks, threads, smem, stream>>>(args);
+    return (int)cudaGetLastError();
+  }
+  int dev = 0, coop = 0, n_sm = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return (int)cudaErrorNotSupported;
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                    smem);
+  if (e != cudaSuccess) return (int)e;
+  if (blocks > per_sm * n_sm) return (int)cudaErrorCooperativeLaunchTooLarge;
+  LstmArgs copy = args;
+  void* params[] = {&copy};
+  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks),
+                                  dim3(threads), params, smem, stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// What a plan (regime 0 = (a), 1 = (b); units and rows per block; kc k
+// columns of h staged at once; w_mode) implies for a launch: the one
+// statement of the block's layout, which `lstm_layout` in
+// kernels/lstm_cell.py mirrors for choosing a plan. False where this
+// kernel does not take the plan: regime (a) is one pass over all D units
+// with W_h in shared memory or registers (a thread's share at most
+// kRegQuads k-quads); regime (b) stages h in chunks of a multiple of 4
+// columns, its W_h slice in shared memory or read from L2.
+struct Layout {
+  int rt;       // batch rows per thread (1 or 4)
+  int groups;   // row groups of rt rows per pass
+  int kw;       // warp groups that split k
+  int rs;       // row stride of h in shared memory, in floats
+  int threads, blocks;
+  size_t smem;  // bytes per block: W_h (or its slice), h buffers, sums
+};
+
+bool plan_layout(int B, int D, int regime, int units, int rows, int kc,
+                 int w_mode, Layout* out) {
+  if (B < 1 || D < 1 || units < 1 || units > kMaxCombos || rows < 1 ||
+      rows > B || kc < 1 || kc > D)
+    return false;
+  if (regime == 0) {
+    if (units != D || kc != D || (w_mode != kWShared && w_mode != kWRegs))
+      return false;
+  } else if (regime != 1 || (kc < D && kc % 4) ||
+             (w_mode != kWShared && w_mode != kWL2)) {
+    return false;
+  }
+  Layout L;
+  L.rt = rows >= 4 ? 4 : 1;
+  L.groups = std::min((rows + L.rt - 1) / L.rt, kMaxCombos / units);
+  if (regime == 0 && L.groups * L.rt < rows) return false;
+  const int warps = (units * L.groups + 7) / 8;
+  L.kw = std::max(1, std::min(kMaxWarpGroups, kMaxThreads / (32 * warps)));
+  if (w_mode == kWRegs &&
+      ((D + 3) / 4 + 4 * L.kw - 1) / (4 * L.kw) > kRegQuads)
+    return false;
+  L.threads = 32 * warps * L.kw;
+  L.rs = row_stride(kc);
+  L.smem = (w_mode == kWShared ? 16 * (size_t)((D + 3) / 4 * 4) * units : 0) +
+           sizeof(float) * L.rs * (size_t)L.groups * L.rt *
+               (regime == 0 ? 2 : 1) +
+           sizeof(float) * (size_t)L.kw * warps * 8 * L.rt * 4;
+  L.blocks = (D + units - 1) / units * ((B + rows - 1) / rows);
+  *out = L;
+  return true;
 }
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
+// Launches on `stream`; returns a CUDA error code (0 on success).
 // xw [B, T, 4D], w_h [D, 4D], bias [4D], hidden and cell [B, T, D], all
 // contiguous fp32. peep ([3, D]: w_ic, w_fc, w_oc), mask ([B, T], 1 =
 // valid step), h0 and c0 ([B, D]) may be null: no peepholes, every step
-// valid, zero initial state.
+// valid, zero initial state. The plan (kernels/lstm_cell.py `lstm_plan`)
+// is regime, units, rows, kc and w_mode; `plan_layout` derives the rest.
+// A plan it refuses, or one whose shared memory exceeds the device's
+// per-block limit, returns cudaErrorInvalidValue; a grid that cannot be
+// co-resident returns cudaErrorCooperativeLaunchTooLarge.
 extern "C" int paddle_lstm_cell_f32(const float* xw, const float* w_h,
                                     const float* bias, const float* peep,
                                     const float* mask, const float* h0,
                                     const float* c0, float* hidden,
                                     float* cell, int B, int T, int D,
                                     int gate_act, int cell_act, int cand_act,
-                                    void* stream) {
-  if (B < 1 || T < 1 || D < 1) return (int)cudaErrorInvalidValue;
-  if (gate_act < 0 || gate_act > 3 || cell_act < 0 || cell_act > 3 ||
-      cand_act < 0 || cand_act > 3)
+                                    int regime, int units, int rows, int kc,
+                                    int w_mode, void* stream) {
+  Layout L;
+  if (T < 1 || gate_act < 0 || gate_act > 3 || cell_act < 0 ||
+      cell_act > 3 || cand_act < 0 || cand_act > 3 ||
+      !plan_layout(B, D, regime, units, rows, kc, w_mode, &L))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * 3 * kRows * (size_t)D;
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        lstm_cell_kernel<kRows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int threads = D >= kMaxThreads ? kMaxThreads : (D + 31) / 32 * 32;
-  const int blocks = (B + kRows - 1) / kRows;
-  lstm_cell_kernel<kRows><<<blocks, threads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      xw, w_h, bias, peep, mask, h0, c0, hidden, cell, B, T, D, gate_act,
-      cell_act, cand_act);
-  return (int)cudaGetLastError();
+  int dev = 0, limit = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  if (L.smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+  const int vec_h = D % 4 == 0 && ((uintptr_t)hidden | (uintptr_t)h0) % 16 == 0;
+  LstmArgs args{xw, w_h, bias, peep, mask, h0, c0, hidden, cell, B, T, D,
+                gate_act, cell_act, cand_act, units, rows, L.groups, kc,
+                L.rs, vec_h, L.kw};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PADDLE_LSTM_LAUNCH(COOP, WM)                                        \
+  (L.rt == 4 ? launch<4, COOP, WM>(args, L.blocks, L.threads, L.smem, st)  \
+             : launch<1, COOP, WM>(args, L.blocks, L.threads, L.smem, st))
+  if (regime == 0)
+    return w_mode == kWRegs ? PADDLE_LSTM_LAUNCH(false, kWRegs)
+                            : PADDLE_LSTM_LAUNCH(false, kWShared);
+  return w_mode == kWShared ? PADDLE_LSTM_LAUNCH(true, kWShared)
+                            : PADDLE_LSTM_LAUNCH(true, kWL2);
+#undef PADDLE_LSTM_LAUNCH
+}
+
+// The threads, shared-memory bytes and blocks `plan_layout` derives for a
+// plan, for holding `lstm_plan`'s figures to the kernel's (host code: no
+// device needed); cudaErrorInvalidValue where the kernel refuses it.
+extern "C" int paddle_lstm_layout(int B, int D, int regime, int units,
+                                  int rows, int kc, int w_mode, int* threads,
+                                  int* smem, int* blocks) {
+  Layout L;
+  if (!plan_layout(B, D, regime, units, rows, kc, w_mode, &L))
+    return (int)cudaErrorInvalidValue;
+  *threads = L.threads;
+  *smem = (int)L.smem;
+  *blocks = L.blocks;
+  return 0;
+}
+
+// The current device's SM count and per-block shared-memory limit (the
+// opt-in maximum), for the launch plans; returns a CUDA error code.
+extern "C" int paddle_device_limits(int* n_sm, int* smem_per_block) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaDeviceGetAttribute(
+      smem_per_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
 }

@@ -109,21 +109,53 @@ def library():
     return _state["lib"]
 
 
+_limits = {}
+
+
+def device_limits(device):
+    """(SM count, per-block shared-memory limit in bytes) of a CUDA
+    ``device``, read once through the CUDA runtime
+    (``paddle_device_limits``): what the launch plans size their grids
+    and tiles by."""
+    import torch
+
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _limits:
+        fn = library().paddle_device_limits
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        fn.restype = ctypes.c_int
+        n_sm, smem = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(index):
+            rc = fn(ctypes.byref(n_sm), ctypes.byref(smem))
+        if rc != 0:
+            raise RuntimeError("paddle_device_limits: CUDA error %d" % rc)
+        _limits[index] = (n_sm.value, smem.value)
+    return _limits[index]
+
+
 class Kernel(object):
     """One C entry point of the kernel library, with its launch count.
 
     ``launch`` calls the entry point (which launches the CUDA kernel on
     the stream it is given and returns ``cudaGetLastError()``), raises
-    on a nonzero code, and only then adds one to ``launches``. Nothing
-    else touches the count except a caller resetting it to 0."""
+    on a nonzero code, and only then adds one to ``launches`` and, where
+    the caller names the launch's shape class ``key``, to
+    ``by_key[key]``. Nothing else touches the counts except ``reset``."""
 
     def __init__(self, symbol, argtypes):
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.by_key = {}
         self._fn = None
 
-    def launch(self, *args):
+    def reset(self):
+        self.launches = 0
+        self.by_key = {}
+
+    def launch(self, *args, key=None):
         if self._fn is None:
             fn = getattr(library(), self.symbol)
             fn.argtypes = self.argtypes
@@ -134,3 +166,5 @@ class Kernel(object):
             raise RuntimeError("%s: CUDA error %d at launch"
                                % (self.symbol, rc))
         self.launches += 1
+        if key is not None:
+            self.by_key[key] = self.by_key.get(key, 0) + 1

@@ -28,7 +28,7 @@ import ctypes
 import torch
 
 from paddle_tpu_torch import flags
-from paddle_tpu_torch.kernels.build import Kernel
+from paddle_tpu_torch.kernels.build import Kernel, device_limits
 
 NEG_INF = -1e30
 MASKED_ROW_LSE = -1e29
@@ -38,7 +38,7 @@ FLASH_FWD = Kernel("paddle_flash_fwd_f32", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p,
 ])
 
@@ -49,6 +49,21 @@ FLASH_BWD_DKV = Kernel("paddle_flash_bwd_dkv_f32",
                        _BWD_ARGS + [ctypes.c_void_p] * 2 + _BWD_DIMS)
 FLASH_BWD_DQ = Kernel("paddle_flash_bwd_dq_f32",
                       _BWD_ARGS + [ctypes.c_void_p] + _BWD_DIMS)
+
+
+def flash_plan(B, H, T, n_sm):
+    """The forward kernel's query tile for q ``[B, H, T, d]`` on a card
+    with ``n_sm`` SMs: ``{"block_q": 4 | 32 | 64, "blocks", "threads"}``.
+    4 rows for T <= 4 (decode and verify: a warp per row); else 64-row
+    register-blocked tiles, or 32-row ones where 64-row tiles would give
+    fewer blocks than SMs (the encoder's one sequence)."""
+    if T <= 4:
+        bq, threads = 4, 128
+    elif B * H * -(-T // 64) < n_sm:
+        bq, threads = 32, 128
+    else:
+        bq, threads = 64, 256
+    return {"block_q": bq, "blocks": B * H * -(-T // bq), "threads": threads}
 
 
 def _visible(T, S, kv_mask, causal, window, device):
@@ -135,7 +150,8 @@ def flash_forward(q, k, v, kv_mask=None, causal=False, sm_scale=None,
                   kv_group=1, window=0):
     """Attention forward; returns ``(out, lse)``. CPU tensors run
     :func:`flash_forward_plain`; CUDA tensors launch the ``flash_fwd``
-    kernel (float32, contiguous, head dim <= 128) or raise."""
+    kernel (float32, contiguous, head dim <= 128) or raise. A launch is
+    counted in ``FLASH_FWD.by_key`` under ``(T, causal)``."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     window = int(window)
@@ -156,7 +172,9 @@ def flash_forward(q, k, v, kv_mask=None, causal=False, sm_scale=None,
         kv_mask.data_ptr() if kv_mask is not None else None,
         out.data_ptr(), lse.data_ptr(), B, H, int(k.shape[1]), T,
         int(k.shape[2]), d, float(sm_scale), int(bool(causal)), window,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        flash_plan(B, H, T, device_limits(q.device)[0])["block_q"],
+        torch.cuda.current_stream(q.device).cuda_stream,
+        key=(T, bool(causal)))
     return out, lse
 
 

@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from paddle_tpu_torch.kernels.build import Kernel
+from paddle_tpu_torch.kernels.build import Kernel, device_limits, library
 
 ACT_CODES = {"sigmoid": 0, "tanh": 1, "relu": 2, "identity": 3}
 _ACTS = {
@@ -30,7 +30,138 @@ _ACTS = {
 }
 
 LSTM_CELL = Kernel("paddle_lstm_cell_f32", [ctypes.c_void_p] * 9 + [
-    ctypes.c_int] * 6 + [ctypes.c_void_p])
+    ctypes.c_int] * 11 + [ctypes.c_void_p])
+
+# the kernel's limits (csrc/lstm_cell.cu): (unit, row group) pairs per
+# block, and threads per block (four per pair and k-share)
+MAX_COMBOS = 128
+MAX_THREADS = 512
+REG_QUADS = 2   # k-quads of W_h a thread holds in registers
+W_MODES = {"shared": 0, "l2": 1, "registers": 2}
+REGIMES = {"a": 0, "b": 1}
+
+
+def row_stride(cols):
+    """Row stride (floats) of h held ``[rows][k]`` in shared memory for
+    ``cols`` k columns: a multiple of 4 with an odd count of float4s
+    (``row_stride`` in csrc/lstm_cell.cu)."""
+    quads = -(-cols // 4)
+    return 4 * (quads if quads % 2 else quads + 1)
+
+
+def lstm_layout(B, D, regime, units, rows, kc, w):
+    """What csrc/lstm_cell.cu's ``plan_layout`` derives from a plan's
+    choices (``regime``, ``units`` and ``rows`` per block, ``kc`` k
+    columns of h staged at once, ``w`` where W_h lives): ``rt`` rows per
+    thread (1 or 4), ``groups`` row groups per pass, ``kw`` warp groups
+    splitting k, ``threads``, ``smem`` (bytes per block: W_h or its slice
+    where it lives in shared memory, the h buffers, two in regime (a),
+    and the warp groups' sums) and ``blocks``. ``chip_smoke.py`` holds
+    these figures to the kernel's own (``kernel_layout``)."""
+    rt = 4 if rows >= 4 else 1
+    groups = min(-(-rows // rt), MAX_COMBOS // units)
+    warps = -(-(units * groups) // 8)
+    kw = max(1, min(4, MAX_THREADS // (32 * warps)))
+    smem = ((16 * (-(-D // 4) * 4) * units if w == "shared" else 0)
+            + 4 * row_stride(kc) * groups * rt * (2 if regime == "a" else 1)
+            + 4 * kw * warps * 8 * rt * 4)
+    return dict(rt=rt, groups=groups, kw=kw, threads=32 * warps * kw,
+                smem=smem, blocks=-(-D // units) * -(-B // rows))
+
+
+def _plan(B, D, regime, units, rows, kc, w):
+    return dict(regime=regime, units=units, rows=rows, kc=kc, w=w,
+                **lstm_layout(B, D, regime, units, rows, kc, w))
+
+
+def lstm_plan(B, D, n_sm, smem_limit):
+    """The launch plan of the ``lstm_cell`` kernel for batch ``B`` and
+    width ``D`` on a card with ``n_sm`` SMs and ``smem_limit`` bytes of
+    shared memory per block. A dict:
+
+    - ``regime`` ``"a"`` (batch split: a block holds all of W_h and
+      ``rows`` batch rows, no grid barrier) or ``"b"`` (column split: a
+      block holds the W_h slice of ``units`` hidden units for ``rows``
+      batch rows, a cooperative launch with a grid barrier per step);
+    - ``units``, ``rows``, ``kc`` (k columns of h staged at once), ``w``
+      (where W_h or the block's slice of it lives for all steps:
+      ``"shared"`` memory, ``"registers"`` where a thread's share is at
+      most ``REG_QUADS`` float4s x 4 (regime (a) at small D), or
+      ``"l2"``: read every step, where a 1/SMs slice does not fit shared
+      memory); the wrapper passes these to the kernel;
+    - and what follows from them (:func:`lstm_layout`): ``rt``,
+      ``groups``, ``kw``, ``threads``, ``smem``, ``blocks``.
+
+    Regime (a) is taken exactly where its layout with W_h in shared
+    memory fits one block."""
+    if B < 1 or D < 1:
+        raise ValueError("lstm_plan: B %d and D %d must be positive"
+                         % (B, D))
+    rows = -(-B // n_sm)
+    if D <= MAX_COMBOS:
+        rows = min(rows, (4 if rows >= 4 else 1) * (MAX_COMBOS // D))
+        plan = _plan(B, D, "a", D, rows, D, "shared")
+        if plan["smem"] <= smem_limit:
+            quads = -(-D // 4)  # k-quads of W_h, split over 4 kw phases
+            if -(-quads // (4 * plan["kw"])) <= REG_QUADS:
+                plan = _plan(B, D, "a", D, rows, D, "registers")
+            return plan
+    # regime (b): split the rows 1, 2, 4, ... ways and the units over the
+    # SMs left; fewer rows per block stage less of h per step, so take
+    # the most rows split whose W_h slice stays resident
+    plans = []
+    split = 1
+    while split <= B:
+        rows = -(-B // split)
+        row_blocks = -(-B // rows)
+        if row_blocks > n_sm:
+            break
+        plan = _column_plan(B, D, rows, -(-D // (n_sm // row_blocks)),
+                            smem_limit)
+        if plan is not None and plan["blocks"] <= n_sm:
+            plans.append(plan)
+        split *= 2
+    resident = [p for p in plans if p["w"] == "shared"]
+    if resident:
+        return resident[-1]
+    if plans:
+        return plans[0]
+    raise ValueError("lstm_cell: batch %d at width %d fits no launch plan "
+                     "on %d SMs" % (B, D, n_sm))
+
+
+def _column_plan(B, D, rows, units, smem_limit):
+    """Regime (b) with blocks of ``units`` hidden units x ``rows`` batch
+    rows, W_h's slice in shared memory if it fits beside at least 8
+    staged k columns of h, else read from L2; None where neither fits."""
+    if units > MAX_COMBOS:
+        return None
+    for w in ("shared", "l2"):
+        plan = _plan(B, D, "b", units, rows, D, w)
+        if plan["smem"] > smem_limit:
+            # stage h in k-chunks: 4 bytes a column and row of the pass,
+            # the row stride pads a multiple of 8 by 4
+            col_bytes = 4 * plan["groups"] * plan["rt"]
+            rest = plan["smem"] - col_bytes * row_stride(D)
+            kc = ((smem_limit - rest) // col_bytes - 8) // 8 * 8
+            if kc < 8:
+                continue
+            plan = _plan(B, D, "b", units, rows, kc, w)
+        return plan
+    return None
+
+
+def kernel_layout(B, D, plan):
+    """``(threads, smem, blocks)`` as csrc/lstm_cell.cu derives them for
+    ``plan`` (its ``paddle_lstm_layout``, host code: needs the built
+    library, not a card), or None where the kernel refuses the plan."""
+    fn = library().paddle_lstm_layout
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int(0) for _ in range(3)]
+    rc = fn(B, D, REGIMES[plan["regime"]], plan["units"], plan["rows"],
+            plan["kc"], W_MODES[plan["w"]], *[ctypes.byref(o) for o in out])
+    return None if rc else tuple(o.value for o in out)
 
 
 def check_acts(who, names):
@@ -123,11 +254,13 @@ def lstm_cell_forward(xw, w_h, bias, peephole=None, h0=None, c0=None,
     cell = torch.empty_like(hidden)
     if hidden.numel() == 0:
         return hidden, cell
+    plan = lstm_plan(b, d, *device_limits(xw.device))
     LSTM_CELL.launch(
         xw.data_ptr(), w_h.data_ptr(), bias.data_ptr(), _ptr(peephole),
         _ptr(mask), _ptr(h0), _ptr(c0), hidden.data_ptr(), cell.data_ptr(),
         b, t_len, d, ACT_CODES[gate_act], ACT_CODES[cell_act],
-        ACT_CODES[cand_act],
+        ACT_CODES[cand_act], REGIMES[plan["regime"]], plan["units"],
+        plan["rows"], plan["kc"], W_MODES[plan["w"]],
         torch.cuda.current_stream(xw.device).cuda_stream)
     return hidden, cell
 

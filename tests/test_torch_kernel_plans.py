@@ -1,0 +1,167 @@
+"""The launch plans of the port's redesigned kernels, on the CPU (pure
+Python: no card, no JAX).
+
+- ``lstm_cell.lstm_plan`` (B6): every block's (batch rows, gate columns)
+  tile the [B, 4D] gates of a step exactly once; W_h goes to registers
+  only where a thread's share fits them; each block's shared
+  memory stays within the H100's 232,448 bytes (or the limit given); the
+  cooperative grid of regime (b) stays within the SM count; regime (a)
+  is chosen exactly where W_h (16 D^2 bytes, k rounded up to 4) plus the
+  two h buffers of its rows fit one block; the thread and k-split
+  figures stay within what csrc/lstm_cell.cu takes; a plan carries the
+  layout ``lstm_layout`` derives from its choices (``chip_smoke.py``
+  holds that layout to the kernel's own ``paddle_lstm_layout``).
+- ``flash_attention.flash_plan`` (B1): the 4-row path for T <= 4, the
+  32-row tile where 64-row tiles would leave SMs idle, else 64 rows.
+"""
+
+import itertools
+
+import pytest
+
+from paddle_tpu_torch.kernels import flash_attention as tfa
+from paddle_tpu_torch.kernels import lstm_cell as tl
+
+H100_SMS = 132
+H100_SMEM = 232448
+SHAPES = [(B, D) for B in (1, 3, 5, 7, 32, 33, 100, 300)
+          for D in (1, 7, 40, 64, 96, 119, 120, 121, 128, 512, 515, 1100,
+                    1400, 2048)]
+
+
+def _plan_blocks(plan, B, D):
+    """What each block of ``plan`` computes, in launch order: a list of
+    (batch rows, gate columns of ``W_h``), the columns being the four
+    gates of the block's hidden units (all 4D in regime (a)). Block i is
+    unit group i % G of row block i // G, G = ceil(D / units), as in
+    csrc/lstm_cell.cu."""
+    u, r = plan["units"], plan["rows"]
+    groups = -(-D // u)
+    blocks = []
+    for i in range(plan["blocks"]):
+        g, rb = i % groups, i // groups
+        units = range(g * u, min(D, (g + 1) * u))
+        blocks.append((list(range(rb * r, min(B, (rb + 1) * r))),
+                       [gate * D + j for gate in range(4) for j in units]))
+    return blocks
+
+
+@pytest.mark.parametrize("B,D", SHAPES)
+def test_lstm_blocks_tile_every_row_and_gate_column_once(B, D):
+    plan = tl.lstm_plan(B, D, H100_SMS, H100_SMEM)
+    seen = {}
+    for rows, cols in _plan_blocks(plan, B, D):
+        assert rows and cols
+        for r, c in itertools.product(rows, cols):
+            seen[(r, c)] = seen.get((r, c), 0) + 1
+    assert len(seen) == B * 4 * D
+    assert set(seen.values()) == {1}
+    # a block's columns are whole hidden units: all four gates of each
+    for _, cols in _plan_blocks(plan, B, D):
+        units = sorted(c % D for c in cols if c < D)
+        assert sorted(c - g * D for g in range(4) for c in cols
+                      if g * D <= c < (g + 1) * D) == sorted(units * 4)
+
+
+@pytest.mark.parametrize("B,D", SHAPES)
+def test_lstm_plan_stays_within_the_card_and_the_kernel(B, D):
+    plan = tl.lstm_plan(B, D, H100_SMS, H100_SMEM)
+    assert plan["smem"] <= H100_SMEM
+    assert plan["threads"] % 32 == 0
+    assert 32 <= plan["threads"] <= tl.MAX_THREADS
+    assert plan["units"] * plan["groups"] <= tl.MAX_COMBOS
+    assert plan["rt"] in (1, 4) and 1 <= plan["kw"] <= 4
+    assert 1 <= plan["kc"] <= D
+    if plan["kc"] < D:
+        assert plan["kc"] % 8 == 0
+    if plan["regime"] == "b":
+        # cooperative: one block per SM at most, all co-resident
+        assert plan["blocks"] <= H100_SMS
+    else:
+        assert plan["units"] == D and plan["kc"] == D
+        assert plan["w"] in ("shared", "registers")
+        if plan["w"] == "registers":
+            quads = -(-D // 4)
+            assert -(-quads // (4 * plan["kw"])) <= tl.REG_QUADS
+        assert plan["groups"] * plan["rt"] >= plan["rows"]
+        if B <= H100_SMS:
+            assert plan["blocks"] == B and plan["rows"] == 1
+
+
+@pytest.mark.parametrize("n_sm,limit", [(132, H100_SMEM), (132, 100 * 1024),
+                                        (78, 160 * 1024), (16, 48 * 1024)])
+def test_lstm_regime_a_exactly_where_w_h_and_staging_fit(n_sm, limit):
+    # regime (a)'s layout with W_h in shared memory, as the plan lays it
+    # out where shared memory is no limit; the layout's byte count is
+    # held to the kernel's own by chip_smoke.py
+    for B, D in itertools.product((1, 5, 32, 200), range(1, 140)):
+        plan = tl.lstm_plan(B, D, n_sm, limit)
+        if D <= tl.MAX_COMBOS:
+            free = tl.lstm_plan(B, D, n_sm, 1 << 30)
+            assert free["regime"] == "a" and free["units"] == D
+            need = tl.lstm_layout(B, D, "a", D, free["rows"], D,
+                                  "shared")["smem"]
+            assert need >= 16 * D * D
+            assert (plan["regime"] == "a") == (need <= limit)
+            if plan["regime"] == "a":
+                assert plan["rows"] == free["rows"]
+        else:
+            assert plan["regime"] == "b"
+        assert plan["smem"] <= limit
+        if plan["regime"] == "b":
+            assert plan["blocks"] <= n_sm
+
+
+@pytest.mark.parametrize("B,D", SHAPES)
+def test_lstm_plan_carries_its_own_layout(B, D):
+    plan = tl.lstm_plan(B, D, H100_SMS, H100_SMEM)
+    lay = tl.lstm_layout(B, D, plan["regime"], plan["units"], plan["rows"],
+                         plan["kc"], plan["w"])
+    assert {k: plan[k] for k in lay} == lay
+
+
+def test_lstm_regime_switch_on_the_h100():
+    # W_h 16 * 120 * 119, h 8 * 124, the sums 4 * 120 * 4: 231,392 bytes
+    # fit; at D 120 W_h alone takes 230,400 and the rest no longer fits
+    assert tl.lstm_plan(32, 119, H100_SMS, H100_SMEM)["regime"] == "a"
+    assert tl.lstm_plan(32, 119, H100_SMS, H100_SMEM)["smem"] == 231392
+    assert tl.lstm_plan(32, 120, H100_SMS, H100_SMEM)["regime"] == "b"
+    main = tl.lstm_plan(32, 512, H100_SMS, H100_SMEM)
+    assert (main["regime"], main["blocks"], main["units"], main["rows"]) \
+        == ("b", 128, 16, 8)
+    assert main["w"] == "shared"
+    assert tl.lstm_plan(32, 64, H100_SMS, H100_SMEM)["w"] == "registers"
+    assert tl.lstm_plan(32, 96, H100_SMS, H100_SMEM)["w"] == "shared"
+    assert tl.lstm_plan(32, 64, H100_SMS, H100_SMEM)["blocks"] == 32
+    # a 1/SMs slice of W_h above the limit: read from L2, every SM works
+    wide = tl.lstm_plan(3, 1400, H100_SMS, H100_SMEM)
+    assert wide["regime"] == "b" and wide["w"] == "l2"
+    assert wide["blocks"] > H100_SMS // 2
+    assert tl.lstm_plan(3, 1100, H100_SMS, H100_SMEM)["w"] == "shared"
+
+
+def test_lstm_row_stride_is_float4_aligned_with_odd_quads():
+    for cols in range(1, 300):
+        rs = tl.row_stride(cols)
+        assert rs >= cols and rs % 4 == 0 and (rs // 4) % 2 == 1
+
+
+@pytest.mark.parametrize("B,H,T,want", [
+    (32, 8, 1, 4), (32, 8, 4, 4), (1, 8, 3, 4),     # decode, verify
+    (1, 8, 256, 32), (2, 4, 5, 32),                   # few blocks: 32 rows
+    (64, 8, 256, 64), (33, 4, 65, 64),                # enough: 64 rows
+])
+def test_flash_tile_choice(B, H, T, want):
+    plan = tfa.flash_plan(B, H, T, H100_SMS)
+    assert plan["block_q"] == want
+    assert plan["threads"] == (128 if want in (4, 32) else 256)
+    assert plan["blocks"] == B * H * -(-T // want)
+
+
+def test_flash_small_tile_exactly_where_64_row_tiles_leave_sms_idle():
+    for n_sm in (16, 132):
+        for B, H, T in itertools.product((1, 2, 4, 16), (1, 8), (5, 64, 65,
+                                                               256, 300)):
+            idle = B * H * -(-T // 64) < n_sm
+            assert tfa.flash_plan(B, H, T, n_sm)["block_q"] == \
+                (32 if idle else 64)
