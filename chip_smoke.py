@@ -10,18 +10,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 3. holds each kernel (flash forward, the flash backward pair, paged
    decode, tree decode; the recurrences in step 10) against its plain PyTorch version on the same CUDA
    tensors, at the shapes the serving and training paths give it and at
-   edge cases (for the flash forward also the first 32- and 64-row
-   tiles, T and S off multiples of 64, an all-zero key tile between
-   valid ones, a row with every key masked, head dim 128, GQA and a
-   window at T 256; each case with its launch plan),
-   printing each case's max abs error beside its tolerance, then times
+   edge cases (for the flash forward and the backward pair also the
+   first 32- and 64-row tiles, T and S off multiples of 64, an all-zero
+   key tile between valid ones, a row with every key masked, head dims
+   128 and 33, GQA and a window at T 256; each case with its launch
+   plan; the backward pair's dead rows and masked keys exactly 0),
+   printing each case's max abs error beside its tolerance; checks that
+   the backward pair's plan (``flash_bwd_plan``) gives the threads and
+   shared bytes the kernels derive, at every head dim; runs a full
+   [B, H, T, S] mask (GQA, a window, a fully masked row) through
+   ``flash_attention`` on the card and on the CPU (``attention_reference``
+   on both, no kernel launch; forward and gradients within 1e-4); then times
    kernel, plain version and (where one exists) the one-call PyTorch
    equivalent: device time per call, from CUDA events around replays of
    a CUDA graph of 30 calls (no host launch cost in the time) that cycle
    through input copies larger than the L2 cache; the library time of the
-   backward pair (autograd's backward of ``scaled_dot_product_attention``,
-   which a graph cannot hold) from CUDA events around 30 eager calls, each
-   far longer than its launch;
+   backward pair (autograd's backward of ``scaled_dot_product_attention``
+   with the key mask, or ``is_causal``, which a graph cannot hold) from
+   CUDA events around 30 eager calls, each far longer than its launch.
+   The backward pair's bounds are printed two ways: at the split-TF32
+   rate of the tensor cores (a third of 495 TFLOP/s, what its kernels
+   compute at; the ``bound_ms`` of its record) and at 67 TFLOP/s fp32;
 4. serves 64 greedy requests through ``SlotDecodeSession(paged=True)`` at
    the full width of the Transformer-base configuration (6 layers,
    d_model 512, 8 heads, d_inner 2048, vocab 32000, max_length 256;
@@ -56,8 +65,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    batch 64 of ragged lengths, fp32): 2 warm-up steps, then 20 steps with
    each kernel's launch count reset just before and read just after. It
    gates on finite losses, a loss that falls by 0.1 nat, and 18 launches
-   of each backward kernel and 36 of the forward per step, and profiles
-   one more step (device time by kernel, device busy share);
+   of each backward kernel and 36 of the forward per step, reads each
+   flash kernel's launches by shape class (key mask or causal) from the
+   counts its wrapper keeps, and profiles one more step (device time by
+   kernel, device busy share);
 9. trains 3 Adam steps of the same model (dropout 0, batch 4,
    ``set_deterministic_params`` weights) on the card and on the CPU and
    gates on each step's loss; the first step's gradients are compared and
@@ -86,8 +97,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    and 3 train losses (1e-3) on the card and on the CPU.
 
 A line of its own before the last holds the kernels' JSON record (for
-flash_fwd and lstm_cell also every timed shape: ms, bound, plain and
-library ms, and the main path's launches at that shape); the
+flash_fwd, the backward pair and lstm_cell also every timed shape: ms,
+bound, plain and library ms, and the main path's launches at that
+shape); the
 last line is ``{"ok": true, "device": {...}}``. Any failure exits nonzero
 before that line. The script needs one CUDA card and the rest of the
 repository beside it: without either it fails at once.
@@ -106,6 +118,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # and dense fp32 rate outside the tensor cores, at the 700 W limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+# fp32 products as split-TF32 on the tensor cores: three TF32 products
+# each, at the dense TF32 rate of 495 TFLOP/s (B2 and B3 compute so)
+PEAK_TF32X3_FLOPS = 495e12 / 3
 
 # Transformer-base, as the JAX package's bench.py configures it
 N_LAYER, N_HEAD, D_MODEL, D_INNER, VOCAB, MAX_LEN = 6, 8, 512, 2048, 32000, 256
@@ -255,10 +270,11 @@ def device_ms(torch, fn, inputs, iters=10):
     return busy_us / 1e3 / iters
 
 
-def bound(nbytes, flops):
-    """(least ms on the card, what bounds it)."""
+def bound(nbytes, flops, peak_flops=PEAK_FP32_FLOPS):
+    """(least ms on the card, what bounds it), the operations at
+    ``peak_flops``."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -536,8 +552,8 @@ def kernel_phase(torch):
         if not err <= K1_TOL:
             fail("flash_fwd %s: error %.3e above %.0e" % (name, err, K1_TOL))
         worst["flash_fwd"] = max(worst["flash_fwd"], err)
-    # the backward pair at the train step's shapes and at B1's edge cases
-    # (decode's T=1 shape included), plus T != S
+    # the backward pair at the train step's shapes, at B1's edge cases
+    # (decode's T=1 shape included) and multi-row tile cases, plus T != S
     dev = "cuda"
     t_ne_s = dict(q=torch.randn(2, 4, 19, 64, generator=gen, device=dev),
                   k=torch.randn(2, 4, 37, 64, generator=gen, device=dev),
@@ -546,7 +562,12 @@ def kernel_phase(torch):
                            < torch.tensor([[37], [5]], device=dev)).float())
     worst["flash_bwd_dkv"] = worst["flash_bwd_dq"] = 0.0
     for name, kw in (train_flash_cases(torch, gen) + flash_cases(torch, gen)
+                     + flash_tile_cases(torch, gen)
                      + [("T19_S37_masked", t_ne_s)]):
+        B, H, T, d = kw["q"].shape
+        Hkv, S = kw["k"].shape[1:3]
+        print("plan flash_bwd %-22s %s" % (name, fa.flash_bwd_plan(
+            B, H, Hkv, T, S, d)))
         args = bwd_inputs(torch, fa, kw, gen)
         dq, dk, dv = fa.flash_backward(**args)
         rq, rk, rv = fa.flash_backward_plain(**args)
@@ -599,7 +620,74 @@ def kernel_phase(torch):
     return worst
 
 
-def sdpa_backend(torch, F, q, k, v, mask):
+def flash_bwd_layout_phase():
+    """B2/B3's plans against the kernels: at every head dim 1..128, the
+    threads and shared bytes of ``flash_bwd_plan`` equal those
+    csrc/flash_bwd.cu derives (``kernel_bwd_layout``), and the shared
+    bytes stay within the card's per-block limit."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels.build import device_limits
+
+    limit = device_limits("cuda")[1]
+    n = 0
+    for d in range(1, fa.MAX_HEAD_DIM + 1):
+        plan = fa.flash_bwd_plan(1, 1, 1, 64, 64, d)
+        for kernel in fa.BWD_KERNELS:
+            p = plan[kernel]
+            got = fa.kernel_bwd_layout(kernel, p["rows"], d)
+            if got != (p["threads"], p["smem"]) or p["smem"] > limit:
+                fail("flash_bwd_%s rows %d d %d: the plan's (threads, "
+                     "smem) %s, the kernel's %s, limit %d"
+                     % (kernel, p["rows"], d, (p["threads"], p["smem"]),
+                        got, limit))
+            n += 1
+    print("flash_bwd layout: the plan's threads and shared bytes equal the "
+          "kernels' at %d (kernel, rows, head dim) triples, all within %d "
+          "bytes" % (n, limit))
+
+
+def full_mask_phase(torch):
+    """C1 on the card: a full [B, H, T, S] mask (GQA, a window, a fully
+    masked row) through ``flash_attention`` on the card and on the CPU,
+    forward and gradient within 1e-4. The route is by the mask's rank:
+    ``attention_reference`` is called once on each device and no kernel
+    launches. Returns the worst error."""
+    from paddle_tpu_torch.kernels import KERNELS
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    B, H, Hkv, T, S, d = 2, 8, 4, 70, 90, 64
+    ins = [torch.randn(*shape, generator=gen) for shape in (
+        (B, H, T, d), (B, Hkv, S, d), (B, Hkv, S, d), (B, H, T, d))]
+    mask = torch.rand(B, H, T, S, generator=gen) > 0.3
+    mask[1, 3, 5] = False  # a row that sees no key: the mean of V
+    res = {}
+    for dev in ("cuda", "cpu"):
+        for k in KERNELS.values():
+            k.reset()
+        fa.ATTENTION_REFERENCE.reset()
+        leaves = [t.to(dev).requires_grad_() for t in ins[:3]]
+        out = fa.flash_attention(*leaves, mask=mask.to(dev), kv_group=2,
+                                 window=40)
+        grads = torch.autograd.grad(out, leaves, ins[3].to(dev))
+        launched = {n: k.launches for n, k in KERNELS.items() if k.launches}
+        if fa.ATTENTION_REFERENCE.calls != 1 or launched:
+            fail("full mask on %s: attention_reference called %d times, "
+                 "kernels launched %s" % (dev, fa.ATTENTION_REFERENCE.calls,
+                                          launched))
+        res[dev] = [t.detach().cpu() for t in (out,) + tuple(grads)]
+    err = max((a - b).abs().max().item()
+              for a, b in zip(res["cuda"], res["cpu"]))
+    print("full mask [%d,%d,%d,%d] (GQA 2, window 40, a fully masked row): "
+          "attention_reference once per device, no kernel launch; card vs "
+          "cpu out/dq/dk/dv max abs diff %.3e  tol %.0e"
+          % (B, H, T, S, err, K1_TOL))
+    if not err <= K1_TOL:
+        fail("full mask: card and CPU differ by %.3e" % err)
+    return err
+
+
+def sdpa_backend(torch, F, q, k, v, mask, causal=False):
     """The backend ``scaled_dot_product_attention`` picks for these
     inputs: the first in PyTorch's priority order that takes them."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -618,7 +706,8 @@ def sdpa_backend(torch, F, q, k, v, mask):
             # a backend that refuses the inputs warns why, then raises
             with warnings.catch_warnings(), sdpa_kernel([members[name]]):
                 warnings.simplefilter("ignore")
-                F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+                F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                               is_causal=causal)
         except RuntimeError:
             continue
         return name
@@ -627,17 +716,23 @@ def sdpa_backend(torch, F, q, k, v, mask):
 
 def sdpa_backward_ms(torch, F, bwd):
     """(backend, ms) of the backward of ``scaled_dot_product_attention``
-    on the same fp32 inputs, key mask and output gradient as the kernels:
-    ``torch.autograd.grad`` of a forward run once, timed eagerly."""
+    on the same fp32 inputs, key mask (or ``is_causal``) and output
+    gradient as the kernels: ``torch.autograd.grad`` of a forward run
+    once, timed eagerly."""
     ins = []
+
+    def mask_of(a):
+        return (None if a["kv_mask"] is None
+                else (a["kv_mask"] > 0)[:, None, None, :])
+
     for a in bwd:
         q, k, v = (a[n].detach().requires_grad_() for n in ("q", "k", "v"))
-        mask = (a["kv_mask"] > 0)[:, None, None, :]
-        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask_of(a),
+                                             is_causal=a["causal"])
         ins.append((out, (q, k, v), a["dout"]))
     q, k, v = ins[0][1]
-    backend = sdpa_backend(torch, F, q, k, v,
-                           (bwd[0]["kv_mask"] > 0)[:, None, None, :])
+    backend = sdpa_backend(torch, F, q, k, v, mask_of(bwd[0]),
+                           bwd[0]["causal"])
 
     def call(i):
         out, leaves, dout = ins[i]
@@ -776,7 +871,7 @@ def timing_phase(torch):
                 q, k, v, is_causal=causal), kw_c),
         bound=bound(4 * qbytes + rowbytes, 4.0 * pairs_c * dh))
 
-    def bwd_rows(suffix, cases, pairs, shape, with_library):
+    def bwd_rows(suffix, cases, pairs, shape):
         """dkv and dq rows for one set of inputs; ``pairs`` counts the
         visible (query, key) pairs over batch and heads."""
         bwd = [bwd_inputs(torch, fa, c, gen) for c in cases]
@@ -788,39 +883,44 @@ def timing_phase(torch):
         plain = [{n: a[n] for n in ("q", "k", "v", "kv_mask", "out", "lse",
                                      "dout", "causal")} for a in bwd]
         plain_ms = cuda_ms(fa.flash_backward_plain, plain)
-        backend, lib_ms = (sdpa_backward_ms(torch, F, bwd) if with_library
-                           else (None, None))
+        backend, lib_ms = sdpa_backward_ms(torch, F, bwd)
         kvb = 4.0 * dh * (pairs / T if not bwd[0]["causal"]
                           else B * N_HEAD * T)  # k/v rows read, each
         mb = mbytes if bwd[0]["kv_mask"] is not None else 0.0
-        rows["flash_bwd_dkv" + suffix] = dict(
-            shape=shape, ms=cuda_ms(fa.flash_bwd_dkv, kern),
-            plain_ms=plain_ms, library_ms=lib_ms, backend=backend,
-            bound=bound(2 * qbytes + 2 * kvb + 2 * rowbytes + mb
-                        + 2 * qbytes, 8.0 * pairs * dh))
-        rows["flash_bwd_dq" + suffix] = dict(
-            shape=shape, ms=cuda_ms(fa.flash_bwd_dq, kern),
-            plain_ms=plain_ms, library_ms=lib_ms, backend=backend,
-            bound=bound(2 * qbytes + 2 * kvb + 2 * rowbytes + mb
-                        + qbytes, 6.0 * pairs * dh))
+        # bytes and operations of each: B2 reads q, dO, k, v, lse, delta
+        # (and the mask) and writes dk, dv, 8 flops per (pair, column); B3
+        # writes dq, 6 flops. Bound at the split-TF32 tensor-core rate,
+        # and beside it at the fp32 rate of the CUDA cores
+        for name, nbytes, flops in (
+                ("flash_bwd_dkv", 4 * qbytes + 2 * kvb + 2 * rowbytes + mb,
+                 8.0 * pairs * dh),
+                ("flash_bwd_dq", 3 * qbytes + 2 * kvb + 2 * rowbytes + mb,
+                 6.0 * pairs * dh)):
+            rows[name + suffix] = dict(
+                shape=shape, ms=cuda_ms(getattr(fa, name), kern),
+                plain_ms=plain_ms, library_ms=lib_ms, backend=backend,
+                bound=bound(nbytes, flops, PEAK_TF32X3_FLOPS),
+                bound_fp32=bound(nbytes, flops))
 
-    bwd_rows("", kw_t, T * vis * N_HEAD, shape_t, True)
+    bwd_rows("", kw_t, T * vis * N_HEAD, shape_t)
     bwd_rows("_causal", copies(tcases["train_causal"]),
              B * N_HEAD * T * (T + 1) / 2.0,
-             "q/k/v [%d,%d,%d,%d], causal" % (B, N_HEAD, T, dh), False)
+             "q/k/v [%d,%d,%d,%d], causal" % (B, N_HEAD, T, dh))
     return rows
 
 
 def kernel_counts(kernels):
-    """Every kernel's launch count since its reset and, beside them,
-    ``flash_fwd``'s by shape class (``flash_fwd/decode`` T = 1,
-    ``/verify`` T <= 4, else ``/causal`` or ``/full``) from the counts
-    its wrapper keeps by (T, causal) where it launches."""
+    """Every kernel's launch count since its reset and, beside them, the
+    flash kernels' by shape class (``flash_fwd/decode`` T = 1,
+    ``/verify`` T <= 4, else ``/causal`` or ``/full``; the same for
+    ``flash_bwd_dkv`` and ``flash_bwd_dq``) from the counts their
+    wrappers keep by (T, causal) where they launch."""
     out = {name: k.launches for name, k in kernels.items()}
-    for (t, causal), n in sorted(kernels["flash_fwd"].by_key.items()):
-        label = "flash_fwd/" + ("decode" if t == 1 else "verify" if t <= 4
-                                else "causal" if causal else "full")
-        out[label] = out.get(label, 0) + n
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        for (t, causal), n in sorted(kernels[name].by_key.items()):
+            label = name + "/" + ("decode" if t == 1 else "verify" if t <= 4
+                                  else "causal" if causal else "full")
+            out[label] = out.get(label, 0) + n
     return out
 
 
@@ -2092,8 +2192,10 @@ def main():
         elif "registers" in line or "spill" in line:
             print("ptxas:   " + line.strip()[:120])
     lstm_layout_phase()
+    flash_bwd_layout_phase()
 
     worst = kernel_phase(torch)
+    full_mask_phase(torch)
     timing = timing_phase(torch)
     for name in ("flash_fwd", "flash_fwd_verify", "flash_fwd_encoder",
                  "paged_decode", "tree_decode", "flash_fwd_train",
@@ -2106,11 +2208,14 @@ def main():
             lib += " (backward of scaled_dot_product_attention, backend %s)" \
                 % r["backend"]
         plain = "plain %.4f ms" % r["plain_ms"]
+        bnd = "bound %.4f ms (%s)" % r["bound"]
         if name.startswith("flash_bwd"):
             plain += " (the pair)"
-        print("time %-20s %s: kernel %.4f ms, %s, library %s, bound %.4f ms "
-              "(%s)" % (name, r["shape"], r["ms"], plain, lib, r["bound"][0],
-                        r["bound"][1]))
+            lib += " (the pair)"
+            bnd = ("bound %.4f ms (%s, split-TF32 at 165 TFLOP/s; %.4f ms at "
+                   "67 TFLOP/s fp32)" % (r["bound"] + r["bound_fp32"][:1]))
+        print("time %-20s %s: kernel %.4f ms, %s, library %s, %s"
+              % (name, r["shape"], r["ms"], plain, lib, bnd))
     print("time gather k_pool[gof] [%d,%d,%d,%d]: %.4f ms"
           % (NUM_SLOTS, N_HEAD, MAX_LEN, D_MODEL // N_HEAD,
              timing["gather_k_pool_gof_ms"]))
@@ -2154,13 +2259,28 @@ def main():
     rnn_card_vs_cpu_phase(np, torch, fluid, exe)
 
     def bwd_record(name, line):
+        """B2 or B3: the key-mask shape's numbers (bound at the split-TF32
+        rate, ``bound_fp32_ms`` at the CUDA cores'), and per shape the
+        train steps' launches at it, read from the wrapper's counts."""
         t = timing[name]
+        shapes = shape_rows(timing, [
+            (name, train_launches.get(name + "/full", 0)),
+            (name + "_causal", train_launches.get(name + "/causal", 0))],
+            "the training phase's timed steps at this shape class, "
+            "counted by the wrapper where it launches")
+        if sum(r["launches"] for r in shapes) != train_launches[name]:
+            fail("%s's launches by shape class %s do not add up to its %d "
+                 "launches" % (name, [r["launches"] for r in shapes],
+                               train_launches[name]))
+        for r in shapes:
+            r["bound_fp32_ms"] = timing[r["row"]]["bound_fp32"][0]
         return dict(name=name, route="cuda",
                     source="paddle_tpu_torch/csrc/flash_bwd.cu",
                     replaces="paddle_tpu/kernels/flash_attention.py:%d" % line,
                     launches=train_launches[name], max_abs_err=worst[name],
                     ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
-                    bound_by=t["bound"][1], library_ms=t["library_ms"])
+                    bound_by=t["bound"][1], library_ms=t["library_ms"],
+                    bound_fp32_ms=t["bound_fp32"][0], shapes=shapes)
 
     def rnn_record(name, source, line, launches):
         t = rnn_timing[name + "_D%d" % RNN_HID]

@@ -1,4 +1,5 @@
-// flash_bwd: the FlashAttention-2 backward pair, fp32, for sm_90a.
+// flash_bwd: the FlashAttention-2 backward pair, fp32 in and out, for
+// sm_90a, with its products on the tensor cores as split-TF32.
 //
 // Replaces the TPU kernels `_flash_bwd_dkv_kernel` and
 // `_flash_bwd_dq_kernel` (paddle_tpu/kernels/flash_attention.py:302,376,
@@ -12,32 +13,72 @@
 //   dV_j += p dO_i,  dK_j += ds q_i,  dQ_i += ds k_j,
 // where `valid` is i < T, j < S, lse_i > -1e29 (a row that saw no key
 // contributes nothing), the key mask, causal j <= i and the window
-// (i - j < w, and j - i < w when not causal). Tile pairs wholly above
-// the diagonal or outside the window are skipped by the tests of
-// flash_attention.py:356-368,419-430, and so is a key tile whose keys are
-// all masked.
+// (i - j < w, and j - i < w when not causal). So a dead row's dQ and a
+// masked key's dK/dV are exactly 0.
 //
 // Grid. The TPU walks the reduction axes in order on one core and keeps
 // the sums in VMEM scratch. GPU blocks run in no fixed order, so each
 // reduction moves inside one block and its sum lives in registers:
-//   dK/dV: one block per (K/V tile of 32 keys, kv head, batch), looping
-//          over the g query heads of the kv head and over the Q tiles;
-//   dQ:    one block per (Q tile of 32 rows, head, batch), looping over
-//          the K/V tiles of its kv head.
-// Neither kernel writes a partial sum to device memory, and no atomics
-// are needed.
+//   dK/dV: one block per (tile of 64 keys, kv head, batch), looping
+//          over the g query heads of the kv head and their 32-row Q tiles;
+//   dQ:    one block per (tile of 64 queries, head, batch), looping
+//          over the 32-key K/V tiles of its kv head.
+// Each of the block's 4 warps owns 16 of its 64 rows. The launch plan
+// (kernels/flash_attention.py `flash_bwd_plan`) states the tile and the
+// wrapper passes it in; a 32-row tile measured no faster even where
+// 64-row tiles leave SMs idle, so 64 is the only one. Neither kernel
+// writes a partial sum to device memory, and no atomics are needed: dQ
+// is deterministic.
 //
-// What bounds it on this card: at the training shape (T = S = 256,
-// d = 64) the pair does 14 * T * S * d flops per head against about
-// 4 * (T + S) * d * 4 bytes: some 450 flops per byte, far above the fp32
-// ridge (67 TFLOP/s over 3.35 TB/s is 20), so it is bound by fp32 FMA
-// issue on the CUDA cores (TF32 is off: ROADMAP's parity rule keeps fp32
-// throughout). What the design does about it: each thread computes a
-// 2 x 4 block of scores and of dO.v^T from shared memory (12 shared
-// loads for 16 FMAs), and a 4-row block of the dK/dV or dQ accumulators
-// (16 loads for 32 FMAs at d = 64); rows are padded by one float so a
-// warp's reads fall in distinct banks. Tensor cores (TF32/bf16 wgmma),
-// TMA staging and a larger tile are later work.
+// What bounds it on this card: at the training shape (T = S = 256, d = 64)
+// the pair does 14 * T * S * d flops per head against about
+// 4 * (T + S) * d * 4 bytes, some 450 flops per byte: bound by
+// arithmetic. fp32 parity (ROADMAP) rules out plain TF32 (about three
+// decimal digits), so every product runs as split-TF32 on the tensor
+// cores: each operand x is split into hi = tf32(x) and lo = tf32(x - hi)
+// (rounded as cvt.rna.tf32.f32 rounds), and a * b is a_lo b_hi +
+// a_hi b_lo + a_hi b_hi, three `mma.sync.m16n8k8` TF32 products with fp32
+// accumulators (the arithmetic of CUTLASS's OpMultiplyAddFastF32). The
+// bound is then 3x the work at the 495 TFLOP/s dense TF32 rate; the
+// warp-level mma.sync reaches a part of that rate only, and the splits,
+// shared-memory reads and exponentials around the products have to hide
+// behind them.
+//
+// What the design does about it:
+// - All five products (S = Q K^T, dP = dO V^T, dV += P^T dO,
+//   dK += dS^T Q, dQ += dS K) are warp-level m16n8k8 products. The dK/dV
+//   kernel computes S^T = K Q^T and dP^T = V dO^T, so the rows a warp
+//   accumulates are its own keys. An accumulator of S^T (or S) feeds the
+//   next product as its A operand without leaving registers: the
+//   accumulator holds columns 2t, 2t + 1 of a lane where the A operand
+//   wants t, t + 4, so that product reads its B operand with the k order
+//   permuted the same way (rows 2t and 2t + 1 of the 8-row step). The
+//   three products of each split run pass by pass over a step's
+//   independent accumulators, so no mma waits on the one before it.
+// - The kernel is bound by latency more than by any one unit, so it is
+//   shaped for warps per SM: a streamed tile of 32 rows is worked through
+//   at once (S, P and dS, then the accumulating product), which keeps B2
+//   within the 170 registers a thread of 3 blocks an SM and B3 within the
+//   128 of 4 (the launch bounds ask for both), and the shared memory a
+//   block takes lets 3 B2 blocks and 4 B3 blocks share an SM (12 and 16
+//   warps) at d <= 64.
+// - Streamed tiles (Q, dO, lse and delta in dK/dV; K, V and the key mask
+//   in dQ) are copied with cp.async, 16 bytes a thread where d % 4 == 0.
+//   dK/dV double-buffers them, so tile j + 1's copy overlaps tile j's
+//   products; dQ keeps one buffer, and its other blocks on the SM cover
+//   the copy. Resident tiles (K/V, or Q/dO) stay in shared memory. Rows
+//   are padded to a stride of 4 mod 8 floats, so the fragment reads of a
+//   warp (8 rows x 4 columns, or 4 row pairs x 8 columns) hit 32 distinct
+//   banks.
+// - Work with no visible pair is skipped: whole tiles by the causal and
+//   window tests and a block vote over the key mask (an all-masked key
+//   tile), and inside a tile each warp's 16 x 8 sub-products with no
+//   visible pair (above the causal diagonal, outside the window, all keys
+//   masked, all rows dead) by a warp vote, in all the products that
+//   follow from them.
+// - The head dim is padded with zero columns to 64 or 128 (a whole
+//   number of mma steps), so the inner loops have no bound to test.
+// - exp(x) is computed as exp2(x log2 e).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -45,367 +86,630 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kBQ = 32;       // query rows per tile
-constexpr int kBK = 32;       // keys per tile
-constexpr int kLP = kBK + 1;  // padded row of the p / ds tiles
 constexpr float kMaskedRowLse = -1e29f;
+constexpr float kLog2e = 1.44269504f;  // exp(x) = exp2(x log2 e)
+constexpr int kDkv = 0, kDq = 1;  // the two kernels, for the layout
+constexpr int kTile = 32;  // rows of a streamed tile (Q, or K and V)
+constexpr int kWarps = 4, kRows = 16 * kWarps;  // a block's own rows
 
-// Does the pair (query tile at q_base, key tile at k_base) hold any
-// visible entry? Block-uniform.
-__device__ __forceinline__ bool tile_runs(int q_base, int k_base,
-                                          int causal, int window) {
-  const int q_last = q_base + kBQ - 1;
-  const int k_last = k_base + kBK - 1;
-  bool run = true;
-  if (causal) run = k_base <= q_last;
+// the row stride of every tile: DP + 4 floats, DP the head dim a kernel
+// is built for (d padded with zero columns to 64 or 128, a whole number
+// of mma steps); 4 mod 8 (see the bank note above), a multiple of 16
+// bytes
+__host__ __device__ __forceinline__ int row_stride(int d) {
+  return (d <= 64 ? 64 : 128) + 4;
+}
+
+// shared bytes of a block: two resident tiles of `rows` rows, and the
+// buffers of its two streamed tiles with their per-row vectors: dK/dV
+// double-buffers them with lse and delta of the queries, dQ keeps one
+// buffer with the key mask
+__host__ __device__ __forceinline__ size_t smem_bytes(int kernel, int rows,
+                                                      int d) {
+  const size_t ld = row_stride(d);
+  const size_t streamed = kernel == kDkv ? 2 * (2 * kTile * ld + 2 * kTile)
+                                         : 2 * kTile * ld + kTile;
+  return sizeof(float) * (2 * rows * ld + streamed);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(a), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int src_bytes) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(a), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// rows [base, base + n) of a [len, d] matrix into a tile of stride
+// DP + 4; rows past len and columns past d (up to DP) are zeros
+template <int NT, int DP>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           int base, int n, int len, int d,
+                                           bool vec) {
+  constexpr int dp = DP, ld = DP + 4;
+  if (vec) {  // d % 4 == 0 and 16-byte aligned rows
+    const int quads = dp / 4;
+    for (int i = threadIdx.x; i < n * quads; i += NT) {
+      const int r = i / quads, c = (i - r * quads) * 4;
+      const int row = base + r;
+      const bool ok = row < len && c < d;
+      cp_async16(dst + r * ld + c, src + (ok ? (size_t)row * d + c : 0),
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n * dp; i += NT) {
+      const int r = i / dp, c = i - r * dp;
+      const int row = base + r;
+      const bool ok = row < len && c < d;
+      cp_async4(dst + r * ld + c, src + (ok ? (size_t)row * d + c : 0),
+                ok ? 4 : 0);
+    }
+  }
+}
+
+// -- split-TF32 on the tensor cores -----------------------------------------
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero), in two integer ops: add half a TF32 ulp to the magnitude's
+// bits and clear the 13 bits below the TF32 mantissa. Same bits as the
+// cvt instruction, which issues at the conversion rate, a quarter of the
+// integer rate.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A fragment (16 x 8) and B fragment (8 x 8) of one warp, split.
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+// B fragment from the lane's two values (k rows t and t + 4, or their
+// permuted pair)
+__device__ __forceinline__ FragB frag_b(float b0, float b1) {
+  FragB f;
+  split(b0, f.hi[0], f.lo[0]);
+  split(b1, f.hi[1], f.lo[1]);
+  return f;
+}
+
+// One of the three TF32 products of c += a * b: pass 0 a_lo b_hi, 1
+// a_hi b_lo, 2 a_hi b_hi. Callers run pass 0 over all their independent
+// accumulators, then pass 1, then pass 2, so no mma waits on the one
+// issued just before it.
+__device__ __forceinline__ void mma_pass(float (&c)[4], const FragA& a,
+                                         const FragB& b, int pass) {
+  if (pass == 0)
+    mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
+  else if (pass == 1)
+    mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
+  else
+    mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
+}
+
+// A fragment from an accumulator (rows g, g + 8; columns 2t, 2t + 1): its
+// k order is permuted (k t <- column 2t, k t + 4 <- column 2t + 1), so the
+// B operand it meets reads rows 2t and 2t + 1 of the 8-row step
+__device__ __forceinline__ FragA frag_acc(const float (&acc)[4]) {
+  FragA f;
+  split(acc[0], f.hi[0], f.lo[0]);
+  split(acc[2], f.hi[1], f.lo[1]);
+  split(acc[1], f.hi[2], f.lo[2]);
+  split(acc[3], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// s = A1 B1^T and dp = A2 B2^T over the head dim, for a warp's 16 rows
+// (rows r, r + 8 of the A tiles) and the 32 rows of the B tiles, 8
+// head-dim columns a step
+template <int LD, int ND>
+__device__ __forceinline__ void two_products(float (&s)[4][4],
+                                             float (&dp)[4][4],
+                                             const float* a1, const float* a2,
+                                             int r, const float* b1,
+                                             const float* b2, int gid,
+                                             int tig) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 1
+  for (int kk = 0; kk < ND; ++kk) {
+    const int c = 8 * kk + tig;
+    FragA fa[2];
+    FragB fb[2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const float* at = m ? a2 : a1;
+      split(at[r * LD + c], fa[m].hi[0], fa[m].lo[0]);
+      split(at[(r + 8) * LD + c], fa[m].hi[1], fa[m].lo[1]);
+      split(at[r * LD + c + 4], fa[m].hi[2], fa[m].lo[2]);
+      split(at[(r + 8) * LD + c + 4], fa[m].hi[3], fa[m].lo[3]);
+      const float* bt = m ? b2 : b1;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float* row = bt + (8 * j + gid) * LD + c;
+        fb[m][j] = frag_b(row[0], row[4]);
+      }
+    }
+#pragma unroll
+    for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        mma_pass(s[j], fa[0], fb[0][j], pass);
+        mma_pass(dp[j], fa[1], fb[1][j], pass);
+      }
+  }
+}
+
+// Is pair (query i, key j) visible by position (causal, window)?
+__device__ __forceinline__ bool pair_visible(int i, int j, int causal,
+                                             int window) {
+  bool v = !causal || j <= i;
   if (window) {
-    run = run && (q_base - k_last < window);
-    if (!causal) run = run && (k_base - q_last < window);
+    v = v && (i - j < window);
+    if (!causal) v = v && (j - i < window);
+  }
+  return v;
+}
+
+// Does the query range [q0, q1] meet the key range [k0, k1] in any visible
+// pair by position?
+__device__ __forceinline__ bool ranges_meet(int q0, int q1, int k0, int k1,
+                                            int causal, int window) {
+  bool run = !causal || k0 <= q1;
+  if (window) {
+    run = run && (q0 - k1 < window);
+    if (!causal) run = run && (k0 - q1 < window);
   }
   return run;
 }
 
-// rows [base, base + n) of a [len, d] matrix into a [n][D + 1] tile;
-// rows past len and columns past d are zeros
-template <int D>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int base, int n, int len, int d) {
-  constexpr int LD = D + 1;
-  for (int i = threadIdx.x; i < n * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    const int row = base + r;
-    dst[r * LD + c] = (row < len && c < d) ? src[(size_t)row * d + c] : 0.f;
-  }
-}
-
-// the [kBQ, kBK] tiles p and ds of one (query tile, key tile) pair, from
-// the staged q, dO, k, v tiles; each thread owns rows r0, r0 + 1 and the
-// columns c0 + 8u
-template <int D>
-__device__ __forceinline__ void p_and_ds(
-    const float* q_s, const float* do_s, const float* k_s, const float* v_s,
-    const float* lse_s, const float* delta_s, const float* kval_s,
-    int q_base, int k_base, int T, float sm_scale, int causal, int window,
-    float* p_s, float* ds_s) {
-  constexpr int LD = D + 1;
-  const int r0 = (threadIdx.x / 8) * 2;
-  const int c0 = threadIdx.x % 8;
-  float s[2][4], dp[2][4];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) s[a][u] = dp[a][u] = 0.f;
-#pragma unroll 8
-  for (int c = 0; c < D; ++c) {
-    const float qa = q_s[r0 * LD + c], qb = q_s[(r0 + 1) * LD + c];
-    const float oa = do_s[r0 * LD + c], ob = do_s[(r0 + 1) * LD + c];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float kk = k_s[(c0 + 8 * u) * LD + c];
-      const float vv = v_s[(c0 + 8 * u) * LD + c];
-      s[0][u] += qa * kk;
-      s[1][u] += qb * kk;
-      dp[0][u] += oa * vv;
-      dp[1][u] += ob * vv;
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    const int i = r0 + a;
-    const int qi = q_base + i;
-    const float lse = lse_s[i];
-    const float delta = delta_s[i];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int j = c0 + 8 * u;
-      const int kj = k_base + j;
-      bool valid = qi < T && kval_s[j] > 0.f && lse > kMaskedRowLse;
-      if (causal) valid = valid && kj <= qi;
-      if (window) {
-        valid = valid && (qi - kj < window);
-        if (!causal) valid = valid && (kj - qi < window);
-      }
-      const float p = valid ? expf(s[a][u] * sm_scale - lse) : 0.f;
-      p_s[i * kLP + j] = p;
-      ds_s[i * kLP + j] = p * (dp[a][u] - delta) * sm_scale;
-    }
-  }
-}
-
-// key validity of key k_base + (tid % kBK): in range and kept by the mask
-__device__ __forceinline__ bool key_valid(const float* mask_b, int k_base,
-                                          int S) {
-  const int s = k_base + threadIdx.x % kBK;
-  return s < S && (mask_b == nullptr || mask_b[s] > 0.f);
-}
-
-template <int D>
-size_t smem_bytes() {
-  constexpr int LD = D + 1;
-  return sizeof(float) *
-         ((size_t)2 * kBQ * LD + 2 * kBK * LD + 2 * kBQ * kLP + 2 * kBQ + kBK);
-}
-
-struct Tiles {
-  float *q, *dout, *k, *v, *p, *ds, *lse, *delta, *kval;
+struct Args {
+  const float *q, *k, *v, *dout, *lse, *delta, *kv_mask;
+  float *dq, *dk, *dv;
+  int H, Hkv, T, S, d;
+  float sm_scale;
+  int causal, window, vec;
 };
 
-template <int D>
-__device__ __forceinline__ Tiles carve(float* smem) {
-  constexpr int LD = D + 1;
-  Tiles t;
-  t.q = smem;
-  t.dout = t.q + kBQ * LD;
-  t.k = t.dout + kBQ * LD;
-  t.v = t.k + kBK * LD;
-  t.p = t.v + kBK * LD;
-  t.ds = t.p + kBQ * kLP;
-  t.lse = t.ds + kBQ * kLP;
-  t.delta = t.lse + kBQ;
-  t.kval = t.delta + kBQ;
-  return t;
-}
+// -- B2: dK and dV ----------------------------------------------------------
 
-// stage the query-side rows of head (b, h) for the tile at q_base
-template <int D>
-__device__ __forceinline__ void load_query_tile(
-    const Tiles& t, const float* q, const float* dout, const float* lse,
-    const float* delta, size_t bh, int q_base, int T, int d) {
-  load_rows<D>(t.q, q + bh * T * d, q_base, kBQ, T, d);
-  load_rows<D>(t.dout, dout + bh * T * d, q_base, kBQ, T, d);
-  for (int i = threadIdx.x; i < kBQ; i += kThreads) {
-    const int qi = q_base + i;
-    t.lse[i] = qi < T ? lse[bh * T + qi] : 0.f;
-    t.delta[i] = qi < T ? delta[bh * T + qi] : 0.f;
-  }
-}
+// each warp owns 16 keys; DP: the padded head dim (64 or 128): the
+// dK/dV accumulators are DP / 8 tiles of 16 x 8. At DP 64, 3 blocks an
+// SM (the shared memory a block takes allows it)
+template <int DP>
+__global__ void __launch_bounds__(kWarps * 32, DP == 64 ? 3 : 1)
+flash_bwd_dkv_kernel(const Args a) {
+  constexpr int NT = kWarps * 32, KR = kRows, ND = DP / 8, LD = DP + 4;
+  extern __shared__ float4 smem4[];
+  const int d = a.d, T = a.T, S = a.S;
+  float* k_s = reinterpret_cast<float*>(smem4);  // [KR][LD]
+  float* v_s = k_s + KR * LD;                    // [KR][LD]
+  float* q_s = v_s + KR * LD;                    // [2][kTile][LD]
+  float* do_s = q_s + 2 * kTile * LD;            // [2][kTile][LD]
+  float* lse_s = do_s + 2 * kTile * LD;          // [2][kTile]
+  float* dl_s = lse_s + 2 * kTile;               // [2][kTile]
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     const float* __restrict__ kv_mask,
-                     float* __restrict__ dk, float* __restrict__ dv, int H,
-                     int Hkv, int T, int S, int d, float sm_scale, int causal,
-                     int window) {
-  constexpr int LD = D + 1;
-  constexpr int NC = D / 16;  // accumulator columns per thread
-  extern __shared__ float smem[];
-  const Tiles t = carve<D>(smem);
-  const int tid = threadIdx.x;
-  const int k_base = blockIdx.x * kBK;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
-  const int g = H / Hkv;
-  const size_t bhk = (size_t)b * Hkv + hk;
-  const float* mask_b = kv_mask ? kv_mask + (size_t)b * S : nullptr;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int k_base = blockIdx.x * KR;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int g = a.H / a.Hkv;
+  const size_t bhk = (size_t)b * a.Hkv + hk;
+  const float* mask_b = a.kv_mask ? a.kv_mask + (size_t)b * S : nullptr;
 
-  // this thread's accumulator block: key rows jr0..jr0+3, columns
-  // cc + 16w
-  const int jr0 = (tid / 16) * 4;
-  const int cc = tid % 16;
-  float dk_acc[4][NC], dv_acc[4][NC];
+  // this lane's two keys (accumulator rows g and g + 8 of its warp)
+  const int kw0 = k_base + warp * 16;
+  const int key[2] = {kw0 + gid, kw0 + gid + 8};
+  bool key_ok[2];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int w = 0; w < NC; ++w) dk_acc[r][w] = dv_acc[r][w] = 0.f;
-
-  load_rows<D>(t.k, k + bhk * S * d, k_base, kBK, S, d);
-  load_rows<D>(t.v, v + bhk * S * d, k_base, kBK, S, d);
-  const bool kv_ok = key_valid(mask_b, k_base, S);
-  if (tid < kBK) t.kval[tid] = kv_ok ? 1.f : 0.f;
+  for (int h = 0; h < 2; ++h)
+    key_ok[h] = key[h] < S && (!mask_b || mask_b[key[h]] > 0.f);
+  const bool warp_live = __any_sync(0xffffffffu, key_ok[0] || key_ok[1]);
   // a tile of masked keys gets zero gradients without a pass over Q
-  const bool any_key = __syncthreads_or(kv_ok);
+  const bool block_live = __syncthreads_or(warp_live);
 
-  const int n_q = (T + kBQ - 1) / kBQ;
-  for (int gi = 0; any_key && gi < g; ++gi) {
-    const size_t bh = (size_t)b * H + (size_t)hk * g + gi;
-    for (int qt = 0; qt < n_q; ++qt) {
-      const int q_base = qt * kBQ;
-      if (!tile_runs(q_base, k_base, causal, window)) continue;
-      __syncthreads();  // the last pair's reads of the q-side tiles are done
-      load_query_tile<D>(t, q, dout, lse, delta, bh, q_base, T, d);
-      __syncthreads();
-      p_and_ds<D>(t.q, t.dout, t.k, t.v, t.lse, t.delta, t.kval, q_base,
-                  k_base, T, sm_scale, causal, window, t.p, t.ds);
-      __syncthreads();
-      for (int i = 0; i < kBQ; ++i) {
-        float pv[4], dsv[4];
+  float dk[ND][4], dv[ND][4];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          pv[r] = t.p[i * kLP + jr0 + r];
-          dsv[r] = t.ds[i * kLP + jr0 + r];
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  // the streamed (query head, Q tile) pairs, in order: index gi * n_q + qt
+  const int n_q = (T + kTile - 1) / kTile, n_i = g * n_q;
+  auto next = [&](int i) {
+    for (; i < n_i; ++i) {
+      const int qb = (i % n_q) * kTile;
+      if (ranges_meet(qb, qb + kTile - 1, k_base, k_base + KR - 1, a.causal,
+                      a.window))
+        return i;
+    }
+    return n_i;
+  };
+  auto stage = [&](int i, int buf) {
+    const int qb = (i % n_q) * kTile;
+    const size_t bh = (size_t)b * a.H + (size_t)hk * g + i / n_q;
+    stage_rows<NT, DP>(q_s + buf * kTile * LD, a.q + bh * T * d, qb, kTile,
+                       T, d, a.vec);
+    stage_rows<NT, DP>(do_s + buf * kTile * LD, a.dout + bh * T * d, qb,
+                       kTile, T, d, a.vec);
+    for (int r = tid; r < kTile; r += NT) {
+      const int t = qb + r;
+      const size_t off = bh * T + (t < T ? t : 0);
+      cp_async4(lse_s + buf * kTile + r, a.lse + off, t < T ? 4 : 0);
+      cp_async4(dl_s + buf * kTile + r, a.delta + off, t < T ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+
+  int i = block_live ? next(0) : n_i;
+  if (i < n_i) {
+    stage_rows<NT, DP>(k_s, a.k + bhk * S * d, k_base, KR, S, d, a.vec);
+    stage_rows<NT, DP>(v_s, a.v + bhk * S * d, k_base, KR, S, d, a.vec);
+    stage(i, 0);  // one commit group with K and V
+  }
+  int buf = 0;
+  while (i < n_i) {
+    // tile i + 1's copy overlaps tile i's products
+    const int nxt = next(i + 1);
+    if (nxt < n_i) {
+      stage(nxt, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile i (and K/V) landed
+    if (warp_live) {
+      const int qb = (i % n_q) * kTile;
+      const float* qt = q_s + buf * kTile * LD;
+      const float* ot = do_s + buf * kTile * LD;
+      const float* lt = lse_s + buf * kTile;
+      const float* dt = dl_s + buf * kTile;
+      // the 8-query column tiles with a visible pair for this warp
+      bool live[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int q0 = qb + 8 * j;
+        const float2 l2 = *reinterpret_cast<const float2*>(lt + 8 * j +
+                                                           2 * tig);
+        const bool rows_ok =
+            (q0 + 2 * tig < T && l2.x > kMaskedRowLse) ||
+            (q0 + 2 * tig + 1 < T && l2.y > kMaskedRowLse);
+        live[j] = __any_sync(0xffffffffu,
+                             rows_ok && ranges_meet(q0, q0 + 7, kw0, kw0 + 15,
+                                                    a.causal, a.window));
+      }
+      // a tile with no live column tile is skipped; inside one no branch
+      // splits the products
+      if (live[0] || live[1] || live[2] || live[3]) {
+        // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 32 queries
+        float s[4][4], dp[4][4];
+        two_products<LD, ND>(s, dp, k_s, v_s, warp * 16 + gid, qt, ot, gid,
+                             tig);
+        // P^T and dS^T in place
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (!live[j]) continue;
+          const float2 l2 = *reinterpret_cast<const float2*>(lt + 8 * j +
+                                                             2 * tig);
+          const float2 d2 = *reinterpret_cast<const float2*>(dt + 8 * j +
+                                                             2 * tig);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = qb + 8 * j + 2 * tig + (e & 1);
+            const float lse = (e & 1) ? l2.y : l2.x;
+            const float delta = (e & 1) ? d2.y : d2.x;
+            const bool valid = key_ok[e >> 1] && qi < T &&
+                               lse > kMaskedRowLse &&
+                               pair_visible(qi, key[e >> 1], a.causal,
+                                            a.window);
+            const float p =
+                valid ? exp2f((s[j][e] * a.sm_scale - lse) * kLog2e) : 0.f;
+            s[j][e] = p;
+            dp[j][e] = p * (dp[j][e] - delta) * a.sm_scale;
+          }
         }
+        // dV += P^T dO, dK += dS^T Q over the tile's queries, 8 a step
 #pragma unroll
-        for (int w = 0; w < NC; ++w) {
-          const float o = t.dout[i * LD + cc + 16 * w];
-          const float qq = t.q[i * LD + cc + 16 * w];
+        for (int j = 0; j < 4; ++j) {
+          if (!live[j]) continue;
+          const FragA fp = frag_acc(s[j]);
+          const FragA fs = frag_acc(dp[j]);
+          const float* orow = ot + (8 * j + 2 * tig) * LD + gid;
+          const float* qr = qt + (8 * j + 2 * tig) * LD + gid;
 #pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            dv_acc[r][w] += pv[r] * o;
-            dk_acc[r][w] += dsv[r] * qq;
+          for (int n0 = 0; n0 < ND; n0 += 4) {
+            FragB bo[4], bq[4];
+#pragma unroll
+            for (int nn = 0; nn < 4; ++nn) {
+              const int n = n0 + nn;
+              bo[nn] = frag_b(orow[8 * n], orow[LD + 8 * n]);
+              bq[nn] = frag_b(qr[8 * n], qr[LD + 8 * n]);
+            }
+#pragma unroll
+            for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+              for (int nn = 0; nn < 4; ++nn) {
+                mma_pass(dv[n0 + nn], fp, bo[nn], pass);
+                mma_pass(dk[n0 + nn], fs, bq[nn], pass);
+              }
           }
         }
       }
     }
+    __syncthreads();  // done with this buffer
+    buf ^= 1;
+    i = nxt;
   }
 
+  // rows g, g + 8 and columns 2t, 2t + 1 of each 16 x 8 tile
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int kj = k_base + jr0 + r;
-    if (kj >= S) continue;
+  for (int h = 0; h < 2; ++h) {
+    if (key[h] >= S) continue;
+    float* dk_row = a.dk + (bhk * S + key[h]) * d;
+    float* dv_row = a.dv + (bhk * S + key[h]) * d;
 #pragma unroll
-    for (int w = 0; w < NC; ++w) {
-      const int c = cc + 16 * w;
+    for (int n = 0; n < ND; ++n) {
+      const int c = 8 * n + 2 * tig;
       if (c < d) {
-        dk[(bhk * S + kj) * d + c] = dk_acc[r][w];
-        dv[(bhk * S + kj) * d + c] = dv_acc[r][w];
+        dk_row[c] = dk[n][2 * h];
+        dv_row[c] = dv[n][2 * h];
+      }
+      if (c + 1 < d) {
+        dk_row[c + 1] = dk[n][2 * h + 1];
+        dv_row[c + 1] = dv[n][2 * h + 1];
       }
     }
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    const float* __restrict__ kv_mask,
-                    float* __restrict__ dq, int H, int Hkv, int T, int S,
-                    int d, float sm_scale, int causal, int window) {
-  constexpr int LD = D + 1;
-  constexpr int NC = D / 16;
-  extern __shared__ float smem[];
-  const Tiles t = carve<D>(smem);
-  const int tid = threadIdx.x;
-  const int q_base = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t bh = (size_t)b * H + h;
-  const size_t bhk = (size_t)b * Hkv + h / (H / Hkv);
-  const float* mask_b = kv_mask ? kv_mask + (size_t)b * S : nullptr;
+// -- B3: dQ -----------------------------------------------------------------
 
-  // this thread's accumulator block: query rows ir0..ir0+3, columns
-  // cc + 16w
-  const int ir0 = (tid / 16) * 4;
-  const int cc = tid % 16;
-  float dq_acc[4][NC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int w = 0; w < NC; ++w) dq_acc[r][w] = 0.f;
+// each warp owns 16 query rows; DP as above. At DP 64, 4 blocks an SM
+template <int DP>
+__global__ void __launch_bounds__(kWarps * 32, DP == 64 ? 4 : 1)
+flash_bwd_dq_kernel(const Args a) {
+  constexpr int NT = kWarps * 32, QR = kRows, ND = DP / 8, LD = DP + 4;
+  extern __shared__ float4 smem4[];
+  const int d = a.d, T = a.T, S = a.S;
+  float* q_s = reinterpret_cast<float*>(smem4);  // [QR][LD]
+  float* do_s = q_s + QR * LD;                   // [QR][LD]
+  float* k_s = do_s + QR * LD;                   // [kTile][LD]
+  float* v_s = k_s + kTile * LD;                 // [kTile][LD]
+  float* m_s = v_s + kTile * LD;                 // [kTile]
 
-  load_query_tile<D>(t, q, dout, lse, delta, bh, q_base, T, d);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int q_base = blockIdx.x * QR;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * a.H + h;
+  const size_t bhk = (size_t)b * a.Hkv + h / (a.H / a.Hkv);
+  const float* mask_b = a.kv_mask ? a.kv_mask + (size_t)b * S : nullptr;
 
-  const int n_k = (S + kBK - 1) / kBK;
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int k_base = kt * kBK;
-    if (!tile_runs(q_base, k_base, causal, window)) continue;
-    __syncthreads();  // the last tile's reads of k and ds are done
-    load_rows<D>(t.k, k + bhk * S * d, k_base, kBK, S, d);
-    load_rows<D>(t.v, v + bhk * S * d, k_base, kBK, S, d);
-    const bool kv_ok = key_valid(mask_b, k_base, S);
-    if (tid < kBK) t.kval[tid] = kv_ok ? 1.f : 0.f;
-    if (!__syncthreads_or(kv_ok)) continue;  // all keys masked
-    p_and_ds<D>(t.q, t.dout, t.k, t.v, t.lse, t.delta, t.kval, q_base,
-                k_base, T, sm_scale, causal, window, t.p, t.ds);
-    __syncthreads();
-    for (int j = 0; j < kBK; ++j) {
-      float dsv[4];
+  // this lane's two query rows (accumulator rows g and g + 8 of its warp)
+  const int qw0 = q_base + warp * 16;
+  const int row[2] = {qw0 + gid, qw0 + gid + 8};
+  float lse[2], delta[2];
+  bool row_ok[2];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) dsv[r] = t.ds[(ir0 + r) * kLP + j];
+  for (int r = 0; r < 2; ++r) {
+    const bool in = row[r] < T;
+    lse[r] = in ? a.lse[bh * T + row[r]] : 0.f;
+    delta[r] = in ? a.delta[bh * T + row[r]] : 0.f;
+    row_ok[r] = in && lse[r] > kMaskedRowLse;
+  }
+  const bool warp_live = __any_sync(0xffffffffu, row_ok[0] || row_ok[1]);
+  const bool block_live = __syncthreads_or(warp_live);
+
+  float dq[ND][4];
 #pragma unroll
-      for (int w = 0; w < NC; ++w) {
-        const float kk = t.k[j * LD + cc + 16 * w];
+  for (int n = 0; n < ND; ++n)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) dq_acc[r][w] += dsv[r] * kk;
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  const int n_k = (S + kTile - 1) / kTile;
+  // the next key tile at or after kt that any row of the block sees: the
+  // causal and window tests, then a block vote over the tile's key mask
+  // (uniform: every thread walks the same tiles)
+  auto next = [&](int kt) {
+    for (; kt < n_k; ++kt) {
+      const int kb = kt * kTile;
+      if (!ranges_meet(q_base, q_base + QR - 1, kb, kb + kTile - 1, a.causal,
+                       a.window))
+        continue;
+      if (!mask_b) return kt;
+      bool any = false;
+      for (int r = tid; r < kTile; r += NT) {
+        const int s = kb + r;
+        any = any || (s < S && mask_b[s] > 0.f);
+      }
+      if (__syncthreads_or(any)) return kt;
+    }
+    return n_k;
+  };
+  auto stage = [&](int kt) {
+    const int kb = kt * kTile;
+    stage_rows<NT, DP>(k_s, a.k + bhk * S * d, kb, kTile, S, d, a.vec);
+    stage_rows<NT, DP>(v_s, a.v + bhk * S * d, kb, kTile, S, d, a.vec);
+    for (int r = tid; r < kTile; r += NT) {
+      const int s = kb + r;
+      if (mask_b)  // keys past S read as masked
+        cp_async4(m_s + r, mask_b + (s < S ? s : 0), s < S ? 4 : 0);
+      else
+        m_s[r] = s < S ? 1.f : 0.f;
+    }
+    cp_async_commit();
+  };
+
+  int kt = block_live ? next(0) : n_k;
+  if (kt < n_k) {
+    stage_rows<NT, DP>(q_s, a.q + bh * T * d, q_base, QR, T, d, a.vec);
+    stage_rows<NT, DP>(do_s, a.dout + bh * T * d, q_base, QR, T, d, a.vec);
+    stage(kt);  // one commit group with Q and dO
+  }
+  // one buffer: the other blocks on the SM cover a tile's copy
+  while (kt < n_k) {
+    const int nxt = next(kt + 1);
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt (and Q/dO) landed
+    if (warp_live) {
+      const int kb = kt * kTile;
+      // the 8-key column tiles with a visible pair for this warp
+      bool live[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k0 = kb + 8 * j;
+        const float2 m2 = *reinterpret_cast<const float2*>(m_s + 8 * j +
+                                                           2 * tig);
+        live[j] = __any_sync(0xffffffffu,
+                             (m2.x > 0.f || m2.y > 0.f) &&
+                                 ranges_meet(qw0, qw0 + 15, k0, k0 + 7,
+                                             a.causal, a.window));
+      }
+      if (live[0] || live[1] || live[2] || live[3]) {
+        // S = Q K^T and dP = dO V^T: this warp's 16 rows x 32 keys
+        float s[4][4], dp[4][4];
+        two_products<LD, ND>(s, dp, q_s, do_s, warp * 16 + gid, k_s, v_s,
+                             gid, tig);
+        // dS in place (P is not needed past it)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (!live[j]) continue;
+          const float2 m2 = *reinterpret_cast<const float2*>(m_s + 8 * j +
+                                                             2 * tig);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const int kj = kb + 8 * j + 2 * tig + (e & 1);
+            const bool valid = row_ok[r] && ((e & 1) ? m2.y : m2.x) > 0.f &&
+                               pair_visible(row[r], kj, a.causal, a.window);
+            const float p =
+                valid ? exp2f((s[j][e] * a.sm_scale - lse[r]) * kLog2e) : 0.f;
+            dp[j][e] = p * (dp[j][e] - delta[r]) * a.sm_scale;
+          }
+        }
+        // dQ += dS K over the tile's keys, 8 at a step
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (!live[j]) continue;
+          const FragA fs = frag_acc(dp[j]);
+          const float* kr = k_s + (8 * j + 2 * tig) * LD + gid;
+#pragma unroll
+          for (int n0 = 0; n0 < ND; n0 += 8) {
+            FragB bk[8];
+#pragma unroll
+            for (int nn = 0; nn < 8; ++nn)
+              bk[nn] = frag_b(kr[8 * (n0 + nn)], kr[LD + 8 * (n0 + nn)]);
+#pragma unroll
+            for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+              for (int nn = 0; nn < 8; ++nn)
+                mma_pass(dq[n0 + nn], fs, bk[nn], pass);
+          }
+        }
       }
     }
+    __syncthreads();  // done with this buffer
+    if (nxt < n_k) stage(nxt);
+    kt = nxt;
   }
 
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qi = q_base + ir0 + r;
-    if (qi >= T) continue;
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= T) continue;
+    float* dq_row = a.dq + (bh * T + row[r]) * d;
 #pragma unroll
-    for (int w = 0; w < NC; ++w) {
-      const int c = cc + 16 * w;
-      if (c < d) dq[(bh * T + qi) * d + c] = dq_acc[r][w];
+    for (int n = 0; n < ND; ++n) {
+      const int c = 8 * n + 2 * tig;
+      if (c < d) dq_row[c] = dq[n][2 * r];
+      if (c + 1 < d) dq_row[c + 1] = dq[n][2 * r + 1];
     }
   }
 }
 
 template <typename Kern>
-cudaError_t allow_smem(Kern kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
-
-bool bad_dims(int B, int H, int Hkv, int T, int S, int d) {
-  return B < 1 || T < 1 || S < 1 || d < 1 || d > 128 || Hkv < 1 ||
-         H % Hkv != 0;
-}
-
-template <int D>
-int launch_dkv(const float* q, const float* k, const float* v,
-               const float* dout, const float* lse, const float* delta,
-               const float* kv_mask, float* dk, float* dv, int B, int H,
-               int Hkv, int T, int S, int d, float sm_scale, int causal,
-               int window, cudaStream_t st) {
-  const size_t smem = smem_bytes<D>();
-  cudaError_t e = allow_smem(flash_bwd_dkv_kernel<D>, smem);
+int launch(Kern kernel, int which, const Args& a, int B, cudaStream_t st) {
+  const size_t smem = smem_bytes(which, kRows, a.d);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((S + kBK - 1) / kBK, Hkv, B);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, st>>>(
-      q, k, v, dout, lse, delta, kv_mask, dk, dv, H, Hkv, T, S, d, sm_scale,
-      causal, window);
+  const int own = which == kDkv ? a.S : a.T;
+  dim3 grid((own + kRows - 1) / kRows, which == kDkv ? a.Hkv : a.H, B);
+  kernel<<<grid, kWarps * 32, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_dq(const float* q, const float* k, const float* v,
-              const float* dout, const float* lse, const float* delta,
-              const float* kv_mask, float* dq, int B, int H, int Hkv, int T,
-              int S, int d, float sm_scale, int causal, int window,
-              cudaStream_t st) {
-  const size_t smem = smem_bytes<D>();
-  cudaError_t e = allow_smem(flash_bwd_dq_kernel<D>, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((T + kBQ - 1) / kBQ, H, B);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, st>>>(
-      q, k, v, dout, lse, delta, kv_mask, dq, H, Hkv, T, S, d, sm_scale,
-      causal, window);
-  return (int)cudaGetLastError();
+int run(int which, const float* q, const float* k, const float* v,
+        const float* dout, const float* lse, const float* delta,
+        const float* kv_mask, float* dq, float* dk, float* dv, int B, int H,
+        int Hkv, int T, int S, int d, float sm_scale, int causal, int window,
+        int rows, void* stream) {
+  if (B < 1 || T < 1 || S < 1 || d < 1 || d > 128 || Hkv < 1 ||
+      H % Hkv != 0 || window < 0 || rows != kRows)
+    return (int)cudaErrorInvalidValue;
+  const int vec = d % 4 == 0 &&
+                  ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                   (uintptr_t)dout) % 16 == 0;
+  const Args a{q,  k,  v,  dout, lse, delta, kv_mask, dq,     dk,
+               dv, H,  Hkv, T,   S,   d,     sm_scale, causal, window,
+               vec};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool narrow = d <= 64;
+  if (which == kDkv)
+    return narrow ? launch(flash_bwd_dkv_kernel<64>, which, a, B, st)
+                  : launch(flash_bwd_dkv_kernel<128>, which, a, B, st);
+  return narrow ? launch(flash_bwd_dq_kernel<64>, which, a, B, st)
+                : launch(flash_bwd_dq_kernel<128>, which, a, B, st);
 }
 
 }  // namespace
 
 // Both launch on `stream` and return cudaGetLastError() (0 on success).
 // kv_mask may be null (no key mask). dk/dv are [B,Hkv,S,d], dq
-// [B,H,T,d]; every element is written.
+// [B,H,T,d]; every element is written. `rows` is the launch plan's tile
+// (kernels/flash_attention.py `flash_bwd_plan`): 64, the one the kernels
+// take.
 extern "C" int paddle_flash_bwd_dkv_f32(const float* q, const float* k,
                                         const float* v, const float* dout,
                                         const float* lse, const float* delta,
                                         const float* kv_mask, float* dk,
                                         float* dv, int B, int H, int Hkv,
                                         int T, int S, int d, float sm_scale,
-                                        int causal, int window,
+                                        int causal, int window, int rows,
                                         void* stream) {
-  if (bad_dims(B, H, Hkv, T, S, d)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d <= 64)
-    return launch_dkv<64>(q, k, v, dout, lse, delta, kv_mask, dk, dv, B, H,
-                          Hkv, T, S, d, sm_scale, causal, window, st);
-  return launch_dkv<128>(q, k, v, dout, lse, delta, kv_mask, dk, dv, B, H,
-                         Hkv, T, S, d, sm_scale, causal, window, st);
+  return run(kDkv, q, k, v, dout, lse, delta, kv_mask, nullptr, dk, dv, B, H,
+             Hkv, T, S, d, sm_scale, causal, window, rows, stream);
 }
 
 extern "C" int paddle_flash_bwd_dq_f32(const float* q, const float* k,
@@ -414,12 +718,20 @@ extern "C" int paddle_flash_bwd_dq_f32(const float* q, const float* k,
                                        const float* kv_mask, float* dq,
                                        int B, int H, int Hkv, int T, int S,
                                        int d, float sm_scale, int causal,
-                                       int window, void* stream) {
-  if (bad_dims(B, H, Hkv, T, S, d)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d <= 64)
-    return launch_dq<64>(q, k, v, dout, lse, delta, kv_mask, dq, B, H, Hkv,
-                         T, S, d, sm_scale, causal, window, st);
-  return launch_dq<128>(q, k, v, dout, lse, delta, kv_mask, dq, B, H, Hkv,
-                        T, S, d, sm_scale, causal, window, st);
+                                       int window, int rows, void* stream) {
+  return run(kDq, q, k, v, dout, lse, delta, kv_mask, dq, nullptr, nullptr,
+             B, H, Hkv, T, S, d, sm_scale, causal, window, rows, stream);
+}
+
+// The threads and shared-memory bytes a block of `kernel` (0: dK/dV, 1:
+// dQ) takes at tile `rows` and head dim d, for holding `flash_bwd_plan`'s
+// figures to the kernels' (host code: no device needed);
+// cudaErrorInvalidValue where the kernels refuse them.
+extern "C" int paddle_flash_bwd_layout(int kernel, int rows, int d,
+                                       int* threads, int* smem) {
+  if ((kernel != kDkv && kernel != kDq) || rows != kRows || d < 1 || d > 128)
+    return (int)cudaErrorInvalidValue;
+  *threads = kWarps * 32;
+  *smem = (int)smem_bytes(kernel, rows, d);
+  return 0;
 }

@@ -9,7 +9,12 @@ and ``flash_backward`` launch them for CUDA tensors and run
 ``flash_forward_plain`` / ``flash_backward_plain`` for CPU tensors, and
 for nothing else. ``flash_attention`` ties the two through a
 ``torch.autograd.Function``, so autograd (and the ``_grad`` op of
-``scaled_dot_product_attention``) reaches the backward kernels.
+``scaled_dot_product_attention``) reaches the backward kernels. The
+backward kernels' tiles come from ``flash_bwd_plan``. A full
+``[B, 1|H, T, S]`` mask is routed by its rank, before any launch, to
+``attention_reference`` (torch ops, counted in
+``ATTENTION_REFERENCE``), as the JAX package routes it to its XLA
+reference.
 
 Contract of both versions: q ``[B, H, T, d]``, k/v ``[B, H/g, S, d]``
 (``kv_group=g``: query head h reads kv head ``h // g``), an optional
@@ -28,7 +33,7 @@ import ctypes
 import torch
 
 from paddle_tpu_torch import flags
-from paddle_tpu_torch.kernels.build import Kernel, device_limits
+from paddle_tpu_torch.kernels.build import Kernel, device_limits, library
 
 NEG_INF = -1e30
 MASKED_ROW_LSE = -1e29
@@ -43,8 +48,9 @@ FLASH_FWD = Kernel("paddle_flash_fwd_f32", [
 ])
 
 _BWD_ARGS = [ctypes.c_void_p] * 7  # q, k, v, dout, lse, delta, kv_mask
-_BWD_DIMS = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
-                                  ctypes.c_int, ctypes.c_void_p]
+# B, H, Hkv, T, S, d, sm_scale, causal, window, rows, stream
+_BWD_DIMS = [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3 + [
+    ctypes.c_void_p]
 FLASH_BWD_DKV = Kernel("paddle_flash_bwd_dkv_f32",
                        _BWD_ARGS + [ctypes.c_void_p] * 2 + _BWD_DIMS)
 FLASH_BWD_DQ = Kernel("paddle_flash_bwd_dq_f32",
@@ -64,6 +70,61 @@ def flash_plan(B, H, T, n_sm):
     else:
         bq, threads = 64, 256
     return {"block_q": bq, "blocks": B * H * -(-T // bq), "threads": threads}
+
+
+BWD_KERNELS = ("dkv", "dq")  # the index is the kernel's number in C
+# the backward kernels' tiles, as csrc/flash_bwd.cu builds them: a block
+# owns 64 rows (4 warps of 16); its streamed tiles (Q in B2, K and V in
+# B3) have 32 rows, in two buffers (B2) or one (B3), so a block's shared
+# memory lets 3 B2 blocks and 4 B3 blocks share an SM at d <= 64, as
+# their registers do
+BWD_ROWS = 64
+BWD_TILE = 32
+BWD_STAGES = {"dkv": 2, "dq": 1}
+
+
+def flash_bwd_plan(B, H, Hkv, T, S, d):
+    """The backward kernels' launch plan for q ``[B, H, T, d]`` and k/v
+    ``[B, Hkv, S, d]``: ``{"dkv": {...}, "dq": {...}}``, each with
+
+    - ``rows``: the block's own tile (keys of B2, query rows of B3), 16 a
+      warp: 64 (``BWD_ROWS``) at every shape; 32-row tiles measured no
+      faster on an H100 even where 64-row ones leave SMs idle;
+    - ``threads``: 32 a warp;
+    - ``smem``: shared bytes a block takes: its two resident tiles and
+      the buffers (``BWD_STAGES``) of its two streamed ``BWD_TILE``-row
+      tiles with their per-row vectors (B2: lse and delta; B3: the key
+      mask), a row being the head dim padded to 64 or 128, plus 4 floats
+      (csrc/flash_bwd.cu ``smem_bytes``; ``chip_smoke.py`` holds the two
+      to each other);
+    - ``grid``: (tiles of the own axis, heads, batch): B2 over the S keys
+      and ``Hkv`` kv heads, B3 over the T query rows and ``H`` heads.
+
+    The wrappers pass ``rows`` to the kernels."""
+    ld = (64 if d <= 64 else 128) + 4
+
+    def one(kernel, own, heads):
+        vec = (2 if kernel == "dkv" else 1) * BWD_TILE
+        return {"rows": BWD_ROWS, "threads": 2 * BWD_ROWS,
+                "smem": 4 * (2 * BWD_ROWS * ld + BWD_STAGES[kernel]
+                             * (2 * BWD_TILE * ld + vec)),
+                "grid": (-(-own // BWD_ROWS), heads, B)}
+
+    return {"dkv": one("dkv", S, Hkv), "dq": one("dq", T, H)}
+
+
+def kernel_bwd_layout(kernel, rows, d):
+    """``(threads, smem)`` as csrc/flash_bwd.cu derives them for
+    ``kernel`` (``"dkv"`` or ``"dq"``) at tile ``rows`` and head dim
+    ``d`` (its ``paddle_flash_bwd_layout``, host code: needs the built
+    library, not a card), or None where the kernels refuse them."""
+    fn = library().paddle_flash_bwd_layout
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    threads, smem = ctypes.c_int(0), ctypes.c_int(0)
+    rc = fn(BWD_KERNELS.index(kernel), rows, d, ctypes.byref(threads),
+            ctypes.byref(smem))
+    return None if rc else (threads.value, smem.value)
 
 
 def _visible(T, S, kv_mask, causal, window, device):
@@ -227,37 +288,45 @@ def _bwd_args(q, k, v, kv_mask, dout, lse, delta):
             kv_mask.data_ptr() if kv_mask is not None else None)
 
 
-def _bwd_dims(q, k, causal, sm_scale, window):
+def _bwd_dims(q, k, causal, sm_scale, window, kernel):
+    """The launch's dims, options, the plan's tile rows for ``kernel``
+    and the stream."""
     B, H, T, d = q.shape
-    return (B, H, int(k.shape[1]), T, int(k.shape[2]), d, float(sm_scale),
-            int(bool(causal)), int(window),
+    Hkv, S = int(k.shape[1]), int(k.shape[2])
+    plan = flash_bwd_plan(B, H, Hkv, T, S, d)
+    return (B, H, Hkv, T, S, d, float(sm_scale), int(bool(causal)),
+            int(window), plan[kernel]["rows"],
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def flash_bwd_dkv(q, k, v, kv_mask, dout, lse, delta, causal, sm_scale,
                   kv_group=1, window=0):
     """Launch the ``flash_bwd_dkv`` kernel (B2) on CUDA tensors: ``(dk,
-    dv)``, each ``[B, H/g, S, d]``, from ``delta = rowsum(dO * O)``."""
+    dv)``, each ``[B, H/g, S, d]``, from ``delta = rowsum(dO * O)``. A
+    launch is counted in ``FLASH_BWD_DKV.by_key`` under ``(T, causal)``."""
     _bwd_check(q, k, v, kv_mask, dout, lse, delta, kv_group, window,
                "flash_bwd_dkv")
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     FLASH_BWD_DKV.launch(*(_bwd_args(q, k, v, kv_mask, dout, lse, delta)
                            + (dk.data_ptr(), dv.data_ptr())
-                           + _bwd_dims(q, k, causal, sm_scale, window)))
+                           + _bwd_dims(q, k, causal, sm_scale, window,
+                                       "dkv")),
+                         key=(q.shape[2], bool(causal)))
     return dk, dv
 
 
 def flash_bwd_dq(q, k, v, kv_mask, dout, lse, delta, causal, sm_scale,
                  kv_group=1, window=0):
     """Launch the ``flash_bwd_dq`` kernel (B3) on CUDA tensors: ``dq``
-    ``[B, H, T, d]``."""
+    ``[B, H, T, d]``. Counted by ``(T, causal)`` as ``flash_bwd_dkv``."""
     _bwd_check(q, k, v, kv_mask, dout, lse, delta, kv_group, window,
                "flash_bwd_dq")
     dq = torch.empty_like(q)
     FLASH_BWD_DQ.launch(*(_bwd_args(q, k, v, kv_mask, dout, lse, delta)
                           + (dq.data_ptr(),)
-                          + _bwd_dims(q, k, causal, sm_scale, window)))
+                          + _bwd_dims(q, k, causal, sm_scale, window, "dq")),
+                        key=(q.shape[2], bool(causal)))
     return dq
 
 
@@ -314,31 +383,102 @@ class FlashAttentionFunction(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
+class CallCount(object):
+    """Calls of a route that is not a kernel, counted as ``Kernel``
+    counts launches: ``calls``, zeroed by ``reset()``."""
+
+    def __init__(self, name):
+        self.name = name
+        self.calls = 0
+
+    def reset(self):
+        self.calls = 0
+
+
+ATTENTION_REFERENCE = CallCount("attention_reference")
+
+
+def attention_reference(q, k, v, causal=False, sm_scale=None, mask=None,
+                        kv_group=1, window=0):
+    """Attention over the whole score matrix in torch ops: the route of a
+    full ``[B, 1|H, T, S]`` mask, on the CPU and on the card alike.
+
+    The counterpart of the JAX package's XLA path for such a mask:
+    ``flash_attention_reference`` with the GQA repeat and the window band
+    that ``flash_attention`` adds around it (paddle_tpu/kernels/
+    flash_attention.py:61-89,661-676). No Pallas kernel takes a full mask
+    there either. Its two products go to ``torch.matmul``, as the JAX
+    package leaves them to XLA, and autograd differentiates it. A row with
+    no visible key gets the uniform mean of V, as in the reference (the
+    kernels give 0). Each call adds one to ``ATTENTION_REFERENCE.calls``.
+    """
+    ATTENTION_REFERENCE.calls += 1
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    g = int(kv_group)
+    if g != 1:
+        k = k.repeat_interleave(g, dim=1)
+        v = v.repeat_interleave(g, dim=1)
+    T, S = q.shape[2], k.shape[2]
+    qi = torch.arange(T, device=q.device)[:, None]
+    ki = torch.arange(S, device=q.device)[None, :]
+    vis = None if mask is None else mask != 0
+    if window:
+        band = (qi - ki) < window
+        if not causal:
+            band = band & ((ki - qi) < window)
+        vis = band if vis is None else vis & band
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    neg = torch.full((), NEG_INF, dtype=s.dtype, device=s.device)
+    if causal:
+        s = torch.where(ki <= qi, s, neg)
+    if vis is not None:
+        s = torch.where(vis, s, neg)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.matmul(p, v)
+
+
+def is_key_mask(mask):
+    """Is ``mask`` a key-validity mask, ``[B, S]`` or ``[B, 1, 1, S]``
+    (the kernels' kind), rather than a full ``[B, 1|H, T, S]`` one?"""
+    return mask.dim() == 2 or (mask.dim() == 4 and mask.shape[1] == 1
+                               and mask.shape[2] == 1)
+
+
 def key_mask(mask):
     """Normalize a key-validity mask to float32 ``[B, S]``: accepts
     ``[B, S]`` or ``[B, 1, 1, S]`` (as the attention op normalizes it,
     flash_attention.py:650-655), bool or numeric."""
-    if mask.dim() == 4 and mask.shape[1] == 1 and mask.shape[2] == 1:
-        mask = mask[:, 0, 0, :]
-    if mask.dim() != 2:
+    if not is_key_mask(mask):
         raise ValueError(
-            "flash attention takes a key-validity mask [B, S] or "
-            "[B, 1, 1, S]; got shape %s (a full [B, H, T, S] mask is not "
-            "ported)" % (tuple(mask.shape),))
+            "the flash kernels take a key-validity mask [B, S] or "
+            "[B, 1, 1, S]; got shape %s (a full mask takes "
+            "attention_reference)" % (tuple(mask.shape),))
+    if mask.dim() == 4:
+        mask = mask[:, 0, 0, :]
     return (mask > 0).to(torch.float32).contiguous()
 
 
 def flash_attention(q, k, v, causal=False, sm_scale=None, mask=None,
                     kv_group=1, window=0):
     """Fused attention ``[B,H,T,d] -> [B,H,T,d]`` (the JAX package's entry
-    point): normalizes the mask and runs :class:`FlashAttentionFunction`,
-    so its gradient runs the backward kernels. ``FLAGS_flash_backward``:
-    ``pallas`` (the default) takes that path; ``reference`` differentiates
+    point). The mask's rank picks the route before any launch, as in the
+    JAX package: no mask or a key mask (``[B, S]``, ``[B, 1, 1, S]``) runs
+    :class:`FlashAttentionFunction`, so its gradient runs the backward
+    kernels; a full ``[B, 1|H, T, S]`` mask runs
+    :func:`attention_reference`. ``FLAGS_flash_backward``: ``pallas``
+    (the default) takes the kernels' path; ``reference`` differentiates
     :func:`flash_forward_plain` with autograd instead, on CPU tensors
     only, and raises for CUDA tensors (the port has no path from the card
     to the plain versions)."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
+    if int(window) < 0:
+        raise ValueError("flash_attention: window must be >= 0 (0 disables "
+                         "the sliding window); got %d" % window)
+    if mask is not None and not is_key_mask(mask):
+        return attention_reference(q, k, v, causal, sm_scale, mask,
+                                   kv_group, int(window))
     kv_mask = key_mask(mask) if mask is not None else None
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if backward_impl(q.device) == "reference":

@@ -51,12 +51,11 @@ def multi_head_attention(queries, keys, values, d_key, d_value, d_model,
                          is_test=False, name=None):
     """Projections + fused attention + output projection.
     queries/keys/values: [batch, seq, d_model]; returns
-    [batch, seq, d_model]. ``n_kv_head`` is grouped-query attention."""
+    [batch, seq, d_model]. ``n_kv_head`` is grouped-query attention.
+    ``dropout_rate`` applies ``dropout`` to the merged heads ahead of the
+    output projection, as the reference does."""
     from paddle_tpu_torch.layers import nn as nn_layers
 
-    if dropout_rate:
-        raise NotImplementedError(
-            "attention dropout comes with the training slice (ROADMAP.md)")
     if keys is None:
         keys = queries
     if values is None:
@@ -89,6 +88,9 @@ def multi_head_attention(queries, keys, values, d_key, d_value, d_model,
     merged = nn_layers.reshape(
         nn_layers.transpose(ctx, perm=[0, 2, 1, 3]),
         shape=[0, 0, n_head * d_value])
+    if dropout_rate:
+        merged = nn_layers.dropout(merged, dropout_prob=dropout_rate,
+                                   is_test=is_test)
     return proj(merged, d_model, "_o")
 
 

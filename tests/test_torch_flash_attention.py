@@ -92,16 +92,25 @@ def test_plain_flash_matches_jax_pallas_interpret(name):
 
 def test_flash_entry_point_normalizes_masks():
     """``flash_attention`` takes the key mask as [B, S] or [B, 1, 1, S],
-    bool or float, and refuses a full [B, H, T, S] mask."""
+    bool or float, on the kernels' path, and routes a full [B, H, T, S]
+    mask by its rank to ``attention_reference`` (one counted call), which
+    agrees where every row sees a key; ``key_mask`` refuses a full
+    mask."""
     q, k, v, mask = _inputs({"mask": [37, 9]}, seed=1)
     tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
     m2 = torch.from_numpy(mask)
+    calls = tfa.ATTENTION_REFERENCE.calls
     base = tfa.flash_attention(tq, tk, tv, mask=m2)
     for m in (m2 > 0, m2[:, None, None, :]):
         torch.testing.assert_close(tfa.flash_attention(tq, tk, tv, mask=m),
                                    base, rtol=0, atol=0)
+    assert tfa.ATTENTION_REFERENCE.calls == calls
+    full = m2[:, None, None, :].expand(B, H, T, T)
+    torch.testing.assert_close(tfa.flash_attention(tq, tk, tv, mask=full),
+                               base, rtol=0, atol=TOL)
+    assert tfa.ATTENTION_REFERENCE.calls == calls + 1
     with pytest.raises(ValueError, match="key-validity mask"):
-        tfa.flash_attention(tq, tk, tv, mask=torch.ones(B, H, T, T))
+        tfa.key_mask(torch.ones(B, H, T, T))
 
 
 def test_kernel_path_takes_only_cuda_float32():

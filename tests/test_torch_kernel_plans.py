@@ -13,6 +13,12 @@ Python: no card, no JAX).
   holds that layout to the kernel's own ``paddle_lstm_layout``).
 - ``flash_attention.flash_plan`` (B1): the 4-row path for T <= 4, the
   32-row tile where 64-row tiles would leave SMs idle, else 64 rows.
+- ``flash_attention.flash_bwd_plan`` (B2, B3): the blocks tile every key
+  row (B2) and query row (B3) of every head and batch once; tile rows a
+  multiple of 16, shared memory within 232,448 bytes; 64-row tiles at
+  every shape, small batches included; the plan at the train shape as a
+  literal (``chip_smoke.py`` holds the plan's threads and
+  shared bytes to the kernels' own, ``paddle_flash_bwd_layout``).
 """
 
 import itertools
@@ -165,3 +171,65 @@ def test_flash_small_tile_exactly_where_64_row_tiles_leave_sms_idle():
             idle = B * H * -(-T // 64) < n_sm
             assert tfa.flash_plan(B, H, T, n_sm)["block_q"] == \
                 (32 if idle else 64)
+
+
+# (B, H, Hkv, T, S, d): the train step's shape, decode and verify's T,
+# the encoder's one sequence, GQA, T != S, ragged edges, head dims 1..128
+BWD_SHAPES = [
+    (64, 8, 8, 256, 256, 64), (32, 8, 8, 1, 256, 64), (32, 8, 8, 4, 256, 64),
+    (1, 8, 8, 256, 256, 64), (2, 8, 4, 256, 256, 64), (2, 4, 4, 19, 37, 64),
+    (3, 4, 4, 130, 130, 64), (9, 4, 4, 256, 256, 128), (2, 3, 3, 70, 70, 33),
+    (2, 3, 3, 45, 45, 40), (5, 2, 2, 1, 70, 128), (33, 4, 4, 65, 65, 64),
+    (4, 16, 1, 100, 300, 1), (7, 6, 2, 513, 77, 96), (1, 1, 1, 1, 1, 8),
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,T,S,d", BWD_SHAPES)
+def test_flash_bwd_blocks_tile_every_tile_once(B, H, Hkv, T, S, d):
+    """B2's blocks cover every (key row, kv head, batch) once and B3's
+    every (query row, head, batch) once."""
+    plan = tfa.flash_bwd_plan(B, H, Hkv, T, S, d)
+    for kernel, own, heads in (("dkv", S, Hkv), ("dq", T, H)):
+        p = plan[kernel]
+        nx, ny, nz = p["grid"]
+        assert (ny, nz) == (heads, B)
+        seen = {}
+        for x in range(nx):
+            for r in range(x * p["rows"], min(own, (x + 1) * p["rows"])):
+                seen[r] = seen.get(r, 0) + 1
+        assert sorted(seen) == list(range(own)) and set(seen.values()) == {1}
+
+
+@pytest.mark.parametrize("B,H,Hkv,T,S,d", BWD_SHAPES)
+def test_flash_bwd_plan_stays_within_the_card(B, H, Hkv, T, S, d):
+    """Tile rows a multiple of 16 (a warp's rows), 32 threads a warp,
+    shared memory within the H100's 232,448 bytes a block."""
+    for p in tfa.flash_bwd_plan(B, H, Hkv, T, S, d).values():
+        assert p["rows"] % 16 == 0
+        assert p["threads"] == 32 * (p["rows"] // 16)
+        assert 0 < p["smem"] <= H100_SMEM
+
+
+def test_flash_bwd_plan_takes_64_row_tiles_at_every_shape():
+    """One tile, 64 rows, the only one csrc/flash_bwd.cu builds: also
+    where 64-row tiles leave SMs of an H100 idle (a 32-row tile measured
+    no faster there), so the plan does not depend on the card."""
+    for B, H, T, S, d in itertools.product((1, 2, 4, 16), (1, 8),
+                                           (5, 64, 65, 256), (7, 64, 300),
+                                           (33, 64, 128)):
+        plan = tfa.flash_bwd_plan(B, H, H, T, S, d)
+        for kernel, own in (("dkv", S), ("dq", T)):
+            assert plan[kernel]["rows"] == tfa.BWD_ROWS == 64
+            assert plan[kernel]["grid"][0] == -(-own // 64)
+
+
+def test_flash_bwd_plan_at_the_train_shape():
+    """Transformer-base's train step, q/k/v [64, 8, 256, 64], on 132 SMs:
+    64-row tiles, 4 warps, two 64-row resident tiles at a row stride of
+    68 floats, and two streamed 32-row tiles, in two buffers for B2 (with
+    lse and delta) and one for B3 (with the key mask)."""
+    assert tfa.flash_bwd_plan(64, 8, 8, 256, 256, 64) == {
+        "dkv": {"rows": 64, "threads": 128, "smem": 70144,
+                "grid": (4, 8, 64)},
+        "dq": {"rows": 64, "threads": 128, "smem": 52352,
+               "grid": (4, 8, 64)}}
