@@ -15,9 +15,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    key tile between valid ones, a row with every key masked, head dims
    128 and 33, GQA and a window at T 256; each case with its launch
    plan; the backward pair's dead rows and masked keys exactly 0),
-   printing each case's max abs error beside its tolerance; checks that
-   the backward pair's plan (``flash_bwd_plan``) gives the threads and
-   shared bytes the kernels derive, at every head dim; runs a full
+   printing each case's max abs error beside its tolerance; for paged
+   decode also lengths ending on split boundaries, slots whose later
+   splits are empty, length 1, page sizes 1, 3, 4, 12, 64 and 256, dh 33
+   and 128, pools off 16-byte alignment, each case with its split plan,
+   and a replay from a CUDA graph after the lengths and the page table
+   changed in place; checks that the plans of the backward pair
+   (``flash_bwd_plan``), B4 (``paged_plan``), B6 (``lstm_plan``) and B7
+   (``gru_plan``) give the threads and shared bytes (and blocks) the
+   kernels derive, at every head dim or over batches and widths; runs a
+   full
    [B, H, T, S] mask (GQA, a window, a fully masked row) through
    ``flash_attention`` on the card and on the CPU (``attention_reference``
    on both, no kernel launch; forward and gradients within 1e-4); then times
@@ -76,11 +83,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 10. the RNN path. Right after step 3 it holds the LSTM and GRU recurrence
    kernels against their plain versions (the stacked network's shapes at
    widths 512 and 64, the MT encoder's reverse pass, and edge cases: D 40
-   and 1100, both sides of B6's regime switch, D 1400 (its W_h slice
-   read from L2), B 1, 3, 5 and 33, hidden units not a multiple of the
-   units per block, T 1, rows of length 0, an initial state, every
-   activation code; tolerance 1e-4, relative to max(1, |ref|) where relu
-   or identity activations grow the values; each B6 case with its launch
+   and 1100, both sides of each kernel's regime switch, B6's D 1400 and
+   B7's narrowest width whose weight slice is read from L2, B 1, 3, 5,
+   33 and 300 (a block's rows in several passes), h staged in k-chunks,
+   hidden units not a multiple of the units per block, T 1, rows of
+   length 0 (for B7 also every row), an initial state, every activation
+   code; tolerance 1e-4, relative to max(1, |ref|) where relu or
+   identity activations grow the values; each case with its launch
    plan) and times both (B6 also at the MT encoder's shape), with
    ``torch.nn.LSTM`` (cuDNN; the device time of its kernels from a
    profiler trace) beside the LSTM kernel at full lengths without
@@ -97,7 +106,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    and 3 train losses (1e-3) on the card and on the CPU.
 
 A line of its own before the last holds the kernels' JSON record (for
-flash_fwd, the backward pair and lstm_cell also every timed shape: ms,
+flash_fwd, the backward pair, paged_decode (full occupancy and the
+serving mix of lengths) and lstm_cell also every timed shape: ms,
 bound, plain and library ms, and the main path's launches at that
 shape); the
 last line is ``{"ok": true, "device": {...}}``. Any failure exits nonzero
@@ -278,7 +288,23 @@ def bound(nbytes, flops, peak_flops=PEAK_FP32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def paged_decode_bound(lengths, dh):
+    """``bound`` of one ``paged_decode`` call at these lengths (N_HEAD
+    heads, PAGE_SIZE pages): the K and V rows below each slot's length
+    (the kernel clips its copies there, not at the page's end), the
+    query and output rows, the table entries of the resident pages and
+    the lengths; two flops a key and element for the scores and two for
+    the weighted sum."""
+    tokens = sum(lengths)
+    pages = sum(-(-n // PAGE_SIZE) for n in lengths)
+    nbytes = (2 * 4 * N_HEAD * dh * tokens
+              + 2 * 4 * len(lengths) * N_HEAD * dh
+              + 8 * pages + 8 * len(lengths))
+    return bound(nbytes, 4.0 * tokens * N_HEAD * dh)
+
+
 # -- kernel phase ---------------------------------------------------------------
+
 
 def flash_cases(torch, gen):
     """(name, kwargs for flash_forward) at the serving shapes and edges."""
@@ -406,17 +432,22 @@ def bwd_inputs(torch, fa, kw, gen):
                 kv_group=kw.get("kv_group", 1), window=kw.get("window", 0))
 
 
-def paged_case(torch, gen, S, H, dh, ps, lengths):
+def paged_case(torch, gen, S, H, dh, ps, lengths, offset=0):
     """Random pools and a ragged table (page 0 is the trash page, a
     slot's tail aliases its last valid page), as the session lays them
-    out."""
+    out. ``offset`` floats shift both pools off 16-byte alignment."""
     from paddle_tpu_torch.kernels.paged_attention import pages_for
 
     npp = pages_for(MAX_LEN, ps)
     P = 1 + S * npp
     dev = "cuda"
-    k_pool = torch.randn(P, H, ps, dh, generator=gen, device=dev)
-    v_pool = torch.randn(P, H, ps, dh, generator=gen, device=dev)
+
+    def pool():
+        n = P * H * ps * dh
+        flat = torch.randn(n + offset, generator=gen, device=dev)
+        return flat[offset:].view(P, H, ps, dh)
+
+    k_pool, v_pool = pool(), pool()
     table = torch.zeros(S, npp, dtype=torch.int64)
     order = torch.randperm(P - 1, generator=torch.Generator().manual_seed(
         len(lengths) * 131 + ps)) + 1
@@ -433,24 +464,82 @@ def paged_case(torch, gen, S, H, dh, ps, lengths):
                 lengths=torch.tensor(lengths, dtype=torch.int64, device=dev))
 
 
-def paged_cases(torch, gen):
-    dh = D_MODEL // N_HEAD
+def ragged_lengths():
+    """The serving mix of slot lengths: 32 draws from 0..256 (seed 7),
+    one slot empty, one at 17."""
+    import torch
+
     rng_lens = torch.randint(0, MAX_LEN + 1, (NUM_SLOTS,),
                              generator=torch.Generator().manual_seed(7))
     ragged = [int(x) for x in rng_lens]
     ragged[3] = 0
     ragged[5] = 17
+    return ragged
+
+
+def paged_plan_of(kw):
+    """``paged_plan`` for a case's shapes on this card."""
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.kernels.build import device_limits
+
+    S, H, dh = kw["q"].shape
+    return pa.paged_plan(S, H, kw["page_table"].shape[1],
+                         kw["k_pool"].shape[2], dh,
+                         *device_limits("cuda"))
+
+
+def serving_paged_cases(torch, gen):
+    """(name, kwargs of paged_attention): the serving shapes (every slot
+    full; the serving mix of lengths) and the first edge cases. The
+    timing phase draws these alone, so that the rows it times after
+    them see the same random inputs as before the split design's cases
+    (``paged_cases``) were added."""
+    dh = D_MODEL // N_HEAD
     return [
         ("full_occupancy_ps16",
          paged_case(torch, gen, NUM_SLOTS, N_HEAD, dh, 16,
                     [MAX_LEN] * NUM_SLOTS)),
         ("ragged_ps16", paged_case(torch, gen, NUM_SLOTS, N_HEAD, dh, 16,
-                                   ragged)),
+                                   ragged_lengths())),
         ("ragged_ps3", paged_case(torch, gen, 9, 4, dh, 3,
                                   [0, 1, 2, 3, 4, 29, 100, 255, 256])),
         ("ragged_ps4_dh128", paged_case(torch, gen, 5, 2, 128, 4,
                                         [7, 1, 0, 13, 30])),
     ]
+
+
+def paged_cases(torch, gen):
+    """The serving cases, then the split design's: lengths ending exactly
+    on split boundaries, slots whose later splits are empty, length 1,
+    page sizes 1, 64 and 256, npp not a multiple of the split count, dh
+    33 (4-byte copies) and pools off 16-byte alignment."""
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.kernels.build import device_limits
+
+    dh = D_MODEL // N_HEAD
+    cases = serving_paged_cases(torch, gen)
+    # lengths on split boundaries: k * pages_per_split * page_size
+    span = 16 * pa.paged_plan(4, 2, pa.pages_for(MAX_LEN, 16), 16, dh,
+                              *device_limits("cuda"))["pages_per_split"]
+    cases += [
+        ("split_boundaries_ps16", paged_case(
+            torch, gen, 4, 2, dh, 16, [min(MAX_LEN, k * span)
+                                       for k in (1, 2, 3, 4)])),
+        ("later_splits_empty", paged_case(torch, gen, 6, 2, dh, 16,
+                                          [1, 17, 40, span, 0, 3])),
+        ("length_1", paged_case(torch, gen, 8, 4, dh, 16, [1] * 8)),
+        ("page_size_1", paged_case(torch, gen, 3, 2, dh, 1, [256, 100, 1])),
+        ("page_size_64", paged_case(torch, gen, 5, 2, dh, 64,
+                                    [256, 65, 64, 0, 3])),
+        ("page_size_256", paged_case(torch, gen, 3, 2, dh, 256,
+                                     [256, 200, 1])),
+        ("npp22_ps12", paged_case(torch, gen, 4, 2, dh, 12,
+                                  [256, 250, 73, 12])),
+        ("dh33", paged_case(torch, gen, 3, 2, 33, 16, [200, 33, 0])),
+        ("unaligned_pools", paged_case(torch, gen, 4, 2, dh, 16,
+                                       [256, 100, 0, 9], offset=1)),
+    ]
+    return cases
 
 
 def tree_case(torch, gen, S, H, N, dh, ps, max_len, bases, branched=False):
@@ -592,6 +681,10 @@ def kernel_phase(torch):
         worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], e_kv)
         worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], e_q)
     for name, kw in paged_cases(torch, gen):
+        plan = paged_plan_of(kw)
+        print("plan paged_decode %-22s %s, %s" % (name, plan, {
+            k: (list(v.shape) if k != "lengths" else v.tolist())
+            for k, v in kw.items() if k in ("q", "k_pool", "lengths")}))
         out = pa.paged_attention(**kw)
         ref = pa.paged_attention_plain(**kw)
         torch.cuda.synchronize()
@@ -604,6 +697,8 @@ def kernel_phase(torch):
         if not err <= K2_TOL:
             fail("paged_decode %s: error %.3e above %.0e" % (name, err, K2_TOL))
         worst["paged_decode"] = max(worst["paged_decode"], err)
+    err = paged_capture_check(torch, gen)
+    worst["paged_decode"] = max(worst["paged_decode"], err)
     for name, kw in tree_cases(torch, gen):
         out = pa.paged_tree_attention(**kw)
         ref = pa.paged_tree_attention_plain(**kw)
@@ -644,6 +739,67 @@ def flash_bwd_layout_phase():
     print("flash_bwd layout: the plan's threads and shared bytes equal the "
           "kernels' at %d (kernel, rows, head dim) triples, all within %d "
           "bytes" % (n, limit))
+
+
+def paged_layout_phase():
+    """B4's plan against the kernel: at every head dim 1..128, the
+    threads and shared bytes of ``paged_plan`` equal those
+    csrc/paged_decode.cu derives (``kernel_paged_layout``)."""
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.kernels.build import device_limits
+
+    limits = device_limits("cuda")
+    for dh in range(1, pa.MAX_HEAD_DIM + 1):
+        plan = pa.paged_plan(NUM_SLOTS, N_HEAD, 16, PAGE_SIZE, dh, *limits)
+        got = pa.kernel_paged_layout(dh)
+        if got != (plan["threads"], plan["smem"]):
+            fail("paged_decode dh %d: the plan's (threads, smem) %s, the "
+                 "kernel's %s" % (dh, (plan["threads"], plan["smem"]), got))
+    print("paged_decode layout: the plan's threads and shared bytes equal "
+          "the kernel's at head dims 1..%d" % pa.MAX_HEAD_DIM)
+
+
+def paged_capture_check(torch, gen):
+    """B4 in a CUDA graph: capture ``paged_attention`` on the serving
+    shape, change the lengths and the page table in place, replay, and
+    hold the output to the plain version on the new values (the kernel
+    reads the lengths on the device; the split is fixed at capture).
+    Returns the worst error of the two replays."""
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    dh = D_MODEL // N_HEAD
+    kw = paged_case(torch, gen, NUM_SLOTS, N_HEAD, dh, PAGE_SIZE,
+                    ragged_lengths())
+    other = paged_case(torch, gen, NUM_SLOTS, N_HEAD, dh, PAGE_SIZE,
+                       [MAX_LEN - n for n in ragged_lengths()])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pa.paged_attention(**kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa.paged_attention(**kw)
+    worst = 0.0
+    for label in ("captured", "lengths and table changed in place"):
+        if label != "captured":
+            kw["lengths"].copy_(other["lengths"])
+            kw["page_table"].copy_(other["page_table"])
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = pa.paged_attention_plain(**kw)
+        err = (out - ref).abs().max().item()
+        empty = kw["lengths"] <= 0
+        if empty.any() and out[empty].abs().max().item() != 0.0:
+            fail("paged_decode graph (%s): a length-0 slot is not exactly "
+                 "0" % label)
+        print("kernel paged_decode graph replay, %s: max_abs_err %.3e  "
+              "tol %.0e  empty %d" % (label, err, K2_TOL, int(empty.sum())))
+        if not err <= K2_TOL:
+            fail("paged_decode graph (%s): error %.3e above %.0e"
+                 % (label, err, K2_TOL))
+        worst = max(worst, err)
+    return worst
 
 
 def full_mask_phase(torch):
@@ -798,19 +954,27 @@ def timing_phase(torch):
         bound=bound(4 * (2 * kw_e[0]["q"].numel() + 2 * vis_e * N_HEAD * dh
                          + 256 + N_HEAD * 256),
                     4.0 * 256 * vis_e * N_HEAD * dh))
-    # K2 at full occupancy: 32 slots x 256 resident tokens
-    kw2 = copies(dict(paged_cases(torch, gen))["full_occupancy_ps16"])
-    acc = pa.grid_accounting(kw2[0]["lengths"].tolist(), PAGE_SIZE, N_HEAD,
-                             dh, MAX_LEN)
-    table_bytes = 8 * acc["valid_pages"] + 8 * NUM_SLOTS
+    # K2 at full occupancy (32 slots x 256 resident tokens) and at the
+    # serving mix of lengths (ragged_ps16)
+    serving = dict(serving_paged_cases(torch, gen))
+    kw2 = copies(serving["full_occupancy_ps16"])
     rows["paged_decode"] = dict(
         shape="%d slots x %d tokens, H %d, dh %d, page_size %d"
         % (NUM_SLOTS, MAX_LEN, N_HEAD, dh, PAGE_SIZE),
         ms=cuda_ms(pa.paged_attention, kw2),
         plain_ms=cuda_ms(pa.paged_attention_plain, kw2),
         library_ms=None,
-        bound=bound(acc["hbm_bytes"] + table_bytes,
-                    4.0 * acc["resident_tokens"] * N_HEAD * dh))
+        bound=paged_decode_bound(kw2[0]["lengths"].tolist(), dh))
+    kw2r = copies(serving["ragged_ps16"])
+    rows["paged_decode_ragged"] = dict(
+        shape="%d slots, lengths %d..%d (%d resident tokens), H %d, dh %d, "
+        "page_size %d" % (NUM_SLOTS, min(ragged_lengths()),
+                          max(ragged_lengths()), sum(ragged_lengths()),
+                          N_HEAD, dh, PAGE_SIZE),
+        ms=cuda_ms(pa.paged_attention, kw2r),
+        plain_ms=cuda_ms(pa.paged_attention_plain, kw2r),
+        library_ms=None,
+        bound=paged_decode_bound(kw2r[0]["lengths"].tolist(), dh))
     # K5 at the verify dispatch's shape. Bytes from this run's own bases:
     # a slot reads the pages below ceil(min(base + N, max_len) / page) once
     # for all N queries; plus the N query and output rows, the masks, the
@@ -1649,15 +1813,32 @@ def gru_case(torch, gen, B, T, D, lens=None, init=False, reverse=False,
                 cand_act=acts[1])
 
 
-def lstm_regime_limit():
-    """The largest width that ``lstm_plan`` runs in regime (a) (all of
-    W_h in one block) at batch 5 on this card."""
+def rnn_plan(kname):
+    """B6's or B7's launch-plan function (``lstm_plan``, ``gru_plan``)."""
+    from paddle_tpu_torch.kernels import gru_cell as gc
+    from paddle_tpu_torch.kernels import lstm_cell as lc
+
+    return {"lstm_cell": lc.lstm_plan, "gru_cell": gc.gru_plan}[kname]
+
+
+def regime_limit(kname):
+    """The largest width that the kernel's plan runs in regime (a) (all
+    weights in one block) at batch 5 on this card."""
     from paddle_tpu_torch.kernels.build import device_limits
-    from paddle_tpu_torch.kernels.lstm_cell import lstm_plan
 
     limits = device_limits("cuda")
     return max(D for D in range(1, 257)
-               if lstm_plan(5, D, *limits)["regime"] == "a")
+               if rnn_plan(kname)(5, D, *limits)["regime"] == "a")
+
+
+def l2_width(kname):
+    """The narrowest width from 1400 up whose weight slice the kernel's
+    plan reads from L2 at batch 3 on this card."""
+    from paddle_tpu_torch.kernels.build import device_limits
+
+    limits = device_limits("cuda")
+    return next(D for D in range(1400, 4097)
+                if rnn_plan(kname)(3, D, *limits)["w"] == "l2")
 
 
 def lstm_cases(torch, gen):
@@ -1669,7 +1850,7 @@ def lstm_cases(torch, gen):
     code, with and without peepholes, mask, initial state and
     reverse."""
     B, T = RNN_BATCH, RNN_SEQ
-    lim = lstm_regime_limit()
+    lim = regime_limit("lstm_cell")
     ragged = rnn_lens(torch, gen, B, T, RNN_MIN_LEN)
     mt_lens = rnn_lens(torch, gen, MT_BATCH, MT_SEQ, 8)
     edge = [6, 4, 6, 2, 5]
@@ -1723,9 +1904,18 @@ def lstm_cases(torch, gen):
 
 
 def gru_cases(torch, gen):
+    """(name, kwargs, relative tolerance?) of B7: the network's shapes at
+    widths 512 and 64 and the first edge cases, then the redesign's: both
+    sides of ``gru_plan``'s regime switch, B 1, 5 and 33, hidden units
+    not a multiple of the units per block, every row of length 0 (both
+    regimes), D 1400 and the narrowest width whose weight slice is read
+    from L2, a block's rows in several passes (u through scratch), h
+    staged in k-chunks, and relu / identity in regime (b)."""
     B, T = RNN_BATCH, RNN_SEQ
     ragged = rnn_lens(torch, gen, B, T, RNN_MIN_LEN)
     edge = [6, 4, 6, 2, 5]
+    lim = regime_limit("gru_cell")
+    wide = l2_width("gru_cell")
     return [
         ("net_D512", gru_case(torch, gen, B, T, RNN_HID, lens=ragged), False),
         ("net_D64", gru_case(torch, gen, B, T, RNN_PKG_HID, lens=ragged),
@@ -1745,6 +1935,38 @@ def gru_cases(torch, gen):
         ("acts_identity_sigmoid", gru_case(torch, gen, 5, 6, 48,
                                            acts=("identity", "sigmoid")),
          True),
+        ("D%d_B5_T7_regime_a_limit" % lim, gru_case(
+            torch, gen, 5, 7, lim, lens=[7, 3, 0, 5, 1], init=True), False),
+        ("D%d_B5_T7_regime_b" % (lim + 1), gru_case(
+            torch, gen, 5, 7, lim + 1, lens=[7, 3, 0, 5, 1], init=True),
+         False),
+        ("B1_D512_T9", gru_case(torch, gen, 1, 9, 512), False),
+        ("B5_D512_T7_h0", gru_case(torch, gen, 5, 7, 512,
+                                   lens=[7, 3, 0, 5, 1], init=True), False),
+        ("B33_D512_T9_h0", gru_case(torch, gen, 33, 9, 512, init=True,
+                                    lens=rnn_lens(torch, gen, 33, 9, 0)),
+         False),
+        ("B7_D515_T5_units_ragged", gru_case(torch, gen, 7, 5, 515,
+                                             lens=[5, 0, 3, 5, 1, 2, 4]),
+         False),
+        ("all_len0_B4_D512_h0", gru_case(torch, gen, 4, 5, 512,
+                                         lens=[0, 0, 0, 0], init=True),
+         False),
+        ("all_len0_B4_D64", gru_case(torch, gen, 4, 5, 64,
+                                     lens=[0, 0, 0, 0]), False),
+        ("D1400_B3_T3_h0", gru_case(torch, gen, 3, 3, 1400, init=True,
+                                    lens=[3, 1, 0]), False),
+        ("D%d_B3_T3_streamed" % wide, gru_case(torch, gen, 3, 3, wide,
+                                               init=True), False),
+        ("B300_D512_T4_passes", gru_case(torch, gen, 300, 4, 512, init=True,
+                                         lens=rnn_lens(torch, gen, 300, 4,
+                                                       0)), False),
+        ("B32_D1100_T3_chunks", gru_case(torch, gen, 32, 3, 1100,
+                                         lens=rnn_lens(torch, gen, 32, 3, 0)),
+         False),
+        ("acts_relu_identity_D200_regime_b", gru_case(
+            torch, gen, 5, 6, 200, lens=edge, init=True,
+            acts=("relu", "identity")), True),
     ]
 
 
@@ -1775,40 +1997,49 @@ def rnn_check(torch, kname, name, outs, refs, kw, relative):
     return err
 
 
-def plan_line(lc, B, D):
-    """B6's launch plan for batch B and width D on this card, in words."""
+def plan_line(kname, B, D):
+    """B6's or B7's launch plan for batch B and width D on this card, in
+    words."""
     from paddle_tpu_torch.kernels.build import device_limits
 
-    p = lc.lstm_plan(B, D, *device_limits("cuda"))
+    p = rnn_plan(kname)(B, D, *device_limits("cuda"))
     return ("regime %s%s, %d blocks x %d threads, %d units x %d rows per "
-            "block, %d B shared%s" % (
+            "block, %d B shared%s%s" % (
                 p["regime"], " (cooperative)" if p["regime"] == "b" else "",
                 p["blocks"], p["threads"], p["units"], p["rows"], p["smem"],
-                {"shared": "", "registers": ", W_h in registers",
-                 "l2": ", W_h slice read from L2"}[p["w"]]))
+                {"shared": "", "registers": ", weights in registers",
+                 "l2": ", weight slice read from L2"}[p["w"]],
+                ", h staged %d columns at a time" % p["kc"]
+                if p["kc"] < D else ""))
 
 
-def lstm_layout_phase():
-    """B6's plans against the kernel: at every batch and width below,
-    the threads, shared-memory bytes and blocks of ``lstm_plan`` (its
-    ``lstm_layout``) equal those csrc/lstm_cell.cu derives from the
-    plan's choices (``kernel_layout``), and the kernel takes the plan."""
+def rnn_layout_phase():
+    """B6's and B7's plans against the kernels: at every batch and width
+    below, the threads, shared-memory bytes and blocks of ``lstm_plan``
+    (``lstm_layout``) and ``gru_plan`` (``gru_layout``) equal those
+    csrc/lstm_cell.cu and csrc/gru_cell.cu derive from the plan's
+    choices (``kernel_layout``), and the kernels take the plans."""
     from paddle_tpu_torch.kernels import lstm_cell as lc
     from paddle_tpu_torch.kernels.build import device_limits
 
     limits = device_limits("cuda")
-    shapes = [(B, D) for B in (1, 3, 5, 32, 33, 300)
-              for D in list(range(1, 200)) + [256, 512, 515, 1100, 1400,
+    shapes = [(B, D) for B in (1, 3, 4, 5, 7, 32, 33, 300)
+              for D in list(range(1, 200)) + [200, 256, 512, 515, 1100,
+                                              1400, l2_width("gru_cell"),
                                               2048]]
-    for B, D in shapes:
-        plan = lc.lstm_plan(B, D, *limits)
-        want = (plan["threads"], plan["smem"], plan["blocks"])
-        got = lc.kernel_layout(B, D, plan)
-        if got != want:
-            fail("lstm_cell B %d D %d: the plan's (threads, smem, blocks) "
-                 "%s, the kernel's %s" % (B, D, want, got))
-    print("lstm_cell layout: the plan's threads, shared bytes and blocks "
-          "equal the kernel's at %d (batch, width) pairs" % len(shapes))
+    for kname, symbol in (("lstm_cell", "paddle_lstm_layout"),
+                          ("gru_cell", "paddle_gru_layout")):
+        for B, D in shapes:
+            plan = rnn_plan(kname)(B, D, *limits)
+            want = (plan["threads"], plan["smem"], plan["blocks"])
+            got = lc.kernel_layout(B, D, plan, symbol)
+            if got != want or plan["smem"] > limits[1]:
+                fail("%s B %d D %d: the plan's (threads, smem, blocks) %s, "
+                     "the kernel's %s, limit %d" % (kname, B, D, want, got,
+                                                    limits[1]))
+        print("%s layout: the plan's threads, shared bytes and blocks "
+              "equal the kernel's at %d (batch, width) pairs"
+              % (kname, len(shapes)))
 
 
 def rnn_kernel_phase(torch):
@@ -1826,9 +2057,9 @@ def rnn_kernel_phase(torch):
             ("gru_cell", gru_cases(torch, gen), gc.gru_cell_forward,
              gc.gru_reference)):
         for name, kw, relative in cases:
-            if kname == "lstm_cell":
-                print("plan lstm_cell %-28s %s" % (name, plan_line(
-                    lc, kw["xw"].shape[0], kw["w_h"].shape[0])))
+            print("plan %s %-28s %s" % (kname, name, plan_line(
+                kname, kw["xw"].shape[0], kw["xw"].shape[2] // (
+                    4 if kname == "lstm_cell" else 3))))
             outs, refs = kern(**kw), plain(**kw)
             torch.cuda.synchronize()
             if kname == "gru_cell":
@@ -2191,14 +2422,15 @@ def main():
             print("ptxas: %s" % kernel_symbol(line))
         elif "registers" in line or "spill" in line:
             print("ptxas:   " + line.strip()[:120])
-    lstm_layout_phase()
+    rnn_layout_phase()
+    paged_layout_phase()
     flash_bwd_layout_phase()
 
     worst = kernel_phase(torch)
     full_mask_phase(torch)
     timing = timing_phase(torch)
     for name in ("flash_fwd", "flash_fwd_verify", "flash_fwd_encoder",
-                 "paged_decode", "tree_decode", "flash_fwd_train",
+                 "paged_decode", "paged_decode_ragged", "tree_decode", "flash_fwd_train",
                  "flash_fwd_train_causal", "flash_bwd_dkv", "flash_bwd_dq",
                  "flash_bwd_dkv_causal", "flash_bwd_dq_causal"):
         r = timing[name]
@@ -2221,10 +2453,10 @@ def main():
              timing["gather_k_pool_gof_ms"]))
     worst.update(rnn_kernel_phase(torch))
     rnn_timing = rnn_timing_phase(torch)
-    from paddle_tpu_torch.kernels import lstm_cell as lc
-    for D in (RNN_HID, RNN_PKG_HID):
-        print("plan lstm_cell B %d D %d: %s" % (RNN_BATCH, D, plan_line(
-            lc, RNN_BATCH, D)))
+    for kname in ("lstm_cell", "gru_cell"):
+        for D in (RNN_HID, RNN_PKG_HID):
+            print("plan %s B %d D %d: %s" % (kname, RNN_BATCH, D, plan_line(
+                kname, RNN_BATCH, D)))
     for name, r in sorted(rnn_timing.items()):
         lib = ("%.4f ms (torch.nn.LSTM, cuDNN, input product included; "
                "its kernels' device time)"
@@ -2233,7 +2465,6 @@ def main():
               "bound %.4f ms (%s)" % (name, r["shape"], r["ms"],
                                       r["plain_ms"], lib, r["bound"][0],
                                       r["bound"][1]))
-
     exe = fluid.Executor()  # the card: CUDAPlace(0)
     scope = fluid.Scope()
     t0 = time.perf_counter()
@@ -2363,7 +2594,9 @@ def main():
              plain_ms=timing["paged_decode"]["plain_ms"],
              bound_ms=timing["paged_decode"]["bound"][0],
              bound_by=timing["paged_decode"]["bound"][1],
-             library_ms=None),
+             library_ms=None,
+             shapes=shape_rows(timing, [("paged_decode", 0),
+                                        ("paged_decode_ragged", 0)], "")),
         dict(name="tree_decode", route="cuda",
              source="paddle_tpu_torch/csrc/tree_decode.cu",
              replaces="paddle_tpu/kernels/paged_attention.py:386",

@@ -69,19 +69,16 @@
 // step costs one barrier for the sums plus the step's own (__syncthreads
 // in (a), the grid barrier in (b)).
 
-#include <algorithm>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "recurrence.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kMaxCombos = 128;   // (unit, row group) pairs: 512 threads
-constexpr int kMaxThreads = 4 * kMaxCombos;
-constexpr int kMaxWarpGroups = 4;  // k-shares
 
 struct LstmArgs {
   const float* xw;
@@ -103,65 +100,6 @@ struct LstmArgs {
   int vec_h;   // D % 4 == 0 and aligned h: 16-byte cp.async staging
   int kw;      // warp groups that split k (k-quad phases: 4 * kw)
 };
-
-// An activation code (0 sigmoid, 1 tanh, 2 relu, 3 identity) as
-// numbers, so that a step's activations run without branches and the
-// independent ones overlap: ka = 1 (sigmoid) or 2 (tanh = 2 sigmoid(2x)
-// - 1) for the smooth ones, else 0 with lo = 0 (relu) or -inf
-// (identity); kl = -ka / ln 2 scales x for ex2.
-struct Act {
-  float ka, kl, lo;
-};
-
-__host__ __device__ __forceinline__ Act act_of(int code) {
-  const float ka = code == 0 ? 1.f : code == 1 ? 2.f : 0.f;
-  return Act{ka, -ka * 1.4426950408889634f, code == 2 ? 0.f : -INFINITY};
-}
-
-__device__ __forceinline__ float ex2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float rcp_approx(float x) {
-  float y;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// sigmoid(ka x) through the special-function unit (two approximate
-// instructions, within 1e-6 of torch.sigmoid / torch.tanh; an overflowing
-// exponential gives 1 / inf = 0, so an infinite input gives 0 or 1), or
-// the exact relu / identity branch, picked by a select (no branch): both
-// are computed, and neither is multiplied by 0, which would turn inf
-// into NaN
-__device__ __forceinline__ float activate(Act f, float x) {
-  const float s = rcp_approx(1.f + ex2_approx(f.kl * x));
-  const float smooth = fmaf(f.ka, s, 1.f - f.ka);
-  return f.ka != 0.f ? smooth : fmaxf(x, f.lo);
-}
-
-// Row stride (floats) of h in shared memory ([rows][k]) for `cols` k
-// columns: rounded up to 4 (float4 loads) with an odd count of float4s,
-// so rows of different row groups fall in different banks.
-__host__ __device__ __forceinline__ int row_stride(int cols) {
-  const int quads = (cols + 3) / 4;
-  return 4 * (quads % 2 ? quads : quads + 1);
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int src_bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(src_bytes));
-}
-
-// Where W_h lives during the steps: shared memory, read from L2 each
-// step (a slice too large for shared memory), or registers (regime (a)
-// at small D: a thread's unit and k-quads, kRegQuads float4s x 4).
-enum WMode { kWShared = 0, kWL2 = 1, kWRegs = 2 };
-constexpr int kRegQuads = 2;
 
 // acc[i][g] += sum over the k-quads phase, phase + phases, ... below nq4
 // of the chunk of h[row i of group rg][k] * W_h[k0 + k, g * D + u]
@@ -493,78 +431,15 @@ lstm_cell_kernel(LstmArgs a) {
 template <int RT, bool COOP, int WM>
 int launch(const LstmArgs& args, int blocks, int threads, size_t smem,
            cudaStream_t stream) {
-  auto kernel = lstm_cell_kernel<RT, COOP, WM>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  if (!COOP) {
-    kernel<<<blocks, threads, smem, stream>>>(args);
-    return (int)cudaGetLastError();
-  }
-  int dev = 0, coop = 0, n_sm = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return (int)cudaErrorNotSupported;
-  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                    smem);
-  if (e != cudaSuccess) return (int)e;
-  if (blocks > per_sm * n_sm) return (int)cudaErrorCooperativeLaunchTooLarge;
-  LstmArgs copy = args;
-  void* params[] = {&copy};
-  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks),
-                                  dim3(threads), params, smem, stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return launch_kernel(lstm_cell_kernel<RT, COOP, WM>, args, COOP, blocks,
+                       threads, smem, stream);
 }
 
-// What a plan (regime 0 = (a), 1 = (b); units and rows per block; kc k
-// columns of h staged at once; w_mode) implies for a launch: the one
-// statement of the block's layout, which `lstm_layout` in
-// kernels/lstm_cell.py mirrors for choosing a plan. False where this
-// kernel does not take the plan: regime (a) is one pass over all D units
-// with W_h in shared memory or registers (a thread's share at most
-// kRegQuads k-quads); regime (b) stages h in chunks of a multiple of 4
-// columns, its W_h slice in shared memory or read from L2.
-struct Layout {
-  int rt;       // batch rows per thread (1 or 4)
-  int groups;   // row groups of rt rows per pass
-  int kw;       // warp groups that split k
-  int rs;       // row stride of h in shared memory, in floats
-  int threads, blocks;
-  size_t smem;  // bytes per block: W_h (or its slice), h buffers, sums
-};
-
+// B6's layout (recurrence.cuh): W_h takes 16 bytes a unit and k (its four
+// gate columns), the product leaves four sums a row and unit.
 bool plan_layout(int B, int D, int regime, int units, int rows, int kc,
                  int w_mode, Layout* out) {
-  if (B < 1 || D < 1 || units < 1 || units > kMaxCombos || rows < 1 ||
-      rows > B || kc < 1 || kc > D)
-    return false;
-  if (regime == 0) {
-    if (units != D || kc != D || (w_mode != kWShared && w_mode != kWRegs))
-      return false;
-  } else if (regime != 1 || (kc < D && kc % 4) ||
-             (w_mode != kWShared && w_mode != kWL2)) {
-    return false;
-  }
-  Layout L;
-  L.rt = rows >= 4 ? 4 : 1;
-  L.groups = std::min((rows + L.rt - 1) / L.rt, kMaxCombos / units);
-  if (regime == 0 && L.groups * L.rt < rows) return false;
-  const int warps = (units * L.groups + 7) / 8;
-  L.kw = std::max(1, std::min(kMaxWarpGroups, kMaxThreads / (32 * warps)));
-  if (w_mode == kWRegs &&
-      ((D + 3) / 4 + 4 * L.kw - 1) / (4 * L.kw) > kRegQuads)
-    return false;
-  L.threads = 32 * warps * L.kw;
-  L.rs = row_stride(kc);
-  L.smem = (w_mode == kWShared ? 16 * (size_t)((D + 3) / 4 * 4) * units : 0) +
-           sizeof(float) * L.rs * (size_t)L.groups * L.rt *
-               (regime == 0 ? 2 : 1) +
-           sizeof(float) * (size_t)L.kw * warps * 8 * L.rt * 4;
-  L.blocks = (D + units - 1) / units * ((B + rows - 1) / rows);
-  *out = L;
-  return true;
+  return block_layout(B, D, regime, units, rows, kc, w_mode, 16, 4, out);
 }
 
 }  // namespace
@@ -591,11 +466,8 @@ extern "C" int paddle_lstm_cell_f32(const float* xw, const float* w_h,
       cell_act > 3 || cand_act < 0 || cand_act > 3 ||
       !plan_layout(B, D, regime, units, rows, kc, w_mode, &L))
     return (int)cudaErrorInvalidValue;
-  int dev = 0, limit = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
+  int limit = 0;
+  if (int e = smem_limit(&limit)) return e;
   if (L.smem > (size_t)limit) return (int)cudaErrorInvalidValue;
   const int vec_h = D % 4 == 0 && ((uintptr_t)hidden | (uintptr_t)h0) % 16 == 0;
   LstmArgs args{xw, w_h, bias, peep, mask, h0, c0, hidden, cell, B, T, D,

@@ -4,26 +4,45 @@
 // paged_attention.py:184, driven by `_paged_pallas` :240). One query token
 // per slot attends over that slot's resident K/V rows, which live in a
 // block-paged pool [P,H,page_size,dh] reached through a page table
-// [S,npp] (int64). A slot's scan stops at its own length: the block reads
-// table[s, p] itself for p < ceil(lengths[s] / page_size) only, so the
-// aliased tail of the table is never touched, and a slot of length 0
-// reads no page and writes exactly 0. Any page_size >= 1 works.
+// [S,npp] (int64). A slot's scan stops at its own length: a block reads
+// table[s, p] itself for the pages below ceil(lengths[s] / page_size)
+// only, so the aliased tail of the table is never touched, and a slot of
+// length 0 reads no page and writes exactly 0. Any page_size >= 1 works.
 //
 // What bounds it on this card: memory. Each resident token's K and V
 // rows (8*dh bytes) are read once for 2*dh flops of score and 2*dh of
 // output, half a flop per byte against the fp32 ridge of 20, so the floor
 // is the resident bytes over 3.35 TB/s (grid_accounting in
-// kernels/paged_attention.py counts them).
+// kernels/paged_attention.py counts them). Reaching it takes enough
+// bytes in flight on every SM, and little else on the way.
 //
-// What the design does about it: one block per (slot, head) walks only
-// the slot's resident pages (bytes follow the resident length, not
-// num_slots * max_length). Pages are staged into shared memory in chunks
-// of about 64 keys with coalesced loads (a page of one head is one
-// contiguous page_size*dh run), each warp scores whole keys with a
-// shuffle reduction, and the online softmax keeps max, sum and the
-// output row in registers. Overlapping the next chunk's loads with this
-// chunk's math (cp.async or TMA), and splitting long slots across
-// blocks, is later work.
+// What the design does (flash-decoding): the grid is (slot, head,
+// split); each split covers a fixed range of `pps` pages of its slot, so
+// a decode step has `splits` times as many blocks as (slot, head) pairs.
+// The split count comes from static shapes only (`paged_plan` in
+// kernels/paged_attention.py: S, H, npp, page_size, dh, the SM count),
+// never from `lengths`, which only the device reads: the call needs no
+// host sync and a CUDA graph can hold it. A block clips its range to the
+// slot's length; a split wholly past it reads no page and writes an
+// empty partial (m = -1e30, l = 0, acc = 0). Within a split, key rows go
+// through shared memory in chunks of 32 keys, double-buffered with
+// 16-byte cp.async (4-byte copies where dh or a pool pointer is not
+// 16-byte aligned), so the next chunk's loads overlap this chunk's math.
+// Scores: 8 lanes a key, each on float4 slices of dh, 4 keys a warp at
+// once, three shuffles. Softmax: every warp takes the chunk's max from
+// the 32 scores, and each key's exponential is computed once, by one
+// thread of its key group. P.V: all 128 threads, each on one float4 of
+// the output row (column quad) and one key group (keys j = group mod
+// groups); a key's weight reaches its group's lanes by a shuffle. At the
+// end the key groups' sums meet in shared memory. With one split the
+// block writes the output; with more, each writes its partial (m, l,
+// acc) to scratch from the wrapper and a second small kernel, launched
+// from the same entry point, merges them (exp2 weights; a merged max at
+// or below kMaskedRowM gives exactly 0).
+//
+// Where it stands (NVIDIA H100 at 700 W, chip_smoke.py): about 0.017 ms
+// at 32 slots x 256 tokens, some 58 % of the byte bound; the second
+// launch, two barriers a 32-key chunk and one table read a copy remain.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -33,122 +52,308 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunkKeys = 64;   // keys staged per chunk (at least a page)
-constexpr int kMaxDh = 128;      // head dims up to this, one column a thread
-constexpr int kMaxSmem = 227 * 1024;
+constexpr int kChunk = 32;        // keys staged per chunk (one warp's max)
+constexpr int kLanesPerKey = 8;   // score lanes a key
+constexpr int kMaxDh = 128;
 constexpr float kNegInf = -1e30f;
 constexpr float kMaskedRowM = -1e29f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool vec) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (vec)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(d), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(d), "l"(src));
+}
+
+// The block's layout for head dim dh: rows of dhp floats (dh rounded up
+// to 4), column quads cq < ncq (a power of two, ceil(dh / 4) rounded up)
+// times kThreads / ncq key groups in the P.V sum.
+struct Layout {
+  int dhp, ncq, groups, smem;
+};
+
+__host__ __device__ inline Layout layout_of(int dh) {
+  Layout L;
+  L.dhp = (dh + 3) / 4 * 4;
+  L.ncq = 1;
+  while (L.ncq * 4 < dh) L.ncq *= 2;
+  L.groups = kThreads / L.ncq;
+  // two stages of K and V chunks, the chunk's scores, the warps' l sums
+  L.smem = (int)sizeof(float) * (2 * 2 * kChunk * L.dhp + kChunk + kWarps);
+  return L;
+}
+
+struct Args {
+  const float* q;
+  const float* k_pool;
+  const float* v_pool;
+  const int64_t* table;
+  const int64_t* lengths;
+  float* out;   // [S, H, dh] (splits == 1)
+  float* part;  // [S, H, splits, dh] acc, then [S, H, splits, 2] (m, l)
+  int S, H, ps, dh, npp, splits, pps;
+  float scale2;  // sm_scale * log2(e): scores in the exp2 domain
+  int vec;
+};
 
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const float* __restrict__ q,
-                    const float* __restrict__ k_pool,
-                    const float* __restrict__ v_pool,
-                    const int64_t* __restrict__ table,
-                    const int64_t* __restrict__ lengths,
-                    float* __restrict__ out, int H, int ps, int dh, int npp,
-                    int chunk_pages, float sm_scale) {
+paged_decode_kernel(Args a) {
   extern __shared__ float smem[];
-  const int keys_max = chunk_pages * ps;
-  float* k_s = smem;                    // [keys_max][dh]
-  float* v_s = k_s + keys_max * dh;     // [keys_max][dh]
-  float* q_s = v_s + keys_max * dh;     // [dh]
-  float* p_s = q_s + dh;                // [keys_max] scores of a chunk
+  const Layout L = layout_of(a.dh);
+  const int dh = a.dh, dhp = L.dhp, ncq = L.ncq;
+  const int stage = 2 * kChunk * dhp;        // K then V of one chunk
+  float* p_s = smem + 2 * stage;             // [kChunk] scores
+  float* l_s = p_s + kChunk;                 // [kWarps]
 
-  const int s = blockIdx.x;
-  const int h = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+  const int s = blockIdx.x, h = blockIdx.y, sp = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t sh = (size_t)s * a.H + h;
 
-  long long len = lengths[s];
-  if (len < 0) len = 0;
-  const long long want = (len + ps - 1) / ps;
-  const int n_pages = (int)(want < npp ? want : npp);
+  // positions fit an int: the entry point refuses npp * ps >= 2^30
+  const long long len_raw = a.lengths[s];
+  const int cap = a.npp * a.ps;
+  const int len = len_raw < 0 ? 0 : len_raw > cap ? cap : (int)len_raw;
+  const int kb0 = sp * a.pps * a.ps;
+  const int ke = min(len, min(cap, kb0 + a.pps * a.ps));
+  const int nkeys = max(ke - kb0, 0);
+  const int n_chunks = (nkeys + kChunk - 1) / kChunk;
 
-  for (int c = tid; c < dh; c += kThreads)
-    q_s[c] = q[((size_t)s * H + h) * dh + c] * sm_scale;
-
-  float acc = 0.f;  // output column `tid` (threads past dh idle here)
-  float m = kNegInf;
-  float l = 0.f;
-  const size_t page_elems = (size_t)ps * dh;
-
-  for (int p0 = 0; p0 < n_pages; p0 += chunk_pages) {
-    const int np = min(chunk_pages, n_pages - p0);
-    const int nk = np * ps;
-    __syncthreads();  // q staged; previous chunk fully consumed
-    for (int pi = 0; pi < np; ++pi) {
-      const long long page = table[(size_t)s * npp + p0 + pi];
-      const float* kp = k_pool + ((size_t)page * H + h) * page_elems;
-      const float* vp = v_pool + ((size_t)page * H + h) * page_elems;
-      float* kd = k_s + pi * page_elems;
-      float* vd = v_s + pi * page_elems;
-      for (int i = tid; i < (int)page_elems; i += kThreads) {
-        kd[i] = kp[i];
-        vd[i] = vp[i];
-      }
+  const size_t page_elems = (size_t)a.ps * dh;
+  const long long* trow =
+      reinterpret_cast<const long long*>(a.table) + (size_t)s * a.npp;
+  const float* k_head = a.k_pool + (size_t)h * page_elems;
+  const float* v_head = a.v_pool + (size_t)h * page_elems;
+  const size_t page_stride = (size_t)a.H * page_elems;
+  // issue the copies of chunk c into stage buffer c & 1
+  auto issue = [&](int c) {
+    const int kb = kb0 + c * kChunk;
+    const int nk = min(kChunk, nkeys - c * kChunk);
+    float* ks = smem + (c & 1) * stage;
+    float* vs = ks + kChunk * dhp;
+    const int per_row = a.vec ? dh / 4 : dh;
+    const int width = a.vec ? 4 : 1;
+    for (int idx = tid; idx < nk * per_row; idx += kThreads) {
+      const int r = idx / per_row, col = (idx % per_row) * width;
+      const int pos = kb + r;
+      const int pg = pos / a.ps;
+      const size_t off = (size_t)__ldg(trow + pg) * page_stride +
+                         (size_t)(pos - pg * a.ps) * dh + col;
+      cp_async(ks + r * dhp + col, k_head + off, a.vec);
+      cp_async(vs + r * dhp + col, v_head + off, a.vec);
     }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  if (dhp != dh) {
+    // pad columns read as whole quads by the score loop: zeros
+    for (int i = tid; i < 2 * stage; i += kThreads) smem[i] = 0.f;
     __syncthreads();
-    for (int j = warp; j < nk; j += kWarps) {
-      float dot = 0.f;
-      for (int c = lane; c < dh; c += 32) dot += q_s[c] * k_s[j * dh + c];
+  }
+  if (n_chunks > 0) issue(0);
+
+  // the query's float4 slices of the score lanes: quads lane8 + 8 i
+  const int lane8 = lane & (kLanesPerKey - 1);
+  const int nq = dhp / 4;
+  float4 qv[kMaxDh / 4 / kLanesPerKey];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      if (lane == 0) {
-        const long long pos = (long long)p0 * ps + j;
-        p_s[j] = pos < len ? dot : kNegInf;
+  for (int i = 0; i < kMaxDh / 4 / kLanesPerKey; ++i) {
+    float e[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = 4 * (lane8 + kLanesPerKey * i) + j;
+      e[j] = c < dh ? a.q[sh * dh + c] * a.scale2 : 0.f;
+    }
+    qv[i] = make_float4(e[0], e[1], e[2], e[3]);
+  }
+
+  // P.V: column quad cq, key group kg; keys j = kg + groups * i
+  const int cq = tid % ncq, kg = tid / ncq;
+  const int per_group = (kChunk + L.groups - 1) / L.groups;
+  const int base_lane = lane & ~(ncq - 1);
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  float m = kNegInf, l_part = 0.f;
+
+  for (int c = 0; c < n_chunks; ++c) {
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();  // chunk c landed; chunk c - 1 fully consumed
+    if (c + 1 < n_chunks) issue(c + 1);
+    const int nk = min(kChunk, nkeys - c * kChunk);
+    const float* ks = smem + (c & 1) * stage;
+    const float* vs = ks + kChunk * dhp;
+    // scores: 4 keys a warp, 8 lanes a key
+#pragma unroll
+    for (int pass = 0; pass < kChunk / (kWarps * 32 / kLanesPerKey);
+         ++pass) {
+      const int j = (pass * kWarps + warp) * (32 / kLanesPerKey) +
+                    lane / kLanesPerKey;
+      const float* kr = ks + j * dhp;
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < kMaxDh / 4 / kLanesPerKey; ++i) {
+        const int quad = lane8 + kLanesPerKey * i;
+        if (quad < nq) {
+          const float4 k4 = *reinterpret_cast<const float4*>(kr + 4 * quad);
+          dot = fmaf(qv[i].x, k4.x, dot);
+          dot = fmaf(qv[i].y, k4.y, dot);
+          dot = fmaf(qv[i].z, k4.z, dot);
+          dot = fmaf(qv[i].w, k4.w, dot);
+        }
       }
+#pragma unroll
+      for (int off = kLanesPerKey / 2; off > 0; off >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      if (lane8 == 0 && j < nk) p_s[j] = dot;
     }
     __syncthreads();
-    float cmax = kNegInf;
-    for (int j = 0; j < nk; ++j) cmax = fmaxf(cmax, p_s[j]);
-    const float m_new = fmaxf(m, cmax);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-    float a = acc * alpha;
-    for (int j = 0; j < nk; ++j) {
-      const float p = expf(p_s[j] - m_new);
-      psum += p;
-      if (tid < dh) a += p * v_s[j * dh + tid];
+    // the chunk's max, in every warp
+    float cm = lane < nk ? p_s[lane] : kNegInf;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, off));
+    const float m_new = fmaxf(m, cm);
+    const float alpha = ex2_approx(m - m_new);
+    // each key's weight once: lane cq = i of key group kg takes key
+    // kg + groups * i
+    const int j_own = kg + L.groups * cq;
+    const float p_own =
+        cq < per_group && j_own < nk ? ex2_approx(p_s[j_own] - m_new) : 0.f;
+    l_part = l_part * alpha + p_own;
+    acc.x *= alpha;
+    acc.y *= alpha;
+    acc.z *= alpha;
+    acc.w *= alpha;
+    for (int i = 0; i < per_group; ++i) {
+      const float pj = __shfl_sync(0xffffffffu, p_own, base_lane + i);
+      const int j = kg + L.groups * i;
+      if (j < nk && cq < nq) {
+        const float4 v4 = *reinterpret_cast<const float4*>(vs + j * dhp +
+                                                           4 * cq);
+        acc.x = fmaf(pj, v4.x, acc.x);
+        acc.y = fmaf(pj, v4.y, acc.y);
+        acc.z = fmaf(pj, v4.z, acc.z);
+        acc.w = fmaf(pj, v4.w, acc.w);
+      }
     }
-    acc = a;
-    l = l * alpha + psum;
     m = m_new;
   }
-  if (tid < dh)
-    out[((size_t)s * H + h) * dh + tid] =
-        m <= kMaskedRowM ? 0.f : acc / fmaxf(l, 1e-30f);
+
+  // the key groups' sums: acc in shared memory (over the stage buffers),
+  // l by warp shuffles
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    l_part += __shfl_xor_sync(0xffffffffu, l_part, off);
+  __syncthreads();  // every stage buffer read
+  float4* red = reinterpret_cast<float4*>(smem);  // [groups][ncq]
+  red[kg * ncq + cq] = acc;
+  if (lane == 0) l_s[warp] = l_part;
+  __syncthreads();
+  if (tid < nq) {
+    float4 o = red[tid];
+    for (int g = 1; g < L.groups; ++g) {
+      const float4 r = red[g * ncq + tid];
+      o.x += r.x;
+      o.y += r.y;
+      o.z += r.z;
+      o.w += r.w;
+    }
+    float l = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) l += l_s[w];
+    const float e[4] = {o.x, o.y, o.z, o.w};
+    if (a.splits == 1) {
+      const float inv = m <= kMaskedRowM ? 0.f : 1.f / fmaxf(l, 1e-30f);
+      for (int j = 0; j < 4 && 4 * tid + j < dh; ++j)
+        a.out[sh * dh + 4 * tid + j] = e[j] * inv;
+    } else {
+      const size_t part = sh * a.splits + sp;
+      for (int j = 0; j < 4 && 4 * tid + j < dh; ++j)
+        a.part[part * dh + 4 * tid + j] = e[j];
+      if (tid == 0) {
+        float* ml = a.part + (size_t)a.S * a.H * a.splits * dh + 2 * part;
+        ml[0] = m;
+        ml[1] = l;
+      }
+    }
+  }
+}
+
+// out[s, h] from the splits' partials: weights exp2(m_i - M), M the
+// largest m_i; a merged max at or below kMaskedRowM gives exactly 0.
+__global__ void __launch_bounds__(kThreads)
+paged_merge_kernel(Args a) {
+  const size_t sh = blockIdx.x;
+  const int n = a.splits, dh = a.dh;
+  const float* ml = a.part + (size_t)a.S * a.H * n * dh + 2 * sh * n;
+  const float* acc = a.part + sh * n * dh;
+  float M = kNegInf;
+  for (int i = 0; i < n; ++i) M = fmaxf(M, ml[2 * i]);
+  float l = 0.f;
+  for (int i = 0; i < n; ++i) l += ml[2 * i + 1] * ex2_approx(ml[2 * i] - M);
+  const float inv = M <= kMaskedRowM ? 0.f : 1.f / fmaxf(l, 1e-30f);
+  for (int c = threadIdx.x; c < dh; c += blockDim.x) {
+    float o = 0.f;
+    for (int i = 0; i < n; ++i)
+      o = fmaf(acc[(size_t)i * dh + c], ex2_approx(ml[2 * i] - M), o);
+    a.out[sh * dh + c] = o * inv;
+  }
 }
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success). Page
+// Launches on `stream`; returns a CUDA error code (0 on success). Page
 // ids in `table` must lie in [0, P) for every page a slot's length
-// reaches; entries past that are never read.
+// reaches; entries past that are never read. The plan (kernels/
+// paged_attention.py `paged_plan`): `splits` blocks a (slot, head), each
+// over `pps` pages (splits * pps >= npp, every split nonempty); with
+// splits > 1, `part` is scratch of S * H * splits * (dh + 2) floats.
 extern "C" int paddle_paged_decode_f32(const float* q, const float* k_pool,
                                        const float* v_pool,
                                        const int64_t* table,
                                        const int64_t* lengths, float* out,
-                                       int S, int H, int ps, int dh, int npp,
+                                       float* part, int S, int H, int ps,
+                                       int dh, int npp, int splits, int pps,
                                        float sm_scale, void* stream) {
-  if (S < 1 || H < 1 || ps < 1 || dh < 1 || dh > kMaxDh || npp < 1)
+  if (S < 1 || H < 1 || ps < 1 || dh < 1 || dh > kMaxDh || npp < 1 ||
+      splits < 1 || pps < 1 || (long long)splits * pps < npp ||
+      (long long)(splits - 1) * pps >= npp || splits > 65535 || H > 65535 ||
+      (long long)npp * ps >= (1LL << 30) ||
+      (splits > 1 && !part))
     return (int)cudaErrorInvalidValue;
-  const int chunk_pages = ps >= kChunkKeys ? 1 : kChunkKeys / ps;
-  const int keys_max = chunk_pages * ps;
-  const size_t smem = sizeof(float) * ((size_t)2 * keys_max * dh + dh +
-                                       keys_max);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        paged_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  const Layout L = layout_of(dh);
+  cudaError_t e = cudaFuncSetAttribute(
+      paged_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L.smem);
+  if (e != cudaSuccess) return (int)e;
+  const int vec = dh % 4 == 0 &&
+                  ((uintptr_t)k_pool | (uintptr_t)v_pool) % 16 == 0;
+  Args args{q, k_pool, v_pool, table, lengths, out, part, S, H, ps, dh,
+            npp, splits, pps, sm_scale * kLog2e, vec};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  paged_decode_kernel<<<dim3(S, H, splits), kThreads, L.smem, st>>>(args);
+  if (splits > 1) {
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    paged_merge_kernel<<<S * H, kThreads, 0, st>>>(args);
   }
-  dim3 grid(S, H);
-  paged_decode_kernel<<<grid, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      q, k_pool, v_pool, table, lengths, out, H, ps, dh, npp, chunk_pages,
-      sm_scale);
   return (int)cudaGetLastError();
+}
+
+// The threads and shared-memory bytes of the decode kernel's block at
+// head dim dh, for holding `paged_plan`'s figures to the kernel's (host
+// code: no device needed); cudaErrorInvalidValue past kMaxDh.
+extern "C" int paddle_paged_layout(int dh, int* threads, int* smem) {
+  if (dh < 1 || dh > kMaxDh) return (int)cudaErrorInvalidValue;
+  *threads = kThreads;
+  *smem = layout_of(dh).smem;
+  return 0;
 }

@@ -25,6 +25,7 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "paged_decode.cu",
            "tree_decode.cu", "lstm_cell.cu", "gru_cell.cu")
+HEADERS = ("recurrence.cuh",)  # included by sources; part of the hash
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -49,7 +50,7 @@ def nvcc_path():
 
 def library_path():
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, "libpaddle_tpu_torch_kernels_%s.so"

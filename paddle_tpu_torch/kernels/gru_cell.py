@@ -10,26 +10,60 @@ tensor it runs :func:`gru_reference`; for a CUDA tensor it launches
 :class:`GRUCellFunction`, or raises. The gradient recomputes through
 :func:`gru_reference` under autograd, as ``gru_cell.py:143`` does under
 ``jax.vjp``. ``fused_gru`` also takes an optional ``h0``.
+
+The kernel's launch plan (:func:`gru_plan`) follows B6's scheme
+(``lstm_cell.recurrence_plan``): regime (a), a batch split with both
+weights in one block, up to D 128 on an H100; regime (b), a column
+split launched cooperatively with two grid barriers a step, above it.
 """
 
 import ctypes
 
 import torch
 
-from paddle_tpu_torch.kernels.build import Kernel
+from paddle_tpu_torch.kernels.build import Kernel, device_limits
 from paddle_tpu_torch.kernels.lstm_cell import (
     _ACTS,
     ACT_CODES,
+    REGIMES,
+    W_MODES,
     _ptr,
+    block_layout,
     check_acts,
     check_cuda,
     recompute_grads,
+    recurrence_plan,
 )
 
 GRU_CELL = Kernel("paddle_gru_cell_f32", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-    ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [
     ctypes.c_void_p])
+
+
+def gru_layout(B, D, regime, units, rows, kc, w):
+    """What csrc/gru_cell.cu's ``plan_layout`` derives from a plan's
+    choices: B6's block layout (``lstm_cell.block_layout``) with the
+    three weight columns of a unit (12 bytes a unit and k: u and r of
+    W_gate, c of W_cand) and two product sums a row and unit (u and r;
+    the candidate's one reuses them). ``chip_smoke.py`` holds these
+    figures to the kernel's own (``paddle_gru_layout``)."""
+    return block_layout(B, D, regime, units, rows, kc, w, 12, 2)
+
+
+def gru_plan(B, D, n_sm, smem_limit):
+    """The launch plan of the ``gru_cell`` kernel for batch ``B`` and
+    width ``D`` on a card with ``n_sm`` SMs and ``smem_limit`` bytes of
+    shared memory per block, chosen as ``lstm_plan`` chooses B6's:
+    ``regime`` ``"a"`` (batch split: a block holds W_gate and W_cand
+    and ``rows`` batch rows, no grid barrier) exactly where that fits
+    one block, else ``"b"`` (column split: a block holds the three
+    columns of ``units`` hidden units for ``rows`` batch rows, a
+    cooperative launch with two grid barriers a step, one after the
+    gates and the ``r * h`` exchange, one after the state update);
+    ``units``, ``rows``, ``kc``, ``w`` (``"shared"``, ``"registers"`` or
+    ``"l2"``), and the figures of :func:`gru_layout`."""
+    return recurrence_plan(B, D, n_sm, smem_limit, gru_layout, "gru_cell")
 
 
 def gru_reference(xw, w_gate, w_cand, bias, h0=None, mask=None,
@@ -88,11 +122,17 @@ def gru_cell_forward(xw, w_gate, w_cand, bias, h0=None, mask=None,
     hidden = torch.empty((b, t_len, d), dtype=xw.dtype, device=xw.device)
     if hidden.numel() == 0:
         return hidden
+    plan = gru_plan(b, d, *device_limits(xw.device))
+    # regime (b)'s exchange: r * h of every row, and u where a block's
+    # rows take several passes
+    scratch = (torch.empty((2, b, d), dtype=xw.dtype, device=xw.device)
+               if plan["regime"] == "b" else None)
     GRU_CELL.launch(
         xw.data_ptr(), w_gate.data_ptr(), w_gate.stride(0),
         w_cand.data_ptr(), w_cand.stride(0), bias.data_ptr(), _ptr(mask),
-        _ptr(h0), hidden.data_ptr(), b, t_len, d, ACT_CODES[gate_act],
-        ACT_CODES[cand_act],
+        _ptr(h0), hidden.data_ptr(), _ptr(scratch), b, t_len, d,
+        ACT_CODES[gate_act], ACT_CODES[cand_act], REGIMES[plan["regime"]],
+        plan["units"], plan["rows"], plan["kc"], W_MODES[plan["w"]],
         torch.cuda.current_stream(xw.device).cuda_stream)
     return hidden
 

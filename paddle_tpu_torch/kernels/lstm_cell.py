@@ -55,23 +55,27 @@ def lstm_layout(B, D, regime, units, rows, kc, w):
     columns of h staged at once, ``w`` where W_h lives): ``rt`` rows per
     thread (1 or 4), ``groups`` row groups per pass, ``kw`` warp groups
     splitting k, ``threads``, ``smem`` (bytes per block: W_h or its slice
-    where it lives in shared memory, the h buffers, two in regime (a),
-    and the warp groups' sums) and ``blocks``. ``chip_smoke.py`` holds
-    these figures to the kernel's own (``kernel_layout``)."""
+    where it lives in shared memory, 16 bytes a unit and k, the h
+    buffers, two in regime (a), and the warp groups' sums, four a row
+    and unit) and ``blocks``. ``chip_smoke.py`` holds these figures to
+    the kernel's own (``kernel_layout``)."""
+    return block_layout(B, D, regime, units, rows, kc, w, 16, 4)
+
+
+def block_layout(B, D, regime, units, rows, kc, w, w_bytes, sums):
+    """The block layout the recurrence kernels share (B6's
+    ``lstm_layout``, B7's ``gru_layout``), for weights of ``w_bytes``
+    bytes a hidden unit and k and ``sums`` product sums a row and unit
+    per pass."""
     rt = 4 if rows >= 4 else 1
     groups = min(-(-rows // rt), MAX_COMBOS // units)
     warps = -(-(units * groups) // 8)
     kw = max(1, min(4, MAX_THREADS // (32 * warps)))
-    smem = ((16 * (-(-D // 4) * 4) * units if w == "shared" else 0)
+    smem = ((w_bytes * (-(-D // 4) * 4) * units if w == "shared" else 0)
             + 4 * row_stride(kc) * groups * rt * (2 if regime == "a" else 1)
-            + 4 * kw * warps * 8 * rt * 4)
+            + 4 * kw * warps * 8 * rt * sums)
     return dict(rt=rt, groups=groups, kw=kw, threads=32 * warps * kw,
                 smem=smem, blocks=-(-D // units) * -(-B // rows))
-
-
-def _plan(B, D, regime, units, rows, kc, w):
-    return dict(regime=regime, units=units, rows=rows, kc=kc, w=w,
-                **lstm_layout(B, D, regime, units, rows, kc, w))
 
 
 def lstm_plan(B, D, n_sm, smem_limit):
@@ -94,21 +98,38 @@ def lstm_plan(B, D, n_sm, smem_limit):
 
     Regime (a) is taken exactly where its layout with W_h in shared
     memory fits one block."""
+    return recurrence_plan(B, D, n_sm, smem_limit, lstm_layout,
+                           "lstm_cell")
+
+
+def recurrence_plan(B, D, n_sm, smem_limit, layout, who):
+    """The plan of a recurrence kernel laid out as csrc/lstm_cell.cu
+    lays out B6 (B7, csrc/gru_cell.cu, shares the scheme): regime (a)
+    where ``layout``'s figures for all D units in shared memory fit one
+    block, W_h in registers where a thread's share is at most
+    ``REG_QUADS`` k-quads; else regime (b), the most row splits whose
+    weight slice stays resident, or the fewest with it read from L2.
+    ``layout(B, D, regime, units, rows, kc, w)`` gives the block's
+    figures (``smem``, ``kw``, ``groups``, ``rt``, ``blocks``, ...)."""
     if B < 1 or D < 1:
-        raise ValueError("lstm_plan: B %d and D %d must be positive"
-                         % (B, D))
+        raise ValueError("%s: B %d and D %d must be positive" % (who, B, D))
+
+    def plan_of(regime, units, rows, kc, w):
+        return dict(regime=regime, units=units, rows=rows, kc=kc, w=w,
+                    **layout(B, D, regime, units, rows, kc, w))
+
     rows = -(-B // n_sm)
     if D <= MAX_COMBOS:
         rows = min(rows, (4 if rows >= 4 else 1) * (MAX_COMBOS // D))
-        plan = _plan(B, D, "a", D, rows, D, "shared")
+        plan = plan_of("a", D, rows, D, "shared")
         if plan["smem"] <= smem_limit:
             quads = -(-D // 4)  # k-quads of W_h, split over 4 kw phases
             if -(-quads // (4 * plan["kw"])) <= REG_QUADS:
-                plan = _plan(B, D, "a", D, rows, D, "registers")
+                plan = plan_of("a", D, rows, D, "registers")
             return plan
     # regime (b): split the rows 1, 2, 4, ... ways and the units over the
     # SMs left; fewer rows per block stage less of h per step, so take
-    # the most rows split whose W_h slice stays resident
+    # the most rows split whose weight slice stays resident
     plans = []
     split = 1
     while split <= B:
@@ -116,7 +137,7 @@ def lstm_plan(B, D, n_sm, smem_limit):
         row_blocks = -(-B // rows)
         if row_blocks > n_sm:
             break
-        plan = _column_plan(B, D, rows, -(-D // (n_sm // row_blocks)),
+        plan = _column_plan(plan_of, D, rows, -(-D // (n_sm // row_blocks)),
                             smem_limit)
         if plan is not None and plan["blocks"] <= n_sm:
             plans.append(plan)
@@ -126,18 +147,18 @@ def lstm_plan(B, D, n_sm, smem_limit):
         return resident[-1]
     if plans:
         return plans[0]
-    raise ValueError("lstm_cell: batch %d at width %d fits no launch plan "
-                     "on %d SMs" % (B, D, n_sm))
+    raise ValueError("%s: batch %d at width %d fits no launch plan on %d "
+                     "SMs" % (who, B, D, n_sm))
 
 
-def _column_plan(B, D, rows, units, smem_limit):
+def _column_plan(plan_of, D, rows, units, smem_limit):
     """Regime (b) with blocks of ``units`` hidden units x ``rows`` batch
-    rows, W_h's slice in shared memory if it fits beside at least 8
+    rows, the weight slice in shared memory if it fits beside at least 8
     staged k columns of h, else read from L2; None where neither fits."""
     if units > MAX_COMBOS:
         return None
     for w in ("shared", "l2"):
-        plan = _plan(B, D, "b", units, rows, D, w)
+        plan = plan_of("b", units, rows, D, w)
         if plan["smem"] > smem_limit:
             # stage h in k-chunks: 4 bytes a column and row of the pass,
             # the row stride pads a multiple of 8 by 4
@@ -146,16 +167,17 @@ def _column_plan(B, D, rows, units, smem_limit):
             kc = ((smem_limit - rest) // col_bytes - 8) // 8 * 8
             if kc < 8:
                 continue
-            plan = _plan(B, D, "b", units, rows, kc, w)
+            plan = plan_of("b", units, rows, kc, w)
         return plan
     return None
 
 
-def kernel_layout(B, D, plan):
+def kernel_layout(B, D, plan, symbol="paddle_lstm_layout"):
     """``(threads, smem, blocks)`` as csrc/lstm_cell.cu derives them for
-    ``plan`` (its ``paddle_lstm_layout``, host code: needs the built
+    ``plan`` (its ``paddle_lstm_layout``; csrc/gru_cell.cu's
+    ``paddle_gru_layout`` for a ``gru_plan``; host code: needs the built
     library, not a card), or None where the kernel refuses the plan."""
-    fn = library().paddle_lstm_layout
+    fn = getattr(library(), symbol)
     fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 3
     fn.restype = ctypes.c_int
     out = [ctypes.c_int(0) for _ in range(3)]

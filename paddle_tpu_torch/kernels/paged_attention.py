@@ -22,6 +22,11 @@ The JAX package's once-per-process switch of the tree kernel to its
 reference (``_trip_tree_fallback``, paged_attention.py:110, and the
 ``try/except`` at :510-518) is deliberately not carried over either.
 
+``paged_plan`` chooses the decode kernel's split of each slot's pages
+across blocks from static shapes only (never from ``lengths``, which
+only the device reads), so a call needs no host sync and a CUDA graph
+can hold it.
+
 ``paged_kv_write``, ``paged_kv_write_block`` and ``paged_kv_compact``
 update the pools IN PLACE (the JAX versions return new pools): the
 executor binds the result back onto the same scope variables, and writing
@@ -32,18 +37,19 @@ import ctypes
 
 import torch
 
-from paddle_tpu_torch.kernels.build import Kernel
+from paddle_tpu_torch.kernels.build import Kernel, device_limits, library
 
 NEG_INF = -1e30
 MASKED_ROW_M = -1e29
 MAX_HEAD_DIM = 128
 
-PAGED_DECODE = Kernel("paddle_paged_decode_f32", [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_float, ctypes.c_void_p,
-])
+PAGED_DECODE = Kernel("paddle_paged_decode_f32", [ctypes.c_void_p] * 7 + [
+    ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+
+# csrc/paged_decode.cu's block: threads, keys per staged chunk, warps
+PAGED_THREADS = 128
+PAGED_CHUNK = 32
+BLOCKS_PER_SM = 4   # blocks of a decode call the plan aims at per SM
 TREE_DECODE = Kernel("paddle_tree_decode_f32", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -55,6 +61,45 @@ TREE_DECODE = Kernel("paddle_tree_decode_f32", [
 def pages_for(length, page_size):
     """Pages a slot with ``length`` resident tokens occupies."""
     return -(-int(length) // int(page_size))
+
+
+def paged_plan(S, H, npp, ps, dh, n_sm, smem_limit):
+    """The ``paged_decode`` kernel's split of each slot's ``npp`` pages
+    (of ``ps`` keys) across blocks, from static shapes only: ``splits``
+    blocks a (slot, head), each over ``pages_per_split`` consecutive
+    pages (the last split may have fewer; none is empty). Aims at
+    ``BLOCKS_PER_SM`` blocks an SM of ``n_sm`` over the S x H pairs, with
+    at least two staged chunks of keys a split (the double buffer has
+    something to overlap). Also ``threads`` and ``smem`` (bytes a block:
+    two stages of K and V chunks of ``PAGED_CHUNK`` rows of dh rounded
+    up to 4, the chunk's scores and the warps' sums), which
+    ``chip_smoke.py`` holds to the kernel's own
+    (``paddle_paged_layout``)."""
+    if min(S, H, npp, ps, dh) < 1 or dh > MAX_HEAD_DIM:
+        raise ValueError("paged_plan: S %d, H %d, npp %d, page_size %d, "
+                         "dh %d out of range" % (S, H, npp, ps, dh))
+    want = -(-BLOCKS_PER_SM * n_sm // (S * H))
+    most = max(1, npp * ps // (2 * PAGED_CHUNK))
+    pps = -(-npp // max(1, min(want, most, npp)))
+    dhp = -(-dh // 4) * 4
+    smem = 4 * (4 * PAGED_CHUNK * dhp + PAGED_CHUNK + PAGED_THREADS // 32)
+    if smem > smem_limit:
+        raise ValueError("paged_plan: %d bytes of shared memory a block "
+                         "exceed the limit %d" % (smem, smem_limit))
+    return dict(splits=-(-npp // pps), pages_per_split=pps,
+                threads=PAGED_THREADS, smem=smem)
+
+
+def kernel_paged_layout(dh):
+    """``(threads, smem)`` of csrc/paged_decode.cu's block at head dim
+    ``dh`` (its ``paddle_paged_layout``; host code: needs the built
+    library, not a card), or None where the kernel refuses ``dh``."""
+    fn = library().paddle_paged_layout
+    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int(0) for _ in range(2)]
+    rc = fn(dh, *[ctypes.byref(o) for o in out])
+    return None if rc else tuple(o.value for o in out)
 
 
 def paged_attention_plain(q, k_pool, v_pool, page_table, lengths,
@@ -136,14 +181,23 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths, sm_scale=None):
                                      lengths, sm_scale)
     _check(q, k_pool, v_pool, page_table, lengths)
     S, H, dh = q.shape
-    out = torch.empty_like(q)
     if q.numel() == 0:
-        return out
+        return torch.empty_like(q)
+    plan = paged_plan(S, H, int(page_table.shape[1]), int(k_pool.shape[2]),
+                      dh, *device_limits(q.device))
+    splits = plan["splits"]
+    out = torch.empty_like(q)
+    # the splits' partials (m, l, acc), merged by the kernel's second
+    # launch
+    part = (torch.empty(S * H * splits * (dh + 2), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
     PAGED_DECODE.launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        S, H, int(k_pool.shape[2]), dh, int(page_table.shape[1]),
-        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
+        part.data_ptr() if part is not None else None, S, H,
+        int(k_pool.shape[2]), dh, int(page_table.shape[1]), splits,
+        plan["pages_per_split"], float(sm_scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
     return out
 
 

@@ -11,6 +11,14 @@ Python: no card, no JAX).
   figures stay within what csrc/lstm_cell.cu takes; a plan carries the
   layout ``lstm_layout`` derives from its choices (``chip_smoke.py``
   holds that layout to the kernel's own ``paddle_lstm_layout``).
+- ``gru_cell.gru_plan`` (B7): the same invariants with B7's columns:
+  every block's (batch rows, columns of the [B, 3D] gates) tile them
+  exactly once, each hidden unit's u, r and c columns in one block;
+  regime (a) exactly where W_gate and W_cand (12 D^2 bytes) plus h and
+  r * h of its rows fit one block.
+- ``paged_attention.paged_plan`` (B4): the splits cover every page of a
+  slot exactly once, none empty; shared memory within the limit; a
+  function of static shapes only (no lengths among its parameters).
 - ``flash_attention.flash_plan`` (B1): the 4-row path for T <= 4, the
   32-row tile where 64-row tiles would leave SMs idle, else 64 rows.
 - ``flash_attention.flash_bwd_plan`` (B2, B3): the blocks tile every key
@@ -21,12 +29,15 @@ Python: no card, no JAX).
   shared bytes to the kernels' own, ``paddle_flash_bwd_layout``).
 """
 
+import inspect
 import itertools
 
 import pytest
 
 from paddle_tpu_torch.kernels import flash_attention as tfa
+from paddle_tpu_torch.kernels import gru_cell as tg
 from paddle_tpu_torch.kernels import lstm_cell as tl
+from paddle_tpu_torch.kernels import paged_attention as tpa
 
 H100_SMS = 132
 H100_SMEM = 232448
@@ -35,12 +46,13 @@ SHAPES = [(B, D) for B in (1, 3, 5, 7, 32, 33, 100, 300)
                     1400, 2048)]
 
 
-def _plan_blocks(plan, B, D):
+def _plan_blocks(plan, B, D, gates=4):
     """What each block of ``plan`` computes, in launch order: a list of
-    (batch rows, gate columns of ``W_h``), the columns being the four
-    gates of the block's hidden units (all 4D in regime (a)). Block i is
-    unit group i % G of row block i // G, G = ceil(D / units), as in
-    csrc/lstm_cell.cu."""
+    (batch rows, gate columns), the columns being the ``gates`` gates of
+    the block's hidden units (all gates * D in regime (a)): W_h's four
+    for B6, u, r and c for B7. Block i is unit group i % G of row block
+    i // G, G = ceil(D / units), as in csrc/lstm_cell.cu and
+    csrc/gru_cell.cu."""
     u, r = plan["units"], plan["rows"]
     groups = -(-D // u)
     blocks = []
@@ -48,7 +60,8 @@ def _plan_blocks(plan, B, D):
         g, rb = i % groups, i // groups
         units = range(g * u, min(D, (g + 1) * u))
         blocks.append((list(range(rb * r, min(B, (rb + 1) * r))),
-                       [gate * D + j for gate in range(4) for j in units]))
+                       [gate * D + j for gate in range(gates)
+                        for j in units]))
     return blocks
 
 
@@ -150,6 +163,119 @@ def test_lstm_row_stride_is_float4_aligned_with_odd_quads():
     for cols in range(1, 300):
         rs = tl.row_stride(cols)
         assert rs >= cols and rs % 4 == 0 and (rs // 4) % 2 == 1
+
+
+@pytest.mark.parametrize("B,D", SHAPES)
+def test_gru_blocks_tile_every_row_and_column_once(B, D):
+    plan = tg.gru_plan(B, D, H100_SMS, H100_SMEM)
+    seen = {}
+    for rows, cols in _plan_blocks(plan, B, D, gates=3):
+        assert rows and cols
+        for r, c in itertools.product(rows, cols):
+            seen[(r, c)] = seen.get((r, c), 0) + 1
+    assert len(seen) == B * 3 * D
+    assert set(seen.values()) == {1}
+    # a unit's u, r and c columns lie in one block
+    for _, cols in _plan_blocks(plan, B, D, gates=3):
+        units = {c % D for c in cols}
+        assert set(cols) == {g * D + j for g in range(3) for j in units}
+
+
+@pytest.mark.parametrize("B,D", SHAPES)
+def test_gru_plan_stays_within_the_card_and_the_kernel(B, D):
+    plan = tg.gru_plan(B, D, H100_SMS, H100_SMEM)
+    assert plan["smem"] <= H100_SMEM
+    assert plan["threads"] % 32 == 0
+    assert 32 <= plan["threads"] <= tl.MAX_THREADS
+    assert plan["units"] * plan["groups"] <= tl.MAX_COMBOS
+    assert plan["rt"] in (1, 4) and 1 <= plan["kw"] <= 4
+    assert 1 <= plan["kc"] <= D
+    if plan["kc"] < D:
+        assert plan["kc"] % 8 == 0
+    if plan["regime"] == "b":
+        assert plan["blocks"] <= H100_SMS
+    else:
+        assert plan["units"] == D and plan["kc"] == D
+        assert plan["groups"] * plan["rt"] >= plan["rows"]
+        if plan["w"] == "registers":
+            assert -(-(-(-D // 4)) // (4 * plan["kw"])) <= tl.REG_QUADS
+    lay = tg.gru_layout(B, D, plan["regime"], plan["units"], plan["rows"],
+                        plan["kc"], plan["w"])
+    assert {k: plan[k] for k in lay} == lay
+
+
+@pytest.mark.parametrize("n_sm,limit", [(132, H100_SMEM), (132, 100 * 1024),
+                                        (78, 160 * 1024), (16, 48 * 1024)])
+def test_gru_regime_a_exactly_where_both_weights_and_h_fit(n_sm, limit):
+    for B, D in itertools.product((1, 5, 32, 200), range(1, 140)):
+        plan = tg.gru_plan(B, D, n_sm, limit)
+        if D <= tl.MAX_COMBOS:
+            free = tg.gru_plan(B, D, n_sm, 1 << 30)
+            assert free["regime"] == "a" and free["units"] == D
+            need = tg.gru_layout(B, D, "a", D, free["rows"], D,
+                                 "shared")["smem"]
+            # both weights, then h and r * h of the block's rows
+            assert need >= 12 * D * D + 2 * 4 * D * free["rows"]
+            assert (plan["regime"] == "a") == (need <= limit)
+        else:
+            assert plan["regime"] == "b"
+        assert plan["smem"] <= limit
+        if plan["regime"] == "b":
+            assert plan["blocks"] <= n_sm
+
+
+def test_gru_regime_switch_on_the_h100():
+    assert tg.gru_plan(5, 128, H100_SMS, H100_SMEM)["regime"] == "a"
+    assert tg.gru_plan(5, 129, H100_SMS, H100_SMEM)["regime"] == "b"
+    main = tg.gru_plan(32, 512, H100_SMS, H100_SMEM)
+    assert (main["regime"], main["blocks"], main["units"], main["rows"],
+            main["w"], main["kc"]) == ("b", 128, 32, 4, "shared", 512)
+    small = tg.gru_plan(32, 64, H100_SMS, H100_SMEM)
+    assert (small["regime"], small["w"], small["blocks"]) == \
+        ("a", "registers", 32)
+    # a 1/SMs slice of the three columns fits up to D 1584 at B 3
+    assert tg.gru_plan(3, 1400, H100_SMS, H100_SMEM)["w"] == "shared"
+    assert tg.gru_plan(3, 1584, H100_SMS, H100_SMEM)["w"] == "shared"
+    wide = tg.gru_plan(3, 1585, H100_SMS, H100_SMEM)
+    assert wide["w"] == "l2" and wide["blocks"] > H100_SMS // 2
+
+
+# (S, H, npp, page_size, dh): the serving shape, page sizes 1..256, npp
+# not a multiple of the split count, head dims 1, 33 and 128
+PAGED_SHAPES = [
+    (32, 8, 16, 16, 64), (4, 2, 16, 16, 64), (9, 4, 86, 3, 64),
+    (5, 2, 64, 4, 128), (3, 2, 256, 1, 64), (5, 2, 4, 64, 64),
+    (3, 2, 1, 256, 64), (4, 2, 22, 12, 64), (3, 2, 16, 16, 33),
+    (1, 1, 1, 1, 1), (64, 16, 128, 16, 128), (1, 1, 300, 7, 8),
+]
+
+
+@pytest.mark.parametrize("S,H,npp,ps,dh", PAGED_SHAPES)
+@pytest.mark.parametrize("n_sm", [132, 16])
+def test_paged_splits_cover_every_page_once(S, H, npp, ps, dh, n_sm):
+    plan = tpa.paged_plan(S, H, npp, ps, dh, n_sm, H100_SMEM)
+    n, pps = plan["splits"], plan["pages_per_split"]
+    seen = [0] * npp
+    for sp in range(n):
+        pages = range(sp * pps, min(npp, (sp + 1) * pps))
+        assert len(pages) > 0
+        for p in pages:
+            seen[p] += 1
+    assert seen == [1] * npp
+    assert plan["threads"] == tpa.PAGED_THREADS
+    assert 0 < plan["smem"] <= H100_SMEM
+    if n > 1:
+        # at least two staged chunks of keys a split
+        assert pps * ps >= 2 * tpa.PAGED_CHUNK
+
+
+def test_paged_plan_reads_static_shapes_only():
+    assert list(inspect.signature(tpa.paged_plan).parameters) == [
+        "S", "H", "npp", "ps", "dh", "n_sm", "smem_limit"]
+    assert tpa.paged_plan(32, 8, 16, 16, 64, H100_SMS, H100_SMEM) == {
+        "splits": 3, "pages_per_split": 6, "threads": 128, "smem": 32912}
+    with pytest.raises(ValueError):
+        tpa.paged_plan(32, 8, 16, 16, 64, H100_SMS, 16 * 1024)
 
 
 @pytest.mark.parametrize("B,H,T,want", [

@@ -10,6 +10,13 @@ the reference tests' own). The KV writes (``paged_kv_write``,
 exactly, leaving out the trash page 0: several writers land there, and
 which one survives is unspecified. ``grid_accounting`` must equal
 JAX's.
+
+The CUDA kernel's split-KV arithmetic (csrc/paged_decode.cu: the splits
+of ``paged_plan``, 32-key chunks with an online softmax in the exp2
+domain, partials ``(m, l, acc)`` per split, then the merge) is written
+out here as torch ops and held against the JAX Pallas kernel in
+interpret mode at the same 2e-6, with length-0 slots, splits wholly past
+a slot's length and page sizes 3 and 4.
 """
 
 import importlib
@@ -85,6 +92,73 @@ def test_length_zero_slot_is_exact_zero(ps):
     got, want = _both(q, kp, vp, table, lengths)
     assert np.abs(got[0]).max() == 0.0 and np.abs(got[2]).max() == 0.0
     assert np.abs(got[1]).max() > 0.0
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+def _split_merge(q, kp, vp, table, lengths, plan, sm_scale):
+    """csrc/paged_decode.cu's arithmetic as torch ops: per (slot, head,
+    split) the keys of the split's pages below the slot's length, in
+    chunks of ``PAGED_CHUNK``, an online softmax of the exp2-domain
+    scores (an empty split: m = -1e30, l = 0, acc = 0); then the merge
+    with weights exp2(m_i - M), exactly 0 where M <= -1e29."""
+    S, H, dh = q.shape
+    ps = kp.shape[2]
+    npp = table.shape[1]
+    splits, pps = plan["splits"], plan["pages_per_split"]
+    scale2 = sm_scale * 1.4426950408889634
+    out = torch.zeros(S, H, dh)
+    for s in range(S):
+        length = min(max(int(lengths[s]), 0), npp * ps)
+        pos = torch.arange(length)
+        keys = kp[table[s, pos // ps], :, pos % ps]    # [len, H, dh]
+        vals = vp[table[s, pos // ps], :, pos % ps]
+        for h in range(H):
+            parts = []
+            for sp in range(splits):
+                m = torch.tensor(tpa.NEG_INF)
+                l = torch.tensor(0.0)
+                acc = torch.zeros(dh)
+                lo, hi = sp * pps * ps, min(length, (sp + 1) * pps * ps)
+                for c0 in range(lo, hi, tpa.PAGED_CHUNK):
+                    c1 = min(hi, c0 + tpa.PAGED_CHUNK)
+                    sc = keys[c0:c1, h] @ (q[s, h] * scale2)
+                    m_new = torch.maximum(m, sc.max())
+                    alpha = torch.exp2(m - m_new)
+                    p = torch.exp2(sc - m_new)
+                    l = l * alpha + p.sum()
+                    acc = acc * alpha + p @ vals[c0:c1, h]
+                    m = m_new
+                parts.append((m, l, acc))
+            big_m = max(pm for pm, _, _ in parts)
+            if big_m <= tpa.MASKED_ROW_M:
+                continue
+            w = [torch.exp2(pm - big_m) for pm, _, _ in parts]
+            l_all = sum(pl * wi for (_, pl, _), wi in zip(parts, w))
+            out[s, h] = sum(pa * wi for (_, _, pa), wi in zip(parts, w)) \
+                / l_all
+    return out
+
+
+@pytest.mark.parametrize("ps,npp,lengths", [
+    (4, 40, [0, 1, 70, 160, 64]),   # 2 splits of 80 keys: one on a boundary
+    (3, 64, [0, 96, 191, 5, 97]),   # 3 splits of 66 keys: later ones empty
+])
+def test_split_merge_arithmetic_matches_jax_pallas(ps, npp, lengths):
+    S, H, dh = len(lengths), 2, 16
+    lengths = np.array(lengths, np.int64)
+    rng = np.random.RandomState(8)
+    q = rng.randn(S, H, dh).astype("float32")
+    kp, vp, table = _pools(rng, S, H, dh, ps, npp, lengths)
+    plan = tpa.paged_plan(S, H, npp, ps, dh, 132, 232448)
+    assert plan["splits"] > 1
+    # some slot's later splits lie wholly past its length
+    span = plan["pages_per_split"] * ps
+    assert any(0 < n <= span * (plan["splits"] - 1) for n in lengths)
+    _, want = _both(q, kp, vp, table, lengths)
+    got = _split_merge(torch.from_numpy(q), torch.from_numpy(kp),
+                       torch.from_numpy(vp), torch.from_numpy(table),
+                       torch.from_numpy(lengths), plan, dh ** -0.5).numpy()
+    assert np.abs(got[0]).max() == 0.0
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
 
 
