@@ -20,11 +20,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    splits are empty, length 1, page sizes 1, 3, 4, 12, 64 and 256, dh 33
    and 128, pools off 16-byte alignment, each case with its split plan,
    and a replay from a CUDA graph after the lengths and the page table
-   changed in place; checks that the plans of the backward pair
-   (``flash_bwd_plan``), B4 (``paged_plan``), B6 (``lstm_plan``) and B7
-   (``gru_plan``) give the threads and shared bytes (and blocks) the
-   kernels derive, at every head dim or over batches and widths; runs a
-   full
+   changed in place; for the flash forward's split rows path (T <= 4)
+   causal decode, one- and two-sided windows, GQA, S 77 with only the
+   last chunk valid, a wholly masked slot, S 1, head dim 33 and K/V off
+   16-byte alignment, and a graph replay after the key mask changed in
+   place; for tree decode scans ending mid-page, splits wholly past the
+   scan, max_length inside a tree, 8 and 19 nodes over several splits,
+   head dim 33, each case with its split plan, and a graph replay after
+   the bases, table and node masks changed in place; checks that the
+   plans of the backward pair (``flash_bwd_plan``), B4 (``paged_plan``),
+   B5 (``tree_plan``), B1's rows path (``flash_rows_plan``), B6
+   (``lstm_plan``) and B7 (``gru_plan``) give the threads and shared
+   bytes (and blocks) the kernels derive, at every head dim or over
+   batches and widths; runs a full
    [B, H, T, S] mask (GQA, a window, a fully masked row) through
    ``flash_attention`` on the card and on the CPU (``attention_reference``
    on both, no kernel launch; forward and gradients within 1e-4); then times
@@ -37,7 +45,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    CUDA events around 30 eager calls, each far longer than its launch.
    The backward pair's bounds are printed two ways: at the split-TF32
    rate of the tensor cores (a third of 495 TFLOP/s, what its kernels
-   compute at; the ``bound_ms`` of its record) and at 67 TFLOP/s fp32;
+   compute at; the ``bound_ms`` of its record) and at 67 TFLOP/s fp32.
+   B1's rows path and B5 are also timed at two splits each (``split``
+   lines): where their plans split the keys (one sequence, 4 slots)
+   against one split, and at the main shapes (one split) against three;
 4. serves 64 greedy requests through ``SlotDecodeSession(paged=True)`` at
    the full width of the Transformer-base configuration (6 layers,
    d_model 512, 8 heads, d_inner 2048, vocab 32000, max_length 256;
@@ -115,6 +126,7 @@ before that line. The script needs one CUDA card and the rest of the
 repository beside it: without either it fails at once.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -263,21 +275,28 @@ def device_ms(torch, fn, inputs, iters=10):
     summed from a torch.profiler trace of ``iters`` calls cycling through
     ``inputs`` (after one warm-up call on each), so the host's launch
     cost does not enter it. For a library call with many launches that a
-    CUDA graph may not hold (cuDNN's LSTM)."""
+    CUDA graph may not hold (cuDNN's LSTM). A trace can come back with
+    no device event; it is taken once more, and a second empty one
+    fails the run rather than report a time of 0."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(len(inputs)):
         fn(i)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for j in range(iters):
-            fn(j % len(inputs))
-        torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA)
-    return busy_us / 1e3 / iters
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for j in range(iters):
+                fn(j % len(inputs))
+            torch.cuda.synchronize()
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA)
+        if busy_us > 0:
+            return busy_us / 1e3 / iters
+        print("device_ms: a profiler trace held no device event; tracing "
+              "again")
+    fail("device_ms: two profiler traces held no device event")
 
 
 def bound(nbytes, flops, peak_flops=PEAK_FP32_FLOPS):
@@ -301,6 +320,21 @@ def paged_decode_bound(lengths, dh):
               + 2 * 4 * len(lengths) * N_HEAD * dh
               + 8 * pages + 8 * len(lengths))
     return bound(nbytes, 4.0 * tokens * N_HEAD * dh)
+
+
+def tree_decode_bound(bases, N, dh):
+    """``bound`` of one ``tree_decode`` call at these bases (N nodes,
+    N_HEAD heads, PAGE_SIZE pages, max_length MAX_LEN): the K and V rows
+    below each live slot's scan, min(base + N, MAX_LEN) (the kernel
+    clips its copies there), the N query and output rows of every slot,
+    the node masks, the table entries of the pages read and the bases;
+    four flops a key, node and element."""
+    scan = [min(b + N, MAX_LEN) if b >= 0 else 0 for b in bases]
+    pages = sum(-(-n // PAGE_SIZE) for n in scan)
+    S = len(bases)
+    nbytes = (2 * 4 * N_HEAD * dh * sum(scan) + 2 * 4 * S * N_HEAD * N * dh
+              + 8 * S * N * N + 8 * pages + 8 * S)
+    return bound(nbytes, 4.0 * N * sum(scan) * N_HEAD * dh)
 
 
 # -- kernel phase ---------------------------------------------------------------
@@ -357,6 +391,73 @@ def flash_cases(torch, gen):
         ("head_dim_40", dict(
             q=rnd(2, 3, 45, 40), k=rnd(2, 3, 45, 40), v=rnd(2, 3, 45, 40),
             causal=True)),
+    ] + flash_rows_cases(torch)
+
+
+def flash_rows_cases(torch):
+    """(name, kwargs for flash_forward): the edges of B1's split rows path
+    (T <= 4), from a generator of their own (the cases above, and what
+    the timing phase draws after them, keep their inputs): causal decode
+    (row 0 sees key 0 only), one- and two-sided windows at T 3, GQA at T
+    4, S 77 with a slot whose only valid keys lie in the last chunk, a
+    slot with every key masked, S 1, head dim 33 (4-byte copies) and K/V
+    off 16-byte alignment."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def spans(S, *rows):
+        """A [len(rows), S] key mask: row b keeps keys lo..hi - 1 of each
+        (lo, hi) in rows[b]."""
+        m = torch.zeros(len(rows), S, device=dev)
+        for b, row in enumerate(rows):
+            for lo, hi in row:
+                m[b, lo:hi] = 1.0
+        return m
+
+    def unaligned(*shape):
+        return rnd(torch.Size(shape).numel() + 1)[1:].view(*shape)
+
+    dh = D_MODEL // N_HEAD
+    return [
+        ("decode_causal_T1", dict(
+            q=rnd(4, N_HEAD, 1, dh), k=rnd(4, N_HEAD, 256, dh),
+            v=rnd(4, N_HEAD, 256, dh), causal=True,
+            kv_mask=spans(256, [(0, 256)], [(0, 100)], [(1, 256)],
+                          [(0, 40)]))),
+        ("verify_window_T3", dict(
+            q=rnd(4, 4, 3, dh), k=rnd(4, 4, 200, dh), v=rnd(4, 4, 200, dh),
+            causal=True, window=2,
+            kv_mask=spans(200, [(0, 200)], [(0, 1)], [(2, 200)],
+                          [(0, 150)]))),
+        ("verify_window_T3_two_sided", dict(
+            q=rnd(4, 4, 3, dh), k=rnd(4, 4, 200, dh), v=rnd(4, 4, 200, dh),
+            window=40,
+            kv_mask=spans(200, [(0, 200)], [(30, 60)], [(45, 200)],
+                          [(0, 20)]))),
+        ("kv_group_2_T4", dict(
+            q=rnd(4, 8, 4, dh), k=rnd(4, 4, 256, dh), v=rnd(4, 4, 256, dh),
+            kv_group=2,
+            kv_mask=spans(256, [(0, 256)], [(0, 33)], [(100, 131)],
+                          [(250, 256)]))),
+        ("S77_last_chunk_only", dict(
+            q=rnd(3, 4, 2, dh), k=rnd(3, 4, 77, dh), v=rnd(3, 4, 77, dh),
+            kv_mask=spans(77, [(64, 77)], [(0, 77)], [(76, 77)]))),
+        ("slot_all_masked", dict(
+            q=rnd(3, 4, 4, dh), k=rnd(3, 4, 100, dh), v=rnd(3, 4, 100, dh),
+            kv_mask=spans(100, [(0, 100)], [], [(0, 7)]))),
+        ("S1", dict(
+            q=rnd(5, 4, 4, dh), k=rnd(5, 4, 1, dh), v=rnd(5, 4, 1, dh),
+            kv_mask=spans(1, [(0, 1)], [], [(0, 1)], [(0, 1)], []))),
+        ("head_dim_33_T4", dict(
+            q=rnd(3, 2, 4, 33), k=rnd(3, 2, 90, 33), v=rnd(3, 2, 90, 33),
+            kv_mask=spans(90, [(0, 90)], [(10, 50)], [(89, 90)]))),
+        ("unaligned_kv_T1", dict(
+            q=rnd(4, 4, 1, dh), k=unaligned(4, 4, 130, dh),
+            v=unaligned(4, 4, 130, dh),
+            kv_mask=spans(130, [(0, 130)], [(0, 64)], [(65, 130)], []))),
     ]
 
 
@@ -609,6 +710,35 @@ def tree_cases(torch, gen):
                                   [100, 0, 253, -1], True)),
         ("head_dim_128", tree_case(torch, gen, 4, 2, N, 128, PAGE_SIZE,
                                    MAX_LEN, [100, 0, 253, -1], True)),
+    ] + tree_split_cases(torch)
+
+
+def tree_split_cases(torch):
+    """(name, kwargs of paged_tree_attention): the edges of B5's split
+    design, from a generator of their own (the cases above, and what the
+    timing phase draws after them, keep their inputs). At 4 slots x 2
+    heads ``tree_plan`` splits 16 pages of 16 into 4 splits of 64 keys:
+    scans that end mid-page and mid-chunk, on a split boundary, and
+    slots whose later splits lie wholly past the scan; max_length inside
+    a tree; 8 and 19 nodes (three walks) over every split; head dim 33
+    (4-byte copies)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    dh = D_MODEL // N_HEAD
+    N = SPEC_K + 1
+    return [
+        ("scan_mid_page", tree_case(torch, gen, 4, 2, N, dh, PAGE_SIZE,
+                                    MAX_LEN, [21, 3, 37, -1], True)),
+        ("splits_past_scan", tree_case(torch, gen, 4, 2, N, dh, PAGE_SIZE,
+                                       MAX_LEN, [0, 60, 124, 130], True)),
+        ("max_len_inside_tree", tree_case(torch, gen, 4, 2, N, dh,
+                                          PAGE_SIZE, 190, [186, 187, 100,
+                                                           -1], True)),
+        ("nodes_8_splits", tree_case(torch, gen, 4, 2, 8, dh, PAGE_SIZE,
+                                     MAX_LEN, [248, 56, 129, 0], True)),
+        ("nodes_19_splits", tree_case(torch, gen, 4, 2, 19, dh, PAGE_SIZE,
+                                      MAX_LEN, [237, 50, 120, -1], True)),
+        ("head_dim_33", tree_case(torch, gen, 4, 2, N, 33, PAGE_SIZE,
+                                  MAX_LEN, [200, 63, 0, -1], True)),
     ]
 
 
@@ -620,11 +750,11 @@ def kernel_phase(torch):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {"flash_fwd": 0.0, "paged_decode": 0.0, "tree_decode": 0.0}
-    n_sm = device_limits("cuda")[0]
+    limits = device_limits("cuda")
     for name, kw in flash_cases(torch, gen) + flash_tile_cases(torch, gen):
-        B, H, T = kw["q"].shape[:3]
-        print("plan flash_fwd %-22s %s" % (name, fa.flash_plan(B, H, T,
-                                                                n_sm)))
+        B, H, T, d = kw["q"].shape
+        print("plan flash_fwd %-22s %s" % (name, fa.flash_plan(
+            B, H, T, kw["k"].shape[2], d, *limits)))
         out, lse = fa.flash_forward(**kw)
         ref, ref_lse = fa.flash_forward_plain(**kw)
         torch.cuda.synchronize()
@@ -700,6 +830,10 @@ def kernel_phase(torch):
     err = paged_capture_check(torch, gen)
     worst["paged_decode"] = max(worst["paged_decode"], err)
     for name, kw in tree_cases(torch, gen):
+        S, H, N, dh = kw["q"].shape
+        print("plan tree_decode %-23s %s, bases %s" % (name, pa.tree_plan(
+            S, H, N, kw["page_table"].shape[1], kw["k_pool"].shape[2], dh,
+            *limits), kw["base_lens"].tolist()))
         out = pa.paged_tree_attention(**kw)
         ref = pa.paged_tree_attention_plain(**kw)
         torch.cuda.synchronize()
@@ -712,6 +846,10 @@ def kernel_phase(torch):
         if not (torch.isfinite(out).all() and err <= K5_TOL):
             fail("tree_decode %s: error %.3e above %.0e" % (name, err, K5_TOL))
         worst["tree_decode"] = max(worst["tree_decode"], err)
+    err = tree_capture_check(torch, gen)
+    worst["tree_decode"] = max(worst["tree_decode"], err)
+    err = flash_capture_check(torch, gen)
+    worst["flash_fwd"] = max(worst["flash_fwd"], err)
     return worst
 
 
@@ -759,6 +897,40 @@ def paged_layout_phase():
           "the kernel's at head dims 1..%d" % pa.MAX_HEAD_DIM)
 
 
+def replay_check(torch, who, call, plain, change, dead_of, tol):
+    """A kernel's call in a CUDA graph: capture ``call()`` (after one
+    warm-up call on a side stream), replay it, then ``change()`` the
+    inputs in place and replay again; after each replay the output is
+    held to ``plain()`` on the inputs as they are, and the rows that
+    ``dead_of()`` marks must be exactly 0. Returns the worst error."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    worst = 0.0
+    for label in ("captured", "inputs changed in place"):
+        if label != "captured":
+            change()
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = plain()
+        err = (out - ref).abs().max().item()
+        dead = dead_of()
+        if dead.any() and out[dead].abs().max().item() != 0.0:
+            fail("%s graph (%s): a dead row is not exactly 0" % (who, label))
+        print("kernel %s graph replay, %s: max_abs_err %.3e  tol %.0e  "
+              "dead %d" % (who, label, err, tol, int(dead.sum())))
+        if not err <= tol:
+            fail("%s graph (%s): error %.3e above %.0e" % (who, label, err,
+                                                          tol))
+        worst = max(worst, err)
+    return worst
+
+
 def paged_capture_check(torch, gen):
     """B4 in a CUDA graph: capture ``paged_attention`` on the serving
     shape, change the lengths and the page table in place, replay, and
@@ -772,34 +944,129 @@ def paged_capture_check(torch, gen):
                     ragged_lengths())
     other = paged_case(torch, gen, NUM_SLOTS, N_HEAD, dh, PAGE_SIZE,
                        [MAX_LEN - n for n in ragged_lengths()])
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        pa.paged_attention(**kw)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = pa.paged_attention(**kw)
-    worst = 0.0
-    for label in ("captured", "lengths and table changed in place"):
-        if label != "captured":
-            kw["lengths"].copy_(other["lengths"])
-            kw["page_table"].copy_(other["page_table"])
-        graph.replay()
-        torch.cuda.synchronize()
-        ref = pa.paged_attention_plain(**kw)
-        err = (out - ref).abs().max().item()
-        empty = kw["lengths"] <= 0
-        if empty.any() and out[empty].abs().max().item() != 0.0:
-            fail("paged_decode graph (%s): a length-0 slot is not exactly "
-                 "0" % label)
-        print("kernel paged_decode graph replay, %s: max_abs_err %.3e  "
-              "tol %.0e  empty %d" % (label, err, K2_TOL, int(empty.sum())))
-        if not err <= K2_TOL:
-            fail("paged_decode graph (%s): error %.3e above %.0e"
-                 % (label, err, K2_TOL))
-        worst = max(worst, err)
-    return worst
+
+    def change():
+        kw["lengths"].copy_(other["lengths"])
+        kw["page_table"].copy_(other["page_table"])
+
+    return replay_check(
+        torch, "paged_decode", lambda: pa.paged_attention(**kw),
+        lambda: pa.paged_attention_plain(**kw), change,
+        lambda: kw["lengths"] <= 0, K2_TOL)
+
+
+def tree_layout_phase():
+    """B5's plan against the kernel: at every head dim 1..128 and 1, 4
+    and 8 nodes, the threads and shared bytes of ``tree_plan`` equal
+    those csrc/tree_decode.cu derives (``kernel_tree_layout``)."""
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.kernels.build import device_limits
+
+    limits = device_limits("cuda")
+    for dh in range(1, pa.MAX_HEAD_DIM + 1):
+        for N in (1, SPEC_K + 1, 8):
+            plan = pa.tree_plan(NUM_SLOTS, N_HEAD, N, 16, PAGE_SIZE, dh,
+                                *limits)
+            got = pa.kernel_tree_layout(dh, N)
+            if got != (plan["threads"], plan["smem"]):
+                fail("tree_decode dh %d N %d: the plan's (threads, smem) "
+                     "%s, the kernel's %s" % (dh, N, (plan["threads"],
+                                                      plan["smem"]), got))
+    print("tree_decode layout: the plan's threads and shared bytes equal "
+          "the kernel's at head dims 1..%d, 1, %d and 8 nodes"
+          % (pa.MAX_HEAD_DIM, SPEC_K + 1))
+
+
+def flash_rows_layout_phase():
+    """B1's rows path (T <= 4) against the kernel: at every head dim
+    1..128 and T 1..4, the threads and shared bytes of
+    ``flash_rows_plan`` equal those csrc/flash_fwd.cu derives
+    (``kernel_flash_rows_layout``)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels.build import device_limits
+
+    limits = device_limits("cuda")
+    for d in range(1, fa.MAX_HEAD_DIM + 1):
+        for T in range(1, fa.ROWS_T + 1):
+            plan = fa.flash_rows_plan(NUM_SLOTS, N_HEAD, T, MAX_LEN, d,
+                                      *limits)
+            got = fa.kernel_flash_rows_layout(T, d)
+            if got != (plan["threads"], plan["smem"]):
+                fail("flash_fwd rows T %d d %d: the plan's (threads, smem) "
+                     "%s, the kernel's %s" % (T, d, (plan["threads"],
+                                                     plan["smem"]), got))
+    print("flash_fwd rows layout: the plan's threads and shared bytes equal "
+          "the kernel's at head dims 1..%d, T 1..%d"
+          % (fa.MAX_HEAD_DIM, fa.ROWS_T))
+
+
+def tree_capture_check(torch, gen):
+    """B5 in a CUDA graph at the verify shape: capture
+    ``paged_tree_attention``, change the bases, the page table and the
+    node masks in place, replay, and hold the output to the plain
+    version on the new values (the kernel reads the bases on the device;
+    the split is fixed at capture)."""
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    dh = D_MODEL // N_HEAD
+    N = SPEC_K + 1
+    bases = [int(x) for x in torch.randint(
+        0, MAX_LEN - N + 1, (NUM_SLOTS,),
+        generator=torch.Generator().manual_seed(12))]
+    bases[4] = -1
+    kw = tree_case(torch, gen, NUM_SLOTS, N_HEAD, N, dh, PAGE_SIZE, MAX_LEN,
+                   bases, True)
+    other = tree_case(torch, gen, NUM_SLOTS, N_HEAD, N, dh, PAGE_SIZE,
+                      MAX_LEN, [-1 if b < 0 else MAX_LEN - N - b
+                                for b in bases][::-1], True)
+
+    def change():
+        for name in ("base_lens", "page_table", "anc"):
+            kw[name].copy_(other[name])
+
+    return replay_check(
+        torch, "tree_decode", lambda: pa.paged_tree_attention(**kw),
+        lambda: pa.paged_tree_attention_plain(**kw), change,
+        lambda: kw["base_lens"] < 0, K5_TOL)
+
+
+def flash_capture_check(torch, gen):
+    """B1's decode call in a CUDA graph: capture ``flash_forward`` at the
+    decode shape (q [32, 8, 1, 64] over 256 keys, a ragged key mask),
+    change the key mask in place (other lengths, one slot wholly
+    masked), replay, and hold out and LSE to the plain version (the
+    kernel reads the mask on the device; the split is fixed at
+    capture)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    dh = D_MODEL // N_HEAD
+    cases = dict(flash_cases(torch, gen))
+    kw = {n: t.clone() for n, t in cases["decode_cross_T1"].items()}
+    lens = kw["kv_mask"].sum(dim=1).long()
+    flipped = (torch.arange(MAX_LEN, device="cuda")[None, :]
+               < (MAX_LEN + 1 - lens)[:, None]).float()
+    flipped[7] = 0.0
+
+    def flat(out, lse):
+        """out, the LSE of the live rows (0 on dead rows, where the kernel
+        and the plain version both give -1e29 or less, not the same
+        number) and the dead rows as 1, in one vector."""
+        dead = lse <= fa.MASKED_ROW_LSE
+        return torch.cat([out.reshape(-1),
+                          torch.where(dead, torch.zeros_like(lse),
+                                      lse).reshape(-1),
+                          dead.float().reshape(-1)])
+
+    def dead_of():
+        dead = (kw["kv_mask"].sum(dim=1) == 0)
+        rows = dead[:, None, None, None].expand(NUM_SLOTS, N_HEAD, 1, dh)
+        return torch.cat([rows.reshape(-1), torch.zeros(
+            2 * NUM_SLOTS * N_HEAD, dtype=torch.bool, device="cuda")])
+
+    return replay_check(
+        torch, "flash_fwd decode", lambda: flat(*fa.flash_forward(**kw)),
+        lambda: flat(*fa.flash_forward_plain(**kw)),
+        lambda: kw["kv_mask"].copy_(flipped), dead_of, K1_TOL)
 
 
 def full_mask_phase(torch):
@@ -975,17 +1242,10 @@ def timing_phase(torch):
         plain_ms=cuda_ms(pa.paged_attention_plain, kw2r),
         library_ms=None,
         bound=paged_decode_bound(kw2r[0]["lengths"].tolist(), dh))
-    # K5 at the verify dispatch's shape. Bytes from this run's own bases:
-    # a slot reads the pages below ceil(min(base + N, max_len) / page) once
-    # for all N queries; plus the N query and output rows, the masks, the
-    # table entries read and the bases
+    # K5 at the verify dispatch's shape, priced from this run's own bases
+    # by tree_decode_bound (what the kernel copies)
     kw5 = copies(dict(tree_cases(torch, gen))["verify_ragged_ps16"])
     bases = kw5[0]["base_lens"].tolist()
-    scan = [min(b + nq, MAX_LEN) if b >= 0 else 0 for b in bases]
-    acc5 = pa.grid_accounting(scan, PAGE_SIZE, N_HEAD, dh, MAX_LEN)
-    qo_bytes = 2 * 4 * NUM_SLOTS * N_HEAD * nq * dh
-    index_bytes = 8 * (acc5["valid_pages"] + NUM_SLOTS
-                       + NUM_SLOTS * nq * nq)
     rows["tree_decode"] = dict(
         shape="%d slots, bases %d..%d (mean %.0f), %d nodes, H %d, dh %d, "
         "page_size %d" % (NUM_SLOTS, min(bases), max(bases),
@@ -993,9 +1253,7 @@ def timing_phase(torch):
         ms=cuda_ms(pa.paged_tree_attention, kw5),
         plain_ms=cuda_ms(pa.paged_tree_attention_plain, kw5),
         library_ms=None,
-        bound=bound(2 * acc5["valid_pages"] * acc5["page_bytes"] + qo_bytes
-                    + index_bytes,
-                    4.0 * nq * acc5["resident_tokens"] * N_HEAD * dh))
+        bound=tree_decode_bound(bases, nq, dh))
     # the group gather ahead of every cross-attention call (k_pool[gof])
     pools = copies(dict(input=torch.randn(
         NUM_SLOTS, N_HEAD, MAX_LEN, dh, generator=gen, device="cuda"),
@@ -1070,6 +1328,100 @@ def timing_phase(torch):
     bwd_rows("_causal", copies(tcases["train_causal"]),
              B * N_HEAD * T * (T + 1) / 2.0,
              "q/k/v [%d,%d,%d,%d], causal" % (B, N_HEAD, T, dh))
+    return rows
+
+
+@contextlib.contextmanager
+def blocks_per_sm(n):
+    """Inside the block, the split-KV core's plans (``tree_plan``,
+    ``flash_rows_plan``) aim at ``n`` blocks an SM (0: one split a (row
+    group, head)) instead of ``decode_split.BLOCKS_PER_SM``."""
+    from paddle_tpu_torch.kernels import decode_split
+
+    kept = decode_split.BLOCKS_PER_SM
+    decode_split.BLOCKS_PER_SM = n
+    try:
+        yield
+    finally:
+        decode_split.BLOCKS_PER_SM = kept
+
+
+def split_phase(torch):
+    """B1's rows path and B5 timed, in this run, at the split their plan
+    picks and at another: where the plans split the keys (one sequence's
+    decode and verify, a 4-slot verify: fewer (row group, head) pairs
+    than SMs) against one split, and at the main shapes (one split)
+    against ``paged_plan``'s 4 blocks an SM. Inputs from a generator of
+    their own, in copies over 64 MB (past the L2 cache); both plans'
+    outputs agree within K1_TOL / K5_TOL. Returns (label, shape, [(splits,
+    blocks an SM, ms)] with the plan's first) rows."""
+    from paddle_tpu_torch.kernels import decode_split
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.kernels.build import device_limits
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    limits = device_limits("cuda")
+    dh, N = D_MODEL // N_HEAD, SPEC_K + 1
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def flash_kw(B, T, src_lens):
+        mask = torch.zeros(B, MAX_LEN, device="cuda")
+        for b, n in enumerate(src_lens):
+            mask[b, :n] = 1.0
+        return dict(q=rnd(B, N_HEAD, T, dh), k=rnd(B, N_HEAD, MAX_LEN, dh),
+                    v=rnd(B, N_HEAD, MAX_LEN, dh), kv_mask=mask)
+
+    def flash_splits(kw):
+        B, H, T, d = kw["q"].shape
+        return fa.flash_rows_plan(B, H, T, MAX_LEN, d, *limits)["splits"]
+
+    def tree_splits(kw):
+        S, H, n, d = kw["q"].shape
+        return pa.tree_plan(S, H, n, kw["page_table"].shape[1], PAGE_SIZE,
+                            d, *limits)["splits"]
+
+    src = torch.randint(16, MAX_LEN + 1, (NUM_SLOTS,), generator=gen,
+                        device="cuda").tolist()
+    bases = [int(x) for x in torch.randint(0, MAX_LEN - N + 1, (NUM_SLOTS,),
+                                           generator=gen, device="cuda")]
+    cases = [
+        ("flash_fwd decode, one sequence", fa.flash_forward,
+         flash_kw(1, 1, [MAX_LEN]), flash_splits, 0, K1_TOL),
+        ("flash_fwd verify, one sequence", fa.flash_forward,
+         flash_kw(1, N, [MAX_LEN]), flash_splits, 0, K1_TOL),
+        ("tree_decode, 4 slots", pa.paged_tree_attention,
+         tree_case(torch, gen, 4, N_HEAD, N, dh, PAGE_SIZE, MAX_LEN,
+                   [MAX_LEN - N, 200, 150, 100]), tree_splits, 0, K5_TOL),
+        ("flash_fwd decode, main shape", fa.flash_forward,
+         flash_kw(NUM_SLOTS, 1, src), flash_splits, 4, K1_TOL),
+        ("flash_fwd verify, main shape", fa.flash_forward,
+         flash_kw(NUM_SLOTS, N, src), flash_splits, 4, K1_TOL),
+        ("tree_decode, main shape", pa.paged_tree_attention,
+         tree_case(torch, gen, NUM_SLOTS, N_HEAD, N, dh, PAGE_SIZE, MAX_LEN,
+                   bases), tree_splits, 4, K5_TOL),
+    ]
+    rows = []
+    for label, fn, kw, splits_of, other, tol in cases:
+        nbytes = sum(v.numel() * v.element_size() for v in kw.values()
+                     if isinstance(v, torch.Tensor))
+        kws = copies(kw, max(3, -(-64 * 2 ** 20 // nbytes)))
+        first = fn(**kw)
+        plans = [(splits_of(kw), decode_split.BLOCKS_PER_SM,
+                  cuda_ms(fn, kws, iters=max(30, len(kws))))]
+        with blocks_per_sm(other):
+            second = fn(**kw)
+            plans.append((splits_of(kw), other,
+                          cuda_ms(fn, kws, iters=max(30, len(kws)))))
+        err = (first[0] if isinstance(first, tuple) else first).sub(
+            second[0] if isinstance(second, tuple) else second).abs().max()
+        if plans[0][0] == plans[1][0] or float(err) > tol:
+            fail("split %s: splits %s, the two plans' outputs %.3g apart "
+                 "(tolerance %g)" % (label, [p[0] for p in plans],
+                                     float(err), tol))
+        rows.append((label, "q %s" % list(kw["q"].shape), plans))
     return rows
 
 
@@ -2424,6 +2776,8 @@ def main():
             print("ptxas:   " + line.strip()[:120])
     rnn_layout_phase()
     paged_layout_phase()
+    tree_layout_phase()
+    flash_rows_layout_phase()
     flash_bwd_layout_phase()
 
     worst = kernel_phase(torch)
@@ -2451,6 +2805,11 @@ def main():
     print("time gather k_pool[gof] [%d,%d,%d,%d]: %.4f ms"
           % (NUM_SLOTS, N_HEAD, MAX_LEN, D_MODEL // N_HEAD,
              timing["gather_k_pool_gof_ms"]))
+    for label, shape, plans in split_phase(torch):
+        print("split %s, %s: %s" % (label, shape, "; ".join(
+            "%d split(s) (%d blocks an SM%s) %.4f ms"
+            % (n, per_sm, ", the plan" if i == 0 else "", ms)
+            for i, (n, per_sm, ms) in enumerate(plans))))
     worst.update(rnn_kernel_phase(torch))
     rnn_timing = rnn_timing_phase(torch)
     for kname in ("lstm_cell", "gru_cell"):

@@ -24,9 +24,30 @@
 // The tile path is chosen by `flash_plan` (kernels/flash_attention.py)
 // and passed in as `block_q`:
 //
-// - block_q 4 (T <= 4: decode and verify): 4 query rows of 128 threads, a
-//   warp per row, so the dot products of a single query row still spread
-//   over 32 threads; 32-key tiles loaded synchronously.
+// - block_q 4 (T <= 4: decode and verify cross-attention): the split-KV
+//   core of decode_split.cuh, shared with tree_decode.cu (B5; B4's
+//   paged_decode.cu takes its copies and merge). These calls read a slot's K and V once for 1 to
+//   4 query rows, so they are bound by the bytes of the keys some row
+//   sees. The grid is (split, head, batch); a split covers
+//   `keys_per_split` keys (a multiple of 32) that `flash_rows_plan`
+//   chooses from static shapes only: the key mask is never read on the
+//   host, so a CUDA graph holds the call. A block stages 32-key chunks
+//   through a three-buffer cp.async ring and scores each once for all T
+//   rows (8 lanes a key, float4 slices). The key-mask entries of its
+//   first 8 chunks are loaded at once, ahead of the first copy; every
+//   warp takes the same ballot of a chunk's entries, and a chunk is
+//   skipped where no row sees any of its keys (wholly masked, above the
+//   causal diagonal or outside the window); of a chunk it computes, only
+//   the rows of keys some row sees are copied. So decode copies the
+//   valid keys only. Each row keeps an exp2-domain online softmax in
+//   which a hidden key gives p = 0; several splits' partials go through
+//   the core's merge kernel, which also writes the LSE (M ln 2 + ln L,
+//   back in the natural-log domain). Where it stands (NVIDIA H100 at
+//   700 W, chip_smoke.py): about 0.014 ms at decode and 0.018 at verify
+//   ([32,8,1|4,64] over 256 keys, the serving mix of source lengths),
+//   two to three times the byte bound; at one split a block per (slot,
+//   head), the longest slots set the time, on top of the launch and
+//   first-copy latency.
 // - block_q 64 (T > 4), or 32 where 64-row tiles would leave SMs idle
 //   (B * H * ceil(T / 64) below the SM count, as at the encoder shape):
 //   the register-blocked kernel below. 16 threads share 4 query rows; a
@@ -50,128 +71,162 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "decode_split.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRows = 4;         // query rows per block: one warp each
-constexpr int kBlockK = 32;      // keys per shared-memory tile: one a lane
 constexpr int kMaxD = 128;       // largest head dim the kernel takes
-constexpr int kCols = kMaxD / 32;  // output columns per lane, max
 constexpr float kNegInf = -1e30f;
 constexpr float kMaskedRowLse = -1e29f;
 
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ kv_mask, float* __restrict__ o,
-                      float* __restrict__ lse, int H, int Hkv, int T, int S,
-                      int d, float sm_scale, int causal, int window) {
-  // +1 padding: rows of a tile sit in different banks
-  __shared__ float q_s[kRows][kMaxD + 1];
-  __shared__ float k_s[kBlockK][kMaxD + 1];
-  __shared__ float v_s[kBlockK][kMaxD];
-  __shared__ float p_s[kRows][kBlockK + 1];
+// -- the rows path (block_q 4: T <= 4) ----------------------------------------
 
-  const int tid = threadIdx.x;
-  const int row = tid / 32;
-  const int lane = tid % 32;
-  const int q_base = blockIdx.x * kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-  const int qi = q_base + row;
+constexpr int kRowsBlockQ = 4;
+// chunks whose key mask a block loads first: chosen from trial timings on
+// an H100 that no script in the repository repeats (not measured by
+// chip_smoke.py)
+constexpr int kWindow = 8;
 
-  const float* q_bh = q + (size_t)(b * H + h) * T * d;
-  const float* k_bh = k + (size_t)(b * Hkv + hk) * S * d;
-  const float* v_bh = v + (size_t)(b * Hkv + hk) * S * d;
-  const float* mask_b = kv_mask ? kv_mask + (size_t)b * S : nullptr;
+struct RowsArgs {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* kv_mask;
+  float* o;
+  float* lse;
+  float* part;  // the partials (decode_split.cuh), T rows a (batch, head)
+  int B, H, Hkv, T, S, d, causal, window, splits, kps;
+  float scale2;  // sm_scale * log2(e): scores in the exp2 domain
+  int vec;
+};
 
-  // the query tile, pre-scaled as the TPU kernel does (q * sm_scale)
-  for (int i = tid; i < kRows * d; i += kThreads) {
-    const int r = i / d, c = i % d;
-    const int t = q_base + r;
-    q_s[r][c] = t < T ? q_bh[(size_t)t * d + c] * sm_scale : 0.f;
+// R (1, 2 or 4): rows the block carries; rows T.. R - 1 see no key. NQ:
+// query quads a score lane keeps (dsplit::quads_for(d)).
+template <int R, int NQ>
+__global__ void __launch_bounds__(dsplit::kThreads)
+flash_fwd_rows_kernel(RowsArgs a) {
+  using namespace dsplit;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const Layout L = layout_of(a.d, R, kRowsStages);
+  const int d = a.d, dhp = L.dhp;
+  const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int hk = h / (a.H / a.Hkv);
+  const size_t unit = (size_t)b * a.H + h;
+  const float* k_bh = a.k + ((size_t)b * a.Hkv + hk) * a.S * d;
+  const float* v_bh = a.v + ((size_t)b * a.Hkv + hk) * a.S * d;
+  const float* mask_b = a.kv_mask ? a.kv_mask + (size_t)b * a.S : nullptr;
+
+  // the keys row r sees by position, [lo, hi) (the causal and window
+  // tests of flash_attention.py:151-167), and their union over the rows
+  int lo[R], hi[R];
+  int klo = a.S, khi = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    lo[r] = 0;
+    hi[r] = r < a.T ? a.S : 0;
+    if (a.causal) hi[r] = min(hi[r], r + 1);
+    if (a.window) {
+      lo[r] = max(lo[r], r - a.window + 1);
+      if (!a.causal) hi[r] = min(hi[r], r + a.window);
+    }
+    if (hi[r] > lo[r]) {
+      klo = min(klo, lo[r]);
+      khi = max(khi, hi[r]);
+    }
   }
+  const int kb0 = sp * a.kps;
+  const int ke = min(a.S, kb0 + a.kps);
+  const int n_chunks = (max(ke - kb0, 0) + kChunk - 1) / kChunk;
 
-  float acc[kCols];
+  // the split's keys that exist and are kept, chunk c's as a ballot (the
+  // same in every warp: uniform, no barrier); the first kWindow chunks'
+  // loads are all issued at once, ahead of the first copy
+  auto ballot = [&](int c, float mv) {
+    return __ballot_sync(0xffffffffu,
+                         kb0 + c * kChunk + lane < ke && mv > 0.f);
+  };
+  auto mask_of = [&](int c) {
+    const int key = kb0 + c * kChunk + lane;
+    return mask_b && c < n_chunks && key < ke ? mask_b[key] : 1.f;
+  };
+  float window_mask[kWindow];
 #pragma unroll
-  for (int j = 0; j < kCols; ++j) acc[j] = 0.f;
-  float m = kNegInf;
-  float l = 0.f;
-
-  const int q_last = q_base + kRows - 1;
-  const int n_tiles = (S + kBlockK - 1) / kBlockK;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k_base = tile * kBlockK;
-    // block-uniform tile skip (flash_attention.py:151-167)
-    bool run = true;
-    if (causal) run = k_base <= q_last;
-    if (window) {
-      run = run && (k_base + kBlockK - 1 > q_base - window);
-      if (!causal) run = run && (k_base - q_last < window);
-    }
-    if (!run) continue;
-    __syncthreads();  // the query tile is staged; last tile's reads done
-    for (int i = tid; i < kBlockK * d; i += kThreads) {
-      const int r = i / d, c = i % d;
-      const int s = k_base + r;
-      // keys past S are zeros: a row that has seen no visible key yet
-      // weighs every masked entry 1 (as the TPU kernel does), and 0 * a
-      // finite value keeps that transient sum finite
-      k_s[r][c] = s < S ? k_bh[(size_t)s * d + c] : 0.f;
-      v_s[r][c] = s < S ? v_bh[(size_t)s * d + c] : 0.f;
-    }
-    __syncthreads();
-
-    // a warp per query row, a lane per key
-    const int s = k_base + lane;
-    float dot = 0.f;
-    for (int c = 0; c < d; ++c) dot += q_s[row][c] * k_s[lane][c];
-    bool valid = s < S;
-    if (valid && mask_b) valid = mask_b[s] > 0.f;
-    if (causal) valid = valid && s <= qi;
-    if (window) {
-      valid = valid && (qi - s < window);
-      if (!causal) valid = valid && (s - qi < window);
-    }
-    const float sc = valid ? dot : kNegInf;
-    float tile_max = fmaxf(kNegInf, sc);
+  for (int i = 0; i < kWindow; ++i) window_mask[i] = mask_of(i);
+  unsigned window[kWindow];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, off));
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);
-    const float p = expf(sc - m_new);
-    p_s[row][lane] = p;
-    float psum = p;
+  for (int i = 0; i < kWindow; ++i) window[i] = ballot(i, window_mask[i]);
+  // the first chunk at or after c that some row sees a key of
+  auto next = [&](int c, unsigned& bits) {
+    for (; c < n_chunks; ++c) {
+      const int kb = kb0 + c * kChunk;
+      if (kb + kChunk <= klo) continue;
+      if (kb >= khi) return n_chunks;
+      unsigned mb = 0;
+      if (c < kWindow) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      psum += __shfl_xor_sync(0xffffffffu, psum, off);
-    l = l * alpha + psum;
-    m = m_new;
-    __syncwarp();
+        for (int i = 0; i < kWindow; ++i) mb = i == c ? window[i] : mb;
+      } else {
+        mb = ballot(c, mask_of(c));
+      }
+      unsigned seen = 0;
 #pragma unroll
-    for (int jc = 0; jc < kCols; ++jc) {
-      const int c = lane + jc * 32;
-      if (c < d) {
-        float a = acc[jc] * alpha;
-        for (int j = 0; j < kBlockK; ++j) a += p_s[row][j] * v_s[j][c];
-        acc[jc] = a;
+      for (int r = 0; r < R; ++r) seen |= range_bits(lo[r] - kb, hi[r] - kb);
+      if (mb & seen) {
+        bits = mb & seen;
+        return c;
       }
     }
-  }
-
-  if (qi < T) {
-    const bool dead = m <= kMaskedRowLse;
-    const float denom = fmaxf(l, 1e-30f);
-    float* o_row = o + ((size_t)(b * H + h) * T + qi) * d;
-#pragma unroll
-    for (int jc = 0; jc < kCols; ++jc) {
-      const int c = lane + jc * 32;
-      if (c < d) o_row[c] = dead ? 0.f : acc[jc] / denom;
+    return n_chunks;
+  };
+  const int per_row = a.vec ? d / 4 : d;
+  const int width = a.vec ? 4 : 1;
+  // the chunk's rows of keys some row sees (bits): a masked key's K and
+  // V are never read
+  auto issue = [&](int c, int buf, unsigned bits) {
+    const int kb = kb0 + c * kChunk;
+    float* ks = smem + buf * L.stage;
+    float* vs = ks + kChunk * dhp;
+    for (int idx = tid; idx < kChunk * per_row; idx += kThreads) {
+      const int r = idx / per_row, col = (idx - r * per_row) * width;
+      if ((bits >> r) & 1u) {
+        const size_t off = (size_t)(kb + r) * d + col;
+        cp_async(ks + r * dhp + col, k_bh + off, a.vec);
+        cp_async(vs + r * dhp + col, v_bh + off, a.vec);
+      }
     }
-    if (lane == 0) lse[(size_t)(b * H + h) * T + qi] = m + logf(denom);
-  }
+  };
+  auto vis = [&](int r, int j, int c) {
+    const int key = kb0 + c * kChunk + j;
+    return key >= lo[r] && key < hi[r];
+  };
+
+  zero_pads(smem, L, d);
+  Rows<R, NQ> st;
+  walk<kRowsStages>(st, smem, L, n_chunks, a.q + unit * a.T * d, a.T, d,
+                    a.scale2, next, issue, vis);
+  const size_t pr = (unit * a.splits + sp) * a.T;
+  finish(st, smem, L, d, a.T, a.splits == 1 ? a.o + unit * a.T * d : nullptr,
+         a.lse + unit * a.T, a.part + pr * d,
+         a.part + (size_t)a.B * a.H * a.splits * a.T * d + 2 * pr);
+}
+
+template <int R>
+int launch_rows(const RowsArgs& a, cudaStream_t st) {
+  const int smem = (int)sizeof(float) *
+                   dsplit::layout_of(a.d, R, dsplit::kRowsStages).floats;
+  auto kernel = dsplit::quads_for(a.d) == 2
+                    ? flash_fwd_rows_kernel<R, 2>
+                    : flash_fwd_rows_kernel<R, dsplit::kMaxQuads>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3(a.splits, a.H, a.B), dsplit::kThreads, smem, st>>>(a);
+  if (a.splits > 1)
+    return (int)dsplit::launch_merge<R>(a.part, a.o, a.lse, a.B * a.H, a.T,
+                                        a.splits, a.d, st);
+  return (int)cudaGetLastError();
 }
 
 // -- the register-blocked multi-row path (block_q 32 or 64) -----------------
@@ -502,23 +557,39 @@ int dispatch_tiled(const float* q, const float* k, const float* v,
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
-// kv_mask may be null (no key mask). block_q is the query tile of the
-// launch plan (kernels/flash_attention.py `flash_plan`): 4, 32 or 64.
+// Launches on `stream`; returns a CUDA error code (0 on success). kv_mask
+// may be null (no key mask). block_q is the query tile of the launch plan
+// (kernels/flash_attention.py `flash_plan`): 4, 32 or 64. For block_q 4
+// the plan's `splits` blocks a (batch, head) each cover `kps` keys (a
+// multiple of 32; splits * kps >= S, every split nonempty); with
+// splits > 1, `part` is scratch of B * H * splits * T * (d + 2) floats.
+// The other tiles ignore splits, kps and part.
 extern "C" int paddle_flash_fwd_f32(const float* q, const float* k,
                                     const float* v, const float* kv_mask,
-                                    float* o, float* lse, int B, int H,
-                                    int Hkv, int T, int S, int d,
+                                    float* o, float* lse, float* part, int B,
+                                    int H, int Hkv, int T, int S, int d,
                                     float sm_scale, int causal, int window,
-                                    int block_q, void* stream) {
-  if (B < 1 || T < 1 || d < 1 || d > kMaxD || Hkv < 1 || H % Hkv != 0)
+                                    int block_q, int splits, int kps,
+                                    void* stream) {
+  if (B < 1 || T < 1 || d < 1 || d > kMaxD || Hkv < 1 || H % Hkv != 0 ||
+      S < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (block_q == kRows) {
-    dim3 grid((T + kRows - 1) / kRows, H, B);
-    flash_fwd_rows_kernel<<<grid, kThreads, 0, st>>>(
-        q, k, v, kv_mask, o, lse, H, Hkv, T, S, d, sm_scale, causal, window);
-    return (int)cudaGetLastError();
+  if (block_q == kRowsBlockQ) {
+    if (T > kRowsBlockQ || splits < 1 || kps < dsplit::kChunk ||
+        kps % dsplit::kChunk != 0 || (long long)splits * kps < S ||
+        (long long)(splits - 1) * kps >= (S > 0 ? S : 1) || H > 65535 ||
+        B > 65535 || (splits > 1 && !part))
+      return (int)cudaErrorInvalidValue;
+    const int vec = d % 4 == 0 && ((uintptr_t)k | (uintptr_t)v) % 16 == 0;
+    const RowsArgs a{q, k, v, kv_mask, o, lse, part, B, H, Hkv, T, S, d,
+                     causal, window, splits, kps,
+                     sm_scale * dsplit::kLog2e, vec};
+    switch (dsplit::rows_for(T)) {
+      case 1: return launch_rows<1>(a, st);
+      case 2: return launch_rows<2>(a, st);
+      default: return launch_rows<4>(a, st);
+    }
   }
   if (block_q == 32)
     return dispatch_tiled<32>(q, k, v, kv_mask, o, lse, B, H, Hkv, T, S, d,
@@ -527,4 +598,18 @@ extern "C" int paddle_flash_fwd_f32(const float* q, const float* k,
     return dispatch_tiled<64>(q, k, v, kv_mask, o, lse, B, H, Hkv, T, S, d,
                               sm_scale, causal, window, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The threads and shared-memory bytes of the rows path's block for T <= 4
+// query rows at head dim d, for holding `flash_rows_plan`'s figures to the
+// kernel's (host code: no device needed); cudaErrorInvalidValue outside
+// T 1..4, d 1..128.
+extern "C" int paddle_flash_rows_layout(int T, int d, int* threads,
+                                        int* smem) {
+  if (T < 1 || T > kRowsBlockQ || d < 1 || d > kMaxD)
+    return (int)cudaErrorInvalidValue;
+  *threads = dsplit::kThreads;
+  *smem = (int)sizeof(float) *
+          dsplit::layout_of(d, dsplit::rows_for(T), dsplit::kRowsStages).floats;
+  return 0;
 }

@@ -36,62 +36,33 @@
 // groups); a key's weight reaches its group's lanes by a shuffle. At the
 // end the key groups' sums meet in shared memory. With one split the
 // block writes the output; with more, each writes its partial (m, l,
-// acc) to scratch from the wrapper and a second small kernel, launched
-// from the same entry point, merges them (exp2 weights; a merged max at
-// or below kMaskedRowM gives exactly 0).
+// acc) to scratch from the wrapper and the merge kernel of
+// decode_split.cuh, launched from the same entry point, combines them
+// (exp2 weights; a merged max at or below kMaskedRowM gives exactly 0).
+//
+// decode_split.cuh carries this design for B5 (tree_decode.cu) and B1's
+// rows path (flash_fwd.cu); this file takes its constants, block layout,
+// copies, exp2 and merge from it and keeps only its own walk: one query
+// row, the query pre-scaled, no key visibility test. On the core's walk
+// (two stage buffers, this plan) it ran slower on an H100 on the serving
+// mix of lengths (PERF.md), for a cause not found.
 //
 // Where it stands (NVIDIA H100 at 700 W, chip_smoke.py): about 0.017 ms
 // at 32 slots x 256 tokens, some 58 % of the byte bound; the second
 // launch, two barriers a 32-key chunk and one table read a copy remain.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "decode_split.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 32;        // keys staged per chunk (one warp's max)
-constexpr int kLanesPerKey = 8;   // score lanes a key
-constexpr int kMaxDh = 128;
-constexpr float kNegInf = -1e30f;
-constexpr float kMaskedRowM = -1e29f;
-constexpr float kLog2e = 1.4426950408889634f;
+using namespace dsplit;
 
-__device__ __forceinline__ float ex2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         bool vec) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  if (vec)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(d), "l"(src));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-                 :: "r"(d), "l"(src));
-}
-
-// The block's layout for head dim dh: rows of dhp floats (dh rounded up
-// to 4), column quads cq < ncq (a power of two, ceil(dh / 4) rounded up)
-// times kThreads / ncq key groups in the P.V sum.
-struct Layout {
-  int dhp, ncq, groups, smem;
-};
-
-__host__ __device__ inline Layout layout_of(int dh) {
-  Layout L;
-  L.dhp = (dh + 3) / 4 * 4;
-  L.ncq = 1;
-  while (L.ncq * 4 < dh) L.ncq *= 2;
-  L.groups = kThreads / L.ncq;
-  // two stages of K and V chunks, the chunk's scores, the warps' l sums
-  L.smem = (int)sizeof(float) * (2 * 2 * kChunk * L.dhp + kChunk + kWarps);
-  return L;
+// The block's layout for head dim dh (decode_split.cuh, one row, a double
+// buffer): rows of dhp floats, column quads cq < ncq times `groups` key
+// groups in the P.V sum; two stages of K and V chunks, the chunk's
+// scores, the warps' l sums.
+__host__ __device__ inline Layout paged_layout(int dh) {
+  return layout_of(dh, 1, 2);
 }
 
 struct Args {
@@ -110,10 +81,10 @@ struct Args {
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(Args a) {
   extern __shared__ float smem[];
-  const Layout L = layout_of(a.dh);
+  const Layout L = paged_layout(a.dh);
   const int dh = a.dh, dhp = L.dhp, ncq = L.ncq;
-  const int stage = 2 * kChunk * dhp;        // K then V of one chunk
-  float* p_s = smem + 2 * stage;             // [kChunk] scores
+  const int stage = L.stage;                 // K then V of one chunk
+  float* p_s = smem + L.scores;              // [kChunk] scores
   float* l_s = p_s + kChunk;                 // [kWarps]
 
   const int s = blockIdx.x, h = blockIdx.y, sp = blockIdx.z;
@@ -152,7 +123,7 @@ paged_decode_kernel(Args a) {
       cp_async(ks + r * dhp + col, k_head + off, a.vec);
       cp_async(vs + r * dhp + col, v_head + off, a.vec);
     }
-    asm volatile("cp.async.commit_group;\n" ::);
+    cp_async_commit();
   };
 
   if (dhp != dh) {
@@ -165,9 +136,9 @@ paged_decode_kernel(Args a) {
   // the query's float4 slices of the score lanes: quads lane8 + 8 i
   const int lane8 = lane & (kLanesPerKey - 1);
   const int nq = dhp / 4;
-  float4 qv[kMaxDh / 4 / kLanesPerKey];
+  float4 qv[kMaxQuads];
 #pragma unroll
-  for (int i = 0; i < kMaxDh / 4 / kLanesPerKey; ++i) {
+  for (int i = 0; i < kMaxQuads; ++i) {
     float e[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -185,7 +156,7 @@ paged_decode_kernel(Args a) {
   float m = kNegInf, l_part = 0.f;
 
   for (int c = 0; c < n_chunks; ++c) {
-    asm volatile("cp.async.wait_group 0;\n" ::);
+    cp_async_wait<0>();
     __syncthreads();  // chunk c landed; chunk c - 1 fully consumed
     if (c + 1 < n_chunks) issue(c + 1);
     const int nk = min(kChunk, nkeys - c * kChunk);
@@ -200,7 +171,7 @@ paged_decode_kernel(Args a) {
       const float* kr = ks + j * dhp;
       float dot = 0.f;
 #pragma unroll
-      for (int i = 0; i < kMaxDh / 4 / kLanesPerKey; ++i) {
+      for (int i = 0; i < kMaxQuads; ++i) {
         const int quad = lane8 + kLanesPerKey * i;
         if (quad < nq) {
           const float4 k4 = *reinterpret_cast<const float4*>(kr + 4 * quad);
@@ -288,27 +259,6 @@ paged_decode_kernel(Args a) {
   }
 }
 
-// out[s, h] from the splits' partials: weights exp2(m_i - M), M the
-// largest m_i; a merged max at or below kMaskedRowM gives exactly 0.
-__global__ void __launch_bounds__(kThreads)
-paged_merge_kernel(Args a) {
-  const size_t sh = blockIdx.x;
-  const int n = a.splits, dh = a.dh;
-  const float* ml = a.part + (size_t)a.S * a.H * n * dh + 2 * sh * n;
-  const float* acc = a.part + sh * n * dh;
-  float M = kNegInf;
-  for (int i = 0; i < n; ++i) M = fmaxf(M, ml[2 * i]);
-  float l = 0.f;
-  for (int i = 0; i < n; ++i) l += ml[2 * i + 1] * ex2_approx(ml[2 * i] - M);
-  const float inv = M <= kMaskedRowM ? 0.f : 1.f / fmaxf(l, 1e-30f);
-  for (int c = threadIdx.x; c < dh; c += blockDim.x) {
-    float o = 0.f;
-    for (int i = 0; i < n; ++i)
-      o = fmaf(acc[(size_t)i * dh + c], ex2_approx(ml[2 * i] - M), o);
-    a.out[sh * dh + c] = o * inv;
-  }
-}
-
 }  // namespace
 
 // Launches on `stream`; returns a CUDA error code (0 on success). Page
@@ -330,21 +280,20 @@ extern "C" int paddle_paged_decode_f32(const float* q, const float* k_pool,
       (long long)npp * ps >= (1LL << 30) ||
       (splits > 1 && !part))
     return (int)cudaErrorInvalidValue;
-  const Layout L = layout_of(dh);
+  const int smem = (int)sizeof(float) * paged_layout(dh).floats;
   cudaError_t e = cudaFuncSetAttribute(
       paged_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L.smem);
+      smem);
   if (e != cudaSuccess) return (int)e;
   const int vec = dh % 4 == 0 &&
                   ((uintptr_t)k_pool | (uintptr_t)v_pool) % 16 == 0;
   Args args{q, k_pool, v_pool, table, lengths, out, part, S, H, ps, dh,
             npp, splits, pps, sm_scale * kLog2e, vec};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  paged_decode_kernel<<<dim3(S, H, splits), kThreads, L.smem, st>>>(args);
-  if (splits > 1) {
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    paged_merge_kernel<<<S * H, kThreads, 0, st>>>(args);
-  }
+  paged_decode_kernel<<<dim3(S, H, splits), kThreads, smem, st>>>(args);
+  if (splits > 1)
+    return (int)launch_merge<1>(part, out, nullptr, S * H, 1, splits, dh,
+                                st);
   return (int)cudaGetLastError();
 }
 
@@ -354,6 +303,6 @@ extern "C" int paddle_paged_decode_f32(const float* q, const float* k_pool,
 extern "C" int paddle_paged_layout(int dh, int* threads, int* smem) {
   if (dh < 1 || dh > kMaxDh) return (int)cudaErrorInvalidValue;
   *threads = kThreads;
-  *smem = layout_of(dh).smem;
+  *smem = (int)sizeof(float) * paged_layout(dh).floats;
   return 0;
 }

@@ -12,245 +12,216 @@
 // with base = -1 is finished: it reads no page and writes exactly 0.
 //
 // What bounds it on this card: memory. The N queries of a (slot, head)
-// share one pass over its resident K and V rows (8*dh bytes a row) and do
-// 4*N*dh flops on each, N/2 flops per byte against the fp32 ridge of 20,
-// so for the N of a draft chain (4 to 8) the floor is the resident bytes
-// over 3.35 TB/s, the same bytes the one-query decode kernel reads.
+// share one pass over its K and V rows below min(base + N, max_len)
+// (8*dh bytes a row) and do 4*N*dh flops on each, N/2 flops per byte
+// against the fp32 ridge of 20, so for the N of a draft chain (4 to 8)
+// the floor is those rows' bytes over 3.35 TB/s, the bytes the
+// one-query decode kernel reads for the same slots.
 //
-// What the design does about it: one block per (slot, head) walks only
-// the pages below ceil(min(base + N, max_len) / page_size), reading
-// table[s, p] itself, and stages each chunk of about 64 keys in shared
-// memory ONCE for all N nodes (coalesced loads; a page of one head is one
-// contiguous page_size*dh run). One warp owns a node (with more than 4
-// nodes a warp owns 2 or 4 of them; past 16 the walk repeats per group of
-// 16): a lane scores whole keys against the node's query (K rows are
-// padded by one float, so the 32 lanes read 32 banks), the visibility of
-// key t is the direct test
+// What the design does about it: the split-KV core of decode_split.cuh,
+// which flash_fwd.cu's rows path shares (paged_decode.cu, B4, takes its
+// copies and merge and keeps its own walk). The grid
+// is (slot, head, split); each split covers a fixed range of `pps` pages
+// of its slot, the split count chosen by `tree_plan` (kernels/
+// paged_attention.py) from static shapes only. A block reads base[s] on
+// the device and clips its range to min(base + N, max_len) ROWS (not
+// whole pages); a split wholly past that, or of a finished slot, reads no
+// page and writes an empty partial. Within a split, 32-key chunks are
+// staged through a three-buffer cp.async ring (table[s, p] read by the
+// block for each copied row) and scored ONCE for all N nodes (8 lanes a key,
+// float4 slices, the nodes' query slices in registers); the visibility of
+// key t for node n is the direct test
 //   t < base || (t - base < N && t < max_len && anc[s][n][t - base] > 0)
-// on the slot's mask held in shared memory (the TPU kernel needs a one-hot
-// product for it, having no gather), the online softmax keeps each node's
-// max and sum in registers, uniform over the warp, and a lane keeps the
-// node's output columns lane, lane+32, ... in registers. Overlapping the
-// next chunk's loads with this chunk's math (cp.async or TMA), tensor-core
-// products and splitting long slots across blocks are later work.
+// on the slot's mask held in shared memory (the TPU kernel needs a
+// one-hot product for it, having no gather). Each node keeps an
+// exp2-domain online softmax (a hidden key gives p = 0 exactly), P.V runs
+// over all 128 threads, and with more than one split the core's merge
+// kernel, launched from the same entry point, combines the partials. Up
+// to 8 nodes share one walk; more nodes walk the split again per group
+// of 8 (right, not fast: the main path has 4).
+//
+// Where it stands (NVIDIA H100 at 700 W, chip_smoke.py): about 0.020 ms
+// at the verify shape (32 slots, bases 0..252, 4 nodes), 3.6 times the
+// byte bound; at one split a block per (slot, head), the slots with the
+// longest scans set the time, on top of the launch and first-copy
+// latency.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "decode_split.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunkKeys = 64;   // keys staged per chunk (at least a page)
-constexpr int kMaxDh = 128;      // head dims up to this
-constexpr int kColsPerLane = kMaxDh / 32;
-constexpr int kMaxSmem = 227 * 1024;
-constexpr float kNegInf = -1e30f;
-constexpr float kMaskedRowM = -1e29f;
+using namespace dsplit;
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+struct TreeArgs {
+  const float* q;
+  const float* k_pool;
+  const float* v_pool;
+  const int64_t* table;
+  const int64_t* base_lens;
+  const int64_t* anc;
+  float* out;   // [S, H, N, dh] (splits == 1)
+  float* part;  // the partials (decode_split.cuh), N rows a (slot, head)
+  int S, H, N, ps, dh, npp, max_len, splits, pps;
+  float scale2;  // sm_scale * log2(e): scores in the exp2 domain
+  int vec;
+};
+
+// The node mask's bytes after the core's floats, 16-byte rounded.
+__host__ __device__ inline int tree_smem(int dh, int N) {
+  return (int)sizeof(float) *
+             layout_of(dh, rows_for(N), kRowsStages).floats +
+         (N * N + 15) / 16 * 16;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// NPW: tree nodes one warp owns in one walk over the pages.
-template <int NPW>
+// R: nodes a walk carries (rows_for(N)); NQ: query quads a score lane
+// keeps (quads_for(dh)).
+template <int R, int NQ>
 __global__ void __launch_bounds__(kThreads)
-tree_decode_kernel(const float* __restrict__ q,
-                   const float* __restrict__ k_pool,
-                   const float* __restrict__ v_pool,
-                   const int64_t* __restrict__ table,
-                   const int64_t* __restrict__ base_lens,
-                   const int64_t* __restrict__ anc,
-                   float* __restrict__ out, int H, int N, int ps, int dh,
-                   int npp, int max_len, int chunk_pages, float sm_scale) {
-  constexpr int G = kWarps * NPW;  // nodes per walk
-  extern __shared__ float smem[];
-  const int keys_max = chunk_pages * ps;
-  const int kstride = dh + 1;
-  float* k_s = smem;                       // [keys_max][dh + 1]
-  float* v_s = k_s + keys_max * kstride;   // [keys_max][dh]
-  float* q_s = v_s + keys_max * dh;        // [G][dh], scaled
-  float* p_s = q_s + G * dh;               // [G][keys_max] scores, then p
+tree_decode_kernel(TreeArgs a) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const Layout L = layout_of(a.dh, R, kRowsStages);
   unsigned char* anc_s =
-      reinterpret_cast<unsigned char*>(p_s + G * keys_max);  // [G][N]
-
-  const int s = blockIdx.x;
-  const int h = blockIdx.y;
+      reinterpret_cast<unsigned char*>(smem + L.floats);  // [N][N]
+  const int dh = a.dh, dhp = L.dhp, N = a.N;
+  const int s = blockIdx.x, h = blockIdx.y, sp = blockIdx.z;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+  const size_t sh = (size_t)s * a.H + h;
 
-  const long long base = base_lens[s];
+  // positions fit an int: the entry point refuses npp * ps >= 2^30
+  const long long base = a.base_lens[s];
+  const int cap = a.npp * a.ps;
   long long scan = 0;
   if (base >= 0) {
     scan = base + N;
-    if (scan > max_len) scan = max_len;
-    const long long cover = (long long)npp * ps;
-    if (scan > cover) scan = cover;
+    if (scan > a.max_len) scan = a.max_len;
+    if (scan > cap) scan = cap;
   }
-  const int n_pages = (int)((scan + ps - 1) / ps);
-  const size_t page_elems = (size_t)ps * dh;
-  const size_t sh = ((size_t)s * H + h) * N * dh;
+  const int kb0 = sp * a.pps * a.ps;
+  const int ke = min((int)scan, kb0 + a.pps * a.ps);
+  const int nkeys = max(ke - kb0, 0);
+  const int n_chunks = (nkeys + kChunk - 1) / kChunk;
 
-  for (int n0 = 0; n0 < N; n0 += G) {
-    const int gn = min(G, N - n0);
-    __syncthreads();  // the previous walk is done with q_s, anc_s and p_s
-    for (int i = tid; i < gn * dh; i += kThreads)
-      q_s[i] = q[sh + (size_t)n0 * dh + i] * sm_scale;
-    for (int i = tid; i < gn * N; i += kThreads)
-      anc_s[i] = anc[((size_t)s * N + n0) * N + i] > 0 ? 1 : 0;
+  const size_t page_elems = (size_t)a.ps * dh;
+  const long long* trow =
+      reinterpret_cast<const long long*>(a.table) + (size_t)s * a.npp;
+  const float* k_head = a.k_pool + (size_t)h * page_elems;
+  const float* v_head = a.v_pool + (size_t)h * page_elems;
+  const size_t page_stride = (size_t)a.H * page_elems;
+  const int per_row = a.vec ? dh / 4 : dh;
+  const int width = a.vec ? 4 : 1;
 
-    float acc[NPW][kColsPerLane];
-    float m[NPW], l[NPW];
-#pragma unroll
-    for (int i = 0; i < NPW; ++i) {
-      m[i] = kNegInf;
-      l[i] = 0.f;
-#pragma unroll
-      for (int ci = 0; ci < kColsPerLane; ++ci) acc[i][ci] = 0.f;
+  if (n_chunks > 0)
+    for (int i = tid; i < N * N; i += kThreads)
+      anc_s[i] = a.anc[(size_t)s * N * N + i] > 0 ? 1 : 0;
+
+  auto next = [&](int c, unsigned& bits) {
+    const int nk = min(kChunk, nkeys - c * kChunk);
+    bits = nk >= kChunk ? 0xffffffffu : (1u << max(nk, 0)) - 1u;
+    return c;
+  };
+  // the chunk's rows below the scan (bits: a prefix)
+  auto issue = [&](int c, int buf, unsigned) {
+    const int kb = kb0 + c * kChunk;
+    const int nk = min(kChunk, nkeys - c * kChunk);
+    float* ks = smem + buf * L.stage;
+    float* vs = ks + kChunk * dhp;
+    for (int idx = tid; idx < nk * per_row; idx += kThreads) {
+      const int r = idx / per_row, col = (idx - r * per_row) * width;
+      const int pos = kb + r;
+      const int pg = pos / a.ps;
+      const size_t off = (size_t)__ldg(trow + pg) * page_stride +
+                         (size_t)(pos - pg * a.ps) * dh + col;
+      cp_async(ks + r * dhp + col, k_head + off, a.vec);
+      cp_async(vs + r * dhp + col, v_head + off, a.vec);
     }
+  };
 
-    for (int p0 = 0; p0 < n_pages; p0 += chunk_pages) {
-      const int np = min(chunk_pages, n_pages - p0);
-      const int nk = np * ps;
-      __syncthreads();  // q and mask staged; previous chunk fully consumed
-      for (int pi = 0; pi < np; ++pi) {
-        const long long page = table[(size_t)s * npp + p0 + pi];
-        const float* kp = k_pool + ((size_t)page * H + h) * page_elems;
-        const float* vp = v_pool + ((size_t)page * H + h) * page_elems;
-        float* kd = k_s + (size_t)pi * ps * kstride;
-        float* vd = v_s + pi * page_elems;
-        for (int i = tid; i < (int)page_elems; i += kThreads) {
-          kd[(i / dh) * kstride + (i % dh)] = kp[i];
-          vd[i] = vp[i];
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < NPW; ++i) {
-        const int ln = warp + i * kWarps;  // the warp's i-th node of the walk
-        if (ln >= gn) continue;            // uniform over the warp
-        const float* qn = q_s + ln * dh;
-        float* pn = p_s + ln * keys_max;
-        const unsigned char* an = anc_s + ln * N;
-        float cmax = kNegInf;
-        for (int j = lane; j < nk; j += 32) {
-          const float* kr = k_s + j * kstride;
-          float dot = 0.f;
-          for (int c = 0; c < dh; ++c) dot += qn[c] * kr[c];
-          const long long t = (long long)p0 * ps + j;
-          const long long tj = t - base;
-          const bool vis = tj < 0 || (tj < N && t < max_len && an[tj] != 0);
-          const float sc = vis ? dot : kNegInf;
-          pn[j] = sc;
-          cmax = fmaxf(cmax, sc);
-        }
-        cmax = warp_max(cmax);
-        const float m_new = fmaxf(m[i], cmax);
-        const float alpha = expf(m[i] - m_new);
-        float psum = 0.f;
-        for (int j = lane; j < nk; j += 32) {
-          const float sc = pn[j];
-          const float p = sc <= kMaskedRowM ? 0.f : expf(sc - m_new);
-          pn[j] = p;
-          psum += p;
-        }
-        psum = warp_sum(psum);
-        __syncwarp();  // every lane's p is in shared memory
-#pragma unroll
-        for (int ci = 0; ci < kColsPerLane; ++ci) acc[i][ci] *= alpha;
-        for (int j = 0; j < nk; ++j) {
-          const float p = pn[j];
-          const float* vr = v_s + j * dh;
-#pragma unroll
-          for (int ci = 0; ci < kColsPerLane; ++ci) {
-            const int c = lane + 32 * ci;
-            if (c < dh) acc[i][ci] += p * vr[c];
-          }
-        }
-        l[i] = l[i] * alpha + psum;
-        m[i] = m_new;
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < NPW; ++i) {
-      const int ln = warp + i * kWarps;
-      if (ln >= gn) continue;
-      const bool dead = m[i] <= kMaskedRowM;
-      const float inv = 1.f / fmaxf(l[i], 1e-30f);
-      float* o = out + sh + (size_t)(n0 + ln) * dh;
-#pragma unroll
-      for (int ci = 0; ci < kColsPerLane; ++ci) {
-        const int c = lane + 32 * ci;
-        if (c < dh) o[c] = dead ? 0.f : acc[i][ci] * inv;
-      }
-    }
+  const size_t acc_floats = (size_t)a.S * a.H * a.splits * N * dh;
+  for (int n0 = 0; n0 < N; n0 += R) {
+    const int nr = min(R, N - n0);
+    // node n0 + r sees key j of chunk c (a key below the scan)
+    auto vis = [&](int r, int j, int c) {
+      const long long t = kb0 + c * kChunk + j;
+      const long long tj = t - base;
+      return tj < 0 || (r < nr && tj < N && t < a.max_len &&
+                        anc_s[(n0 + r) * N + tj] != 0);
+    };
+    zero_pads(smem, L, dh);
+    Rows<R, NQ> st;
+    walk<kRowsStages>(st, smem, L, n_chunks, a.q + (sh * N + n0) * dh, nr,
+                      dh, a.scale2, next, issue, vis);
+    const size_t pr = (sh * a.splits + sp) * N + n0;
+    finish(st, smem, L, dh, nr,
+           a.splits == 1 ? a.out + (sh * N + n0) * dh : nullptr, nullptr,
+           a.part + pr * dh, a.part + acc_floats + 2 * pr);
+    __syncthreads();  // the next group's copies overwrite the sums
   }
 }
 
-template <int NPW>
-int launch(const float* q, const float* k_pool, const float* v_pool,
-           const int64_t* table, const int64_t* base_lens,
-           const int64_t* anc, float* out, int S, int H, int N, int ps,
-           int dh, int npp, int max_len, float sm_scale,
-           cudaStream_t stream) {
-  constexpr int G = kWarps * NPW;
-  const int chunk_pages = ps >= kChunkKeys ? 1 : kChunkKeys / ps;
-  const int keys_max = chunk_pages * ps;
-  const size_t smem =
-      sizeof(float) * ((size_t)keys_max * (dh + 1) + (size_t)keys_max * dh +
-                       (size_t)G * dh + (size_t)G * keys_max) +
-      (size_t)G * N;
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        tree_decode_kernel<NPW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid(S, H);
-  tree_decode_kernel<NPW><<<grid, kThreads, smem, stream>>>(
-      q, k_pool, v_pool, table, base_lens, anc, out, H, N, ps, dh, npp,
-      max_len, chunk_pages, sm_scale);
+template <int R>
+int launch(const TreeArgs& args, cudaStream_t st) {
+  const int smem = tree_smem(args.dh, args.N);
+  auto kernel = quads_for(args.dh) == 2
+                    ? tree_decode_kernel<R, 2>
+                    : tree_decode_kernel<R, kMaxQuads>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3(args.S, args.H, args.splits), kThreads, smem, st>>>(args);
+  if (args.splits > 1)
+    return (int)launch_merge<R>(args.part, args.out, nullptr,
+                                args.S * args.H, args.N, args.splits,
+                                args.dh, st);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success). Page
+// Launches on `stream`; returns a CUDA error code (0 on success). Page
 // ids in `table` must lie in [0, P) for every page below
 // ceil(min(base + N, max_len) / ps) of a slot with base >= 0; entries past
-// that, and every entry of a slot with base < 0, are never read.
+// that, and every entry of a slot with base < 0, are never read. The plan
+// (kernels/paged_attention.py `tree_plan`): `splits` blocks a (slot,
+// head), each over `pps` pages (splits * pps >= npp, every split
+// nonempty); with splits > 1, `part` is scratch of
+// S * H * splits * N * (dh + 2) floats.
 extern "C" int paddle_tree_decode_f32(const float* q, const float* k_pool,
                                       const float* v_pool,
                                       const int64_t* table,
                                       const int64_t* base_lens,
-                                      const int64_t* anc, float* out, int S,
-                                      int H, int N, int ps, int dh, int npp,
-                                      int max_len, float sm_scale,
+                                      const int64_t* anc, float* out,
+                                      float* part, int S, int H, int N,
+                                      int ps, int dh, int npp, int max_len,
+                                      int splits, int pps, float sm_scale,
                                       void* stream) {
   if (S < 1 || H < 1 || N < 1 || ps < 1 || dh < 1 || dh > kMaxDh ||
-      npp < 1 || max_len < 0)
+      npp < 1 || max_len < 0 || splits < 1 || pps < 1 ||
+      (long long)splits * pps < npp || (long long)(splits - 1) * pps >= npp ||
+      splits > 65535 || H > 65535 || (long long)npp * ps >= (1LL << 30) ||
+      (splits > 1 && !part) || (long long)N * N > 227 * 1024 ||
+      tree_smem(dh, N) > 227 * 1024)
     return (int)cudaErrorInvalidValue;
+  const int vec = dh % 4 == 0 &&
+                  ((uintptr_t)k_pool | (uintptr_t)v_pool) % 16 == 0;
+  const TreeArgs args{q, k_pool, v_pool, table, base_lens, anc, out, part,
+                      S, H, N, ps, dh, npp, max_len, splits, pps,
+                      sm_scale * kLog2e, vec};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N <= kWarps)
-    return launch<1>(q, k_pool, v_pool, table, base_lens, anc, out, S, H, N,
-                     ps, dh, npp, max_len, sm_scale, st);
-  if (N <= 2 * kWarps)
-    return launch<2>(q, k_pool, v_pool, table, base_lens, anc, out, S, H, N,
-                     ps, dh, npp, max_len, sm_scale, st);
-  return launch<4>(q, k_pool, v_pool, table, base_lens, anc, out, S, H, N,
-                   ps, dh, npp, max_len, sm_scale, st);
+  switch (rows_for(N)) {
+    case 1: return launch<1>(args, st);
+    case 2: return launch<2>(args, st);
+    case 4: return launch<4>(args, st);
+    default: return launch<kMaxRows>(args, st);
+  }
+}
+
+// The threads and shared-memory bytes of the tree kernel's block at head
+// dim dh and N nodes, for holding `tree_plan`'s figures to the kernel's
+// (host code: no device needed); cudaErrorInvalidValue past kMaxDh.
+extern "C" int paddle_tree_layout(int dh, int N, int* threads, int* smem) {
+  if (dh < 1 || dh > kMaxDh || N < 1) return (int)cudaErrorInvalidValue;
+  *threads = kThreads;
+  *smem = tree_smem(dh, N);
+  return 0;
 }

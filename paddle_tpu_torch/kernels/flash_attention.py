@@ -10,7 +10,10 @@ and ``flash_backward`` launch them for CUDA tensors and run
 for nothing else. ``flash_attention`` ties the two through a
 ``torch.autograd.Function``, so autograd (and the ``_grad`` op of
 ``scaled_dot_product_attention``) reaches the backward kernels. The
-backward kernels' tiles come from ``flash_bwd_plan``. A full
+backward kernels' tiles come from ``flash_bwd_plan``; the forward's
+from ``flash_plan``, which for T <= 4 (decode and verify) takes the
+split of the key axis of ``flash_rows_plan`` (static shapes only: the
+key mask is never read on the host, so a CUDA graph holds the call). A full
 ``[B, 1|H, T, S]`` mask is routed by its rank, before any launch, to
 ``attention_reference`` (torch ops, counted in
 ``ATTENTION_REFERENCE``), as the JAX package routes it to its XLA
@@ -33,19 +36,19 @@ import ctypes
 import torch
 
 from paddle_tpu_torch import flags
+from paddle_tpu_torch.kernels import decode_split
 from paddle_tpu_torch.kernels.build import Kernel, device_limits, library
 
 NEG_INF = -1e30
 MASKED_ROW_LSE = -1e29
 MAX_HEAD_DIM = 128
 
-FLASH_FWD = Kernel("paddle_flash_fwd_f32", [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p,
-])
+# q, k, v, kv_mask, out, lse, part; B, H, Hkv, T, S, d; sm_scale; causal,
+# window, block_q, splits, keys_per_split; stream
+FLASH_FWD = Kernel("paddle_flash_fwd_f32", [ctypes.c_void_p] * 7 + [
+    ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 5 + [
+    ctypes.c_void_p])
+ROWS_T = 4  # the rows path (csrc/flash_fwd.cu, block_q 4) takes T <= 4
 
 _BWD_ARGS = [ctypes.c_void_p] * 7  # q, k, v, dout, lse, delta, kv_mask
 # B, H, Hkv, T, S, d, sm_scale, causal, window, rows, stream
@@ -57,19 +60,61 @@ FLASH_BWD_DQ = Kernel("paddle_flash_bwd_dq_f32",
                       _BWD_ARGS + [ctypes.c_void_p] + _BWD_DIMS)
 
 
-def flash_plan(B, H, T, n_sm):
-    """The forward kernel's query tile for q ``[B, H, T, d]`` on a card
-    with ``n_sm`` SMs: ``{"block_q": 4 | 32 | 64, "blocks", "threads"}``.
-    4 rows for T <= 4 (decode and verify: a warp per row); else 64-row
-    register-blocked tiles, or 32-row ones where 64-row tiles would give
-    fewer blocks than SMs (the encoder's one sequence)."""
-    if T <= 4:
-        bq, threads = 4, 128
-    elif B * H * -(-T // 64) < n_sm:
+def flash_rows_plan(B, H, T, S, d, n_sm, smem_limit):
+    """The rows path's split of the key axis for q ``[B, H, T, d]`` (T <=
+    4) over k/v of S keys, from static shapes only (never from the key
+    mask, which only the device reads): ``splits`` blocks a (batch,
+    head), each over ``keys_per_split`` keys (a multiple of the core's
+    32-key chunk; the last split may have fewer, none is empty), by the
+    rule of ``paged_plan`` (``decode_split.items_per_split`` over the
+    chunks: ``decode_split.BLOCKS_PER_SM`` blocks an SM of ``n_sm``, at
+    least two chunks a split; one split at the decode and verify
+    shapes). Also ``threads`` and ``smem`` (the core's bytes for
+    ``decode_split.rows_for(T)`` rows), which ``chip_smoke.py`` holds to
+    the kernel's own (``paddle_flash_rows_layout``)."""
+    if not 1 <= T <= ROWS_T or min(B, H, d) < 1 or d > MAX_HEAD_DIM \
+            or S < 0:
+        raise ValueError("flash_rows_plan: B %d, H %d, T %d, S %d, d %d out "
+                         "of range" % (B, H, T, S, d))
+    chunk = decode_split.CHUNK
+    n_chunks = max(1, -(-S // chunk))
+    per = decode_split.items_per_split(B * H, n_chunks, chunk, n_sm)
+    smem = decode_split.smem_bytes(d, decode_split.rows_for(T))
+    decode_split.check_smem("flash_rows_plan", smem, smem_limit)
+    return {"splits": -(-n_chunks // per), "keys_per_split": per * chunk,
+            "threads": decode_split.THREADS, "smem": smem}
+
+
+def flash_plan(B, H, T, S, d, n_sm, smem_limit):
+    """The forward kernel's launch plan for q ``[B, H, T, d]`` over S keys
+    on a card with ``n_sm`` SMs: ``{"block_q": 4 | 32 | 64, "blocks",
+    "threads"}``. For T <= 4 (decode and verify) the rows path
+    (``block_q`` 4) with the key split of :func:`flash_rows_plan`, whose
+    ``splits``, ``keys_per_split`` and ``smem`` the plan carries, a block
+    per (split, head, batch); else 64-row register-blocked tiles, or
+    32-row ones where 64-row tiles would give fewer blocks than SMs (the
+    encoder's one sequence), a block per (query tile, head, batch)."""
+    if T <= ROWS_T:
+        rows = flash_rows_plan(B, H, T, S, d, n_sm, smem_limit)
+        return dict(rows, block_q=4, blocks=B * H * rows["splits"])
+    if B * H * -(-T // 64) < n_sm:
         bq, threads = 32, 128
     else:
         bq, threads = 64, 256
     return {"block_q": bq, "blocks": B * H * -(-T // bq), "threads": threads}
+
+
+def kernel_flash_rows_layout(T, d):
+    """``(threads, smem)`` of csrc/flash_fwd.cu's rows block for T <= 4
+    query rows at head dim ``d`` (its ``paddle_flash_rows_layout``; host
+    code: needs the built library, not a card), or None where the kernel
+    refuses them."""
+    fn = library().paddle_flash_rows_layout
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    threads, smem = ctypes.c_int(0), ctypes.c_int(0)
+    rc = fn(T, d, ctypes.byref(threads), ctypes.byref(smem))
+    return None if rc else (threads.value, smem.value)
 
 
 BWD_KERNELS = ("dkv", "dq")  # the index is the kernel's number in C
@@ -224,16 +269,24 @@ def flash_forward(q, k, v, kv_mask=None, causal=False, sm_scale=None,
                                    kv_group, window)
     _check(q, k, v, kv_mask, kv_group)
     B, H, T, d = q.shape
+    S = int(k.shape[2])
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return out, lse
+    plan = flash_plan(B, H, T, S, d, *device_limits(q.device))
+    splits = plan.get("splits", 1)
+    # the rows path's split partials (m, l, acc) per row, merged by the
+    # kernel's second launch
+    part = (torch.empty(B * H * splits * T * (d + 2), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
     FLASH_FWD.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         kv_mask.data_ptr() if kv_mask is not None else None,
-        out.data_ptr(), lse.data_ptr(), B, H, int(k.shape[1]), T,
-        int(k.shape[2]), d, float(sm_scale), int(bool(causal)), window,
-        flash_plan(B, H, T, device_limits(q.device)[0])["block_q"],
+        out.data_ptr(), lse.data_ptr(),
+        part.data_ptr() if part is not None else None, B, H,
+        int(k.shape[1]), T, S, d, float(sm_scale), int(bool(causal)),
+        window, plan["block_q"], splits, plan.get("keys_per_split", 0),
         torch.cuda.current_stream(q.device).cuda_stream,
         key=(T, bool(causal)))
     return out, lse

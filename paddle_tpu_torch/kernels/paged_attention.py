@@ -22,10 +22,12 @@ The JAX package's once-per-process switch of the tree kernel to its
 reference (``_trip_tree_fallback``, paged_attention.py:110, and the
 ``try/except`` at :510-518) is deliberately not carried over either.
 
-``paged_plan`` chooses the decode kernel's split of each slot's pages
-across blocks from static shapes only (never from ``lengths``, which
-only the device reads), so a call needs no host sync and a CUDA graph
-can hold it.
+``paged_plan`` and ``tree_plan`` choose the two kernels' split of each
+slot's pages across blocks from static shapes only (never from
+``lengths`` or ``base_lens``, which only the device reads), so a call
+needs no host sync and a CUDA graph can hold it. The tree kernel runs on
+the split-KV core of ``csrc/decode_split.cuh`` (plan helpers in
+``kernels/decode_split.py``), which carries the decode kernel's design.
 
 ``paged_kv_write``, ``paged_kv_write_block`` and ``paged_kv_compact``
 update the pools IN PLACE (the JAX versions return new pools): the
@@ -37,6 +39,7 @@ import ctypes
 
 import torch
 
+from paddle_tpu_torch.kernels import decode_split
 from paddle_tpu_torch.kernels.build import Kernel, device_limits, library
 
 NEG_INF = -1e30
@@ -50,12 +53,10 @@ PAGED_DECODE = Kernel("paddle_paged_decode_f32", [ctypes.c_void_p] * 7 + [
 PAGED_THREADS = 128
 PAGED_CHUNK = 32
 BLOCKS_PER_SM = 4   # blocks of a decode call the plan aims at per SM
-TREE_DECODE = Kernel("paddle_tree_decode_f32", [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-])
+# q, pools, table, base_lens, anc, out, part; S, H, N, ps, dh, npp,
+# max_len, splits, pps; sm_scale; stream
+TREE_DECODE = Kernel("paddle_tree_decode_f32", [ctypes.c_void_p] * 8 + [
+    ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def pages_for(length, page_size):
@@ -90,6 +91,27 @@ def paged_plan(S, H, npp, ps, dh, n_sm, smem_limit):
                 threads=PAGED_THREADS, smem=smem)
 
 
+def tree_plan(S, H, N, npp, ps, dh, n_sm, smem_limit):
+    """The ``tree_decode`` kernel's split of each slot's ``npp`` pages
+    (of ``ps`` keys) across blocks, from static shapes only (never from
+    ``base_lens``): ``paged_plan``'s rule over the S x H pairs with
+    ``decode_split.BLOCKS_PER_SM`` blocks an SM (one split at the verify
+    shape), each block carrying the N nodes of its slot, 8 at most a
+    walk. Also ``threads`` and ``smem`` (bytes a block: the core's for
+    ``decode_split.rows_for(N)`` rows, plus the slot's N x N node mask
+    rounded up to 16 bytes), which ``chip_smoke.py`` holds to the
+    kernel's own (``paddle_tree_layout``)."""
+    if min(S, H, N, npp, ps, dh) < 1 or dh > MAX_HEAD_DIM:
+        raise ValueError("tree_plan: S %d, H %d, N %d, npp %d, page_size "
+                         "%d, dh %d out of range" % (S, H, N, npp, ps, dh))
+    pps = decode_split.items_per_split(S * H, npp, ps, n_sm)
+    smem = (decode_split.smem_bytes(dh, decode_split.rows_for(N))
+            + -(-N * N // 16) * 16)
+    decode_split.check_smem("tree_plan", smem, smem_limit)
+    return dict(splits=-(-npp // pps), pages_per_split=pps,
+                threads=decode_split.THREADS, smem=smem)
+
+
 def kernel_paged_layout(dh):
     """``(threads, smem)`` of csrc/paged_decode.cu's block at head dim
     ``dh`` (its ``paddle_paged_layout``; host code: needs the built
@@ -99,6 +121,19 @@ def kernel_paged_layout(dh):
     fn.restype = ctypes.c_int
     out = [ctypes.c_int(0) for _ in range(2)]
     rc = fn(dh, *[ctypes.byref(o) for o in out])
+    return None if rc else tuple(o.value for o in out)
+
+
+def kernel_tree_layout(dh, N):
+    """``(threads, smem)`` of csrc/tree_decode.cu's block at head dim
+    ``dh`` and ``N`` nodes (its ``paddle_tree_layout``; host code: needs
+    the built library, not a card), or None where the kernel refuses
+    them."""
+    fn = library().paddle_tree_layout
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int(0) for _ in range(2)]
+    rc = fn(dh, N, *[ctypes.byref(o) for o in out])
     return None if rc else tuple(o.value for o in out)
 
 
@@ -305,11 +340,19 @@ def paged_tree_attention(q, k_pool, v_pool, page_table, base_lens, anc,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    ps, npp = int(k_pool.shape[2]), int(page_table.shape[1])
+    plan = tree_plan(S, H, N, npp, ps, dh, *device_limits(q.device))
+    splits = plan["splits"]
+    # the splits' partials (m, l, acc) per node, merged by the kernel's
+    # second launch
+    part = (torch.empty(S * H * splits * N * (dh + 2), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
     TREE_DECODE.launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_table.data_ptr(), base_lens.data_ptr(), anc.data_ptr(),
-        out.data_ptr(), S, H, N, int(k_pool.shape[2]), dh,
-        int(page_table.shape[1]), int(max_length), float(sm_scale),
+        out.data_ptr(), part.data_ptr() if part is not None else None,
+        S, H, N, ps, dh, npp, int(max_length), splits,
+        plan["pages_per_split"], float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     return out
 

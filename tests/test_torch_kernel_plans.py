@@ -19,8 +19,17 @@ Python: no card, no JAX).
 - ``paged_attention.paged_plan`` (B4): the splits cover every page of a
   slot exactly once, none empty; shared memory within the limit; a
   function of static shapes only (no lengths among its parameters).
-- ``flash_attention.flash_plan`` (B1): the 4-row path for T <= 4, the
-  32-row tile where 64-row tiles would leave SMs idle, else 64 rows.
+- ``paged_attention.tree_plan`` (B5): the same invariants as
+  ``paged_plan`` (no bases among its parameters), shared memory within
+  the limit at every head dim for 1, 4 and 8 nodes, the plan at the
+  verify shape as a literal.
+- ``flash_attention.flash_plan`` (B1): the rows path for T <= 4 (with
+  the key split of ``flash_rows_plan``), the 32-row tile where 64-row
+  tiles would leave SMs idle, else 64 rows.
+- ``flash_attention.flash_rows_plan`` (B1 at T <= 4): the splits cover
+  every key once, none empty, a multiple of the 32-key chunk; shared
+  memory within the limit; no key mask or lengths among its parameters;
+  the plans at the decode and verify shapes as literals.
 - ``flash_attention.flash_bwd_plan`` (B2, B3): the blocks tile every key
   row (B2) and query row (B3) of every head and batch once; tile rows a
   multiple of 16, shared memory within 232,448 bytes; 64-row tiles at
@@ -284,10 +293,12 @@ def test_paged_plan_reads_static_shapes_only():
     (64, 8, 256, 64), (33, 4, 65, 64),                # enough: 64 rows
 ])
 def test_flash_tile_choice(B, H, T, want):
-    plan = tfa.flash_plan(B, H, T, H100_SMS)
+    plan = tfa.flash_plan(B, H, T, 256, 64, H100_SMS, H100_SMEM)
     assert plan["block_q"] == want
     assert plan["threads"] == (128 if want in (4, 32) else 256)
-    assert plan["blocks"] == B * H * -(-T // want)
+    # the rows path: a block per (key split, head, batch)
+    assert plan["blocks"] == B * H * (plan["splits"] if want == 4
+                                      else -(-T // want))
 
 
 def test_flash_small_tile_exactly_where_64_row_tiles_leave_sms_idle():
@@ -295,8 +306,113 @@ def test_flash_small_tile_exactly_where_64_row_tiles_leave_sms_idle():
         for B, H, T in itertools.product((1, 2, 4, 16), (1, 8), (5, 64, 65,
                                                                256, 300)):
             idle = B * H * -(-T // 64) < n_sm
-            assert tfa.flash_plan(B, H, T, n_sm)["block_q"] == \
+            assert tfa.flash_plan(B, H, T, 256, 64, n_sm,
+                                  H100_SMEM)["block_q"] == \
                 (32 if idle else 64)
+
+
+def _covers_once(n_items, splits, per):
+    """Splits of ``per`` items each cover items 0..n_items - 1 exactly
+    once, none of them empty."""
+    seen = [0] * n_items
+    for sp in range(splits):
+        items = range(sp * per, min(n_items, (sp + 1) * per))
+        assert len(items) > 0
+        for i in items:
+            seen[i] += 1
+    return seen == [1] * n_items
+
+
+# (S, H, N, npp, page_size, dh): the verify shape, a draft of 1 and 8
+# nodes, 19 nodes (three walks), page sizes 1 and 4, head dims 1..128
+TREE_SHAPES = [
+    (32, 8, 4, 16, 16, 64), (8, 2, 4, 16, 16, 64), (4, 2, 1, 16, 16, 64),
+    (4, 2, 8, 16, 16, 64), (3, 2, 19, 16, 16, 64), (5, 2, 4, 8, 4, 16),
+    (4, 2, 4, 40, 1, 64), (4, 3, 4, 16, 16, 40), (4, 2, 4, 16, 16, 128),
+    (1, 1, 1, 1, 1, 1), (64, 16, 8, 128, 16, 128),
+]
+
+
+@pytest.mark.parametrize("S,H,N,npp,ps,dh", TREE_SHAPES)
+@pytest.mark.parametrize("n_sm", [132, 16])
+def test_tree_splits_cover_every_page_once(S, H, N, npp, ps, dh, n_sm):
+    plan = tpa.tree_plan(S, H, N, npp, ps, dh, n_sm, H100_SMEM)
+    n, pps = plan["splits"], plan["pages_per_split"]
+    assert _covers_once(npp, n, pps)
+    assert plan["threads"] == 128
+    assert 0 < plan["smem"] <= H100_SMEM
+    if n > 1:
+        assert pps * ps >= 2 * tpa.PAGED_CHUNK
+    # B4's rule with its own aim: never more splits than B4's
+    assert n <= tpa.paged_plan(S, H, npp, ps, dh, n_sm, H100_SMEM)["splits"]
+
+
+def test_tree_plan_reads_static_shapes_only():
+    assert list(inspect.signature(tpa.tree_plan).parameters) == [
+        "S", "H", "N", "npp", "ps", "dh", "n_sm", "smem_limit"]
+    # the verify dispatch: 32 slots, 8 heads, 4 nodes, 16 pages of 16:
+    # one split; three stages of 32 K and V rows of 64, the scores and
+    # sums of 4 rows, a 16-byte node mask
+    assert tpa.tree_plan(32, 8, 4, 16, 16, 64, H100_SMS, H100_SMEM) == {
+        "splits": 1, "pages_per_split": 16, "threads": 128, "smem": 49744}
+    # a few slots: split over the SMs
+    assert tpa.tree_plan(4, 2, 4, 16, 16, 64, H100_SMS, H100_SMEM)[
+        "splits"] == 4
+    with pytest.raises(ValueError):
+        tpa.tree_plan(32, 8, 4, 16, 16, 64, H100_SMS, 16 * 1024)
+    for dh in range(1, 129):
+        for N in (1, 4, 8):
+            assert tpa.tree_plan(32, 8, N, 16, 16, dh, H100_SMS,
+                                 H100_SMEM)["smem"] <= H100_SMEM
+
+
+# (B, H, T, S, d): decode and verify at the serving shape, S off the
+# chunk, S of 1 and 0, many splits for one (batch, head), head dims 1..128
+ROWS_SHAPES = [
+    (32, 8, 1, 256, 64), (32, 8, 4, 256, 64), (32, 8, 3, 77, 64),
+    (2, 4, 4, 160, 16), (5, 2, 1, 70, 128), (1, 1, 1, 1, 1),
+    (1, 8, 2, 4096, 64), (64, 16, 4, 300, 33), (3, 4, 1, 0, 64),
+    (2, 8, 4, 100, 64),
+]
+
+
+@pytest.mark.parametrize("B,H,T,S,d", ROWS_SHAPES)
+@pytest.mark.parametrize("n_sm", [132, 16])
+def test_flash_rows_splits_cover_every_key_once(B, H, T, S, d, n_sm):
+    plan = tfa.flash_rows_plan(B, H, T, S, d, n_sm, H100_SMEM)
+    n, kps = plan["splits"], plan["keys_per_split"]
+    assert kps > 0 and kps % 32 == 0
+    assert _covers_once(S, n, kps) if S else n == 1
+    assert plan["threads"] == 128
+    assert 0 < plan["smem"] <= H100_SMEM
+    if n > 1:
+        assert kps >= 2 * 32
+    full = tfa.flash_plan(B, H, T, S, d, n_sm, H100_SMEM)
+    assert full["block_q"] == 4 and full["blocks"] == B * H * n
+    assert {k: full[k] for k in plan} == plan
+
+
+def test_flash_rows_plan_reads_static_shapes_only():
+    assert list(inspect.signature(tfa.flash_rows_plan).parameters) == [
+        "B", "H", "T", "S", "d", "n_sm", "smem_limit"]
+    # decode and verify cross-attention: 32 slots, 8 heads, 256 keys, one
+    # split; three stages of 32 K and V rows of 64, the scores and sums of
+    # 1 or 4 rows
+    assert tfa.flash_rows_plan(32, 8, 1, 256, 64, H100_SMS, H100_SMEM) == {
+        "splits": 1, "keys_per_split": 256, "threads": 128, "smem": 49296}
+    assert tfa.flash_rows_plan(32, 8, 4, 256, 64, H100_SMS, H100_SMEM) == {
+        "splits": 1, "keys_per_split": 256, "threads": 128, "smem": 49728}
+    # one sequence: split over the SMs, two chunks a split
+    assert tfa.flash_rows_plan(1, 8, 1, 256, 64, H100_SMS, H100_SMEM) == {
+        "splits": 4, "keys_per_split": 64, "threads": 128, "smem": 49296}
+    with pytest.raises(ValueError):
+        tfa.flash_rows_plan(32, 8, 5, 256, 64, H100_SMS, H100_SMEM)
+    with pytest.raises(ValueError):
+        tfa.flash_rows_plan(32, 8, 1, 256, 64, H100_SMS, 16 * 1024)
+    for d in range(1, 129):
+        for T in range(1, 5):
+            assert tfa.flash_rows_plan(32, 8, T, 256, d, H100_SMS,
+                                       H100_SMEM)["smem"] <= H100_SMEM
 
 
 # (B, H, Hkv, T, S, d): the train step's shape, decode and verify's T,

@@ -12,6 +12,15 @@ order); the dead slot is exactly 0. ``paged_kv_write_block`` and
 ``paged_kv_compact`` move rows and do no arithmetic, so they are compared
 bit for bit (outside the trash page 0, where several writers land and
 which one survives is unspecified).
+
+The CUDA kernel's split-KV arithmetic (csrc/tree_decode.cu on the core
+of csrc/decode_split.cuh: the splits of ``tree_plan``, 32-key chunks
+scored for all N nodes, an online softmax in the exp2 domain in which a
+hidden key gives p = 0, partials ``(m, l, acc)`` per split and node,
+then the merge) is written out here as torch ops and held against the
+JAX Pallas kernel in interpret mode at the same 2e-6: finished slots,
+branched masks, 1, 4 and 8 nodes, splits wholly past a slot's scan and
+a tree that straddles ``max_length``.
 """
 
 import jax.numpy as jnp
@@ -21,9 +30,11 @@ import torch
 
 from paddle_tpu.kernels import paged_attention as jpa
 from paddle_tpu.serving.speculative import chain_tree, tree_from_parents
+from paddle_tpu_torch.kernels import decode_split
 from paddle_tpu_torch.kernels import paged_attention as tpa
 
 TOL = 2e-6
+LOG2E = 1.4426950408889634
 
 
 def _pools(rng, S, H, dh, ps, npp, lengths):
@@ -121,6 +132,100 @@ def test_branch_isolation():
     out3 = _torch(tpa.paged_tree_attention_plain,
                   (q, kp3, vp3, table, base, anc), **kw)
     assert np.abs(out3[1, :, 2] - out[1, :, 2]).max() > 1e-4
+
+
+def _tree_split_merge(q, kp, vp, table, base, anc, plan, sm_scale,
+                      max_length):
+    """csrc/tree_decode.cu's arithmetic as torch ops: per (slot, head,
+    split) the keys of the split's pages below the slot's scan,
+    min(base + N, max_length), in chunks of ``decode_split.CHUNK``, each
+    scored for all N nodes; an online softmax of the exp2-domain scores
+    per node with p = 0 for a hidden key (a split without a visible key:
+    m = -1e30, l = 0, acc = 0); then the merge with weights
+    exp2(m_i - M), exactly 0 where M <= -1e29."""
+    S, H, N, dh = q.shape
+    ps, npp = kp.shape[2], table.shape[1]
+    splits, pps = plan["splits"], plan["pages_per_split"]
+    out = torch.zeros(S, H, N, dh)
+    for s in range(S):
+        b = int(base[s])
+        scan = 0 if b < 0 else min(b + N, max_length, npp * ps)
+        t = torch.arange(scan)
+        keys = kp[table[s, t // ps], :, t % ps]           # [scan, H, dh]
+        vals = vp[table[s, t // ps], :, t % ps]
+        tj = t - b
+        in_tree = (tj >= 0) & (tj < N) & (t < max_length)
+        vis = (tj < 0)[None, :] | (in_tree[None, :]
+                                   & (anc[s][:, tj.clamp(0, N - 1)] > 0))
+        for h in range(H):
+            parts = []
+            for sp in range(splits):
+                m = torch.full((N,), tpa.NEG_INF)
+                l = torch.zeros(N)
+                acc = torch.zeros(N, dh)
+                lo, hi = sp * pps * ps, min(scan, (sp + 1) * pps * ps)
+                for c0 in range(lo, hi, decode_split.CHUNK):
+                    c1 = min(hi, c0 + decode_split.CHUNK)
+                    v = vis[:, c0:c1]
+                    sc = (q[s, h] * sm_scale * LOG2E) @ keys[c0:c1, h].T
+                    sc = torch.where(v, sc, torch.tensor(tpa.NEG_INF))
+                    m_new = torch.maximum(m, sc.max(dim=1).values)
+                    alpha = torch.exp2(m - m_new)
+                    p = torch.where(v, torch.exp2(sc - m_new[:, None]),
+                                    torch.tensor(0.0))
+                    l = l * alpha + p.sum(dim=1)
+                    acc = acc * alpha[:, None] + p @ vals[c0:c1, h]
+                    m = m_new
+                parts.append((m, l, acc))
+            big_m = torch.stack([pm for pm, _, _ in parts]).max(dim=0).values
+            w = [torch.exp2(pm - big_m) for pm, _, _ in parts]
+            l_all = sum(pl * wi for (_, pl, _), wi in zip(parts, w))
+            a_all = sum(pa * wi[:, None] for (_, _, pa), wi in zip(parts, w))
+            merged = a_all / l_all.clamp(min=1e-30)[:, None]
+            out[s, h] = torch.where((big_m <= tpa.MASKED_ROW_M)[:, None],
+                                    torch.tensor(0.0), merged)
+    return out
+
+
+def _split_case(N, bases, max_length, seed):
+    """Pools of 40 pages of 4 keys (two splits of 80 keys under
+    ``tree_plan``) and a branched or chain tree per slot."""
+    S, H, dh, ps, npp = len(bases), 2, 16, 4, 40
+    base = np.array(bases, "int64")
+    rng = np.random.RandomState(seed)
+    q = rng.randn(S, H, N, dh).astype("float32")
+    kp, vp, table = _pools(rng, S, H, dh, ps, npp,
+                           np.minimum(np.maximum(base, 0) + N, npp * ps))
+    anc = np.stack([
+        chain_tree(N - 1)[1] if s % 2 else tree_from_parents(
+            [-1] + [int(rng.randint(0, i)) for i in range(1, N)])
+        for s in range(S)]).astype("int64")
+    return (q, kp, vp, table, base, anc), max_length
+
+
+@pytest.mark.parametrize("N,bases,max_length", [
+    (4, [7, 0, 100, 150, -1], 160),     # slots 0, 1: split 2 past the scan
+    (1, [0, 79, 80, -1, 159], 160),     # scans ending on the split boundary
+    (8, [3, -1, 75, 152, 60], 158),     # trees across the split and max_len
+])
+def test_split_merge_arithmetic_matches_jax_pallas(N, bases, max_length):
+    args, max_length = _split_case(N, bases, max_length, seed=N + 20)
+    q, kp, vp, table, base, anc = args
+    S, H, _, dh = q.shape
+    plan = tpa.tree_plan(S, H, N, table.shape[1], kp.shape[2], dh, 132,
+                         232448)
+    assert plan["splits"] == 2
+    span = plan["pages_per_split"] * kp.shape[2]
+    # some live slot's second split lies wholly past its scan
+    assert any(0 <= b and b + N <= span for b in bases)
+    want = _jax(jpa.paged_tree_attention, args, force_pallas=True,
+                max_length=max_length)
+    got = _tree_split_merge(*[torch.from_numpy(np.array(a)) for a in args],
+                            plan, dh ** -0.5, max_length).numpy()
+    assert np.isfinite(got).all()
+    dead = base < 0
+    assert np.abs(got[dead]).max() == 0.0
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
 
 
 def _writer_case(seed):
