@@ -114,13 +114,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``dynamic_gru`` (6 gru_cell launches per step), runs 5 steps of the
    machine-translation graph at ``build()``'s defaults (4 lstm_cell
    launches per step), and compares the stacked LSTM's predictions (1e-4)
-   and 3 train losses (1e-3) on the card and on the CPU.
+   and 3 train losses (1e-3) on the card and on the CPU;
+11. the predictor: saved programs served through
+   ``create_paddle_predictor``. After step 9, (a) the committed
+   ``tests/golden/mnist_saved_model`` (written by the JAX package) on the
+   card, within 2e-4 / 2e-5 of its ``io_pin.npz`` and 1e-4 of the CPU
+   predictor; (b) Transformer-base's ``build_inference`` program
+   (``set_deterministic_params`` weights) saved by the port and loaded
+   into a ``Predictor``: a batch of 16 sources of lengths 16..256 whose
+   logits equal the in-session ``Executor.run``'s and lie within 1e-3
+   of the CPU predictor's (first 4 rows), 20 timed runs (ms per run,
+   sequences/s, 18 flash_fwd launches a run, counted with every count
+   reset just before), one profiled run, the host copy of the logits
+   timed four ways, ``run_async(...).result()`` and 4 ``clone()`` threads
+   x 5 runs equal to ``run`` (and 18 launches a run counted across the
+   threads), 8 greedy positions over the loaded program equal to the
+   session's. In step 10, (c) the trained stacked LSTM's and GRU's
+   inference programs saved and served through ``NativeConfig`` and
+   ``AnalysisConfig`` (the fusion passes): predictions within 1e-5 of
+   each other, 3 launches of the cell's kernel a run, predictions/s.
 
 A line of its own before the last holds the kernels' JSON record (for
 flash_fwd, the backward pair, paged_decode (full occupancy and the
 serving mix of lengths) and lstm_cell also every timed shape: ms,
 bound, plain and library ms, and the main path's launches at that
-shape); the
+shape; flash_fwd's predictor runs have a row of their own); the
 last line is ``{"ok": true, "device": {...}}``. Any failure exits nonzero
 before that line. The script needs one CUDA card and the rest of the
 repository beside it: without either it fails at once.
@@ -178,6 +196,21 @@ MT_BATCH, MT_SEQ, MT_STEPS = 32, 32, 5   # machine_translation.build()
 RNN_TOL = 1e-4       # fp32 sums of D terms in another order, over T steps
 RNN_CVC_BATCH = 4
 RNN_PRED_TOL = 1e-4  # card against CPU stacked-LSTM predictions
+
+# the predictor: saved programs served through create_paddle_predictor
+MNIST_DIR = os.path.join(HERE, "tests", "golden", "mnist_saved_model")
+PIN_RTOL, PIN_ATOL = 2e-4, 2e-5   # the JAX package's test of the pin
+MNIST_CPU_TOL = 1e-4
+PRED_BATCH, PRED_RUNS = 16, 20           # Transformer-base inference
+PRED_CLONES, PRED_CLONE_RUNS = 4, 5
+PRED_FLASH_PER_RUN = 3 * N_LAYER  # encoder self, decoder self, cross
+PRED_CVC_ROWS = 4                 # rows held against the CPU predictor
+GREEDY_BATCH, GREEDY_STEPS = 4, 8
+PRED_FUSED_TOL = 1e-5   # AnalysisConfig against NativeConfig predictions
+# stacked-RNN predictor timing: the two configs alternate, PRED_RNN_ROUNDS
+# windows of PRED_RNN_RUNS runs each (about a second a config at 3-5 ms a
+# run), so the host's spread shows between windows of one config
+PRED_RNN_ROUNDS, PRED_RNN_RUNS = 2, 150
 
 
 def kernel_symbol(line):
@@ -2743,6 +2776,259 @@ def rnn_card_vs_cpu_phase(np, torch, fluid, exe):
     return err
 
 
+# -- the predictor: saved programs served through create_paddle_predictor ------
+
+def mnist_predictor_phase(np):
+    """The committed saved model (the JAX package's PTPB ``__model__``
+    and ``.npy`` parameters) through ``create_paddle_predictor`` on the
+    card, against its ``io_pin.npz`` and the CPU predictor."""
+    from paddle_tpu_torch.inference import (
+        NativeConfig,
+        create_paddle_predictor,
+    )
+
+    pin = np.load(os.path.join(MNIST_DIR, "io_pin.npz"))
+    feed = {"pixel": pin["feed_pixel"]}
+    (got,) = create_paddle_predictor(NativeConfig(MNIST_DIR)).run(feed)
+    (cpu,) = create_paddle_predictor(
+        NativeConfig(MNIST_DIR, use_tpu=False)).run(feed)
+    pin_err = float(np.abs(got - pin["expected"]).max())
+    cpu_err = float(np.abs(got - cpu).max())
+    print("predictor mnist: committed saved model on the card, output %s: "
+          "max abs diff to io_pin.npz %.3e (rtol %.0e, atol %.0e), to the "
+          "CPU predictor %.3e (tol %.0e)"
+          % (list(got.shape), pin_err, PIN_RTOL, PIN_ATOL, cpu_err,
+             MNIST_CPU_TOL))
+    if not np.allclose(got, pin["expected"], rtol=PIN_RTOL, atol=PIN_ATOL):
+        fail("the committed MNIST model on the card misses its pin")
+    if not cpu_err <= MNIST_CPU_TOL:
+        fail("the MNIST predictor on the card and on the CPU disagree")
+
+
+def predictor_feed(np, batch):
+    """A batch of sources with lengths uniform in 16..256 and teacher-
+    forced targets, the three feeds of the inference program."""
+    rng = np.random.RandomState(SEED + 3)
+    lens = rng.randint(16, MAX_LEN + 1, (batch, 1))
+    src = rng.randint(3, VOCAB, (batch, MAX_LEN))
+    src[np.arange(MAX_LEN)[None, :] >= lens] = EOS
+    trg = np.concatenate([np.ones((batch, 1), "int64"),
+                          src[:, :-1]], axis=1)
+    return {"src_word": src.astype("int64"), "src_len": lens.astype("int64"),
+            "trg_word": trg.astype("int64")}
+
+
+def transformer_predictor_phase(np, torch, fluid, exe, kernels):
+    """Transformer-base's inference program (``build_inference``), saved
+    by the port and served by ``Predictor`` from a fresh scope: logits
+    equal to the in-session run's, within 1e-3 of the CPU predictor's;
+    20 timed runs with 3 x n_layer flash_fwd launches each; clones on 4
+    threads and ``run_async`` equal to ``run``; greedy tokens over the
+    loaded program equal to the session's. Returns the timed runs'
+    launches."""
+    import tempfile
+    import threading
+
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.inference import (
+        NativeConfig,
+        create_paddle_predictor,
+    )
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.testing import set_deterministic_params
+
+    main, startup = fluid.Program(), fluid.Program()
+    with unique_name.guard({}), fluid.program_guard(main, startup):
+        _, _, extras = transformer.build(
+            src_vocab_size=VOCAB, trg_vocab_size=VOCAB, max_length=MAX_LEN,
+            n_layer=N_LAYER, n_head=N_HEAD, d_model=D_MODEL,
+            d_inner=D_INNER, dropout=DROPOUT, label_smooth_eps=LABEL_SMOOTH)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    set_deterministic_params(main, scope)
+    logits = extras["logits"]
+    infer = transformer.build_inference(main, logits)
+    feed = predictor_feed(np, PRED_BATCH)
+    (ref,) = exe.run(infer, feed=feed, fetch_list=[logits], scope=scope)
+    src = feed["src_word"][:GREEDY_BATCH]
+    src_len = feed["src_len"][:GREEDY_BATCH]
+    want_tokens = transformer.greedy_generate(
+        exe, infer, logits.name, src, src_len, GREEDY_STEPS + 1, scope=scope)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        fluid.io.save_inference_model(tmp, list(feed), [logits], exe,
+                                      main_program=infer, scope=scope)
+        save_s = time.perf_counter() - t0
+        scope = main = None
+        t0 = time.perf_counter()
+        pred = create_paddle_predictor(NativeConfig(tmp))
+        load_s = time.perf_counter() - t0
+        cpu = create_paddle_predictor(NativeConfig(tmp, use_tpu=False))
+        loaded_scope = fluid.Scope()
+        loaded, _, fetch_vars = fluid.io.load_inference_model(
+            tmp, exe, scope=loaded_scope)
+        size_mb = sum(os.path.getsize(os.path.join(tmp, f))
+                      for f in os.listdir(tmp)) / 2 ** 20
+    print("predictor transformer: build_inference program of %d ops saved "
+          "(%.0f MiB) in %.2f s, loaded into a Predictor in %.2f s"
+          % (len(infer.global_block().ops), size_mb, save_s, load_s))
+    (got,) = pred.run(feed)
+    if got.shape != (PRED_BATCH, MAX_LEN, VOCAB) or not np.array_equal(
+            got, ref):
+        fail("the Predictor's logits %s differ from the in-session run's "
+             "(max abs diff %.3e)" % (list(got.shape),
+                                      float(np.abs(got - ref).max())))
+    rows = {k: v[:PRED_CVC_ROWS] for k, v in feed.items()}
+    (cpu_logits,) = cpu.run(rows)
+    cpu_err = float(np.abs(ref[:PRED_CVC_ROWS] - cpu_logits).max())
+    print("predictor transformer: batch %d, source lengths %d..%d: logits "
+          "equal to the in-session Executor.run's; first %d rows against "
+          "the CPU predictor: max abs diff %.3e  tol %.0e"
+          % (PRED_BATCH, int(feed["src_len"].min()),
+             int(feed["src_len"].max()), PRED_CVC_ROWS, cpu_err, LOGITS_TOL))
+    if not cpu_err <= LOGITS_TOL:
+        fail("the Predictor's logits on the card and on the CPU disagree")
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.reset()
+    t0 = time.perf_counter()
+    for _ in range(PRED_RUNS):
+        pred.run(feed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts(kernels)
+    print("predictor transformer: %d runs of batch %d x %d: %.2f ms per run, "
+          "%.1f sequences/s (logits [%d, %d, %d] copied to the host each "
+          "run); kernel launches %s"
+          % (PRED_RUNS, PRED_BATCH, MAX_LEN, wall / PRED_RUNS * 1e3,
+             PRED_RUNS * PRED_BATCH / wall, PRED_BATCH, MAX_LEN, VOCAB,
+             json.dumps(launches)))
+    if launches["flash_fwd"] != PRED_FLASH_PER_RUN * PRED_RUNS:
+        fail("flash_fwd launched %d times in %d Predictor runs, expected %d"
+             % (launches["flash_fwd"], PRED_RUNS,
+                PRED_FLASH_PER_RUN * PRED_RUNS))
+    profile_call(torch, "predictor transformer run", lambda: pred.run(feed))
+    t0 = time.perf_counter()
+    handle = pred.run_async(feed)
+    dispatch_ms = (time.perf_counter() - t0) * 1e3
+    (async_out,) = handle.result()
+    print("predictor transformer: run_async returned after %.2f ms; "
+          "result() equal to run: %s" % (dispatch_ms,
+                                         np.array_equal(async_out, ref)))
+    if not handle.done() or not np.array_equal(async_out, ref):
+        fail("run_async(...).result() differs from run")
+    kernels["flash_fwd"].reset()
+    equal, errors = [], []
+
+    def serve():
+        try:
+            clone = pred.clone()
+            for _ in range(PRED_CLONE_RUNS):
+                equal.append(np.array_equal(clone.run(feed)[0], ref))
+        except Exception as e:  # reported below, fails the run
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=serve) for _ in range(PRED_CLONES)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    clone_launches = kernels["flash_fwd"].launches
+    print("predictor transformer: %d clone() threads x %d runs in %.2f s "
+          "(%.1f sequences/s): %d of %d outputs equal to the single run's, "
+          "flash_fwd launches %d" % (
+              PRED_CLONES, PRED_CLONE_RUNS, wall,
+              PRED_CLONES * PRED_CLONE_RUNS * PRED_BATCH / wall, sum(equal),
+              PRED_CLONES * PRED_CLONE_RUNS, clone_launches))
+    if errors or any(t.is_alive() for t in threads):
+        fail("a clone thread failed or hung: %s" % errors)
+    if len(equal) != PRED_CLONES * PRED_CLONE_RUNS or not all(equal):
+        fail("the clones' outputs differ from the single run's")
+    if clone_launches != PRED_FLASH_PER_RUN * PRED_CLONES * PRED_CLONE_RUNS:
+        fail("flash_fwd counted %d launches over the clones' runs, expected "
+             "%d" % (clone_launches,
+                     PRED_FLASH_PER_RUN * PRED_CLONES * PRED_CLONE_RUNS))
+    tokens = transformer.greedy_generate(
+        exe, loaded, fetch_vars[0].name, src, src_len, GREEDY_STEPS + 1,
+        scope=loaded_scope)
+    print("predictor transformer: greedy_generate, %d positions of %d "
+          "sources over the loaded program: tokens equal to the session's: "
+          "%s" % (GREEDY_STEPS, GREEDY_BATCH,
+                  np.array_equal(tokens, want_tokens)))
+    if not np.array_equal(tokens, want_tokens):
+        fail("greedy tokens over the loaded program differ from the "
+             "session's")
+    return launches
+
+
+def rnn_predictor_phase(np, torch, fluid, exe, kernels, cell, scope, infer,
+                        outs, feed):
+    """The trained stacked network's inference program, saved and served
+    through ``NativeConfig`` and ``AnalysisConfig`` on the card:
+    predictions within 1e-5 of each other, stacked_num launches of the
+    cell's kernel per run, predictions/s over windows that alternate
+    between the two configs. Returns the timed runs' launches of the
+    kernel."""
+    import tempfile
+
+    from paddle_tpu_torch.inference import (
+        AnalysisConfig,
+        NativeConfig,
+        create_paddle_predictor,
+    )
+
+    kname = "lstm_cell" if cell == "lstm" else "gru_cell"
+    feed = {"words": feed["words"], "length": feed["length"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        fluid.io.save_inference_model(tmp, list(feed), [outs["predict"]],
+                                      exe, main_program=infer, scope=scope)
+        preds = [("NativeConfig", create_paddle_predictor(NativeConfig(tmp))),
+                 ("AnalysisConfig",
+                  create_paddle_predictor(AnalysisConfig(tmp)))]
+    out, total = {}, 0
+    for name, pred in preds:
+        (out[name],) = pred.run(feed)
+    ms = {name: [] for name, _ in preds}
+    counted = {name: 0 for name, _ in preds}
+    for _ in range(PRED_RNN_ROUNDS):
+        for name, pred in preds:
+            torch.cuda.synchronize()
+            kernels[kname].reset()
+            t0 = time.perf_counter()
+            for _ in range(PRED_RNN_RUNS):
+                pred.run(feed)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) / PRED_RNN_RUNS * 1e3)
+            launches = kernels[kname].launches
+            counted[name] += launches
+            total += launches
+            if launches != RNN_STACK * PRED_RNN_RUNS:
+                fail("%s launched %d times in %d %s runs, expected %d"
+                     % (kname, launches, PRED_RNN_RUNS, name,
+                        RNN_STACK * PRED_RNN_RUNS))
+    for name, pred in preds:
+        types = [op.type for op in pred._program.global_block().ops]
+        mean = sum(ms[name]) / len(ms[name])
+        print("predictor rnn %s %s: %d ops (%d fc, %d fused recurrences), "
+              "%d windows of %d runs of batch %d, alternating with the "
+              "other config: %s ms per run, mean %.3f ms, %.0f "
+              "predictions/s, %s launches %d"
+              % (cell, name, len(types), types.count("fc"),
+                 sum(t.startswith("fusion_") for t in types),
+                 PRED_RNN_ROUNDS, PRED_RNN_RUNS, RNN_BATCH,
+                 " ".join("%.3f" % m for m in ms[name]), mean,
+                 RNN_BATCH / mean * 1e3, kname, counted[name]))
+    err = float(np.abs(out["NativeConfig"] - out["AnalysisConfig"]).max())
+    print("predictor rnn %s: NativeConfig and AnalysisConfig predictions "
+          "max abs diff %.3e  tol %.0e" % (cell, err, PRED_FUSED_TOL))
+    if not err <= PRED_FUSED_TOL:
+        fail("NativeConfig and AnalysisConfig %s predictions disagree"
+             % cell)
+    return total
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "paddle_tpu_torch")):
         fail("paddle_tpu_torch/ is not beside chip_smoke.py: run it from "
@@ -2839,12 +3125,21 @@ def main():
     train_launches = train_phase(np, torch, fluid, exe, KERNELS)
     train_card_vs_cpu_phase(np, torch, fluid, exe)
     torch.cuda.empty_cache()
+    mnist_predictor_phase(np)
+    pred_launches = transformer_predictor_phase(np, torch, fluid, exe,
+                                                KERNELS)
+    torch.cuda.empty_cache()
     lstm_train, scope, infer, outs, feed = rnn_train_phase(
         np, torch, fluid, exe, KERNELS, "lstm")
     lstm_infer = rnn_infer_phase(np, torch, exe, KERNELS, scope, infer, outs,
                                  feed)
+    lstm_pred = rnn_predictor_phase(np, torch, fluid, exe, KERNELS, "lstm",
+                                    scope, infer, outs, feed)
+    gru_train, scope, infer, outs, feed = rnn_train_phase(
+        np, torch, fluid, exe, KERNELS, "gru")
+    gru_pred = rnn_predictor_phase(np, torch, fluid, exe, KERNELS, "gru",
+                                   scope, infer, outs, feed)
     scope = None
-    gru_train = rnn_train_phase(np, torch, fluid, exe, KERNELS, "gru")[0]
     mt_launches = mt_phase(np, torch, fluid, exe, KERNELS)
     rnn_card_vs_cpu_phase(np, torch, fluid, exe)
 
@@ -2915,20 +3210,30 @@ def main():
         launches_of="the serving and speculative runs' request windows; "
         "not timed", ms=None, plain_ms=None, bound_ms=None, bound_by=None,
         library_ms=None))
+    # the saved Transformer-base program's Predictor runs: encoder self
+    # and cross attention with a key mask, decoder self-attention causal
+    flash_shapes.append(dict(
+        row="flash_fwd_predictor", launches=pred_launches["flash_fwd"],
+        shape="q/k/v [%d,%d,%d,%d]: Predictor.run of the saved inference "
+        "program (key mask: encoder self, cross; causal: decoder self)"
+        % (PRED_BATCH, N_HEAD, MAX_LEN, D_MODEL // N_HEAD),
+        launches_of="the predictor phase's %d timed runs; not timed"
+        % PRED_RUNS, ms=None, plain_ms=None, bound_ms=None, bound_by=None,
+        library_ms=None))
     flash_total = (launches["flash_fwd"] + spec_launches["flash_fwd"]
-                   + train_launches["flash_fwd"])
+                   + train_launches["flash_fwd"] + pred_launches["flash_fwd"])
     if sum(r["launches"] for r in flash_shapes) != flash_total:
         fail("flash_fwd's launches by shape class %s do not add up to its "
              "%d launches" % ([r["launches"] for r in flash_shapes],
                               flash_total))
     lstm_shapes = shape_rows(rnn_timing, [
-        ("lstm_cell_D%d" % RNN_HID, lstm_infer + lstm_train),
+        ("lstm_cell_D%d" % RNN_HID, lstm_infer + lstm_train + lstm_pred),
         ("lstm_cell_D%d_full" % RNN_HID, 0),
         ("lstm_cell_D%d" % RNN_PKG_HID, 0),
         ("lstm_cell_D%d_full" % RNN_PKG_HID, 0),
         ("lstm_cell_mt", mt_launches)],
-        "the stacked LSTM's training and inference runs (D 512) or the MT "
-        "steps (the MT shape)")
+        "the stacked LSTM's training, inference and predictor runs (D 512) "
+        "or the MT steps (the MT shape)")
     record = {"kernels": [
         dict(name="flash_fwd", route="cuda",
              source="paddle_tpu_torch/csrc/flash_fwd.cu",
@@ -2966,11 +3271,12 @@ def main():
              bound_ms=timing["tree_decode"]["bound"][0],
              bound_by=timing["tree_decode"]["bound"][1],
              library_ms=None),
-        # the stacked LSTM's inference and training runs and the MT steps
+        # the stacked LSTM's inference, training and predictor runs and
+        # the MT steps
         dict(rnn_record("lstm_cell", "lstm_cell.py", 94,
-                        lstm_infer + lstm_train + mt_launches),
+                        lstm_infer + lstm_train + lstm_pred + mt_launches),
              shapes=lstm_shapes),
-        rnn_record("gru_cell", "gru_cell.py", 55, gru_train),
+        rnn_record("gru_cell", "gru_cell.py", 55, gru_train + gru_pred),
     ]}
     print(card)
     print(json.dumps(record))

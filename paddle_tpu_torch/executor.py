@@ -15,9 +15,14 @@ tensor object throughout. Every other variable leaves the run's
 environment after the last op that uses it, unless it is fetched or
 written back (``BlockLowerer.release_plan``): a Transformer train step
 holds each activation only until its grad op has read it.
+
+``run_async`` returns a ``FetchHandle`` right after the ops are queued on
+the card: a CUDA event recorded behind them tells ``done()`` and
+``result(timeout=...)`` when the fetches are ready.
 """
 
 import contextlib
+import time
 
 import numpy as np
 import torch
@@ -46,7 +51,78 @@ def scope_guard(scope):
 
 
 def _to_numpy(t):
-    return t.detach().cpu().numpy()
+    """A numpy array the caller owns: the host copy of a card tensor, or
+    a copy of a CPU tensor (which may be a scope value that a later run
+    writes in place)."""
+    t = t.detach()
+    return t.cpu().numpy() if t.device.type != "cpu" else t.numpy().copy()
+
+
+class FetchTimeoutError(RuntimeError):
+    """``FetchHandle.result(timeout=...)`` expired before the fetches were
+    ready. The handle is untouched: a later ``result()`` still returns
+    the values (the caller rejects the request, not the computation)."""
+
+    def __init__(self, timeout, fetch_names):
+        super(FetchTimeoutError, self).__init__(
+            "async fetch of %s did not materialize within %.3fs"
+            % (list(fetch_names), timeout))
+        self.timeout = timeout
+        self.fetch_names = list(fetch_names)
+
+
+class FetchHandle(object):
+    """The fetches of one ``Executor.run_async`` dispatch
+    (executor.py:158 parity).
+
+      ``arrays()``             the fetched tensors (no wait)
+      ``done()``               True once the card has computed them
+      ``block_until_ready()``  wait for the card, no copy
+      ``result()``             numpy values (waits; memoized), equal to
+                               ``run(...)``'s bit for bit
+      ``result(timeout=s)``    the same, or :class:`FetchTimeoutError`
+                               if they are not ready within ``s`` seconds
+
+    ``event`` is a ``torch.cuda.Event`` recorded on the dispatching
+    stream after the last op; None (CPU) means done at once.
+    """
+
+    def __init__(self, tensors, fetch_names, event=None):
+        self._tensors = list(tensors)
+        self.fetch_names = list(fetch_names)
+        self._event = event
+        self._numpy = None
+
+    def __len__(self):
+        return len(self._tensors)
+
+    def arrays(self):
+        return list(self._tensors)
+
+    def done(self):
+        return self._event is None or self._event.query()
+
+    def block_until_ready(self):
+        if self._event is not None:
+            self._event.synchronize()
+        return self
+
+    def result(self, timeout=None):
+        if self._numpy is None and timeout is not None:
+            # poll, never block: a wait with no bound would make the
+            # timeout a lie exactly when the card is stuck
+            deadline = time.monotonic() + float(timeout)
+            pause = 5e-4
+            while not self.done():
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise FetchTimeoutError(float(timeout),
+                                            self.fetch_names)
+                time.sleep(min(pause, remaining))
+                pause = min(pause * 2, 0.05)
+        if self._numpy is None:
+            self._numpy = [_to_numpy(t) for t in self._tensors]
+        return self._numpy
 
 
 class Executor(object):
@@ -153,9 +229,8 @@ class Executor(object):
             fetches.append(env[n])
         return env, fetches
 
-    def run(self, program=None, feed=None, fetch_list=None,
-            feed_var_name="feed", fetch_var_name="fetch", scope=None,
-            return_numpy=True, use_program_cache=True):
+    def _run(self, program, feed, fetch_list, scope):
+        """Queue one run's ops; returns (fetch names, fetch tensors)."""
         program = program or framework.default_main_program()
         scope = scope or global_scope()
         feeds = self._prepare_feeds(program, feed or {})
@@ -169,9 +244,29 @@ class Executor(object):
         for n in state_out:
             if n in env:
                 scope.set_value(n, env[n])
+        return fetch_names, fetches
+
+    def run(self, program=None, feed=None, fetch_list=None,
+            feed_var_name="feed", fetch_var_name="fetch", scope=None,
+            return_numpy=True, use_program_cache=True):
+        fetches = self._run(program, feed, fetch_list, scope)[1]
         if return_numpy:
             fetches = [_to_numpy(f) for f in fetches]
         return fetches
+
+    def run_async(self, program=None, feed=None, fetch_list=None,
+                  feed_var_name="feed", fetch_var_name="fetch", scope=None):
+        """``run`` without the wait (executor.py:775 parity): queues the
+        run's ops and returns a :class:`FetchHandle` whose ``result()``
+        copies the fetches to numpy when asked. The scope's state is
+        updated with the queued tensors, so runs dispatched back to back
+        chain on the card's stream."""
+        fetch_names, fetches = self._run(program, feed, fetch_list, scope)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        return FetchHandle(fetches, fetch_names, event)
 
     def run_multi_step(self, program, steps, feed=None, fetch_list=None,
                        scope=None, return_numpy=True, stack_fetches=False):

@@ -4,9 +4,10 @@ Counterpart of ``paddle_tpu/flags.py``: the same flag names, defaults and
 ``FLAGS_<name>`` parsing, so a deployment's environment configures both
 packages alike. Most flags steer subsystems later slices port; the port
 reads ``attention_impl``, ``paged_attention``, ``tree_attention``,
-``flash_backward``, ``speculative``, ``use_pallas_lstm`` and
-``use_pallas_gru`` today. For the attention kernel flags "auto"
-and "pallas" launch the hand-written kernels for a CUDA tensor, and
+``flash_backward``, ``speculative``, ``use_pallas_lstm``,
+``use_pallas_gru`` and ``verify_program`` (the ``Predictor`` refuses it
+until its verifier is ported) today. For the attention kernel flags
+"auto" and "pallas" launch the hand-written kernels for a CUDA tensor, and
 "reference" is refused for a CUDA tensor (the port has no hidden path to
 the plain versions on the card).
 """

@@ -243,6 +243,18 @@ class Block(object):
         self.program._bump_version()
         return op
 
+    def insert_op(self, index, type, inputs=None, outputs=None, attrs=None):
+        """An op at ``index`` with no shape inference: the graph passes
+        splice ops between ones whose outputs are already typed."""
+        op = Operator(self, type, inputs, outputs, attrs)
+        self.ops.insert(index, op)
+        self.program._bump_version()
+        return op
+
+    def remove_op(self, index):
+        self.ops.pop(index)
+        self.program._bump_version()
+
     def all_parameters(self):
         return [v for v in self.vars.values() if isinstance(v, Parameter)]
 
@@ -269,6 +281,10 @@ class Program(object):
 
     def block(self, idx):
         return self.blocks[idx]
+
+    @property
+    def num_blocks(self):
+        return len(self.blocks)
 
     def current_block(self):
         return self.blocks[self.current_block_idx]
@@ -306,6 +322,11 @@ class Program(object):
                         op.attrs["is_test"] = True
         p._bump_version()
         return p
+
+    def list_vars(self):
+        for block in self.blocks:
+            for v in block.vars.values():
+                yield v
 
     def __repr__(self):
         lines = []

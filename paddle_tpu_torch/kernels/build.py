@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -30,6 +31,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _state = {"lib": None, "log": ""}
+_lib_lock = threading.Lock()
 
 
 def nvcc_path():
@@ -104,9 +106,11 @@ def build_log():
 
 
 def library():
-    """The loaded kernel library, built first if needed."""
-    if _state["lib"] is None:
-        _state["lib"] = ctypes.CDLL(build())
+    """The loaded kernel library, built first if needed (once, whichever
+    thread asks first)."""
+    with _lib_lock:
+        if _state["lib"] is None:
+            _state["lib"] = ctypes.CDLL(build())
     return _state["lib"]
 
 
@@ -143,7 +147,9 @@ class Kernel(object):
     the stream it is given and returns ``cudaGetLastError()``), raises
     on a nonzero code, and only then adds one to ``launches`` and, where
     the caller names the launch's shape class ``key``, to
-    ``by_key[key]``. Nothing else touches the counts except ``reset``."""
+    ``by_key[key]``. Nothing else touches the counts except ``reset``.
+    The counts are updated under a lock: predictor clones launch from
+    several threads at once."""
 
     def __init__(self, symbol, argtypes):
         self.symbol = symbol
@@ -151,10 +157,12 @@ class Kernel(object):
         self.launches = 0
         self.by_key = {}
         self._fn = None
+        self._count_lock = threading.Lock()
 
     def reset(self):
-        self.launches = 0
-        self.by_key = {}
+        with self._count_lock:
+            self.launches = 0
+            self.by_key = {}
 
     def launch(self, *args, key=None):
         if self._fn is None:
@@ -166,6 +174,7 @@ class Kernel(object):
         if rc != 0:
             raise RuntimeError("%s: CUDA error %d at launch"
                                % (self.symbol, rc))
-        self.launches += 1
-        if key is not None:
-            self.by_key[key] = self.by_key.get(key, 0) + 1
+        with self._count_lock:
+            self.launches += 1
+            if key is not None:
+                self.by_key[key] = self.by_key.get(key, 0) + 1

@@ -4,6 +4,8 @@ Counterpart of ``paddle_tpu/layers/nn.py`` for the layers this slice
 calls, with the reference's names, signatures and parameter naming.
 """
 
+import math
+
 import numpy as np
 
 from paddle_tpu_torch import initializer as init_mod
@@ -12,6 +14,9 @@ from paddle_tpu_torch.layers.ops import relu  # noqa: F401  (re-export)
 from paddle_tpu_torch.param_attr import ParamAttr
 
 __all__ = [
+    "conv2d",
+    "pool2d",
+    "mul",
     "dropout",
     "dynamic_update_slice",
     "fc",
@@ -68,6 +73,67 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
                          outputs={"Out": [pre_bias]})
     pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
+
+
+def _pair(v):
+    return [v, v] if isinstance(v, int) else list(v)
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None):
+    """2-D convolution over NCHW (nn.py:210): the filter is
+    ``<name>.w_0``, the bias ``<name>.w_1``, added on axis 1."""
+    helper = LayerHelper("conv2d", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    groups = groups or 1
+    num_channels = int(input.shape[1])
+    filter_size = _pair(filter_size)
+    filter_shape = [num_filters, num_channels // groups] + filter_size
+    fan_in = (num_channels // groups) * filter_size[0] * filter_size[1]
+    w = helper.create_parameter(
+        attr=helper.param_attr, shape=filter_shape, dtype=input.dtype,
+        default_initializer=init_mod.NormalInitializer(
+            0.0, math.sqrt(2.0 / fan_in)))
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="conv2d",
+        inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={"strides": _pair(stride), "paddings": _pair(padding),
+               "dilations": _pair(dilation), "groups": groups},
+    )
+    pre_act = helper.append_bias_op(out, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, exclusive=True, name=None):
+    """2-D max or average pooling over NCHW (nn.py:362)."""
+    helper = LayerHelper("pool2d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="pool2d",
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": _pair(pool_size),
+               "strides": _pair(pool_stride),
+               "paddings": _pair(pool_padding),
+               "global_pooling": global_pooling, "ceil_mode": ceil_mode,
+               "exclusive": exclusive},
+    )
+    return out
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="mul", inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]},
+        attrs={"x_num_col_dims": x_num_col_dims,
+               "y_num_col_dims": y_num_col_dims})
+    return out
 
 
 def embedding(input, size, is_sparse=False, is_distributed=False,

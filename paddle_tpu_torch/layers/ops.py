@@ -6,7 +6,7 @@ for the activations the port runs.
 
 from paddle_tpu_torch.layer_helper import LayerHelper
 
-__all__ = ["relu", "log_softmax"]
+__all__ = ["relu", "log_softmax", "sigmoid", "tanh"]
 
 
 def _unary(op_type):
@@ -23,3 +23,5 @@ def _unary(op_type):
 
 relu = _unary("relu")
 log_softmax = _unary("log_softmax")
+sigmoid = _unary("sigmoid")
+tanh = _unary("tanh")

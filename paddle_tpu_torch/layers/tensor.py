@@ -1,4 +1,4 @@
-"""Tensor layers: fill_constant, assign, concat.
+"""Tensor layers: fill_constant, assign, concat, create_parameter.
 
 Counterpart of ``paddle_tpu/layers/tensor.py`` for the layers this slice
 calls.
@@ -7,7 +7,14 @@ calls.
 from paddle_tpu_torch import framework
 from paddle_tpu_torch.layer_helper import LayerHelper
 
-__all__ = ["assign", "concat", "fill_constant"]
+__all__ = ["assign", "concat", "create_parameter", "fill_constant"]
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    helper = LayerHelper("create_parameter", name=name, param_attr=attr)
+    return helper.create_parameter(helper.param_attr, shape, dtype, is_bias,
+                                   default_initializer)
 
 
 def assign(input, output=None):

@@ -2,7 +2,10 @@
 
 Counterpart of ``paddle_tpu/models/transformer.py`` for the training and
 serving slices: the training ``build`` (dropout, label-smoothed loss),
-the position-encoding tables, the paged slot decoder (greedy) with its
+the inference program derived from it and the greedy re-score loop over
+it (``build_inference``, ``greedy_generate``: the program a saved
+Transformer serves), the position-encoding tables, the paged slot
+decoder (greedy) with its
 speculative verify program, the draft decoder and the coalesced
 copy-on-write program. Every build function mints the reference's
 variable and parameter names, so parameters bind by name across the two
@@ -137,6 +140,41 @@ def build(src_vocab_size=1000, trg_vocab_size=1000, max_length=64,
     avg_cost = fluid.layers.elementwise_div(total, denom)
     feeds = [src, src_len, trg, trg_len, label]
     return avg_cost, feeds, {"logits": logits}
+
+
+def build_inference(train_prog, logits):
+    """The generation graph of the TRAINED program (transformer.py:196):
+    a clone with is_test set, pruned to the logits fetch, so the loss
+    head, backward and optimizer ops fall away and running it cannot
+    touch the weights, which bind through the shared scope."""
+    from paddle_tpu_torch import io
+
+    return io.prune_program(
+        train_prog.clone(for_test=True),
+        ["src_word", "src_len", "trg_word"],
+        [logits.name if hasattr(logits, "name") else logits])
+
+
+def greedy_generate(exe, infer_prog, logits_var, src, src_len, max_length,
+                    bos_id=1, eos_id=2, scope=None):
+    """Greedy decode by re-running the whole fixed-shape decoder over the
+    growing prefix (transformer.py:211, the reference's re-score loop).
+    Returns [B, max_length] int64, eos-padded."""
+    bs = src.shape[0]
+    trg = np.full((bs, max_length), eos_id, np.int64)
+    trg[:, 0] = bos_id
+    done = np.zeros(bs, bool)
+    for t in range(max_length - 1):
+        (lg,) = exe.run(infer_prog, feed={"src_word": src,
+                                          "src_len": src_len,
+                                          "trg_word": trg},
+                        fetch_list=[logits_var], scope=scope)
+        nxt = np.where(done, eos_id, np.asarray(lg)[:, t, :].argmax(-1))
+        trg[:, t + 1] = nxt
+        done |= nxt == eos_id
+        if done.all():
+            break
+    return trg
 
 
 def position_encoding_row(t, d_model, dtype="float32"):

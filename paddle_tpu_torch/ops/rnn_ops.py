@@ -52,13 +52,14 @@ def _kernel_route(x, flag, has_init_state):
                                        and not has_init_state)
 
 
-def _infer_rnn_shapes(out_slots):
-    """Build-time shapes: every output ``[B, T, D]`` with D the Weight's
-    rows (the kernels do not run on ``meta`` tensors)."""
+def _infer_rnn_shapes(out_slots, x_slot="Input", w_slot="Weight"):
+    """Build-time shapes: every output ``[B, T, D]`` with B, T from the
+    ``x_slot`` input and D the ``w_slot`` weight's rows (the kernels do
+    not run on ``meta`` tensors)."""
 
     def infer(block, op):
-        x = block._find_var_recursive(op.input("Input")[0])
-        w = block._find_var_recursive(op.input("Weight")[0])
+        x = block._find_var_recursive(op.input(x_slot)[0])
+        w = block._find_var_recursive(op.input(w_slot)[0])
         if x.shape is None or w.shape is None:
             return
         for slot in out_slots:
@@ -66,7 +67,7 @@ def _infer_rnn_shapes(out_slots):
                 v = block._find_var_recursive(name)
                 if v is not None:
                     v.shape = tuple(x.shape[:2]) + (int(w.shape[0]),)
-                    v.dtype = x.dtype
+                    v.dtype = w.dtype
 
     return infer
 
