@@ -52,10 +52,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 4. serves 64 greedy requests through ``SlotDecodeSession(paged=True)`` at
    the full width of the Transformer-base configuration (6 layers,
    d_model 512, 8 heads, d_inner 2048, vocab 32000, max_length 256;
-   random weights from ``set_deterministic_params``), with each kernel's
-   launch count reset just before and read just after, and checks that
-   the paged decode kernel ran n_layer times per decode step and the
-   page pool drained;
+   random weights from ``set_deterministic_params``), each ``step()``'s
+   8 decode steps one captured CUDA graph, with each kernel's launch
+   count reset just before and read just after, and checks that the
+   paged decode kernel ran n_layer times per decode step and the page
+   pool drained. Then (``graph``) the same requests with
+   ``FLAGS_cuda_graph=0``, the eager loop: gates on equal streams, equal
+   launches, no eager ``run_multi_step`` in the captured run; prints
+   tokens/s, host ms per ``step()`` (split into the COW / rebind
+   dispatch, the token bookkeeping and the rest), the graphs and their
+   pool bytes, and profiles one captured ``step()``. ``prefix``: one
+   source admitted 16 times with a 40-token forced prefix through
+   ``prefix_cache_pages=8`` and through no cache: equal streams, 15 hits
+   in 16 lookups, 480 tokens saved, the pool drained after
+   ``clear_prefix_cache()``, admission host ms of a cold admission and a
+   hit. ``dense``: the requests without prefixes through ``paged=False``
+   (steps 1): first-step logits within 1e-3 of the paged session's,
+   streams against a paged run's (a divergence only at a top-2 margin
+   below 1e-3), 2 x n_layer ``flash_fwd`` launches a decode step plus
+   n_layer an admission, tokens/s and the caches' bytes;
 5. serves 4 requests through the same configuration on the card and on
    the CPU (plain versions) and gates on the first decode step's logits;
    token agreement is printed, not gated;
@@ -166,6 +181,9 @@ PEAK_TF32X3_FLOPS = 495e12 / 3
 N_LAYER, N_HEAD, D_MODEL, D_INNER, VOCAB, MAX_LEN = 6, 8, 512, 2048, 32000, 256
 NUM_SLOTS, PAGE_SIZE, STEPS, EOS = 32, 16, 8, 0
 N_REQUESTS, SEED = 64, 2024
+# the prefix phase: one source admitted 16 times with a 40-token forced
+# prefix (bos + 40: 2 full pages of 16 and an 8-token tail)
+PREFIX_ADMISSIONS, PREFIX_FORCED, PREFIX_CACHE_PAGES = 16, 40, 8
 
 K1_TOL = 1e-4     # fp32 sums over up to 256 keys in another order
 K2_TOL = 1e-4
@@ -1549,21 +1567,99 @@ def run_requests(np, torch, sess, kernels, src, lens, prefixes):
     return out, wall, kernel_counts(kernels), peak_pages
 
 
-def serve_phase(np, torch, exe, scope, kernels):
-    src, lens, prefixes = requests(np)
-    sess = session(exe, scope, NUM_SLOTS)
-    out, wall, launches, peak_pages = run_requests(
-        np, torch, sess, kernels, src, lens, prefixes)
-    n_prefix = sum(p is not None for p in prefixes)
+def step_timer(sess):
+    """Wrap ``sess.step``: the host seconds of each call go to the list
+    returned (a captured step's call includes the replay and the wait
+    for its [K, S, 1] token fetch, and so the device time of the
+    admissions queued before it). Inside it, the seconds of the COW /
+    rebind dispatch and of the token bookkeeping add up in ``.split``."""
+    times, step = StepTimes(), sess.step
+
+    def wrap(attr, key):
+        fn = getattr(sess, attr)
+
+        def timed(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                times.split[key] += time.perf_counter() - t0
+
+        setattr(sess, attr, timed)
+
+    def timed_step():
+        t0 = time.perf_counter()
+        try:
+            return step()
+        finally:
+            times.append(time.perf_counter() - t0)
+
+    sess.step = timed_step
+    wrap("_dispatch_cow", "cow")
+    wrap("_consume_tokens", "tokens")
+    return times
+
+
+class StepTimes(list):
+    """Host seconds of each ``step()`` call, and ``split``: the seconds
+    of the COW / rebind dispatch and of the token bookkeeping in them."""
+
+    def __init__(self):
+        super(StepTimes, self).__init__()
+        self.split = {"cow": 0.0, "tokens": 0.0}
+
+    def line(self):
+        n = max(len(self), 1)
+        cow, tok = self.split["cow"], self.split["tokens"]
+        return ("host ms per step(): COW and rebind dispatch %.3f, token "
+                "bookkeeping %.3f, the rest (program: replay or eager loop, "
+                "token fetch, admissions' device time) %.3f"
+                % (1e3 * cow / n, 1e3 * tok / n,
+                   1e3 * (sum(self) - cow - tok) / n))
+
+
+def paged_run(np, torch, exe, scope, kernels, reqs, label):
+    """Serve ``reqs`` through a fresh paged session (steps 8) in a child
+    scope, counts reset just before (``run_requests``). Prints one line;
+    returns the run's numbers."""
+    src, lens, prefixes = reqs
+    sess = session(exe, scope.new_scope(), NUM_SLOTS)
+    times = step_timer(sess)
+    eager0 = exe.eager_multi_step
+    out, wall, launches, peak = run_requests(np, torch, sess, kernels, src,
+                                             lens, prefixes)
     generated = sum(generated_tokens(out[i], prefixes[i])
-                    for i in range(N_REQUESTS))
+                    for i in range(len(src)))
+    held = exe.graph_stats(sess.step_program)
+    r = dict(out=out, wall=wall, launches=launches, peak=peak, sess=sess,
+             generated=generated, eager=exe.eager_multi_step - eager0,
+             step_ms=1e3 * float(np.mean(times)),
+             step_ms_median=1e3 * float(np.median(times)),
+             graphs=held["graphs"], pool_bytes=held["pool_bytes"])
+    print("%s: wall %.3f s, %d decode steps in %d step() calls, %d tokens, "
+          "decode %.1f tokens/s; host %.3f ms per step() (median %.3f); "
+          "graphs captured %d, their pool %d bytes; eager run_multi_step "
+          "calls %d" % (label, wall, sess.decode_steps, sess.steps_done,
+                        generated, generated / wall, r["step_ms"],
+                        r["step_ms_median"], r["graphs"], r["pool_bytes"],
+                        r["eager"]))
+    print("%s: %s; %d COW / rebind dispatches" % (label, times.line(),
+                                                  sess.cow_dispatches))
+    return r
+
+
+def serve_phase(np, torch, exe, scope, kernels):
+    src, lens, prefixes = reqs = requests(np)
+    r = paged_run(np, torch, exe, scope, kernels, reqs, "session (captured)")
+    out, wall, launches, sess = r["out"], r["wall"], r["launches"], r["sess"]
+    n_prefix = sum(p is not None for p in prefixes)
     print("session: %d requests, %d slots, page_size %d, steps %d: wall %.3f s, "
           "%d decode steps in %d step() calls, %d tokens, decode %.1f tokens/s"
           % (N_REQUESTS, NUM_SLOTS, PAGE_SIZE, STEPS, wall, sess.decode_steps,
-             sess.steps_done, generated, generated / wall))
+             sess.steps_done, r["generated"], r["generated"] / wall))
     print("session: kernel launches %s" % json.dumps(launches))
     print("session: page pool peak %d of %d pages in use; after drain %d in "
-          "use, conserved %s" % (peak_pages, sess.free_pages +
+          "use, conserved %s" % (r["peak"], sess.free_pages +
                                  sess.pages_in_use, sess.pages_in_use,
                                  sess.pool_conserved))
     expect_k2 = N_LAYER * sess.decode_steps
@@ -1582,7 +1678,232 @@ def serve_phase(np, torch, exe, scope, kernels):
     for i, p in enumerate(prefixes):
         if p is not None and list(out[i, 1:5]) != [int(t) for t in p]:
             fail("request %d lost its forced prefix" % i)
-    return launches
+    return r
+
+
+def graph_phase(np, torch, exe, scope, kernels, captured):
+    """The serve phase's requests again on the same weights with
+    ``FLAGS_cuda_graph=0`` (the eager loop on the card): the captured
+    run's streams and launches must equal the eager run's, and no
+    run_multi_step of the captured run ran eager."""
+    from paddle_tpu_torch import flags
+
+    flags.set_flag("cuda_graph", "0")
+    try:
+        eager = paged_run(np, torch, exe, scope, kernels, requests(np),
+                          "graph eager (FLAGS_cuda_graph=0)")
+    finally:
+        flags.set_flag("cuda_graph", "1")
+    c, e = captured, eager
+    print("graph captured: wall %.3f s, decode %.1f tokens/s, host %.3f ms "
+          "per step() (median %.3f), %d graphs, pool %d bytes, eager "
+          "run_multi_step calls %d"
+          % (c["wall"], c["generated"] / c["wall"], c["step_ms"],
+             c["step_ms_median"], c["graphs"], c["pool_bytes"], c["eager"]))
+    print("graph eager:    wall %.3f s, decode %.1f tokens/s, host %.3f ms "
+          "per step() (median %.3f), %d graphs, pool %d bytes, eager "
+          "run_multi_step calls %d"
+          % (e["wall"], e["generated"] / e["wall"], e["step_ms"],
+             e["step_ms_median"], e["graphs"], e["pool_bytes"], e["eager"]))
+    same = int(sum((c["out"][i] == e["out"][i]).all()
+                   for i in range(N_REQUESTS)))
+    steps_c, steps_e = c["sess"].decode_steps, e["sess"].decode_steps
+    per_step = {n: (c["launches"].get(n, 0) / max(steps_c, 1),
+                    e["launches"].get(n, 0) / max(steps_e, 1))
+                for n in ("paged_decode", "flash_fwd/decode")}
+    print("graph: %d of %d streams equal; decode steps %d and %d; launches "
+          "per decode step (captured, eager) %s; captured run's eager "
+          "run_multi_step calls %d" % (same, N_REQUESTS, steps_c, steps_e,
+                                       json.dumps(per_step), c["eager"]))
+    if same != N_REQUESTS:
+        fail("graph: %d of %d streams differ between the captured and the "
+             "eager loop" % (N_REQUESTS - same, N_REQUESTS))
+    if steps_c != steps_e or c["launches"] != e["launches"]:
+        fail("graph: launches differ: captured %s over %d decode steps, "
+             "eager %s over %d" % (json.dumps(c["launches"]), steps_c,
+                                   json.dumps(e["launches"]), steps_e))
+    if c["eager"] != 0 or c["graphs"] != 1:
+        fail("graph: the captured run ran %d eager run_multi_step calls and "
+             "holds %d graphs (want 0 and 1)" % (c["eager"], c["graphs"]))
+    if e["eager"] != e["sess"].steps_done or e["graphs"] != 0:
+        fail("graph: the eager run counted %d eager calls for %d step() "
+             "calls and holds %d graphs" % (e["eager"], e["sess"].steps_done,
+                                            e["graphs"]))
+    graph_profile_phase(np, torch, exe, scope)
+    return eager["launches"]
+
+
+def graph_profile_phase(np, torch, exe, scope, warm_steps=3):
+    """One captured step() of a full session (32 live slots, mid-stream,
+    its pages provisioned just before, so no COW / rebind dispatch in
+    it) under the profiler: the replay of 8 decode steps and the token
+    fetch, the device's busy share of it."""
+    src, lens, _ = requests(np)
+    sess = session(exe, scope.new_scope(), NUM_SLOTS)
+    for i in range(NUM_SLOTS):
+        sess.admit(src[i], lens[i])
+    for _ in range(warm_steps):
+        sess.step()
+    sess._dispatch_cow(sess._cow_window(
+        [(slot, st["pos"]) for slot, st in sess._live.items()]))
+    if exe.graph_stats(sess.step_program)["graphs"] != 1:
+        fail("graph profile: the session's step is not captured")
+    profile_call(torch, "graph captured step()", sess.step, top=6)
+
+
+def prefix_session(exe, scope, cache_pages):
+    from paddle_tpu_torch.serving.generation import SlotDecodeSession
+
+    return SlotDecodeSession(
+        exe, num_slots=NUM_SLOTS, max_length=MAX_LEN, d_model=D_MODEL,
+        paged=True, page_size=PAGE_SIZE, steps=STEPS, eos_id=EOS,
+        scope=scope, prefix_cache_pages=cache_pages, src_vocab_size=VOCAB,
+        trg_vocab_size=VOCAB, n_layer=N_LAYER, n_head=N_HEAD,
+        d_inner=D_INNER)
+
+
+def prefix_phase(np, torch, exe, scope, kernels):
+    """One source admitted PREFIX_ADMISSIONS times with a forced prefix of
+    PREFIX_FORCED tokens, through a session with the prefix cache and one
+    without: equal streams, 15 hits in 16 lookups, 32 tokens saved a hit,
+    and the pool drains after clear_prefix_cache()."""
+    src, lens, _ = requests(np)
+    pfx = [int(t) for t in
+           np.random.RandomState(SEED + 5).randint(3, VOCAB, PREFIX_FORCED)]
+    full_pages = PREFIX_FORCED // PAGE_SIZE
+    runs, total = {}, {}
+    for label, pages in (("cached", PREFIX_CACHE_PAGES), ("uncached", 0)):
+        sess = prefix_session(exe, scope.new_scope(), pages)
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.reset()
+        t0 = time.perf_counter()
+        admit_s, slots = [], []
+        for _ in range(PREFIX_ADMISSIONS):
+            ta = time.perf_counter()
+            slots.append(sess.admit(src[0], lens[0], prefix_tokens=pfx))
+            admit_s.append(time.perf_counter() - ta)
+        outs = {}
+        while len(outs) < PREFIX_ADMISSIONS:
+            outs.update(sess.step())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_counts(kernels)
+        for n, v in launches.items():
+            total[n] = total.get(n, 0) + v
+        runs[label] = (sess, np.stack([outs[s] for s in slots]), admit_s)
+        print("prefix %s: %d admissions of one source with %d forced tokens "
+              "(%d full pages of %d): wall %.3f s; admission host ms: first "
+              "%.3f, the rest median %.3f; %d decode steps; stats %s; "
+              "kernel launches %s"
+              % (label, PREFIX_ADMISSIONS, PREFIX_FORCED, full_pages,
+                 PAGE_SIZE, wall, 1e3 * admit_s[0],
+                 1e3 * float(np.median(admit_s[1:])), sess.decode_steps,
+                 json.dumps(sess.prefix_cache_stats()), json.dumps(launches)))
+    sess, got, admit_s = runs["cached"]
+    want = runs["uncached"][1]
+    print("prefix: admission host ms, a cold admission (the cached session's "
+          "first) %.3f, a hit (median of %d) %.3f, an uncached admission "
+          "(median of %d) %.3f"
+          % (1e3 * admit_s[0], PREFIX_ADMISSIONS - 1,
+             1e3 * float(np.median(admit_s[1:])), PREFIX_ADMISSIONS - 1,
+             1e3 * float(np.median(runs["uncached"][2][1:]))))
+    same = int(sum((got[i] == want[i]).all() for i in range(len(got))))
+    st = sess.prefix_cache_stats()
+    print("prefix: %d of %d streams equal the uncached session's; %d hits in "
+          "%d lookups, %d tokens saved; %d pages in use after the drain, %d "
+          "cached" % (same, len(got), st["hits"], st["lookups"],
+                      st["tokens_saved"], sess.pages_in_use,
+                      sess.cached_pages))
+    if same != len(got) or not (got[:, 1:1 + PREFIX_FORCED] == pfx).all():
+        fail("prefix: the cached session's streams differ from the uncached "
+             "session's or lost the forced prefix")
+    hits = PREFIX_ADMISSIONS - 1
+    if (st["lookups"], st["hits"], st["tokens_saved"]) != (
+            PREFIX_ADMISSIONS, hits, hits * full_pages * PAGE_SIZE):
+        fail("prefix: stats %s, want %d hits in %d lookups and %d tokens "
+             "saved" % (json.dumps(st), hits, PREFIX_ADMISSIONS,
+                        hits * full_pages * PAGE_SIZE))
+    if sess.pages_in_use != sess.cached_pages or sess.shared_pages:
+        fail("prefix: %d pages in use after the drain, %d cached"
+             % (sess.pages_in_use, sess.cached_pages))
+    sess.clear_prefix_cache()
+    if sess.pages_in_use != 0 or not sess.pool_conserved:
+        fail("prefix: the pool did not drain after clear_prefix_cache()")
+    return total
+
+
+def dense_session(exe, scope):
+    from paddle_tpu_torch.serving.generation import SlotDecodeSession
+
+    return SlotDecodeSession(
+        exe, num_slots=NUM_SLOTS, max_length=MAX_LEN, d_model=D_MODEL,
+        paged=False, steps=1, eos_id=EOS, scope=scope, src_vocab_size=VOCAB,
+        trg_vocab_size=VOCAB, n_layer=N_LAYER, n_head=N_HEAD,
+        d_inner=D_INNER)
+
+
+def dense_phase(np, torch, exe, scope, kernels):
+    """The requests without their forced prefixes through ``paged=False``
+    (32 slots, steps 1): the first step's logits against the paged
+    session's, the streams against a paged run's (a stream may leave it
+    only where the paged path's top-2 margin is below MARGIN_TOL), and
+    2 x n_layer flash_fwd launches per decode step plus n_layer an
+    admission."""
+    src, lens, _ = requests(np)
+    reqs = (src, lens, [None] * N_REQUESTS)
+    idx = [0, 1, 2, 3]
+    dense = dense_session(exe, scope.new_scope())
+    paged = session(exe, scope.new_scope(), NUM_SLOTS)
+    for i in idx:
+        dense.admit(src[i], lens[i])
+        paged.admit(src[i], lens[i])
+    (dl,) = exe.run(dense.step_program, feed=dense._dense_feed(),
+                    fetch_list=[logits_name(dense.step_program)],
+                    scope=dense._scope)
+    (pl,) = exe.run(paged.step_program,
+                    fetch_list=[logits_name(paged.step_program)],
+                    scope=paged._scope)
+    dl, pl = np.asarray(dl)[idx], np.asarray(pl)[idx]
+    err = float(np.abs(dl - pl).max())
+    print("dense: first decode step logits %s against the paged session's: "
+          "max_abs_err %.3e  tol %.0e" % (tuple(dl.shape), err, LOGITS_TOL))
+    if not np.isfinite(dl).all() or not err <= LOGITS_TOL:
+        fail("dense and paged logits disagree: %.3e" % err)
+    dense = paged = None
+    ref = paged_run(np, torch, exe, scope, kernels, reqs,
+                    "dense reference (paged, captured, no prefixes)")
+    sess = dense_session(exe, scope.new_scope())
+    times = step_timer(sess)
+    out, wall, launches, _ = run_requests(np, torch, sess, kernels, src,
+                                          lens, reqs[2])
+    generated = sum(generated_tokens(row, None) for row in out)
+    cache_bytes = sum(
+        sess._scope.get_value("gen_%s_%d" % (kind, i)).nbytes
+        for i in range(N_LAYER)
+        for kind in ("kcache", "vcache", "kcross", "vcross"))
+    print("dense: %d requests, %d slots: wall %.3f s, %d decode steps, %d "
+          "tokens, decode %.1f tokens/s; host %.3f ms per step() (median "
+          "%.3f); caches %d bytes (self K/V and cross K/V, %d layers x 4 x "
+          "[%d,%d,%d,%d] fp32); kernel launches %s"
+          % (N_REQUESTS, NUM_SLOTS, wall, sess.decode_steps, generated,
+             generated / wall, 1e3 * float(np.mean(times)),
+             1e3 * float(np.median(times)), cache_bytes, N_LAYER, NUM_SLOTS,
+             N_HEAD, MAX_LEN, D_MODEL // N_HEAD, json.dumps(launches)))
+    compare_streams(np, exe, scope, reqs, "dense", out, ref["out"],
+                    label="dense")
+    expect = 2 * N_LAYER * sess.decode_steps + N_LAYER * N_REQUESTS
+    if launches["flash_fwd"] != expect or launches["paged_decode"]:
+        fail("dense: flash_fwd launched %d times (want 2 x n_layer x %d "
+             "decode steps + n_layer x %d admissions = %d), paged_decode %d"
+             % (launches["flash_fwd"], sess.decode_steps, N_REQUESTS, expect,
+                launches["paged_decode"]))
+    if not ((out >= 0) & (out < VOCAB)).all() or not (out[:, 0] == 1).all():
+        fail("dense: token matrix out of range or not bos-led")
+    total = dict(ref["launches"])
+    for n, v in launches.items():
+        total[n] = total.get(n, 0) + v
+    return total
 
 
 def logits_name(step_prog):
@@ -1805,26 +2126,27 @@ def top2_margin(np, exe, scope, reqs, i, row, p):
     return float(top[1] - top[0])
 
 
-def compare_streams(np, exe, scope, reqs, name, out, ref):
-    """Streams of a speculative run against the sequential run's: prints
-    the count of equal requests; a differing request fails the run unless
-    the sequential path's two best logits at its first differing position
-    lie within MARGIN_TOL (then another summation order may flip the
-    argmax, and everything after it follows)."""
+def compare_streams(np, exe, scope, reqs, name, out, ref, label="spec"):
+    """Streams of a speculative (or dense) run against the sequential
+    paged run's: prints the count of equal requests; a differing request
+    fails the run unless the sequential path's two best logits at its
+    first differing position lie within MARGIN_TOL (then another
+    summation order may flip the argmax, and everything after it
+    follows)."""
     differing = [i for i in range(len(ref)) if (out[i] != ref[i]).any()]
-    print("spec %-7s %d of %d requests stream the sequential run's tokens"
-          % (name + ":", len(ref) - len(differing), len(ref)))
+    print("%s %-7s %d of %d requests stream the sequential run's tokens"
+          % (label, name + ":", len(ref) - len(differing), len(ref)))
     for i in differing:
         p = int(np.argmax(out[i] != ref[i]))
         margin = top2_margin(np, exe, scope, reqs, i, ref[i], p)
-        print("spec %-7s request %d differs first at position %d (%d against "
+        print("%s %-7s request %d differs first at position %d (%d against "
               "%d); the sequential path's top-2 logit margin there is %.3e "
-              "(tol %.0e)" % (name + ":", i, p, out[i][p], ref[i][p], margin,
-                              MARGIN_TOL))
+              "(tol %.0e)" % (label, name + ":", i, p, out[i][p], ref[i][p],
+                              margin, MARGIN_TOL))
         if not margin <= MARGIN_TOL:
-            fail("spec %s: request %d left the sequential stream at a "
+            fail("%s %s: request %d left the sequential stream at a "
                  "position with a clear argmax (margin %.3e)"
-                 % (name, i, margin))
+                 % (label, name, i, margin))
     return len(ref) - len(differing)
 
 
@@ -3116,7 +3438,12 @@ def main():
     main_prog = build_model(fluid, exe, scope)
     print("model: Transformer-base weights ready in %.1f s"
           % (time.perf_counter() - t0))
-    launches = serve_phase(np, torch, exe, scope, KERNELS)
+    served = serve_phase(np, torch, exe, scope, KERNELS)
+    launches = served["launches"]
+    graph_launches = graph_phase(np, torch, exe, scope, KERNELS, served)
+    served = None
+    prefix_launches = prefix_phase(np, torch, exe, scope, KERNELS)
+    dense_launches = dense_phase(np, torch, exe, scope, KERNELS)
     card_vs_cpu_phase(np, torch, fluid, exe, scope, main_prog)
     spec_launches = speculative_phase(np, torch, fluid, exe, scope, KERNELS)
     spec_card_vs_cpu_phase(np, torch, fluid, exe, scope, main_prog)
@@ -3189,8 +3516,12 @@ def main():
                             library_ms=t["library_ms"]))
         return out
 
+    serving = (launches, graph_launches, prefix_launches, dense_launches,
+               spec_launches)
+
     def both(label):
-        return launches.get(label, 0) + spec_launches.get(label, 0)
+        """The launches at ``label`` over every serving window."""
+        return sum(r.get(label, 0) for r in serving)
 
     flash_shapes = shape_rows(timing, [
         ("flash_fwd", both("flash_fwd/decode")),
@@ -3199,16 +3530,16 @@ def main():
         ("flash_fwd_train", train_launches.get("flash_fwd/full", 0)),
         ("flash_fwd_train_causal", train_launches.get("flash_fwd/causal",
                                                       0))],
-        "the launches at this shape class in the serving and speculative "
-        "runs' request windows or the training phase's timed steps, "
-        "counted by the wrapper where it launches")
+        "the launches at this shape class in the serving runs' request "
+        "windows (captured, eager, prefix cache, dense, speculative) or the "
+        "training phase's timed steps, counted by the wrapper where it "
+        "launches")
     # the causal calls of those request windows: the decoder over a
     # forced prefix at admission (paged prefill), a shape not timed here
     flash_shapes.append(dict(
         row="flash_fwd_prefix", launches=both("flash_fwd/causal"),
         shape="causal, T > 4: the decoder over a forced prefix at admission",
-        launches_of="the serving and speculative runs' request windows; "
-        "not timed", ms=None, plain_ms=None, bound_ms=None, bound_by=None,
+        launches_of="the serving runs' request windows; not timed", ms=None, plain_ms=None, bound_ms=None, bound_by=None,
         library_ms=None))
     # the saved Transformer-base program's Predictor runs: encoder self
     # and cross attention with a key mask, decoder self-attention causal
@@ -3220,8 +3551,8 @@ def main():
         launches_of="the predictor phase's %d timed runs; not timed"
         % PRED_RUNS, ms=None, plain_ms=None, bound_ms=None, bound_by=None,
         library_ms=None))
-    flash_total = (launches["flash_fwd"] + spec_launches["flash_fwd"]
-                   + train_launches["flash_fwd"] + pred_launches["flash_fwd"])
+    flash_total = (both("flash_fwd") + train_launches["flash_fwd"]
+                   + pred_launches["flash_fwd"])
     if sum(r["launches"] for r in flash_shapes) != flash_total:
         fail("flash_fwd's launches by shape class %s do not add up to its "
              "%d launches" % ([r["launches"] for r in flash_shapes],
@@ -3252,7 +3583,7 @@ def main():
         dict(name="paged_decode", route="cuda",
              source="paddle_tpu_torch/csrc/paged_decode.cu",
              replaces="paddle_tpu/kernels/paged_attention.py:184",
-             launches=launches["paged_decode"] + spec_launches["paged_decode"],
+             launches=both("paged_decode"),
              max_abs_err=worst["paged_decode"],
              ms=timing["paged_decode"]["ms"],
              plain_ms=timing["paged_decode"]["plain_ms"],

@@ -24,6 +24,11 @@ class BlockLowerer(object):
         self.program = program
         self.block = program.block(block_idx)
         self.is_test = is_test
+        # the op being lowered (a failed CUDA graph capture names it) and
+        # the types of the ops that asked for a random generator (a
+        # program with any is never captured: its seeds would be baked in)
+        self.current_op = None
+        self.rng_ops = set()
 
     def analyze(self, scope_names, feed_names):
         """Classify variable usage for a run.
@@ -91,9 +96,16 @@ class BlockLowerer(object):
                         "op %s reads uninitialized variable %s "
                         "(not fed, not persistable-in-scope, not produced "
                         "earlier in the block)" % (op.type, e))
+        self.current_op = op
+        make_rng = _make_rng(seed, op.attrs, device)
+
+        def rng():
+            self.rng_ops.add(op.type)
+            return make_rng()
+
         ctx = LowerContext(
             op,
-            rng=_make_rng(seed, op.attrs, device),
+            rng=rng,
             is_test=self.is_test or op.attrs.get("is_test", False),
             block_lowerer=self,
             device=device,

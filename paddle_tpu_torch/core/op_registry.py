@@ -75,6 +75,12 @@ class OpDef(object):
     def output_slots(self):
         return [s.lstrip("*") for s in self.outputs]
 
+    def is_duplicable_input(self, slot):
+        return ("*" + slot) in self.inputs
+
+    def is_duplicable_output(self, slot):
+        return ("*" + slot) in self.outputs
+
 
 _REGISTRY = {}
 
@@ -107,6 +113,10 @@ def get_op_def(type):
     if opdef is None:
         raise KeyError("operator %r is not registered" % type)
     return opdef
+
+
+def has_op(type):
+    return type in _REGISTRY
 
 
 def registered_ops():

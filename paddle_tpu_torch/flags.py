@@ -2,14 +2,15 @@
 
 Counterpart of ``paddle_tpu/flags.py``: the same flag names, defaults and
 ``FLAGS_<name>`` parsing, so a deployment's environment configures both
-packages alike. Most flags steer subsystems later slices port; the port
-reads ``attention_impl``, ``paged_attention``, ``tree_attention``,
-``flash_backward``, ``speculative``, ``use_pallas_lstm``,
-``use_pallas_gru`` and ``verify_program`` (the ``Predictor`` refuses it
-until its verifier is ported) today. For the attention kernel flags
-"auto" and "pallas" launch the hand-written kernels for a CUDA tensor, and
-"reference" is refused for a CUDA tensor (the port has no hidden path to
-the plain versions on the card).
+packages alike, plus one of the port's own (``cuda_graph``). Most flags
+steer subsystems later slices port; the port reads ``attention_impl``,
+``paged_attention``, ``tree_attention``, ``flash_backward``,
+``speculative``, ``use_pallas_lstm``, ``use_pallas_gru``,
+``verify_program`` (``Executor`` and ``Predictor`` run the verifier) and
+``cuda_graph`` today. For the attention kernel flags "auto" and "pallas"
+launch the hand-written kernels for a CUDA tensor, and "reference" is
+refused for a CUDA tensor (the port has no hidden path to the plain
+versions on the card).
 """
 
 import os
@@ -68,6 +69,11 @@ _DEFS = {
     # a speculative SlotDecodeSession reads it at every step(): "off" sends
     # the session through the plain sequential step (serving/generation.py)
     "speculative": ("on", str),
+    # Executor.run_multi_step on a CUDA place: True captures the K-step
+    # loop into one CUDA graph and replays it; False runs the eager loop
+    # there (the oracle chip_smoke.py holds the graph against). The JAX
+    # package has no such flag: its loop is always one executable
+    "cuda_graph": (True, bool),
     # paged_tree_attention on a CUDA tensor: "auto" or "pallas" launch the
     # tree-decode kernel, "reference" raises (kernels/paged_attention.py)
     "tree_attention": ("auto", str),

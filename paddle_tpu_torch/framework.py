@@ -234,8 +234,12 @@ class Block(object):
             except Exception:
                 # best-effort at build time, as in the reference: an op
                 # whose input shapes are unknown keeps shape None, and
-                # execution derives every shape from the concrete feeds
-                pass
+                # execution derives every shape from the concrete feeds.
+                # The deferral lets infer_deferred_shapes retry it once
+                # feed shapes are known (the verifier does)
+                self.program._defer_shape_inference(self.idx, op)
+        else:
+            self.program._defer_shape_inference(self.idx, op)
         for name in op.output_arg_names():
             v = self.vars.get(name)
             if v is not None and v.op is None:
@@ -271,6 +275,9 @@ class Program(object):
         self.current_block_idx = 0
         self.random_seed = 0
         self._version = 0
+        # (block idx, op) whose build-time shape inference was skipped or
+        # failed; infer_deferred_shapes retries them
+        self._deferred_infer = []
         self._rng_counter = 0
         self._is_test = False
         self._op_role = OpRole.Forward
@@ -291,6 +298,62 @@ class Program(object):
 
     def _bump_version(self):
         self._version += 1
+
+    def _defer_shape_inference(self, block_idx, op):
+        self._deferred_infer.append((block_idx, op))
+
+    def infer_deferred_shapes(self, feed_shapes=None):
+        """Retry shape inference for ops deferred at append time
+        (framework.py ``infer_deferred_shapes`` parity). ``feed_shapes``
+        maps var name -> shape for data vars still missing one. Ops that
+        succeed leave the deferred list; returns ``[(block_idx, op,
+        error)]`` for those that still fail (the verifier's V011).
+        Memoized per (version, feed shapes)."""
+        pending = self._deferred_infer
+        if not pending:
+            return []
+        memo_key = (self._version, tuple(sorted(
+            (n, tuple(int(d) for d in s))
+            for n, s in (feed_shapes or {}).items())))
+        memo = getattr(self, "_deferred_infer_memo", None)
+        if memo is not None and memo[0] == memo_key:
+            return memo[1]
+        for name, shape in (feed_shapes or {}).items():
+            v = self.global_block()._find_var_recursive(name)
+            if v is not None and v.shape is None:
+                v.shape = tuple(int(d) for d in shape)
+                self._bump_version()
+        failures, remaining, resolved = [], [], False
+        for block_idx, op in pending:
+            block = self.blocks[block_idx] if block_idx < len(
+                self.blocks) else None
+            if block is None or not any(o is op for o in block.ops):
+                continue  # op was pruned/removed since the deferral
+            try:
+                _infer_op_shapes(block, op)
+                resolved = True
+            except Exception as e:
+                failures.append((block_idx, op, str(e)))
+                remaining.append((block_idx, op))
+        self._deferred_infer = remaining
+        if resolved:
+            self._bump_version()
+        self._deferred_infer_memo = (
+            (self._version, memo_key[1]), failures)
+        return failures
+
+    def verify(self, level="error", fetch_names=None, feed_shapes=None,
+               feed_names=None, suppress=()):
+        """Run the structural verifier (analysis/verify.py) over this
+        program. Raises ``analysis.ProgramVerifyError`` when any
+        diagnostic sits at or above ``level`` (level=None only
+        collects); returns the full diagnostics list otherwise."""
+        from paddle_tpu_torch.analysis import check_program
+
+        return check_program(
+            self, level=level, fetch_names=fetch_names,
+            feed_shapes=feed_shapes, feed_names=feed_names,
+            suppress=suppress)
 
     def _next_rng_id(self):
         self._rng_counter += 1

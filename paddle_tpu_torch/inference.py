@@ -10,9 +10,9 @@ while giving each serving thread its own ``Executor``.
 
 ``NativeConfig(use_tpu=True)``, the default, serves on the card
 (``TPUPlace`` is ``CUDAPlace``) and raises on a machine without one;
-``use_tpu=False`` serves on the CPU. The predictor's telemetry, black
-box and lock witness, and ``FLAGS_verify_program``'s load-time check,
-are not ported yet (ROADMAP A9).
+``use_tpu=False`` serves on the CPU. ``FLAGS_verify_program`` verifies
+the loaded program (``analysis.check_program``) at load. The predictor's
+telemetry, black box and lock witness are not ported yet (ROADMAP A9).
 """
 
 import threading
@@ -65,10 +65,6 @@ class Predictor(object):
     """A predictor over a saved inference model."""
 
     def __init__(self, config, _shared=None):
-        if flags.get("verify_program"):
-            raise NotImplementedError(
-                "FLAGS_verify_program: the port has no program verifier "
-                "yet (analysis.check_program, ROADMAP A9)")
         self._config = config
         # the place resolves first: use_tpu on a machine without a card
         # raises here, before anything loads
@@ -100,6 +96,17 @@ class Predictor(object):
                 # passes may return a rebuilt program: re-resolve fetches
                 gb = self._program.global_block()
                 self._fetch_vars = [gb.vars[n] for n in fetch_names]
+        if _shared is None and flags.get("verify_program"):
+            # verify at load (after the pass pipeline ran), so a
+            # corrupted model dir or a pass bug fails here with
+            # rule-tagged diagnostics, not inside the first request;
+            # clone() shares an already-verified program
+            from paddle_tpu_torch.analysis import check_program
+
+            check_program(
+                self._program, level="error",
+                fetch_names=[v.name for v in self._fetch_vars],
+                origin="Predictor load")
         # one run at a time per predictor; clone() is the way to serve
         # from several threads
         self._lock = threading.Lock()

@@ -13,6 +13,7 @@ Nothing here runs when the module is imported: the CPU tests import every
 module of the package, and the CPU has no ``nvcc``.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -140,6 +141,30 @@ def device_limits(device):
     return _limits[index]
 
 
+_capture = threading.local()
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """While a CUDA graph is captured in this thread: a launch queued
+    into the graph runs at each replay, not now, so ``Kernel.launch``
+    records it here ({(kernel, key): launches}) instead of counting it,
+    and :func:`count_replay` counts the log at every replay."""
+    prev = getattr(_capture, "log", None)
+    log = _capture.log = {}
+    try:
+        yield log
+    finally:
+        _capture.log = prev
+
+
+def count_replay(log):
+    """Count one replay of a captured graph's launches (a
+    :func:`recording_launches` log)."""
+    for (kernel, key), n in log.items():
+        kernel._count(key, n)
+
+
 class Kernel(object):
     """One C entry point of the kernel library, with its launch count.
 
@@ -147,9 +172,11 @@ class Kernel(object):
     the stream it is given and returns ``cudaGetLastError()``), raises
     on a nonzero code, and only then adds one to ``launches`` and, where
     the caller names the launch's shape class ``key``, to
-    ``by_key[key]``. Nothing else touches the counts except ``reset``.
-    The counts are updated under a lock: predictor clones launch from
-    several threads at once."""
+    ``by_key[key]``; inside :func:`recording_launches` it records the
+    launch for the graph's replays instead. Nothing else touches the
+    counts except ``reset`` and :func:`count_replay`. The counts are
+    updated under a lock: predictor clones launch from several threads
+    at once."""
 
     def __init__(self, symbol, argtypes):
         self.symbol = symbol
@@ -174,7 +201,14 @@ class Kernel(object):
         if rc != 0:
             raise RuntimeError("%s: CUDA error %d at launch"
                                % (self.symbol, rc))
+        log = getattr(_capture, "log", None)
+        if log is not None:
+            log[(self, key)] = log.get((self, key), 0) + 1
+        else:
+            self._count(key, 1)
+
+    def _count(self, key, n):
         with self._count_lock:
-            self.launches += 1
+            self.launches += n
             if key is not None:
-                self.by_key[key] = self.by_key.get(key, 0) + 1
+                self.by_key[key] = self.by_key.get(key, 0) + n

@@ -19,6 +19,7 @@ __all__ = [
     "mul",
     "dropout",
     "dynamic_update_slice",
+    "one_hot",
     "fc",
     "embedding",
     "layer_norm",
@@ -305,6 +306,14 @@ def mean(x, name=None):
     helper = LayerHelper("mean", name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def one_hot(input, depth):
+    helper = LayerHelper("one_hot")
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op(type="one_hot", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"depth": depth})
     return out
 
 

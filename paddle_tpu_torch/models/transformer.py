@@ -4,12 +4,12 @@ Counterpart of ``paddle_tpu/models/transformer.py`` for the training and
 serving slices: the training ``build`` (dropout, label-smoothed loss),
 the inference program derived from it and the greedy re-score loop over
 it (``build_inference``, ``greedy_generate``: the program a saved
-Transformer serves), the position-encoding tables, the paged slot
-decoder (greedy) with its
-speculative verify program, the draft decoder and the coalesced
-copy-on-write program. Every build function mints the reference's
-variable and parameter names, so parameters bind by name across the two
-packages and across this package's programs.
+Transformer serves), the position-encoding tables, the dense slot
+decoder, the paged slot decoder (greedy) with its speculative verify
+program, the draft decoder and the coalesced copy-on-write program.
+Every build function mints the reference's variable and parameter
+names, so parameters bind by name across the two packages and across
+this package's programs.
 """
 
 import numpy as np
@@ -210,6 +210,175 @@ def _check_greedy(sampler):
                          "top_k, got %r" % (strategy,))
     if strategy != "greedy" and temperature > 0.0:
         raise NotImplementedError(RNG_PARITY_TODO)
+
+
+def build_slot_decoder(num_slots, src_vocab_size=1000, trg_vocab_size=1000,
+                       max_length=64, n_layer=2, n_head=4, d_model=128,
+                       d_inner=512, eos_id=2, sampler=None):
+    """Continuous-batching decode over DENSE slot caches (greedy).
+
+    Returns ``(init_prog, admit_prog, step_prog, token_name)`` exactly as
+    the reference (``paddle_tpu/models/transformer.py``
+    ``build_slot_decoder``):
+
+    * ``init_prog`` (once): zeroed per-layer self K/V caches
+      ``[num_slots, H, T, dh]``, cross K/V pools of the same shape, and
+      the per-slot source mask ``[num_slots, T]`` (column 0 valid, so an
+      unoccupied slot's cross attention never sees a wholly masked row).
+    * ``admit_prog`` (per admission): the encoder over ONE sequence
+      (``src_word [1, T]``, ``src_len [1, 1]``, ``slot_idx [1]``), its
+      cross K/V and mask scattered into the slot's rows and the slot's
+      self caches zeroed, all by ``dynamic_update_slice`` on the slot
+      axis.
+    * ``step_prog`` (per token): feeds ``cur_tok [S, 1]``,
+      ``pe_row [S, 1, D]`` and ``gen_pos [S, 1]`` (per-slot positions).
+      Each slot's new K/V row lands at its own position by a one-hot
+      select-and-add (written positions get exactly the new row, others
+      keep their bits), attention is ``scaled_dot_product_attention``
+      over the whole ``[S, H, T, dh]`` cache with a per-slot ``[S, T]``
+      key mask (on the card the flash kernel's rows path at T = 1), and
+      the fetch is the ``[S, 1]`` token ids.
+
+    Stochastic samplers raise until ROADMAP.md A6. Build it under the
+    training ``build()``'s fresh ``unique_name`` scope; parameters bind
+    by name."""
+    _check_greedy(sampler)
+    nn = fluid.layers
+    S, T, D = int(num_slots), int(max_length), int(d_model)
+    dh = D // n_head
+
+    def heads(x):
+        return nn.transpose(nn.reshape(x, shape=[0, 0, n_head, dh]),
+                            perm=[0, 2, 1, 3])
+
+    def merge(x):
+        return nn.reshape(nn.transpose(x, perm=[0, 2, 1, 3]),
+                          shape=[0, 0, n_head * dh])
+
+    def proj(x, size, name):
+        return nn.fc(x, size, num_flatten_dims=2, bias_attr=False, name=name)
+
+    with unique_name.guard({}):
+        init = fluid.Program()
+        with fluid.program_guard(init, fluid.Program()):
+            blk = init.global_block()
+
+            def persist(name, value):
+                out = blk.create_var(name=name, shape=None,
+                                     dtype="float32", persistable=True)
+                nn.assign(value, output=out)
+
+            mask0 = nn.fill_constant([S, T], "float32", 0.0)
+            mask0 = nn.dynamic_update_slice(
+                mask0, nn.fill_constant([S, 1], "float32", 1.0),
+                nn.fill_constant([1], "int64", 0), axis=1)
+            persist("gen_src_mask", mask0)
+            for i in range(n_layer):
+                for kind in ("kcross", "vcross", "kcache", "vcache"):
+                    persist("gen_%s_%d" % (kind, i),
+                            nn.fill_constant([S, n_head, T, dh],
+                                             "float32", 0.0))
+
+        admit = fluid.Program()
+        with fluid.program_guard(admit, fluid.Program()):
+            blk = admit.global_block()
+            src = nn.data("src_word", shape=[T], dtype="int64")
+            src_len = nn.data("src_len", shape=[1], dtype="int64")
+            slot = nn.data("slot_idx", shape=[1], dtype="int64",
+                           append_batch_size=False)
+            src_mask = nn.sequence_mask(src_len, maxlen=T,
+                                        dtype="float32")  # [1, T]
+            emb = nn.embedding(input=src, size=[src_vocab_size, D],
+                               param_attr=fluid.ParamAttr(name="src_emb"))
+            enc = nn.add_position_encoding(nn.scale(emb, scale=D ** 0.5))
+            for i in range(n_layer):
+                enc = encoder_layer(enc, src_mask, n_head, D, d_inner,
+                                    0.0, True, "enc_%d" % i)
+            enc = _prenorm(enc, "enc_final")
+
+            def pool(name):
+                return blk.create_var(name=name, shape=[S, n_head, T, dh],
+                                      dtype="float32", persistable=True)
+
+            mask_pool = blk.create_var(name="gen_src_mask", shape=[S, T],
+                                       dtype="float32", persistable=True)
+            nn.dynamic_update_slice(mask_pool, src_mask, slot, axis=0,
+                                    out=mask_pool)
+            zeros_row = nn.fill_constant([1, n_head, T, dh], "float32", 0.0)
+            for i in range(n_layer):
+                kc = heads(proj(enc, dh * n_head, "dec_%d_cmha_k" % i))
+                vc = heads(proj(enc, dh * n_head, "dec_%d_cmha_v" % i))
+                for pname, row in (("gen_kcross_%d" % i, kc),
+                                   ("gen_vcross_%d" % i, vc),
+                                   ("gen_kcache_%d" % i, zeros_row),
+                                   ("gen_vcache_%d" % i, zeros_row)):
+                    p = pool(pname)
+                    nn.dynamic_update_slice(p, row, slot, axis=0, out=p)
+
+        step = fluid.Program()
+        with fluid.program_guard(step, fluid.Program()):
+            blk = step.global_block()
+            cur = nn.data("cur_tok", shape=[1], dtype="int64")
+            pe_row = nn.data("pe_row", shape=[1, D], dtype="float32")
+            pos = nn.data("gen_pos", shape=[1], dtype="int64")  # [S, 1]
+            # per-slot validity: positions <= this slot's own pos
+            cache_mask = nn.sequence_mask(
+                fluid.layers.increment(pos, value=1, in_place=False),
+                maxlen=T, dtype="float32")  # [S, T]
+            # one-hot of each slot's write position on the cache's T
+            # axis: [S, 1, T, 1]
+            write_sel = nn.reshape(nn.one_hot(pos, depth=T),
+                                   shape=[-1, 1, T, 1])
+            keep_sel = nn.scale(write_sel, scale=-1.0, bias=1.0)
+
+            def pvar(name, shape):
+                return blk.create_var(name=name, shape=shape,
+                                      dtype="float32", persistable=True)
+
+            src_mask = pvar("gen_src_mask", [S, T])
+            emb = nn.embedding(input=cur, size=[trg_vocab_size, D],
+                               param_attr=fluid.ParamAttr(name="trg_emb"))
+            emb = nn.reshape(emb, shape=[0, 1, D])
+            h = nn.elementwise_add(nn.scale(emb, scale=D ** 0.5), pe_row)
+            for i in range(n_layer):
+                name = "dec_%d" % i
+                kcache = pvar("gen_kcache_%d" % i, [S, n_head, T, dh])
+                vcache = pvar("gen_vcache_%d" % i, [S, n_head, T, dh])
+                nx = _prenorm(h, name + "_sattn")
+                q = heads(proj(nx, dh * n_head, name + "_smha_q"))
+                k1 = heads(proj(nx, dh * n_head, name + "_smha_k"))
+                v1 = heads(proj(nx, dh * n_head, name + "_smha_v"))
+                # per-slot scatter: row i writes at ITS gen_pos[i]; the
+                # select-and-add keeps untouched positions bit-identical
+                knew = nn.elementwise_add(
+                    nn.elementwise_mul(kcache, keep_sel),
+                    nn.elementwise_mul(k1, write_sel))
+                vnew = nn.elementwise_add(
+                    nn.elementwise_mul(vcache, keep_sel),
+                    nn.elementwise_mul(v1, write_sel))
+                nn.assign(knew, output=kcache)
+                nn.assign(vnew, output=vcache)
+                att = fluid.layers.scaled_dot_product_attention(
+                    q, knew, vnew, mask=cache_mask, sm_scale=dh ** -0.5)
+                h = nn.elementwise_add(
+                    h, proj(merge(att), D, name + "_smha_o"))
+                nx2 = _prenorm(h, name + "_cattn")
+                q2 = heads(proj(nx2, dh * n_head, name + "_cmha_q"))
+                ctx = fluid.layers.scaled_dot_product_attention(
+                    q2, pvar("gen_kcross_%d" % i, [S, n_head, T, dh]),
+                    pvar("gen_vcross_%d" % i, [S, n_head, T, dh]),
+                    mask=src_mask, sm_scale=dh ** -0.5)
+                h = nn.elementwise_add(
+                    h, proj(merge(ctx), D, name + "_cmha_o"))
+                ff = _ffn(_prenorm(h, name + "_ffn"), D, d_inner,
+                          name + "_ffn")
+                h = nn.elementwise_add(h, ff)
+            h = _prenorm(h, "dec_final")
+            logits = nn.fc(h, trg_vocab_size, num_flatten_dims=2,
+                           name="proj_logits")
+            tok, _, _ = fluid.layers.slot_decode_sample(
+                logits, pos, eos_id=eos_id, max_length=T)
+    return init, admit, step, tok.name
 
 
 def build_paged_slot_decoder(num_slots, src_vocab_size=1000,

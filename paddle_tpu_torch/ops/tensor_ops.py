@@ -1,5 +1,5 @@
 """Tensor manipulation ops: fill / assign / reshape / transpose / concat /
-gather / lookup_table / dynamic_update_slice / top_k.
+gather / lookup_table / one_hot / dynamic_update_slice / top_k.
 
 Counterpart of ``paddle_tpu/ops/tensor_ops.py`` for the ops this slice
 runs. Every lowering here is shape-pure (no value is read on the host),
@@ -33,6 +33,25 @@ register_op(
 # assign copies: ops that update state in place (paged_kv_write,
 # dynamic_update_slice onto its own input) must never find a second
 # variable name bound to the tensor they write
+def _lower_one_hot(ctx, ins, attrs):
+    x = ins["X"][0]
+    if x.dim() > 1 and x.shape[-1] == 1:
+        x = x.squeeze(-1)
+    # jax.nn.one_hot's semantics (an id outside [0, depth) gives a zero
+    # row), as a comparison: no value is read on the host
+    classes = torch.arange(int(attrs["depth"]), device=x.device)
+    return (x.unsqueeze(-1) == classes).to(torch.float32)
+
+
+register_op(
+    "one_hot",
+    inputs=["X"],
+    outputs=["Out"],
+    attrs={"depth": 1},
+    lower=_lower_one_hot,
+    grad=None,
+)
+
 register_op(
     "assign",
     inputs=["X"],

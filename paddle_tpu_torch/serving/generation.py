@@ -1,8 +1,10 @@
-"""SlotDecodeSession: continuous batching over the block-paged KV pool.
+"""SlotDecodeSession: continuous batching over the block-paged KV pool or
+dense slot caches.
 
-Counterpart of ``paddle_tpu/serving/generation.py`` for the paged greedy
-path. ``models.transformer.build_paged_slot_decoder`` builds the programs;
-this module is the host-side slot manager. Sequences are admitted into
+Counterpart of ``paddle_tpu/serving/generation.py`` for greedy decode.
+``models.transformer.build_paged_slot_decoder`` (``paged=True``) and
+``build_slot_decoder`` (``paged=False``) build the programs; this module
+is the host-side slot manager. Sequences are admitted into
 free slots mid-flight (one admission program runs the encoder and
 installs the slot's cross K/V, page-table row and loop state), one
 ``run_multi_step`` call advances every slot ``steps`` tokens, and a
@@ -14,18 +16,23 @@ each slot's resident pages.
 Ported here: ``admit`` (with ``prefix_tokens``, through the causal
 prefill program), ``admit_group`` (forks of one source that share its
 cross K/V group and its prefix pages until copy-on-write splits them),
-``step`` (``steps >= 1``), speculative decode (``speculative=K``:
-draft-then-verify, 1 to K + 1 tokens per slot per dispatch, with the
-``FLAGS_speculative=off`` oracle), ``generate`` and the queue under it
+the prefix cache (``prefix_cache_pages``: a forced prefix's full pages
+are looked up by source and tokens, referenced, and only the rest is
+prefilled), ``step`` (``steps >= 1``; on a card one captured CUDA graph
+a call, ``Executor.run_multi_step``), speculative decode
+(``speculative=K``: draft-then-verify, 1 to K + 1 tokens per slot per
+dispatch, with the ``FLAGS_speculative=off`` oracle), the dense layout
+(``paged=False``: one ``exe.run`` per token), ``generate``,
+``generate_best_of`` and the queue under them
 (``enqueue``/``admit_pending``/``pump``/``take_result``), page
 provisioning and release, the coalesced copy-on-write dispatch, and the
 typed rejects ``NoFreeSlotError``, ``NoFreePageError`` and
 ``NoFreeGroupError``. Not ported yet (ROADMAP.md): sampled decode (A6,
-RNG parity), the prefix cache, snapshots, degradation and the captured
-CUDA graph (A5), beam decode (A7), tracing and metrics (A9), and the
-dense (unpaged) layout.
+RNG parity), snapshots and degradation (A5), beam decode (A7), tracing
+and metrics, the prefix cache's gauges among them (A9).
 """
 
+import hashlib
 from collections import deque
 
 import numpy as np
@@ -40,6 +47,7 @@ from paddle_tpu_torch.serving.kv_pool import (
     NoFreeGroupError,
     NoFreePageError,
     PagePool,
+    PrefixCache,
 )
 from paddle_tpu_torch.serving.server import ServingError
 
@@ -73,7 +81,8 @@ class Sampler(object):
 
 
 class SlotDecodeSession(object):
-    """Continuous-batching greedy decode over a block-paged KV pool.
+    """Continuous-batching greedy decode over a block-paged KV pool
+    (``paged=True``) or dense per-slot caches (``paged=False``).
 
     Build it with the model's parameters in the scope (they bind by
     name)::
@@ -89,9 +98,12 @@ class SlotDecodeSession(object):
     ``page_size`` tokens per page, ``num_pages`` in all (default: the
     trash page plus every slot at full length); ``steps`` tokens per
     ``step()`` call; ``num_groups`` cross-K/V rows (default
-    ``num_slots``). ``decoder_cfg`` forwards to the builder
-    (``src_vocab_size``, ``trg_vocab_size``, ``n_layer``, ``n_head``,
-    ``d_inner``).
+    ``num_slots``); ``prefix_cache_pages`` > 0 enables the forced-prefix
+    page cache with that page capacity. ``decoder_cfg`` forwards to the
+    builder (``src_vocab_size``, ``trg_vocab_size``, ``n_layer``,
+    ``n_head``, ``d_inner``). The dense layout (``paged=False``) takes
+    ``steps=1`` only and has no pool: no forced prefixes, fork groups,
+    prefix cache or speculative decode.
 
     ``speculative=K`` (or ``{"k": K, "drafter": "ngram" | "model",
     ...}``; ``steps=1``) decodes by draft-then-verify: a host drafter
@@ -109,12 +121,6 @@ class SlotDecodeSession(object):
                  page_size=8, num_pages=None, num_groups=None, steps=1,
                  sampler=None, prefix_cache_pages=0, speculative=None,
                  **decoder_cfg):
-        if not paged:
-            raise NotImplementedError(
-                "the dense slot layout is not ported; pass paged=True")
-        if prefix_cache_pages:
-            raise NotImplementedError(
-                "the prefix cache is not ported yet (ROADMAP.md A5)")
         # speculative decode config: int K (n-gram drafter) or a dict
         # {"k": K, "drafter": "ngram"|"model", ...drafter kwargs}
         if speculative is None:
@@ -130,6 +136,10 @@ class SlotDecodeSession(object):
         if self._spec_k < 0:
             raise ValueError("speculative k must be >= 0 (0 disables), "
                              "got %d" % self._spec_k)
+        if self._spec_k and not paged:
+            raise ValueError(
+                "speculative decode needs paged=True — the tree "
+                "writes/compaction ARE page-table operations")
         if self._spec_k and int(steps) != 1:
             raise ValueError(
                 "speculative decode needs steps=1: drafting and accept "
@@ -140,9 +150,36 @@ class SlotDecodeSession(object):
         self._S, self._T, self._D = int(num_slots), int(max_length), \
             int(d_model)
         self._bos, self._eos = int(bos_id), int(eos_id)
+        self._paged = bool(paged)
         self._steps = max(1, int(steps))
         self._n_layer = int(decoder_cfg.get("n_layer", 2))
         self._n_head = int(decoder_cfg.get("n_head", 4))
+        self._free = list(range(self._S - 1, -1, -1))
+        self._live = {}  # slot -> {"trg": [T] int64, "pos": int}
+        self._pending = deque()  # {"id", "src" [1, T], "len", "prefix"}
+        self._owner = {}         # slot -> request id
+        self._results = {}       # request id -> [T] tokens, until taken
+        self._next_req = 0
+        self.steps_done = 0      # step() dispatches completed
+        self.decode_steps = 0    # step-program iterations run
+        self._spec_drafter = None
+        self._prefix_cache = None
+        if not self._paged:
+            if steps != 1:
+                raise ValueError(
+                    "multi-token dispatch (steps > 1) needs paged=True "
+                    "— the dense step program is not a self-contained "
+                    "loop body")
+            if prefix_cache_pages or num_groups:
+                raise ValueError(
+                    "prefix_cache_pages / num_groups need paged=True — "
+                    "the dense layout has no shareable KV state")
+            (self._init_prog, self._admit_prog, self._step_prog,
+             self._fetch_name) = transformer.build_slot_decoder(
+                num_slots, max_length=max_length, d_model=d_model,
+                eos_id=eos_id, sampler=sampler, **decoder_cfg)
+            self._run(self._init_prog, {}, [])
+            return
         self._ps = int(page_size)
         self._npp = pages_for(self._T, self._ps)
         self._P = int(num_pages) if num_pages else 1 + self._S * self._npp
@@ -171,6 +208,9 @@ class SlotDecodeSession(object):
             "pe_table": transformer.position_encoding_table(self._T,
                                                             self._D)}, [])
         self._pool = PagePool(self._P)
+        if prefix_cache_pages:
+            self._prefix_cache = PrefixCache(
+                self._pool, self._ps, max_pages=int(prefix_cache_pages))
         self._slot_pages = {}  # slot -> [page ids], ordered by index
         self._slot_group = {}  # slot -> group id
         self._free_groups = list(range(self._G - 1, -1, -1))
@@ -204,7 +244,6 @@ class SlotDecodeSession(object):
         # speculative decode: the drafter and the (static) chain-tree
         # feeds. The plain step program stays built: FLAGS_speculative is
         # read at EVERY step, so the off oracle flips mid-session.
-        self._spec_drafter = None
         if self._spec_k:
             kind = str(spec_cfg.get("drafter", "ngram"))
             if kind == "ngram":
@@ -228,14 +267,6 @@ class SlotDecodeSession(object):
             self._spec_nodes = self._spec_k + 1
             self._spec_parent = np.tile(parent[None, :], (self._S, 1))
             self._spec_anc = np.tile(anc[None, :, :], (self._S, 1, 1))
-        self._free = list(range(self._S - 1, -1, -1))
-        self._live = {}  # slot -> {"trg": [T] int64, "pos": int}
-        self._pending = deque()  # {"id", "src" [1, T], "len", "prefix"}
-        self._owner = {}         # slot -> request id
-        self._results = {}       # request id -> [T] tokens, until taken
-        self._next_req = 0
-        self.steps_done = 0      # step() dispatches completed
-        self.decode_steps = 0    # step-program iterations run
 
     def _run(self, prog, feed, fetch_list):
         return self._exe.run(prog, feed=feed, fetch_list=fetch_list,
@@ -254,15 +285,21 @@ class SlotDecodeSession(object):
         row = row + [row[-1]] * (self._npp - len(row))
         return np.asarray([row], dtype="int64")
 
+    def _acquire_page(self):
+        reclaim = (self._prefix_cache.reclaim
+                   if self._prefix_cache is not None else None)
+        return self._pool.acquire(reclaim)
+
     def _provision(self, slot, length):
         """Grow ``slot``'s page list to cover ``length`` resident tokens;
         returns True when the table row changed. Cannot fail: admit()
-        reserved the slot's worst case."""
+        reserved the slot's worst case (pages only the prefix cache holds
+        are evicted under pressure)."""
         pages = self._slot_pages[slot]
         need = pages_for(min(int(length), self._T), self._ps)
         grew = False
         while len(pages) < need:
-            pages.append(self._pool.acquire())
+            pages.append(self._acquire_page())
             grew = True
         return grew
 
@@ -291,7 +328,7 @@ class SlotDecodeSession(object):
         for i in range(first, min(last + 1, len(pages))):
             pg = pages[i]
             if self._pool.refcount(pg) - pending.get(pg, 0) > 1:
-                dst = self._pool.acquire()
+                dst = self._acquire_page()
                 copies.append((pg, dst))
                 pages[i] = dst
                 pending[pg] = pending.get(pg, 0) + 1
@@ -388,24 +425,54 @@ class SlotDecodeSession(object):
 
     @property
     def free_pages(self):
-        """Unallocated KV pages (trash page excluded)."""
-        return self._pool.free_count
+        """Unallocated KV pages (trash page excluded; 0 when dense)."""
+        return self._pool.free_count if self._paged else 0
 
     @property
     def pages_in_use(self):
-        """Pages referenced by live slots."""
-        return self._pool.allocated_count
+        """Pages referenced by live slots or the prefix cache."""
+        return self._pool.allocated_count if self._paged else 0
 
     @property
     def shared_pages(self):
-        """Pages with refcount > 1 (fork sharing in flight)."""
-        return self._pool.shared_count
+        """Pages with refcount > 1 (fork or prefix sharing in flight)."""
+        return self._pool.shared_count if self._paged else 0
+
+    @property
+    def cached_pages(self):
+        """Distinct pages the prefix cache holds references on."""
+        return (self._prefix_cache.pages
+                if self._prefix_cache is not None else 0)
+
+    @property
+    def free_groups(self):
+        return len(self._free_groups) if self._paged else 0
 
     @property
     def pool_conserved(self):
-        """The page-pool conservation law: ``free + allocated == P - 1``."""
+        """The page-pool conservation law: ``free + allocated == P - 1``
+        (True for a dense session, which has no pool)."""
+        if not self._paged:
+            return True
         return (self._pool.free_count + self._pool.allocated_count
                 == self._pool.num_pages - 1)
+
+    def prefix_cache_stats(self):
+        """{'lookups', 'hits', 'hit_rate', 'tokens_saved', 'pages'};
+        zeros when the cache is disabled."""
+        c = self._prefix_cache
+        if c is None:
+            return {"lookups": 0, "hits": 0, "hit_rate": 0.0,
+                    "tokens_saved": 0, "pages": 0}
+        return {"lookups": c.lookups, "hits": c.hits,
+                "hit_rate": c.hit_rate, "tokens_saved": c.tokens_saved,
+                "pages": c.pages}
+
+    def clear_prefix_cache(self):
+        """Drop every cached prefix page (references released; pages
+        free once no live slot shares them)."""
+        if self._prefix_cache is not None:
+            self._prefix_cache.clear()
 
     def _take_slot(self):
         """Claim the LOWEST-numbered free slot (deterministic placement)."""
@@ -421,6 +488,15 @@ class SlotDecodeSession(object):
     @property
     def active_slots(self):
         return sorted(self._live)
+
+    @staticmethod
+    def _src_fp(src, length):
+        """Prefix-cache source fingerprint: prefix K/V past layer 0
+        depends on the source (cross attention feeds every decoder
+        layer), so cached pages are keyed by source content too."""
+        h = hashlib.sha256(np.ascontiguousarray(src).tobytes())
+        h.update(str(int(length)).encode())
+        return h.hexdigest()
 
     def _full_prefix(self, prefix_tokens):
         prefix = [self._bos] + [int(t) for t in (prefix_tokens or ())]
@@ -439,9 +515,38 @@ class SlotDecodeSession(object):
         slot id. Raises :class:`NoFreeSlotError` when every slot is
         occupied and :class:`NoFreePageError` / :class:`NoFreeGroupError`
         when the pools cannot cover the admission; a reject leaves the
-        session exactly as it was."""
+        session exactly as it was. A dense session takes no
+        ``prefix_tokens``."""
+        if not self._paged:
+            if prefix_tokens is not None:
+                raise ValueError(
+                    "prefix_tokens needs paged=True — the dense layout "
+                    "has no prefill program")
+            return self._admit_dense(src, src_len)
         return self.admit_group(src, n=1, src_len=src_len,
                                 prefix_tokens=prefix_tokens)[0]
+
+    def _admit_dense(self, src, src_len):
+        if not self._free:
+            raise NoFreeSlotError(
+                "all %d slots occupied; step() until one frees" % self._S)
+        src = np.asarray(src, dtype="int64").reshape(1, self._T)
+        length = self._T if src_len is None else int(np.ravel(src_len)[0])
+        slot = self._take_slot()
+        try:
+            self._run(self._admit_prog, {
+                "src_word": src,
+                "src_len": np.asarray([[length]], dtype="int64"),
+                "slot_idx": np.asarray([slot], dtype="int64"),
+            }, [])
+        except BaseException:
+            # the slot goes back, so a retried admission lands in it
+            self._free.append(slot)
+            raise
+        trg = np.full(self._T, self._eos, dtype="int64")
+        trg[0] = self._bos
+        self._live[slot] = {"trg": trg, "pos": 0}
+        return slot
 
     def admit_group(self, src, n=1, src_len=None, prefix_tokens=None):
         """Admit ``n`` continuations of ONE source as a fork group: one
@@ -452,7 +557,16 @@ class SlotDecodeSession(object):
         member decodes what a solo admission into the same slot decodes.
         Returns the member slot ids in admission order. Any failure
         mid-admission rolls the whole group back (table rows to the trash
-        page FIRST, then references, slots, group and reservations)."""
+        page FIRST, then references, slots, group and reservations).
+
+        With the prefix cache on, member 0 takes the forced prefix's full
+        pages the cache holds for this source by reference and prefills
+        only from ``write_from = hits x page_size``; the pages that the
+        prefill filled join the cache after it has landed."""
+        if not self._paged:
+            raise ValueError(
+                "admit_group needs paged=True — the dense layout has "
+                "no shareable KV state")
         n = int(n)
         if n < 1:
             raise ValueError("admit_group needs n >= 1, got %d" % n)
@@ -487,11 +601,20 @@ class SlotDecodeSession(object):
         # decode-ahead coverage for the first dispatch: the prefill
         # writes positions [0, L-1), the first step() [L-1, L-1+steps)
         cover = min(L - 1 + self._steps, self._T)
+        k_full = (L - 1) // self._ps  # prefix pages that end up full
         try:
             # member 0: encoder forward and (any) prefill
             slot0 = self._take_slot()
             slots.append(slot0)
-            pages = self._slot_pages[slot0] = []
+            cached = []
+            if self._prefix_cache is not None and L > 1:
+                cached = self._prefix_cache.lookup(
+                    self._src_fp(src, length), prefix)[:k_full]
+            pages = []
+            for pg in cached:
+                self._pool.ref(pg)
+                pages.append(pg)
+            self._slot_pages[slot0] = pages
             self._slot_group[slot0] = gid
             self._provision(slot0, cover)
             feed = {
@@ -502,16 +625,25 @@ class SlotDecodeSession(object):
             }
             feed.update(start_feed)
             self._run(self._admit_prog, feed, [])
-            if L > 1:
+            write_from = len(cached) * self._ps
+            if write_from:
+                self._prefix_cache.tokens_saved += write_from
+            if write_from < L - 1:
                 pw = np.full((1, self._T), self._eos, dtype="int64")
                 pw[0, :L] = prefix
                 self._run(self._prefill_prog, {
                     "prefix_word": pw,
                     "prefix_len": np.asarray([[L]], dtype="int64"),
-                    "write_from": np.asarray([[0]], dtype="int64"),
+                    "write_from": np.asarray([[write_from]],
+                                             dtype="int64"),
                     "slot_idx": np.asarray([slot0], dtype="int64"),
                     "group_idx": np.asarray([gid], dtype="int64"),
                 }, [])
+            if self._prefix_cache is not None and k_full > len(cached):
+                # the newly full pages join the cache (one reference
+                # each), only after the prefill has landed their K/V
+                self._prefix_cache.insert(
+                    self._src_fp(src, length), prefix, pages[:k_full])
             # members 1..n-1 fork by reference. Shared: exactly the pages
             # that hold PREFIX content (full pages and the partial tail);
             # decode-ahead pages past the prefix are private per member
@@ -574,19 +706,42 @@ class SlotDecodeSession(object):
         """Advance every in-flight sequence: ``steps`` tokens through one
         ``run_multi_step`` call, or, in a speculative session (unless
         ``FLAGS_speculative=off``), 1 to k + 1 tokens through one verify
-        dispatch. Returns ``{slot: [T] int64 tokens}`` for the sequences
-        that finished (their slots and pages are free again). No-op ({})
-        when nothing is in flight."""
+        dispatch, or, in a dense session, one token through one
+        ``exe.run``. Returns ``{slot: [T] int64 tokens}`` for the
+        sequences that finished (their slots and pages are free again).
+        No-op ({}) when nothing is in flight."""
         if not self._live:
             return {}
+        if not self._paged:
+            out = self._step_dense()
         # the oracle: FLAGS_speculative=off routes this very session
         # through the plain sequential step, and flips mid-stream
-        if self._spec_k and flags.get("speculative") != "off":
+        elif self._spec_k and flags.get("speculative") != "off":
             out = self._step_speculative()
         else:
             out = self._step_plain()
         self.steps_done += 1
         return out
+
+    def _dense_feed(self):
+        """The dense step program's feeds: every live slot's current
+        token, position and position-encoding row (eos, 0 and zeros for
+        a free slot)."""
+        cur = np.full((self._S, 1), self._eos, dtype="int64")
+        pos = np.zeros((self._S, 1), dtype="int64")
+        pe = np.zeros((self._S, 1, self._D), dtype="float32")
+        for slot, st in self._live.items():
+            cur[slot, 0] = st["trg"][st["pos"]]
+            pos[slot, 0] = st["pos"]
+            pe[slot] = transformer.position_encoding_row(st["pos"], self._D)
+        return {"cur_tok": cur, "pe_row": pe, "gen_pos": pos}
+
+    def _step_dense(self):
+        (toks,) = self._run(self._step_prog, self._dense_feed(),
+                            [self._fetch_name])
+        self.decode_steps += 1
+        # [S, 1] token ids chosen on the device: the logits stay there
+        return self._consume_tokens(np.asarray(toks).reshape(1, -1, 1))
 
     def _step_plain(self):
         # step j writes K/V at pos + j: every live slot's table covers
@@ -631,7 +786,8 @@ class SlotDecodeSession(object):
     def _finish(self, slot, finished):
         finished[slot] = self._live.pop(slot)["trg"]
         self._free.append(slot)
-        self._release_pages(slot)
+        if self._paged:
+            self._release_pages(slot)
 
     def _consume_spec(self, tok_seq, acc_len):
         """Apply one verify dispatch's commits to the live slots: exactly
@@ -717,6 +873,24 @@ class SlotDecodeSession(object):
     def take_result(self, request_id):
         """Claim (and remove) a finished request's [T] tokens, or None."""
         return self._results.pop(int(request_id), None)
+
+    def generate_best_of(self, src, n, src_len=None, prefix_tokens=None):
+        """Best-of-N over ``admit_group``: decode ``n`` continuations of
+        ONE source ([T] or [1, T] ids) to completion and return them as
+        an [n, T] matrix in member order. Meant for a dedicated session
+        (it steps until the group drains; other in-flight slots that
+        finish meanwhile are returned to nobody)."""
+        slots = self.admit_group(src, n=n, src_len=src_len,
+                                 prefix_tokens=prefix_tokens)
+        order = {s: i for i, s in enumerate(slots)}
+        out = np.full((int(n), self._T), self._eos, dtype="int64")
+        remaining = set(slots)
+        while remaining:
+            for slot, tokens in self.step().items():
+                if slot in remaining:
+                    out[order[slot]] = tokens
+                    remaining.discard(slot)
+        return out
 
     def generate(self, src, src_len=None, prefix_tokens=None):
         """Batch convenience: run every row of ``src`` ([B, T] int ids,

@@ -9,8 +9,8 @@ fc fusion. Then what the port adds: ``run_async(...).result()`` equal to
 the CPU a handle is done at once) and answering later; outputs that are
 copies the caller owns; the feed and fetch descriptions; and
 ``NativeConfig(use_tpu=True)`` (the card, the default) raising where
-CUDA is absent, as ``FLAGS_verify_program`` does until its verifier is
-ported."""
+CUDA is absent. ``FLAGS_verify_program`` at load is held in
+``tests/test_torch_verify.py``."""
 
 import threading
 
@@ -19,7 +19,6 @@ import pytest
 import torch
 
 import paddle_tpu_torch as fluid
-from paddle_tpu_torch import flags
 from paddle_tpu_torch.executor import FetchHandle, FetchTimeoutError
 from paddle_tpu_torch.inference import (
     AnalysisConfig,
@@ -210,16 +209,6 @@ def test_use_tpu_raises_without_cuda(tmp_path, monkeypatch):
         create_paddle_predictor(config)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         create_paddle_predictor(AnalysisConfig(model_dir=path))
-
-
-def test_verify_program_flag_raises_until_ported(tmp_path):
-    path, _, _ = _train_and_save(tmp_path)
-    flags.set_flag("verify_program", True)
-    try:
-        with pytest.raises(NotImplementedError, match="A9"):
-            _cpu(path)
-    finally:
-        flags.set_flag("verify_program", False)
 
 
 def test_launch_counts_hold_under_threads():
