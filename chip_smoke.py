@@ -148,12 +148,37 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    inference programs saved and served through ``NativeConfig`` and
    ``AnalysisConfig`` (the fusion passes): predictions within 1e-5 of
    each other, 3 launches of the cell's kernel a run, predictions/s.
+12. the serving plane over the wire, after step 11's RNN predictors.
+   First (``C1`` line) a run of ``log`` over a negative feed with
+   ``FLAGS_check_nan_inf`` on raises the JAX package's message on the
+   card. Then (``frontend`` lines) one ``ServingFrontend`` on 127.0.0.1
+   serves the saved stacked LSTM through a ``BatchingServer`` (max batch
+   8, 2 workers) and a captured paged ``SlotDecodeSession`` of step 4's
+   configuration and weights. 4 client threads send 256 ``predict``
+   requests of 1..8 sequences (three quarters of them released when the
+   decode loop's capture begins) while 8 client threads stream step 4's
+   64 requests, with every kernel's count reset just before. Gates:
+   every wire stream equals step 4's in-process stream; ``paged_decode``
+   n_layer times a decode step and ``flash_fwd`` by step 4's formula;
+   the pool drains; a capture overlapped predict traffic; each
+   prediction within 1e-5 of ``run_reference`` on the card; 3
+   ``lstm_cell`` launches a dispatched batch, every batch on a ladder
+   rung. It prints wire decode tokens/s beside step 4's, time to first
+   token and request latency p50/p99, predict requests/s, latency and
+   batches by bucket, and the same predict clients alone; then an
+   in-band cancel and a dropped client each leave the pool conserved
+   (the cancelling connection serves again), a lapsed deadline and an
+   unknown method come back typed, and ``health`` / ``stats`` /
+   ``metrics`` answer, ``paddle_tpu_frontend_request_seconds`` counting
+   every request sent.
 
 A line of its own before the last holds the kernels' JSON record (for
 flash_fwd, the backward pair, paged_decode (full occupancy and the
 serving mix of lengths) and lstm_cell also every timed shape: ms,
 bound, plain and library ms, and the main path's launches at that
-shape; flash_fwd's predictor runs have a row of their own); the
+shape; flash_fwd's predictor runs have a row of their own, lstm_cell's
+frontend batches too; the frontend's launches are part of the serving
+windows); the
 last line is ``{"ok": true, "device": {...}}``. Any failure exits nonzero
 before that line. The script needs one CUDA card and the rest of the
 repository beside it: without either it fails at once.
@@ -229,6 +254,12 @@ PRED_FUSED_TOL = 1e-5   # AnalysisConfig against NativeConfig predictions
 # windows of PRED_RNN_RUNS runs each (about a second a config at 3-5 ms a
 # run), so the host's spread shows between windows of one config
 PRED_RNN_ROUNDS, PRED_RNN_RUNS = 2, 150
+# the serving plane over the wire: 8 client threads stream the serve
+# phase's requests while 4 more send 256 predict requests of 1..8
+# sequences to the saved stacked LSTM (three quarters of them from the
+# moment the decode loop's capture begins)
+FE_CLIENTS, FE_PREDICT, FE_PREDICT_CLIENTS = 8, 256, 4
+FE_PRED_TOL = 1e-5  # batched predictions against run_reference, on the card
 
 
 def kernel_symbol(line):
@@ -3286,15 +3317,13 @@ def transformer_predictor_phase(np, torch, fluid, exe, kernels):
 
 
 def rnn_predictor_phase(np, torch, fluid, exe, kernels, cell, scope, infer,
-                        outs, feed):
-    """The trained stacked network's inference program, saved and served
-    through ``NativeConfig`` and ``AnalysisConfig`` on the card:
-    predictions within 1e-5 of each other, stacked_num launches of the
-    cell's kernel per run, predictions/s over windows that alternate
-    between the two configs. Returns the timed runs' launches of the
-    kernel."""
-    import tempfile
-
+                        outs, feed, model_dir):
+    """The trained stacked network's inference program, saved into
+    ``model_dir`` and served through ``NativeConfig`` and
+    ``AnalysisConfig`` on the card: predictions within 1e-5 of each
+    other, stacked_num launches of the cell's kernel per run,
+    predictions/s over windows that alternate between the two configs.
+    Returns the timed runs' launches of the kernel."""
     from paddle_tpu_torch.inference import (
         AnalysisConfig,
         NativeConfig,
@@ -3303,12 +3332,12 @@ def rnn_predictor_phase(np, torch, fluid, exe, kernels, cell, scope, infer,
 
     kname = "lstm_cell" if cell == "lstm" else "gru_cell"
     feed = {"words": feed["words"], "length": feed["length"]}
-    with tempfile.TemporaryDirectory() as tmp:
-        fluid.io.save_inference_model(tmp, list(feed), [outs["predict"]],
-                                      exe, main_program=infer, scope=scope)
-        preds = [("NativeConfig", create_paddle_predictor(NativeConfig(tmp))),
-                 ("AnalysisConfig",
-                  create_paddle_predictor(AnalysisConfig(tmp)))]
+    fluid.io.save_inference_model(model_dir, list(feed), [outs["predict"]],
+                                  exe, main_program=infer, scope=scope)
+    preds = [("NativeConfig",
+              create_paddle_predictor(NativeConfig(model_dir))),
+             ("AnalysisConfig",
+              create_paddle_predictor(AnalysisConfig(model_dir)))]
     out, total = {}, 0
     for name, pred in preds:
         (out[name],) = pred.run(feed)
@@ -3349,6 +3378,436 @@ def rnn_predictor_phase(np, torch, fluid, exe, kernels, cell, scope, infer,
         fail("NativeConfig and AnalysisConfig %s predictions disagree"
              % cell)
     return total
+
+
+# -- the serving plane over the wire -----------------------------------------
+
+def nan_check_phase(np, torch, fluid, exe):
+    """FLAGS_check_nan_inf on the card: a run of ``log`` over a feed
+    holding a negative raises the JAX package's message; the scan is one
+    stacked flag vector over every floating fetch, read on the host
+    once."""
+    from paddle_tpu_torch import executor, flags, unique_name
+
+    main, startup = fluid.Program(), fluid.Program()
+    with unique_name.guard({}), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+        y = fluid.layers.log(x)
+        z = fluid.layers.scale(x, scale=2.0)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    bad = np.array([[-1.0, 1.0, 2.0, 3.0]], "float32")
+    flags.set_flag("check_nan_inf", True)
+    try:
+        try:
+            exe.run(main, feed={"x": bad}, fetch_list=[z, y], scope=scope)
+        except RuntimeError as e:
+            msg = str(e)
+        else:
+            fail("C1: a NaN-producing run on the card did not raise")
+        pending = executor._nan_check_start(
+            [("z", torch.ones(3, device="cuda")),
+             ("y", torch.full((2,), float("nan"), device="cuda"))])
+    finally:
+        flags.set_flag("check_nan_inf", False)
+    want = ("NaN/Inf detected in variable 'log_0.tmp_0' after program run "
+            "(FLAGS_check_nan_inf)")
+    if msg != want:
+        fail("C1: the card raised %r, expected %r" % (msg, want))
+    names, finite = pending
+    if names != ["z", "y"] or tuple(finite.shape) != (2,) \
+            or finite.device.type != "cuda":
+        fail("C1: the scan is not one flag vector on the card: %s %s"
+             % (names, tuple(finite.shape)))
+    print("C1 check_nan_inf: log of a negative on the card raised %r; the "
+          "scan stacks one flag per floating tensor on the card (%d "
+          "flags, one host read)" % (msg, len(names)))
+
+
+def fe_predict_requests(np):
+    """``FE_PREDICT`` requests of 1..8 sequences of the stacked LSTM's
+    synthetic sentiment data (lengths 16..80), made in bulk."""
+    rng = np.random.RandomState(SEED + 11)
+    out = []
+    for i in range(FE_PREDICT):
+        rows = 1 + i % 8
+        lens = rng.randint(RNN_MIN_LEN, RNN_SEQ + 1, rows)
+        words = np.zeros((rows, RNN_SEQ), "int64")
+        for r in range(rows):
+            words[r, :lens[r]] = rng.randint(2, RNN_DICT - 1, lens[r])
+        out.append({"words": words,
+                    "length": lens.reshape(-1, 1).astype("int64")})
+    return out
+
+
+def pct_ms(vals, q):
+    vals = sorted(vals)
+    return 1e3 * vals[min(len(vals) - 1, int(round(q * (len(vals) - 1))))]
+
+
+def bucket_counts():
+    from paddle_tpu_torch.observability import REGISTRY
+
+    c = REGISTRY.counter("paddle_tpu_serving_batches_total",
+                         "batches dispatched, by bucket (padded batch rows)",
+                         labels=("bucket",))
+    return {r: c.value(bucket=str(r)) for r in range(1, 9)}
+
+
+def frontend_phase(np, torch, fluid, exe, kernels, serve_out, serve_rate,
+                   lstm_dir):
+    """The serving plane on the card: one ``ServingFrontend`` on
+    127.0.0.1 over a ``BatchingServer`` (the saved stacked LSTM, width
+    512, 2 workers) and a captured paged ``SlotDecodeSession``
+    (Transformer-base, the serve phase's weights and configuration).
+    ``predict`` traffic runs first (its last three quarters held until the
+    decode loop's capture begins) and keeps running while 8 client
+    threads stream the serve phase's 64 requests, so the decode loop's
+    CUDA graph is captured under load. Gates: every wire stream equals
+    the serve phase's in-process stream; paged_decode and flash_fwd
+    launches follow the serve phase's formulas; the pool drains; every
+    prediction lies within 1e-5 of ``run_reference`` on the card;
+    lstm_cell launches are stacked_num per dispatched batch; the buckets
+    used are ladder rungs; a capture overlapped predict traffic. A
+    quarter of the predict requests run again with no decode traffic
+    beside them (printed, not gated). Then an
+    in-band cancel and a dropped client each leave the pool conserved,
+    the cancelling connection serves again, a lapsed deadline and an
+    unknown method come back typed, and health / stats / metrics answer
+    (the request-latency histogram counting every request). Returns the
+    launches of the window."""
+    import threading
+
+    from paddle_tpu_torch.executor import _CUDAGraphCapturer
+    from paddle_tpu_torch.inference import (
+        NativeConfig,
+        create_paddle_predictor,
+    )
+    from paddle_tpu_torch.serving import loadgen
+    from paddle_tpu_torch.serving.client import ServingClient
+    from paddle_tpu_torch.serving.frontend import ServingFrontend
+    from paddle_tpu_torch.serving.server import (
+        BatchingServer,
+        DeadlineExceededError,
+        ServingError,
+    )
+
+    t_phase = time.perf_counter()
+    scope = fluid.Scope()
+    build_model(fluid, exe, scope)
+    sess = session(exe, scope.new_scope(), NUM_SLOTS)
+    src, lens, prefixes = requests(np)
+    preq = fe_predict_requests(np)
+    server = BatchingServer(create_paddle_predictor(NativeConfig(lstm_dir)),
+                            max_batch=8, workers=2)
+    # every rung's shapes once before the window (requests of 2, 4 and 8
+    # sequences through the oracle)
+    for i in (1, 3, 7):
+        server.run_reference(preq[i])
+    ladder = server.stats()["batch_buckets"]
+    # capture windows of the decode loop (host clock), to hold the
+    # predict traffic against
+    captures = []
+    capture = _CUDAGraphCapturer.capture
+    capturing = threading.Event()
+
+    def timed_capture(body, device):
+        capturing.set()
+        t0 = time.perf_counter()
+        try:
+            return capture(body, device)
+        finally:
+            captures.append((t0, time.perf_counter()))
+
+    exe.graph_capturer = type("TimedCapturer", (), {
+        "capture": staticmethod(timed_capture)})()
+    fe = ServingFrontend(server=server, session=sess, host="127.0.0.1",
+                         port=0)
+    errors, lock = [], threading.Lock()
+    pred_out, pred_spans = [None] * FE_PREDICT, []
+    gen_out = [None] * N_REQUESTS
+    gen_lat, gen_ttft = [], []
+    started = threading.Event()
+
+    def predict_client(cid):
+        cl = ServingClient(fe.address)
+        try:
+            for i in range(cid, FE_PREDICT, FE_PREDICT_CLIENTS):
+                if i >= FE_PREDICT // 4 and not capturing.wait(120):
+                    raise RuntimeError("the decode loop was never captured")
+                t0 = time.perf_counter()
+                pred_out[i] = cl.predict(preq[i])
+                with lock:
+                    pred_spans.append((t0, time.perf_counter()))
+                    if len(pred_spans) >= 8:
+                        started.set()
+        except Exception as e:  # noqa: BLE001 - reported by the main thread
+            errors.append("predict client %d: %r" % (cid, e))
+            started.set()
+        finally:
+            cl.close()
+
+    def generate_client(cid):
+        cl = ServingClient(fe.address)
+        try:
+            for i in range(cid, N_REQUESTS, FE_CLIENTS):
+                t0 = time.perf_counter()
+                first = []
+
+                def on_event(ev):
+                    if ev.get("event") == "tokens" and not first:
+                        first.append(time.perf_counter())
+
+                gen_out[i] = cl.generate_full(
+                    src[i], src_len=int(lens[i]), prefix_tokens=prefixes[i],
+                    on_event=on_event)
+                with lock:
+                    gen_lat.append(time.perf_counter() - t0)
+                    gen_ttft.append(first[0] - t0)
+        except Exception as e:  # noqa: BLE001 - reported by the main thread
+            errors.append("generate client %d: %r" % (cid, e))
+        finally:
+            cl.close()
+
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.reset()
+    buckets0, batches0 = bucket_counts(), server.stats()["batches"]
+    steps0 = sess.decode_steps
+    preds = [threading.Thread(target=predict_client, args=(c,))
+             for c in range(FE_PREDICT_CLIENTS)]
+    t_pred = time.perf_counter()
+    for t in preds:
+        t.start()
+    started.wait(60)
+    gens = [threading.Thread(target=generate_client, args=(c,))
+            for c in range(FE_CLIENTS)]
+    t_gen = time.perf_counter()
+    for t in gens:
+        t.start()
+    for t in gens:
+        t.join(300)
+    gen_wall = time.perf_counter() - t_gen
+    for t in preds:
+        t.join(300)
+    pred_wall = time.perf_counter() - t_pred
+    torch.cuda.synchronize()
+    launches = kernel_counts(kernels)
+    batches = server.stats()["batches"] - batches0
+    buckets = {r: n - buckets0[r] for r, n in bucket_counts().items()
+               if n > buckets0[r]}
+    decode_steps = sess.decode_steps - steps0
+    if errors or any(t.is_alive() for t in gens + preds):
+        fail("frontend: client errors or hung clients: %s" % errors[:4])
+    print("frontend: kernel launches %s" % json.dumps(launches))
+
+    # -- generate gates
+    mismatched = [i for i in range(N_REQUESTS)
+                  if not np.array_equal(gen_out[i][0], serve_out[i])]
+    if mismatched:
+        i = mismatched[0]
+        fail("frontend: %d of %d wire streams differ from the serve phase's "
+             "in-process streams; request %d: wire %s, session %s"
+             % (len(mismatched), N_REQUESTS, i, list(gen_out[i][0][:24]),
+                list(serve_out[i][:24])))
+    n_prefix = sum(p is not None for p in prefixes)
+    expect_k2 = N_LAYER * decode_steps
+    expect_k1 = (N_REQUESTS * N_LAYER + N_LAYER * decode_steps
+                 + 2 * (N_LAYER - 1) * n_prefix)
+    if launches["paged_decode"] != expect_k2:
+        fail("frontend: paged_decode launched %d times, expected n_layer x "
+             "decode steps = %d" % (launches["paged_decode"], expect_k2))
+    if launches["flash_fwd"] != expect_k1:
+        fail("frontend: flash_fwd launched %d times, expected %d"
+             % (launches["flash_fwd"], expect_k1))
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline and (sess.active_slots
+                                           or sess.pending_requests):
+        time.sleep(0.01)
+    if sess.pages_in_use != 0 or not sess.pool_conserved:
+        fail("frontend: the page pool did not drain")
+    if not captures:
+        fail("frontend: the decode loop was never captured")
+    overlap = [sum(1 for a, b in pred_spans if a < c1 and b > c0)
+               for c0, c1 in captures]
+    if not any(overlap):
+        fail("frontend: no predict request was in flight while the decode "
+             "loop was captured (captures %s)" % captures)
+    generated = sum(generated_tokens(gen_out[i][0], prefixes[i])
+                    for i in range(N_REQUESTS))
+    wire = loadgen.wire_capture(N_REQUESTS, gen_wall, gen_lat,
+                                ttft_s=gen_ttft)
+
+    # -- predict gates
+    if launches["lstm_cell"] != RNN_STACK * batches:
+        fail("frontend: lstm_cell launched %d times over %d batches, "
+             "expected stacked_num x batches = %d"
+             % (launches["lstm_cell"], batches, RNN_STACK * batches))
+    if not set(buckets) <= set(ladder) or sum(buckets.values()) != batches:
+        fail("frontend: batches by bucket %s are not on the ladder %s"
+             % (buckets, ladder))
+    worst = 0.0
+    for i, req in enumerate(preq):
+        (want,) = server.run_reference(req)
+        (got,) = pred_out[i]
+        if got.shape != want.shape or not np.isfinite(got).all():
+            fail("frontend: prediction %d has shape %s, expected %s"
+                 % (i, got.shape, want.shape))
+        worst = max(worst, float(np.abs(got - want).max()))
+    if not worst <= FE_PRED_TOL:
+        fail("frontend: predictions differ from run_reference by %.3e"
+             % worst)
+    pred_lat = [b - a for a, b in pred_spans]
+    card = card_line()
+    print("frontend generate: %d requests over %d client threads, "
+          "streaming: wall %.3f s, %d tokens, %d decode steps, wire decode "
+          "%.1f tokens/s beside the serve phase's in-process session's "
+          "%.1f tokens/s; ttft p50 %.3f ms p99 %.3f ms; request latency "
+          "p50 %.3f ms p99 %.3f ms; graphs captured %d (capture %s ms, "
+          "predict requests in flight during it %s); %s"
+          % (N_REQUESTS, FE_CLIENTS, gen_wall, generated, decode_steps,
+             generated / gen_wall, serve_rate, pct_ms(gen_ttft, 0.5),
+             pct_ms(gen_ttft, 0.99), wire["latency_ms_p50"],
+             wire["latency_ms_p99"], len(captures),
+             ["%.1f" % (1e3 * (b - a)) for a, b in captures], overlap,
+             card))
+    print("frontend generate: %d of %d wire streams equal the serve phase's "
+          "in-process streams; paged_decode %d = %d x %d, flash_fwd %d; "
+          "pool drained, conserved %s"
+          % (N_REQUESTS, N_REQUESTS, launches["paged_decode"], N_LAYER,
+             decode_steps, launches["flash_fwd"], sess.pool_conserved))
+    print("frontend predict: %d requests of 1..8 sequences over %d client "
+          "threads: wall %.3f s, %.1f requests/s; latency p50 %.3f ms p99 "
+          "%.3f ms; %d batches, by bucket %s (ladder %s); lstm_cell %d = %d "
+          "x %d; max abs diff to run_reference %.3e  tol %.0e; %s"
+          % (FE_PREDICT, FE_PREDICT_CLIENTS, pred_wall,
+             FE_PREDICT / pred_wall, pct_ms(pred_lat, 0.5),
+             pct_ms(pred_lat, 0.99), batches, json.dumps(buckets), ladder,
+             launches["lstm_cell"], RNN_STACK, batches, worst, FE_PRED_TOL,
+             card))
+
+    # -- the first quarter of the predict requests again, with no decode
+    # traffic beside them: what the shared host costs the predict path
+    alone = []
+
+    def alone_client(cid):
+        cl = ServingClient(fe.address)
+        try:
+            for i in range(cid, FE_PREDICT // 4, FE_PREDICT_CLIENTS):
+                t0 = time.perf_counter()
+                cl.predict(preq[i])
+                with lock:
+                    alone.append(time.perf_counter() - t0)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append("predict alone %d: %r" % (cid, e))
+        finally:
+            cl.close()
+
+    threads = [threading.Thread(target=alone_client, args=(c,))
+               for c in range(FE_PREDICT_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    alone_wall = time.perf_counter() - t0
+    if errors:
+        fail("frontend: %s" % errors[:4])
+    print("frontend predict alone (no decode traffic): %d requests over %d "
+          "client threads: wall %.3f s, %.1f requests/s; latency p50 %.3f "
+          "ms p99 %.3f ms; %s"
+          % (len(alone), FE_PREDICT_CLIENTS, alone_wall,
+             len(alone) / alone_wall, pct_ms(alone, 0.5),
+             pct_ms(alone, 0.99), card))
+
+    # -- cancel, disconnect, typed errors, ops endpoints (not counted)
+    def drained():
+        end = time.monotonic() + 30
+        while time.monotonic() < end:
+            if (not sess.active_slots and not sess.pending_requests
+                    and sess.free_slots == NUM_SLOTS and sess.pool_conserved):
+                return True
+            time.sleep(0.01)
+        return False
+
+    # the two longest streams, so that each is surely mid-stream when the
+    # cancel or the drop lands
+    longest = sorted(range(N_REQUESTS), key=lambda i: -generated_tokens(
+        serve_out[i], prefixes[i]))
+    cl = ServingClient(fe.address)
+    i = longest[0]
+    gen = cl.generate(src[i], src_len=int(lens[i]), prefix_tokens=prefixes[i])
+    while next(gen)["event"] != "tokens":
+        pass
+    gen.close()  # the in-band cancel
+    if not drained():
+        fail("frontend: the pool is not conserved after an in-band cancel")
+    again = cl.generate_full(src[2], src_len=int(lens[2]),
+                             prefix_tokens=prefixes[2])
+    if not np.array_equal(again[0], serve_out[2]):
+        fail("frontend: the cancelling connection's next stream differs")
+    dropped = ServingClient(fe.address)
+    i = longest[1]
+    gen = dropped.generate(src[i], src_len=int(lens[i]),
+                           prefix_tokens=prefixes[i])
+    while next(gen)["event"] != "tokens":
+        pass
+    dropped.close()  # the client goes away mid-stream
+    if not drained():
+        fail("frontend: the pool is not conserved after a dropped client")
+    try:
+        cl.predict(preq[0], deadline_s=0.0)
+        fail("frontend: a lapsed deadline was served")
+    except DeadlineExceededError:
+        pass
+    try:
+        cl._request(method="no_such_method")
+        fail("frontend: an unknown method was answered")
+    except ServingError as e:
+        if type(e) is not ServingError or "unknown method" not in str(e):
+            fail("frontend: an unknown method raised %r" % e)
+    health = cl.health()
+    if health != {"server": "healthy", "decode": "healthy"}:
+        fail("frontend: health %s" % health)
+    want = {("generate", "ok"): N_REQUESTS + 1,
+            ("generate", "cancelled"): 1, ("generate", "disconnect"): 1,
+            ("predict", "ok"): FE_PREDICT + FE_PREDICT // 4,
+            ("predict", "deadline"): 1}
+    end = time.monotonic() + 10
+    while True:
+        stats = cl.stats()
+        got = {(e, o): n for e, by in stats["requests"].items()
+               for o, n in by.items()}
+        if got == want or time.monotonic() > end:
+            break
+        time.sleep(0.05)
+    if got != want:
+        fail("frontend: stats count %s, expected %s" % (got, want))
+    text = cl.metrics()
+    counted = {}
+    for line in text.splitlines():
+        if line.startswith("paddle_tpu_frontend_request_seconds_count{"):
+            labels = dict(kv.split("=") for kv in
+                          line[line.index("{") + 1:line.index("}")]
+                          .replace('"', "").split(","))
+            counted[(labels["endpoint"], labels["outcome"])] = \
+                int(float(line.split()[-1]))
+    if counted != want:
+        fail("frontend: paddle_tpu_frontend_request_seconds counts %s, "
+             "expected %s" % (counted, want))
+    cl.close()
+    fe.close()
+    server.close()
+    exe.graph_capturer = _CUDAGraphCapturer()
+    print("frontend: in-band cancel and dropped client: pool conserved, the "
+          "cancelling connection served again; lapsed deadline -> "
+          "DeadlineExceededError, unknown method -> ServingError; health "
+          "%s; stats and paddle_tpu_frontend_request_seconds count %d "
+          "requests %s; phase wall %.1f s"
+          % (health, sum(want.values()),
+             json.dumps({"%s/%s" % k: n for k, n in sorted(want.items())}),
+             time.perf_counter() - t_phase))
+    return launches
 
 
 def main():
@@ -3440,6 +3899,9 @@ def main():
           % (time.perf_counter() - t0))
     served = serve_phase(np, torch, exe, scope, KERNELS)
     launches = served["launches"]
+    # the frontend phase holds its wire streams against these
+    serve_out = served["out"]
+    serve_rate = served["generated"] / served["wall"]
     graph_launches = graph_phase(np, torch, exe, scope, KERNELS, served)
     served = None
     prefix_launches = prefix_phase(np, torch, exe, scope, KERNELS)
@@ -3460,13 +3922,25 @@ def main():
         np, torch, fluid, exe, KERNELS, "lstm")
     lstm_infer = rnn_infer_phase(np, torch, exe, KERNELS, scope, infer, outs,
                                  feed)
+    import shutil
+    import tempfile
+
+    model_root = tempfile.mkdtemp(prefix="chip_smoke_models_")
+    lstm_dir = os.path.join(model_root, "stacked_lstm")
     lstm_pred = rnn_predictor_phase(np, torch, fluid, exe, KERNELS, "lstm",
-                                    scope, infer, outs, feed)
+                                    scope, infer, outs, feed, lstm_dir)
     gru_train, scope, infer, outs, feed = rnn_train_phase(
         np, torch, fluid, exe, KERNELS, "gru")
     gru_pred = rnn_predictor_phase(np, torch, fluid, exe, KERNELS, "gru",
-                                   scope, infer, outs, feed)
+                                   scope, infer, outs, feed,
+                                   os.path.join(model_root, "stacked_gru"))
     scope = None
+    torch.cuda.empty_cache()
+    nan_check_phase(np, torch, fluid, exe)
+    fe_launches = frontend_phase(np, torch, fluid, exe, KERNELS, serve_out,
+                                 serve_rate, lstm_dir)
+    shutil.rmtree(model_root)
+    torch.cuda.empty_cache()
     mt_launches = mt_phase(np, torch, fluid, exe, KERNELS)
     rnn_card_vs_cpu_phase(np, torch, fluid, exe)
 
@@ -3517,7 +3991,7 @@ def main():
         return out
 
     serving = (launches, graph_launches, prefix_launches, dense_launches,
-               spec_launches)
+               spec_launches, fe_launches)
 
     def both(label):
         """The launches at ``label`` over every serving window."""
@@ -3531,9 +4005,9 @@ def main():
         ("flash_fwd_train_causal", train_launches.get("flash_fwd/causal",
                                                       0))],
         "the launches at this shape class in the serving runs' request "
-        "windows (captured, eager, prefix cache, dense, speculative) or the "
-        "training phase's timed steps, counted by the wrapper where it "
-        "launches")
+        "windows (captured, eager, prefix cache, dense, speculative, the "
+        "frontend) or the training phase's timed steps, counted by the "
+        "wrapper where it launches")
     # the causal calls of those request windows: the decoder over a
     # forced prefix at admission (paged prefill), a shape not timed here
     flash_shapes.append(dict(
@@ -3565,6 +4039,15 @@ def main():
         ("lstm_cell_mt", mt_launches)],
         "the stacked LSTM's training, inference and predictor runs (D 512) "
         "or the MT steps (the MT shape)")
+    # the frontend's predict batches: the saved stacked LSTM at the
+    # ladder's batch rungs, a shape not timed here
+    lstm_shapes.append(dict(
+        row="lstm_cell_frontend", launches=fe_launches["lstm_cell"],
+        shape="xw [2|4|8,%d,%d], peepholes, lengths %d..%d: the frontend's "
+        "predict batches" % (RNN_SEQ, 4 * RNN_HID, RNN_MIN_LEN, RNN_SEQ),
+        launches_of="the frontend phase's predict window; not timed",
+        ms=None, plain_ms=None, bound_ms=None, bound_by=None,
+        library_ms=None))
     record = {"kernels": [
         dict(name="flash_fwd", route="cuda",
              source="paddle_tpu_torch/csrc/flash_fwd.cu",
@@ -3605,7 +4088,8 @@ def main():
         # the stacked LSTM's inference, training and predictor runs and
         # the MT steps
         dict(rnn_record("lstm_cell", "lstm_cell.py", 94,
-                        lstm_infer + lstm_train + lstm_pred + mt_launches),
+                        lstm_infer + lstm_train + lstm_pred + mt_launches
+                        + fe_launches["lstm_cell"]),
              shapes=lstm_shapes),
         rnn_record("gru_cell", "gru_cell.py", 55, gru_train + gru_pred),
     ]}

@@ -21,6 +21,17 @@ holds each activation only until its grad op has read it.
 the card: a CUDA event recorded behind them tells ``done()`` and
 ``result(timeout=...)`` when the fetches are ready.
 
+``FLAGS_check_nan_inf`` scans every floating state value a run wrote and
+every floating fetch after ``run``, after ``run_async``'s ``result()``
+and after ``run_multi_step`` (the bound tensors, after a replay):
+``torch.isfinite(t).all()`` per tensor, stacked into one bool vector read
+on the host once, and the JAX package's ``RuntimeError`` naming the first
+bad variable.
+
+Every run puts its work on the card its Place names, whatever device
+the calling thread has current (serving runs arrive from worker
+threads).
+
 ``FLAGS_verify_program`` runs the structural verifier
 (``analysis.check_program``) with the concrete feed shapes on every miss
 of the analysis cache, as the JAX package does on every fresh compile.
@@ -29,15 +40,17 @@ The captured loop (``run_multi_step`` on a card, ``FLAGS_cuda_graph``
 on): the first call for a key (program and version, feed shapes and
 dtypes, fetches, scope, steps, stacking, device) runs the eager loop,
 which builds the kernels and their handles; the second captures the loop
-(``torch.cuda.graph``, on a side stream) and replays it; later calls
-only replay. The graph binds the scope's state tensors as they were at
-capture: a state value a step produces as a new tensor is copied into
-its bound tensor at the end of the loop, and a scope value that an eager
-``run`` replaced since the last replay is copied in (and the scope
-re-pointed at the bound tensor) before the next. In-place state (the KV
-pools, the page table) is never copied. Random seeds would be baked in
-at capture, so a program whose ops ask for a generator is never
-captured: it runs the eager loop, counted in ``eager_multi_step``.
+(``torch.cuda.graph`` in ``thread_local`` capture mode, on a side
+stream: another thread may launch kernels, allocate and wait on events
+meanwhile, as a serving process's batch workers do) and replays it;
+later calls only replay. The graph binds the scope's state tensors as
+they were at capture: a state value a step produces as a new tensor is
+copied into its bound tensor at the end of the loop, and a scope value
+that an eager ``run`` replaced since the last replay is copied in (and
+the scope re-pointed at the bound tensor) before the next. In-place
+state (the KV pools, the page table) is never copied. Random seeds would
+be baked in at capture, so a program whose ops ask for a generator is
+never captured: it runs the eager loop, counted in ``eager_multi_step``.
 """
 
 import contextlib
@@ -49,6 +62,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch import flags, framework
+from paddle_tpu_torch.observability import telemetry as _telemetry
 from paddle_tpu_torch.core.lowering import BlockLowerer
 from paddle_tpu_torch.kernels import build as _kbuild
 from paddle_tpu_torch.core.scope import Scope
@@ -100,6 +114,40 @@ def _maybe_verify(program, feeds, fetch_names, origin):
             len(diags), "; ".join(str(d) for d in diags[:5]))
 
 
+_NAN_INF_MSG = ("NaN/Inf detected in variable %r after program run "
+                "(FLAGS_check_nan_inf)")
+
+
+def _nan_check_start(named):
+    """``FLAGS_check_nan_inf``'s device half: queue one finiteness
+    reduction per floating tensor of ``named`` (``[(name, tensor)]``,
+    state first, then fetches, the JAX package's order) and stack them.
+    Returns ``(names, flags)`` for :func:`_nan_check_finish`, or None
+    when the flag is off or nothing is floating."""
+    if not flags.get("check_nan_inf"):
+        return None
+    names, finite = [], []
+    for name, t in named:
+        if isinstance(t, torch.Tensor) and t.is_floating_point():
+            names.append(name)
+            finite.append(torch.isfinite(t).all())
+    if not finite:
+        return None
+    return names, torch.stack(finite)
+
+
+def _nan_check_finish(pending):
+    """The host half: one read of the stacked flags; raises on the first
+    variable that holds a NaN or an Inf."""
+    if pending is None:
+        return
+    names, finite = pending
+    finite = finite.cpu()
+    if not bool(finite.all()):
+        bad = names[int(torch.argmin(finite.to(torch.uint8)))]
+        raise RuntimeError(_NAN_INF_MSG % bad)
+
+
 class FetchTimeoutError(RuntimeError):
     """``FetchHandle.result(timeout=...)`` expired before the fetches were
     ready. The handle is untouched: a later ``result()`` still returns
@@ -129,11 +177,13 @@ class FetchHandle(object):
     stream after the last op; None (CPU) means done at once.
     """
 
-    def __init__(self, tensors, fetch_names, event=None):
+    def __init__(self, tensors, fetch_names, event=None, nan_check=None):
         self._tensors = list(tensors)
         self.fetch_names = list(fetch_names)
         self._event = event
         self._numpy = None
+        # FLAGS_check_nan_inf's flags, queued at dispatch
+        self._nan_check = nan_check
 
     def __len__(self):
         return len(self._tensors)
@@ -163,7 +213,12 @@ class FetchHandle(object):
                 time.sleep(min(pause, remaining))
                 pause = min(pause * 2, 0.05)
         if self._numpy is None:
+            t0 = time.perf_counter()
+            _nan_check_finish(self._nan_check)
             self._numpy = [_to_numpy(t) for t in self._tensors]
+            if _telemetry.ENABLED:
+                _telemetry.record_fetch_materialize(
+                    time.perf_counter() - t0)
         return self._numpy
 
 
@@ -286,8 +341,16 @@ class Executor(object):
             fetches.append(env[n])
         return env, fetches
 
+    def _on_device(self):
+        """The Place's card as the current device of the calling thread
+        (a no-op on the CPU)."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
     def _run(self, program, feed, fetch_list, scope):
-        """Queue one run's ops; returns (fetch names, fetch tensors)."""
+        """Queue one run's ops; returns (fetch names, fetch tensors, the
+        pending ``FLAGS_check_nan_inf`` flags or None)."""
         program = program or framework.default_main_program()
         scope = scope or global_scope()
         feeds = self._prepare_feeds(program, feed or {})
@@ -298,17 +361,24 @@ class Executor(object):
         lowerer = BlockLowerer(program, 0, is_test=program._is_test)
         env, fetches = self._step(lowerer, state, feeds, fetch_names,
                                   self._run_seed(program), release)
-        for n in state_out:
-            if n in env:
-                scope.set_value(n, env[n])
-        return fetch_names, fetches
+        written = [(n, env[n]) for n in state_out if n in env]
+        for n, t in written:
+            scope.set_value(n, t)
+        return fetch_names, fetches, _nan_check_start(
+            written + list(zip(fetch_names, fetches)))
 
     def run(self, program=None, feed=None, fetch_list=None,
             feed_var_name="feed", fetch_var_name="fetch", scope=None,
             return_numpy=True, use_program_cache=True):
-        fetches = self._run(program, feed, fetch_list, scope)[1]
-        if return_numpy:
-            fetches = [_to_numpy(f) for f in fetches]
+        t0 = time.perf_counter()
+        with self._on_device():
+            _names, fetches, pending = self._run(program, feed, fetch_list,
+                                                 scope)
+            _nan_check_finish(pending)
+            if return_numpy:
+                fetches = [_to_numpy(f) for f in fetches]
+        if _telemetry.ENABLED:
+            _telemetry.record_step("executor", time.perf_counter() - t0)
         return fetches
 
     def run_async(self, program=None, feed=None, fetch_list=None,
@@ -318,12 +388,18 @@ class Executor(object):
         copies the fetches to numpy when asked. The scope's state is
         updated with the queued tensors, so runs dispatched back to back
         chain on the card's stream."""
-        fetch_names, fetches = self._run(program, feed, fetch_list, scope)
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
-        return FetchHandle(fetches, fetch_names, event)
+        t0 = time.perf_counter()
+        with self._on_device():
+            fetch_names, fetches, pending = self._run(program, feed,
+                                                      fetch_list, scope)
+            event = None
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.device))
+        if _telemetry.ENABLED:
+            _telemetry.record_step("async", time.perf_counter() - t0,
+                                   dispatch_only=True)
+        return FetchHandle(fetches, fetch_names, event, nan_check=pending)
 
     def run_multi_step(self, program, steps, feed=None, fetch_list=None,
                        scope=None, return_numpy=True, stack_fetches=False):
@@ -336,6 +412,17 @@ class Executor(object):
         steps = int(steps)
         if steps <= 0:
             raise ValueError("multi-step needs steps >= 1, got %d" % steps)
+        t0 = time.perf_counter()
+        with self._on_device():
+            out = self._multi_step(program, steps, feed, fetch_list, scope,
+                                   return_numpy, stack_fetches)
+        if _telemetry.ENABLED:
+            _telemetry.record_step("multi_step", time.perf_counter() - t0,
+                                   steps=steps)
+        return out
+
+    def _multi_step(self, program, steps, feed, fetch_list, scope,
+                    return_numpy, stack_fetches):
         program = program or framework.default_main_program()
         scope = scope or global_scope()
         feeds = self._prepare_feeds(program, feed or {})
@@ -356,6 +443,11 @@ class Executor(object):
                                    plan, stack_fetches)[0]
             if self.graph_capturer is not None:
                 self.eager_multi_step += 1
+        # the state the loop left in the scope: after a replay, the
+        # tensors the graph binds
+        _nan_check_finish(_nan_check_start(
+            [(n, scope.find_var(n).value) for n in state_out]
+            + list(zip(fetch_names, out))))
         if return_numpy:
             out = [_to_numpy(f) for f in out]
         return out
@@ -496,7 +588,11 @@ class _CUDAGraphCapturer(object):
             torch.cuda.empty_cache()
             before = reserved()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            # thread_local: the capture restricts only this thread's CUDA
+            # calls, so serving threads that launch, allocate and poll
+            # events on other streams meanwhile neither fail the capture
+            # nor leak into it (their work is not on the capture stream)
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 body()
             return graph, reserved() - before
 

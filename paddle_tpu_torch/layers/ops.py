@@ -6,7 +6,7 @@ for the activations the port runs.
 
 from paddle_tpu_torch.layer_helper import LayerHelper
 
-__all__ = ["relu", "log_softmax", "sigmoid", "tanh"]
+__all__ = ["relu", "log_softmax", "sigmoid", "tanh", "log"]
 
 
 def _unary(op_type):
@@ -25,3 +25,4 @@ relu = _unary("relu")
 log_softmax = _unary("log_softmax")
 sigmoid = _unary("sigmoid")
 tanh = _unary("tanh")
+log = _unary("log")

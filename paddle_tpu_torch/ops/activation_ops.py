@@ -1,4 +1,4 @@
-"""Activation ops: relu, log_softmax, sigmoid, tanh and softmax.
+"""Activation ops: relu, log_softmax, sigmoid, tanh, log and softmax.
 
 Counterpart of ``paddle_tpu/ops/activation_ops.py`` for the ops this
 slice runs.
@@ -24,7 +24,8 @@ register_op(
         ins["X"][0], dim=attrs.get("axis", -1)),
 )
 
-for _name, _fn in (("sigmoid", torch.sigmoid), ("tanh", torch.tanh)):
+for _name, _fn in (("sigmoid", torch.sigmoid), ("tanh", torch.tanh),
+                   ("log", torch.log)):
     register_op(_name, inputs=["X"], outputs=["Out"],
                 lower=lambda ctx, ins, attrs, fn=_fn: fn(ins["X"][0]))
 

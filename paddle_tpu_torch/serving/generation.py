@@ -24,15 +24,23 @@ a call, ``Executor.run_multi_step``), speculative decode
 dispatch, with the ``FLAGS_speculative=off`` oracle), the dense layout
 (``paged=False``: one ``exe.run`` per token), ``generate``,
 ``generate_best_of`` and the queue under them
-(``enqueue``/``admit_pending``/``pump``/``take_result``), page
-provisioning and release, the coalesced copy-on-write dispatch, and the
-typed rejects ``NoFreeSlotError``, ``NoFreePageError`` and
-``NoFreeGroupError``. Not ported yet (ROADMAP.md): sampled decode (A6,
-RNG parity), snapshots and degradation (A5), beam decode (A7), tracing
-and metrics, the prefix cache's gauges among them (A9).
+(``enqueue``/``admit_pending``/``pump``/``take_result``/
+``drop_pending``), page provisioning and release, the coalesced
+copy-on-write dispatch, the typed rejects ``NoFreeSlotError``,
+``NoFreePageError`` and ``NoFreeGroupError``, and what the network
+frontend (``serving/frontend.py``) drives: ``cancel`` (a slot's
+teardown, conservation-clean), graceful degradation (``degradation=``:
+a ``HealthMonitor`` over page and slot occupancy; brownout evicts the
+prefix cache and refuses forks, shed refuses admissions), request
+tracing (``enqueue(..., trace_id=)``), the chaos sites ``serve.admit``
+and ``serve.dispatch`` with the classified retry around an admission,
+and ``in_dispatch``. Not ported yet (ROADMAP.md): sampled decode (A6,
+RNG parity), decode snapshots (A8's second half), beam decode (A7), the
+session's metrics, the prefix cache's gauges among them (A9).
 """
 
 import hashlib
+import time
 from collections import deque
 
 import numpy as np
@@ -41,7 +49,10 @@ from paddle_tpu_torch import flags
 from paddle_tpu_torch.analysis.lint import suggest_buckets
 from paddle_tpu_torch.kernels.paged_attention import pages_for
 from paddle_tpu_torch.models import transformer
+from paddle_tpu_torch.observability import tracing as _tracing
 from paddle_tpu_torch.ops.sampling_ops import RNG_PARITY_TODO
+from paddle_tpu_torch.resilience import chaos as _chaos
+from paddle_tpu_torch.resilience import retry as _retry
 from paddle_tpu_torch.serving import speculative as _spec_mod
 from paddle_tpu_torch.serving.kv_pool import (
     NoFreeGroupError,
@@ -114,13 +125,21 @@ class SlotDecodeSession(object):
     throughput, never content. ``spec_dispatches``, ``spec_proposed`` and
     ``spec_accepted`` count verify dispatches, draft tokens offered and
     draft tokens committed. See ``serving/speculative.py``.
+
+    ``degradation`` (a dict of ``HealthMonitor`` thresholds, or True for
+    the defaults) arms the healthy -> brownout -> shed machine over the
+    tighter of page reservations / capacity and live slots / slots:
+    brownout evicts the prefix cache and refuses forks (n > 1), shed
+    refuses every admission, each with a typed retriable
+    ``DegradedError``; ``admit_pending`` defers a degraded request to
+    the front of the queue.
     """
 
     def __init__(self, exe, num_slots, max_length=64, d_model=128,
                  bos_id=1, eos_id=2, scope=None, paged=False,
                  page_size=8, num_pages=None, num_groups=None, steps=1,
                  sampler=None, prefix_cache_pages=0, speculative=None,
-                 **decoder_cfg):
+                 degradation=None, **decoder_cfg):
         # speculative decode config: int K (n-gram drafter) or a dict
         # {"k": K, "drafter": "ngram"|"model", ...drafter kwargs}
         if speculative is None:
@@ -164,6 +183,27 @@ class SlotDecodeSession(object):
         self.decode_steps = 0    # step-program iterations run
         self._spec_drafter = None
         self._prefix_cache = None
+        # request tracing: rid -> trace id for traced queued requests,
+        # slot -> trace id for the step loop; COW copies per slot of the
+        # current step window
+        self._trace_ids = {}
+        self._slot_traces = {}
+        self._trace_cow = {}
+        # public ops (admit/step/cancel) run inside a dispatch window;
+        # ``in_dispatch`` tells a caller not to act on half-updated books
+        self._dispatch_depth = 0
+        # graceful degradation, opt-in: None keeps the typed rejects
+        # (NoFreeSlot/NoFreePage/NoFreeGroup) as the only admission
+        # control
+        if degradation is not None:
+            from paddle_tpu_torch.serving.degradation import HealthMonitor
+
+            cfg = dict(degradation) if isinstance(degradation, dict) \
+                else {}
+            cfg.setdefault("on_transition", self._on_health_transition)
+            self._monitor = HealthMonitor("decode", **cfg)
+        else:
+            self._monitor = None
         if not self._paged:
             if steps != 1:
                 raise ValueError(
@@ -271,6 +311,60 @@ class SlotDecodeSession(object):
     def _run(self, prog, feed, fetch_list):
         return self._exe.run(prog, feed=feed, fetch_list=fetch_list,
                              scope=self._scope)
+
+    # -- dispatch window and degradation -------------------------------------
+    def _begin_op(self):
+        self._dispatch_depth += 1
+
+    def _end_op(self):
+        self._dispatch_depth -= 1
+
+    @property
+    def in_dispatch(self):
+        """True while a public op (admit/step/cancel) is mutating state."""
+        return self._dispatch_depth > 0
+
+    def _health_load(self):
+        """Load fraction the degradation monitor keys on: page
+        occupancy (reservations over the leak-shrunk capacity) and slot
+        occupancy, whichever is tighter."""
+        slot_load = len(self._live) / float(self._S)
+        if not self._paged:
+            return slot_load
+        cap = max(1, self._P - 1 - self._leaked_pages)
+        return max(slot_load, self._reserved_pages / float(cap))
+
+    def _on_health_transition(self, frm, to):
+        from paddle_tpu_torch.serving.degradation import BROWNOUT, HEALTHY
+
+        if frm == HEALTHY and to == BROWNOUT:
+            # brownout's first act: cached-but-idle pages go back to the
+            # free list, so admissions stop competing with the cache
+            self.clear_prefix_cache()
+
+    def _gate_admission(self, n):
+        """Degradation gate, before any slot/page/queue mutation (a
+        degraded reject is never a partial admission) and outside the
+        classified retry (a shed session answers at once with its
+        retry-after hint)."""
+        if self._monitor is None:
+            return
+        from paddle_tpu_torch.serving.degradation import BROWNOUT, SHED
+
+        state = self._monitor.observe(self._health_load())
+        if state == SHED:
+            raise self._monitor.reject("admission (draining in-flight)")
+        if state == BROWNOUT and n > 1:
+            raise self._monitor.reject(
+                "fork admission (n=%d) — brownout serves n=1 only" % n)
+
+    @property
+    def health(self):
+        """Degradation state ('healthy' when the monitor is off)."""
+        from paddle_tpu_torch.serving.degradation import HEALTHY
+
+        return self._monitor.state if self._monitor is not None \
+            else HEALTHY
 
     @property
     def step_program(self):
@@ -393,6 +487,10 @@ class SlotDecodeSession(object):
             raise
         for _slot, src_pg, _dst in copies:
             self._pool.deref(src_pg)
+        if self._slot_traces and copies:
+            # per-slot COW attribution for the step window's traces
+            for slot, _src, _dst in copies:
+                self._trace_cow[slot] = self._trace_cow.get(slot, 0) + 1
         self.cow_dispatches += 1
         self.cow_pairs += len(copies)
 
@@ -527,6 +625,16 @@ class SlotDecodeSession(object):
                                 prefix_tokens=prefix_tokens)[0]
 
     def _admit_dense(self, src, src_len):
+        self._gate_admission(1)
+        self._begin_op()
+        try:
+            return _retry.call(
+                lambda: self._admit_dense_attempt(src, src_len),
+                origin="serve.admit")
+        finally:
+            self._end_op()
+
+    def _admit_dense_attempt(self, src, src_len):
         if not self._free:
             raise NoFreeSlotError(
                 "all %d slots occupied; step() until one frees" % self._S)
@@ -534,6 +642,8 @@ class SlotDecodeSession(object):
         length = self._T if src_len is None else int(np.ravel(src_len)[0])
         slot = self._take_slot()
         try:
+            if _chaos.ENABLED:
+                _chaos.fault("serve.admit")
             self._run(self._admit_prog, {
                 "src_word": src,
                 "src_len": np.asarray([[length]], dtype="int64"),
@@ -570,6 +680,21 @@ class SlotDecodeSession(object):
         n = int(n)
         if n < 1:
             raise ValueError("admit_group needs n >= 1, got %d" % n)
+        self._gate_admission(n)
+        self._begin_op()
+        try:
+            # classified retry around the whole attempt: a transient fault
+            # mid-admission rolls the group back (free stacks restored in
+            # pop order), so the retry lands in the same slots and pages;
+            # the typed rejects are not transient and surface at once
+            return _retry.call(
+                lambda: self._admit_group_attempt(src, n, src_len,
+                                                  prefix_tokens),
+                origin="serve.admit")
+        finally:
+            self._end_op()
+
+    def _admit_group_attempt(self, src, n, src_len, prefix_tokens):
         if len(self._free) < n:
             raise NoFreeSlotError(
                 "admit_group(n=%d): only %d of %d slots free; step() until "
@@ -624,6 +749,10 @@ class SlotDecodeSession(object):
                 "page_row": self._page_row(pages),
             }
             feed.update(start_feed)
+            if _chaos.ENABLED:
+                # slots popped, pages provisioned, nothing dispatched: a
+                # fault here must roll the whole group back
+                _chaos.fault("serve.admit")
             self._run(self._admit_prog, feed, [])
             write_from = len(cached) * self._ps
             if write_from:
@@ -702,6 +831,48 @@ class SlotDecodeSession(object):
         self._free_groups.append(gid)
         self._reserved_pages -= n * pages_for(self._T, self._ps)
 
+    def cancel(self, slot):
+        """Abort one in-flight sequence (the frontend's disconnect and
+        cancel teardown): the slot frees, its table row is repointed at
+        the trash page FIRST and then its page references drop (the
+        ``_release_pages`` order), its group loses a member and any
+        request ownership is dropped WITHOUT banking a result. Returns
+        True when the slot was live. Call between dispatches;
+        :attr:`pool_conserved` holds afterwards."""
+        slot = int(slot)
+        if slot not in self._live:
+            return False
+        self._begin_op()
+        try:
+            del self._live[slot]
+            if self._paged:
+                try:
+                    self._release_pages(slot)
+                except BaseException:
+                    if slot not in self._slot_pages:
+                        raise  # the deref path broke: a real bug
+                    # the trash repoint failed: the device row may still
+                    # point at these pages, so they are LEAKED (kept
+                    # allocated) rather than handed to a later sequence;
+                    # the group and reservation books still close
+                    pages = self._slot_pages.pop(slot)
+                    self._leaked_pages += len(set(pages))
+                    gid = self._slot_group.pop(slot, None)
+                    members = self._group_members.get(gid)
+                    if members is not None:
+                        members.discard(slot)
+                        if not members:
+                            del self._group_members[gid]
+                            self._free_groups.append(gid)
+                    self._reserved_pages -= pages_for(self._T, self._ps)
+            self._free.append(slot)
+            rid = self._owner.pop(slot, None)
+            if self._slot_traces or self._trace_ids:
+                self._trace_cancel(slot, rid)
+        finally:
+            self._end_op()
+        return True
+
     def step(self):
         """Advance every in-flight sequence: ``steps`` tokens through one
         ``run_multi_step`` call, or, in a speculative session (unless
@@ -712,15 +883,33 @@ class SlotDecodeSession(object):
         No-op ({}) when nothing is in flight."""
         if not self._live:
             return {}
-        if not self._paged:
-            out = self._step_dense()
-        # the oracle: FLAGS_speculative=off routes this very session
-        # through the plain sequential step, and flips mid-stream
-        elif self._spec_k and flags.get("speculative") != "off":
-            out = self._step_speculative()
-        else:
-            out = self._step_plain()
-        self.steps_done += 1
+        traced = bool(self._slot_traces) and _tracing.ENABLED
+        if traced:
+            t_step = time.time()
+            pre_pos = {s: self._live[s]["pos"]
+                       for s in self._slot_traces if s in self._live}
+            pre_spec = self.spec_dispatches
+            self._trace_cow.clear()
+        self._begin_op()
+        try:
+            if _chaos.ENABLED:
+                _chaos.fault("serve.dispatch", step=self.steps_done)
+            if not self._paged:
+                out = self._step_dense()
+            # the oracle: FLAGS_speculative=off routes this very session
+            # through the plain sequential step, and flips mid-stream
+            elif self._spec_k and flags.get("speculative") != "off":
+                out = self._step_speculative()
+            else:
+                out = self._step_plain()
+            self.steps_done += 1
+        finally:
+            self._end_op()
+        if traced and pre_pos:
+            self._trace_step(pre_pos, out, t_step, time.time(),
+                             self.spec_dispatches > pre_spec)
+        if self._monitor is not None:
+            self._monitor.observe(self._health_load())
         return out
 
     def _dense_feed(self):
@@ -824,36 +1013,82 @@ class SlotDecodeSession(object):
         return finished
 
     # -- request queue -------------------------------------------------------
-    def enqueue(self, src, src_len=None, prefix_tokens=None):
+    @property
+    def pending_requests(self):
+        """Queued request ids not yet admitted, in admission order."""
+        return [r["id"] for r in self._pending]
+
+    def enqueue(self, src, src_len=None, prefix_tokens=None,
+                trace_id=None):
         """Queue one request ([T] or [1, T] int ids); :meth:`pump` admits
-        queued requests as capacity frees. Returns a request id."""
+        queued requests as capacity frees. Returns a request id
+        (monotonic per session). ``trace_id`` binds the request to an
+        in-flight request trace (``observability/tracing.py``)."""
         rid = self._next_req
         self._next_req += 1
-        self._pending.append({
+        entry = {
             "id": rid,
             "src": np.asarray(src, dtype="int64").reshape(1, self._T),
             "len": self._T if src_len is None
             else int(np.ravel(src_len)[0]),
             "prefix": (None if prefix_tokens is None
                        else [int(t) for t in prefix_tokens]),
-        })
+        }
+        if trace_id:
+            # t_enq feeds the queue-wait span at admission
+            self._trace_ids[rid] = str(trace_id)
+            entry["t_enq"] = time.time()
+        self._pending.append(entry)
         return rid
+
+    def drop_pending(self, request_id):
+        """Remove one not-yet-admitted request from the backlog (the
+        disconnect path of a queued wire request). Returns True when it
+        was still queued."""
+        rid = int(request_id)
+        for i, req in enumerate(self._pending):
+            if req["id"] == rid:
+                del self._pending[i]
+                if self._trace_ids:
+                    tid = self._trace_ids.pop(rid, None)
+                    tr = (_tracing.inflight_get(tid) if tid is not None
+                          else None)
+                    if tr is not None and tr.origin == "session":
+                        _tracing.finish(tr, outcome="dropped")
+                return True
+        return False
 
     def admit_pending(self):
         """Admit queued requests in order while capacity allows (a
-        page/group reject defers the request back to the front). Returns
+        page/group reject, or a degradation reject when the monitor is
+        armed, defers the request back to the FRONT). Returns
         ``{slot: request_id}`` for the requests admitted by this call."""
+        from paddle_tpu_torch.serving.degradation import DegradedError
+
         admitted = {}
         while self._pending and self._free:
-            req = self._pending.popleft()
+            # pop -> admit -> owner record is one dispatch window
+            self._begin_op()
+            deferred = False
             try:
-                slot = self.admit(req["src"], req["len"],
-                                  prefix_tokens=req["prefix"])
-            except (NoFreePageError, NoFreeGroupError):
-                self._pending.appendleft(req)
+                req = self._pending.popleft()
+                traced = req["id"] in self._trace_ids
+                t_admit = time.time() if traced else 0.0
+                try:
+                    slot = self.admit(req["src"], req["len"],
+                                      prefix_tokens=req["prefix"])
+                except (NoFreePageError, NoFreeGroupError, DegradedError):
+                    self._pending.appendleft(req)
+                    deferred = True
+                else:
+                    self._owner[slot] = req["id"]
+                    admitted[slot] = req["id"]
+                    if traced:
+                        self._trace_admitted(req, slot, t_admit)
+            finally:
+                self._end_op()
+            if deferred:
                 break
-            self._owner[slot] = req["id"]
-            admitted[slot] = req["id"]
         return admitted
 
     def pump(self):
@@ -868,11 +1103,115 @@ class SlotDecodeSession(object):
             if rid is not None:
                 finished[rid] = tokens
                 self._results[rid] = tokens
+                self._trace_bank(rid)
         return finished
 
     def take_result(self, request_id):
-        """Claim (and remove) a finished request's [T] tokens, or None."""
-        return self._results.pop(int(request_id), None)
+        """Claim (and remove) a finished request's [T] tokens, or None.
+        Claiming retires the request's trace-id binding."""
+        rid = int(request_id)
+        out = self._results.pop(rid, None)
+        if out is not None and self._trace_ids:
+            self._trace_ids.pop(rid, None)
+        return out
+
+    # -- request tracing -----------------------------------------------------
+    def _trace_admitted(self, req, slot, t_admit):
+        """A queued traced request's admission: the queue-wait and
+        prefill spans, and the slot -> trace binding for the step
+        loop."""
+        rid = req["id"]
+        tid = self._trace_ids.get(rid)
+        if tid is None:
+            return
+        tr = _tracing.inflight_get(tid)
+        if tr is None:
+            tr = _tracing.start(tid, endpoint="generate", origin="session")
+        t_enq = req.get("t_enq")
+        if t_enq is not None:
+            tr.span("queue", t_enq, t_admit, rid=int(rid))
+        hit_pages = (getattr(self._prefix_cache, "last_hit_pages", 0)
+                     if self._paged and self._prefix_cache is not None
+                     else 0)
+        tr.span("prefill", t_admit, time.time(), kind="solo",
+                slot=int(slot), rid=int(rid),
+                prefix_hit_pages=int(hit_pages))
+        self._slot_traces[slot] = tid
+
+    def _trace_bank(self, rid):
+        """Close a session-origin trace when its result banks (a finish
+        no wire stream owns). The rid -> trace binding stays until
+        :meth:`take_result` claims the row."""
+        if not self._trace_ids:
+            return
+        tid = self._trace_ids.get(int(rid))
+        tr = _tracing.inflight_get(tid) if tid is not None else None
+        if tr is not None and tr.origin == "session":
+            _tracing.finish(tr, outcome="banked")
+
+    def _trace_cancel(self, slot, rid):
+        """Cancel-side trace teardown: unbind the slot, retire the rid
+        binding and close a session-origin trace, so a cancelled request
+        never leaves an open span in flight."""
+        tid = self._slot_traces.pop(slot, None)
+        if rid is not None:
+            tid = self._trace_ids.pop(int(rid), None) or tid
+        tr = _tracing.inflight_get(tid) if tid is not None else None
+        if tr is None:
+            return
+        tr.sample_pages(0)
+        if tr.origin == "session":
+            _tracing.finish(tr, outcome="cancelled")
+
+    def _tokens_past(self, trg, prev):
+        """Tokens a finished row generated past position ``prev``
+        (through its terminal eos, or the max-length cap)."""
+        for idx in range(prev + 1, self._T):
+            if int(trg[idx]) == self._eos:
+                return idx - prev
+        return self._T - 1 - prev
+
+    def _trace_step(self, pre_pos, out, t0, t1, was_spec):
+        """One ``decode.step`` span per traced slot that was live when
+        the step launched (tokens committed, COW copies, speculative or
+        not), the trace's accumulators, and a page-count sample per
+        trace. Host bookkeeping after the dispatch window."""
+        touched = set()
+        for slot, prev in pre_pos.items():
+            tid = self._slot_traces.get(slot)
+            tr = (_tracing.inflight_get(tid) if tid is not None
+                  else None)
+            if tr is None:
+                continue
+            finished_here = slot not in self._live
+            if finished_here:
+                trg = out.get(slot)
+                delta = (self._tokens_past(trg, prev)
+                         if trg is not None else 0)
+            else:
+                delta = self._live[slot]["pos"] - prev
+            cow = self._trace_cow.pop(slot, 0)
+            tr.span("decode.step", t0, t1, slot=int(slot),
+                    tokens=int(delta), cow_copies=int(cow),
+                    speculative=bool(was_spec))
+            if delta > 0:
+                tr.bump("tokens", int(delta))
+                if was_spec:
+                    tr.bump("tokens_from_spec", int(delta) - 1)
+            if cow:
+                tr.bump("cow_copies", int(cow))
+            if finished_here:
+                self._slot_traces.pop(slot, None)
+            touched.add(tid)
+        for tid in touched:
+            tr = _tracing.inflight_get(tid)
+            if tr is None:
+                continue
+            npages = (sum(len(self._slot_pages.get(s, ()))
+                          for s, t in self._slot_traces.items()
+                          if t == tid)
+                      if self._paged else 0)
+            tr.sample_pages(npages)
 
     def generate_best_of(self, src, n, src_len=None, prefix_tokens=None):
         """Best-of-N over ``admit_group``: decode ``n`` continuations of

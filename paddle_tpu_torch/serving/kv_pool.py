@@ -1,8 +1,7 @@
 """Refcounted KV page pool + prefix cache: the host side of the paged
 KV cache.
 
-A copy of ``paddle_tpu/serving/kv_pool.py`` (host-only Python), without
-its chaos-injection site, which comes with the resilience slice:
+A copy of ``paddle_tpu/serving/kv_pool.py`` (host-only Python):
 
 * :class:`PagePool` — pages carry a REFCOUNT. ``acquire()`` hands out a
   private page (refcount 1), ``ref()`` shares it, ``deref()`` frees it
@@ -12,10 +11,10 @@ its chaos-injection site, which comes with the resilience slice:
   never circulates).
 * :class:`PrefixCache` — a token trie keyed by ``(source fingerprint,
   prefix tokens)`` mapping to refcounted FULL pages; ``reclaim()`` is the
-  free-list pressure valve. (The session of this slice does not enable
-  it yet.)
+  free-list pressure valve.
 """
 
+from paddle_tpu_torch.resilience import chaos as _chaos
 from paddle_tpu_torch.serving.server import ServingError
 
 __all__ = ["PagePool", "PrefixCache", "NoFreePageError",
@@ -96,7 +95,13 @@ class PagePool(object):
         empty, ``reclaim`` (the prefix cache's pressure valve) is given
         one chance to evict; still empty raises
         :class:`NoFreePageError` — which reservation-based admission
-        control guarantees never happens for an admitted sequence."""
+        control guarantees never happens for an admitted sequence.
+        ``pool.acquire`` is a chaos site: an injected fault here lands
+        in whatever admission/COW path asked for the page, which must
+        roll back without leaking it (the allocation below never
+        happened)."""
+        if _chaos.ENABLED:
+            _chaos.fault("pool.acquire")
         if not self._free and reclaim is not None:
             reclaim()
         if not self._free:
