@@ -97,11 +97,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    (dropout 0.1, label smoothing 0.1, ``Adam(2e-4)``, random_seed 7,
    batch 64 of ragged lengths, fp32): 2 warm-up steps, then 20 steps with
    each kernel's launch count reset just before and read just after. It
-   gates on finite losses, a loss that falls by 0.1 nat, and 18 launches
-   of each backward kernel and 36 of the forward per step, reads each
-   flash kernel's launches by shape class (key mask or causal) from the
-   counts its wrapper keeps, and profiles one more step (device time by
-   kernel, device busy share);
+   gates on finite losses, a loss that falls by 0.1 nat, 18 launches of
+   each backward kernel and 18 of the forward per step (12 with a key
+   mask, 6 causal: each attention's forward runs once, and its grad op
+   differentiates the forward tape) and no grad op that reran its
+   forward, reads each flash kernel's launches by shape class (key mask
+   or causal) from the counts its wrapper keeps, and profiles one more
+   step (device time by kernel, device busy share);
 9. trains 3 Adam steps of the same model (dropout 0, batch 4,
    ``set_deterministic_params`` weights) on the card and on the CPU and
    gates on each step's loss; the first step's gradients are compared and
@@ -122,14 +124,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    peepholes. After step 9 it trains ``stacked_lstm.build``
    (sequence length 80, dictionary 5000, width 512, 3 layers, batch 32,
    lengths 16..80, Adam) on synthetic separable sentiment data for 2 + 20
-   steps, gating on finite losses, a 0.1 nat fall and 6 lstm_cell
-   launches per step (each layer's forward and its rerun in the grad op),
-   profiles one step, runs the trained model's ``clone(for_test=True)``
-   program 10 times (3 launches per run), trains the same network with
-   ``dynamic_gru`` (6 gru_cell launches per step), runs 5 steps of the
-   machine-translation graph at ``build()``'s defaults (4 lstm_cell
-   launches per step), and compares the stacked LSTM's predictions (1e-4)
-   and 3 train losses (1e-3) on the card and on the CPU;
+   steps, gating on finite losses, a 0.1 nat fall, 3 lstm_cell launches
+   per step (each layer's forward once: the grad op differentiates the
+   forward tape, the backward recomputing through the plain loop) and no
+   grad-op rerun, profiles one step, runs the trained model's
+   ``clone(for_test=True)`` program 10 times (3 launches per run),
+   trains the same network with ``dynamic_gru`` (3 gru_cell launches per
+   step), runs 5 steps of the machine-translation graph at ``build()``'s
+   defaults (2 lstm_cell launches per step), and compares the stacked
+   LSTM's predictions (1e-4) and 3 train losses (1e-3) on the card and
+   on the CPU;
 11. the predictor: saved programs served through
    ``create_paddle_predictor``. After step 9, (a) the committed
    ``tests/golden/mnist_saved_model`` (written by the JAX package) on the
@@ -171,6 +175,26 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    unknown method come back typed, and ``health`` / ``stats`` /
    ``metrics`` answer, ``paddle_tpu_frontend_request_seconds`` counting
    every request sent.
+13. ``resnet``: ResNet-50 trained as the JAX package's bench.py
+   (``resnet_imagenet`` depth 50, 1000 classes, ``Momentum(0.1, 0.9)``,
+   fp32, TF32 off, random_seed 5) with one fixed seeded batch of 128
+   images 3 x 224 x 224 fed from numpy (its ``BENCH_DATA=host`` branch):
+   10 warm-up and 20 timed steps. It prints step ms, images/s, peak
+   memory, the device busy share of one profiled step and the share of
+   the bound (the program's forward FLOPs x 3 per image at 67 TFLOP/s
+   fp32) the step reaches, and gates on finite losses, the mean of the
+   last 5 below the first, no grad-op rerun and every batch_norm's moving
+   mean changed. The trained model is saved (``io.save_inference_model``)
+   and served through ``NativeConfig`` and ``AnalysisConfig`` (whose
+   ``fuse_batch_norm`` pass folds every batch norm into its conv):
+   predictions within 1e-4, relative to max(1, |y|).
+14. ``optim``: the model of step 9 with ``GradientClipByGlobalNorm(1.0)``
+   and ``L2Decay`` trained 3 steps on the card and on the CPU with each
+   of Momentum, Nesterov Momentum, LarsMomentum, Adagrad, Adamax,
+   DecayedAdagrad, Adadelta, RMSProp (plain and centered) and Ftrl, then
+   Momentum with ``L1Decay``; the Momentum run also builds a
+   ``ModelAverage`` and evaluates the loss after ``apply`` and after
+   ``restore``. Gate: every loss on the card within 1e-3 of the CPU's.
 
 A line of its own before the last holds the kernels' JSON record (for
 flash_fwd, the backward pair, paged_decode (full occupancy and the
@@ -260,6 +284,16 @@ PRED_RNN_ROUNDS, PRED_RNN_RUNS = 2, 150
 # moment the decode loop's capture begins)
 FE_CLIENTS, FE_PREDICT, FE_PREDICT_CLIENTS = 8, 256, 4
 FE_PRED_TOL = 1e-5  # batched predictions against run_reference, on the card
+
+# ResNet-50 as bench.py:105-151 trains it, the data fed from numpy
+RESNET_DEPTH, RESNET_CLASSES, RESNET_IMG, RESNET_BATCH = 50, 1000, 224, 128
+RESNET_LR, RESNET_MOMENTUM, RESNET_SEED = 0.1, 0.9, 5
+RESNET_WARMUP, RESNET_STEPS = 10, 20
+RESNET_PRED_BATCH = 8
+RESNET_PRED_TOL = 1e-4  # AnalysisConfig (batch norms folded) vs Native
+# the optimizers against the CPU, on step 9's model
+OPTIM_CLIP, OPTIM_L2, OPTIM_L1 = 1.0, 1e-4, 1e-4
+OPTIM_AVG_RATE = 0.15
 
 
 def kernel_symbol(line):
@@ -2426,9 +2460,10 @@ def train_phase(np, torch, fluid, exe, kernels):
     names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
     for k in kernels.values():
         k.reset()
-    losses, step_ms, per_step = [], [], []
+    losses, step_ms, per_step, reruns = [], [], [], []
     for i in range(TRAIN_STEPS):
         before = [kernels[n].launches for n in names]
+        reran = exe.grad_op_reruns
         t0 = time.perf_counter()
         (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
         torch.cuda.synchronize()
@@ -2436,9 +2471,10 @@ def train_phase(np, torch, fluid, exe, kernels):
         losses.append(float(np.asarray(lv).reshape(-1)[0]))
         per_step.append(tuple(kernels[n].launches - b
                               for n, b in zip(names, before)))
-        print("train step %2d: loss %.6f  wall %.1f ms  launches %s"
-              % (i + 1, losses[-1], step_ms[-1], dict(zip(names,
-                                                          per_step[-1]))))
+        reruns.append(exe.grad_op_reruns - reran)
+        print("train step %2d: loss %.6f  wall %.1f ms  launches %s  grad-op "
+              "reruns %d" % (i + 1, losses[-1], step_ms[-1],
+                             dict(zip(names, per_step[-1])), reruns[-1]))
     launches = kernel_counts(kernels)
     peak = torch.cuda.max_memory_allocated()
     mean_ms = float(np.mean(step_ms))
@@ -2452,9 +2488,13 @@ def train_phase(np, torch, fluid, exe, kernels):
     if not np.isfinite(losses).all():
         fail("a train loss is not finite: %s" % losses)
     n_attn = 3 * N_LAYER
-    if any(c != (2 * n_attn, n_attn, n_attn) for c in per_step):
+    # the forward tape: each attention's forward launches once, its grad
+    # op differentiates the recorded graph
+    if any(c != (n_attn, n_attn, n_attn) for c in per_step):
         fail("per-step launches %s, expected flash_fwd %d, flash_bwd_dkv %d, "
-             "flash_bwd_dq %d" % (per_step, 2 * n_attn, n_attn, n_attn))
+             "flash_bwd_dq %d" % (per_step, n_attn, n_attn, n_attn))
+    if any(reruns):
+        fail("grad ops reran their forward in the train steps: %s" % reruns)
     late = float(np.mean(losses[15:20]))
     print("train: loss step 1 %.6f, mean of steps 16-20 %.6f (gate: %.1f "
           "nat lower)" % (losses[0], late, LOSS_DROP))
@@ -2943,7 +2983,8 @@ def rnn_train_phase(np, torch, fluid, exe, kernels, cell):
     """Trains the stacked network at width 512 (2 warm-up, 20 timed
     steps, a fresh batch each step); gates on finite losses, a loss that
     falls by 0.1 nat (mean of the last 5 steps below the first warm-up
-    step) and 2 x 3 launches of the cell's kernel per step.
+    step), 3 launches of the cell's kernel per step and no grad-op
+    rerun.
     Returns (launches in the timed steps, scope, inference program,
     outs)."""
     kname = "lstm_cell" if cell == "lstm" else "gru_cell"
@@ -2968,6 +3009,7 @@ def rnn_train_phase(np, torch, fluid, exe, kernels, cell):
     for k in kernels.values():
         k.reset()
     losses, step_ms, per_step, tokens = [], [], [], []
+    reran = exe.grad_op_reruns
     for i, f in enumerate(feeds[RNN_WARMUP:RNN_WARMUP + RNN_STEPS]):
         before = kernels[kname].launches
         t0 = time.perf_counter()
@@ -2989,10 +3031,16 @@ def rnn_train_phase(np, torch, fluid, exe, kernels, cell):
              sum(tokens) / sum(step_ms) * 1e3, peak / 2 ** 30))
     if not np.isfinite(losses).all():
         fail("a %s train loss is not finite: %s" % (cell, losses))
-    if any(c != 2 * RNN_STACK for c in per_step):
-        fail("%s per-step launches %s, expected 2 x %d (each layer's "
-             "forward and its rerun inside the grad op)"
+    reran = exe.grad_op_reruns - reran
+    print("rnn %s train: grad-op reruns in the timed steps %d"
+          % (cell, reran))
+    if any(c != RNN_STACK for c in per_step):
+        fail("%s per-step launches %s, expected %d (each layer's forward "
+             "once: its grad op differentiates the forward tape)"
              % (kname, per_step, RNN_STACK))
+    if reran:
+        fail("%d grad ops reran their forward in the %s train steps"
+             % (reran, cell))
     late = float(np.mean(losses[-5:]))
     print("rnn %s train: loss of the first warm-up step %.6f, timed step 1 "
           "%.6f, mean of steps 16-20 %.6f (gate: %.1f nat below the first)"
@@ -3038,8 +3086,9 @@ def rnn_infer_phase(np, torch, exe, kernels, scope, infer, outs, feed):
 def mt_phase(np, torch, fluid, exe, kernels):
     """The machine-translation training graph at build()'s defaults (64
     wide, sequence length 32, batch 32, ragged source lengths), a few
-    Adam steps: 4 lstm_cell launches per step (the forward and the
-    reverse encoder pass, each rerun inside its grad op)."""
+    Adam steps: 2 lstm_cell launches per step (the forward and the
+    reverse encoder pass, once each: the grad ops differentiate the
+    forward tape) and no grad-op rerun."""
     from paddle_tpu_torch import unique_name
     from paddle_tpu_torch.models import machine_translation as mt
 
@@ -3066,6 +3115,7 @@ def mt_phase(np, torch, fluid, exe, kernels):
     torch.cuda.synchronize()
     kernels["lstm_cell"].reset()
     losses, step_ms, per_step = [], [], []
+    reran = exe.grad_op_reruns
     for _ in range(MT_STEPS):
         before = kernels["lstm_cell"].launches
         t0 = time.perf_counter()
@@ -3079,11 +3129,16 @@ def mt_phase(np, torch, fluid, exe, kernels):
           "%.1f ms/step, lstm_cell launches per step %s"
           % (len(main.global_block().ops), MT_BATCH, MT_SEQ, MT_STEPS,
              ["%.5f" % v for v in losses], float(np.mean(step_ms)), per_step))
+    reran = exe.grad_op_reruns - reran
+    print("rnn mt train: grad-op reruns in the %d steps %d"
+          % (MT_STEPS, reran))
     if not np.isfinite(losses).all():
         fail("a machine-translation loss is not finite: %s" % losses)
-    if any(c != 4 for c in per_step):
-        fail("lstm_cell launched %s times per MT step, expected 4"
+    if any(c != 2 for c in per_step):
+        fail("lstm_cell launched %s times per MT step, expected 2"
              % per_step)
+    if reran:
+        fail("%d grad ops reran their forward in the MT steps" % reran)
     return launches
 
 
@@ -3810,6 +3865,248 @@ def frontend_phase(np, torch, fluid, exe, kernels, serve_out, serve_rate,
     return launches
 
 
+# -- ResNet-50 (bench.py's headline model) and the optimizers ------------------
+
+def resnet_train_program(fluid):
+    """bench.py:127-151's program with the data fed from numpy:
+    (main, startup, loss, predict)."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = RESNET_SEED
+    with unique_name.guard({}), fluid.program_guard(main, startup):
+        pixel = fluid.layers.data(name="bench_pixel",
+                                  shape=[3, RESNET_IMG, RESNET_IMG],
+                                  dtype="float32")
+        label = fluid.layers.data(name="bench_label", shape=[1],
+                                  dtype="int64")
+        predict = resnet.resnet_imagenet(pixel, RESNET_CLASSES,
+                                         depth=RESNET_DEPTH)
+        cost = fluid.layers.cross_entropy(input=predict, label=label)
+        loss = fluid.layers.mean(cost)
+        fluid.optimizer.Momentum(learning_rate=RESNET_LR,
+                                 momentum=RESNET_MOMENTUM).minimize(loss)
+    return main, startup, loss, predict
+
+
+def forward_flops(np, program):
+    """Forward FLOPs per image of the program's products: 2 x the
+    multiply-adds of every conv2d (from its output and filter shapes) and
+    every mul."""
+    block = program.global_block()
+    total = 0
+    for op in block.ops:
+        if op.type == "conv2d":
+            out = block.var(op.output("Output")[0]).shape
+            w = block.var(op.input("Filter")[0]).shape
+            total += 2 * int(np.prod(out[1:])) * int(np.prod(w[1:]))
+        elif op.type == "mul":
+            w = block.var(op.input("Y")[0]).shape
+            total += 2 * int(np.prod(w))
+    return total
+
+
+def resnet_phase(np, torch, fluid, exe, model_dir):
+    """ResNet-50 trained on the card, then saved and served (module
+    docstring, step 13)."""
+    from paddle_tpu_torch.inference import (
+        AnalysisConfig,
+        NativeConfig,
+        create_paddle_predictor,
+    )
+
+    main, startup, loss, predict = resnet_train_program(fluid)
+    ops = main.global_block().ops
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    bn_means = [op.output("MeanOut")[0] for op in ops
+                if op.type == "batch_norm"]
+    means0 = {n: scope.get_value(n).clone() for n in bn_means}
+    rng = np.random.RandomState(SEED)
+    feed = {"bench_pixel": rng.rand(RESNET_BATCH, 3, RESNET_IMG,
+                                    RESNET_IMG).astype("float32"),
+            "bench_label": rng.randint(0, RESNET_CLASSES,
+                                       (RESNET_BATCH, 1)).astype("int64")}
+    flops = forward_flops(np, main)
+    n_params = sum(int(np.prod(p.shape))
+                   for p in main.global_block().all_parameters())
+    print("resnet: ResNet-%d program of %d ops (%d batch_norm), %.2f M "
+          "parameters, %.3f GFLOP forward per image, batch %d x 3 x %d x "
+          "%d, Momentum(%g, %g), fp32"
+          % (RESNET_DEPTH, len(ops), len(bn_means), n_params / 1e6,
+             flops / 1e9, RESNET_BATCH, RESNET_IMG, RESNET_IMG, RESNET_LR,
+             RESNET_MOMENTUM))
+    losses = []
+    for _ in range(RESNET_WARMUP):
+        (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        losses.append(float(np.asarray(lv).reshape(-1)[0]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reran = exe.grad_op_reruns
+    step_ms = []
+    for i in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(np.asarray(lv).reshape(-1)[0]))
+    reran = exe.grad_op_reruns - reran
+    peak = torch.cuda.max_memory_allocated()
+    mean_ms = float(np.mean(step_ms))
+    bound_ms = 3.0 * flops * RESNET_BATCH / PEAK_FP32_FLOPS * 1e3
+    print("resnet: losses %s" % ["%.4f" % v for v in losses])
+    print("resnet: %d timed steps, mean %.1f ms/step (min %.1f, max %.1f): "
+          "%.1f images/s; peak memory %.2f GiB; grad-op reruns %d"
+          % (RESNET_STEPS, mean_ms, min(step_ms), max(step_ms),
+             RESNET_BATCH / mean_ms * 1e3, peak / 2 ** 30, reran))
+    print("resnet: bound %.2f ms/step (%.3f GFLOP x 3 x %d images at 67 "
+          "TFLOP/s fp32): the step reaches %.1f %% of it"
+          % (bound_ms, flops / 1e9, RESNET_BATCH, 100.0 * bound_ms / mean_ms))
+    if not np.isfinite(losses).all():
+        fail("a ResNet-50 loss is not finite: %s" % losses)
+    late = float(np.mean(losses[-5:]))
+    print("resnet: loss step 1 %.6f, mean of the last 5 %.6f" % (losses[0],
+                                                               late))
+    if not late < losses[0]:
+        fail("the ResNet-50 loss did not fall: %s" % losses)
+    if reran:
+        fail("%d grad ops reran their forward in the ResNet-50 steps"
+             % reran)
+    same = [n for n in bn_means
+            if torch.equal(scope.get_value(n).cpu(), means0[n].cpu())]
+    if same:
+        fail("batch_norm moving means unchanged by training: %s" % same[:5])
+    profile_call(torch, "resnet", lambda: exe.run(
+        main, feed=feed, fetch_list=[loss], scope=scope))
+
+    fluid.io.save_inference_model(model_dir, ["bench_pixel"], [predict], exe,
+                                  main_program=main, scope=scope)
+    pfeed = {"bench_pixel": feed["bench_pixel"][:RESNET_PRED_BATCH]}
+    out, types = {}, {}
+    for name, config in (("NativeConfig", NativeConfig(model_dir)),
+                         ("AnalysisConfig", AnalysisConfig(model_dir))):
+        pred = create_paddle_predictor(config)
+        (out[name],) = pred.run(pfeed)
+        types[name] = [op.type for op in pred._program.global_block().ops]
+    a, b = np.asarray(out["AnalysisConfig"]), np.asarray(out["NativeConfig"])
+    err = float(np.max(np.abs(a - b) / np.maximum(1.0, np.abs(b))))
+    print("resnet predictor: %d images; NativeConfig %d ops (%d batch_norm), "
+          "AnalysisConfig %d ops (%d batch_norm): max diff %.3e relative to "
+          "max(1, |y|)  tol %.0e; top-1 equal %s"
+          % (RESNET_PRED_BATCH, len(types["NativeConfig"]),
+             types["NativeConfig"].count("batch_norm"),
+             len(types["AnalysisConfig"]),
+             types["AnalysisConfig"].count("batch_norm"), err,
+             RESNET_PRED_TOL, np.array_equal(a.argmax(1), b.argmax(1))))
+    if types["AnalysisConfig"].count("batch_norm"):
+        fail("fuse_batch_norm left batch_norm ops in the AnalysisConfig "
+             "program")
+    if not np.isfinite(a).all() or not err <= RESNET_PRED_TOL:
+        fail("AnalysisConfig and NativeConfig ResNet-50 predictions "
+             "disagree: %.3e" % err)
+
+
+def optim_runs(fluid):
+    """(name, optimizer factory, regularizer) for the optim phase."""
+    opt, reg = fluid.optimizer, fluid.regularizer
+    l2 = reg.L2Decay(OPTIM_L2)
+    return [
+        ("Momentum", lambda: opt.Momentum(1e-3, 0.9, regularization=l2)),
+        ("Nesterov", lambda: opt.Momentum(1e-3, 0.9, use_nesterov=True,
+                                          regularization=l2)),
+        ("LarsMomentum", lambda: opt.LarsMomentum(1e-3, 0.9,
+                                                  regularization=l2)),
+        ("Adagrad", lambda: opt.Adagrad(2e-4, regularization=l2)),
+        ("Adamax", lambda: opt.Adamax(2e-4, regularization=l2)),
+        ("DecayedAdagrad", lambda: opt.DecayedAdagrad(
+            2e-4, regularization=l2)),
+        ("Adadelta", lambda: opt.Adadelta(1.0, regularization=l2)),
+        ("RMSProp", lambda: opt.RMSProp(2e-4, regularization=l2)),
+        ("RMSProp centered", lambda: opt.RMSProp(2e-4, centered=True,
+                                                 regularization=l2)),
+        ("Ftrl", lambda: opt.Ftrl(2e-4, regularization=l2)),
+        ("Momentum L1Decay", lambda: opt.Momentum(
+            1e-3, 0.9, regularization=reg.L1Decay(OPTIM_L1))),
+    ]
+
+
+def optim_program(fluid, make_opt, average):
+    """Step 9's Transformer-base (dropout 0) with global-norm clipping
+    and ``make_opt()``; with ``average``, a ModelAverage and the loss's
+    forward slice to evaluate it. Returns (main, startup, loss, average,
+    eval program)."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.io import prune_program
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = TRAIN_SEED
+    avg = None
+    with unique_name.guard({}), fluid.program_guard(main, startup):
+        loss, _, _ = transformer.build(
+            src_vocab_size=VOCAB, trg_vocab_size=VOCAB, max_length=MAX_LEN,
+            n_layer=N_LAYER, n_head=N_HEAD, d_model=D_MODEL,
+            d_inner=D_INNER, dropout=0.0, label_smooth_eps=LABEL_SMOOTH)
+        fluid.clip.set_gradient_clip(
+            fluid.clip.GradientClipByGlobalNorm(OPTIM_CLIP), program=main)
+        _, params_grads = make_opt().minimize(loss)
+        if average:
+            avg = fluid.optimizer.ModelAverage(OPTIM_AVG_RATE)
+            avg.build([p for p, _ in params_grads])
+    evaluate = None
+    if average:
+        evaluate = prune_program(main.clone(for_test=True),
+                                 ["src_word", "src_len", "trg_word",
+                                  "trg_len", "label"], [loss.name])
+    return main, startup, loss, avg, evaluate
+
+
+def optim_phase(np, torch, fluid, exe):
+    """Every optimizer, clipped and decayed, on the card against the CPU
+    (module docstring, step 14)."""
+    from paddle_tpu_torch.testing import set_deterministic_params
+
+    feed = {k: v[:CVC_BATCH] for k, v in train_feed(np, TRAIN_BATCH).items()}
+    cpu = fluid.Executor(fluid.CPUPlace())
+    worst = 0.0
+    for name, make_opt in optim_runs(fluid):
+        average = name == "Momentum"
+        main, startup, loss, avg, evaluate = optim_program(
+            fluid, make_opt, average)
+        losses, secs = {}, {}
+        for dev, ex in (("card", exe), ("cpu", cpu)):
+            t0 = time.perf_counter()
+            scope = fluid.Scope()
+            ex.run(startup, scope=scope)
+            set_deterministic_params(main, scope, parameters_only=True)
+            losses[dev] = [float(np.asarray(ex.run(
+                main, feed=feed, scope=scope,
+                fetch_list=[loss])[0]).reshape(-1)[0])
+                for _ in range(CVC_STEPS)]
+            if average:
+                avg.apply(ex, scope)
+                losses[dev].append(float(np.asarray(ex.run(
+                    evaluate, feed=feed, scope=scope,
+                    fetch_list=[loss])[0]).reshape(-1)[0]))
+                avg.restore(ex, scope)
+                losses[dev].append(float(np.asarray(ex.run(
+                    evaluate, feed=feed, scope=scope,
+                    fetch_list=[loss])[0]).reshape(-1)[0]))
+            secs[dev] = time.perf_counter() - t0
+        err = max(abs(a - b) for a, b in zip(losses["card"], losses["cpu"]))
+        worst = max(worst, err)
+        print("optim %-16s: losses card %s cpu %s%s: max abs diff %.3e  tol "
+              "%.0e (card %.1f s, cpu %.1f s)"
+              % (name, ["%.6f" % v for v in losses["card"]],
+                 ["%.6f" % v for v in losses["cpu"]],
+                 " (the last two: ModelAverage apply, restore)" if average
+                 else "", err, TRAIN_LOSS_TOL, secs["card"], secs["cpu"]))
+        if not np.isfinite(losses["card"]).all() or not err <= TRAIN_LOSS_TOL:
+            fail("card and CPU %s losses disagree: %.3e" % (name, err))
+    return worst
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "paddle_tpu_torch")):
         fail("paddle_tpu_torch/ is not beside chip_smoke.py: run it from "
@@ -3943,6 +4240,12 @@ def main():
     torch.cuda.empty_cache()
     mt_launches = mt_phase(np, torch, fluid, exe, KERNELS)
     rnn_card_vs_cpu_phase(np, torch, fluid, exe)
+    torch.cuda.empty_cache()
+    model_root = tempfile.mkdtemp(prefix="chip_smoke_models_")
+    resnet_phase(np, torch, fluid, exe, os.path.join(model_root, "resnet50"))
+    shutil.rmtree(model_root)
+    torch.cuda.empty_cache()
+    optim_phase(np, torch, fluid, exe)
 
     def bwd_record(name, line):
         """B2 or B3: the key-mask shape's numbers (bound at the split-TF32

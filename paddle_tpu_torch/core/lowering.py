@@ -5,6 +5,14 @@ traces a whole block into one XLA computation, the port applies each op's
 lowering in program order to a name -> tensor environment, and PyTorch
 dispatches every tensor op as it comes (``executor.cc:392-404``
 RunPreparedContext is the reference's own per-op loop).
+
+The forward tape: where the block holds an op and its ``<type>_grad``
+(``grad_pairs``), the op's lowering runs once under autograd and its
+graph waits on the run's tape for the grad op, which differentiates it
+(``op_registry.record_forward`` / ``grad_from_tape``) instead of
+rerunning the forward. The tape lives for one pass over the block and is
+dropped at its end, errors included. The environment only ever holds
+detached tensors, so later ops never extend a recorded graph.
 """
 
 import torch
@@ -29,6 +37,9 @@ class BlockLowerer(object):
         # program with any is never captured: its seeds would be baked in)
         self.current_op = None
         self.rng_ops = set()
+        # grad ops that reran their forward (no tape entry, or one whose
+        # inputs changed since the forward); the executor collects it
+        self.grad_reruns = 0
 
     def analyze(self, scope_names, feed_names):
         """Classify variable usage for a run.
@@ -73,17 +84,50 @@ class BlockLowerer(object):
                 plan[i].append(name)
         return plan
 
-    def lower_into(self, env, device, seed, release):
+    def grad_pairs(self):
+        """{forward op index: grad op index}: each ``<type>_grad`` op with
+        the nearest earlier unpaired op of ``type`` whose input slots name
+        the variables of the grad op's same-named inputs, and whose output
+        slots do too (what backward.py builds the grad op from)."""
+        ops = self.block.ops
+        pairs = {}
+        for j, gop in enumerate(ops):
+            if not gop.type.endswith("_grad"):
+                continue
+            ftype = gop.type[:-len("_grad")]
+            if not op_registry.has_op(ftype):
+                continue
+            fdef = op_registry.get_op_def(ftype)
+            for i in range(j - 1, -1, -1):
+                op = ops[i]
+                if (op.type == ftype and i not in pairs
+                        and all(op.input(s) == gop.input(s)
+                                for s in fdef.input_slots())
+                        and all(op.output(s) == gop.input(s)
+                                for s in fdef.output_slots())):
+                    pairs[i] = j
+                    break
+        return pairs
+
+    def lower_into(self, env, device, seed, release, pairs=None):
         """Run every op's lowering against env (name -> tensor), dropping
         each variable after its last use (``release``, a
-        :meth:`release_plan`)."""
-        for op, names in zip(self.block.ops, release):
-            self.lower_op(op, env, device, seed)
-            for name in names:
-                env.pop(name, None)
+        :meth:`release_plan`). ``pairs`` (:meth:`grad_pairs`) turns the
+        forward tape on."""
+        tape = {}
+        try:
+            for i, (op, names) in enumerate(zip(self.block.ops, release)):
+                self.lower_op(op, env, device, seed, pairs, tape, i)
+                for name in names:
+                    env.pop(name, None)
+        finally:
+            # an exception's traceback keeps this frame alive, and with
+            # it every recorded graph: drop them here
+            tape.clear()
         return env
 
-    def lower_op(self, op, env, device, seed):
+    def lower_op(self, op, env, device, seed, pairs=None, tape=None,
+                 index=None):
         opdef = op_registry.get_op_def(op.type)
         ins = {}
         for slot in opdef.input_slots():
@@ -110,11 +154,24 @@ class BlockLowerer(object):
             block_lowerer=self,
             device=device,
         )
-        outs = normalize_outputs(opdef, opdef.lower(ctx, ins, op.attrs))
+        grad_index = pairs.get(index) if pairs else None
+        entry = None
+        if grad_index is not None and not ctx.is_test:
+            outs, entry = op_registry.record_forward(
+                opdef, ctx, ins, op.attrs, op_registry.wanted_grads(
+                    self.block.ops[grad_index], opdef))
+        else:
+            if tape:
+                ctx.tape_entry = tape.pop(index, None)
+            outs = normalize_outputs(opdef, opdef.lower(ctx, ins, op.attrs))
         for slot, vals in outs.items():
             for name, val in zip(op.output(slot), vals):
                 if name and val is not None:
                     env[name] = val
+        if entry is not None:
+            entry.snapshot([env[n] for s in opdef.input_slots()
+                            for n in _valid(op.input(s))])
+            tape[grad_index] = entry
 
 
 def _make_rng(seed, attrs, device):

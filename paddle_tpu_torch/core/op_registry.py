@@ -6,13 +6,19 @@ torch tensors, ``lower(ctx, ins, attrs) -> outputs``, that the eager
 ``BlockLowerer`` calls op by op.
 
 Gradients: an op registered with ``grad="auto"`` gets a synthesized
-``<type>_grad`` op (``ensure_auto_grad_op``) whose lowering re-runs the
-forward lowering on detached leaves that require grad and differentiates
-it with ``torch.autograd.grad``, as the JAX package re-traces the forward
-under ``jax.vjp``. XLA's CSE removes that forward rerun inside one jitted
-step; the eager port pays for it (PERF.md). A lowering that wraps a
-``torch.autograd.Function`` (the flash attention kernels) gets that
-Function's backward.
+``<type>_grad`` op (``ensure_auto_grad_op``), a real op of the program,
+as in the JAX package. Where a block holds both the forward op and its
+grad op, the forward runs once: the ``BlockLowerer`` runs its lowering on
+detached leaves that require grad (``record_forward``) and keeps the
+autograd graph on the run's forward tape, and the grad op differentiates
+that graph with ``torch.autograd.grad`` (``grad_from_tape``), as XLA's
+CSE shares the forward between an op and the ``jax.vjp`` rerun of its
+grad op inside the JAX package's one jitted step. A grad op with no tape
+entry (its forward in another run or block, or an input changed since
+the forward) reruns the forward lowering under autograd
+(``lower_grad_via_vjp``, counted). A lowering that wraps a
+``torch.autograd.Function`` (the flash attention and recurrence
+kernels) gets that Function's backward.
 """
 
 import torch
@@ -36,6 +42,8 @@ class LowerContext(object):
         self.is_test = is_test
         self.block_lowerer = block_lowerer
         self.device = device
+        # a grad op's entry of the forward tape (TapeEntry), if any
+        self.tape_entry = None
 
     def rng(self):
         """A torch.Generator for this op instance on ``device`` (None
@@ -142,59 +150,152 @@ def normalize_outputs(opdef, result):
 
 
 # ---------------------------------------------------------------------------
-# Generic vjp-based gradient lowering (op_registry.py:179-322)
+# Gradient lowering: the forward tape, or a vjp rerun of the forward
 # ---------------------------------------------------------------------------
 
 
-def lower_grad_via_vjp(fwd_def, ctx, ins, attrs, out_grads,
-                       wanted_input_grads):
-    """Lower a ``<type>_grad`` op by differentiating the forward lowering.
+def wanted_grads(grad_op, fwd_def):
+    """{fwd input slot: [bool]}: the inputs whose ``@GRAD`` ``grad_op``
+    writes."""
+    wanted = {}
+    for s in fwd_def.input_slots():
+        names = grad_op.output(s + "@GRAD")
+        if any(names):
+            wanted[s] = [bool(n) for n in names]
+    return wanted
 
-    ins: forward inputs, dict slot -> list[tensor].
-    out_grads: dict fwd-output-slot -> list[tensor or None] (None, or a
-      missing entry, is a zero cotangent).
-    wanted_input_grads: dict fwd-input-slot -> list[bool].
 
-    Returns dict fwd-input-slot -> list[tensor or None]; a wanted float
-    input the outputs do not depend on gets zeros, as jax.vjp gives.
-    """
-    diff_index = []  # (slot, i): wanted AND floating point
+def _diff_index(ins, wanted):
+    """[(slot, i)]: the inputs both wanted and floating point."""
+    out = []
     for slot, arrs in ins.items():
-        wants = wanted_input_grads.get(slot, [False] * len(arrs))
+        wants = wanted.get(slot, [False] * len(arrs))
         for i, a in enumerate(arrs):
             if i < len(wants) and wants[i] and a.is_floating_point():
-                diff_index.append((slot, i))
-    if not diff_index:
-        return {}
+                out.append((slot, i))
+    return out
 
+
+def _with_leaves(ins, diff_index):
+    """A copy of ``ins`` whose ``diff_index`` entries are detached leaves
+    that require grad; returns (copy, leaves)."""
     local = {s: list(v) for s, v in ins.items()}
     leaves = []
-    with torch.enable_grad():
-        for slot, i in diff_index:
-            leaf = local[slot][i].detach().requires_grad_(True)
-            local[slot][i] = leaf
-            leaves.append(leaf)
-        outs = normalize_outputs(fwd_def, fwd_def.lower(ctx, local, attrs))
-        ys, cots = [], []
-        for oslot, refs in outs.items():
-            gs = out_grads.get(oslot, [])
-            for j, ref in enumerate(refs):
-                g = gs[j] if j < len(gs) else None
-                # only float outputs that depend on a leaf take a
-                # cotangent; a zero cotangent contributes nothing
-                if g is None or ref is None or not ref.requires_grad:
-                    continue
-                ys.append(ref)
-                cots.append(g.to(ref.dtype).reshape(ref.shape))
-        grads = (torch.autograd.grad(ys, leaves, cots, allow_unused=True)
-                 if ys else [None] * len(leaves))
+    for slot, i in diff_index:
+        leaf = local[slot][i].detach().requires_grad_(True)
+        local[slot][i] = leaf
+        leaves.append(leaf)
+    return local, leaves
 
+
+def _differentiate(outs, leaves, out_grads):
+    """torch.autograd.grad of the outputs that take a cotangent: only
+    float outputs that depend on a leaf do (a zero cotangent adds
+    nothing), each cast and reshaped to its output."""
+    ys, cots = [], []
+    for oslot, refs in outs.items():
+        gs = out_grads.get(oslot, [])
+        for j, ref in enumerate(refs):
+            g = gs[j] if j < len(gs) else None
+            if (g is None or not isinstance(ref, torch.Tensor)
+                    or not ref.requires_grad):
+                continue
+            ys.append(ref)
+            cots.append(g.to(ref.dtype).reshape(ref.shape))
+    if not ys:
+        return [None] * len(leaves)
+    return torch.autograd.grad(ys, leaves, cots, allow_unused=True)
+
+
+def _input_grads(ins, diff_index, leaves, grads):
+    """fwd-input-slot -> [grad or None]; a wanted input the outputs do not
+    reach gets zeros, as jax.vjp gives."""
     out = {}
     for (slot, i), leaf, g in zip(diff_index, leaves, grads):
         if slot not in out:
             out[slot] = [None] * len(ins[slot])
         out[slot][i] = torch.zeros_like(leaf) if g is None else g
     return out
+
+
+def lower_grad_via_vjp(fwd_def, ctx, ins, attrs, out_grads,
+                       wanted_input_grads):
+    """Lower a ``<type>_grad`` op by rerunning the forward lowering under
+    autograd and differentiating it.
+
+    ins: forward inputs, dict slot -> list[tensor].
+    out_grads: dict fwd-output-slot -> list[tensor or None] (None, or a
+      missing entry, is a zero cotangent).
+    wanted_input_grads: dict fwd-input-slot -> list[bool].
+
+    Returns dict fwd-input-slot -> list[tensor or None].
+    """
+    diff_index = _diff_index(ins, wanted_input_grads)
+    if not diff_index:
+        return {}
+    local, leaves = _with_leaves(ins, diff_index)
+    with torch.enable_grad():
+        outs = normalize_outputs(fwd_def, fwd_def.lower(ctx, local, attrs))
+        grads = _differentiate(outs, leaves, out_grads)
+    return _input_grads(ins, diff_index, leaves, grads)
+
+
+class TapeEntry(object):
+    """One forward op's autograd graph, kept on the run's tape for its
+    paired grad op: the leaves, the outputs (with their graph), and the
+    tensors the block held under the forward's input names right after
+    the forward ran, with their versions."""
+
+    __slots__ = ("ins", "diff_index", "leaves", "outs", "inputs")
+
+    def __init__(self, ins, diff_index, leaves, outs):
+        self.ins = {s: len(v) for s, v in ins.items()}
+        self.diff_index = diff_index
+        self.leaves = leaves
+        self.outs = outs
+        self.inputs = []
+
+    def snapshot(self, tensors):
+        """The tensors the forward's input names hold after the forward
+        (a state input the op rewrites, as batch_norm's moving
+        statistics, holds the op's new value)."""
+        self.inputs = [(t, t._version) for t in tensors]
+
+    def holds(self, tensors):
+        """The grad op reads exactly what the snapshot saw, unmodified."""
+        return len(tensors) == len(self.inputs) and all(
+            t is u and t._version == v
+            for t, (u, v) in zip(tensors, self.inputs))
+
+
+def record_forward(fwd_def, ctx, ins, attrs, wanted):
+    """Run a forward lowering once, recording its autograd graph for the
+    grad op that wants ``wanted`` (:func:`wanted_grads`). Returns (the
+    outputs, detached, as normalize_outputs gives them; the TapeEntry,
+    or None when no wanted input is floating point)."""
+    diff_index = _diff_index(ins, wanted)
+    if not diff_index:
+        return normalize_outputs(fwd_def, fwd_def.lower(ctx, ins, attrs)), \
+            None
+    local, leaves = _with_leaves(ins, diff_index)
+    with torch.enable_grad():
+        outs = normalize_outputs(fwd_def, fwd_def.lower(ctx, local, attrs))
+    detached = {s: [v.detach() if isinstance(v, torch.Tensor) else v
+                    for v in vs] for s, vs in outs.items()}
+    return detached, TapeEntry(ins, diff_index, leaves, outs)
+
+
+def grad_from_tape(entry, out_grads, op_type):
+    """The input gradients from a forward's recorded graph (the graph is
+    freed after). A failure raises naming the op: the tape never falls
+    back to a rerun once it holds the entry."""
+    try:
+        grads = _differentiate(entry.outs, entry.leaves, out_grads)
+    except Exception as e:
+        raise RuntimeError("%s_grad: differentiating the forward tape's "
+                           "graph failed: %s" % (op_type, e)) from e
+    ins = {s: [None] * n for s, n in entry.ins.items()}
+    return _input_grads(ins, entry.diff_index, entry.leaves, grads)
 
 
 def ensure_auto_grad_op(fwd_type):
@@ -218,17 +319,19 @@ def ensure_auto_grad_op(fwd_type):
     ]
 
     def lower(ctx, ins, attrs):
-        op = ctx.op
         fwd_ins = {s: ins[s] for s in fwd.input_slots() if s in ins}
         out_grads = {o: ins[o + "@GRAD"] for o in fwd.output_slots()
                      if (o + "@GRAD") in ins}
-        wanted = {}
-        for s in fwd.input_slots():
-            names = op.output(s + "@GRAD")
-            if any(names):
-                wanted[s] = [bool(n) for n in names]
-        gres = lower_grad_via_vjp(fwd, ctx, fwd_ins, attrs, out_grads,
-                                  wanted)
+        entry = ctx.tape_entry
+        if entry is not None and entry.holds(
+                [t for s in fwd.input_slots() for t in fwd_ins.get(s, [])]):
+            gres = grad_from_tape(entry, out_grads, fwd_type)
+        else:
+            wanted = wanted_grads(ctx.op, fwd)
+            if _diff_index(fwd_ins, wanted) and ctx.block_lowerer:
+                ctx.block_lowerer.grad_reruns += 1
+            gres = lower_grad_via_vjp(fwd, ctx, fwd_ins, attrs, out_grads,
+                                      wanted)
         return {s + "@GRAD": gs for s, gs in gres.items()}
 
     return register_op(gtype, inputs=g_inputs, outputs=g_outputs,

@@ -11,12 +11,12 @@ A pass is ``fn(program, scope=None, **kwargs) -> program`` (in place or
 returning a new Program). Register with :func:`register_pass`; run with
 :class:`PassManager` or :func:`apply_pass`.
 
-``fuse_batch_norm`` and ``seqconv_eltadd_relu_fuse`` stand in the list
-as the reference orders it, but the port registers no ``batch_norm`` or
+``fuse_batch_norm`` folds conv (+ bias) + batch_norm
+(``transpiler.InferenceTranspiler``). ``seqconv_eltadd_relu_fuse``
+stands in the list as the reference orders it, but the port registers no
 ``sequence_conv`` op, so no program it runs holds one: on such a program
-they change nothing, and on a program that holds the op they rewrite
-(one saved by the JAX package) they raise, naming the ROADMAP item that
-ports it.
+it changes nothing, and on a program that holds the op (one saved by the
+JAX package) it raises, naming the ROADMAP item that ports it.
 """
 
 import inspect
@@ -106,9 +106,13 @@ def _refuse_op(program, op_type, pass_name, roadmap):
 
 @register_pass("fuse_batch_norm")
 def _fuse_batch_norm(program, scope=None, **kwargs):
-    """conv (+ bias) + batch_norm fold (ConvBNFusePass role)."""
-    return _refuse_op(program, "batch_norm", "fuse_batch_norm",
-                      "A4, second half")
+    """conv (+ bias) + batch_norm fold (ConvBNFusePass / inference
+    transpiler role)."""
+    from paddle_tpu_torch.transpiler.inference_transpiler import (
+        InferenceTranspiler,
+    )
+
+    return InferenceTranspiler().transpile(program, scope=scope)
 
 
 @register_pass("seqconv_eltadd_relu_fuse")

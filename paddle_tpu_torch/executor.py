@@ -17,6 +17,13 @@ environment after the last op that uses it, unless it is fetched or
 written back (``BlockLowerer.release_plan``): a Transformer train step
 holds each activation only until its grad op has read it.
 
+Where a block holds a forward op and its ``<type>_grad``, the forward
+runs once and the grad op differentiates its recorded graph (the forward
+tape, ``core/lowering``); the pairing is analyzed once per program
+version, beside the release plan. ``grad_op_reruns`` counts the grad ops
+that reran their forward instead (no tape entry, or inputs changed since
+the forward): none in a train step.
+
 ``run_async`` returns a ``FetchHandle`` right after the ops are queued on
 the card: a CUDA event recorded behind them tells ``done()`` and
 ``result(timeout=...)`` when the fetches are ready.
@@ -239,8 +246,8 @@ class Executor(object):
         self._run_counter = 0
         self._base_seed = np.random.randint(0, 2 ** 31 - 1)
         # (id(program), version, feed names, scope names, fetch names) ->
-        # (program, state_in, state_out, release plan); the program ref
-        # guards against id reuse
+        # (program, state_in, state_out, release plan, grad pairs); the
+        # program ref guards against id reuse
         self._analysis = {}
         # run_multi_step's captured loops: key -> _CapturedLoop
         self._graphs = {}
@@ -254,6 +261,12 @@ class Executor(object):
         # could have run (a program with random ops, FLAGS_cuda_graph
         # off); the warm-up call of a captured key is not counted
         self.eager_multi_step = 0
+        # grad ops that reran their forward lowering (no forward tape
+        # entry); the tape serves every grad op of a train step
+        self.grad_op_reruns = 0
+        # the forward tape; off, every grad op reruns its forward (the
+        # tests' oracle)
+        self._grad_tape = True
 
     # -- shared run plumbing -------------------------------------------------
     def _prepare_feeds(self, program, feed):
@@ -297,8 +310,9 @@ class Executor(object):
         lowerer = BlockLowerer(program, 0)
         state_in, state_out = lowerer.analyze(scope_names, set(feeds))
         release = lowerer.release_plan(set(fetch_names) | set(state_out))
-        self._analysis[key] = (program, state_in, state_out, release)
-        return state_in, state_out, release
+        pairs = lowerer.grad_pairs()
+        self._analysis[key] = (program, state_in, state_out, release, pairs)
+        return state_in, state_out, release, pairs
 
     def _gather_state(self, state_in, scope):
         state = {}
@@ -329,10 +343,16 @@ class Executor(object):
         return [v.name if isinstance(v, framework.Variable) else str(v)
                 for v in fetch_list]
 
-    def _step(self, lowerer, state, feeds, fetch_names, seed, release):
+    def _step(self, lowerer, state, feeds, fetch_names, seed, release,
+              pairs):
         env = dict(state)
         env.update(feeds)
-        lowerer.lower_into(env, self.device, seed, release)
+        try:
+            lowerer.lower_into(env, self.device, seed, release,
+                               pairs if self._grad_tape else None)
+        finally:
+            self.grad_op_reruns += lowerer.grad_reruns
+            lowerer.grad_reruns = 0
         fetches = []
         for n in fetch_names:
             if n not in env:
@@ -355,12 +375,12 @@ class Executor(object):
         scope = scope or global_scope()
         feeds = self._prepare_feeds(program, feed or {})
         fetch_names = self._fetch_names(fetch_list or [])
-        state_in, state_out, release = self._analyze(
+        state_in, state_out, release, pairs = self._analyze(
             program, feeds, scope, fetch_names, "Executor.run")
         state = self._gather_state(state_in, scope)
         lowerer = BlockLowerer(program, 0, is_test=program._is_test)
         env, fetches = self._step(lowerer, state, feeds, fetch_names,
-                                  self._run_seed(program), release)
+                                  self._run_seed(program), release, pairs)
         written = [(n, env[n]) for n in state_out if n in env]
         for n, t in written:
             scope.set_value(n, t)
@@ -427,14 +447,14 @@ class Executor(object):
         scope = scope or global_scope()
         feeds = self._prepare_feeds(program, feed or {})
         fetch_names = self._fetch_names(fetch_list or [])
-        state_in, state_out, release = self._analyze(
+        state_in, state_out, release, pairs = self._analyze(
             program, feeds, scope, fetch_names, "Executor.run_multi_step")
         extra_out = set(state_out) - set(state_in)
         if extra_out:
             raise RuntimeError(
                 "multi-step run needs state_out ⊆ state_in; program "
                 "creates persistables mid-run: %s" % sorted(extra_out))
-        plan = (state_in, state_out, release)
+        plan = (state_in, state_out, release, pairs)
         if self.graph_capturer is not None and flags.get("cuda_graph"):
             out = self._graph_loop(program, steps, feeds, fetch_names, scope,
                                    plan, stack_fetches)
@@ -456,11 +476,11 @@ class Executor(object):
               plan, stack_fetches):
         """The K-step loop over ``state`` (updated in place: each step's
         state_out values replace its entries). Returns the fetches."""
-        state_out, release = plan[1], plan[2]
+        state_out, release, pairs = plan[1], plan[2], plan[3]
         per_step = []
         for i in range(steps):
             env, fetches = self._step(lowerer, state, feeds, fetch_names,
-                                      seed * 131 + i, release)
+                                      seed * 131 + i, release, pairs)
             for n in state_out:
                 state[n] = env[n]
             per_step.append(fetches)

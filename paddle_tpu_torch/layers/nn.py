@@ -27,8 +27,16 @@ __all__ = [
     "elementwise_sub",
     "elementwise_mul",
     "elementwise_div",
+    "elementwise_max",
     "elementwise_min",
+    "elementwise_pow",
+    "matmul",
+    "batch_norm",
     "reduce_sum",
+    "reduce_mean",
+    "reduce_max",
+    "reduce_min",
+    "reduce_prod",
     "scale",
     "reshape",
     "transpose",
@@ -222,20 +230,92 @@ elementwise_add = _elementwise_layer("elementwise_add")
 elementwise_sub = _elementwise_layer("elementwise_sub")
 elementwise_mul = _elementwise_layer("elementwise_mul")
 elementwise_div = _elementwise_layer("elementwise_div")
+elementwise_max = _elementwise_layer("elementwise_max")
 elementwise_min = _elementwise_layer("elementwise_min")
+elementwise_pow = _elementwise_layer("elementwise_pow")
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper("reduce_sum", name=name)
-    out = helper.create_variable_for_type_inference(input.dtype)
-    if dim is None:
-        attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
-    else:
-        attrs = {"dim": [dim] if isinstance(dim, int) else list(dim),
-                 "keep_dim": keep_dim, "reduce_all": False}
-    helper.append_op(type="reduce_sum", inputs={"X": [input]},
-                     outputs={"Out": [out]}, attrs=attrs)
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0,
+           name=None):
+    helper = LayerHelper("matmul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="matmul", inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]},
+        attrs={"transpose_X": transpose_x, "transpose_Y": transpose_y,
+               "alpha": float(alpha)})
     return out
+
+
+def _reduce_layer(op_type):
+    def fn(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(input.dtype)
+        if dim is None:
+            attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
+        else:
+            attrs = {"dim": [dim] if isinstance(dim, int) else list(dim),
+                     "keep_dim": keep_dim, "reduce_all": False}
+        helper.append_op(type=op_type, inputs={"X": [input]},
+                         outputs={"Out": [out]}, attrs=attrs)
+        return out
+
+    fn.__name__ = op_type
+    return fn
+
+
+reduce_sum = _reduce_layer("reduce_sum")
+reduce_mean = _reduce_layer("reduce_mean")
+reduce_max = _reduce_layer("reduce_max")
+reduce_min = _reduce_layer("reduce_min")
+reduce_prod = _reduce_layer("reduce_prod")
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=False,
+               use_global_stats=False):
+    """Batch norm with its moving statistics as persistable vars
+    (nn.py:399): MeanOut / VarianceOut are bound to the same names, and
+    the executor writes the new tensors back into the scope."""
+    from paddle_tpu_torch import unique_name
+
+    helper = LayerHelper("batch_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    channels = int(input.shape[1] if data_layout == "NCHW"
+                   else input.shape[-1])
+    scale = helper.create_parameter(
+        attr=helper.param_attr, shape=[channels], dtype=dtype,
+        default_initializer=init_mod.ConstantInitializer(1.0))
+    bias = helper.create_parameter(
+        attr=helper.bias_attr or ParamAttr(), shape=[channels], dtype=dtype,
+        is_bias=True)
+    mean = helper.create_global_variable(
+        name=moving_mean_name or unique_name.generate(helper.name + ".mean"),
+        shape=[channels], dtype=dtype, persistable=True,
+        initializer=init_mod.ConstantInitializer(0.0))
+    variance = helper.create_global_variable(
+        name=moving_variance_name or unique_name.generate(
+            helper.name + ".var"),
+        shape=[channels], dtype=dtype, persistable=True,
+        initializer=init_mod.ConstantInitializer(1.0))
+    saved_mean = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [variance]},
+        outputs={"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+                 "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        attrs={"momentum": momentum, "epsilon": epsilon,
+               "is_test": is_test, "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    return helper.append_activation(out)
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,

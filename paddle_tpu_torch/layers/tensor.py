@@ -1,4 +1,4 @@
-"""Tensor layers: fill_constant, assign, concat, create_parameter.
+"""Tensor layers: fill_constant, assign, concat, sums, create_parameter.
 
 Counterpart of ``paddle_tpu/layers/tensor.py`` for the layers this slice
 calls.
@@ -7,7 +7,7 @@ calls.
 from paddle_tpu_torch import framework
 from paddle_tpu_torch.layer_helper import LayerHelper
 
-__all__ = ["assign", "concat", "create_parameter", "fill_constant"]
+__all__ = ["assign", "concat", "create_parameter", "fill_constant", "sums"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -35,6 +35,15 @@ def concat(input, axis=0, name=None):
     out = helper.create_variable_for_type_inference(input[0].dtype)
     helper.append_op(type="concat", inputs={"X": list(input)},
                      outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def sums(input, out=None):
+    helper = LayerHelper("sum")
+    if out is None:
+        out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op(type="sum", inputs={"X": list(input)},
+                     outputs={"Out": [out]})
     return out
 
 

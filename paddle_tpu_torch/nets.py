@@ -1,13 +1,14 @@
 """Composite network helpers (python/paddle/fluid/nets.py parity).
 
 Counterpart of ``paddle_tpu/nets.py`` for ``simple_img_conv_pool``, the
-helper the MNIST model builds from; the others wait for ops the port
-does not register yet (ROADMAP).
+helper the MNIST model builds from, and ``scaled_dot_product_attention``
+(plain products and a softmax, no kernel, as in the JAX package); the
+others wait for ops the port does not register yet (ROADMAP).
 """
 
 from paddle_tpu_torch import layers
 
-__all__ = ["simple_img_conv_pool"]
+__all__ = ["simple_img_conv_pool", "scaled_dot_product_attention"]
 
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
@@ -24,3 +25,34 @@ def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
         input=conv_out, pool_size=pool_size, pool_type=pool_type,
         pool_stride=pool_stride, pool_padding=pool_padding,
         global_pooling=global_pooling)
+
+
+def scaled_dot_product_attention(queries, keys, values, num_heads=1,
+                                 dropout_rate=0.0):
+    """Multi-head scaled dot-product attention over [batch, len, d]
+    tensors (nets.py:130-160)."""
+    d_key = int(queries.shape[-1]) // num_heads
+
+    def _split_heads(x):
+        if num_heads == 1:
+            return x
+        b = layers.reshape(x, [0, 0, num_heads,
+                               int(x.shape[-1]) // num_heads])
+        return layers.transpose(b, [0, 2, 1, 3])
+
+    def _combine_heads(x):
+        if num_heads == 1:
+            return x
+        t = layers.transpose(x, [0, 2, 1, 3])
+        return layers.reshape(t, [0, 0, int(t.shape[2]) * int(t.shape[3])])
+
+    q = _split_heads(queries)
+    k = _split_heads(keys)
+    v = _split_heads(values)
+    scaled_q = layers.scale(q, scale=d_key ** -0.5)
+    product = layers.matmul(scaled_q, k, transpose_y=True)
+    weights = layers.softmax(product)
+    if dropout_rate:
+        weights = layers.dropout(weights, dropout_prob=dropout_rate)
+    ctx_multiheads = layers.matmul(weights, v)
+    return _combine_heads(ctx_multiheads)

@@ -1,4 +1,4 @@
-"""Neural-network ops: conv2d, pool2d and layer_norm.
+"""Neural-network ops: conv2d, pool2d, batch_norm and layer_norm.
 
 Counterpart of ``paddle_tpu/ops/nn_ops.py`` for the ops this slice runs.
 The JAX package computes conv2d and pool2d with XLA's convolution and
@@ -113,6 +113,53 @@ register_op(
         "use_cudnn": False,
     },
     lower=_lower_pool2d,
+)
+
+
+def _lower_batch_norm(ctx, ins, attrs):
+    """nn_ops.py:373-430: the batch statistics in fp32 (fp64 stays), the
+    variance as ``E[x^2] - mean^2``, as the JAX package computes it (not
+    torch's two-pass variance); the moving statistics come out as new
+    tensors, which the executor writes back through the scope."""
+    x = ins["X"][0]
+    scale, bias = ins["Scale"][0], ins["Bias"][0]
+    mean_in, var_in = ins["Mean"][0], ins["Variance"][0]
+    eps = float(attrs.get("epsilon", 1e-5))
+    momentum = float(attrs.get("momentum", 0.9))
+    ch_axis = 1 if attrs.get("data_layout", "NCHW") == "NCHW" else x.dim() - 1
+    reduce_ax = tuple(i for i in range(x.dim()) if i != ch_axis)
+    bshape = tuple(x.shape[ch_axis] if i == ch_axis else 1
+                   for i in range(x.dim()))
+    if ctx.is_test or attrs.get("use_global_stats", False):
+        mean, var = mean_in, var_in
+        saved_mean, saved_var = mean_in, var_in
+        mean_out, var_out = mean_in, var_in
+    else:
+        xc = x if x.dtype == torch.float64 else x.float()
+        mean = xc.mean(dim=reduce_ax)
+        var = torch.square(xc).mean(dim=reduce_ax) - torch.square(mean)
+        mean_out = mean_in * momentum + mean.to(mean_in.dtype) * (
+            1 - momentum)
+        var_out = var_in * momentum + var.to(var_in.dtype) * (1 - momentum)
+        saved_mean, saved_var = mean, var
+    inv_std = torch.rsqrt(var.to(x.dtype) + eps)
+    y = (x - mean.to(x.dtype).reshape(bshape)) * (inv_std * scale).reshape(
+        bshape) + bias.reshape(bshape)
+    return {"Y": y.to(x.dtype), "MeanOut": mean_out,
+            "VarianceOut": var_out, "SavedMean": saved_mean,
+            "SavedVariance": saved_var}
+
+
+register_op(
+    "batch_norm",
+    inputs=["X", "Scale", "Bias", "Mean", "Variance"],
+    outputs=["Y", "MeanOut", "VarianceOut", "SavedMean", "SavedVariance"],
+    attrs={"epsilon": 1e-5, "momentum": 0.9, "is_test": False,
+           "data_layout": "NCHW", "use_global_stats": False},
+    lower=_lower_batch_norm,
+    no_grad_inputs=("Mean", "Variance"),
+    intermediate_outputs=("MeanOut", "VarianceOut", "SavedMean",
+                          "SavedVariance"),
 )
 
 

@@ -4,9 +4,8 @@ Counterpart of ``paddle_tpu/regularizer.py`` (python/paddle/fluid/
 regularizer.py parity). ``append_regularization_ops``, which
 ``Optimizer.minimize`` calls, leaves a gradient as it is when neither the
 parameter nor the optimizer names a regularizer, and otherwise appends
-``grad + decay(param)`` as a ``sum`` op. ``L2Decay`` runs (``scale`` and
-``sum``); ``L1Decay`` needs the ``sign`` op, which this port does not
-carry yet (ROADMAP.md A11), and raises when built.
+``grad + decay(param)`` as a ``sum`` op: ``L2Decay`` appends
+``scale(param)``, ``L1Decay`` ``scale(sign(param))``.
 """
 
 __all__ = ["L1Decay", "L2Decay", "L1DecayRegularizer", "L2DecayRegularizer",
@@ -35,9 +34,20 @@ class L2DecayRegularizer(WeightDecayRegularizer):
 
 class L1DecayRegularizer(WeightDecayRegularizer):
     def __init__(self, regularization_coeff=0.0):
-        raise NotImplementedError(
-            "L1Decay needs the sign op, which paddle_tpu_torch does not "
-            "carry yet (ROADMAP.md A11)")
+        self._regularization_coeff = regularization_coeff
+
+    def __call__(self, param, grad, block):
+        sign = block.create_var(dtype=param.dtype, shape=param.shape)
+        block.append_op(type="sign", inputs={"X": [param.name]},
+                        outputs={"Out": [sign.name]})
+        decay = block.create_var(dtype=param.dtype, shape=param.shape)
+        block.append_op(
+            type="scale",
+            inputs={"X": [sign.name]},
+            outputs={"Out": [decay.name]},
+            attrs={"scale": self._regularization_coeff},
+        )
+        return decay
 
 
 def append_regularization_ops(parameters_and_grads, regularization=None):

@@ -115,13 +115,3 @@ def test_calc_gradient_matches():
     tm, tg = build(tfluid, t_unique_name)
     assert _ops(tm) == _ops(jm)
     assert tg.name == jg.name == "x@GRAD"
-
-
-def test_clip_classes_without_ported_ops_raise():
-    for cls in (tfluid.clip.GradientClipByValue,
-                tfluid.clip.GradientClipByNorm,
-                tfluid.clip.GradientClipByGlobalNorm):
-        with pytest.raises(NotImplementedError, match="A11"):
-            cls(1.0)
-    with pytest.raises(NotImplementedError, match="sign"):
-        tfluid.regularizer.L1Decay(1e-4)

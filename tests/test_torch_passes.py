@@ -4,10 +4,11 @@
 fusion tests (structure, and outputs equal to the unfused program's),
 then ``AnalysisConfig``'s op-type list against the JAX package's on the
 same saved stacked-LSTM, GRU and MLP models, outputs within 1e-5 of the
-unfused predictor's and of the JAX package's; ``fuse_batch_norm`` and
-``seqconv_eltadd_relu_fuse`` change nothing on a program the port runs
-and refuse one that holds the op they rewrite. The port has no
-``reduce_mean`` layer: its twins reduce with ``mean``."""
+unfused predictor's and of the JAX package's;
+``seqconv_eltadd_relu_fuse`` changes nothing on a program the port runs
+and refuses one that holds the op it rewrites. ``fuse_batch_norm``'s
+folds are held in ``tests/test_torch_resnet.py``. The twins reduce with
+``mean``."""
 
 import numpy as np
 import pytest
@@ -245,7 +246,6 @@ def test_registered_passes():
 
 
 @pytest.mark.parametrize("name,op_type,roadmap", [
-    ("fuse_batch_norm", "batch_norm", "A4"),
     ("seqconv_eltadd_relu_fuse", "sequence_conv", "A11")])
 def test_unported_op_passes(name, op_type, roadmap):
     """A no-op on a program the port runs; a refusal, naming the ROADMAP
