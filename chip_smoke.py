@@ -48,7 +48,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    compute at; the ``bound_ms`` of its record) and at 67 TFLOP/s fp32.
    B1's rows path and B5 are also timed at two splits each (``split``
    lines): where their plans split the keys (one sequence, 4 slots)
-   against one split, and at the main shapes (one split) against three;
+   against one split, and at the main shapes (one split) against three.
+   ``threefry`` lines (the ``rng`` phase, right after the kernel checks):
+   the port's own threefry kernel against its plain version, bit for bit,
+   for bits, uniforms and bernoulli masks (and keys and split's keys) at
+   one key with the executor's two folds (2**25 counters and an odd
+   count) and at the sampler's 32 keys (the vocabulary and an odd
+   count); the plain version's draws on the card against the CPU's; the
+   kernel timed at a train step's dropout site ([64, 256, 512] mask) and
+   at the sampler's draw ([32, 32000] uniforms), beside its plain
+   version, its bound (the busier of the INT32 and FP32 pipes, or the
+   bytes written) and ``torch.rand`` (Philox: another generator, not this
+   function, so no ``library_ms``);
 4. serves 64 greedy requests through ``SlotDecodeSession(paged=True)`` at
    the full width of the Transformer-base configuration (6 layers,
    d_model 512, 8 heads, d_inner 2048, vocab 32000, max_length 256;
@@ -66,7 +77,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``prefix_cache_pages=8`` and through no cache: equal streams, 15 hits
    in 16 lookups, 480 tokens saved, the pool drained after
    ``clear_prefix_cache()``, admission host ms of a cold admission and a
-   hit. ``dense``: the requests without prefixes through ``paged=False``
+   hit. ``sampled``: the first 32 requests through the same session with
+   ``Sampler("top_k", temperature=0.8, top_k=40, seed=11)``, captured and
+   with ``FLAGS_cuda_graph=0``: gates on equal streams and launches, the
+   serve phase's launch formulas plus one threefry launch a decode step,
+   no eager ``run_multi_step`` in the captured run, streams that are not
+   the greedy ones; prints tokens/s of both. Then 16 of them through
+   ``steps=1, speculative=3`` sessions (n-gram drafter, same sampler)
+   against the sequential sampled stream (``FLAGS_speculative=off``):
+   k + 1 threefry launches a verify dispatch, and a request whose stream
+   leaves the sequential one fails unless the top-2 margin of the
+   sequential path's Gumbel-perturbed logits at that position is below
+   1e-3; prints acceptance and tokens committed per dispatch.
+   ``dense``: the requests without prefixes through ``paged=False``
    (steps 1): first-step logits within 1e-3 of the paged session's,
    streams against a paged run's (a divergence only at a top-2 margin
    below 1e-3), 2 x n_layer ``flash_fwd`` launches a decode step plus
@@ -103,11 +126,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    differentiates the forward tape) and no grad op that reran its
    forward, reads each flash kernel's launches by shape class (key mask
    or causal) from the counts its wrapper keeps, and profiles one more
-   step (device time by kernel, device busy share);
+   step (device time by kernel, device busy share). The dropout masks
+   are jax's threefry draws: 30 threefry launches a step, gated. Before
+   the timed steps a full garbage collection clears the earlier phases'
+   garbage and ``gc.freeze()`` sets the survivors aside, as a trainer
+   does once it is set up; each step prints its collections by
+   generation with their pause, and the caching allocator's device
+   mallocs, frees and retries, and the mean step is printed beside the
+   mean measured when the masks were torch's Philox draws. Then a
+   dropout program (``dropout capture``) at a dropout site's size runs 3
+   ``run_multi_step`` calls of 4 steps on a fresh executor, captured (no
+   eager call, one graph), against the eager loop on another: losses
+   and the trained weight equal bit for bit, one threefry launch a step;
 9. trains 3 Adam steps of the same model (dropout 0, batch 4,
    ``set_deterministic_params`` weights) on the card and on the CPU and
    gates on each step's loss; the first step's gradients are compared and
-   printed;
+   printed. The CPU starts from a copy of the card's scope after its
+   startup program (the CPU's plain threefry draws of the startup would
+   take tens of seconds, and the parameters are overwritten anyway);
 10. the RNN path. Right after step 3 it holds the LSTM and GRU recurrence
    kernels against their plain versions (the stacked network's shapes at
    widths 512 and 64, the MT encoder's reverse pass, and edge cases: D 40
@@ -187,7 +223,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    mean changed. The trained model is saved (``io.save_inference_model``)
    and served through ``NativeConfig`` and ``AnalysisConfig`` (whose
    ``fuse_batch_norm`` pass folds every batch norm into its conv):
-   predictions within 1e-4, relative to max(1, |y|).
+   predictions within 1e-4, relative to max(1, |y|). Then
+   (``resnet graph-data``) the same model with bench.py's default data,
+   ``random_data_generator`` drawing the batch on the card, 5 + 10 steps:
+   images/s beside the host-fed number, 3 threefry launches a step.
 14. ``optim``: the model of step 9 with ``GradientClipByGlobalNorm(1.0)``
    and ``L2Decay`` trained 3 steps on the card and on the CPU with each
    of Momentum, Nesterov Momentum, LarsMomentum, Adagrad, Adamax,
@@ -195,6 +234,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    Momentum with ``L1Decay``; the Momentum run also builds a
    ``ModelAverage`` and evaluates the loss after ``apply`` and after
    ``restore``. Gate: every loss on the card within 1e-3 of the CPU's.
+   As in step 9, the CPU starts from a copy of the card's initialized
+   scope (its persistables after the startup program and the seeded
+   parameters), not from a startup program of its own.
 
 A line of its own before the last holds the kernels' JSON record (for
 flash_fwd, the backward pair, paged_decode (full occupancy and the
@@ -202,13 +244,15 @@ serving mix of lengths) and lstm_cell also every timed shape: ms,
 bound, plain and library ms, and the main path's launches at that
 shape; flash_fwd's predictor runs have a row of their own, lstm_cell's
 frontend batches too; the frontend's launches are part of the serving
-windows); the
+windows; threefry's record names no TPU kernel and carries
+``other_generator_ms``, torch.rand's time); the
 last line is ``{"ok": true, "device": {...}}``. Any failure exits nonzero
 before that line. The script needs one CUDA card and the rest of the
 repository beside it: without either it fails at once.
 """
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -248,6 +292,9 @@ TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_SEED = 64, 2, 20, 7
 LR, DROPOUT, LABEL_SMOOTH = 2e-4, 0.1, 0.1
 TRAIN_TOKEN_IDS = 1000   # tokens drawn from ids 1..1000 of the vocab
 LOSS_DROP = 0.1          # nats: mean of steps 16-20 below step 1
+# the train step's mean (min, max) in ms on the H100 when its dropout
+# masks were torch's Philox draws (PERF.md), printed beside this run's
+PHILOX_TRAIN_MS = (257.7, 244.8, 271.6)
 CVC_BATCH, CVC_STEPS = 4, 3
 TRAIN_LOSS_TOL = 1e-3    # fp32 losses through 6 layers, card against CPU
 
@@ -291,9 +338,34 @@ RESNET_LR, RESNET_MOMENTUM, RESNET_SEED = 0.1, 0.9, 5
 RESNET_WARMUP, RESNET_STEPS = 10, 20
 RESNET_PRED_BATCH = 8
 RESNET_PRED_TOL = 1e-4  # AnalysisConfig (batch norms folded) vs Native
-# the optimizers against the CPU, on step 9's model
+# the optimizers against the CPU, on step 9's model (the CPU starts from
+# the card's initialized scope: its startup draws nothing)
 OPTIM_CLIP, OPTIM_L2, OPTIM_L1 = 1.0, 1e-4, 1e-4
 OPTIM_AVG_RATE = 0.15
+
+# the threefry kernel (the port's own). Its bound takes the busier of two
+# pipes that issue side by side: integer operations at the H100 SXM's
+# INT32 rate (64 lanes an SM on 132 SMs at the 1.98 GHz boost clock that
+# the 67 TFLOP/s fp32 rate assumes) and float operations at the FP32 rate
+# (128 lanes an SM). A hash is 2 + 20 x 3 + 5 x 2 = 72 integer
+# operations less 5 where a key injection's add into x0 fuses with the
+# next round's (IADD3): 67. The draw adds the xor of the two words, and
+# for a float the shift and the or; on the FP32 pipe the uniform's
+# subtract, multiply-add and max, or the bernoulli's subtract and compare.
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
+PEAK_FP32_OPS = 132 * 128 * 1.98e9   # instructions (an FMA is one)
+THREEFRY_HASH_OPS = 67
+THREEFRY_MODE_OPS = {"bits": (1, 0), "uniform": (3, 3),
+                     "bernoulli": (3, 2)}  # (integer, float) a value
+RNG_BIG_N = 1 << 25          # the largest draw held against the plain version
+DROPOUT_SITE = (TRAIN_BATCH, MAX_LEN, D_MODEL)  # one dropout of the train step
+# sampled serving: the serve phase's configuration with a top-k sampler
+SAMPLED = dict(strategy="top_k", temperature=0.8, top_k=40, seed=11)
+SAMPLED_REQUESTS, SAMPLED_SPEC_REQUESTS = 32, 16
+# a dropout program under run_multi_step, captured against the eager loop
+DROP_CAPTURE_STEPS, DROP_CAPTURE_CALLS = 4, 3
+# ResNet-50 with bench.py's default in-graph random_data_generator
+RESNET_GRAPH_WARMUP, RESNET_GRAPH_STEPS = 5, 10
 
 
 def kernel_symbol(line):
@@ -1541,6 +1613,132 @@ def split_phase(torch):
     return rows
 
 
+# -- the threefry kernel ----------------------------------------------------------
+
+def threefry_bound(n, mode, out_bytes):
+    """``bound`` of one threefry draw of ``n`` counters: the output's
+    bytes written (the key and row data are a few bytes) against the
+    busier pipe, the integer operations at the INT32 rate or the float
+    ones at the FP32 rate."""
+    int_ops, float_ops = THREEFRY_MODE_OPS[mode]
+    t_int = n * (THREEFRY_HASH_OPS + int_ops) / PEAK_INT32_OPS
+    t_float = n * float_ops / PEAK_FP32_OPS
+    # bound() divides by the rate: hand it the busier pipe's time
+    return bound(n * out_bytes + 16, max(t_int, t_float), 1.0)
+
+
+def rng_chains(torch, prng):
+    """(label, key chain, n) cases: one key on the card with the
+    executor's two folds (step, op id), at 2**25 counters and an odd
+    count; the sampler's 32 rows (a host key, the slot and the position
+    folded per row) at the vocabulary and an odd count."""
+    dev = torch.device("cuda")
+    base = prng.PRNGKey(TRAIN_SEED, device=dev)
+    run_chain = prng.KeyChain(base).fold_in(3).fold_in(17)
+    slots = torch.arange(NUM_SLOTS, device=dev)
+    pos = (slots * 37 + 5) % MAX_LEN
+    slot_chain = prng.KeyChain(prng.PRNGKey_pair(SAMPLED["seed"])).fold_in(
+        slots).fold_in(pos)
+    return [("K 1, n %d" % RNG_BIG_N, run_chain, RNG_BIG_N),
+            ("K 1, n 1000003", run_chain, 1000003),
+            ("K %d, n %d" % (NUM_SLOTS, VOCAB), slot_chain, VOCAB),
+            ("K %d, n 4099" % NUM_SLOTS, slot_chain, 4099)]
+
+
+def rng_phase(torch):
+    """The threefry kernel against its plain version on the card, bit
+    for bit (bits, uniform, bernoulli; keys and split's keys), the plain
+    version on the card against the CPU, and the timed rows: the train
+    step's dropout site and the sampler's draw. Returns (worst error,
+    timing)."""
+    from paddle_tpu_torch.core import prng
+    from paddle_tpu_torch.kernels import threefry as kt
+
+    modes = (("bits", prng.MODE_BITS, {}),
+             ("uniform", prng.MODE_UNIFORM, dict(lo=-0.5, hi=2.0)),
+             ("bernoulli", prng.MODE_BERNOULLI,
+              dict(p=0.9, dtype=torch.float32)))
+    worst = 0.0
+    for label, chain, n in rng_chains(torch, prng):
+        for mode, code, kw in modes:
+            got = kt.threefry_draw(chain, n, code, **kw)
+            want = prng.plain_draw(chain, n, code, **kw)
+            torch.cuda.synchronize()
+            equal = torch.equal(got, want)
+            if got.dtype == torch.int64:
+                err = float((got - want).abs().max())
+            else:
+                err = float((got.double() - want.double()).abs().max())
+            worst = max(worst, err)
+            print("threefry %-18s %-9s kernel against plain: equal %s, max "
+                  "abs err %.1e (tol 0: bit for bit)" % (label, mode, equal,
+                                                        err))
+            if not equal:
+                fail("threefry %s %s: the kernel differs from its plain "
+                     "version" % (label, mode))
+        # keys, and split's keys: a row fold of 0..6 of each row's key
+        keys = prng.plain_draw(chain, 1, prng.MODE_KEY)
+        rows = keys.shape[0]
+        split_chain = prng.KeyChain(keys.repeat_interleave(7, dim=0), (), (
+            torch.arange(7, device=keys.device).repeat(rows),))
+        for mode, got, want in (
+                ("keys", kt.threefry_draw(chain, 1, prng.MODE_KEY), keys),
+                ("split", prng.split(chain, 7).reshape(-1, 2),
+                 prng.plain_draw(split_chain, 1, prng.MODE_KEY))):
+            if not torch.equal(got, want):
+                fail("threefry %s %s: the kernel differs from its plain "
+                     "version" % (label, mode))
+    # the plain version on the card against the CPU's
+    for label, chain, n in rng_chains(torch, prng)[1:3]:
+        cpu = prng.KeyChain(
+            chain.base.cpu() if isinstance(chain.base, torch.Tensor)
+            else chain.base, chain.folds, [t.cpu() for t in chain.row_data])
+        for mode, code, kw in modes:
+            card = prng.plain_draw(chain, n, code, **kw).cpu()
+            if not torch.equal(card, prng.plain_draw(cpu, n, code, **kw)):
+                fail("threefry %s %s: the plain version's draw on the card "
+                     "differs from the CPU's" % (label, mode))
+    print("threefry: the plain version's bits, uniforms and masks on the "
+          "card equal the CPU's")
+    # timed rows: the train step's dropout site and the sampler's draw
+    dev = torch.device("cuda")
+    site = 1
+    for d in DROPOUT_SITE:
+        site *= d
+    run_chain = prng.KeyChain(prng.PRNGKey(TRAIN_SEED, device=dev)).fold_in(
+        0).fold_in(5)
+    slot_chain = rng_chains(torch, prng)[2][1]
+    rows = {}
+    for name, chain, n, code, kw, mode, out_bytes, shape in (
+            ("threefry", run_chain, site, prng.MODE_BERNOULLI,
+             dict(p=1.0 - DROPOUT, dtype=torch.float32), "bernoulli", 4,
+             "dropout mask [%d,%d,%d] float32, one key, 2 folds"
+             % DROPOUT_SITE),
+            ("threefry_sampler", slot_chain, VOCAB, prng.MODE_UNIFORM,
+             dict(lo=prng.TINY, hi=1.0), "uniform", 4,
+             "Gumbel uniforms [%d,%d], %d keys, 2 row folds"
+             % (NUM_SLOTS, VOCAB, NUM_SLOTS))):
+        ms = cuda_ms(lambda chain, n=n, code=code, kw=kw:
+                     kt.threefry_draw(chain, n, code, **kw), [dict(chain=chain)])
+        plain_ms = eager_ms(lambda i, chain=chain, n=n, code=code, kw=kw:
+                            prng.plain_draw(chain, n, code, **kw), [0],
+                            iters=3)
+        counters = n * chain.rows()
+        philox_ms = cuda_ms(lambda counters=counters: torch.rand(
+            counters, device=dev), [{}])
+        rows[name] = dict(shape=shape, ms=ms, plain_ms=plain_ms,
+                          library_ms=None, philox_ms=philox_ms,
+                          bound=threefry_bound(counters, mode, out_bytes))
+        print("time %-20s %s: kernel %.4f ms, plain %.4f ms, library none "
+              "(torch.rand, Philox, another generator: %.4f ms), bound "
+              "%.4f ms (%s: INT32 at %.1f TOP/s beside FP32 at %.1f T "
+              "instructions/s)"
+              % (name, shape, ms, plain_ms, philox_ms,
+                 rows[name]["bound"][0], rows[name]["bound"][1],
+                 PEAK_INT32_OPS / 1e12, PEAK_FP32_OPS / 1e12))
+    return worst, rows
+
+
 def kernel_counts(kernels):
     """Every kernel's launch count since its reset and, beside them, the
     flash kernels' by shape class (``flash_fwd/decode`` T = 1,
@@ -1574,14 +1772,14 @@ def build_model(fluid, exe, scope):
     return main
 
 
-def session(exe, scope, num_slots):
+def session(exe, scope, num_slots, sampler=None):
     from paddle_tpu_torch.serving.generation import SlotDecodeSession
 
     return SlotDecodeSession(
         exe, num_slots=num_slots, max_length=MAX_LEN, d_model=D_MODEL,
         paged=True, page_size=PAGE_SIZE, steps=STEPS, eos_id=EOS,
         scope=scope, src_vocab_size=VOCAB, trg_vocab_size=VOCAB,
-        n_layer=N_LAYER, n_head=N_HEAD, d_inner=D_INNER)
+        n_layer=N_LAYER, n_head=N_HEAD, d_inner=D_INNER, sampler=sampler)
 
 
 def requests(np):
@@ -1683,12 +1881,12 @@ class StepTimes(list):
                    1e3 * (sum(self) - cow - tok) / n))
 
 
-def paged_run(np, torch, exe, scope, kernels, reqs, label):
-    """Serve ``reqs`` through a fresh paged session (steps 8) in a child
-    scope, counts reset just before (``run_requests``). Prints one line;
-    returns the run's numbers."""
+def paged_run(np, torch, exe, scope, kernels, reqs, label, sampler=None):
+    """Serve ``reqs`` through a fresh paged session (steps 8; greedy, or
+    ``sampler``) in a child scope, counts reset just before
+    (``run_requests``). Prints one line; returns the run's numbers."""
     src, lens, prefixes = reqs
-    sess = session(exe, scope.new_scope(), NUM_SLOTS)
+    sess = session(exe, scope.new_scope(), NUM_SLOTS, sampler)
     times = step_timer(sess)
     eager0 = exe.eager_multi_step
     out, wall, launches, peak = run_requests(np, torch, sess, kernels, src,
@@ -1796,6 +1994,134 @@ def graph_phase(np, torch, exe, scope, kernels, captured):
                                             e["graphs"]))
     graph_profile_phase(np, torch, exe, scope)
     return eager["launches"]
+
+
+def sampled_margin(np, torch, exe, scope, reqs, i, row, p, slot, sampler):
+    """The sequential path's top-2 margin of the sampler's perturbed
+    logits for request ``i`` at token position ``p`` in ``slot``: the
+    tokens before ``p`` are forced as a prefix, the first decode step's
+    logits are read, scaled and cut as ``sample_step_tokens`` does, and
+    the Gumbel noise of the key ``(seed, slot, p - 1)`` (the position the
+    token is sampled at) is added. Returns (margin, the perturbed
+    logits' argmax: the token the sequential path sampled)."""
+    from paddle_tpu_torch.core import prng
+
+    src, lens, _ = reqs
+    sess_scope = scope.new_scope()
+    sess = session(exe, sess_scope, 1)
+    sess.admit(src[i], lens[i], prefix_tokens=[int(t) for t in row[1:p]])
+    (lg,) = exe.run(sess.step_program,
+                    fetch_list=[logits_name(sess.step_program)],
+                    scope=sess_scope)
+    lg = torch.from_numpy(np.asarray(lg, dtype="float32").reshape(1, -1))
+    inv = np.float32(1.0) / np.float32(sampler.temperature)
+    scaled = lg * torch.tensor(float(inv))
+    if sampler.strategy == "top_k":
+        kth = torch.topk(scaled, sampler.top_k, dim=-1).values[:, -1:]
+        scaled = torch.where(scaled < kth, torch.full_like(
+            scaled, float("-inf")), scaled)
+    key = prng.KeyChain(prng.PRNGKey_pair(sampler.seed)).fold_in(
+        int(slot)).fold_in(int(p) - 1)
+    pert = (scaled.reshape(-1) + prng.gumbel(key, (VOCAB,))).numpy()
+    top = np.sort(pert)[-2:]
+    return float(top[1] - top[0]), int(np.argmax(pert))
+
+
+def sampled_phase(np, torch, exe, scope, kernels, greedy_out):
+    """Sampled serving (module docstring, step 4): the serve phase's
+    configuration with ``Sampler(**SAMPLED)`` over its first requests,
+    captured against ``FLAGS_cuda_graph=0``; then speculation (n-gram
+    drafter) against the sequential sampled stream. Returns
+    {window: launches}."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.serving.generation import Sampler
+
+    sampler = Sampler(**SAMPLED)
+    src, lens, prefixes = requests(np)
+    n = SAMPLED_REQUESTS
+    reqs = (src[:n], lens[:n], prefixes[:n])
+    runs = {}
+    for label, graph in (("captured", "1"), ("eager", "0")):
+        flags.set_flag("cuda_graph", graph)
+        try:
+            runs[label] = paged_run(
+                np, torch, exe, scope, kernels, reqs,
+                "sampled %s (%s)" % (label, "FLAGS_cuda_graph=%s" % graph),
+                sampler=sampler)
+        finally:
+            flags.set_flag("cuda_graph", "1")
+    c, e = runs["captured"], runs["eager"]
+    same = int(sum((c["out"][i] == e["out"][i]).all() for i in range(n)))
+    unlike_greedy = int(sum((c["out"][i] != greedy_out[i]).any()
+                            for i in range(n)))
+    sess = c["sess"]
+    n_prefix = sum(q is not None for q in prefixes[:n])
+    expect = {"paged_decode": N_LAYER * sess.decode_steps,
+              "flash_fwd": (n * N_LAYER + N_LAYER * sess.decode_steps
+                            + 2 * (N_LAYER - 1) * n_prefix),
+              "threefry": sess.decode_steps}
+    print("sampled: %s, %d requests: captured %.1f tokens/s, eager %.1f "
+          "tokens/s (%.2fx); %d of %d streams equal between them; %d differ "
+          "from the greedy streams; launches %s (expected %s); captured "
+          "run's eager run_multi_step calls %d, graphs %d"
+          % (json.dumps(SAMPLED), n, c["generated"] / c["wall"],
+             e["generated"] / e["wall"],
+             (c["generated"] / c["wall"]) / (e["generated"] / e["wall"]),
+             same, n, unlike_greedy, json.dumps(c["launches"]),
+             json.dumps(expect), c["eager"], c["graphs"]))
+    if same != n:
+        fail("sampled: %d of %d streams differ between the captured and the "
+             "eager loop" % (n - same, n))
+    if c["launches"] != e["launches"]:
+        fail("sampled: launches differ: captured %s, eager %s"
+             % (json.dumps(c["launches"]), json.dumps(e["launches"])))
+    for name, want in expect.items():
+        if c["launches"].get(name) != want:
+            fail("sampled: %s launched %s times, expected %d"
+                 % (name, c["launches"].get(name), want))
+    if c["eager"] != 0 or c["graphs"] != 1:
+        fail("sampled: the captured run ran %d eager run_multi_step calls "
+             "and holds %d graphs (want 0 and 1)" % (c["eager"], c["graphs"]))
+    if not unlike_greedy:
+        fail("sampled: every sampled stream equals the greedy one")
+    if sess.pages_in_use != 0 or not sess.pool_conserved:
+        fail("sampled: the page pool did not drain")
+
+    m = SAMPLED_SPEC_REQUESTS
+    sreqs = (src[:m], lens[:m], prefixes[:m])
+    off, off_l, off_sess = spec_run(np, torch, flags, exe, scope, kernels,
+                                    "s-off", "ngram", sreqs, mode="off",
+                                    sampler=sampler)
+    on, on_l, on_sess = spec_run(np, torch, flags, exe, scope, kernels,
+                                 "s-ngram", "ngram", sreqs, sampler=sampler)
+    if off_l["threefry"] != off_sess.decode_steps:
+        fail("sampled spec off: threefry launched %d times for %d decode "
+             "steps" % (off_l["threefry"], off_sess.decode_steps))
+    if on_l["threefry"] != (SPEC_K + 1) * on_sess.spec_dispatches:
+        fail("sampled spec: threefry launched %d times, expected k + 1 = %d "
+             "per verify dispatch x %d" % (on_l["threefry"], SPEC_K + 1,
+                                           on_sess.spec_dispatches))
+    differing = [i for i in range(m) if (on[i] != off[i]).any()]
+    print("sampled spec: %d of %d requests stream the sequential sampled "
+          "stream's tokens" % (m - len(differing), m))
+    for i in differing:
+        p = int(np.argmax(on[i] != off[i]))
+        slot = off_sess.slot_of[i]
+        if on_sess.slot_of[i] != slot:
+            fail("sampled spec: request %d took slot %d, the sequential run "
+                 "slot %d" % (i, on_sess.slot_of[i], slot))
+        margin, choice = sampled_margin(np, torch, exe, scope, sreqs, i,
+                                        off[i], p, slot, sampler)
+        print("sampled spec: request %d differs first at position %d (%d "
+              "against %d); the sequential path's perturbed-logit top-2 "
+              "margin there is %.3e (tol %.0e), its argmax %d"
+              % (i, p, on[i][p], off[i][p], margin, MARGIN_TOL, choice))
+        if not margin <= MARGIN_TOL:
+            fail("sampled spec: request %d left the sequential sampled "
+                 "stream at a position with a clear choice (margin %.3e)"
+                 % (i, margin))
+    return {"captured": c["launches"], "eager": e["launches"],
+            "spec_off": off_l, "spec": on_l}
 
 
 def graph_profile_phase(np, torch, exe, scope, warm_steps=3):
@@ -2016,7 +2342,7 @@ def card_vs_cpu_phase(np, torch, fluid, exe, scope, main):
 
 # -- speculative phases ---------------------------------------------------------
 
-def spec_session(exe, scope, num_slots, drafter):
+def spec_session(exe, scope, num_slots, drafter, sampler=None):
     from paddle_tpu_torch.serving.generation import SlotDecodeSession
 
     return SlotDecodeSession(
@@ -2024,7 +2350,7 @@ def spec_session(exe, scope, num_slots, drafter):
         paged=True, page_size=PAGE_SIZE, steps=1, eos_id=EOS, scope=scope,
         speculative={"k": SPEC_K, "drafter": drafter}, src_vocab_size=VOCAB,
         trg_vocab_size=VOCAB, n_layer=N_LAYER, n_head=N_HEAD,
-        d_inner=D_INNER)
+        d_inner=D_INNER, sampler=sampler)
 
 
 class ReplayDrafter(object):
@@ -2062,6 +2388,20 @@ class ReplayDrafter(object):
                 if self._handed_out % 4 == 0:
                     draft[slot, j] = self._rng.randint(3, VOCAB)
         return draft
+
+
+def record_slots(sess):
+    """Wrap ``admit_pending`` so that ``sess.slot_of`` maps each request
+    id (its index: ids count from 0 in enqueue order) to its slot."""
+    sess.slot_of, admit = {}, sess.admit_pending
+
+    def recorded():
+        admitted = admit()
+        for slot, rid in admitted.items():
+            sess.slot_of[rid] = slot
+        return admitted
+
+    sess.admit_pending = recorded
 
 
 def host_timers(sess):
@@ -2112,14 +2452,17 @@ def check_commits(sess):
 
 
 def spec_run(np, torch, flags, exe, scope, kernels, name, drafter, reqs,
-             mode="on", replay_streams=None, num_slots=None):
+             mode="on", replay_streams=None, num_slots=None, sampler=None):
     """One speculative session over ``reqs`` under FLAGS_speculative =
-    ``mode``; prints its lines, checks its gates, returns (tokens,
-    launches, the session)."""
+    ``mode`` (greedy, or ``sampler``); prints its lines, checks its
+    gates, returns (tokens, launches, the session). The session's
+    ``slot_of`` maps each request's index to the slot it was admitted
+    to."""
     src, lens, prefixes = reqs
     num_slots = num_slots or NUM_SLOTS
     flags.set_flag("speculative", mode)
-    sess = spec_session(exe, scope.new_scope(), num_slots, drafter)
+    sess = spec_session(exe, scope.new_scope(), num_slots, drafter, sampler)
+    record_slots(sess)
     if replay_streams is not None:
         sess._spec_drafter = ReplayDrafter(np, sess, num_slots,
                                            replay_streams, SPEC_K, SEED + 3)
@@ -2439,6 +2782,50 @@ def profile_call(torch, label, fn, top=8):
     return wall_ms, busy_ms
 
 
+class StepProbe(object):
+    """What the host did beside a train step: Python's garbage
+    collections (how many and how long, by generation, through
+    ``gc.callbacks``) and the caching allocator's device mallocs, frees
+    and retries (a retry frees every cached block, synchronizing, and
+    mallocs again). ``take()`` returns the events since the last
+    call."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.count, self.pause = [0, 0, 0], [0.0, 0.0, 0.0]
+        self._t0 = 0.0
+        self._last = self._read()
+
+    def _collect(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+            return
+        g = info["generation"]
+        self.count[g] += 1
+        self.pause[g] += (time.perf_counter() - self._t0) * 1e3
+
+    def __enter__(self):
+        gc.callbacks.append(self._collect)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._collect)
+
+    def _read(self):
+        st = self.torch.cuda.memory_stats()
+        return (tuple(self.count), tuple(self.pause),
+                st.get("num_device_alloc", 0), st.get("num_device_free", 0),
+                st.get("num_alloc_retries", 0))
+
+    def take(self):
+        now = self._read()
+        was, self._last = self._last, now
+        return dict(gc=[a - b for a, b in zip(now[0], was[0])],
+                    gc_ms=[a - b for a, b in zip(now[1], was[1])],
+                    mallocs=now[2] - was[2], frees=now[3] - was[3],
+                    retries=now[4] - was[4])
+
+
 def train_phase(np, torch, fluid, exe, kernels):
     main, startup, loss, _ = build_train(fluid, DROPOUT)
     ops = main.global_block().ops
@@ -2457,42 +2844,90 @@ def train_phase(np, torch, fluid, exe, kernels):
         exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+    names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "threefry")
+    n_drop = sum(op.type == "dropout" for op in ops)
     for k in kernels.values():
         k.reset()
-    losses, step_ms, per_step, reruns = [], [], [], []
-    for i in range(TRAIN_STEPS):
-        before = [kernels[n].launches for n in names]
-        reran = exe.grad_op_reruns
-        t0 = time.perf_counter()
-        (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(np.asarray(lv).reshape(-1)[0]))
-        per_step.append(tuple(kernels[n].launches - b
-                              for n, b in zip(names, before)))
-        reruns.append(exe.grad_op_reruns - reran)
-        print("train step %2d: loss %.6f  wall %.1f ms  launches %s  grad-op "
-              "reruns %d" % (i + 1, losses[-1], step_ms[-1],
-                             dict(zip(names, per_step[-1])), reruns[-1]))
+    losses, step_ms, per_step, reruns, events = [], [], [], [], []
+    # The heap holds every earlier phase's objects and their garbage.
+    # Collect it here, outside the timed steps, and freeze what is left
+    # (modules, programs, scopes) as a trainer freezes its heap once it
+    # is set up: a full collection in the timed steps then walks only
+    # what they allocate. Unfrozen, one step in 20 paid a 670 ms
+    # generation-2 collection of some 920,000 objects (PERF.md).
+    t0 = time.perf_counter()
+    found = gc.collect()
+    print("train: before the timed steps a full collection found %d "
+          "unreachable objects in %.1f ms; %d tracked objects frozen"
+          % (found, (time.perf_counter() - t0) * 1e3, len(gc.get_objects())))
+    gc.freeze()
+    with StepProbe(torch) as probe:
+        for i in range(TRAIN_STEPS):
+            before = [kernels[n].launches for n in names]
+            reran = exe.grad_op_reruns
+            probe.take()
+            t0 = time.perf_counter()
+            (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            events.append(probe.take())
+            losses.append(float(np.asarray(lv).reshape(-1)[0]))
+            per_step.append(tuple(kernels[n].launches - b
+                                  for n, b in zip(names, before)))
+            reruns.append(exe.grad_op_reruns - reran)
+            ev = events[-1]
+            print("train step %2d: loss %.6f  wall %.1f ms  launches %s  "
+                  "grad-op reruns %d  gc %s (%.1f ms)  device mallocs %d, "
+                  "frees %d, allocator retries %d"
+                  % (i + 1, losses[-1], step_ms[-1],
+                     dict(zip(names, per_step[-1])), reruns[-1], ev["gc"],
+                     sum(ev["gc_ms"]), ev["mallocs"], ev["frees"],
+                     ev["retries"]))
+    gc.unfreeze()
     launches = kernel_counts(kernels)
     peak = torch.cuda.max_memory_allocated()
     mean_ms = float(np.mean(step_ms))
-    print("train: %d steps, mean %.1f ms/step (min %.1f, max %.1f), %d "
-          "decoder tokens per step (non-pad): %.0f decoder tokens/s; peak "
-          "memory %.2f GiB" % (TRAIN_STEPS, mean_ms, min(step_ms),
-                               max(step_ms), dec_tokens,
-                               dec_tokens / mean_ms * 1e3, peak / 2 ** 30))
+    print("train: garbage collections in the timed steps by generation %s, "
+          "%.1f ms in all (%.1f ms in generation 2)"
+          % ([sum(e["gc"][g] for e in events) for g in range(3)],
+             sum(sum(e["gc_ms"]) for e in events),
+             sum(e["gc_ms"][2] for e in events)))
+    print("train: %d steps, mean %.1f ms/step (median %.1f, min %.1f, max "
+          "%.1f), %d decoder tokens per step (non-pad): %.0f decoder "
+          "tokens/s; peak memory %.2f GiB"
+          % (TRAIN_STEPS, mean_ms, float(np.median(step_ms)), min(step_ms),
+             max(step_ms), dec_tokens, dec_tokens / mean_ms * 1e3,
+             peak / 2 ** 30))
     print("train: kernel launches over the %d steps %s"
           % (TRAIN_STEPS, json.dumps(launches)))
     if not np.isfinite(losses).all():
         fail("a train loss is not finite: %s" % losses)
     n_attn = 3 * N_LAYER
     # the forward tape: each attention's forward launches once, its grad
-    # op differentiates the recorded graph
-    if any(c != (n_attn, n_attn, n_attn) for c in per_step):
+    # op differentiates the recorded graph; each dropout site draws its
+    # mask in one threefry launch (its grad op reuses the mask)
+    print("train: %d dropout sites, one threefry launch each: mean %.1f ms "
+          "a step (%.1f-%.1f) against %.1f (%.1f-%.1f), the mean step "
+          "measured before the masks were threefry draws (torch's Philox)"
+          % ((n_drop, mean_ms, min(step_ms), max(step_ms))
+             + PHILOX_TRAIN_MS))
+    med = float(np.median(step_ms))
+    for i, ms in enumerate(step_ms):
+        if ms > 1.5 * med:
+            ev = events[i]
+            print("train: step %d took %.1f ms, %.1f ms over the median: gc "
+                  "%s (%.1f ms by generation %s), device mallocs %d, frees "
+                  "%d, allocator retries %d"
+                  % (i + 1, ms, ms - med, ev["gc"], sum(ev["gc_ms"]),
+                     ["%.1f" % t for t in ev["gc_ms"]], ev["mallocs"],
+                     ev["frees"], ev["retries"]))
+    if n_drop != 30:
+        fail("the train program holds %d dropout ops, not Transformer-base's "
+             "30" % n_drop)
+    if any(c != (n_attn, n_attn, n_attn, n_drop) for c in per_step):
         fail("per-step launches %s, expected flash_fwd %d, flash_bwd_dkv %d, "
-             "flash_bwd_dq %d" % (per_step, n_attn, n_attn, n_attn))
+             "flash_bwd_dq %d, threefry %d" % (per_step, n_attn, n_attn,
+                                               n_attn, n_drop))
     if any(reruns):
         fail("grad ops reran their forward in the train steps: %s" % reruns)
     late = float(np.mean(losses[15:20]))
@@ -2505,6 +2940,102 @@ def train_phase(np, torch, fluid, exe, kernels):
     return launches
 
 
+def dropout_capture_phase(np, torch, fluid, kernels):
+    """A dropout program (x * w, dropout 0.1 as the train step's, a mean
+    of squares, SGD on w) at a train-step dropout site's size under
+    ``run_multi_step``: on a fresh executor it is captured (no eager
+    ``run_multi_step``, one graph) and its replays equal, loss for loss
+    and in the final w, the eager loop's (``FLAGS_cuda_graph=0``) on
+    another fresh executor, with one threefry launch a step in both."""
+    from paddle_tpu_torch import flags, unique_name
+
+    rows = DROPOUT_SITE[0] * DROPOUT_SITE[1]
+    feed = {"x": np.random.RandomState(SEED).rand(
+        rows, D_MODEL).astype("float32")}
+    res = {}
+    for label, graph in (("captured", "1"), ("eager", "0")):
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = TRAIN_SEED
+        with unique_name.guard({}), fluid.program_guard(main, startup):
+            x = fluid.layers.data("x", shape=[D_MODEL], dtype="float32")
+            w = fluid.layers.create_parameter(
+                [D_MODEL], "float32", attr=fluid.ParamAttr(
+                    name="drop_w",
+                    initializer=fluid.initializer.Uniform(0.5, 1.5)))
+            y = fluid.layers.dropout(fluid.layers.elementwise_mul(x, w),
+                                     dropout_prob=DROPOUT)
+            loss = fluid.layers.mean(fluid.layers.elementwise_mul(y, y))
+            fluid.optimizer.SGD(learning_rate=0.5).minimize(loss)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        flags.set_flag("cuda_graph", graph)
+        try:
+            torch.cuda.synchronize()
+            kernels["threefry"].reset()
+            t0 = time.perf_counter()
+            losses = [exe.run_multi_step(
+                main, DROP_CAPTURE_STEPS, feed=feed, fetch_list=[loss],
+                scope=scope, stack_fetches=True)[0]
+                for _ in range(DROP_CAPTURE_CALLS)]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            flags.set_flag("cuda_graph", "1")
+        res[label] = dict(losses=np.concatenate(losses).reshape(-1),
+                          w=np.asarray(scope.get_value("drop_w").cpu()),
+                          eager=exe.eager_multi_step,
+                          graphs=exe.graph_stats(main)["graphs"],
+                          threefry=kernels["threefry"].launches, wall=wall)
+        exe.close()
+    c, e = res["captured"], res["eager"]
+    want = DROP_CAPTURE_STEPS * DROP_CAPTURE_CALLS
+    print("dropout capture: %d run_multi_step calls of %d steps, x [%d, %d]: "
+          "captured graphs %d, eager run_multi_step calls %d (the eager "
+          "executor's %d); losses equal %s (first %.6f, last %.6f), w "
+          "equal %s; threefry launches %d and %d (want %d); wall %.3f s and "
+          "%.3f s" % (DROP_CAPTURE_CALLS, DROP_CAPTURE_STEPS, rows, D_MODEL,
+                      c["graphs"], c["eager"], e["eager"],
+                      np.array_equal(c["losses"], e["losses"]),
+                      c["losses"][0], c["losses"][-1],
+                      np.array_equal(c["w"], e["w"]), c["threefry"],
+                      e["threefry"], want, c["wall"], e["wall"]))
+    if c["graphs"] != 1 or c["eager"] != 0:
+        fail("dropout capture: the random program was not captured (%d "
+             "graphs, %d eager calls)" % (c["graphs"], c["eager"]))
+    if e["eager"] != DROP_CAPTURE_CALLS:
+        fail("dropout capture: the eager executor counted %d eager calls"
+             % e["eager"])
+    if not (np.array_equal(c["losses"], e["losses"])
+            and np.array_equal(c["w"], e["w"])):
+        fail("dropout capture: the replays differ from the eager loop")
+    if len(set(c["losses"].tolist())) < 2:
+        fail("dropout capture: every step gave the same loss")
+    if c["threefry"] != want or e["threefry"] != want:
+        fail("dropout capture: threefry launched %d and %d times, want %d"
+             % (c["threefry"], e["threefry"], want))
+    return c["threefry"]
+
+
+def cpu_copy(np, fluid, program, scope):
+    """A CPU scope holding every persistable of ``program`` that the
+    card's ``scope`` holds: the CPU side of a card-against-CPU run
+    starts where the card's starts without running the startup program
+    again (on the CPU its plain threefry draws of 93 M parameters take
+    tens of seconds, and ``set_deterministic_params`` overwrites the
+    parameters anyway). A persistable the card's scope lacks raises."""
+    from paddle_tpu_torch.convert import persistables_from_numpy
+
+    arrays = {}
+    for v in program.global_block().vars.values():
+        val = scope.get_value(v.name) if v.persistable else None
+        if val is not None:
+            arrays[v.name] = (val.cpu().numpy() if hasattr(val, "cpu")
+                              else np.asarray(val))
+    cpu_scope = fluid.Scope()
+    persistables_from_numpy(program, cpu_scope, arrays, "cpu")
+    return cpu_scope
+
+
 def train_card_vs_cpu_phase(np, torch, fluid, exe):
     from paddle_tpu_torch.testing import set_deterministic_params
 
@@ -2512,10 +3043,13 @@ def train_card_vs_cpu_phase(np, torch, fluid, exe):
     feed = {k: v[:CVC_BATCH] for k, v in train_feed(np, TRAIN_BATCH).items()}
     grad_names = [g.name for _, g in params_grads]
     losses, grads = {}, {}
-    for dev, ex in (("card", exe), ("cpu", fluid.Executor(fluid.CPUPlace()))):
-        scope = fluid.Scope()
-        ex.run(startup, scope=scope)
-        set_deterministic_params(main, scope, parameters_only=True)
+    card_scope = fluid.Scope()
+    exe.run(startup, scope=card_scope)
+    set_deterministic_params(main, card_scope, parameters_only=True)
+    cpu_scope = cpu_copy(np, fluid, main, card_scope)
+    for dev, ex, scope in (
+            ("card", exe, card_scope),
+            ("cpu", fluid.Executor(fluid.CPUPlace()), cpu_scope)):
         losses[dev] = []
         for i in range(CVC_STEPS):
             out = ex.run(main, feed=feed, scope=scope,
@@ -4005,6 +4539,65 @@ def resnet_phase(np, torch, fluid, exe, model_dir):
     if not np.isfinite(a).all() or not err <= RESNET_PRED_TOL:
         fail("AnalysisConfig and NativeConfig ResNet-50 predictions "
              "disagree: %.3e" % err)
+    return RESNET_BATCH / mean_ms * 1e3
+
+
+def resnet_graph_data_phase(np, torch, fluid, exe, kernels, host_rate):
+    """ResNet-50 as bench.py trains it by default: the batch drawn on the
+    card at every step by ``random_data_generator`` (uniform pixels,
+    labels in 0..999; three threefry launches a step: the pixels, and
+    the labels' two words of bits), 5 + 10 steps. Prints images/s beside
+    the host-fed number of this call. Returns the timed steps'
+    launches."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = RESNET_SEED
+    with unique_name.guard({}), fluid.program_guard(main, startup):
+        pixel, label = fluid.layers.random_data_generator(
+            shapes=[[RESNET_BATCH, 3, RESNET_IMG, RESNET_IMG],
+                    [RESNET_BATCH, 1]],
+            dtypes=["float32", "int64"], int_high=RESNET_CLASSES - 1)
+        predict = resnet.resnet_imagenet(pixel, RESNET_CLASSES,
+                                         depth=RESNET_DEPTH)
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(
+            input=predict, label=label))
+        fluid.optimizer.Momentum(learning_rate=RESNET_LR,
+                                 momentum=RESNET_MOMENTUM).minimize(loss)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    losses = []
+    for _ in range(RESNET_GRAPH_WARMUP):
+        (lv,) = exe.run(main, fetch_list=[loss], scope=scope)
+        losses.append(float(np.asarray(lv).reshape(-1)[0]))
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.reset()
+    step_ms = []
+    for _ in range(RESNET_GRAPH_STEPS):
+        t0 = time.perf_counter()
+        (lv,) = exe.run(main, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(np.asarray(lv).reshape(-1)[0]))
+    launches = kernel_counts(kernels)
+    mean_ms = float(np.mean(step_ms))
+    print("resnet graph-data: random_data_generator batch %d x 3 x %d x %d "
+          "drawn on the card, %d + %d steps: mean %.1f ms/step (min %.1f, "
+          "max %.1f), %.1f images/s (host feed %.1f images/s in this call); "
+          "threefry launches %d (%d a step); losses %s"
+          % (RESNET_BATCH, RESNET_IMG, RESNET_IMG, RESNET_GRAPH_WARMUP,
+             RESNET_GRAPH_STEPS, mean_ms, min(step_ms), max(step_ms),
+             RESNET_BATCH / mean_ms * 1e3, host_rate, launches["threefry"],
+             launches["threefry"] // RESNET_GRAPH_STEPS,
+             ["%.4f" % v for v in losses]))
+    if not np.isfinite(losses).all():
+        fail("a graph-data ResNet-50 loss is not finite: %s" % losses)
+    if launches["threefry"] != 3 * RESNET_GRAPH_STEPS:
+        fail("graph-data: threefry launched %d times, want 3 a step"
+             % launches["threefry"])
+    return launches
 
 
 def optim_runs(fluid):
@@ -4064,22 +4657,38 @@ def optim_program(fluid, make_opt, average):
 
 def optim_phase(np, torch, fluid, exe):
     """Every optimizer, clipped and decayed, on the card against the CPU
-    (module docstring, step 14)."""
+    (module docstring, step 14). The seeded parameters are drawn once
+    (every run's model has the same names and shapes) and loaded into
+    each run's card scope after its startup program; the CPU starts from
+    a copy of that scope."""
+    from paddle_tpu_torch.convert import params_from_numpy
     from paddle_tpu_torch.testing import set_deterministic_params
 
     feed = {k: v[:CVC_BATCH] for k, v in train_feed(np, TRAIN_BATCH).items()}
     cpu = fluid.Executor(fluid.CPUPlace())
-    worst = 0.0
+    params, worst = None, 0.0
     for name, make_opt in optim_runs(fluid):
         average = name == "Momentum"
         main, startup, loss, avg, evaluate = optim_program(
             fluid, make_opt, average)
-        losses, secs = {}, {}
+        losses, secs, scopes = {}, {}, {}
+        t0 = time.perf_counter()
+        scopes["card"] = fluid.Scope()
+        exe.run(startup, scope=scopes["card"])
+        if params is None:
+            set_deterministic_params(main, scopes["card"],
+                                     parameters_only=True)
+            params = {p.name: scopes["card"].get_value(p.name).cpu().numpy()
+                      for p in main.global_block().all_parameters()}
+        else:
+            params_from_numpy(main, scopes["card"], params, "cuda")
+        secs["card"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scopes["cpu"] = cpu_copy(np, fluid, main, scopes["card"])
+        secs["cpu"] = time.perf_counter() - t0
         for dev, ex in (("card", exe), ("cpu", cpu)):
             t0 = time.perf_counter()
-            scope = fluid.Scope()
-            ex.run(startup, scope=scope)
-            set_deterministic_params(main, scope, parameters_only=True)
+            scope = scopes[dev]
             losses[dev] = [float(np.asarray(ex.run(
                 main, feed=feed, scope=scope,
                 fetch_list=[loss])[0]).reshape(-1)[0])
@@ -4093,7 +4702,7 @@ def optim_phase(np, torch, fluid, exe):
                 losses[dev].append(float(np.asarray(ex.run(
                     evaluate, feed=feed, scope=scope,
                     fetch_list=[loss])[0]).reshape(-1)[0]))
-            secs[dev] = time.perf_counter() - t0
+            secs[dev] += time.perf_counter() - t0
         err = max(abs(a - b) for a, b in zip(losses["card"], losses["cpu"]))
         worst = max(worst, err)
         print("optim %-16s: losses card %s cpu %s%s: max abs diff %.3e  tol "
@@ -4121,6 +4730,12 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     kind = torch.cuda.get_device_name(0)
+    t_start, marks = time.perf_counter(), []
+
+    def mark(label):
+        """Seconds since the start at the end of each group of phases
+        (the ``phase seconds`` line)."""
+        marks.append((label, round(time.perf_counter() - t_start, 1)))
     print("card: %s (torch %s, CUDA %s)" % (card, torch.__version__,
                                            torch.version.cuda))
 
@@ -4144,7 +4759,11 @@ def main():
     flash_rows_layout_phase()
     flash_bwd_layout_phase()
 
+    mark("build")
     worst = kernel_phase(torch)
+    mark("kernels")
+    worst["threefry"], rng_timing = rng_phase(torch)
+    mark("rng")
     full_mask_phase(torch)
     timing = timing_phase(torch)
     for name in ("flash_fwd", "flash_fwd_verify", "flash_fwd_encoder",
@@ -4188,6 +4807,7 @@ def main():
               "bound %.4f ms (%s)" % (name, r["shape"], r["ms"],
                                       r["plain_ms"], lib, r["bound"][0],
                                       r["bound"][1]))
+    mark("timing")
     exe = fluid.Executor()  # the card: CUDAPlace(0)
     scope = fluid.Scope()
     t0 = time.perf_counter()
@@ -4201,19 +4821,29 @@ def main():
     serve_rate = served["generated"] / served["wall"]
     graph_launches = graph_phase(np, torch, exe, scope, KERNELS, served)
     served = None
+    mark("serve, graph")
+    sampled_launches = sampled_phase(np, torch, exe, scope, KERNELS,
+                                     serve_out)
+    mark("sampled")
     prefix_launches = prefix_phase(np, torch, exe, scope, KERNELS)
     dense_launches = dense_phase(np, torch, exe, scope, KERNELS)
     card_vs_cpu_phase(np, torch, fluid, exe, scope, main_prog)
     spec_launches = speculative_phase(np, torch, fluid, exe, scope, KERNELS)
     spec_card_vs_cpu_phase(np, torch, fluid, exe, scope, main_prog)
+    mark("prefix, dense, speculative, card vs cpu")
     scope = main_prog = None
     torch.cuda.empty_cache()
     train_launches = train_phase(np, torch, fluid, exe, KERNELS)
+    mark("train")
+    drop_capture_launches = dropout_capture_phase(np, torch, fluid, KERNELS)
+    mark("dropout capture")
     train_card_vs_cpu_phase(np, torch, fluid, exe)
+    mark("train card vs cpu")
     torch.cuda.empty_cache()
     mnist_predictor_phase(np)
     pred_launches = transformer_predictor_phase(np, torch, fluid, exe,
                                                 KERNELS)
+    mark("predictor")
     torch.cuda.empty_cache()
     lstm_train, scope, infer, outs, feed = rnn_train_phase(
         np, torch, fluid, exe, KERNELS, "lstm")
@@ -4233,19 +4863,31 @@ def main():
                                    os.path.join(model_root, "stacked_gru"))
     scope = None
     torch.cuda.empty_cache()
+    mark("rnn")
     nan_check_phase(np, torch, fluid, exe)
     fe_launches = frontend_phase(np, torch, fluid, exe, KERNELS, serve_out,
                                  serve_rate, lstm_dir)
     shutil.rmtree(model_root)
     torch.cuda.empty_cache()
+    mark("frontend")
     mt_launches = mt_phase(np, torch, fluid, exe, KERNELS)
     rnn_card_vs_cpu_phase(np, torch, fluid, exe)
     torch.cuda.empty_cache()
     model_root = tempfile.mkdtemp(prefix="chip_smoke_models_")
-    resnet_phase(np, torch, fluid, exe, os.path.join(model_root, "resnet50"))
+    mark("mt, rnn card vs cpu")
+    host_rate = resnet_phase(np, torch, fluid, exe,
+                             os.path.join(model_root, "resnet50"))
+    mark("resnet")
     shutil.rmtree(model_root)
     torch.cuda.empty_cache()
+    graph_data_launches = resnet_graph_data_phase(np, torch, fluid, exe,
+                                                  KERNELS, host_rate)
+    mark("resnet graph-data")
+    torch.cuda.empty_cache()
     optim_phase(np, torch, fluid, exe)
+    mark("optim")
+    print("phase seconds (since the card check, at the end of each): %s"
+          % json.dumps(marks))
 
     def bwd_record(name, line):
         """B2 or B3: the key-mask shape's numbers (bound at the split-TF32
@@ -4351,6 +4993,29 @@ def main():
         launches_of="the frontend phase's predict window; not timed",
         ms=None, plain_ms=None, bound_ms=None, bound_by=None,
         library_ms=None))
+    # threefry: the train steps' dropout masks, the sampled serving
+    # windows' Gumbel draws, the captured dropout program and the
+    # graph-data ResNet steps
+    sampled_total = sum(r["threefry"] for r in sampled_launches.values())
+    threefry_total = (train_launches["threefry"] + sampled_total
+                      + drop_capture_launches
+                      + graph_data_launches["threefry"])
+    threefry_shapes = shape_rows(rng_timing, [
+        ("threefry", train_launches["threefry"] + drop_capture_launches),
+        ("threefry_sampler", sampled_total)],
+        "the training phase's timed steps and the captured dropout "
+        "program (the dropout site), or the sampled serving windows (the "
+        "sampler's draw), counted by the wrapper where it launches")
+    for r in threefry_shapes:
+        r["other_generator_ms"] = rng_timing[r["row"]]["philox_ms"]
+    threefry_shapes.append(dict(
+        row="threefry_graph_data", launches=graph_data_launches["threefry"],
+        shape="random_data_generator: pixels [%d,3,%d,%d] uniform, labels "
+        "[%d,1] (two draws of bits)" % (RESNET_BATCH, RESNET_IMG, RESNET_IMG,
+                                        RESNET_BATCH),
+        launches_of="the graph-data ResNet-50 phase's timed steps; not "
+        "timed", ms=None, plain_ms=None, bound_ms=None, bound_by=None,
+        library_ms=None))
     record = {"kernels": [
         dict(name="flash_fwd", route="cuda",
              source="paddle_tpu_torch/csrc/flash_fwd.cu",
@@ -4395,6 +5060,18 @@ def main():
                         + fe_launches["lstm_cell"]),
              shapes=lstm_shapes),
         rnn_record("gru_cell", "gru_cell.py", 55, gru_train + gru_pred),
+        dict(name="threefry", route="cuda",
+             source="paddle_tpu_torch/csrc/threefry.cu",
+             replaces="none: the port's own kernel (jax's threefry2x32 "
+             "stream, which XLA fuses for the JAX package)",
+             launches=threefry_total, max_abs_err=worst["threefry"],
+             ms=rng_timing["threefry"]["ms"],
+             plain_ms=rng_timing["threefry"]["plain_ms"],
+             bound_ms=rng_timing["threefry"]["bound"][0],
+             bound_by=rng_timing["threefry"]["bound"][1],
+             library_ms=None,
+             other_generator_ms=rng_timing["threefry"]["philox_ms"],
+             shapes=threefry_shapes),
     ]}
     print(card)
     print(json.dumps(record))

@@ -15,9 +15,7 @@ dropped at its end, errors included. The environment only ever holds
 detached tensors, so later ops never extend a recorded graph.
 """
 
-import torch
-
-from paddle_tpu_torch.core import op_registry
+from paddle_tpu_torch.core import op_registry, prng
 from paddle_tpu_torch.core.op_registry import LowerContext, normalize_outputs
 
 
@@ -32,11 +30,8 @@ class BlockLowerer(object):
         self.program = program
         self.block = program.block(block_idx)
         self.is_test = is_test
-        # the op being lowered (a failed CUDA graph capture names it) and
-        # the types of the ops that asked for a random generator (a
-        # program with any is never captured: its seeds would be baked in)
+        # the op being lowered (a failed CUDA graph capture names it)
         self.current_op = None
-        self.rng_ops = set()
         # grad ops that reran their forward (no tape entry, or one whose
         # inputs changed since the forward); the executor collects it
         self.grad_reruns = 0
@@ -109,15 +104,16 @@ class BlockLowerer(object):
                     break
         return pairs
 
-    def lower_into(self, env, device, seed, release, pairs=None):
+    def lower_into(self, env, device, step_key, release, pairs=None):
         """Run every op's lowering against env (name -> tensor), dropping
         each variable after its last use (``release``, a
-        :meth:`release_plan`). ``pairs`` (:meth:`grad_pairs`) turns the
-        forward tape on."""
+        :meth:`release_plan`). ``step_key`` (a ``prng.KeyChain``) is the
+        run's (or the loop step's) key. ``pairs`` (:meth:`grad_pairs`)
+        turns the forward tape on."""
         tape = {}
         try:
             for i, (op, names) in enumerate(zip(self.block.ops, release)):
-                self.lower_op(op, env, device, seed, pairs, tape, i)
+                self.lower_op(op, env, device, step_key, pairs, tape, i)
                 for name in names:
                     env.pop(name, None)
         finally:
@@ -126,7 +122,7 @@ class BlockLowerer(object):
             tape.clear()
         return env
 
-    def lower_op(self, op, env, device, seed, pairs=None, tape=None,
+    def lower_op(self, op, env, device, step_key, pairs=None, tape=None,
                  index=None):
         opdef = op_registry.get_op_def(op.type)
         ins = {}
@@ -141,15 +137,9 @@ class BlockLowerer(object):
                         "(not fed, not persistable-in-scope, not produced "
                         "earlier in the block)" % (op.type, e))
         self.current_op = op
-        make_rng = _make_rng(seed, op.attrs, device)
-
-        def rng():
-            self.rng_ops.add(op.type)
-            return make_rng()
-
         ctx = LowerContext(
             op,
-            rng=rng,
+            rng=_make_rng(step_key, op.attrs),
             is_test=self.is_test or op.attrs.get("is_test", False),
             block_lowerer=self,
             device=device,
@@ -174,19 +164,19 @@ class BlockLowerer(object):
             tape[grad_index] = entry
 
 
-def _make_rng(seed, attrs, device):
-    """Per-op generator factory: the op's own nonzero ``seed`` attr pins
-    its stream (fix_seed semantics); otherwise the stream derives from the
-    run's seed and the op's ``__rng_id__``."""
+def _make_rng(step_key, attrs):
+    """An op's key, as the JAX package derives it
+    (``paddle_tpu/core/lowering.py`` ``_make_rng``): the op's own
+    nonzero ``seed`` attr pins its stream (fix_seed semantics,
+    ``fold_in(PRNGKey(seed), __rng_id__)``, the same every step);
+    otherwise ``fold_in(step_key, __rng_id__)``. A ``prng.KeyChain``:
+    nothing is computed until an op draws."""
     rng_id = int(attrs.get("__rng_id__", 0))
-    fixed = int(attrs.get("seed", 0) or 0)
+    seed = int(attrs.get("seed", 0) or 0)
 
     def rng():
-        g = torch.Generator(device=device)
-        if fixed:
-            g.manual_seed((fixed * 1000003 + rng_id) % (2 ** 63))
-        else:
-            g.manual_seed((int(seed) * 1000003 + rng_id) % (2 ** 63))
-        return g
+        if seed:
+            return prng.KeyChain(prng.PRNGKey_pair(seed)).fold_in(rng_id)
+        return step_key.fold_in(rng_id)
 
     return rng

@@ -46,9 +46,10 @@ class LowerContext(object):
         self.tape_entry = None
 
     def rng(self):
-        """A torch.Generator for this op instance on ``device`` (None
-        during shape inference), seeded from (program seed, run, op id)
-        or from the op's nonzero ``seed`` attr."""
+        """This op instance's threefry key, a ``prng.KeyChain`` (None
+        during shape inference): ``fold_in(step_key, __rng_id__)``, or
+        ``fold_in(PRNGKey(seed), __rng_id__)`` for a nonzero ``seed``
+        attr, as the JAX package derives it."""
         return self._rng()
 
 

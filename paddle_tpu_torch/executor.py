@@ -55,9 +55,19 @@ they were at capture: a state value a step produces as a new tensor is
 copied into its bound tensor at the end of the loop, and a scope value
 that an eager ``run`` replaced since the last replay is copied in (and
 the scope re-pointed at the bound tensor) before the next. In-place
-state (the KV pools, the page table) is never copied. Random seeds would
-be baked in at capture, so a program whose ops ask for a generator is
-never captured: it runs the eager loop, counted in ``eager_multi_step``.
+state (the KV pools, the page table) is never copied.
+
+Random numbers are jax's threefry stream (``core/prng.py``), keyed as
+the JAX package keys them: each ``run``, ``run_async`` and
+``run_multi_step`` call advances the run counter and takes the key
+``fold_in(PRNGKey(program.random_seed or base_seed), counter)``; a
+multi-step loop folds in the step index, and each op its
+``__rng_id__``. A captured loop binds the key as a device tensor that
+the host writes before each replay (as it rebinds state): the step and
+op folds run inside the graph, in the threefry kernel's launches, so a
+program with random ops is captured like any other.
+``eager_multi_step`` counts the loops run eagerly on a card because
+``FLAGS_cuda_graph`` is off.
 """
 
 import contextlib
@@ -70,6 +80,7 @@ import torch
 
 from paddle_tpu_torch import flags, framework
 from paddle_tpu_torch.observability import telemetry as _telemetry
+from paddle_tpu_torch.core import prng
 from paddle_tpu_torch.core.lowering import BlockLowerer
 from paddle_tpu_torch.kernels import build as _kbuild
 from paddle_tpu_torch.core.scope import Scope
@@ -258,8 +269,8 @@ class Executor(object):
         self.graph_capturer = (_CUDAGraphCapturer()
                                if self.device.type == "cuda" else None)
         # run_multi_step calls that ran the eager loop where a capture
-        # could have run (a program with random ops, FLAGS_cuda_graph
-        # off); the warm-up call of a captured key is not counted
+        # could have run (FLAGS_cuda_graph off); the warm-up call of a
+        # captured key is not counted
         self.eager_multi_step = 0
         # grad ops that reran their forward lowering (no forward tape
         # entry); the tape serves every grad op of a train step
@@ -333,22 +344,26 @@ class Executor(object):
             state[n] = val
         return state
 
-    def _run_seed(self, program):
+    def _step_key(self, program):
+        """The run's key, ``fold_in(PRNGKey(program.random_seed or
+        base_seed), run_counter)`` after advancing the counter, as the
+        JAX package's ``Executor._step_key``: a host ``prng.KeyChain``."""
         self._run_counter += 1
-        return (program.random_seed or self._base_seed) * 7919 \
-            + self._run_counter
+        return prng.KeyChain(prng.PRNGKey_pair(
+            program.random_seed or self._base_seed)).fold_in(
+                self._run_counter)
 
     @staticmethod
     def _fetch_names(fetch_list):
         return [v.name if isinstance(v, framework.Variable) else str(v)
                 for v in fetch_list]
 
-    def _step(self, lowerer, state, feeds, fetch_names, seed, release,
+    def _step(self, lowerer, state, feeds, fetch_names, key, release,
               pairs):
         env = dict(state)
         env.update(feeds)
         try:
-            lowerer.lower_into(env, self.device, seed, release,
+            lowerer.lower_into(env, self.device, key, release,
                                pairs if self._grad_tape else None)
         finally:
             self.grad_op_reruns += lowerer.grad_reruns
@@ -380,7 +395,7 @@ class Executor(object):
         state = self._gather_state(state_in, scope)
         lowerer = BlockLowerer(program, 0, is_test=program._is_test)
         env, fetches = self._step(lowerer, state, feeds, fetch_names,
-                                  self._run_seed(program), release, pairs)
+                                  self._step_key(program), release, pairs)
         written = [(n, env[n]) for n in state_out if n in env]
         for n, t in written:
             scope.set_value(n, t)
@@ -460,7 +475,7 @@ class Executor(object):
                                    plan, stack_fetches)
         else:
             out = self._eager_loop(program, steps, feeds, fetch_names, scope,
-                                   plan, stack_fetches)[0]
+                                   plan, stack_fetches)
             if self.graph_capturer is not None:
                 self.eager_multi_step += 1
         # the state the loop left in the scope: after a replay, the
@@ -472,15 +487,17 @@ class Executor(object):
             out = [_to_numpy(f) for f in out]
         return out
 
-    def _loop(self, lowerer, steps, state, feeds, fetch_names, seed,
+    def _loop(self, lowerer, steps, state, feeds, fetch_names, key,
               plan, stack_fetches):
         """The K-step loop over ``state`` (updated in place: each step's
-        state_out values replace its entries). Returns the fetches."""
+        state_out values replace its entries); step ``i`` draws from
+        ``fold_in(key, i)``, as the JAX package's scan body. Returns the
+        fetches."""
         state_out, release, pairs = plan[1], plan[2], plan[3]
         per_step = []
         for i in range(steps):
             env, fetches = self._step(lowerer, state, feeds, fetch_names,
-                                      seed * 131 + i, release, pairs)
+                                      key.fold_in(i), release, pairs)
             for n in state_out:
                 state[n] = env[n]
             per_step.append(fetches)
@@ -491,15 +508,14 @@ class Executor(object):
 
     def _eager_loop(self, program, steps, feeds, fetch_names, scope, plan,
                     stack_fetches):
-        """The loop op by op; returns (fetches, whether any op asked for
-        a random generator)."""
+        """The loop op by op; returns the fetches."""
         state = self._gather_state(plan[0], scope)
         lowerer = BlockLowerer(program, 0, is_test=program._is_test)
         out = self._loop(lowerer, steps, state, feeds, fetch_names,
-                         self._run_seed(program), plan, stack_fetches)
+                         self._step_key(program), plan, stack_fetches)
         for n in plan[1]:
             scope.set_value(n, state[n])
-        return out, bool(lowerer.rng_ops)
+        return out
 
     def _graph_loop(self, program, steps, feeds, fetch_names, scope, plan,
                     stack_fetches):
@@ -514,21 +530,14 @@ class Executor(object):
         if entry is None:
             # warm-up: the real dispatch, eagerly (it builds the kernel
             # library, reads the device limits, creates the cuBLAS
-            # handles) and tells whether the program draws random bits
+            # handles)
             for k in [k for k, e in self._graphs.items() if e.dead()]:
                 del self._graphs[k]
-            out, random_ops = self._eager_loop(
-                program, steps, feeds, fetch_names, scope, plan,
-                stack_fetches)
-            self._graphs[key] = _CapturedLoop(program, scope, random_ops)
-            if random_ops:
-                self.eager_multi_step += 1
+            out = self._eager_loop(program, steps, feeds, fetch_names,
+                                   scope, plan, stack_fetches)
+            self._graphs[key] = _CapturedLoop(program, scope)
             return out
-        if entry.random_ops:
-            # seeds would be baked into a graph: the eager loop, counted
-            self.eager_multi_step += 1
-            return self._eager_loop(program, steps, feeds, fetch_names,
-                                    scope, plan, stack_fetches)[0]
+        step_key = self._step_key(program)
         if entry.graph is None:
             self._capture(entry, program, steps, feeds, fetch_names, scope,
                           plan, stack_fetches)
@@ -536,6 +545,8 @@ class Executor(object):
             entry.rebind(scope)
             for n, t in feeds.items():
                 entry.feeds[n].copy_(t)
+        # this call's key into the tensor the graph's draws fold from
+        entry.key.copy_(torch.tensor(step_key.base, dtype=torch.int64))
         entry.replay()
         # the graph's outputs are overwritten by its next replay
         return [t.clone() for t in entry.outs]
@@ -545,13 +556,14 @@ class Executor(object):
         state_in, state_out = plan[0], plan[1]
         entry.bound = self._gather_state(state_in, scope)
         entry.feeds = feeds
+        entry.key = torch.zeros(2, dtype=torch.int64, device=self.device)
         lowerer = BlockLowerer(program, 0, is_test=program._is_test)
-        seed = self._run_seed(program)
+        key = prng.KeyChain(entry.key)
 
         def body():
             state = dict(entry.bound)
             entry.outs = self._loop(lowerer, steps, state, entry.feeds,
-                                    fetch_names, seed, plan, stack_fetches)
+                                    fetch_names, key, plan, stack_fetches)
             for n in state_out:
                 if state[n] is not entry.bound[n]:
                     entry.bound[n].copy_(state[n])
@@ -619,16 +631,16 @@ class _CUDAGraphCapturer(object):
 
 class _CapturedLoop(object):
     """One key's captured K-step loop: the graph, the scope tensors it
-    binds, its static feed and fetch buffers and the kernel launches one
-    replay makes."""
+    binds, its static feed and fetch buffers, the run key its draws fold
+    from and the kernel launches one replay makes."""
 
-    def __init__(self, program, scope, random_ops):
+    def __init__(self, program, scope):
         self._program = weakref.ref(program)
         self._scope = weakref.ref(scope)
-        self.random_ops = random_ops
         self.graph = None
         self.bound = {}       # state name -> the tensor the graph reads
         self.feeds = {}       # feed name -> static buffer
+        self.key = None       # int64 [2]: the run key, written per call
         self.outs = []        # the graph's fetch buffers
         self.launch_log = {}  # (kernel, key) -> launches per replay
         self.pool_bytes = 0

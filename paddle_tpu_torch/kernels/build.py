@@ -26,7 +26,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "paged_decode.cu",
-           "tree_decode.cu", "lstm_cell.cu", "gru_cell.cu")
+           "tree_decode.cu", "lstm_cell.cu", "gru_cell.cu", "threefry.cu")
 HEADERS = ("recurrence.cuh", "decode_split.cuh")  # included; in the hash
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")

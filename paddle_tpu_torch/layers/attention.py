@@ -234,8 +234,8 @@ def slot_decode_sample(logits, pos, done=None, strategy="greedy",
                        max_length=0, name=None):
     """Per-slot token selection + slot lifecycle step for the decode
     loop. Returns ``(token [S, 1], new_pos [S, 1], new_done [S, 1])``.
-    ``max_length`` (the decode budget) is required. This slice runs the
-    greedy strategy (see ``ops/sampling_ops.py``)."""
+    ``max_length`` (the decode budget) is required. ``strategy`` is
+    greedy, temperature or top_k (``ops/sampling_ops.py``)."""
     if int(max_length) < 2:
         raise ValueError(
             "slot_decode_sample needs max_length >= 2 (the decode "

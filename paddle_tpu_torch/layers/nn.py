@@ -45,6 +45,7 @@ __all__ = [
     "softmax",
     "mean",
     "topk",
+    "random_crop",
 ]
 
 
@@ -406,3 +407,23 @@ def topk(input, k, name=None):
                      outputs={"Out": [values], "Indices": [indices]},
                      attrs={"k": k})
     return values, indices
+
+
+def random_crop(x, shape, seed=None, name=None):
+    """Random crop of the trailing dims to ``shape`` (random_crop_op.cc).
+    The op draws from the program's threefry stream; a ``seed`` pins
+    it (fix_seed semantics) and is also threaded as the Seed tensor."""
+    from paddle_tpu_torch.layers import tensor as tensor_layers
+
+    helper = LayerHelper("random_crop", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    seed_var = tensor_layers.fill_constant(
+        shape=[1], dtype="int64", value=int(seed or 0))
+    seed_out = helper.create_variable_for_type_inference("int64")
+    helper.append_op(
+        type="random_crop",
+        inputs={"X": [x], "Seed": [seed_var]},
+        outputs={"Out": [out], "SeedOut": [seed_out]},
+        attrs={"shape": list(shape), "seed": int(seed or 0)},
+    )
+    return out

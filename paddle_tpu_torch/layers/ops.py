@@ -3,7 +3,9 @@
 Counterpart of ``paddle_tpu/layers/ops.py`` (layer_function_generator.py
 role) for the single-input, single-output ops: the activations, plus
 ``cumsum``, ``clip``, ``clip_by_norm`` and ``maxout``. Keyword arguments
-that name one of the op's attrs become that attr.
+that name one of the op's attrs become that attr. Also the random
+layers ``uniform_random``, ``gaussian_random``, ``sampling_id`` and the
+two ``*_batch_size_like`` draws.
 """
 
 from paddle_tpu_torch.core import op_registry
@@ -46,8 +48,11 @@ _UNARY_ACTIVATIONS = [
     "log_softmax",
 ]
 
-__all__ = list(_UNARY_ACTIVATIONS) + ["cumsum", "clip", "clip_by_norm",
-                                      "maxout"]
+_UNARY = list(_UNARY_ACTIVATIONS) + ["cumsum", "clip", "clip_by_norm",
+                                     "maxout"]
+__all__ = _UNARY + ["uniform_random", "gaussian_random", "sampling_id",
+                    "gaussian_random_batch_size_like",
+                    "uniform_random_batch_size_like"]
 
 
 def _make_unary(op_type):
@@ -66,5 +71,67 @@ def _make_unary(op_type):
     return layer_fn
 
 
-for _name in __all__:
+for _name in _UNARY:
     globals()[_name] = _make_unary(_name)
+
+
+def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, seed=0):
+    helper = LayerHelper("uniform_random")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="uniform_random",
+        outputs={"Out": [out]},
+        attrs={"shape": list(shape), "dtype": dtype, "min": min, "max": max,
+               "seed": seed},
+    )
+    return out
+
+
+def gaussian_random(shape, dtype="float32", mean=0.0, std=1.0, seed=0):
+    helper = LayerHelper("gaussian_random")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="gaussian_random",
+        outputs={"Out": [out]},
+        attrs={"shape": list(shape), "dtype": dtype, "mean": mean,
+               "std": std, "seed": seed},
+    )
+    return out
+
+
+def sampling_id(x, min=0.0, max=1.0, seed=0):
+    helper = LayerHelper("sampling_id")
+    out = helper.create_variable_for_type_inference("int64")
+    helper.append_op(
+        type="sampling_id",
+        inputs={"X": [x]},
+        outputs={"Out": [out]},
+        attrs={"min": min, "max": max, "seed": seed},
+    )
+    return out
+
+
+def _make_batch_size_like(op_type, extra):
+    def layer_fn(input, shape, input_dim_idx=0, output_dim_idx=0,
+                 dtype="float32", name=None, **kwargs):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(dtype)
+        attrs = {"shape": list(shape), "input_dim_idx": input_dim_idx,
+                 "output_dim_idx": output_dim_idx, "dtype": dtype}
+        for k, dv in extra.items():
+            attrs[k] = kwargs.get(k, dv)
+        helper.append_op(type=op_type, inputs={"Input": [input]},
+                         outputs={"Out": [out]}, attrs=attrs)
+        return out
+
+    layer_fn.__name__ = op_type
+    layer_fn.__doc__ = ("Generated layer for operator %r: the output's "
+                        "shape follows the input's batch dimension."
+                        % op_type)
+    return layer_fn
+
+
+gaussian_random_batch_size_like = _make_batch_size_like(
+    "gaussian_random_batch_size_like", {"mean": 0.0, "std": 1.0, "seed": 0})
+uniform_random_batch_size_like = _make_batch_size_like(
+    "uniform_random_batch_size_like", {"min": -1.0, "max": 1.0, "seed": 0})

@@ -1,13 +1,17 @@
-"""Tensor layers: fill_constant, assign, concat, sums, create_parameter.
+"""Tensor layers: fill_constant, assign (and assign_numpy), concat, sums,
+create_parameter.
 
 Counterpart of ``paddle_tpu/layers/tensor.py`` for the layers this slice
 calls.
 """
 
+import numpy as np
+
 from paddle_tpu_torch import framework
 from paddle_tpu_torch.layer_helper import LayerHelper
 
-__all__ = ["assign", "concat", "create_parameter", "fill_constant", "sums"]
+__all__ = ["assign", "assign_numpy", "concat", "create_parameter",
+           "fill_constant", "sums"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -18,15 +22,29 @@ def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
 
 
 def assign(input, output=None):
+    """Copy a Variable (``assign``), or a numpy array into the program
+    (``assign_value``)."""
     if not isinstance(input, framework.Variable):
-        raise TypeError(
-            "assign takes a Variable in this slice of the port (the "
-            "assign_value form for numpy arrays is not ported yet)")
+        return assign_numpy(np.asarray(input), output=output)
     helper = LayerHelper("assign")
     if output is None:
         output = helper.create_variable_for_type_inference(input.dtype)
     helper.append_op(type="assign", inputs={"X": [input]},
                      outputs={"Out": [output]})
+    return output
+
+
+def assign_numpy(arr, output=None):
+    helper = LayerHelper("assign_value")
+    arr = np.asarray(arr)
+    if output is None:
+        output = helper.create_variable_for_type_inference(str(arr.dtype))
+    helper.append_op(
+        type="assign_value",
+        outputs={"Out": [output]},
+        attrs={"shape": list(arr.shape), "dtype": str(arr.dtype),
+               "values": arr.flatten().tolist()},
+    )
     return output
 
 

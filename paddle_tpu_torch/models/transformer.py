@@ -5,8 +5,8 @@ serving slices: the training ``build`` (dropout, label-smoothed loss),
 the inference program derived from it and the greedy re-score loop over
 it (``build_inference``, ``greedy_generate``: the program a saved
 Transformer serves), the position-encoding tables, the dense slot
-decoder, the paged slot decoder (greedy) with its speculative verify
-program, the draft decoder and the coalesced copy-on-write program.
+decoder, the paged slot decoder (greedy or sampled) with its speculative
+verify program, the draft decoder and the coalesced copy-on-write program.
 Every build function mints the reference's variable and parameter
 names, so parameters bind by name across the two packages and across
 this package's programs.
@@ -17,7 +17,6 @@ import numpy as np
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch import flags, unique_name
 from paddle_tpu_torch.kernels.paged_attention import pages_for
-from paddle_tpu_torch.ops.sampling_ops import RNG_PARITY_TODO
 
 
 def _ffn(x, d_model, d_inner, name):
@@ -194,28 +193,41 @@ def position_encoding_table(max_length, d_model, dtype="float32"):
          for t in range(int(max_length))], axis=0)
 
 
-def _check_greedy(sampler):
-    """The port decodes greedily; any stochastic sampler needs the
-    RNG-parity item first (ROADMAP.md A6)."""
+def _sampler_attrs(sampler):
+    """Normalize a sampler spec (None, dict, or an object with
+    strategy/temperature/top_k/seed attributes: serving.Sampler) into
+    the slot_decode_sample op's attrs (the JAX package's rules and
+    messages)."""
     if sampler is None:
-        return
+        return {"strategy": "greedy", "temperature": 1.0, "top_k": 0,
+                "base_seed": 0}
     if isinstance(sampler, dict):
-        strategy = sampler.get("strategy", "greedy")
-        temperature = float(sampler.get("temperature", 1.0))
+        src = dict(sampler)
     else:
-        strategy = getattr(sampler, "strategy", "greedy")
-        temperature = float(getattr(sampler, "temperature", 1.0))
+        src = {"strategy": getattr(sampler, "strategy", "greedy"),
+               "temperature": getattr(sampler, "temperature", 1.0),
+               "top_k": getattr(sampler, "top_k", 0),
+               "base_seed": getattr(sampler, "seed",
+                                    getattr(sampler, "base_seed", 0))}
+    strategy = src.get("strategy", "greedy")
     if strategy not in ("greedy", "temperature", "top_k"):
-        raise ValueError("sampler strategy must be greedy/temperature/"
-                         "top_k, got %r" % (strategy,))
-    if strategy != "greedy" and temperature > 0.0:
-        raise NotImplementedError(RNG_PARITY_TODO)
+        raise ValueError(
+            "sampler strategy must be greedy/temperature/top_k, got %r"
+            % (strategy,))
+    if strategy == "top_k" and int(src.get("top_k", 0)) < 1:
+        raise ValueError(
+            "sampler strategy 'top_k' needs top_k >= 1 — 0 would "
+            "silently sample the full vocabulary")
+    return {"strategy": strategy,
+            "temperature": float(src.get("temperature", 1.0)),
+            "top_k": int(src.get("top_k", 0)),
+            "base_seed": int(src.get("base_seed", src.get("seed", 0)))}
 
 
 def build_slot_decoder(num_slots, src_vocab_size=1000, trg_vocab_size=1000,
                        max_length=64, n_layer=2, n_head=4, d_model=128,
                        d_inner=512, eos_id=2, sampler=None):
-    """Continuous-batching decode over DENSE slot caches (greedy).
+    """Continuous-batching decode over DENSE slot caches.
 
     Returns ``(init_prog, admit_prog, step_prog, token_name)`` exactly as
     the reference (``paddle_tpu/models/transformer.py``
@@ -239,10 +251,10 @@ def build_slot_decoder(num_slots, src_vocab_size=1000, trg_vocab_size=1000,
       key mask (on the card the flash kernel's rows path at T = 1), and
       the fetch is the ``[S, 1]`` token ids.
 
-    Stochastic samplers raise until ROADMAP.md A6. Build it under the
-    training ``build()``'s fresh ``unique_name`` scope; parameters bind
-    by name."""
-    _check_greedy(sampler)
+    ``sampler`` (None, a dict or ``serving.Sampler``) sets the token
+    rule (``_sampler_attrs``). Build it under the training ``build()``'s
+    fresh ``unique_name`` scope; parameters bind by name."""
+    samp = _sampler_attrs(sampler)
     nn = fluid.layers
     S, T, D = int(num_slots), int(max_length), int(d_model)
     dh = D // n_head
@@ -377,7 +389,7 @@ def build_slot_decoder(num_slots, src_vocab_size=1000, trg_vocab_size=1000,
             logits = nn.fc(h, trg_vocab_size, num_flatten_dims=2,
                            name="proj_logits")
             tok, _, _ = fluid.layers.slot_decode_sample(
-                logits, pos, eos_id=eos_id, max_length=T)
+                logits, pos, eos_id=eos_id, max_length=T, **samp)
     return init, admit, step, tok.name
 
 
@@ -387,7 +399,7 @@ def build_paged_slot_decoder(num_slots, src_vocab_size=1000,
                              num_pages=None, num_groups=None, bos_id=1,
                              eos_id=2, sampler=None, beam_width=1,
                              speculative=0):
-    """Block-paged continuous-batching decode (greedy). The slots' self
+    """Block-paged continuous-batching decode. The slots' self
     K/V live in a page pool ``[num_pages, H, page_size, dh]`` shared
     through a per-slot page table; cross K/V are pooled per group
     ``[num_groups, H, T, dh]``; the step program is a self-contained
@@ -414,8 +426,9 @@ def build_paged_slot_decoder(num_slots, src_vocab_size=1000,
     with ``fetches = {"token", "spec_token_seq", "spec_accept_len"}``;
     the plain ``step_prog`` stays as the ``FLAGS_speculative=off`` oracle.
 
-    Beam decode (``beam_width > 1``, ROADMAP.md A7) and stochastic
-    samplers (ROADMAP.md A6) raise here. Build under the training
+    ``sampler`` sets the token rule of the step and of the verify's
+    accept walk (``_sampler_attrs``). Beam decode (``beam_width > 1``,
+    ROADMAP.md A7) raises here. Build under the training
     ``build()``'s fresh ``unique_name`` scope; parameters bind by
     name."""
     if int(beam_width) != 1:
@@ -425,7 +438,7 @@ def build_paged_slot_decoder(num_slots, src_vocab_size=1000,
     n_spec = int(speculative)
     if n_spec < 0:
         raise ValueError("speculative must be >= 0, got %d" % n_spec)
-    _check_greedy(sampler)
+    samp = _sampler_attrs(sampler)
     nn = fluid.layers
     S, T, D = int(num_slots), int(max_length), int(d_model)
     dh = D // n_head
@@ -675,7 +688,8 @@ def build_paged_slot_decoder(num_slots, src_vocab_size=1000,
             logits = decode_stack(pvar, h, group_of, src_mask,
                                   write_and_attend)
             tok_new, pos_new, done_new = fluid.layers.slot_decode_sample(
-                logits, pos, done=done, eos_id=eos_id, max_length=T)
+                logits, pos, done=done, eos_id=eos_id, max_length=T,
+                **samp)
             # thread the loop state: the next iteration embeds the token
             # chosen here, no host in the loop
             nn.assign(tok_new, output=tok)
@@ -752,7 +766,7 @@ def build_paged_slot_decoder(num_slots, src_vocab_size=1000,
                 (spec_anchor, spec_seq, spec_acc, spec_path, spec_pos,
                  spec_done) = fluid.layers.slot_speculative_accept(
                     spec_logits, nodes_tok, par, pos, done, eos_id=eos_id,
-                    max_length=T)
+                    max_length=T, **samp)
                 # survivor commit AFTER the walk (attention read the
                 # pre-commit tree layout) and BEFORE the state assigns
                 for kpool, vpool in spec_pools:

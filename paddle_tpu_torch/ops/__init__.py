@@ -10,6 +10,7 @@ from paddle_tpu_torch.ops import math_ops  # noqa: F401
 from paddle_tpu_torch.ops import tensor_ops  # noqa: F401
 from paddle_tpu_torch.ops import activation_ops  # noqa: F401
 from paddle_tpu_torch.ops import random_ops  # noqa: F401
+from paddle_tpu_torch.ops import io_ops  # noqa: F401
 from paddle_tpu_torch.ops import loss_ops  # noqa: F401
 from paddle_tpu_torch.ops import nn_ops  # noqa: F401
 from paddle_tpu_torch.ops import control_flow_ops  # noqa: F401

@@ -1,24 +1,24 @@
-"""Decode-loop token selection: slot_decode_sample (greedy).
+"""Decode-loop token selection: slot_decode_sample.
 
 Counterpart of ``paddle_tpu/ops/sampling_ops.py`` ``slot_decode_sample``,
-``sample_step_tokens`` and ``slot_lifecycle_advance``. The port carries
-the greedy strategy; temperature and top-k sampling key jax's threefry
-stream on (seed, slot, position), and reproducing those bits is the
-RNG-parity item of ROADMAP.md (A6), so the port raises for them instead
-of sampling other tokens. ``sample_step_tokens`` is the one token rule
-the plain step and the speculative accept walk
-(``ops/speculative_ops.py``) share, which is what makes a speculative
-stream equal to the sequential one.
+``sample_step_tokens`` and ``slot_lifecycle_advance``: greedy argmax, or
+temperature / top-k sampling from jax's threefry stream
+(``core/prng.py``) keyed on ``fold_in(fold_in(PRNGKey(base_seed),
+slot), position)``, as the JAX package keys it. The key depends only on
+(seed, slot, position), never on the run's key, so a sampled decode
+loop captures like a greedy one, and ``sample_step_tokens`` is the one
+token rule the plain step and the speculative accept walk
+(``ops/speculative_ops.py``) share, which is what makes a sampled
+speculative stream equal to the sequential one. On the card each
+sampled position is one launch of the threefry kernel (the per-slot
+key folds and the Gumbel uniforms together).
 """
 
+import numpy as np
 import torch
 
+from paddle_tpu_torch.core import prng
 from paddle_tpu_torch.core.op_registry import register_op
-
-RNG_PARITY_TODO = (
-    "sampled decode (temperature / top_k) needs jax-threefry-exact random "
-    "bits, which the port does not have yet (ROADMAP.md, A6 RNG parity); "
-    "the port serves greedy decoding only")
 
 
 def slot_lifecycle_advance(pos_flat, was_done, tok, eos, max_len):
@@ -34,20 +34,40 @@ def slot_lifecycle_advance(pos_flat, was_done, tok, eos, max_len):
     return new_pos, new_done
 
 
-def sample_step_tokens(lg, strategy, temperature):
+def sample_step_tokens(lg, pos_flat, strategy, temperature, top_k,
+                       base_seed):
     """The token choice of one decode position over ``[S, V]`` float32
-    logits: argmax for the greedy strategy (or a temperature of 0),
-    returning the first maximum on ties as ``jnp.argmax`` does. Any
-    stochastic strategy raises (``RNG_PARITY_TODO``). Returns flat
-    ``[S]`` int64 tokens, with no eos forcing."""
-    if strategy != "greedy" and float(temperature) > 0.0:
-        raise NotImplementedError(RNG_PARITY_TODO)
-    return torch.argmax(lg, dim=-1)
+    logits at the per-slot sequence positions ``pos_flat``: argmax for
+    the greedy strategy or a temperature of 0 (the first maximum on
+    ties, as ``jnp.argmax``); otherwise the logits scaled by the
+    temperature (a product with its float32 reciprocal, as XLA divides
+    by a constant), cut below the ``top_k``-th value for ``top_k``, and
+    ``categorical`` with slot ``s``'s key ``fold_in(fold_in(
+    PRNGKey(base_seed), s), pos_flat[s])``. Returns flat ``[S]`` int64
+    tokens, with no eos forcing."""
+    temperature = float(temperature)
+    if strategy == "greedy" or temperature <= 0.0:
+        return torch.argmax(lg, dim=-1)
+    S = lg.shape[0]
+    # the float32 reciprocal as a Python number: exact in the product,
+    # and no host-to-device copy inside a captured loop
+    inv = float(np.float32(1.0) / np.float32(temperature))
+    scaled = lg * inv
+    top_k = int(top_k)
+    if strategy == "top_k" and top_k > 0:
+        kth = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
+        scaled = torch.where(scaled < kth,
+                             torch.full_like(scaled, float("-inf")), scaled)
+    slots = torch.arange(S, dtype=torch.int64, device=lg.device)
+    key = prng.KeyChain(prng.PRNGKey_pair(base_seed)).fold_in(
+        slots).fold_in(pos_flat.reshape(-1))
+    return prng.categorical(key, scaled)
 
 
 def _lower_slot_decode_sample(ctx, ins, attrs):
-    """Greedy per-slot token choice over ``[S, 1, V]`` logits, eos forced
-    on finished slots, then the lifecycle step."""
+    """Per-slot token choice over ``[S, 1, V]`` logits
+    (``sample_step_tokens``), eos forced on finished slots, then the
+    lifecycle step."""
     max_len = int(attrs.get("max_length", 0))
     if max_len < 2:
         raise ValueError(
@@ -57,8 +77,10 @@ def _lower_slot_decode_sample(ctx, ins, attrs):
     lg = ins["Logits"][0][:, 0, :].to(torch.float32)
     pos = ins["Pos"][0]
     pos_flat = pos.reshape(-1)
-    tok = sample_step_tokens(lg, attrs.get("strategy", "greedy"),
-                             attrs.get("temperature", 1.0))
+    tok = sample_step_tokens(lg, pos_flat, attrs.get("strategy", "greedy"),
+                             attrs.get("temperature", 1.0),
+                             attrs.get("top_k", 0),
+                             int(attrs.get("base_seed", 0)))
     done_in = ins.get("Done", [None])[0]
     if done_in is not None:
         was_done = done_in.reshape(-1) > 0

@@ -16,8 +16,8 @@ The accept walk chooses each position's token through
 ``slot_lifecycle_advance``, the very functions ``slot_decode_sample``
 uses, so the committed stream equals the ``FLAGS_speculative=off``
 stream: the drafter decides how MANY tokens land per dispatch, never
-WHICH. Greedy only: a stochastic strategy raises like
-``slot_decode_sample`` does (ROADMAP.md A6).
+WHICH. A sampled position draws from its (seed, slot, position) key, so
+a sampled verify commits the sequential sampled stream too.
 
 The two pool writers update the pools in place, as ``paged_kv_write``
 does, and bind ``KOut``/``VOut`` back onto the pool variables.
@@ -93,7 +93,8 @@ def _lower_slot_speculative_accept(ctx, ins, attrs):
     (node 0, sequence position ``pos``):
 
     1. choose token ``u`` from the current node's logits with the
-       sequential rule (``sample_step_tokens``);
+       sequential rule (``sample_step_tokens``, at the node's sequence
+       position);
     2. commit ``u`` and advance the lifecycle (``slot_lifecycle_advance``:
        done latches on eos or when the budget runs out);
     3. if a draft child of the current node carries exactly ``u`` (and its
@@ -118,6 +119,8 @@ def _lower_slot_speculative_accept(ctx, ins, attrs):
     was_done = ins["Done"][0].reshape(-1) > 0
     strategy = attrs.get("strategy", "greedy")
     temperature = float(attrs.get("temperature", 1.0))
+    top_k = int(attrs.get("top_k", 0))
+    base_seed = int(attrs.get("base_seed", 0))
     eos = int(attrs.get("eos_id", 2))
     max_len = int(attrs.get("max_length", 0))
     if max_len < 2:
@@ -139,7 +142,8 @@ def _lower_slot_speculative_accept(ctx, ins, attrs):
     tok_cols = []
     for d in range(N):
         active = ~stopped
-        u = sample_step_tokens(lg[rows, cur], strategy, temperature)
+        u = sample_step_tokens(lg[rows, cur], posq, strategy, temperature,
+                               top_k, base_seed)
         adv_pos, adv_done = slot_lifecycle_advance(posq, done_s, u, eos,
                                                    max_len)
         new_done = torch.where(active, adv_done, done_s)

@@ -1,7 +1,7 @@
 """SlotDecodeSession: continuous batching over the block-paged KV pool or
 dense slot caches.
 
-Counterpart of ``paddle_tpu/serving/generation.py`` for greedy decode.
+Counterpart of ``paddle_tpu/serving/generation.py``: greedy and sampled decode.
 ``models.transformer.build_paged_slot_decoder`` (``paged=True``) and
 ``build_slot_decoder`` (``paged=False``) build the programs; this module
 is the host-side slot manager. Sequences are admitted into
@@ -34,9 +34,11 @@ a ``HealthMonitor`` over page and slot occupancy; brownout evicts the
 prefix cache and refuses forks, shed refuses admissions), request
 tracing (``enqueue(..., trace_id=)``), the chaos sites ``serve.admit``
 and ``serve.dispatch`` with the classified retry around an admission,
-and ``in_dispatch``. Not ported yet (ROADMAP.md): sampled decode (A6,
-RNG parity), decode snapshots (A8's second half), beam decode (A7), the
-session's metrics, the prefix cache's gauges among them (A9).
+and ``in_dispatch``. Token selection is greedy or sampled
+(``Sampler``: temperature or top-k, drawn from jax's threefry stream as
+the JAX package draws it). Not ported yet (ROADMAP.md): decode snapshots
+(A8's second half), beam decode (A7), the session's metrics, the prefix
+cache's gauges among them (A9).
 """
 
 import hashlib
@@ -50,7 +52,6 @@ from paddle_tpu_torch.analysis.lint import suggest_buckets
 from paddle_tpu_torch.kernels.paged_attention import pages_for
 from paddle_tpu_torch.models import transformer
 from paddle_tpu_torch.observability import tracing as _tracing
-from paddle_tpu_torch.ops.sampling_ops import RNG_PARITY_TODO
 from paddle_tpu_torch.resilience import chaos as _chaos
 from paddle_tpu_torch.resilience import retry as _retry
 from paddle_tpu_torch.serving import speculative as _spec_mod
@@ -72,10 +73,15 @@ class NoFreeSlotError(ServingError):
 
 
 class Sampler(object):
-    """Token-selection spec for the decode loop. The port serves
-    ``"greedy"`` (argmax); temperature and top-k sampling raise
-    ``NotImplementedError`` until the port reproduces jax's random bits
-    (ROADMAP.md, A6 RNG parity)."""
+    """Token-selection spec for the on-device decode loop.
+
+    ``strategy``: ``"greedy"`` (argmax, the default), ``"temperature"``
+    (softmax sampling at ``temperature``), or ``"top_k"`` (restrict to
+    the ``top_k`` highest logits, then temperature-sample). Stochastic
+    strategies draw from per-slot threefry streams keyed on ``(seed,
+    slot, position)``, never the run's key, so a session rebuilt with
+    the same ``seed`` replays the same tokens however the token loop is
+    split into dispatches, and draws the JAX package's tokens."""
 
     def __init__(self, strategy="greedy", temperature=1.0, top_k=0,
                  seed=0):
@@ -83,8 +89,10 @@ class Sampler(object):
             raise ValueError(
                 "Sampler strategy must be greedy/temperature/top_k, "
                 "got %r" % (strategy,))
-        if strategy != "greedy":
-            raise NotImplementedError(RNG_PARITY_TODO)
+        if strategy == "top_k" and int(top_k) < 1:
+            raise ValueError(
+                "Sampler(strategy='top_k') needs top_k >= 1 — top_k=0 "
+                "would silently sample the full vocabulary")
         self.strategy = strategy
         self.temperature = float(temperature)
         self.top_k = int(top_k)
@@ -92,7 +100,7 @@ class Sampler(object):
 
 
 class SlotDecodeSession(object):
-    """Continuous-batching greedy decode over a block-paged KV pool
+    """Continuous-batching decode over a block-paged KV pool
     (``paged=True``) or dense per-slot caches (``paged=False``).
 
     Build it with the model's parameters in the scope (they bind by

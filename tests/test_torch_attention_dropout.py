@@ -9,12 +9,12 @@ merged heads ahead of the output projection, as
 - under ``is_test`` the outputs equal the JAX program's (same seeded
   weights; 1e-5 absolute, fp32 projections and attention in another
   order);
-- in training the kept share of the merged heads is 1 - rate within a
-  stated bound, and the ``dropout_grad`` op carries its forward's
-  ``__rng_id__`` and passes gradient exactly where the forward kept.
-
-Random bits differ between the packages (torch's Philox against jax's
-threefry), so training outputs are compared by these properties only.
+- in training the dropout mask equals the JAX program's bit for bit
+  (both packages draw from jax's threefry stream, keyed alike), its kept
+  share is 1 - rate within a stated bound, the gradient is within
+  1e-5 of the JAX program's, and the ``dropout_grad`` op carries its
+  forward's ``__rng_id__`` and passes gradient exactly where the
+  forward kept.
 """
 
 import numpy as np
@@ -108,19 +108,34 @@ def test_is_test_outputs_equal_jax():
                                atol=OUT_TOL)
 
 
-def test_training_keep_rate_and_grad_replay_the_mask():
-    main, startup, out, grad = _mha_program(tfluid, t_unique_name, False,
+def _train_mask_and_grad(pkg, unique_name, Scope, seed_params):
+    main, startup, out, grad = _mha_program(pkg, unique_name, False,
                                             with_grad=True)
+    main.random_seed = 17
     ops = main.global_block().ops
     fwd = next(op for op in ops if op.type == "dropout")
     bwd = next(op for op in ops if op.type == "dropout_grad")
     assert bwd.attrs["__rng_id__"] == fwd.attrs["__rng_id__"]
-    exe, scope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope()
+    exe, scope = pkg.Executor(pkg.CPUPlace()), Scope()
     exe.run(startup, scope=scope)
-    t_seed_params(main, scope)
+    seed_params(main, scope)
     mask, g = exe.run(main, feed=_feed(1), scope=scope,
                       fetch_list=[fwd.output("Mask")[0], grad])
-    mask, g = np.asarray(mask), np.asarray(g)
+    return np.asarray(mask), np.asarray(g), fwd.attrs["__rng_id__"]
+
+
+def test_training_keep_rate_and_grad_replay_the_mask():
+    """Training: the mask is the JAX package's, bit for bit (both draw
+    ``bernoulli(fold_in(step_key, __rng_id__), 1 - rate)`` from jax's
+    threefry stream), its kept share is 1 - rate within ``KEEP_TOL``, and
+    ``dropout_grad`` passes gradient exactly where the forward kept."""
+    mask, g, rng_id = _train_mask_and_grad(tfluid, t_unique_name,
+                                           tfluid.Scope, t_seed_params)
+    want_mask, want_g, want_id = _train_mask_and_grad(
+        jfluid, j_unique_name, JScope, j_seed_params)
+    assert rng_id == want_id
+    np.testing.assert_array_equal(mask, want_mask)
+    np.testing.assert_allclose(g, want_g, rtol=0, atol=OUT_TOL)
     assert mask.shape == (BATCH, SEQ, D_MODEL)
     assert abs((mask != 0).mean() - (1.0 - RATE)) < KEEP_TOL
     # downgrade_in_infer: the gradient is the output's times the mask

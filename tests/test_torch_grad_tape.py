@@ -22,13 +22,12 @@ recorded instead of rerunning the forward, on the CPU.
 
 import numpy as np
 import pytest
-import torch
 
 import paddle_tpu as jfluid
 import paddle_tpu_torch as tfluid
 from paddle_tpu import unique_name as j_unique_name
 from paddle_tpu_torch import unique_name as t_unique_name
-from paddle_tpu_torch.core import op_registry
+from paddle_tpu_torch.core import op_registry, prng
 from paddle_tpu_torch.core.lowering import BlockLowerer
 from paddle_tpu_torch.testing import fresh_state, set_deterministic_params
 from test_torch_graph_capture import StandInCapturer
@@ -128,20 +127,20 @@ def test_dropout_grad_uses_the_forward_mask(impl):
                  if op.type == "dropout"][0].output("Mask")[0]
     exe = tfluid.Executor(tfluid.CPUPlace())
     draws = []
-    rand = torch.rand
+    plain_draw = prng.plain_draw
 
-    def counted_rand(*args, **kwargs):
+    def counted_draw(*args, **kwargs):
         draws.append(args)
-        return rand(*args, **kwargs)
+        return plain_draw(*args, **kwargs)
 
     xs = np.random.RandomState(5).uniform(0.5, 1.5, (6, 64)).astype(
         "float32")
-    torch.rand = counted_rand
+    prng.plain_draw = counted_draw
     try:
         mask, grad = exe.run(main, feed={"x": xs},
                              fetch_list=[mask_name, gx])
     finally:
-        torch.rand = rand
+        prng.plain_draw = plain_draw
     assert len(draws) == 1 and exe.grad_op_reruns == 0
     assert 0 < (mask == 0).mean() < 1
     keep = 2.0 if impl == "upscale_in_train" else 1.0

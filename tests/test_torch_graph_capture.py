@@ -222,22 +222,40 @@ def test_new_program_version_is_a_new_key():
     assert len(exe._graphs) == 4 and exe.eager_multi_step == 0
 
 
+def _dropout_multi_step(pkg, exe, scope, calls=3):
+    main = pkg.Program()
+    main.random_seed = 21
+    with pkg.program_guard(main, pkg.Program()):
+        x = pkg.layers.data("x", shape=[8], dtype="float32",
+                            append_batch_size=False)
+        y = pkg.layers.dropout(x, dropout_prob=0.5)
+    return [np.asarray(exe.run_multi_step(
+        main, 2, feed={"x": np.ones(8, "float32")}, fetch_list=[y],
+        scope=scope, stack_fetches=True)[0]) for _ in range(calls)]
+
+
 def test_random_program_runs_eager_and_is_counted():
-    main = tfluid.Program()
-    with tfluid.program_guard(main, tfluid.Program()):
-        x = tfluid.layers.data("x", shape=[8], dtype="float32",
-                               append_batch_size=False)
-        y = tfluid.layers.dropout(x, dropout_prob=0.5)
+    """A program with random ops is captured like any other (the name is
+    kept from when it ran eagerly): the run key is a bound tensor written
+    before each replay, so replays equal the eager loop's draws, which
+    equal the JAX package's scan, and advance from call to call; nothing
+    is counted as eager."""
     capturer = StandInCapturer()
     exe = tfluid.Executor(tfluid.CPUPlace())
     exe.graph_capturer = capturer
-    scope = tfluid.Scope()
-    outs = [exe.run_multi_step(main, 2, feed={"x": np.ones(8, "float32")},
-                               fetch_list=[y], scope=scope)[0]
-            for _ in range(3)]
-    assert capturer.graphs == [] and exe.eager_multi_step == 3
-    # the seeds advance per run, as the eager loop's do
-    assert not all(np.array_equal(outs[0], o) for o in outs[1:])
+    got = _dropout_multi_step(tfluid, exe, tfluid.Scope())
+    assert len(capturer.graphs) == 1 and capturer.graphs[0].replays == 2
+    assert exe.eager_multi_step == 0
+    eager = _dropout_multi_step(tfluid, tfluid.Executor(tfluid.CPUPlace()),
+                                tfluid.Scope())
+    want = _dropout_multi_step(jfluid, jfluid.Executor(jfluid.CPUPlace()),
+                               jfluid.core.scope.Scope())
+    for g, e, w in zip(got, eager, want):
+        np.testing.assert_array_equal(g, e)
+        np.testing.assert_array_equal(g, w)
+    # the draws advance per call and per step, as the eager loop's do
+    assert not any(np.array_equal(got[0], o) for o in got[1:])
+    assert not np.array_equal(got[0][0], got[0][1])
 
 
 def test_cuda_graph_flag_off_runs_eager_and_counts():
@@ -271,7 +289,7 @@ def test_replay_counts_the_captured_launches():
         other.launch()
     assert kernel.launches == other.launches == 0
     kernel.launch(key=(4, True))  # outside capture: counted at once
-    entry = _CapturedLoop(tfluid.Program(), tfluid.Scope(), False)
+    entry = _CapturedLoop(tfluid.Program(), tfluid.Scope())
     entry.graph = StandInGraph(lambda: None)
     entry.launch_log = log
     for _ in range(3):

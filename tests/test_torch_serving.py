@@ -258,8 +258,23 @@ def test_pool_exhaustion_is_a_typed_admission_reject(models):
 
 
 def test_sampled_decode_points_to_rng_parity():
-    with pytest.raises(NotImplementedError, match="RNG parity"):
-        Sampler(strategy="top_k", top_k=3)
+    """Every strategy is a Sampler now (its draws are held against the
+    JAX package's in ``test_torch_sampled_decode.py``); the port's
+    refusals are the JAX package's, message for message."""
+    from paddle_tpu.serving.generation import Sampler as JSampler
+
+    for kw in ({"strategy": "greedy"},
+               {"strategy": "temperature", "temperature": 0.7, "seed": 3},
+               {"strategy": "top_k", "top_k": 3, "seed": 9}):
+        got, want = Sampler(**kw), JSampler(**kw)
+        assert ((got.strategy, got.temperature, got.top_k, got.seed)
+                == (want.strategy, want.temperature, want.top_k, want.seed))
+    for kw in ({"strategy": "top_k"}, {"strategy": "beam"}):
+        with pytest.raises(ValueError) as want:
+            JSampler(**kw)
+        with pytest.raises(ValueError) as got:
+            Sampler(**kw)
+        assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("steps", [1, 4])

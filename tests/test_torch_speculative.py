@@ -147,9 +147,24 @@ def test_verify_and_draft_programs_equal_jax_op_for_op():
 def test_build_rejects_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="A7"):
         t_transformer.build_paged_slot_decoder(2, beam_width=2)
-    with pytest.raises(NotImplementedError, match="A6"):
+    # a sampled speculative build is ported: its step and verify programs
+    # equal the JAX package's op for op, the sampler's attrs included
+    samp = {"strategy": "top_k", "top_k": 3, "temperature": 0.7, "seed": 4}
+    with j_unique_name.guard({}):
+        jb = j_transformer.build_paged_slot_decoder(2, speculative=2,
+                                                    sampler=samp)
+    with t_unique_name.guard({}):
+        tb = t_transformer.build_paged_slot_decoder(2, speculative=2,
+                                                    sampler=samp)
+    for jp, tp in ((jb[5], tb[5]), (jb[6], tb[6])):
+        assert _signature(tp) == _signature(jp)
+    accept = [op for op in tb[6].global_block().ops
+              if op.type == "slot_speculative_accept"][0]
+    assert (accept.attrs["strategy"], accept.attrs["top_k"],
+            accept.attrs["base_seed"]) == ("top_k", 3, 4)
+    with pytest.raises(ValueError, match="top_k >= 1"):
         t_transformer.build_paged_slot_decoder(
-            2, speculative=2, sampler={"strategy": "top_k", "top_k": 3})
+            2, speculative=2, sampler={"strategy": "top_k"})
     with pytest.raises(ValueError, match=">= 0"):
         t_transformer.build_paged_slot_decoder(2, speculative=-1)
 

@@ -9,8 +9,9 @@ depth 0..N-1, beside done slots, a slot that emits eos, slots at the end
 of the decode budget and duplicate siblings (the first matching child
 wins). ``paged_spec_kv_write`` / ``paged_spec_kv_compact`` move rows and
 are compared bit for bit outside the trash page 0. ``paged_tree_attention``
-is compared within 1e-5 (fp32, other summation order). A stochastic
-strategy raises in the port (ROADMAP.md A6).
+is compared within 1e-5 (fp32, other summation order). Sampled accept
+walks (temperature, top-k) draw the JAX package's tokens: compared
+exactly on the file's fixed cases.
 """
 
 import numpy as np
@@ -131,18 +132,30 @@ def test_slot_speculative_accept_matches_jax(seed):
 
 
 def test_non_greedy_strategy_raises_in_the_port():
-    attrs = dict(ACCEPT_ATTRS, strategy="top_k", top_k=3, temperature=0.8)
-    with pytest.raises(NotImplementedError, match="RNG parity"):
-        _run(tfluid, "slot_speculative_accept", _accept_case(0), ACCEPT_OUTS,
-             attrs)
-    # a temperature of 0 is greedy under any strategy name, as in JAX
-    attrs["temperature"] = 0.0
-    want = _run(jfluid, "slot_speculative_accept", _accept_case(0),
-                ACCEPT_OUTS, attrs)
-    got = _run(tfluid, "slot_speculative_accept", _accept_case(0),
-               ACCEPT_OUTS, attrs)
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g, w.astype(g.dtype))
+    """Sampled accept walks (temperature and top-k) equal the JAX
+    package's: each position draws from its (seed, slot, position) key
+    through the shared token rule. A temperature of 0 is greedy under
+    any strategy name, as in JAX. (The name is kept from when the port
+    refused a stochastic strategy.)"""
+    for extra in ({"strategy": "top_k", "top_k": 3, "temperature": 0.8,
+                   "base_seed": 11},
+                  {"strategy": "temperature", "temperature": 1.3,
+                   "base_seed": 5},
+                  {"strategy": "top_k", "top_k": 3, "temperature": 0.0}):
+        attrs = dict(ACCEPT_ATTRS, **extra)
+        for seed in (0, 1):
+            want = _run(jfluid, "slot_speculative_accept", _accept_case(seed),
+                        ACCEPT_OUTS, attrs)
+            got = _run(tfluid, "slot_speculative_accept", _accept_case(seed),
+                       ACCEPT_OUTS, attrs)
+            for name, g, w in zip(ACCEPT_OUTS, got, want):
+                np.testing.assert_array_equal(g, w.astype(g.dtype),
+                                              err_msg="%s %r" % (name, extra))
+            greedy = _run(tfluid, "slot_speculative_accept",
+                          _accept_case(seed), ACCEPT_OUTS, ACCEPT_ATTRS)
+            # a sampled walk is not the greedy one (TokSeq)
+            assert (np.array_equal(got[1], greedy[1])
+                    == (extra["temperature"] == 0.0))
 
 
 def _pool_case(seed):
