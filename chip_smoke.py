@@ -32,7 +32,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    B5 (``tree_plan``), B1's rows path (``flash_rows_plan``), B6
    (``lstm_plan``) and B7 (``gru_plan``) give the threads and shared
    bytes (and blocks) the kernels derive, at every head dim or over
-   batches and widths; runs a full
+   batches and widths, and so do the plans of B1's and B2's bf16
+   entries (``flash_bf16_plan``, ``flash_bwd_plan``'s ``"dkv_bf16"``;
+   B2's also its Q tile); runs a full
    [B, H, T, S] mask (GQA, a window, a fully masked row) through
    ``flash_attention`` on the card and on the CPU (``attention_reference``
    on both, no kernel launch; forward and gradients within 1e-4); then times
@@ -240,11 +242,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    parameters), not from a startup program of its own.
 15. bf16 mixed precision (AMP), as bench.py trains on the accelerator
    (``rewrite_program_amp(main, "bfloat16")``). Right after step 3's
-   timing (``amp_kernels``): the flash kernels' bf16 entries (B1's tile
-   path, ``flash_fwd_bf16``; the B2/B3 pair, ``flash_bwd_dkv_bf16`` /
-   ``flash_bwd_dq_bf16``) against their plain versions on the same bf16
-   tensors, at the train step's three calls, the encoder's shape and
-   B1's tile edges (dead rows and masked keys exactly 0), within one
+   timing (``amp_kernels``): the flash kernels' bf16 entries (B1's,
+   ``flash_fwd_bf16``, and B2's, ``flash_bwd_dkv_bf16``, on the bf16
+   tensor cores; B3's, ``flash_bwd_dq_bf16``) against their plain
+   versions on the same bf16 tensors, at the train step's three calls,
+   the encoder's shape, B1's tile edges and the tensor-core entries'
+   own (head dims 32, 96 and 128, T and S apart and off multiples of
+   64, GQA with a window and a key mask, dead rows), each case with the
+   bf16 entries' plans (dead rows and masked keys exactly 0), within one
    bf16 rounding step of the value (2**-7 of it) plus 1e-4; timed at the
    AMP step's key-mask and causal shapes beside the plain versions and
    ``scaled_dot_product_attention`` in bf16 (forward, and autograd's
@@ -257,7 +262,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    none of the float32 ones, 30 threefry, no grad-op rerun, a 0.1 nat
    fall, finite losses) and every floating persistable float32 in the
    scope; mean step ms and decoder tokens/s beside step 8's, peak
-   memory, and a profiled step's busy time and matrix-product share.
+   memory, and a profiled step's busy time and matrix-product share
+   (each profile also prints the device time of the port's flash
+   kernels, ``port kernel`` lines).
    Then ``FLAGS_fused_ce`` on the same step from the same weights and
    dropout keys: 5 losses within 1e-3 (relative) of the composed
    head's, its step ms. After step 9, the AMP model at 2 layers, batch
@@ -433,16 +440,27 @@ GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
 
 def kernel_symbol(line):
     """A kernel's name and template arguments from a ptxas "Compiling
-    entry function '<mangled>'" line (lstm_cell_kernel<4, true, true>)."""
+    entry function '<mangled>'" line (lstm_cell_kernel<4, true, true>):
+    the mangled name's parts, each a length and that many characters,
+    read in turn to the first that ends in ``_kernel``."""
     import re
 
-    m = re.search(r"\d+([a-z_]+_kernel)(?:I(.*?)E)?E", line)
-    if not m:
-        return line.strip()[:120]
-    args = re.findall(r"L([ib])(\d+)E", (m.group(2) or "") + "E")
+    m = re.search(r"'_ZN?", line)
+    pos = m.end() if m else len(line)
+    while True:
+        n = re.match(r"\d+", line[pos:])
+        if not n:
+            return line.strip()[:120]
+        start = pos + n.end()
+        pos = start + int(n.group(0))
+        name = line[start:pos]
+        if name.endswith("_kernel"):
+            break
+    tmpl = re.match(r"I((?:L[ib]\d+E)*)E", line[pos:])
+    args = re.findall(r"L([ib])(\d+)E", tmpl.group(1)) if tmpl else []
     shown = ", ".join(v if t == "i" else ("true" if v == "1" else "false")
                       for t, v in args)
-    return "%s<%s>" % (m.group(1), shown) if shown else m.group(1)
+    return "%s<%s>" % (name, shown) if shown else name
 
 
 def fail(msg):
@@ -1130,6 +1148,37 @@ def flash_bwd_layout_phase():
           "bytes" % (n, limit))
 
 
+def flash_bf16_layout_phase():
+    """B1's and B2's bf16 plans against the kernels: at every head dim
+    1..128, the threads and shared bytes of ``flash_bf16_plan`` equal
+    those csrc/flash_fwd_bf16.cu derives, and the threads, shared bytes
+    and Q tile of ``flash_bwd_plan``'s ``"dkv_bf16"`` those of
+    csrc/flash_bwd_dkv_bf16.cu (``kernel_bf16_layout``), all within the
+    card's per-block limit."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels.build import device_limits
+
+    n_sm, limit = device_limits("cuda")
+    n = 0
+    for d in range(1, fa.MAX_HEAD_DIM + 1):
+        fwd = fa.flash_bf16_plan(TRAIN_BATCH, N_HEAD, MAX_LEN, MAX_LEN, d,
+                                 n_sm, limit)
+        dkv = fa.flash_bwd_plan(1, 1, 1, 64, 64, d)["dkv_bf16"]
+        for entry, p, keys in (("fwd", fwd, ("threads", "smem")),
+                               ("dkv", dkv, ("threads", "smem", "tile"))):
+            tile = p["block_q"] if entry == "fwd" else p["rows"]
+            got = fa.kernel_bf16_layout(entry, tile, d)
+            want = {k: p[k] for k in keys}
+            if got != want or p["smem"] > limit:
+                fail("flash bf16 %s tile %d d %d: the plan's %s, the "
+                     "kernel's %s, limit %d" % (entry, tile, d, want, got,
+                                                limit))
+            n += 1
+    print("flash bf16 layout: the plans' threads and shared bytes (and B2's "
+          "Q tile) equal the kernels' at %d (entry, head dim) pairs, all "
+          "within %d bytes" % (n, limit))
+
+
 def paged_layout_phase():
     """B4's plan against the kernel: at every head dim 1..128, the
     threads and shared bytes of ``paged_plan`` equal those
@@ -1585,16 +1634,46 @@ def timing_phase(torch):
 def bf16_cases(torch, gen):
     """(name, kwargs for flash_forward) for the flash kernels' bf16
     entries, from a generator of their own: the train step's three calls
-    ([64,8,256,64]: key mask, causal, cross), the encoder's shape and B1's
-    multi-row tile edges, each case's q, k and v in bf16."""
+    ([64,8,256,64]: key mask, causal, cross), the encoder's shape, B1's
+    multi-row tile edges and the tensor-core entries' own (head dims 32
+    and 96, padded to 32 and 128; T and S apart and off multiples of 64;
+    GQA with a window, causal rows and a key mask; a batch row with every
+    key masked), each case's q, k and v in bf16."""
     dev = "cuda"
     enc = {n: torch.randn(1, N_HEAD, MAX_LEN, D_MODEL // N_HEAD,
                           generator=gen, device=dev) for n in ("q", "k", "v")}
     enc["kv_mask"] = (torch.arange(MAX_LEN, device=dev) < 197)[None].float()
+
+    def case(B, H, Hkv, T, S, d, lengths=None, **opts):
+        kw = {n: torch.randn(B, H if n == "q" else Hkv, T if n == "q" else S,
+                             d, generator=gen, device=dev)
+              for n in ("q", "k", "v")}
+        if lengths is not None:
+            kw["kv_mask"] = (torch.arange(S, device=dev)[None, :]
+                             < torch.tensor(lengths, device=dev)[:, None]
+                             ).float()
+        return dict(kw, kv_group=H // Hkv, **opts)
+
+    def edges():
+        return [
+            ("T90_S150_d32_gqa_masked",
+             case(2, 8, 2, 90, 150, 32, [150, 61])),
+            ("T200_S70_d128_cross", case(2, 4, 4, 200, 70, 128, [70, 33])),
+            ("T150_gqa_window_causal",
+             case(2, 8, 4, 150, 150, 64, [150, 100], causal=True,
+                  window=50)),
+            ("T33_S300_d96_dead_rows",
+             case(3, 2, 2, 33, 300, 96, [300, 0, 65])),
+            ("T45_d40_window_causal",
+             case(2, 3, 3, 45, 45, 40, causal=True, window=16)),
+        ]
+
     out = []
+    # the edge cases draw last, so the others keep the data they had
+    # before those were added
     for name, kw in (train_flash_cases(torch, gen)
                      + [("encoder_masked", enc)]
-                     + flash_tile_cases(torch, gen)):
+                     + flash_tile_cases(torch, gen) + edges()):
         out.append((name, {k: v.to(torch.bfloat16) if k in ("q", "k", "v")
                            else v for k, v in kw.items()}))
     return out
@@ -1618,13 +1697,21 @@ def amp_kernel_phase(torch):
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels.build import device_limits
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
     worst = {"flash_fwd_bf16": 0.0, "flash_bwd_dkv_bf16": 0.0,
              "flash_bwd_dq_bf16": 0.0}
     tol = "|err| <= 2^-7 |plain| + %.0e" % K1_TOL
     cases = bf16_cases(torch, gen)
+    limits = device_limits("cuda")
     for name, kw in cases:
+        B, H, T, d = kw["q"].shape
+        Hkv, S = kw["k"].shape[1:3]
+        print("plan flash_fwd_bf16 %-22s %s" % (name, fa.flash_bf16_plan(
+            B, H, T, S, d, *limits)))
+        print("plan flash_bwd_dkv_bf16 %-18s %s" % (name, fa.flash_bwd_plan(
+            B, H, Hkv, T, S, d)["dkv_bf16"]))
         out, lse = fa.flash_forward(**kw)
         ref, ref_lse = fa.flash_forward_plain(**kw)
         torch.cuda.synchronize()
@@ -3038,9 +3125,11 @@ def train_feed(np, batch):
 def profile_call(torch, label, fn, top=8):
     """``fn()`` under torch.profiler: prints its wall time, the device's
     busy share of it, the matrix-product kernels' share of the busy time
-    (names with one of ``GEMM_NAMES``) and the device time by kernel (the
-    ``top`` largest); returns {"wall_ms", "busy_ms", "gemm_ms"}, or None
-    where the trace holds no device time."""
+    (names with one of ``GEMM_NAMES``), the device time by kernel (the
+    ``top`` largest) and that of each of the port's flash kernels (names
+    starting ``flash_``, a ``port kernel`` line each); returns
+    {"wall_ms", "busy_ms", "gemm_ms"}, or None where the trace holds no
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3068,9 +3157,16 @@ def profile_call(torch, label, fn, top=8):
           % (label, wall_ms, busy_ms, 100.0 * busy_ms / wall_ms,
              sum(e.count for e in events), gemm_ms,
              100.0 * gemm_ms / busy_ms))
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    for e in ranked[:top]:
         print("%s profile: %8.3f ms %5d calls  %s"
               % (label, e.self_device_time_total / 1e3, e.count, e.key[:90]))
+    for e in ranked:
+        name = e.key.split("(anonymous namespace)::", 1)[-1]
+        if name.startswith("flash_"):
+            print("%s profile: port kernel %8.3f ms %5d calls  %s"
+                  % (label, e.self_device_time_total / 1e3, e.count,
+                     name[:70]))
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, gemm_ms=gemm_ms)
 
 
@@ -5312,6 +5408,7 @@ def main():
     tree_layout_phase()
     flash_rows_layout_phase()
     flash_bwd_layout_phase()
+    flash_bf16_layout_phase()
 
     mark("build")
     worst = kernel_phase(torch)
@@ -5673,9 +5770,9 @@ def main():
              library_ms=None,
              other_generator_ms=rng_timing["threefry"]["philox_ms"],
              shapes=threefry_shapes),
-        amp_record("flash_fwd_bf16", "flash_fwd.cu", 91,
+        amp_record("flash_fwd_bf16", "flash_fwd_bf16.cu", 91,
                    "flash_fwd_bf16_train", amp_of),
-        amp_record("flash_bwd_dkv_bf16", "flash_bwd.cu", 302,
+        amp_record("flash_bwd_dkv_bf16", "flash_bwd_dkv_bf16.cu", 302,
                    "flash_bwd_dkv_bf16", amp_of),
         amp_record("flash_bwd_dq_bf16", "flash_bwd.cu", 376,
                    "flash_bwd_dq_bf16", amp_of),

@@ -1,15 +1,16 @@
 // bf16.cuh: loading bf16 rows into float32 shared-memory tiles and
-// storing float32 results as bf16, for the flash kernels' bf16 entries
-// (flash_fwd.cu's tile path, flash_bwd.cu).
+// storing float32 results as bf16, for B3's bf16 entry (flash_bwd.cu's
+// dQ; B1's and B2's bf16 entries run on the bf16 tensor cores instead,
+// mma_bf16.cuh).
 //
 // The TPU kernels upcast every bf16 tile to float32 on load and compute
-// in float32 (paddle_tpu/kernels/flash_attention.py:113-147,325-353,
-// 394-416); the bf16 entries do the same: a bf16 value widens to float32
-// exactly (its 16 bits are the high half of the float's), the tiles in
-// shared memory hold float32, and a result is rounded to bf16 once, at
-// the store, to nearest even as torch's `.to(torch.bfloat16)` rounds.
-// The loads are plain (not cp.async): the widening happens in registers
-// between the global load and the shared store.
+// in float32 (paddle_tpu/kernels/flash_attention.py:394-416); the entry
+// does the same: a bf16 value widens to float32 exactly (its 16 bits are
+// the high half of the float's), the tiles in shared memory hold
+// float32, and a result is rounded to bf16 once, at the store, to
+// nearest even as torch's `.to(torch.bfloat16)` rounds. The loads are
+// plain (not cp.async): the widening happens in registers between the
+// global load and the shared store.
 
 #pragma once
 
@@ -50,16 +51,6 @@ __device__ __forceinline__ void load8(float* dst, const __nv_bfloat16* src,
   if (ok) widen8(*reinterpret_cast<const uint4*>(src), lo, hi);
   reinterpret_cast<float4*>(dst)[0] = lo;
   reinterpret_cast<float4*>(dst)[1] = hi;
-}
-
-// 4 floats rounded to bf16 into 8 bytes at `dst` (8-byte aligned)
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, const float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 w;
-  w.x = *reinterpret_cast<uint32_t*>(&a);
-  w.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(dst) = w;
 }
 
 }  // namespace bf16io

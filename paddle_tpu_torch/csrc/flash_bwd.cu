@@ -80,19 +80,20 @@
 //   number of mma steps), so the inner loops have no bound to test.
 // - exp(x) is computed as exp2(x log2 e).
 //
-// bf16 (paddle_flash_bwd_dkv_bf16 / paddle_flash_bwd_dq_bf16, the
-// mixed-precision train step's entries): q, k, v, dO in bf16, dQ, dK, dV
-// written in bf16 (flash_attention.py:513-514,548 declare them in the
-// inputs' dtype), lse and delta float32 (delta = rowsum(dO O) in float32
-// from the upcast values, by the wrapper). The TPU kernels upcast every
-// tile and compute in float32; so do these: the staging widens bf16 rows
-// into the same float32 tiles (bf16.cuh), and every product is the
-// float32 entry's split-TF32 product. A bf16 value is exact in TF32, so
-// the lo parts of q, k, v and dO are 0: S and dP need one TF32 product
-// (hi hi) instead of three, and dV, dK and dQ (P or dS, float32, against
-// a bf16 operand) two instead of three; the passes dropped would add
-// exact zeros (`pass_runs`). Each gradient is rounded to bf16 once, at
-// the store.
+// bf16 dQ (paddle_flash_bwd_dq_bf16, the mixed-precision train step's
+// entry): q, k, v, dO in bf16, dQ written in bf16
+// (flash_attention.py:548 declares it in the inputs' dtype), lse and
+// delta float32 (delta = rowsum(dO O) in float32 from the upcast values,
+// by the wrapper). The TPU kernel upcasts every tile and computes in
+// float32; so does this entry: the staging widens bf16 rows into the
+// same float32 tiles (bf16.cuh), and every product is the float32
+// entry's split-TF32 product. A bf16 value is exact in TF32, so the lo
+// parts of q, k, v and dO are 0: S and dP need one TF32 product (hi hi)
+// instead of three, and dQ (dS, float32, against a bf16 operand) two
+// instead of three; the passes dropped would add exact zeros
+// (`pass_runs`). dQ is rounded to bf16 once, at the store. bf16 dK/dV
+// (paddle_flash_bwd_dkv_bf16) is a kernel of its own on the bf16 tensor
+// cores: csrc/flash_bwd_dkv_bf16.cu.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -371,12 +372,14 @@ struct Args {
 
 // each warp owns 16 keys; DP: the padded head dim (64 or 128): the
 // dK/dV accumulators are DP / 8 tiles of 16 x 8. At DP 64, 3 blocks an
-// SM (the shared memory a block takes allows it)
-template <int DP, typename In>
+// SM (the shared memory a block takes allows it). float32 only: bf16
+// dK/dV is flash_bwd_dkv_bf16.cu's
+template <int DP>
 __global__ void __launch_bounds__(kWarps * 32, DP == 64 ? 3 : 1)
-flash_bwd_dkv_kernel(const Args<In> a) {
+flash_bwd_dkv_kernel(const Args<float> a) {
+  using In = float;
   constexpr int NT = kWarps * 32, KR = kRows, ND = DP / 8, LD = DP + 4;
-  constexpr bool EXACT = !std::is_same<In, float>::value;
+  constexpr bool EXACT = false;
   extern __shared__ float4 smem4[];
   const int d = a.d, T = a.T, S = a.S;
   float* k_s = reinterpret_cast<float*>(smem4);  // [KR][LD]
@@ -758,9 +761,14 @@ int run(int which, const In* q, const In* k, const In* v, const In* dout,
                    vec};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool narrow = d <= 64;
-  if (which == kDkv)
-    return narrow ? launch(flash_bwd_dkv_kernel<64, In>, which, a, B, st)
-                  : launch(flash_bwd_dkv_kernel<128, In>, which, a, B, st);
+  if (which == kDkv) {
+    // bf16 dK/dV is flash_bwd_dkv_bf16.cu's
+    if constexpr (!std::is_same<In, float>::value)
+      return (int)cudaErrorInvalidValue;
+    else
+      return narrow ? launch(flash_bwd_dkv_kernel<64>, which, a, B, st)
+                    : launch(flash_bwd_dkv_kernel<128>, which, a, B, st);
+  }
   return narrow ? launch(flash_bwd_dq_kernel<64, In>, which, a, B, st)
                 : launch(flash_bwd_dq_kernel<128, In>, which, a, B, st);
 }
@@ -797,19 +805,8 @@ extern "C" int paddle_flash_bwd_dq_f32(const float* q, const float* k,
                     rows, stream);
 }
 
-// The bf16 entries: q, k, v, dout and the gradients bf16; lse, delta and
-// kv_mask float32; otherwise the float32 entries' contract.
-extern "C" int paddle_flash_bwd_dkv_bf16(
-    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-    const __nv_bfloat16* dout, const float* lse, const float* delta,
-    const float* kv_mask, __nv_bfloat16* dk, __nv_bfloat16* dv, int B, int H,
-    int Hkv, int T, int S, int d, float sm_scale, int causal, int window,
-    int rows, void* stream) {
-  return run<__nv_bfloat16>(kDkv, q, k, v, dout, lse, delta, kv_mask,
-                            nullptr, dk, dv, B, H, Hkv, T, S, d, sm_scale,
-                            causal, window, rows, stream);
-}
-
+// The bf16 dQ entry: q, k, v, dout and dq bf16; lse, delta and kv_mask
+// float32; otherwise the float32 entry's contract.
 extern "C" int paddle_flash_bwd_dq_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
     const __nv_bfloat16* dout, const float* lse, const float* delta,

@@ -67,25 +67,14 @@
 //   so the results equal those of computing every tile. Split-TF32
 //   tensor-core products are later work.
 //
-// bf16 (paddle_flash_fwd_bf16, the mixed-precision train step's entry):
-// the tile path with bf16 q, k, v and o. The TPU kernel upcasts each bf16
-// tile to float32 and computes every product in float32, P V included
-// (flash_attention.py:113-147); so does this entry: the loads widen the
-// bf16 values into the float32 tiles (bf16.cuh; plain loads instead of
-// cp.async, the widening sits between load and store), everything after
-// is the float32 kernel's arithmetic, and o is rounded to bf16 once, at
-// the store. The LSE stays float32. It reads half the bytes of the
-// float32 entry and is bound by the same fp32 FMA issue at the train
-// shapes; tensor-core products (m16n8k16 bf16 for Q K^T, P split into
-// bf16 hi + lo for P V) are later work. The rows path takes float32 only.
+// bf16 (the mixed-precision train step's entry, paddle_flash_fwd_bf16)
+// is a kernel of its own on the bf16 tensor cores: csrc/flash_fwd_bf16.cu.
+// The rows path takes float32 only.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
-
-#include "bf16.cuh"
 #include "decode_split.cuh"
 
 namespace {
@@ -288,17 +277,14 @@ __host__ __device__ __forceinline__ size_t tiled_smem_floats(int bq, int d) {
 
 // BQ query rows per block, BQ / 4 * 16 threads; NQ: output float4s per
 // thread per row (1 for d <= 64, 2 for d <= 128); VEC: 16-byte copies
-// (d % 4 == 0 for float32, d % 8 == 0 for bf16, and 16-byte aligned
-// pointers). In: the element type of q, k, v and o (float, or
-// __nv_bfloat16 for the bf16 entry: tiles widened to float32 on load,
-// bf16.cuh; o rounded to bf16 at the store; the LSE float32 either way).
-template <int BQ, int NQ, bool VEC, typename In>
+// (d % 4 == 0 and 16-byte aligned pointers).
+template <int BQ, int NQ, bool VEC>
 __global__ void __launch_bounds__(BQ * 4)
-flash_fwd_tiled_kernel(const In* __restrict__ q,
-                       const In* __restrict__ k,
-                       const In* __restrict__ v,
+flash_fwd_tiled_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
                        const float* __restrict__ kv_mask,
-                       In* __restrict__ o, float* __restrict__ lse, int H,
+                       float* __restrict__ o, float* __restrict__ lse, int H,
                        int Hkv, int T, int S, int d, float sm_scale,
                        int causal, int window) {
   constexpr int kThreadsT = BQ * 4;
@@ -318,48 +304,25 @@ flash_fwd_tiled_kernel(const In* __restrict__ q,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (H / Hkv);
-  const In* q_bh = q + (size_t)(b * H + h) * T * d;
-  const In* k_bh = k + (size_t)(b * Hkv + hk) * S * d;
-  const In* v_bh = v + (size_t)(b * Hkv + hk) * S * d;
+  const float* q_bh = q + (size_t)(b * H + h) * T * d;
+  const float* k_bh = k + (size_t)(b * Hkv + hk) * S * d;
+  const float* v_bh = v + (size_t)(b * Hkv + hk) * S * d;
   const float* mask_b = kv_mask ? kv_mask + (size_t)b * S : nullptr;
 
-  // the query tile, upcast and pre-scaled as the TPU kernel does
+  // the query tile, pre-scaled as the TPU kernel does
   // (q.astype(float32) * sm_scale)
   for (int i = tid; i < BQ * dp; i += kThreadsT) {
     const int r = i / dp, c = i % dp;
     const int t = q_base + r;
-    q_s[r * ks + c] = t < T && c < d
-                          ? bf16io::widen(q_bh[(size_t)t * d + c]) * sm_scale
-                          : 0.f;
+    q_s[r * ks + c] = t < T && c < d ? q_bh[(size_t)t * d + c] * sm_scale
+                                     : 0.f;
   }
 
   auto load_tile = [&](int tile, int buf) {
     const int kb = tile * kTileK;
     float* kd = k_s + (size_t)buf * kTileK * ks;
     float* vd = v_s + (size_t)buf * kTileK * dp;
-    if constexpr (!std::is_same<In, float>::value) {
-      // bf16: plain loads widened in registers; the stores land before
-      // the barrier ahead of the tile's use, as a copy's wait does
-      if constexpr (VEC) {
-        const int octs = dp / 8;
-        for (int i = tid; i < kTileK * octs; i += kThreadsT) {
-          const int r = i / octs, c = (i % octs) * 8;
-          const int s = kb + r;
-          const size_t off = s < S ? (size_t)s * d + c : 0;
-          bf16io::load8(kd + r * ks + c, k_bh + off, s < S);
-          bf16io::load8(vd + r * dp + c, v_bh + off, s < S);
-        }
-      } else {
-        for (int i = tid; i < kTileK * dp; i += kThreadsT) {
-          const int r = i / dp, c = i % dp;
-          const int s = kb + r;
-          const bool ok = s < S && c < d;
-          const size_t off = (size_t)s * d + c;
-          kd[r * ks + c] = ok ? bf16io::widen(k_bh[off]) : 0.f;
-          vd[r * dp + c] = ok ? bf16io::widen(v_bh[off]) : 0.f;
-        }
-      }
-    } else if constexpr (VEC) {
+    if constexpr (VEC) {
       for (int i = tid; i < kTileK * quads; i += kThreadsT) {
         const int r = i / quads, c = (i % quads) * 4;
         const int s = kb + r;
@@ -544,7 +507,7 @@ flash_fwd_tiled_kernel(const In* __restrict__ q,
     if (qi >= T) continue;
     const bool dead = m[i] <= kMaskedRowLse;
     const float denom = fmaxf(lt, 1e-30f);
-    In* o_row = o + ((size_t)(b * H + h) * T + qi) * d;
+    float* o_row = o + ((size_t)(b * H + h) * T + qi) * d;
 #pragma unroll
     for (int n = 0; n < NQ; ++n) {
       const int c = (tc + 16 * n) * 4;
@@ -553,26 +516,23 @@ flash_fwd_tiled_kernel(const In* __restrict__ q,
       r = dead ? make_float4(0.f, 0.f, 0.f, 0.f)
                : make_float4(r.x / denom, r.y / denom, r.z / denom,
                              r.w / denom);
-      if constexpr (VEC && std::is_same<In, float>::value) {
+      if constexpr (VEC) {
         *reinterpret_cast<float4*>(o_row + c) = r;
-      } else if constexpr (VEC) {
-        bf16io::store4(o_row + c, r);
       } else {
         const float e[4] = {r.x, r.y, r.z, r.w};
-        for (int j = 0; j < 4 && c + j < d; ++j)
-          bf16io::store(o_row + c + j, e[j]);
+        for (int j = 0; j < 4 && c + j < d; ++j) o_row[c + j] = e[j];
       }
     }
     if (tc == 0) lse[(size_t)(b * H + h) * T + qi] = m[i] + logf(denom);
   }
 }
 
-template <int BQ, int NQ, bool VEC, typename In>
-int launch_tiled(const In* q, const In* k, const In* v,
-                 const float* kv_mask, In* o, float* lse, int B, int H,
+template <int BQ, int NQ, bool VEC>
+int launch_tiled(const float* q, const float* k, const float* v,
+                 const float* kv_mask, float* o, float* lse, int B, int H,
                  int Hkv, int T, int S, int d, float sm_scale, int causal,
                  int window, cudaStream_t st) {
-  auto kernel = flash_fwd_tiled_kernel<BQ, NQ, VEC, In>;
+  auto kernel = flash_fwd_tiled_kernel<BQ, NQ, VEC>;
   const size_t smem = sizeof(float) * tiled_smem_floats(BQ, d);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -583,19 +543,18 @@ int launch_tiled(const In* q, const In* k, const In* v,
   return (int)cudaGetLastError();
 }
 
-template <int BQ, typename In>
-int dispatch_tiled(const In* q, const In* k, const In* v,
-                   const float* kv_mask, In* o, float* lse, int B, int H,
+template <int BQ>
+int dispatch_tiled(const float* q, const float* k, const float* v,
+                   const float* kv_mask, float* o, float* lse, int B, int H,
                    int Hkv, int T, int S, int d, float sm_scale, int causal,
                    int window, cudaStream_t st) {
-  // 16 bytes a copy: 4 floats or 8 bf16 values
-  const bool vec = d % (16 / (int)sizeof(In)) == 0 &&
+  const bool vec = d % 4 == 0 &&
                    ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
                     (uintptr_t)o) % 16 == 0;
   const bool wide = (d + 3) / 4 > 16;
 #define PADDLE_FLASH_TILED(NQ, VEC)                                          \
-  launch_tiled<BQ, NQ, VEC, In>(q, k, v, kv_mask, o, lse, B, H, Hkv, T, S, \
-                                d, sm_scale, causal, window, st)
+  launch_tiled<BQ, NQ, VEC>(q, k, v, kv_mask, o, lse, B, H, Hkv, T, S, d, \
+                            sm_scale, causal, window, st)
   if (wide)
     return vec ? PADDLE_FLASH_TILED(2, true) : PADDLE_FLASH_TILED(2, false);
   return vec ? PADDLE_FLASH_TILED(1, true) : PADDLE_FLASH_TILED(1, false);
@@ -638,34 +597,6 @@ extern "C" int paddle_flash_fwd_f32(const float* q, const float* k,
       default: return launch_rows<4>(a, st);
     }
   }
-  if (block_q == 32)
-    return dispatch_tiled<32>(q, k, v, kv_mask, o, lse, B, H, Hkv, T, S, d,
-                              sm_scale, causal, window, st);
-  if (block_q == 64)
-    return dispatch_tiled<64>(q, k, v, kv_mask, o, lse, B, H, Hkv, T, S, d,
-                              sm_scale, causal, window, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-// The bf16 entry of the tile path: q, k, v and o bf16, kv_mask and lse
-// float32, the arguments of paddle_flash_fwd_f32. block_q 32 or 64 (T >
-// 4); the rows path (block_q 4) takes float32 only and is refused here.
-extern "C" int paddle_flash_fwd_bf16(const __nv_bfloat16* q,
-                                     const __nv_bfloat16* k,
-                                     const __nv_bfloat16* v,
-                                     const float* kv_mask, __nv_bfloat16* o,
-                                     float* lse, float* part, int B, int H,
-                                     int Hkv, int T, int S, int d,
-                                     float sm_scale, int causal, int window,
-                                     int block_q, int splits, int kps,
-                                     void* stream) {
-  (void)part;
-  (void)splits;
-  (void)kps;
-  if (B < 1 || T < 1 || d < 1 || d > kMaxD || Hkv < 1 || H % Hkv != 0 ||
-      S < 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (block_q == 32)
     return dispatch_tiled<32>(q, k, v, kv_mask, o, lse, B, H, Hkv, T, S, d,
                               sm_scale, causal, window, st);

@@ -32,12 +32,17 @@ kernel on dead rows (0, not the uniform mean of V).
 
 bf16 (mixed precision): q, k, v (and dO) in bf16 take the kernels' bf16
 entries (``*_bf16`` symbols, launch counts of their own), which compute
-as the TPU kernel does on bf16 tiles: every value upcast to float32,
-every product in float32 with ``P`` kept in float32, one rounding of
-``O``, ``dQ``, ``dK`` and ``dV`` to bf16 at the store, the LSE and
-``delta`` in float32. The plain versions compute the same way. The rows
-path (T <= 4: decode and verify) takes float32 only. Any other dtype,
-or a mix, raises.
+the TPU kernel's function on bf16 tiles: every product of two bf16
+values exact in float32 with float32 sums, ``P`` and ``dS`` kept in
+float32, one rounding of ``O``, ``dQ``, ``dK`` and ``dV`` to bf16 at
+the store, the LSE and ``delta`` in float32. B1's and B2's bf16 entries
+(``csrc/flash_fwd_bf16.cu``, ``csrc/flash_bwd_dkv_bf16.cu``) run on the
+bf16 tensor cores, ``P`` and ``dS`` split into bf16 hi + lo (about 16
+bits) where they meet a product; their plans are ``flash_bf16_plan``
+and ``flash_bwd_plan``'s ``"dkv_bf16"``. B3's (dQ) widens its tiles to
+float32 and runs split-TF32. The plain versions compute in float32. The
+rows path (T <= 4: decode and verify) takes float32 only. Any other
+dtype, or a mix, raises.
 """
 
 import ctypes
@@ -57,7 +62,8 @@ MAX_HEAD_DIM = 128
 _FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
     ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 FLASH_FWD = Kernel("paddle_flash_fwd_f32", _FWD_ARGS)
-# the tile path's bf16 entry (T > 4): bf16 q/k/v and out, float32 LSE
+# the bf16 entry (T > 4, csrc/flash_fwd_bf16.cu): bf16 q/k/v and out,
+# float32 LSE; block_q from flash_bf16_plan
 FLASH_FWD_BF16 = Kernel("paddle_flash_fwd_bf16", _FWD_ARGS)
 ROWS_T = 4  # the rows path (csrc/flash_fwd.cu, block_q 4) takes T <= 4
 
@@ -70,6 +76,7 @@ FLASH_BWD_DKV = Kernel("paddle_flash_bwd_dkv_f32",
 FLASH_BWD_DQ = Kernel("paddle_flash_bwd_dq_f32",
                       _BWD_ARGS + [ctypes.c_void_p] + _BWD_DIMS)
 # the bf16 entries: bf16 q, k, v, dO and dQ/dK/dV; float32 lse and delta
+# (dK/dV: csrc/flash_bwd_dkv_bf16.cu)
 FLASH_BWD_DKV_BF16 = Kernel("paddle_flash_bwd_dkv_bf16",
                             _BWD_ARGS + [ctypes.c_void_p] * 2 + _BWD_DIMS)
 FLASH_BWD_DQ_BF16 = Kernel("paddle_flash_bwd_dq_bf16",
@@ -124,6 +131,46 @@ def flash_plan(B, H, T, S, d, n_sm, smem_limit):
     return {"block_q": bq, "blocks": B * H * -(-T // bq), "threads": threads}
 
 
+# the bf16 entries' tiles, as csrc/mma_bf16.cuh, csrc/flash_fwd_bf16.cu
+# and csrc/flash_bwd_dkv_bf16.cu build them: bf16 rows of the head dim
+# padded to 32, 64 or 128 (bf16_padded_dim), plus BF16_PAD values
+BF16_PAD = 8
+BF16_TILE_K = 64    # keys of B1's K/V tile
+BF16_TILE_Q = 32    # rows of B2's streamed Q/dO tile
+BF16_STAGES = 2     # cp.async buffers of a streamed tile, both entries
+# B1's query rows a block (4 warps of 16); 128-row blocks of 8 warps ran
+# slower on an H100 at the train shapes (one fills an SM's registers)
+BF16_ROWS = 64
+
+
+def bf16_padded_dim(d):
+    """The head dim the bf16 entries are built for: ``d`` padded with
+    zero columns to 32, 64 or 128 (whole k16 steps)."""
+    return 32 if d <= 32 else 64 if d <= 64 else 128
+
+
+def flash_bf16_plan(B, H, T, S, d, n_sm, smem_limit):
+    """The bf16 forward entry's launch plan (csrc/flash_fwd_bf16.cu) for
+    bf16 q ``[B, H, T, d]`` (T > 4) over S keys on a card with ``n_sm``
+    SMs, from static shapes only: ``block_q`` query rows a block
+    (``BF16_ROWS``, 16 a warp), ``threads``, ``stages`` (K/V buffers),
+    ``head_dim`` (the padded one), ``smem`` (the Q tile, the K and V
+    tiles of each buffer and their key-mask entries; ``chip_smoke.py``
+    holds it to the kernel's ``paddle_flash_fwd_bf16_layout``) and
+    ``blocks``, one per (query tile, head, batch). ``smem_limit`` is the
+    card's per-block limit; ``n_sm`` is not needed by this plan."""
+    if T <= ROWS_T or min(B, H, d, S + 1) < 1 or d > MAX_HEAD_DIM:
+        raise ValueError("flash_bf16_plan: B %d, H %d, T %d, S %d, d %d out "
+                         "of range" % (B, H, T, S, d))
+    dp = bf16_padded_dim(d)
+    bq = BF16_ROWS
+    smem = (2 * (dp + BF16_PAD) * (bq + BF16_STAGES * 2 * BF16_TILE_K)
+            + 4 * BF16_STAGES * BF16_TILE_K)
+    decode_split.check_smem("flash_bf16_plan", smem, smem_limit)
+    return {"block_q": bq, "threads": 2 * bq, "stages": BF16_STAGES,
+            "head_dim": dp, "smem": smem, "blocks": B * H * -(-T // bq)}
+
+
 def kernel_flash_rows_layout(T, d):
     """``(threads, smem)`` of csrc/flash_fwd.cu's rows block for T <= 4
     query rows at head dim ``d`` (its ``paddle_flash_rows_layout``; host
@@ -150,7 +197,8 @@ BWD_STAGES = {"dkv": 2, "dq": 1}
 
 def flash_bwd_plan(B, H, Hkv, T, S, d):
     """The backward kernels' launch plan for q ``[B, H, T, d]`` and k/v
-    ``[B, Hkv, S, d]``: ``{"dkv": {...}, "dq": {...}}``, each with
+    ``[B, Hkv, S, d]``: ``{"dkv": {...}, "dq": {...}, "dkv_bf16":
+    {...}}``, each with
 
     - ``rows``: the block's own tile (keys of B2, query rows of B3), 16 a
       warp: 64 (``BWD_ROWS``) at every shape; 32-row tiles measured no
@@ -165,6 +213,13 @@ def flash_bwd_plan(B, H, Hkv, T, S, d):
     - ``grid``: (tiles of the own axis, heads, batch): B2 over the S keys
       and ``Hkv`` kv heads, B3 over the T query rows and ``H`` heads.
 
+    ``"dkv_bf16"`` is B2's bf16 entry (csrc/flash_bwd_dkv_bf16.cu): the
+    same 64-key blocks and grid, bf16 tiles (2 bytes a value) of the head
+    dim padded to 32, 64 or 128 plus ``BF16_PAD`` values, its streamed
+    Q/dO tiles of ``tile`` rows (``BF16_TILE_Q``) in ``stages`` buffers
+    with their lse and delta (float32);
+    ``chip_smoke.py`` holds it to ``paddle_flash_bwd_dkv_bf16_layout``.
+
     The wrappers pass ``rows`` to the kernels."""
     ld = (64 if d <= 64 else 128) + 4
 
@@ -175,7 +230,16 @@ def flash_bwd_plan(B, H, Hkv, T, S, d):
                              * (2 * BWD_TILE * ld + vec)),
                 "grid": (-(-own // BWD_ROWS), heads, B)}
 
-    return {"dkv": one("dkv", S, Hkv), "dq": one("dq", T, H)}
+    dp = bf16_padded_dim(d)
+    tile = BF16_TILE_Q
+    dkv_bf16 = {"rows": BWD_ROWS, "threads": 2 * BWD_ROWS, "tile": tile,
+                "stages": BF16_STAGES,
+                "smem": (2 * (dp + BF16_PAD) * (2 * BWD_ROWS + BF16_STAGES
+                                                * 2 * tile)
+                         + 4 * BF16_STAGES * 2 * tile),
+                "grid": (-(-S // BWD_ROWS), Hkv, B)}
+    return {"dkv": one("dkv", S, Hkv), "dq": one("dq", T, H),
+            "dkv_bf16": dkv_bf16}
 
 
 def kernel_bwd_layout(kernel, rows, d):
@@ -190,6 +254,25 @@ def kernel_bwd_layout(kernel, rows, d):
     rc = fn(BWD_KERNELS.index(kernel), rows, d, ctypes.byref(threads),
             ctypes.byref(smem))
     return None if rc else (threads.value, smem.value)
+
+
+def kernel_bf16_layout(entry, tile, d):
+    """The figures csrc/flash_fwd_bf16.cu (``entry`` ``"fwd"``, query
+    tile ``tile``: ``paddle_flash_fwd_bf16_layout``) or
+    csrc/flash_bwd_dkv_bf16.cu (``"dkv"``, key tile ``tile``:
+    ``paddle_flash_bwd_dkv_bf16_layout``) derive for a block at head dim
+    ``d``: ``{"threads", "smem"}``, and for ``"dkv"`` also ``"tile"``,
+    the streamed Q tile's rows (host code: needs the built library, not
+    a card), or None where the entry refuses them."""
+    out = [ctypes.c_int(0) for _ in range(2 if entry == "fwd" else 3)]
+    fn = getattr(library(), "paddle_flash_fwd_bf16_layout" if entry == "fwd"
+                 else "paddle_flash_bwd_dkv_bf16_layout")
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * len(
+        out)
+    fn.restype = ctypes.c_int
+    if fn(tile, d, *(ctypes.byref(o) for o in out)):
+        return None
+    return dict(zip(("threads", "smem", "tile"), (o.value for o in out)))
 
 
 def _visible(T, S, kv_mask, causal, window, device):
@@ -285,8 +368,9 @@ def flash_forward(q, k, v, kv_mask=None, causal=False, sm_scale=None,
                   kv_group=1, window=0):
     """Attention forward; returns ``(out, lse)``. CPU tensors run
     :func:`flash_forward_plain`; CUDA tensors launch the ``flash_fwd``
-    kernel (float32, or bf16 at T > 4 through its bf16 entry; contiguous,
-    head dim <= 128) or raise. A launch is counted in ``by_key`` of
+    kernel (float32 by :func:`flash_plan`, or bf16 at T > 4 through its
+    bf16 entry by :func:`flash_bf16_plan`; contiguous, head dim <= 128)
+    or raise. A launch is counted in ``by_key`` of
     ``FLASH_FWD`` (or ``FLASH_FWD_BF16``) under ``(T, causal)``."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
@@ -307,7 +391,8 @@ def flash_forward(q, k, v, kv_mask=None, causal=False, sm_scale=None,
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return out, lse
-    plan = flash_plan(B, H, T, S, d, *device_limits(q.device))
+    plan = (flash_plan if q.dtype == torch.float32 else flash_bf16_plan)(
+        B, H, T, S, d, *device_limits(q.device))
     splits = plan.get("splits", 1)
     # the rows path's split partials (m, l, acc) per row, merged by the
     # kernel's second launch
@@ -401,7 +486,8 @@ def flash_bwd_dkv(q, k, v, kv_mask, dout, lse, delta, causal, sm_scale,
     _ENTRIES[q.dtype][1].launch(
         *(_bwd_args(q, k, v, kv_mask, dout, lse, delta)
           + (dk.data_ptr(), dv.data_ptr())
-          + _bwd_dims(q, k, causal, sm_scale, window, "dkv")),
+          + _bwd_dims(q, k, causal, sm_scale, window,
+                    "dkv" if q.dtype == torch.float32 else "dkv_bf16")),
         key=(q.shape[2], bool(causal)))
     return dk, dv
 

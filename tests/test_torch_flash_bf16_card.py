@@ -1,5 +1,5 @@
 """The flash kernels' bf16 entries on the card against their plain
-versions (B1's tile path, the B2/B3 backward pair).
+versions (B1's bf16 entry and B2's on the bf16 tensor cores, B3's dQ).
 
 Marked ``card``: each test skips where torch sees no CUDA device (this
 file imports no JAX, so it runs on a machine without it). On a card:
@@ -7,11 +7,14 @@ file imports no JAX, so it runs on a machine without it). On a card:
     python -m pytest --noconftest -p no:cacheprovider \\
         tests/test_torch_flash_bf16_card.py -q
 
-Tolerance: kernel and plain version both compute in float32 from the
-widened bf16 values and round each output to bf16 once, so an output
+Tolerance: the plain version computes in float32 from the widened bf16
+values and rounds each output to bf16 once; the kernels take the bf16
+products exactly with float32 sums (B1, B2: P and dS split into bf16 hi
++ lo, about 16 bits; B3: split-TF32), and round once too. So an output
 may differ by one bf16 rounding step of its value (2**-7 of it) on top
-of the float32 entries' 1e-4 (another summation order); the LSE, a
-float32 output, within 1e-4.
+of the float32 entries' 1e-4; the LSE, a float32 output, within 1e-4.
+Dead rows (no visible key) are exactly 0 in O and dQ, and a masked
+key's dK and dV exactly 0.
 """
 
 import pytest
@@ -35,6 +38,16 @@ CASES = [
     ("T256_gqa_window", 2, 8, 4, 256, 256, 64, False, 40, None),
     ("T70_head_dim_33", 2, 3, 3, 70, 70, 33, False, 0, None),
     ("T45_head_dim_40", 2, 3, 3, 45, 45, 40, True, 16, None),
+    # the tile edges of the tensor-core entries: head dims 32 and 96
+    # (padded to 32 and 128), T and S off multiples of 64 and apart, GQA
+    # with a window and a key mask, dead rows, a larger batch
+    ("T90_S150_d32_gqa_masked", 2, 8, 2, 90, 150, 32, False, 0, [150, 61]),
+    ("T200_S70_d128_cross", 2, 4, 4, 200, 70, 128, False, 0, [70, 33]),
+    ("T150_gqa_window_causal_masked", 2, 8, 4, 150, 150, 64, True, 50,
+     [150, 100]),
+    ("T33_S300_d96_dead_rows", 3, 2, 2, 33, 300, 96, False, 0, [300, 0, 65]),
+    ("train_masked_B20", 20, 8, 8, 256, 256, 64, False, 0,
+     [256, 16, 130, 77, 201] * 4),
 ]
 
 
@@ -107,6 +120,28 @@ def test_bf16_backward_matches_plain(case):
             fa.FLASH_BWD_DQ_BF16.launches) == (before[0] + 1, before[1] + 1)
     for n, g, r in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
         _assert_bf16_close("%s %s" % (case[0], n), g, r)
+    dead = lse <= fa.MASKED_ROW_LSE
+    assert not dead.any() or dq[dead].abs().max().item() == 0.0
+    m = kw.get("kv_mask")
+    if m is not None and (m == 0).any():
+        off = (m == 0)[:, None, :].expand(dk.shape[:3])
+        assert dk[off].abs().max().item() == 0.0
+        assert dv[off].abs().max().item() == 0.0
+
+
+@pytest.mark.card
+def test_bf16_plans_equal_the_kernels_layouts():
+    """``flash_bf16_plan`` and ``flash_bwd_plan``'s ``"dkv_bf16"`` state
+    the threads, shared bytes (and B2's Q tile) the kernels derive, at
+    every head dim."""
+    _card()
+    for d in range(1, fa.MAX_HEAD_DIM + 1):
+        p = fa.flash_bf16_plan(64, 8, 256, 256, d, 132, 232448)
+        assert fa.kernel_bf16_layout("fwd", p["block_q"], d) == {
+            "threads": p["threads"], "smem": p["smem"]}
+        p = fa.flash_bwd_plan(1, 1, 1, 64, 64, d)["dkv_bf16"]
+        assert fa.kernel_bf16_layout("dkv", p["rows"], d) == {
+            "threads": p["threads"], "smem": p["smem"], "tile": p["tile"]}
 
 
 @pytest.mark.card

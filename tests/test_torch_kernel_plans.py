@@ -36,6 +36,14 @@ Python: no card, no JAX).
   every shape, small batches included; the plan at the train shape as a
   literal (``chip_smoke.py`` holds the plan's threads and
   shared bytes to the kernels' own, ``paddle_flash_bwd_layout``).
+- ``flash_attention.flash_bf16_plan`` (B1's bf16 entry) and
+  ``flash_bwd_plan``'s ``"dkv_bf16"`` (B2's): the blocks tile every query
+  row (B1) and key row (B2) of every head and batch once; 16 rows a
+  warp; the head dim padded to 32, 64 or 128; shared memory within
+  232,448 bytes, bf16 tiles counted at 2 bytes a value; a function of
+  static shapes only; the train-shape plans as literals
+  (``chip_smoke.py`` holds them to ``paddle_flash_fwd_bf16_layout`` and
+  ``paddle_flash_bwd_dkv_bf16_layout``).
 """
 
 import inspect
@@ -474,4 +482,80 @@ def test_flash_bwd_plan_at_the_train_shape():
         "dkv": {"rows": 64, "threads": 128, "smem": 70144,
                 "grid": (4, 8, 64)},
         "dq": {"rows": 64, "threads": 128, "smem": 52352,
-               "grid": (4, 8, 64)}}
+               "grid": (4, 8, 64)},
+        # bf16 rows of 64 + 8 values: K and V of 64 rows, two buffers of
+        # 32-row Q and dO tiles, and their lse and delta (float32)
+        "dkv_bf16": {"rows": 64, "threads": 128, "tile": 32, "stages": 2,
+                     "smem": 2 * 72 * (2 * 64 + 2 * 2 * 32)
+                     + 4 * 2 * 2 * 32, "grid": (4, 8, 64)}}
+
+
+BF16_SHAPES = [
+    # B, H, Hkv, T, S, d
+    (64, 8, 8, 256, 256, 64), (1, 8, 8, 256, 256, 64), (2, 8, 2, 90, 150, 32),
+    (2, 4, 4, 200, 70, 128), (3, 2, 2, 33, 300, 96), (2, 3, 3, 45, 45, 40),
+    (2, 3, 3, 70, 70, 33), (33, 4, 4, 65, 65, 64), (2, 4, 4, 5, 5, 64),
+    (4, 16, 1, 100, 300, 1), (7, 6, 2, 513, 77, 17), (1, 1, 1, 5, 0, 8),
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,T,S,d", BF16_SHAPES)
+def test_flash_bf16_blocks_tile_every_row_once(B, H, Hkv, T, S, d):
+    """B1's bf16 blocks cover every (query row, head, batch) once, B2's
+    every (key row, kv head, batch) once; 16 rows a warp."""
+    fwd = tfa.flash_bf16_plan(B, H, T, S, d, H100_SMS, H100_SMEM)
+    nx = -(-T // fwd["block_q"])
+    assert fwd["blocks"] == nx * H * B
+    seen = {}
+    for x in range(nx):
+        for r in range(x * fwd["block_q"], min(T, (x + 1) * fwd["block_q"])):
+            seen[r] = seen.get(r, 0) + 1
+    assert sorted(seen) == list(range(T)) and set(seen.values()) == {1}
+    assert fwd["threads"] == 32 * (fwd["block_q"] // 16)
+    if S:
+        dkv = tfa.flash_bwd_plan(B, H, Hkv, T, S, d)["dkv_bf16"]
+        nx, ny, nz = dkv["grid"]
+        assert (ny, nz) == (Hkv, B) and nx * dkv["rows"] >= S > (
+            nx - 1) * dkv["rows"]
+        assert dkv["threads"] == 32 * (dkv["rows"] // 16)
+
+
+@pytest.mark.parametrize("d", range(1, tfa.MAX_HEAD_DIM + 1))
+def test_flash_bf16_plans_stay_within_the_card(d):
+    """At every head dim: the padded head dim is the least of 32, 64 and
+    128 that holds d; shared memory within 232,448 bytes, with the bf16
+    tiles at 2 bytes a value (rows of the padded dim + 8 values)."""
+    fwd = tfa.flash_bf16_plan(64, 8, 256, 256, d, H100_SMS, H100_SMEM)
+    dp = min(x for x in (32, 64, 128) if x >= d)
+    assert fwd["head_dim"] == dp == tfa.bf16_padded_dim(d)
+    ld = dp + tfa.BF16_PAD
+    assert fwd["smem"] == (2 * ld * (fwd["block_q"] + fwd["stages"] * 2
+                                     * tfa.BF16_TILE_K)
+                           + 4 * fwd["stages"] * tfa.BF16_TILE_K)
+    dkv = tfa.flash_bwd_plan(1, 1, 1, 64, 64, d)["dkv_bf16"]
+    assert dkv["smem"] == (2 * ld * (2 * dkv["rows"] + dkv["stages"] * 2
+                                     * dkv["tile"])
+                           + 4 * dkv["stages"] * 2 * dkv["tile"])
+    assert 0 < fwd["smem"] <= H100_SMEM and 0 < dkv["smem"] <= H100_SMEM
+
+
+def test_flash_bf16_plan_reads_static_shapes_only():
+    """No key mask, lengths or tensor among its parameters, so a CUDA
+    graph holds the call; bf16 at T <= 4 (the rows path) is refused."""
+    assert list(inspect.signature(tfa.flash_bf16_plan).parameters) == [
+        "B", "H", "T", "S", "d", "n_sm", "smem_limit"]
+    with pytest.raises(ValueError):
+        tfa.flash_bf16_plan(32, 8, 4, 256, 64, H100_SMS, H100_SMEM)
+    with pytest.raises(ValueError):
+        tfa.flash_bf16_plan(2, 8, 64, 256, 64, H100_SMS, 16 * 1024)
+
+
+def test_flash_bf16_plan_at_the_train_shape():
+    """Transformer-base's AMP train step, bf16 q/k/v [64, 8, 256, 64], on
+    132 SMs: 64-row blocks of 4 warps, the Q tile and two buffers of
+    64-key K and V tiles (bf16 rows of 72 values) with their key-mask
+    entries."""
+    assert tfa.flash_bf16_plan(64, 8, 256, 256, 64, H100_SMS,
+                               H100_SMEM) == {
+        "block_q": 64, "threads": 128, "stages": 2, "head_dim": 64,
+        "smem": 2 * 72 * (64 + 2 * 2 * 64) + 4 * 2 * 64, "blocks": 2048}
