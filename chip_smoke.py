@@ -32,9 +32,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    B5 (``tree_plan``), B1's rows path (``flash_rows_plan``), B6
    (``lstm_plan``) and B7 (``gru_plan``) give the threads and shared
    bytes (and blocks) the kernels derive, at every head dim or over
-   batches and widths, and so do the plans of B1's and B2's bf16
-   entries (``flash_bf16_plan``, ``flash_bwd_plan``'s ``"dkv_bf16"``;
-   B2's also its Q tile); runs a full
+   batches and widths, and so do the plans of B1's, B2's and B3's bf16
+   entries (``flash_bf16_plan``, ``flash_bwd_plan``'s ``"dkv_bf16"`` and
+   ``"dq_bf16"``; B2's also its Q tile, B3's its K/V tile); runs a full
    [B, H, T, S] mask (GQA, a window, a fully masked row) through
    ``flash_attention`` on the card and on the CPU (``attention_reference``
    on both, no kernel launch; forward and gradients within 1e-4); then times
@@ -43,8 +43,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    a CUDA graph of 30 calls (no host launch cost in the time) that cycle
    through input copies larger than the L2 cache; the library time of the
    backward pair (autograd's backward of ``scaled_dot_product_attention``
-   with the key mask, or ``is_causal``, which a graph cannot hold) from
-   CUDA events around 30 eager calls, each far longer than its launch.
+   with the key mask, or ``is_causal``, which a graph cannot hold) as
+   the device time of its kernels from a profiler trace of 10 eager
+   calls (``device_ms``), so no host time enters it; that backward
+   computes its own ``rowsum(dO O)``, so a ``pair`` line adds the port's
+   ``delta`` pass (timed as the kernels are) to its two kernels beside
+   it.
    The backward pair's bounds are printed two ways: at the split-TF32
    rate of the tensor cores (a third of 495 TFLOP/s, what its kernels
    compute at; the ``bound_ms`` of its record) and at 67 TFLOP/s fp32.
@@ -242,9 +246,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    parameters), not from a startup program of its own.
 15. bf16 mixed precision (AMP), as bench.py trains on the accelerator
    (``rewrite_program_amp(main, "bfloat16")``). Right after step 3's
-   timing (``amp_kernels``): the flash kernels' bf16 entries (B1's,
-   ``flash_fwd_bf16``, and B2's, ``flash_bwd_dkv_bf16``, on the bf16
-   tensor cores; B3's, ``flash_bwd_dq_bf16``) against their plain
+   timing (``amp_kernels``): the flash kernels' bf16 entries on the bf16
+   tensor cores (B1's, ``flash_fwd_bf16``, B2's, ``flash_bwd_dkv_bf16``,
+   and B3's, ``flash_bwd_dq_bf16``) against their plain
    versions on the same bf16 tensors, at the train step's three calls,
    the encoder's shape, B1's tile edges and the tensor-core entries'
    own (head dims 32, 96 and 128, T and S apart and off multiples of
@@ -523,7 +527,7 @@ def eager_ms(fn, inputs, iters=30):
     ``iters`` eager calls that cycle through ``len(inputs)`` copies, after
     one warm-up call on each. For calls whose device time is far above
     their host launch cost (the host then runs ahead of the card), where
-    a CUDA graph cannot hold the call (autograd's backward)."""
+    a CUDA graph cannot hold the call."""
     import torch
 
     for i in range(len(inputs)):
@@ -544,7 +548,8 @@ def device_ms(torch, fn, inputs, iters=10):
     summed from a torch.profiler trace of ``iters`` calls cycling through
     ``inputs`` (after one warm-up call on each), so the host's launch
     cost does not enter it. For a library call with many launches that a
-    CUDA graph may not hold (cuDNN's LSTM). A trace can come back with
+    CUDA graph may not hold (cuDNN's LSTM, autograd's backward of
+    ``scaled_dot_product_attention``). A trace can come back with
     no device event; it is taken once more, and a second empty one
     fails the run rather than report a time of 0."""
     from torch.autograd import DeviceType
@@ -1149,12 +1154,13 @@ def flash_bwd_layout_phase():
 
 
 def flash_bf16_layout_phase():
-    """B1's and B2's bf16 plans against the kernels: at every head dim
-    1..128, the threads and shared bytes of ``flash_bf16_plan`` equal
-    those csrc/flash_fwd_bf16.cu derives, and the threads, shared bytes
-    and Q tile of ``flash_bwd_plan``'s ``"dkv_bf16"`` those of
-    csrc/flash_bwd_dkv_bf16.cu (``kernel_bf16_layout``), all within the
-    card's per-block limit."""
+    """B1's, B2's and B3's bf16 plans against the kernels: at every head
+    dim 1..128, the threads and shared bytes of ``flash_bf16_plan`` equal
+    those csrc/flash_fwd_bf16.cu derives, the threads, shared bytes and
+    Q tile of ``flash_bwd_plan``'s ``"dkv_bf16"`` those of
+    csrc/flash_bwd_dkv_bf16.cu, and the threads, shared bytes and K/V
+    tile of its ``"dq_bf16"`` those of csrc/flash_bwd_dq_bf16.cu
+    (``kernel_bf16_layout``), all within the card's per-block limit."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels.build import device_limits
 
@@ -1163,9 +1169,11 @@ def flash_bf16_layout_phase():
     for d in range(1, fa.MAX_HEAD_DIM + 1):
         fwd = fa.flash_bf16_plan(TRAIN_BATCH, N_HEAD, MAX_LEN, MAX_LEN, d,
                                  n_sm, limit)
-        dkv = fa.flash_bwd_plan(1, 1, 1, 64, 64, d)["dkv_bf16"]
+        bwd = fa.flash_bwd_plan(1, 1, 1, 64, 64, d)
+        tiled = ("threads", "smem", "tile")
         for entry, p, keys in (("fwd", fwd, ("threads", "smem")),
-                               ("dkv", dkv, ("threads", "smem", "tile"))):
+                               ("dkv", bwd["dkv_bf16"], tiled),
+                               ("dq", bwd["dq_bf16"], tiled)):
             tile = p["block_q"] if entry == "fwd" else p["rows"]
             got = fa.kernel_bf16_layout(entry, tile, d)
             want = {k: p[k] for k in keys}
@@ -1175,8 +1183,8 @@ def flash_bf16_layout_phase():
                                                 limit))
             n += 1
     print("flash bf16 layout: the plans' threads and shared bytes (and B2's "
-          "Q tile) equal the kernels' at %d (entry, head dim) pairs, all "
-          "within %d bytes" % (n, limit))
+          "Q tile, B3's K/V tile) equal the kernels' at %d (entry, head "
+          "dim) pairs, all within %d bytes" % (n, limit))
 
 
 def paged_layout_phase():
@@ -1439,9 +1447,12 @@ def sdpa_backend(torch, F, q, k, v, mask, causal=False):
 
 def sdpa_backward_ms(torch, F, bwd):
     """(backend, ms) of the backward of ``scaled_dot_product_attention``
-    on the same fp32 inputs, key mask (or ``is_causal``) and output
-    gradient as the kernels: ``torch.autograd.grad`` of a forward run
-    once, timed eagerly."""
+    on the same inputs, key mask (or ``is_causal``) and output gradient
+    as the kernels: ``torch.autograd.grad`` of a forward run once, the
+    device time of the kernels it launches from a profiler trace
+    (``device_ms``: eager calls, whose host time would show through CUDA
+    events at these sizes). It includes the backward's own
+    ``rowsum(dO O)`` pass."""
     ins = []
 
     def mask_of(a):
@@ -1461,7 +1472,27 @@ def sdpa_backward_ms(torch, F, bwd):
         out, leaves, dout = ins[i]
         torch.autograd.grad(out, leaves, dout, retain_graph=True)
 
-    return backend, eager_ms(call, ins)
+    return backend, device_ms(torch, call, ins)
+
+
+def delta_ms(torch, bwd):
+    """Device ms of the port's ``delta = rowsum(dO O)`` pass, as
+    ``flash_backward`` computes it ahead of the kernels (float32 from the
+    upcast values), timed as the kernels are (``cuda_ms``)."""
+    return cuda_ms(lambda dout, out: (dout.float() * out.float()).sum(
+        dim=-1), [dict(dout=a["dout"], out=a["out"]) for a in bwd])
+
+
+def pair_line(label, shape, rows, suffix, kernels, delta, backend, lib):
+    """The backward pair with its ``delta`` pass against the library's
+    backward (which computes its own ``rowsum(dO O)``)."""
+    dkv, dq = (rows[k + suffix]["ms"] for k in kernels)
+    print("pair %-24s %s: %s %.4f + %s %.4f + delta %.4f = %.4f ms; "
+          "library %.4f ms (backward of scaled_dot_product_attention, "
+          "backend %s, its kernels' device time from a profiler trace, its "
+          "own rowsum(dO O) included)"
+          % (label + suffix, shape, kernels[0], dkv, kernels[1], dq, delta,
+             dkv + dq + delta, lib, backend))
 
 
 def timing_phase(torch):
@@ -1606,6 +1637,7 @@ def timing_phase(torch):
                                      "dout", "causal")} for a in bwd]
         plain_ms = cuda_ms(fa.flash_backward_plain, plain)
         backend, lib_ms = sdpa_backward_ms(torch, F, bwd)
+        d_ms = delta_ms(torch, bwd)
         kvb = 4.0 * dh * (pairs / T if not bwd[0]["causal"]
                           else B * N_HEAD * T)  # k/v rows read, each
         mb = mbytes if bwd[0]["kv_mask"] is not None else 0.0
@@ -1623,6 +1655,8 @@ def timing_phase(torch):
                 plain_ms=plain_ms, library_ms=lib_ms, backend=backend,
                 bound=bound(nbytes, flops, PEAK_TF32X3_FLOPS),
                 bound_fp32=bound(nbytes, flops))
+        pair_line("flash_bwd", shape, rows, suffix,
+                  ("flash_bwd_dkv", "flash_bwd_dq"), d_ms, backend, lib_ms)
 
     bwd_rows("", kw_t, T * vis * N_HEAD, shape_t)
     bwd_rows("_causal", copies(tcases["train_causal"]),
@@ -1710,8 +1744,9 @@ def amp_kernel_phase(torch):
         Hkv, S = kw["k"].shape[1:3]
         print("plan flash_fwd_bf16 %-22s %s" % (name, fa.flash_bf16_plan(
             B, H, T, S, d, *limits)))
-        print("plan flash_bwd_dkv_bf16 %-18s %s" % (name, fa.flash_bwd_plan(
-            B, H, Hkv, T, S, d)["dkv_bf16"]))
+        bplan = fa.flash_bwd_plan(B, H, Hkv, T, S, d)
+        print("plan flash_bwd_dkv_bf16 %-18s %s" % (name, bplan["dkv_bf16"]))
+        print("plan flash_bwd_dq_bf16 %-19s %s" % (name, bplan["dq_bf16"]))
         out, lse = fa.flash_forward(**kw)
         ref, ref_lse = fa.flash_forward_plain(**kw)
         torch.cuda.synchronize()
@@ -1825,6 +1860,7 @@ def amp_kernel_phase(torch):
                                      "dout", "causal")} for a in bwd]
         plain_ms = cuda_ms(fa.flash_backward_plain, plain)
         backend, lib_ms = sdpa_backward_ms(torch, F, bwd)
+        d_ms = delta_ms(torch, bwd)
         kvb = 2.0 * dh * (pairs / T if not bwd[0]["causal"]
                           else B * N_HEAD * T)  # k/v rows read, each
         mb = mbytes if bwd[0]["kv_mask"] is not None else 0.0
@@ -1842,6 +1878,9 @@ def amp_kernel_phase(torch):
                 shape=shape, ms=cuda_ms(getattr(fa, entry), kern),
                 plain_ms=plain_ms, library_ms=lib_ms, backend=backend,
                 bound=bound(nbytes, flops, PEAK_BF16_FLOPS))
+        pair_line("flash_bwd_bf16", shape, rows, suffix,
+                  ("flash_bwd_dkv_bf16", "flash_bwd_dq_bf16"), d_ms, backend,
+                  lib_ms)
 
     bwd_rows("", kw_m, pairs_m, shape_m)
     bwd_rows("_causal", kw_c, pairs_c, shape_c)
@@ -1849,7 +1888,7 @@ def amp_kernel_phase(torch):
         lib = "%.4f ms" % r["library_ms"]
         if r.get("backend"):
             lib += (" (backward of scaled_dot_product_attention in bf16, "
-                    "backend %s; the pair)" % r["backend"])
+                    "backend %s, device time; the pair)" % r["backend"])
         else:
             lib += " (scaled_dot_product_attention in bf16)"
         print("time %-30s %s: kernel %.4f ms, plain %.4f ms%s, library %s, "
@@ -5425,8 +5464,8 @@ def main():
         lib = ("%.4f ms" % r["library_ms"] if r["library_ms"] is not None
                else "none")
         if r.get("backend"):
-            lib += " (backward of scaled_dot_product_attention, backend %s)" \
-                % r["backend"]
+            lib += (" (backward of scaled_dot_product_attention, backend %s, "
+                    "device time)" % r["backend"])
         plain = "plain %.4f ms" % r["plain_ms"]
         bnd = "bound %.4f ms (%s)" % r["bound"]
         if name.startswith("flash_bwd"):
@@ -5774,7 +5813,7 @@ def main():
                    "flash_fwd_bf16_train", amp_of),
         amp_record("flash_bwd_dkv_bf16", "flash_bwd_dkv_bf16.cu", 302,
                    "flash_bwd_dkv_bf16", amp_of),
-        amp_record("flash_bwd_dq_bf16", "flash_bwd.cu", 376,
+        amp_record("flash_bwd_dq_bf16", "flash_bwd_dq_bf16.cu", 376,
                    "flash_bwd_dq_bf16", amp_of),
     ]}
     print(card)

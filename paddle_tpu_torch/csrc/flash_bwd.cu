@@ -1,5 +1,5 @@
-// flash_bwd: the FlashAttention-2 backward pair, fp32 (or bf16) in and
-// out, for sm_90a, with its products on the tensor cores as split-TF32.
+// flash_bwd: the FlashAttention-2 backward pair, fp32 in and out, for
+// sm_90a, with its products on the tensor cores as split-TF32.
 //
 // Replaces the TPU kernels `_flash_bwd_dkv_kernel` and
 // `_flash_bwd_dq_kernel` (paddle_tpu/kernels/flash_attention.py:302,376,
@@ -80,28 +80,13 @@
 //   number of mma steps), so the inner loops have no bound to test.
 // - exp(x) is computed as exp2(x log2 e).
 //
-// bf16 dQ (paddle_flash_bwd_dq_bf16, the mixed-precision train step's
-// entry): q, k, v, dO in bf16, dQ written in bf16
-// (flash_attention.py:548 declares it in the inputs' dtype), lse and
-// delta float32 (delta = rowsum(dO O) in float32 from the upcast values,
-// by the wrapper). The TPU kernel upcasts every tile and computes in
-// float32; so does this entry: the staging widens bf16 rows into the
-// same float32 tiles (bf16.cuh), and every product is the float32
-// entry's split-TF32 product. A bf16 value is exact in TF32, so the lo
-// parts of q, k, v and dO are 0: S and dP need one TF32 product (hi hi)
-// instead of three, and dQ (dS, float32, against a bf16 operand) two
-// instead of three; the passes dropped would add exact zeros
-// (`pass_runs`). dQ is rounded to bf16 once, at the store. bf16 dK/dV
-// (paddle_flash_bwd_dkv_bf16) is a kernel of its own on the bf16 tensor
-// cores: csrc/flash_bwd_dkv_bf16.cu.
+// The bf16 entries (the mixed-precision train step's) are kernels of
+// their own on the bf16 tensor cores: csrc/flash_bwd_dkv_bf16.cu and
+// csrc/flash_bwd_dq_bf16.cu.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
-
-#include "bf16.cuh"
 
 namespace {
 
@@ -155,35 +140,7 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // rows [base, base + n) of a [len, d] matrix into a tile of stride
-// DP + 4; rows past len and columns past d (up to DP) are zeros. A bf16
-// matrix is widened to float32 on the way (bf16.cuh: plain loads, the
-// stores land before the barrier ahead of the tile's use)
-template <int NT, int DP>
-__device__ __forceinline__ void stage_rows(float* dst,
-                                           const __nv_bfloat16* src,
-                                           int base, int n, int len, int d,
-                                           bool vec) {
-  constexpr int dp = DP, ld = DP + 4;
-  if (vec) {  // d % 8 == 0 and 16-byte aligned rows
-    const int octs = dp / 8;
-    for (int i = threadIdx.x; i < n * octs; i += NT) {
-      const int r = i / octs, c = (i - r * octs) * 8;
-      const int row = base + r;
-      const bool ok = row < len && c < d;
-      bf16io::load8(dst + r * ld + c, src + (ok ? (size_t)row * d + c : 0),
-                    ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < n * dp; i += NT) {
-      const int r = i / dp, c = i - r * dp;
-      const int row = base + r;
-      const bool ok = row < len && c < d;
-      dst[r * ld + c] =
-          ok ? bf16io::widen(src[(size_t)row * d + c]) : 0.f;
-    }
-  }
-}
-
+// DP + 4; rows past len and columns past d (up to DP) are zeros
 template <int NT, int DP>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src,
                                            int base, int n, int len, int d,
@@ -276,21 +233,10 @@ __device__ __forceinline__ FragA frag_acc(const float (&acc)[4]) {
   return f;
 }
 
-// Does pass `pass` of a split product contribute? With EXACT (the bf16
-// entry: q, k, v and dO are bf16 values, exact in TF32, so their lo part
-// is 0) a product of two such operands needs only hi * hi (pass 2), and a
-// product of a float32 accumulator (P or dS, the A operand) with one of
-// them a_lo b_hi and a_hi b_hi (passes 0 and 2): the passes skipped add
-// exact zeros, so the results are those of all three.
-template <bool EXACT>
-__device__ __forceinline__ constexpr bool pass_runs(int pass, bool both) {
-  return !EXACT || pass == 2 || (!both && pass == 0);
-}
-
 // s = A1 B1^T and dp = A2 B2^T over the head dim, for a warp's 16 rows
 // (rows r, r + 8 of the A tiles) and the 32 rows of the B tiles, 8
 // head-dim columns a step
-template <int LD, int ND, bool EXACT>
+template <int LD, int ND>
 __device__ __forceinline__ void two_products(float (&s)[4][4],
                                              float (&dp)[4][4],
                                              const float* a1, const float* a2,
@@ -322,7 +268,6 @@ __device__ __forceinline__ void two_products(float (&s)[4][4],
     }
 #pragma unroll
     for (int pass = 0; pass < 3; ++pass) {
-      if (!pass_runs<EXACT>(pass, true)) continue;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         mma_pass(s[j], fa[0], fb[0][j], pass);
@@ -355,14 +300,10 @@ __device__ __forceinline__ bool ranges_meet(int q0, int q1, int k0, int k1,
   return run;
 }
 
-// In: the element type of q, k, v, dO and the gradients (float, or
-// __nv_bfloat16 for the bf16 entries); lse, delta and the key mask are
-// float32 either way
-template <typename In>
 struct Args {
-  const In *q, *k, *v, *dout;
+  const float *q, *k, *v, *dout;
   const float *lse, *delta, *kv_mask;
-  In *dq, *dk, *dv;
+  float *dq, *dk, *dv;
   int H, Hkv, T, S, d;
   float sm_scale;
   int causal, window, vec;
@@ -372,14 +313,11 @@ struct Args {
 
 // each warp owns 16 keys; DP: the padded head dim (64 or 128): the
 // dK/dV accumulators are DP / 8 tiles of 16 x 8. At DP 64, 3 blocks an
-// SM (the shared memory a block takes allows it). float32 only: bf16
-// dK/dV is flash_bwd_dkv_bf16.cu's
+// SM (the shared memory a block takes allows it)
 template <int DP>
 __global__ void __launch_bounds__(kWarps * 32, DP == 64 ? 3 : 1)
-flash_bwd_dkv_kernel(const Args<float> a) {
-  using In = float;
+flash_bwd_dkv_kernel(const Args a) {
   constexpr int NT = kWarps * 32, KR = kRows, ND = DP / 8, LD = DP + 4;
-  constexpr bool EXACT = false;
   extern __shared__ float4 smem4[];
   const int d = a.d, T = a.T, S = a.S;
   float* k_s = reinterpret_cast<float*>(smem4);  // [KR][LD]
@@ -483,8 +421,8 @@ flash_bwd_dkv_kernel(const Args<float> a) {
       if (live[0] || live[1] || live[2] || live[3]) {
         // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 32 queries
         float s[4][4], dp[4][4];
-        two_products<LD, ND, EXACT>(s, dp, k_s, v_s, warp * 16 + gid, qt, ot,
-                                    gid, tig);
+        two_products<LD, ND>(s, dp, k_s, v_s, warp * 16 + gid, qt, ot, gid,
+                             tig);
         // P^T and dS^T in place
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -527,7 +465,6 @@ flash_bwd_dkv_kernel(const Args<float> a) {
             }
 #pragma unroll
             for (int pass = 0; pass < 3; ++pass) {
-              if (!pass_runs<EXACT>(pass, false)) continue;
 #pragma unroll
               for (int nn = 0; nn < 4; ++nn) {
                 mma_pass(dv[n0 + nn], fp, bo[nn], pass);
@@ -547,18 +484,18 @@ flash_bwd_dkv_kernel(const Args<float> a) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (key[h] >= S) continue;
-    In* dk_row = a.dk + (bhk * S + key[h]) * d;
-    In* dv_row = a.dv + (bhk * S + key[h]) * d;
+    float* dk_row = a.dk + (bhk * S + key[h]) * d;
+    float* dv_row = a.dv + (bhk * S + key[h]) * d;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       const int c = 8 * n + 2 * tig;
       if (c < d) {
-        bf16io::store(dk_row + c, dk[n][2 * h]);
-        bf16io::store(dv_row + c, dv[n][2 * h]);
+        dk_row[c] = dk[n][2 * h];
+        dv_row[c] = dv[n][2 * h];
       }
       if (c + 1 < d) {
-        bf16io::store(dk_row + c + 1, dk[n][2 * h + 1]);
-        bf16io::store(dv_row + c + 1, dv[n][2 * h + 1]);
+        dk_row[c + 1] = dk[n][2 * h + 1];
+        dv_row[c + 1] = dv[n][2 * h + 1];
       }
     }
   }
@@ -567,11 +504,10 @@ flash_bwd_dkv_kernel(const Args<float> a) {
 // -- B3: dQ -----------------------------------------------------------------
 
 // each warp owns 16 query rows; DP as above. At DP 64, 4 blocks an SM
-template <int DP, typename In>
+template <int DP>
 __global__ void __launch_bounds__(kWarps * 32, DP == 64 ? 4 : 1)
-flash_bwd_dq_kernel(const Args<In> a) {
+flash_bwd_dq_kernel(const Args a) {
   constexpr int NT = kWarps * 32, QR = kRows, ND = DP / 8, LD = DP + 4;
-  constexpr bool EXACT = !std::is_same<In, float>::value;
   extern __shared__ float4 smem4[];
   const int d = a.d, T = a.T, S = a.S;
   float* q_s = reinterpret_cast<float*>(smem4);  // [QR][LD]
@@ -671,8 +607,8 @@ flash_bwd_dq_kernel(const Args<In> a) {
       if (live[0] || live[1] || live[2] || live[3]) {
         // S = Q K^T and dP = dO V^T: this warp's 16 rows x 32 keys
         float s[4][4], dp[4][4];
-        two_products<LD, ND, EXACT>(s, dp, q_s, do_s, warp * 16 + gid, k_s,
-                                    v_s, gid, tig);
+        two_products<LD, ND>(s, dp, q_s, do_s, warp * 16 + gid, k_s, v_s,
+                             gid, tig);
         // dS in place (P is not needed past it)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -704,7 +640,6 @@ flash_bwd_dq_kernel(const Args<In> a) {
               bk[nn] = frag_b(kr[8 * (n0 + nn)], kr[LD + 8 * (n0 + nn)]);
 #pragma unroll
             for (int pass = 0; pass < 3; ++pass) {
-              if (!pass_runs<EXACT>(pass, false)) continue;
 #pragma unroll
               for (int nn = 0; nn < 8; ++nn)
                 mma_pass(dq[n0 + nn], fs, bk[nn], pass);
@@ -721,19 +656,18 @@ flash_bwd_dq_kernel(const Args<In> a) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= T) continue;
-    In* dq_row = a.dq + (bh * T + row[r]) * d;
+    float* dq_row = a.dq + (bh * T + row[r]) * d;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       const int c = 8 * n + 2 * tig;
-      if (c < d) bf16io::store(dq_row + c, dq[n][2 * r]);
-      if (c + 1 < d) bf16io::store(dq_row + c + 1, dq[n][2 * r + 1]);
+      if (c < d) dq_row[c] = dq[n][2 * r];
+      if (c + 1 < d) dq_row[c + 1] = dq[n][2 * r + 1];
     }
   }
 }
 
-template <typename Kern, typename In>
-int launch(Kern kernel, int which, const Args<In>& a, int B,
-           cudaStream_t st) {
+template <typename Kern>
+int launch(Kern kernel, int which, const Args& a, int B, cudaStream_t st) {
   const size_t smem = smem_bytes(which, kRows, a.d);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -744,33 +678,26 @@ int launch(Kern kernel, int which, const Args<In>& a, int B,
   return (int)cudaGetLastError();
 }
 
-template <typename In>
-int run(int which, const In* q, const In* k, const In* v, const In* dout,
-        const float* lse, const float* delta, const float* kv_mask, In* dq,
-        In* dk, In* dv, int B, int H, int Hkv, int T, int S, int d,
-        float sm_scale, int causal, int window, int rows, void* stream) {
+int run(int which, const float* q, const float* k, const float* v,
+        const float* dout, const float* lse, const float* delta,
+        const float* kv_mask, float* dq, float* dk, float* dv, int B, int H,
+        int Hkv, int T, int S, int d, float sm_scale, int causal, int window,
+        int rows, void* stream) {
   if (B < 1 || T < 1 || S < 1 || d < 1 || d > 128 || Hkv < 1 ||
       H % Hkv != 0 || window < 0 || rows != kRows)
     return (int)cudaErrorInvalidValue;
-  // 16 bytes a copy: 4 floats or 8 bf16 values
-  const int vec = d % (16 / (int)sizeof(In)) == 0 &&
-                  ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
-                   (uintptr_t)dout) % 16 == 0;
-  const Args<In> a{q,  k,  v,  dout, lse, delta, kv_mask, dq,     dk,
-                   dv, H,  Hkv, T,   S,   d,     sm_scale, causal, window,
-                   vec};
+  // 16 bytes (4 floats) a copy
+  const int vec = d % 4 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                                 (uintptr_t)dout) % 16 == 0;
+  const Args a{q,  k,   v, dout, lse, delta,    kv_mask, dq,     dk, dv,
+               H,  Hkv, T, S,    d,   sm_scale, causal,  window, vec};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool narrow = d <= 64;
-  if (which == kDkv) {
-    // bf16 dK/dV is flash_bwd_dkv_bf16.cu's
-    if constexpr (!std::is_same<In, float>::value)
-      return (int)cudaErrorInvalidValue;
-    else
-      return narrow ? launch(flash_bwd_dkv_kernel<64>, which, a, B, st)
-                    : launch(flash_bwd_dkv_kernel<128>, which, a, B, st);
-  }
-  return narrow ? launch(flash_bwd_dq_kernel<64, In>, which, a, B, st)
-                : launch(flash_bwd_dq_kernel<128, In>, which, a, B, st);
+  if (which == kDkv)
+    return narrow ? launch(flash_bwd_dkv_kernel<64>, which, a, B, st)
+                  : launch(flash_bwd_dkv_kernel<128>, which, a, B, st);
+  return narrow ? launch(flash_bwd_dq_kernel<64>, which, a, B, st)
+                : launch(flash_bwd_dq_kernel<128>, which, a, B, st);
 }
 
 }  // namespace
@@ -788,9 +715,8 @@ extern "C" int paddle_flash_bwd_dkv_f32(const float* q, const float* k,
                                         int T, int S, int d, float sm_scale,
                                         int causal, int window, int rows,
                                         void* stream) {
-  return run<float>(kDkv, q, k, v, dout, lse, delta, kv_mask, nullptr, dk,
-                    dv, B, H, Hkv, T, S, d, sm_scale, causal, window, rows,
-                    stream);
+  return run(kDkv, q, k, v, dout, lse, delta, kv_mask, nullptr, dk, dv, B,
+             H, Hkv, T, S, d, sm_scale, causal, window, rows, stream);
 }
 
 extern "C" int paddle_flash_bwd_dq_f32(const float* q, const float* k,
@@ -800,22 +726,8 @@ extern "C" int paddle_flash_bwd_dq_f32(const float* q, const float* k,
                                        int B, int H, int Hkv, int T, int S,
                                        int d, float sm_scale, int causal,
                                        int window, int rows, void* stream) {
-  return run<float>(kDq, q, k, v, dout, lse, delta, kv_mask, dq, nullptr,
-                    nullptr, B, H, Hkv, T, S, d, sm_scale, causal, window,
-                    rows, stream);
-}
-
-// The bf16 dQ entry: q, k, v, dout and dq bf16; lse, delta and kv_mask
-// float32; otherwise the float32 entry's contract.
-extern "C" int paddle_flash_bwd_dq_bf16(
-    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-    const __nv_bfloat16* dout, const float* lse, const float* delta,
-    const float* kv_mask, __nv_bfloat16* dq, int B, int H, int Hkv, int T,
-    int S, int d, float sm_scale, int causal, int window, int rows,
-    void* stream) {
-  return run<__nv_bfloat16>(kDq, q, k, v, dout, lse, delta, kv_mask, dq,
-                            nullptr, nullptr, B, H, Hkv, T, S, d, sm_scale,
-                            causal, window, rows, stream);
+  return run(kDq, q, k, v, dout, lse, delta, kv_mask, dq, nullptr, nullptr,
+             B, H, Hkv, T, S, d, sm_scale, causal, window, rows, stream);
 }
 
 // The threads and shared-memory bytes a block of `kernel` (0: dK/dV, 1:

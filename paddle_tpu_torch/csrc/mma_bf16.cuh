@@ -1,6 +1,6 @@
 // mma_bf16.cuh: bf16 tensor-core building blocks for the flash kernels'
-// bf16 entries on sm_90a: B1's (flash_fwd_bf16.cu) and B2's
-// (flash_bwd_dkv_bf16.cu).
+// bf16 entries on sm_90a: B1's (flash_fwd_bf16.cu), B2's
+// (flash_bwd_dkv_bf16.cu) and B3's (flash_bwd_dq_bf16.cu).
 //
 // - Tiles: bf16 rows in shared memory, DP values a row (the head dim
 //   padded with zero columns to a multiple of 16) plus kPad values of

@@ -35,14 +35,14 @@ entries (``*_bf16`` symbols, launch counts of their own), which compute
 the TPU kernel's function on bf16 tiles: every product of two bf16
 values exact in float32 with float32 sums, ``P`` and ``dS`` kept in
 float32, one rounding of ``O``, ``dQ``, ``dK`` and ``dV`` to bf16 at
-the store, the LSE and ``delta`` in float32. B1's and B2's bf16 entries
-(``csrc/flash_fwd_bf16.cu``, ``csrc/flash_bwd_dkv_bf16.cu``) run on the
-bf16 tensor cores, ``P`` and ``dS`` split into bf16 hi + lo (about 16
-bits) where they meet a product; their plans are ``flash_bf16_plan``
-and ``flash_bwd_plan``'s ``"dkv_bf16"``. B3's (dQ) widens its tiles to
-float32 and runs split-TF32. The plain versions compute in float32. The
-rows path (T <= 4: decode and verify) takes float32 only. Any other
-dtype, or a mix, raises.
+the store, the LSE and ``delta`` in float32. The bf16 entries of B1, B2
+and B3 (``csrc/flash_fwd_bf16.cu``, ``csrc/flash_bwd_dkv_bf16.cu``,
+``csrc/flash_bwd_dq_bf16.cu``) run on the bf16 tensor cores, ``P`` and
+``dS`` split into bf16 hi + lo (about 16 bits) where they meet a
+product; their plans are ``flash_bf16_plan`` and ``flash_bwd_plan``'s
+``"dkv_bf16"`` and ``"dq_bf16"``. The plain versions compute in
+float32. The rows path (T <= 4: decode and verify) takes float32 only.
+Any other dtype, or a mix, raises.
 """
 
 import ctypes
@@ -76,7 +76,7 @@ FLASH_BWD_DKV = Kernel("paddle_flash_bwd_dkv_f32",
 FLASH_BWD_DQ = Kernel("paddle_flash_bwd_dq_f32",
                       _BWD_ARGS + [ctypes.c_void_p] + _BWD_DIMS)
 # the bf16 entries: bf16 q, k, v, dO and dQ/dK/dV; float32 lse and delta
-# (dK/dV: csrc/flash_bwd_dkv_bf16.cu)
+# (csrc/flash_bwd_dkv_bf16.cu, csrc/flash_bwd_dq_bf16.cu)
 FLASH_BWD_DKV_BF16 = Kernel("paddle_flash_bwd_dkv_bf16",
                             _BWD_ARGS + [ctypes.c_void_p] * 2 + _BWD_DIMS)
 FLASH_BWD_DQ_BF16 = Kernel("paddle_flash_bwd_dq_bf16",
@@ -131,13 +131,15 @@ def flash_plan(B, H, T, S, d, n_sm, smem_limit):
     return {"block_q": bq, "blocks": B * H * -(-T // bq), "threads": threads}
 
 
-# the bf16 entries' tiles, as csrc/mma_bf16.cuh, csrc/flash_fwd_bf16.cu
-# and csrc/flash_bwd_dkv_bf16.cu build them: bf16 rows of the head dim
-# padded to 32, 64 or 128 (bf16_padded_dim), plus BF16_PAD values
+# the bf16 entries' tiles, as csrc/mma_bf16.cuh and the entries
+# (csrc/flash_fwd_bf16.cu, csrc/flash_bwd_dkv_bf16.cu,
+# csrc/flash_bwd_dq_bf16.cu) build them: bf16 rows of the head dim padded
+# to 32, 64 or 128 (bf16_padded_dim), plus BF16_PAD values
 BF16_PAD = 8
 BF16_TILE_K = 64    # keys of B1's K/V tile
 BF16_TILE_Q = 32    # rows of B2's streamed Q/dO tile
-BF16_STAGES = 2     # cp.async buffers of a streamed tile, both entries
+BF16_DQ_TILE_K = 32  # keys of B3's streamed K/V tile
+BF16_STAGES = 2     # cp.async buffers of a streamed tile, every entry
 # B1's query rows a block (4 warps of 16); 128-row blocks of 8 warps ran
 # slower on an H100 at the train shapes (one fills an SM's registers)
 BF16_ROWS = 64
@@ -197,8 +199,8 @@ BWD_STAGES = {"dkv": 2, "dq": 1}
 
 def flash_bwd_plan(B, H, Hkv, T, S, d):
     """The backward kernels' launch plan for q ``[B, H, T, d]`` and k/v
-    ``[B, Hkv, S, d]``: ``{"dkv": {...}, "dq": {...}, "dkv_bf16":
-    {...}}``, each with
+    ``[B, Hkv, S, d]``: ``{"dkv": {...}, "dq": {...}, "dkv_bf16": {...},
+    "dq_bf16": {...}}``, each with
 
     - ``rows``: the block's own tile (keys of B2, query rows of B3), 16 a
       warp: 64 (``BWD_ROWS``) at every shape; 32-row tiles measured no
@@ -219,6 +221,11 @@ def flash_bwd_plan(B, H, Hkv, T, S, d):
     Q/dO tiles of ``tile`` rows (``BF16_TILE_Q``) in ``stages`` buffers
     with their lse and delta (float32);
     ``chip_smoke.py`` holds it to ``paddle_flash_bwd_dkv_bf16_layout``.
+    ``"dq_bf16"`` is B3's bf16 entry (csrc/flash_bwd_dq_bf16.cu): the
+    same 64-row blocks and grid as ``"dq"``, resident bf16 Q and dO
+    tiles, its streamed K/V tiles of ``tile`` keys (``BF16_DQ_TILE_K``)
+    in ``stages`` buffers with their key-mask entries (float32);
+    ``chip_smoke.py`` holds it to ``paddle_flash_bwd_dq_bf16_layout``.
 
     The wrappers pass ``rows`` to the kernels."""
     ld = (64 if d <= 64 else 128) + 4
@@ -230,16 +237,20 @@ def flash_bwd_plan(B, H, Hkv, T, S, d):
                              * (2 * BWD_TILE * ld + vec)),
                 "grid": (-(-own // BWD_ROWS), heads, B)}
 
-    dp = bf16_padded_dim(d)
-    tile = BF16_TILE_Q
-    dkv_bf16 = {"rows": BWD_ROWS, "threads": 2 * BWD_ROWS, "tile": tile,
+    def bf16(tile, vecs, own, heads):
+        """Two resident tiles of ``BWD_ROWS`` rows, and ``BF16_STAGES``
+        buffers of two streamed ``tile``-row tiles with ``vecs`` float32
+        entries a row."""
+        return {"rows": BWD_ROWS, "threads": 2 * BWD_ROWS, "tile": tile,
                 "stages": BF16_STAGES,
-                "smem": (2 * (dp + BF16_PAD) * (2 * BWD_ROWS + BF16_STAGES
-                                                * 2 * tile)
-                         + 4 * BF16_STAGES * 2 * tile),
-                "grid": (-(-S // BWD_ROWS), Hkv, B)}
+                "smem": (2 * (bf16_padded_dim(d) + BF16_PAD)
+                         * (2 * BWD_ROWS + BF16_STAGES * 2 * tile)
+                         + 4 * BF16_STAGES * vecs * tile),
+                "grid": (-(-own // BWD_ROWS), heads, B)}
+
     return {"dkv": one("dkv", S, Hkv), "dq": one("dq", T, H),
-            "dkv_bf16": dkv_bf16}
+            "dkv_bf16": bf16(BF16_TILE_Q, 2, S, Hkv),
+            "dq_bf16": bf16(BF16_DQ_TILE_K, 1, T, H)}
 
 
 def kernel_bwd_layout(kernel, rows, d):
@@ -258,15 +269,17 @@ def kernel_bwd_layout(kernel, rows, d):
 
 def kernel_bf16_layout(entry, tile, d):
     """The figures csrc/flash_fwd_bf16.cu (``entry`` ``"fwd"``, query
-    tile ``tile``: ``paddle_flash_fwd_bf16_layout``) or
+    tile ``tile``: ``paddle_flash_fwd_bf16_layout``),
     csrc/flash_bwd_dkv_bf16.cu (``"dkv"``, key tile ``tile``:
-    ``paddle_flash_bwd_dkv_bf16_layout``) derive for a block at head dim
-    ``d``: ``{"threads", "smem"}``, and for ``"dkv"`` also ``"tile"``,
-    the streamed Q tile's rows (host code: needs the built library, not
-    a card), or None where the entry refuses them."""
+    ``paddle_flash_bwd_dkv_bf16_layout``) or csrc/flash_bwd_dq_bf16.cu
+    (``"dq"``, query tile ``tile``: ``paddle_flash_bwd_dq_bf16_layout``)
+    derive for a block at head dim ``d``: ``{"threads", "smem"}``, and
+    for ``"dkv"`` and ``"dq"`` also ``"tile"``, the streamed Q tile's
+    rows or K/V tile's keys (host code: needs the built library, not a
+    card), or None where the entry refuses them."""
     out = [ctypes.c_int(0) for _ in range(2 if entry == "fwd" else 3)]
-    fn = getattr(library(), "paddle_flash_fwd_bf16_layout" if entry == "fwd"
-                 else "paddle_flash_bwd_dkv_bf16_layout")
+    fn = getattr(library(), "paddle_flash_%s_bf16_layout"
+                 % ("fwd" if entry == "fwd" else "bwd_" + entry))
     fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * len(
         out)
     fn.restype = ctypes.c_int
@@ -495,13 +508,15 @@ def flash_bwd_dkv(q, k, v, kv_mask, dout, lse, delta, causal, sm_scale,
 def flash_bwd_dq(q, k, v, kv_mask, dout, lse, delta, causal, sm_scale,
                  kv_group=1, window=0):
     """Launch the ``flash_bwd_dq`` kernel (B3) on CUDA tensors: ``dq``
-    ``[B, H, T, d]``. Counted by ``(T, causal)`` as ``flash_bwd_dkv``."""
+    ``[B, H, T, d]``. Counted by ``(T, causal)`` as ``flash_bwd_dkv``
+    (``FLASH_BWD_DQ`` or ``FLASH_BWD_DQ_BF16``)."""
     _bwd_check(q, k, v, kv_mask, dout, lse, delta, kv_group, window,
                "flash_bwd_dq")
     dq = torch.empty_like(q)
     _ENTRIES[q.dtype][2].launch(
         *(_bwd_args(q, k, v, kv_mask, dout, lse, delta) + (dq.data_ptr(),)
-          + _bwd_dims(q, k, causal, sm_scale, window, "dq")),
+          + _bwd_dims(q, k, causal, sm_scale, window,
+                      "dq" if q.dtype == torch.float32 else "dq_bf16")),
         key=(q.shape[2], bool(causal)))
     return dq
 

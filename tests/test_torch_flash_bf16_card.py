@@ -1,5 +1,5 @@
 """The flash kernels' bf16 entries on the card against their plain
-versions (B1's bf16 entry and B2's on the bf16 tensor cores, B3's dQ).
+versions (B1's, B2's and B3's bf16 entries on the bf16 tensor cores).
 
 Marked ``card``: each test skips where torch sees no CUDA device (this
 file imports no JAX, so it runs on a machine without it). On a card:
@@ -9,8 +9,8 @@ file imports no JAX, so it runs on a machine without it). On a card:
 
 Tolerance: the plain version computes in float32 from the widened bf16
 values and rounds each output to bf16 once; the kernels take the bf16
-products exactly with float32 sums (B1, B2: P and dS split into bf16 hi
-+ lo, about 16 bits; B3: split-TF32), and round once too. So an output
+products exactly with float32 sums (P and dS split into bf16 hi + lo,
+about 16 bits), and round once too. So an output
 may differ by one bf16 rounding step of its value (2**-7 of it) on top
 of the float32 entries' 1e-4; the LSE, a float32 output, within 1e-4.
 Dead rows (no visible key) are exactly 0 in O and dQ, and a masked
@@ -131,17 +131,20 @@ def test_bf16_backward_matches_plain(case):
 
 @pytest.mark.card
 def test_bf16_plans_equal_the_kernels_layouts():
-    """``flash_bf16_plan`` and ``flash_bwd_plan``'s ``"dkv_bf16"`` state
-    the threads, shared bytes (and B2's Q tile) the kernels derive, at
-    every head dim."""
+    """``flash_bf16_plan`` and ``flash_bwd_plan``'s ``"dkv_bf16"`` and
+    ``"dq_bf16"`` state the threads, shared bytes (and B2's Q tile, B3's
+    K/V tile) the kernels derive, at every head dim."""
     _card()
     for d in range(1, fa.MAX_HEAD_DIM + 1):
         p = fa.flash_bf16_plan(64, 8, 256, 256, d, 132, 232448)
         assert fa.kernel_bf16_layout("fwd", p["block_q"], d) == {
             "threads": p["threads"], "smem": p["smem"]}
-        p = fa.flash_bwd_plan(1, 1, 1, 64, 64, d)["dkv_bf16"]
-        assert fa.kernel_bf16_layout("dkv", p["rows"], d) == {
-            "threads": p["threads"], "smem": p["smem"], "tile": p["tile"]}
+        plan = fa.flash_bwd_plan(1, 1, 1, 64, 64, d)
+        for entry in ("dkv", "dq"):
+            p = plan[entry + "_bf16"]
+            assert fa.kernel_bf16_layout(entry, p["rows"], d) == {
+                "threads": p["threads"], "smem": p["smem"],
+                "tile": p["tile"]}
 
 
 @pytest.mark.card

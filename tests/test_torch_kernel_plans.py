@@ -44,6 +44,12 @@ Python: no card, no JAX).
   static shapes only; the train-shape plans as literals
   (``chip_smoke.py`` holds them to ``paddle_flash_fwd_bf16_layout`` and
   ``paddle_flash_bwd_dkv_bf16_layout``).
+- ``flash_bwd_plan``'s ``"dq_bf16"`` (B3's bf16 entry): the blocks tile
+  every query row of every head and batch once, 16 rows a warp; shared
+  memory within 232,448 bytes at every head dim (resident Q and dO, two
+  buffers of K/V tiles and their key-mask entries); the train-shape plan
+  as a literal (``chip_smoke.py`` holds it to
+  ``paddle_flash_bwd_dq_bf16_layout``).
 """
 
 import inspect
@@ -487,7 +493,12 @@ def test_flash_bwd_plan_at_the_train_shape():
         # 32-row Q and dO tiles, and their lse and delta (float32)
         "dkv_bf16": {"rows": 64, "threads": 128, "tile": 32, "stages": 2,
                      "smem": 2 * 72 * (2 * 64 + 2 * 2 * 32)
-                     + 4 * 2 * 2 * 32, "grid": (4, 8, 64)}}
+                     + 4 * 2 * 2 * 32, "grid": (4, 8, 64)},
+        # Q and dO of 64 rows, two buffers of 32-key K and V tiles, and
+        # their key-mask entries (float32)
+        "dq_bf16": {"rows": 64, "threads": 128, "tile": 32, "stages": 2,
+                    "smem": 2 * 72 * (2 * 64 + 2 * 2 * 32) + 4 * 2 * 32,
+                    "grid": (4, 8, 64)}}
 
 
 BF16_SHAPES = [
@@ -559,3 +570,32 @@ def test_flash_bf16_plan_at_the_train_shape():
                                H100_SMEM) == {
         "block_q": 64, "threads": 128, "stages": 2, "head_dim": 64,
         "smem": 2 * 72 * (64 + 2 * 2 * 64) + 4 * 2 * 64, "blocks": 2048}
+
+
+@pytest.mark.parametrize("B,H,Hkv,T,S,d", BF16_SHAPES)
+def test_flash_dq_bf16_blocks_tile_every_query_row_once(B, H, Hkv, T, S, d):
+    """B3's bf16 blocks cover every (query row, head, batch) once, 16
+    rows a warp, over the query heads (not the kv heads)."""
+    p = tfa.flash_bwd_plan(B, H, Hkv, T, S, d)["dq_bf16"]
+    nx, ny, nz = p["grid"]
+    assert (ny, nz) == (H, B)
+    seen = {}
+    for x in range(nx):
+        for r in range(x * p["rows"], min(T, (x + 1) * p["rows"])):
+            seen[r] = seen.get(r, 0) + 1
+    assert sorted(seen) == list(range(T)) and set(seen.values()) == {1}
+    assert p["rows"] % 16 == 0 and p["threads"] == 32 * (p["rows"] // 16)
+
+
+@pytest.mark.parametrize("d", range(1, tfa.MAX_HEAD_DIM + 1))
+def test_flash_dq_bf16_plan_stays_within_the_card(d):
+    """At every head dim: bf16 rows of the padded dim + 8 values for the
+    resident Q and dO and each buffer's K and V tiles, one float32
+    key-mask entry a streamed key; within 232,448 bytes."""
+    p = tfa.flash_bwd_plan(1, 1, 1, 64, 64, d)["dq_bf16"]
+    ld = tfa.bf16_padded_dim(d) + tfa.BF16_PAD
+    assert p["tile"] == tfa.BF16_DQ_TILE_K and p["tile"] % 16 == 0
+    assert p["smem"] == (2 * ld * (2 * p["rows"] + p["stages"] * 2
+                                   * p["tile"])
+                         + 4 * p["stages"] * p["tile"])
+    assert 0 < p["smem"] <= H100_SMEM
