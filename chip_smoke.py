@@ -286,12 +286,45 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    and the CPU: its predictions and every parameter's gradient, each
    within twice the CPU's own AMP-to-fp32 gap of that tensor (L2), or
    2**-8 of its norm where that is larger.
+17. ``switch``, after step 14: Switch-Base-8 (the Switch Transformers
+   paper's Switch-Base with 8 experts, at the public google/switch-base-8
+   config's widths: 12 layers, 12 heads, d_model 768, d_ff 3072, a
+   top-1 MoE FFN in every second layer at capacity factor 1.25,
+   vocabulary 32128) as ``models/switch_transformer.py``'s classifier
+   (max_length 512, 2 classes, dropout 0.1, ``Adam(1e-4)``, fp32, TF32
+   off), one fixed batch of 16 sequences of lengths 256..512: 5 warm-up
+   and 20 timed steps with every kernel's count reset just before.
+   Gates: finite losses, the mean of the last 5 below the first, 12
+   launches a step of each of B1, B2 and B3 (the self-attention's key
+   mask takes the flash route), a threefry launch a dropout site, no
+   grad-op rerun. Prints non-pad tokens/s, step ms, peak memory, the
+   loss and the aux loss at every step, the last step's routing (tokens
+   per expert by the pre-drop top-1 choice and the share dropped past
+   the capacity, per MoE layer) and a profiled step's busy share.
+   The kernel phase (step 3) holds B1, B2 and B3 against their plain
+   versions at the step's shape, q/k/v [16,12,512,64] with the key mask,
+   and the timing phase times them there (``*_switch`` rows, ``pair
+   flash_bwd_switch``). ``switch card vs cpu``: the same widths at 2
+   layers, batch 2, one step on the card and the CPU from the same
+   parameters: loss, logits and every gradient within 1e-3, and a token
+   the two route to different experts fails the run unless its router's
+   top-2 margin is below 1e-5 on both. ``cnn``: GoogLeNet (batch 64),
+   SE-ResNeXt-50 (64) and AlexNet (128) at 224 x 224 and 1000 classes,
+   VGG-16 at its builder's CIFAR-10 shape (32 x 32, 10 classes, 128),
+   ``Momentum(0.01, 0.9)``, a fixed batch of class-patterned images, 5 +
+   10 steps: images/s, peak memory and a profiled step's busy share per
+   model, gated on finite losses that fall and no grad-op rerun. Then
+   (``golden`` lines) the goldens of ``tests/golden/`` for ``vgg16``,
+   ``googlenet``, ``se_resnext50``, ``alexnet`` and
+   ``switch_transformer`` reproduced on the card from their feeds within
+   1e-4.
 
 A line of its own before the last holds the kernels' JSON record (for
 flash_fwd, the backward pair, their bf16 entries, paged_decode (full
 occupancy and the serving mix of lengths), lstm_cell and threefry also
 every timed shape: ms, bound, plain and library ms, and the main path's
-launches at that shape; flash_fwd's predictor runs have a row of their
+launches at that shape, the Switch step's among them; flash_fwd's
+predictor runs have a row of their
 own, lstm_cell's frontend batches too; the frontend's launches are part
 of the serving windows; threefry's record names no TPU kernel and
 carries ``other_generator_ms``, torch.rand's time; the bf16 entries'
@@ -437,6 +470,30 @@ AMP_CVC_LAYERS = 2         # the AMP card-against-CPU Transformer's depth
 AMP_FUSED_STEPS, AMP_FUSED_TOL = 5, 1e-3
 # the AMP ResNet-50 card-against-CPU run: a fixed batch, at 64 x 64
 RESNET_CVC_IMG, RESNET_CVC_BATCH, RESNET_CVC_STEPS = 64, 4, 3
+# Switch-Base-8: the Switch Transformers paper's Switch-Base with 8
+# experts, at the widths of the public google/switch-base-8 config
+# (12 layers, 12 heads, d_model 768, d_ff 3072, vocabulary 32128, a MoE
+# FFN in every second layer, capacity factor 1.25), as
+# models/switch_transformer.py's classifier: 2 classes, max_length 512
+SW_LAYERS, SW_HEADS, SW_D, SW_INNER = 12, 12, 768, 3072
+SW_EXPERTS, SW_TOP_K, SW_EVERY = 8, 1, 2
+SW_CAPACITY = 1.25     # moe_ffn's default, which the builder keeps
+SW_VOCAB, SW_LEN, SW_CLASSES, SW_DROPOUT = 32128, 512, 2, 0.1
+SW_BATCH, SW_MIN_LEN, SW_LR, SW_SEED = 16, 256, 1e-4, 13
+SW_WARMUP, SW_STEPS = 5, 20
+# card against CPU: the same widths, 2 layers (one MoE), batch 2
+SW_CVC_LAYERS, SW_CVC_BATCH = 2, 2
+SW_CVC_TOL = 1e-3      # fp32 loss, logits and gradients, card against CPU
+SW_MARGIN_TOL = 1e-5   # a router top-2 margin below this may flip
+# the conv model zoo: (model, image, classes, batch), Momentum, a fixed
+# batch fed from numpy
+CNNS = [("googlenet", (3, 224, 224), 1000, 64),
+        ("se_resnext50", (3, 224, 224), 1000, 64),
+        ("alexnet", (3, 224, 224), 1000, 128),
+        ("vgg16", (3, 32, 32), 10, 128)]   # its builder's CIFAR-10 shape
+CNN_LR, CNN_MOMENTUM, CNN_SEED = 0.01, 0.9, 9
+CNN_WARMUP, CNN_STEPS = 5, 10
+GOLDEN_TOL = 1e-4      # the card's output against the JAX package's golden
 # the names of matrix-product kernels in a profile (cuBLAS's GEMMs and
 # cuDNN's implicit-GEMM convolutions)
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
@@ -797,6 +854,21 @@ def train_flash_cases(torch, gen):
             ("train_cross_masked", dict(qkv(), kv_mask=mask.clone()))]
 
 
+def switch_flash_cases(torch, gen):
+    """(name, kwargs for flash_forward) at the Switch-Base-8 train step's
+    self-attention: q/k/v [SW_BATCH, SW_HEADS, SW_LEN, 64] with the key
+    mask of lengths SW_MIN_LEN..SW_LEN, as the switch phase feeds them."""
+    dev = "cuda"
+    shape = (SW_BATCH, SW_HEADS, SW_LEN, SW_D // SW_HEADS)
+    qkv = {n: torch.randn(*shape, generator=gen, device=dev)
+           for n in ("q", "k", "v")}
+    lens = torch.randint(SW_MIN_LEN, SW_LEN + 1, (SW_BATCH,), generator=gen,
+                         device=dev)
+    mask = (torch.arange(SW_LEN, device=dev)[None, :]
+            < lens[:, None]).float()
+    return [("switch_self_masked", dict(qkv, kv_mask=mask))]
+
+
 def bwd_inputs(torch, fa, kw, gen):
     """The backward's arguments for a forward case: the forward kernel's
     output and LSE, and a random output gradient."""
@@ -1023,28 +1095,11 @@ def kernel_phase(torch):
     from paddle_tpu_torch.kernels.build import device_limits
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    worst = {"flash_fwd": 0.0, "paged_decode": 0.0, "tree_decode": 0.0}
+    worst = {"flash_fwd": 0.0, "paged_decode": 0.0, "tree_decode": 0.0,
+             "flash_bwd_dkv": 0.0, "flash_bwd_dq": 0.0}
     limits = device_limits("cuda")
     for name, kw in flash_cases(torch, gen) + flash_tile_cases(torch, gen):
-        B, H, T, d = kw["q"].shape
-        print("plan flash_fwd %-22s %s" % (name, fa.flash_plan(
-            B, H, T, kw["k"].shape[2], d, *limits)))
-        out, lse = fa.flash_forward(**kw)
-        ref, ref_lse = fa.flash_forward_plain(**kw)
-        torch.cuda.synchronize()
-        dead = ref_lse <= fa.MASKED_ROW_LSE
-        if not torch.equal(lse <= fa.MASKED_ROW_LSE, dead):
-            fail("flash_fwd %s: dead rows differ" % name)
-        if dead.any() and out[dead].abs().max().item() != 0.0:
-            fail("flash_fwd %s: a dead row is not exactly 0" % name)
-        err = max((out - ref).abs().max().item(),
-                  (lse - ref_lse)[~dead].abs().max().item()
-                  if (~dead).any() else 0.0)
-        print("kernel flash_fwd %-22s max_abs_err %.3e  tol %.0e  dead_rows %d"
-              % (name, err, K1_TOL, int(dead.sum())))
-        if not err <= K1_TOL:
-            fail("flash_fwd %s: error %.3e above %.0e" % (name, err, K1_TOL))
-        worst["flash_fwd"] = max(worst["flash_fwd"], err)
+        check_flash_fwd(torch, fa, name, kw, limits, worst)
     # the backward pair at the train step's shapes, at B1's edge cases
     # (decode's T=1 shape included) and multi-row tile cases, plus T != S
     dev = "cuda"
@@ -1053,37 +1108,10 @@ def kernel_phase(torch):
                   v=torch.randn(2, 4, 37, 64, generator=gen, device=dev),
                   kv_mask=(torch.arange(37, device=dev)[None, :]
                            < torch.tensor([[37], [5]], device=dev)).float())
-    worst["flash_bwd_dkv"] = worst["flash_bwd_dq"] = 0.0
     for name, kw in (train_flash_cases(torch, gen) + flash_cases(torch, gen)
                      + flash_tile_cases(torch, gen)
                      + [("T19_S37_masked", t_ne_s)]):
-        B, H, T, d = kw["q"].shape
-        Hkv, S = kw["k"].shape[1:3]
-        print("plan flash_bwd %-22s %s" % (name, fa.flash_bwd_plan(
-            B, H, Hkv, T, S, d)))
-        args = bwd_inputs(torch, fa, kw, gen)
-        dq, dk, dv = fa.flash_backward(**args)
-        rq, rk, rv = fa.flash_backward_plain(**args)
-        torch.cuda.synchronize()
-        dead = args["lse"] <= fa.MASKED_ROW_LSE
-        if dead.any() and dq[dead].abs().max().item() != 0.0:
-            fail("flash_bwd_dq %s: a dead row's dq is not exactly 0" % name)
-        m = args["kv_mask"]
-        if m is not None and (m == 0).any():
-            off = (m == 0)[:, None, :].expand(dk.shape[:3])
-            if max(dk[off].abs().max().item(), dv[off].abs().max().item()):
-                fail("flash_bwd_dkv %s: a masked key's dk/dv is not exactly "
-                     "0" % name)
-        e_kv = max((dk - rk).abs().max().item(), (dv - rv).abs().max().item())
-        e_q = (dq - rq).abs().max().item()
-        print("kernel flash_bwd_dkv/dq %-19s max_abs_err %.3e / %.3e  tol "
-              "%.0e  dead_rows %d" % (name, e_kv, e_q, K1_TOL,
-                                      int(dead.sum())))
-        if not (e_kv <= K1_TOL and e_q <= K1_TOL):
-            fail("flash_bwd %s: error %.3e / %.3e above %.0e"
-                 % (name, e_kv, e_q, K1_TOL))
-        worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], e_kv)
-        worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], e_q)
+        check_flash_bwd(torch, fa, name, kw, gen, worst)
     for name, kw in paged_cases(torch, gen):
         plan = paged_plan_of(kw)
         print("plan paged_decode %-22s %s, %s" % (name, plan, {
@@ -1124,7 +1152,71 @@ def kernel_phase(torch):
     worst["tree_decode"] = max(worst["tree_decode"], err)
     err = flash_capture_check(torch, gen)
     worst["flash_fwd"] = max(worst["flash_fwd"], err)
+    # B1, B2 and B3 at the Switch train step's shape, from a generator of
+    # their own (the cases above keep their inputs)
+    sgen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    for name, kw in switch_flash_cases(torch, sgen):
+        check_flash_fwd(torch, fa, name, kw, limits, worst)
+        check_flash_bwd(torch, fa, name, kw, sgen, worst)
     return worst
+
+
+def check_flash_fwd(torch, fa, name, kw, limits, worst):
+    """B1 against its plain version on one case: dead rows (every key
+    masked) exactly 0 and the LSE's dead-row marker where the plain
+    version's, outputs and LSE within K1_TOL; updates ``worst``."""
+    B, H, T, d = kw["q"].shape
+    print("plan flash_fwd %-22s %s" % (name, fa.flash_plan(
+        B, H, T, kw["k"].shape[2], d, *limits)))
+    out, lse = fa.flash_forward(**kw)
+    ref, ref_lse = fa.flash_forward_plain(**kw)
+    torch.cuda.synchronize()
+    dead = ref_lse <= fa.MASKED_ROW_LSE
+    if not torch.equal(lse <= fa.MASKED_ROW_LSE, dead):
+        fail("flash_fwd %s: dead rows differ" % name)
+    if dead.any() and out[dead].abs().max().item() != 0.0:
+        fail("flash_fwd %s: a dead row is not exactly 0" % name)
+    err = max((out - ref).abs().max().item(),
+              (lse - ref_lse)[~dead].abs().max().item()
+              if (~dead).any() else 0.0)
+    print("kernel flash_fwd %-22s max_abs_err %.3e  tol %.0e  dead_rows %d"
+          % (name, err, K1_TOL, int(dead.sum())))
+    if not err <= K1_TOL:
+        fail("flash_fwd %s: error %.3e above %.0e" % (name, err, K1_TOL))
+    worst["flash_fwd"] = max(worst["flash_fwd"], err)
+
+
+def check_flash_bwd(torch, fa, name, kw, gen, worst):
+    """B2 and B3 against their plain version on one forward case (its
+    output gradient drawn from ``gen``): a dead row's dq and a masked
+    key's dk and dv exactly 0, the gradients within K1_TOL; updates
+    ``worst``."""
+    B, H, T, d = kw["q"].shape
+    Hkv, S = kw["k"].shape[1:3]
+    print("plan flash_bwd %-22s %s" % (name, fa.flash_bwd_plan(
+        B, H, Hkv, T, S, d)))
+    args = bwd_inputs(torch, fa, kw, gen)
+    dq, dk, dv = fa.flash_backward(**args)
+    rq, rk, rv = fa.flash_backward_plain(**args)
+    torch.cuda.synchronize()
+    dead = args["lse"] <= fa.MASKED_ROW_LSE
+    if dead.any() and dq[dead].abs().max().item() != 0.0:
+        fail("flash_bwd_dq %s: a dead row's dq is not exactly 0" % name)
+    m = args["kv_mask"]
+    if m is not None and (m == 0).any():
+        off = (m == 0)[:, None, :].expand(dk.shape[:3])
+        if max(dk[off].abs().max().item(), dv[off].abs().max().item()):
+            fail("flash_bwd_dkv %s: a masked key's dk/dv is not exactly 0"
+                 % name)
+    e_kv = max((dk - rk).abs().max().item(), (dv - rv).abs().max().item())
+    e_q = (dq - rq).abs().max().item()
+    print("kernel flash_bwd_dkv/dq %-19s max_abs_err %.3e / %.3e  tol "
+          "%.0e  dead_rows %d" % (name, e_kv, e_q, K1_TOL, int(dead.sum())))
+    if not (e_kv <= K1_TOL and e_q <= K1_TOL):
+        fail("flash_bwd %s: error %.3e / %.3e above %.0e"
+             % (name, e_kv, e_q, K1_TOL))
+    worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], e_kv)
+    worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], e_q)
 
 
 def flash_bwd_layout_phase():
@@ -1591,26 +1683,30 @@ def timing_phase(torch):
         dim=0, index=torch.randperm(NUM_SLOTS, device="cuda")))
     rows["gather_k_pool_gof_ms"] = cuda_ms(torch.index_select, pools)
 
+    def masked_fwd_row(kw):
+        """B1 on key-masked inputs: (its row, the visible (query, key)
+        pairs over batch and heads, the shape); work and bytes count the
+        valid keys only."""
+        B, H, T, d = kw[0]["q"].shape
+        vis = float(kw[0]["kv_mask"].sum())  # valid keys, summed over batch
+        shape = "q/k/v [%d,%d,%d,%d], key mask (%d of %d keys valid)" % (
+            B, H, T, d, vis, B * T)
+        # q and out, the valid rows of k and v, lse, the mask
+        nbytes = 4.0 * (2 * B * H * T * d + 2 * vis * H * d + B * H * T
+                        + B * T)
+        return dict(
+            shape=shape, ms=cuda_ms(fa.flash_forward, kw),
+            plain_ms=cuda_ms(fa.flash_forward_plain, kw),
+            library_ms=cuda_ms(F.scaled_dot_product_attention,
+                               sdpa_inputs(kw)),
+            bound=bound(nbytes, 4.0 * T * vis * H * d)), T * vis * H, shape
+
     # B1, B2, B3 at the train step's shape, [64,8,256,64], with the
-    # source key mask (12 of a step's 18 attention calls); work and bytes
-    # count the valid keys only
+    # source key mask (12 of a step's 18 attention calls)
     tcases = dict(train_flash_cases(torch, gen))
     kw_t = copies(tcases["train_self_masked"])
     B, T = TRAIN_BATCH, MAX_LEN
-    vis = float(kw_t[0]["kv_mask"].sum())  # valid keys, summed over batch
-    qbytes = 4.0 * B * N_HEAD * T * dh      # one [B,H,T,d] tensor
-    kvbytes = 4.0 * vis * N_HEAD * dh       # the valid rows of k (or v)
-    rowbytes = 4.0 * B * N_HEAD * T         # lse or delta
-    mbytes = 4.0 * B * T
-    shape_t = "q/k/v [%d,%d,%d,%d], key mask (%d of %d keys valid)" % (
-        B, N_HEAD, T, dh, vis, B * T)
-    rows["flash_fwd_train"] = dict(
-        shape=shape_t, ms=cuda_ms(fa.flash_forward, kw_t),
-        plain_ms=cuda_ms(fa.flash_forward_plain, kw_t),
-        library_ms=cuda_ms(F.scaled_dot_product_attention,
-                           sdpa_inputs(kw_t)),
-        bound=bound(2 * qbytes + 2 * kvbytes + rowbytes + mbytes,
-                    4.0 * T * vis * N_HEAD * dh))
+    rows["flash_fwd_train"], pairs_t, shape_t = masked_fwd_row(kw_t)
 
     # B1 at the decoder self-attention's shape: causal, no key mask
     kw_c = copies(tcases["train_causal"])
@@ -1622,7 +1718,8 @@ def timing_phase(torch):
         library_ms=cuda_ms(
             lambda q, k, v, causal: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal), kw_c),
-        bound=bound(4 * qbytes + rowbytes, 4.0 * pairs_c * dh))
+        bound=bound(4.0 * (4 * B * N_HEAD * T * dh + B * N_HEAD * T),
+                    4.0 * pairs_c * dh))
 
     def bwd_rows(suffix, cases, pairs, shape):
         """dkv and dq rows for one set of inputs; ``pairs`` counts the
@@ -1630,26 +1727,29 @@ def timing_phase(torch):
         bwd = [bwd_inputs(torch, fa, c, gen) for c in cases]
         for a in bwd:
             a["delta"] = (a["dout"] * a["out"]).sum(dim=-1)
+        B, H, T, d = bwd[0]["q"].shape
         kern = [dict(q=a["q"], k=a["k"], v=a["v"], kv_mask=a["kv_mask"],
                      dout=a["dout"], lse=a["lse"], delta=a["delta"],
-                     causal=a["causal"], sm_scale=dh ** -0.5) for a in bwd]
+                     causal=a["causal"], sm_scale=d ** -0.5) for a in bwd]
         plain = [{n: a[n] for n in ("q", "k", "v", "kv_mask", "out", "lse",
                                      "dout", "causal")} for a in bwd]
         plain_ms = cuda_ms(fa.flash_backward_plain, plain)
         backend, lib_ms = sdpa_backward_ms(torch, F, bwd)
         d_ms = delta_ms(torch, bwd)
-        kvb = 4.0 * dh * (pairs / T if not bwd[0]["causal"]
-                          else B * N_HEAD * T)  # k/v rows read, each
-        mb = mbytes if bwd[0]["kv_mask"] is not None else 0.0
+        qbytes = 4.0 * B * H * T * d   # one [B,H,T,d] tensor
+        rowbytes = 4.0 * B * H * T     # lse or delta
+        kvb = 4.0 * d * (pairs / T if not bwd[0]["causal"]
+                         else B * H * T)  # k/v rows read, each
+        mb = 4.0 * B * T if bwd[0]["kv_mask"] is not None else 0.0
         # bytes and operations of each: B2 reads q, dO, k, v, lse, delta
         # (and the mask) and writes dk, dv, 8 flops per (pair, column); B3
         # writes dq, 6 flops. Bound at the split-TF32 tensor-core rate,
         # and beside it at the fp32 rate of the CUDA cores
         for name, nbytes, flops in (
                 ("flash_bwd_dkv", 4 * qbytes + 2 * kvb + 2 * rowbytes + mb,
-                 8.0 * pairs * dh),
+                 8.0 * pairs * d),
                 ("flash_bwd_dq", 3 * qbytes + 2 * kvb + 2 * rowbytes + mb,
-                 6.0 * pairs * dh)):
+                 6.0 * pairs * d)):
             rows[name + suffix] = dict(
                 shape=shape, ms=cuda_ms(getattr(fa, name), kern),
                 plain_ms=plain_ms, library_ms=lib_ms, backend=backend,
@@ -1658,10 +1758,14 @@ def timing_phase(torch):
         pair_line("flash_bwd", shape, rows, suffix,
                   ("flash_bwd_dkv", "flash_bwd_dq"), d_ms, backend, lib_ms)
 
-    bwd_rows("", kw_t, T * vis * N_HEAD, shape_t)
+    bwd_rows("", kw_t, pairs_t, shape_t)
     bwd_rows("_causal", copies(tcases["train_causal"]),
              B * N_HEAD * T * (T + 1) / 2.0,
              "q/k/v [%d,%d,%d,%d], causal" % (B, N_HEAD, T, dh))
+    # B1, B2, B3 at the Switch-Base-8 train step's self-attention
+    kw_s = copies(dict(switch_flash_cases(torch, gen))["switch_self_masked"])
+    rows["flash_fwd_switch"], pairs_s, shape_s = masked_fwd_row(kw_s)
+    bwd_rows("_switch", kw_s, pairs_s, shape_s)
     return rows
 
 
@@ -5401,6 +5505,384 @@ def optim_phase(np, torch, fluid, exe):
     return worst
 
 
+# -- the Switch Transformer and the conv model zoo ----------------------------
+
+
+def build_switch(fluid, n_layer=SW_LAYERS, dropout=SW_DROPOUT):
+    """Switch-Base-8's classifier (``models/switch_transformer.py``) and
+    its ``Adam`` step: (main, startup, loss, extras, [(param, grad)])."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import switch_transformer
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SW_SEED
+    with unique_name.guard({}), fluid.program_guard(main, startup):
+        loss, _, extras = switch_transformer.build(
+            vocab_size=SW_VOCAB, max_length=SW_LEN, n_layer=n_layer,
+            n_head=SW_HEADS, d_model=SW_D, d_inner=SW_INNER,
+            num_experts=SW_EXPERTS, top_k=SW_TOP_K, moe_every=SW_EVERY,
+            num_classes=SW_CLASSES, dropout=dropout)
+        _, params_grads = fluid.optimizer.Adam(
+            learning_rate=SW_LR).minimize(loss)
+    return main, startup, loss, extras, params_grads
+
+
+def switch_feed(np, batch):
+    """One fixed batch: token ids over the whole vocabulary (0, the pad,
+    aside), lengths uniform in SW_MIN_LEN..SW_LEN (the key masks and the
+    routing masks are live), labels 0 or 1."""
+    rng = np.random.RandomState(SEED + 3)
+    return {"word": rng.randint(1, SW_VOCAB, (batch, SW_LEN)).astype(
+                "int64"),
+            "seq_len": rng.randint(SW_MIN_LEN, SW_LEN + 1,
+                                   (batch, 1)).astype("int64"),
+            "label": rng.randint(0, SW_CLASSES, (batch, 1)).astype("int64")}
+
+
+def moe_probs(torch, x, gate_w):
+    """The router's probabilities [N, E] as ``moe_ffn`` computes them."""
+    x = torch.as_tensor(x).reshape(-1, gate_w.shape[0])
+    return torch.softmax((x @ gate_w).float(), dim=-1)
+
+
+def moe_inputs(main):
+    """(X, gate weight) variable names of each moe_ffn op."""
+    return [(op.input("X")[0], op.input("GateW")[0])
+            for op in main.global_block().ops if op.type == "moe_ffn"]
+
+
+def switch_phase(np, torch, fluid, kernels):
+    """Switch-Base-8 trained at full width (module docstring, step 17).
+    Returns {"launches", "mean_ms", "tokens_s", "busy"}."""
+    from paddle_tpu_torch.ops.moe_ops import route
+
+    main, startup, loss, extras, _ = build_switch(fluid)
+    ops = main.global_block().ops
+    scope = fluid.Scope()
+    # a fresh executor: its run counter, which keys the initializers'
+    # and the dropout masks' draws, starts at 0 wherever the phase runs
+    exe = fluid.Executor()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    n_params = sum(int(np.prod(p.shape))
+                   for p in main.global_block().all_parameters())
+    n_moe = sum(op.type == "moe_ffn" for op in ops)
+    feed = switch_feed(np, SW_BATCH)
+    tokens = int(feed["seq_len"].sum())
+    print("switch: Switch-Base-8 program of %d ops (%d moe_ffn), %.1f M "
+          "parameters (startup %.1f s), n_layer %d, n_head %d, d_model %d, "
+          "d_inner %d, %d experts, top-%d, capacity factor %.2f, vocab %d, "
+          "batch %d x %d (%d non-pad tokens), dropout %.1f, Adam(%g), fp32, "
+          "TF32 off" % (len(ops), n_moe, n_params / 1e6,
+                        time.perf_counter() - t0, SW_LAYERS, SW_HEADS, SW_D,
+                        SW_INNER, SW_EXPERTS, SW_TOP_K, SW_CAPACITY,
+                        SW_VOCAB, SW_BATCH, SW_LEN, tokens, SW_DROPOUT,
+                        SW_LR))
+    fetch = [loss, extras["aux_loss"]]
+    losses, auxes = [], []
+    for _ in range(SW_WARMUP):
+        lv, av = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        losses.append(float(np.asarray(lv).reshape(-1)[0]))
+        auxes.append(float(np.asarray(av).reshape(-1)[0]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gc.collect()
+    gc.freeze()
+    names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "threefry")
+    for k in kernels.values():
+        k.reset()
+    reran = exe.grad_op_reruns
+    step_ms, per_step = [], []
+    for _ in range(SW_STEPS):
+        before = [kernels[n].launches for n in names]
+        t0 = time.perf_counter()
+        lv, av = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(np.asarray(lv).reshape(-1)[0]))
+        auxes.append(float(np.asarray(av).reshape(-1)[0]))
+        per_step.append(tuple(kernels[n].launches - b
+                              for n, b in zip(names, before)))
+    launches = kernel_counts(kernels)
+    reran = exe.grad_op_reruns - reran
+    gc.unfreeze()
+    peak = torch.cuda.max_memory_allocated()
+    mean_ms = float(np.mean(step_ms))
+    tokens_s = tokens / mean_ms * 1e3
+    print("switch: losses %s" % ["%.4f" % v for v in losses])
+    print("switch: aux losses (sum over the %d MoE layers) %s"
+          % (n_moe, ["%.4f" % v for v in auxes]))
+    print("switch: %d timed steps, mean %.1f ms/step (median %.1f, min "
+          "%.1f, max %.1f): %.0f non-pad tokens/s; peak memory %.2f GiB; "
+          "grad-op reruns %d" % (SW_STEPS, mean_ms, float(np.median(step_ms)),
+                                 min(step_ms), max(step_ms), tokens_s,
+                                 peak / 2 ** 30, reran))
+    print("switch: kernel launches over the %d steps %s"
+          % (SW_STEPS, json.dumps(launches)))
+    if not np.isfinite(losses).all() or not np.isfinite(auxes).all():
+        fail("a switch loss is not finite: %s, aux %s" % (losses, auxes))
+    n_attn = SW_LAYERS
+    n_drop = sum(op.type == "dropout" for op in ops)
+    if any(c[:3] != (n_attn,) * 3 or c[3] != n_drop for c in per_step):
+        fail("switch: per-step launches %s, expected flash_fwd, "
+             "flash_bwd_dkv and flash_bwd_dq %d each and threefry %d"
+             % (per_step, n_attn, n_drop))
+    if reran:
+        fail("%d grad ops reran their forward in the switch steps" % reran)
+    late = float(np.mean(losses[-5:]))
+    print("switch: loss step 1 %.6f, mean of the last 5 %.6f"
+          % (losses[0], late))
+    if not late < losses[0]:
+        fail("the switch loss did not fall: %s" % losses)
+    # the routing of the last step's batch, from each MoE layer's input
+    # (one more step, fetched): tokens per expert by the pre-drop top-1
+    # choice, the share of valid tokens dropped past the capacity
+    pairs = moe_inputs(main)
+    outs = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+                   fetch_list=[x for x, _ in pairs])
+    dev = outs[0].device
+    valid = (torch.arange(SW_LEN, device=dev)[None, :]
+             < torch.as_tensor(feed["seq_len"], device=dev)).reshape(-1)
+    n = SW_BATCH * SW_LEN
+    capacity = max(1, int(SW_CAPACITY * n * SW_TOP_K / SW_EXPERTS))
+    dropped_all = 0
+    for (xname, gname), x in zip(pairs, outs):
+        probs = moe_probs(torch, x, scope.get_value(gname)) \
+            * valid[:, None].float()
+        (expert, _, keep, _), = route(probs, capacity, SW_TOP_K, valid)
+        counts = torch.bincount(expert[valid], minlength=SW_EXPERTS)
+        dropped = int((valid & ~keep).sum())
+        dropped_all += dropped
+        print("switch routing %s: tokens per expert %s (capacity %d), "
+              "dropped %d of %d valid tokens (%.2f %%)"
+              % (gname.split(".")[0], counts.tolist(), capacity, dropped,
+                 tokens, 100.0 * dropped / tokens))
+    print("switch routing: dropped share over the %d MoE layers %.2f %%"
+          % (n_moe, 100.0 * dropped_all / (tokens * n_moe)))
+    prof = profile_call(torch, "switch", lambda: exe.run(
+        main, feed=feed, fetch_list=[loss], scope=scope))
+    scope = None
+    return dict(launches=launches, mean_ms=mean_ms, tokens_s=tokens_s,
+                busy=None if prof is None
+                else prof["busy_ms"] / prof["wall_ms"])
+
+
+def switch_card_vs_cpu_phase(np, torch, fluid):
+    """Switch-Base-8's widths at SW_CVC_LAYERS layers, batch SW_CVC_BATCH,
+    dropout 0: one step on the card and on the CPU (plain versions) from
+    the same parameters. Loss, logits and every gradient within
+    SW_CVC_TOL; a token that the two devices route to different experts
+    fails the run unless its router's top-2 margin is below
+    SW_MARGIN_TOL on both."""
+    main, startup, loss, extras, params_grads = build_switch(
+        fluid, n_layer=SW_CVC_LAYERS, dropout=0.0)
+    feed = switch_feed(np, SW_CVC_BATCH)
+    pairs = moe_inputs(main)
+    fetch = ([loss, extras["logits"]] + [g for _, g in params_grads]
+             + [x for x, _ in pairs])
+    card_scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=card_scope)
+    cpu_scope = cpu_copy(np, fluid, main, card_scope)
+    got = {}
+    for dev, ex, scope in (
+            ("card", exe, card_scope),
+            ("cpu", fluid.Executor(fluid.CPUPlace()), cpu_scope)):
+        t0 = time.perf_counter()
+        out = ex.run(main, feed=feed, scope=scope, fetch_list=fetch,
+                     return_numpy=False)
+        got[dev] = dict(out=[o.cpu().double() for o in out], scope=scope,
+                        s=time.perf_counter() - t0)
+    n_g = len(params_grads)
+    c, p = got["card"]["out"], got["cpu"]["out"]
+    err_loss = float((c[0] - p[0]).abs().max())
+    err_logits = float((c[1] - p[1]).abs().max())
+    g_errs = [float((a - b).abs().max()) for a, b in zip(c[2:2 + n_g],
+                                                         p[2:2 + n_g])]
+    g_mag = max(float(b.abs().max()) for b in p[2:2 + n_g])
+    for i in sorted(range(n_g), key=lambda i: -g_errs[i])[:3]:
+        print("switch card vs cpu: gradient of %s %s: max abs diff %.3e, "
+              "largest entry %.3e" % (params_grads[i][0].name,
+                                      list(p[2 + i].shape), g_errs[i],
+                                      float(p[2 + i].abs().max())))
+    valid = (torch.arange(SW_LEN)[None, :]
+             < torch.as_tensor(feed["seq_len"])).reshape(-1)
+    flips, near = 0, []
+    for (xname, gname), xc, xp in zip(pairs, c[2 + n_g:], p[2 + n_g:]):
+        probs = {}
+        for dev, x in (("card", xc), ("cpu", xp)):
+            gate = got[dev]["scope"].get_value(gname)
+            probs[dev] = moe_probs(torch, x.to(gate.device).float(),
+                                   gate).cpu()
+        e_card = probs["card"].argmax(-1)
+        e_cpu = probs["cpu"].argmax(-1)
+        differ = valid & (e_card != e_cpu)
+        flips += int(differ.sum())
+        for dev in ("card", "cpu"):
+            top2 = probs[dev].topk(2, dim=-1).values
+            margin = top2[:, 0] - top2[:, 1]
+            near += margin[differ].tolist()
+    n_valid = int(valid.sum()) * len(pairs)
+    print("switch card vs cpu: Switch-Base-8 widths at %d layers, batch %d x "
+          "%d, one step (card %.1f s, cpu %.1f s): loss %.6f / %.6f (diff "
+          "%.3e), logits max abs diff %.3e, gradients of %d parameters max "
+          "abs diff %.3e (largest gradient entry %.3e); tol %.0e"
+          % (SW_CVC_LAYERS, SW_CVC_BATCH, SW_LEN, got["card"]["s"],
+             got["cpu"]["s"], float(c[0].reshape(-1)[0]),
+             float(p[0].reshape(-1)[0]), err_loss, err_logits, n_g,
+             max(g_errs), g_mag, SW_CVC_TOL))
+    print("switch card vs cpu: %d of %d valid tokens routed to another "
+          "expert (%.3f %%); their top-2 margins %s (tol %.0e)"
+          % (flips, n_valid, 100.0 * flips / n_valid,
+             ["%.2e" % m for m in near], SW_MARGIN_TOL))
+    if any(m >= SW_MARGIN_TOL for m in near):
+        fail("switch card vs cpu: a token routed differently at a top-2 "
+             "margin of %.3e" % max(near))
+    if not (max(err_loss, err_logits, max(g_errs)) <= SW_CVC_TOL):
+        fail("switch card vs cpu: loss %.3e, logits %.3e, gradients %.3e "
+             "above %.0e" % (err_loss, err_logits, max(g_errs), SW_CVC_TOL))
+
+
+def cnn_program(fluid, name, img, classes):
+    """One conv model's train program: (main, startup, loss)."""
+    from paddle_tpu_torch import models, unique_name
+
+    build = getattr(models, {"googlenet": "googlenet",
+                             "se_resnext50": "se_resnext",
+                             "alexnet": "alexnet", "vgg16": "vgg"}[name])
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = CNN_SEED
+    with unique_name.guard({}), fluid.program_guard(main, startup):
+        loss, _, _ = build.build(img_shape=img, class_num=classes)
+        fluid.optimizer.Momentum(learning_rate=CNN_LR,
+                                 momentum=CNN_MOMENTUM).minimize(loss)
+    return main, startup, loss
+
+
+def cnn_feed(np, img, classes, batch):
+    """One fixed batch a model can learn (``tests/test_models_conv.py``'s
+    synthetic images): each image its label's pattern, drawn from a seed
+    of the label, plus a quarter of its own noise."""
+    rng = np.random.RandomState(SEED)
+    labels = rng.randint(0, classes, batch)
+    pixel = np.stack([np.random.RandomState(int(c)).randn(*img)
+                      for c in labels]) + 0.25 * rng.randn(batch, *img)
+    return {"pixel": pixel.astype("float32"),
+            "label": labels.reshape(-1, 1).astype("int64")}
+
+
+def cnn_phase(np, torch, fluid):
+    """GoogLeNet, SE-ResNeXt-50, AlexNet and VGG-16 trained on the card
+    (module docstring, step 17), each on a fresh executor (its draws
+    keyed from run 0). Returns {name: images/s}."""
+    rates = {}
+    for name, img, classes, batch in CNNS:
+        main, startup, loss = cnn_program(fluid, name, img, classes)
+        scope = fluid.Scope()
+        exe = fluid.Executor()
+        exe.run(startup, scope=scope)
+        feed = cnn_feed(np, img, classes, batch)
+        losses = []
+        for _ in range(CNN_WARMUP):
+            (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            losses.append(float(np.asarray(lv).reshape(-1)[0]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reran = exe.grad_op_reruns
+        step_ms = []
+        gc.collect()
+        gc.freeze()
+        for _ in range(CNN_STEPS):
+            t0 = time.perf_counter()
+            (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(np.asarray(lv).reshape(-1)[0]))
+        gc.unfreeze()
+        reran = exe.grad_op_reruns - reran
+        mean_ms = float(np.mean(step_ms))
+        rates[name] = batch / mean_ms * 1e3
+        prof = profile_call(torch, "cnn " + name, lambda: exe.run(
+            main, feed=feed, fetch_list=[loss], scope=scope), top=3)
+        busy = (float("nan") if prof is None
+                else 100.0 * prof["busy_ms"] / prof["wall_ms"])
+        late = float(np.mean(losses[-5:]))
+        print("cnn %s: %d ops, batch %d x %s, %d classes, Momentum(%g, %g): "
+              "%d timed steps, mean %.1f ms/step (min %.1f, max %.1f): %.1f "
+              "images/s; peak memory %.2f GiB; card busy %.1f %% of a "
+              "profiled step; loss step 1 %.6f, mean of the last 5 %.6f; "
+              "grad-op reruns %d"
+              % (name, len(main.global_block().ops), batch,
+                 "x".join(map(str, img)), classes, CNN_LR, CNN_MOMENTUM,
+                 CNN_STEPS, mean_ms, min(step_ms), max(step_ms),
+                 rates[name], torch.cuda.max_memory_allocated() / 2 ** 30,
+                 busy, losses[0], late, reran))
+        print("cnn %s: losses %s" % (name, ["%.4f" % v for v in losses]))
+        if not np.isfinite(losses).all():
+            fail("a cnn %s loss is not finite: %s" % (name, losses))
+        if not late < losses[0]:
+            fail("the cnn %s loss did not fall: %s" % (name, losses))
+        if reran:
+            fail("%d grad ops reran their forward in the cnn %s steps"
+                 % (reran, name))
+        scope = None
+        torch.cuda.empty_cache()
+    return rates
+
+
+def golden_card_phase(np, torch, fluid, exe):
+    """The goldens of this slice's models (``tests/golden/``, written by
+    the JAX package) reproduced on the card from their feeds, as
+    ``tests/golden_models.py`` builds them: within GOLDEN_TOL."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import (
+        alexnet,
+        googlenet,
+        se_resnext,
+        switch_transformer,
+        vgg,
+    )
+    from paddle_tpu_torch.testing import set_deterministic_params
+
+    builds = {
+        "vgg16": (lambda: vgg.build(img_shape=(3, 32, 32), class_num=10),
+                  "predict"),
+        "googlenet": (lambda: googlenet.build(img_shape=(3, 96, 96),
+                                              class_num=10), "predict"),
+        "se_resnext50": (lambda: se_resnext.build(img_shape=(3, 64, 64),
+                                                  class_num=10), "predict"),
+        "alexnet": (lambda: alexnet.build(img_shape=(3, 224, 224),
+                                          class_num=10), "predict"),
+        "switch_transformer": (lambda: switch_transformer.build(
+            vocab_size=80, max_length=12, n_layer=2, n_head=2, d_model=32,
+            d_inner=64, num_experts=2, moe_every=2, dropout=0.0), "logits"),
+    }
+    for name, (build, key) in builds.items():
+        golden = np.load(os.path.join(HERE, "tests", "golden",
+                                      name + ".npz"))
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = 11
+        with unique_name.guard({}), fluid.program_guard(main, startup):
+            _, feeds, outs = build()
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        set_deterministic_params(main, scope)
+        feed = {k[len("feed_"):]: golden[k] for k in golden.files
+                if k.startswith("feed_")}
+        n = next(iter(feed.values())).shape[0]
+        for f in feeds:
+            feed.setdefault(f.name, np.zeros((n, 1), "int64"))
+        (out,) = exe.run(main.clone(for_test=True), feed=feed,
+                         fetch_list=[outs[key]], scope=scope)
+        err = float(np.abs(np.asarray(out) - golden["expected"]).max())
+        print("golden %s on the card: output %s, max abs diff %.3e from "
+              "tests/golden/%s.npz  tol %.0e"
+              % (name, list(np.asarray(out).shape), err, name, GOLDEN_TOL))
+        if not err <= GOLDEN_TOL:
+            fail("golden %s: the card's output is %.3e from the golden"
+                 % (name, err))
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "paddle_tpu_torch")):
         fail("paddle_tpu_torch/ is not beside chip_smoke.py: run it from "
@@ -5459,7 +5941,9 @@ def main():
     for name in ("flash_fwd", "flash_fwd_verify", "flash_fwd_encoder",
                  "paged_decode", "paged_decode_ragged", "tree_decode", "flash_fwd_train",
                  "flash_fwd_train_causal", "flash_bwd_dkv", "flash_bwd_dq",
-                 "flash_bwd_dkv_causal", "flash_bwd_dq_causal"):
+                 "flash_bwd_dkv_causal", "flash_bwd_dq_causal",
+                 "flash_fwd_switch", "flash_bwd_dkv_switch",
+                 "flash_bwd_dq_switch"):
         r = timing[name]
         lib = ("%.4f ms" % r["library_ms"] if r["library_ms"] is not None
                else "none")
@@ -5600,6 +6084,16 @@ def main():
     torch.cuda.empty_cache()
     optim_phase(np, torch, fluid, exe)
     mark("optim")
+    torch.cuda.empty_cache()
+    switch = switch_phase(np, torch, fluid, KERNELS)
+    switch_launches = switch["launches"]
+    torch.cuda.empty_cache()
+    switch_card_vs_cpu_phase(np, torch, fluid)
+    mark("switch")
+    torch.cuda.empty_cache()
+    cnn_phase(np, torch, fluid)
+    golden_card_phase(np, torch, fluid, exe)
+    mark("cnn, goldens")
     print("phase seconds (since the card check, at the end of each): %s"
           % json.dumps(marks))
 
@@ -5610,19 +6104,22 @@ def main():
         t = timing[name]
         shapes = shape_rows(timing, [
             (name, train_launches.get(name + "/full", 0)),
-            (name + "_causal", train_launches.get(name + "/causal", 0))],
-            "the training phase's timed steps at this shape class, "
-            "counted by the wrapper where it launches")
-        if sum(r["launches"] for r in shapes) != train_launches[name]:
+            (name + "_causal", train_launches.get(name + "/causal", 0)),
+            (name + "_switch", switch_launches[name])],
+            "the training phase's (Transformer-base) or the switch phase's "
+            "(Switch-Base-8) timed steps at this shape class, counted by "
+            "the wrapper where it launches")
+        total = train_launches[name] + switch_launches[name]
+        if sum(r["launches"] for r in shapes) != total:
             fail("%s's launches by shape class %s do not add up to its %d "
                  "launches" % (name, [r["launches"] for r in shapes],
-                               train_launches[name]))
+                               total))
         for r in shapes:
             r["bound_fp32_ms"] = timing[r["row"]]["bound_fp32"][0]
         return dict(name=name, route="cuda",
                     source="paddle_tpu_torch/csrc/flash_bwd.cu",
                     replaces="paddle_tpu/kernels/flash_attention.py:%d" % line,
-                    launches=train_launches[name], max_abs_err=worst[name],
+                    launches=total, max_abs_err=worst[name],
                     ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
                     bound_by=t["bound"][1], library_ms=t["library_ms"],
                     bound_fp32_ms=t["bound_fp32"][0], shapes=shapes)
@@ -5662,11 +6159,12 @@ def main():
         ("flash_fwd_encoder", both("flash_fwd/full")),
         ("flash_fwd_train", train_launches.get("flash_fwd/full", 0)),
         ("flash_fwd_train_causal", train_launches.get("flash_fwd/causal",
-                                                      0))],
+                                                      0)),
+        ("flash_fwd_switch", switch_launches["flash_fwd"])],
         "the launches at this shape class in the serving runs' request "
         "windows (captured, eager, prefix cache, dense, speculative, the "
-        "frontend) or the training phase's timed steps, counted by the "
-        "wrapper where it launches")
+        "frontend), the training phase's or the switch phase's timed "
+        "steps, counted by the wrapper where it launches")
     # the causal calls of those request windows: the decoder over a
     # forced prefix at admission (paged prefill), a shape not timed here
     flash_shapes.append(dict(
@@ -5685,7 +6183,7 @@ def main():
         % PRED_RUNS, ms=None, plain_ms=None, bound_ms=None, bound_by=None,
         library_ms=None))
     flash_total = (both("flash_fwd") + train_launches["flash_fwd"]
-                   + pred_launches["flash_fwd"])
+                   + pred_launches["flash_fwd"] + switch_launches["flash_fwd"])
     if sum(r["launches"] for r in flash_shapes) != flash_total:
         fail("flash_fwd's launches by shape class %s do not add up to its "
              "%d launches" % ([r["launches"] for r in flash_shapes],
@@ -5715,7 +6213,8 @@ def main():
                  + amp_train["launches"]["threefry"])
     data_draws = (graph_data_launches["threefry"]
                   + amp_graph_launches["threefry"])
-    threefry_total = drop_site + sampled_total + data_draws
+    threefry_total = (drop_site + sampled_total + data_draws
+                      + switch_launches["threefry"])
     threefry_shapes = shape_rows(rng_timing, [
         ("threefry", drop_site), ("threefry_sampler", sampled_total),
         ("threefry_graph_data", data_draws)],
@@ -5727,6 +6226,14 @@ def main():
         "it launches")
     for r in threefry_shapes:
         r["other_generator_ms"] = rng_timing[r["row"]]["philox_ms"]
+    # the Switch step's dropout masks, a shape not timed here
+    threefry_shapes.append(dict(
+        row="threefry_switch", launches=switch_launches["threefry"],
+        shape="dropout masks [%d,%d,%d]: the Switch-Base-8 step's %d sites"
+        % (SW_BATCH, SW_LEN, SW_D, 2 * SW_LAYERS),
+        launches_of="the switch phase's timed steps; not timed", ms=None,
+        plain_ms=None, bound_ms=None, bound_by=None, library_ms=None,
+        other_generator_ms=None))
     def amp_record(name, source, line, row, launches_of):
         """A bf16 entry: its numbers at the AMP train step's key-mask
         shape and, per timed shape, the AMP steps' launches at it."""
@@ -5757,7 +6264,8 @@ def main():
         dict(name="flash_fwd", route="cuda",
              source="paddle_tpu_torch/csrc/flash_fwd.cu",
              replaces="paddle_tpu/kernels/flash_attention.py:91",
-             # the serving, speculative and training runs' launches
+             # the serving, speculative, training and Switch runs'
+             # launches
              launches=flash_total,
              max_abs_err=worst["flash_fwd"],
              ms=timing["flash_fwd"]["ms"],

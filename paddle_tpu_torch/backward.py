@@ -7,13 +7,14 @@ to the block, role-tagged Backward, with the reference's names: ``x@GRAD``
 for a variable's gradient, ``x@GRAD@RENAME_n`` for its n-th extra
 contribution, summed by a ``sum`` op. Each grad op is the synthesized
 ``<type>_grad`` of ``core/op_registry.ensure_auto_grad_op``, whose
-lowering differentiates the forward lowering. The JAX package's
-hand-written grad-desc makers (``grad=callable``) belong to ops this port
-does not carry yet.
+lowering differentiates the forward lowering, or what the op's
+hand-written grad-desc maker (``grad=callable``: ``split``'s ``concat``,
+``unstack``'s ``stack``) returns, as in the JAX package.
 """
 
 from paddle_tpu_torch import framework
 from paddle_tpu_torch.core import op_registry
+from paddle_tpu_torch.core.types import VarType
 from paddle_tpu_torch.framework import (
     OpRole,
     Parameter,
@@ -85,10 +86,6 @@ def _append_grad_ops_for(block, op, acc, no_grad):
     opdef = op_registry.get_op_def(op.type)
     if opdef.grad is None:
         return
-    if callable(opdef.grad):
-        raise NotImplementedError(
-            "op %r has a hand-written grad maker; paddle_tpu_torch "
-            "synthesizes every grad op (grad='auto')" % op.type)
 
     out_grads = {}
     any_grad = False
@@ -119,38 +116,80 @@ def _append_grad_ops_for(block, op, acc, no_grad):
     if not wanted:
         return
 
-    op_registry.ensure_auto_grad_op(op.type)
-    g_inputs = {}
-    for slot in opdef.input_slots():
-        if op.input(slot):
-            g_inputs[slot] = list(op.input(slot))
-    for slot in opdef.output_slots():
-        if op.output(slot):
-            g_inputs[slot] = list(op.output(slot))
-        gs = out_grads.get(slot, [])
-        if any(g is not None for g in gs):
-            g_inputs[slot + "@GRAD"] = [g or "" for g in gs]
-    g_outputs = {s + "@GRAD": names for s, names in wanted.items()}
-    # the forward's attrs, __rng_id__ included: dropout_grad replays the
-    # forward's mask
-    attrs = dict(op.attrs)
-    attrs[framework.OP_ROLE_ATTR_NAME] = OpRole.Backward
+    if callable(opdef.grad):
+        new_ops = _maker_grad_ops(block, op, opdef, out_grads, wanted)
+    else:
+        op_registry.ensure_auto_grad_op(op.type)
+        g_inputs = {}
+        for slot in opdef.input_slots():
+            if op.input(slot):
+                g_inputs[slot] = list(op.input(slot))
+        for slot in opdef.output_slots():
+            if op.output(slot):
+                g_inputs[slot] = list(op.output(slot))
+            gs = out_grads.get(slot, [])
+            if any(g is not None for g in gs):
+                g_inputs[slot + "@GRAD"] = [g or "" for g in gs]
+        g_outputs = {s + "@GRAD": names for s, names in wanted.items()}
+        # the forward's attrs, __rng_id__ included: dropout_grad replays
+        # the forward's mask
+        attrs = dict(op.attrs)
+        attrs[framework.OP_ROLE_ATTR_NAME] = OpRole.Backward
+        new_ops = [(op.type + "_grad", g_inputs, g_outputs, attrs)]
 
-    # grad vars before the op (shape mirrors the forward var): build-time
-    # shape inference of a grad op may fail (a kernel on meta tensors),
-    # and these shapes stand then
-    for names in g_outputs.values():
-        for gname in names:
-            if gname:
-                fwd_var = block._find_var_recursive(gname.split("@GRAD")[0])
-                acc._make_grad_var(gname, fwd_var)
-    block.append_op(type=op.type + "_grad", inputs=g_inputs,
-                    outputs=g_outputs, attrs=attrs)
+    for g_type, g_ins, g_outs, g_attrs in new_ops:
+        # grad vars before the op (shape mirrors the forward var):
+        # build-time shape inference of a grad op may fail (a kernel on
+        # meta tensors), and these shapes stand then
+        for names in g_outs.values():
+            for gname in names:
+                if gname:
+                    fwd_var = block._find_var_recursive(
+                        gname.split("@GRAD")[0])
+                    acc._make_grad_var(gname, fwd_var)
+        block.append_op(type=g_type, inputs=g_ins, outputs=g_outs,
+                        attrs=g_attrs)
 
     for slot, names in wanted.items():
         for name, gname in zip(op.input(slot), names):
             if gname:
                 acc.add(name, gname)
+
+
+def _maker_grad_ops(block, op, opdef, out_grads, wanted):
+    """The grad ops of an op with a hand-written maker, as (type, inputs,
+    outputs, attrs). In an output slot that takes some gradients, a
+    missing one is first zero-filled (``fill_zeros_like`` over the
+    forward output), so no maker drops a piece from its concat or stack;
+    a slot with none stays None, and tensor-array outputs stay None."""
+    zero_ops = []
+    filled = {}
+    for slot, gs in out_grads.items():
+        if not any(g is not None for g in gs):
+            filled[slot] = list(gs)
+            continue
+        names = []
+        for name, g in zip(op.output(slot), gs):
+            if g is None and name:
+                fwd = block._find_var_recursive(name)
+                if fwd is not None and getattr(
+                        fwd, "type", None) == VarType.LOD_TENSOR_ARRAY:
+                    names.append(g)
+                    continue
+                g = name + "@GRAD@zero"
+                zero_ops.append((
+                    "fill_zeros_like", {"X": [name]}, {"Out": [g]},
+                    {framework.OP_ROLE_ATTR_NAME: OpRole.Backward}))
+            names.append(g)
+        filled[slot] = names
+    new_ops = list(zero_ops)
+    for spec in opdef.grad(op, filled, wanted):
+        attrs = dict(spec.get("attrs", {}))
+        attrs[framework.OP_ROLE_ATTR_NAME] = OpRole.Backward
+        attrs.setdefault("__rng_id__", op.attrs.get("__rng_id__"))
+        new_ops.append((spec["type"], spec.get("inputs", {}),
+                        spec.get("outputs", {}), attrs))
+    return new_ops
 
 
 def _backward_pass(block, target_vars, target_grads, no_grad_set):

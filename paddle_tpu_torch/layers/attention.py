@@ -1,5 +1,5 @@
 """Attention layers: scaled dot-product, multi-head, the paged-decode
-family and the speculative verify family.
+family, the speculative verify family and the mixture-of-experts FFN.
 
 Counterpart of ``paddle_tpu/layers/attention.py`` for the layers this
 slice calls, with the reference's names and signatures.
@@ -21,6 +21,7 @@ __all__ = [
     "slot_decode_sample",
     "slot_speculative_accept",
     "add_position_encoding",
+    "moe_ffn",
 ]
 
 
@@ -313,3 +314,56 @@ def add_position_encoding(input, alpha=1.0, beta=1.0, name=None):
         attrs={"alpha": float(alpha), "beta": float(beta)},
     )
     return out
+
+
+def moe_ffn(x, num_experts, d_hidden, top_k=1, capacity_factor=1.25,
+            act="gelu", mask=None, param_attr=None, name=None):
+    """Mixture-of-Experts feed-forward block (Switch-Transformer style;
+    ops/moe_ops.py). x: [batch, seq, d_model]; returns (out, aux_loss):
+    add ``aux_loss`` (scaled, typically by 1e-2) to the training loss to
+    balance expert load. ``mask`` ([batch, seq] validity, 1 = real
+    token) keeps padding out of routing."""
+    import copy
+
+    from paddle_tpu_torch import initializer
+    from paddle_tpu_torch.param_attr import ParamAttr
+
+    helper = LayerHelper("moe_ffn", param_attr=param_attr, name=name)
+    d_model = int(x.shape[-1])
+    e, h = int(num_experts), int(d_hidden)
+
+    def _slot_attr(suffix):
+        # five distinct parameters: one user-named ParamAttr would alias
+        # them all, so the name takes a suffix per slot
+        attr = ParamAttr._to_attr(copy.copy(helper.param_attr))
+        if getattr(attr, "name", None):
+            attr.name = attr.name + "_" + suffix
+        return attr
+
+    zero = initializer.Constant(0.0)
+    gate_w = helper.create_parameter(
+        attr=_slot_attr("gate"), shape=[d_model, e], dtype=x.dtype)
+    w1 = helper.create_parameter(
+        attr=_slot_attr("w1"), shape=[e, d_model, h], dtype=x.dtype)
+    b1 = helper.create_parameter(
+        attr=_slot_attr("b1"), shape=[e, h], dtype=x.dtype,
+        default_initializer=zero)
+    w2 = helper.create_parameter(
+        attr=_slot_attr("w2"), shape=[e, h, d_model], dtype=x.dtype)
+    b2 = helper.create_parameter(
+        attr=_slot_attr("b2"), shape=[e, d_model], dtype=x.dtype,
+        default_initializer=zero)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    aux = helper.create_variable_for_type_inference(x.dtype)
+    op_inputs = {"X": [x], "GateW": [gate_w], "ExpertW1": [w1],
+                 "ExpertB1": [b1], "ExpertW2": [w2], "ExpertB2": [b2]}
+    if mask is not None:
+        op_inputs["Mask"] = [mask]
+    helper.append_op(
+        type="moe_ffn",
+        inputs=op_inputs,
+        outputs={"Out": [out], "AuxLoss": [aux]},
+        attrs={"top_k": int(top_k),
+               "capacity_factor": float(capacity_factor), "act": act},
+    )
+    return out, aux

@@ -46,6 +46,21 @@ __all__ = [
     "mean",
     "topk",
     "random_crop",
+    "lrn",
+    "split",
+    "squeeze",
+    "unsqueeze",
+    "flatten",
+    "stack",
+    "unstack",
+    "expand",
+    "slice",
+    "shape",
+    "batched_gather",
+    "scatter",
+    "pad",
+    "pad2d",
+    "hash",
 ]
 
 
@@ -426,4 +441,149 @@ def random_crop(x, shape, seed=None, name=None):
         outputs={"Out": [out], "SeedOut": [seed_out]},
         attrs={"shape": list(shape), "seed": int(seed or 0)},
     )
+    return out
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    helper = LayerHelper("lrn", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    mid = helper.create_variable_for_type_inference(input.dtype,
+                                                    stop_gradient=True)
+    helper.append_op(type="lrn", inputs={"X": [input]},
+                     outputs={"Out": [out], "MidOut": [mid]},
+                     attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    from paddle_tpu_torch.ops.common import normalize_axis
+
+    helper = LayerHelper("split", name=name)
+    dim = normalize_axis(dim, len(input.shape), "split dim")
+    if isinstance(num_or_sections, int):
+        num, sections = num_or_sections, []
+    else:
+        num, sections = 0, list(num_or_sections)
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in range(num if num else len(sections))]
+    helper.append_op(type="split", inputs={"X": [input]},
+                     outputs={"Out": outs},
+                     attrs={"axis": dim, "num": num, "sections": sections})
+    return outs
+
+
+def _x_to_out(op_type, x, attrs, name):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type=op_type, inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs=attrs)
+    return out
+
+
+def squeeze(input, axes, name=None):
+    return _x_to_out("squeeze", input, {"axes": list(axes)}, name)
+
+
+def unsqueeze(input, axes, name=None):
+    return _x_to_out("unsqueeze", input, {"axes": list(axes)}, name)
+
+
+def flatten(x, axis=1, name=None):
+    return _x_to_out("flatten", x, {"axis": axis}, name)
+
+
+def expand(x, expand_times, name=None):
+    return _x_to_out("expand", x, {"expand_times": list(expand_times)},
+                     name)
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    x = x if isinstance(x, (list, tuple)) else [x]
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op(type="stack", inputs={"X": list(x)},
+                     outputs={"Y": [out]}, attrs={"axis": axis})
+    return out
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper("unstack")
+    if num is None:
+        num = int(x.shape[axis])
+    outs = [helper.create_variable_for_type_inference(x.dtype)
+            for _ in range(num)]
+    helper.append_op(type="unstack", inputs={"X": [x]},
+                     outputs={"Y": outs}, attrs={"axis": axis, "num": num})
+    return outs
+
+
+def slice(input, axes, starts, ends):
+    helper = LayerHelper("slice")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="slice", inputs={"Input": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"axes": list(axes), "starts": list(starts),
+                            "ends": list(ends)})
+    return out
+
+
+def shape(input):
+    helper = LayerHelper("shape")
+    out = helper.create_variable_for_type_inference("int32",
+                                                    stop_gradient=True)
+    helper.append_op(type="shape", inputs={"Input": [input]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def batched_gather(input, index):
+    """Per-batch gather along dim 1: out[n, s] = input[n, index[n, s]];
+    negative indices (padding) clamp to row 0."""
+    helper = LayerHelper("batched_gather")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="batched_gather",
+                     inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def scatter(input, index, updates, name=None, overwrite=True):
+    helper = LayerHelper("scatter", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="scatter",
+                     inputs={"X": [input], "Ids": [index],
+                             "Updates": [updates]},
+                     outputs={"Out": [out]}, attrs={"overwrite": overwrite})
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="pad", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"paddings": list(paddings),
+                            "pad_value": float(pad_value)})
+    return out
+
+
+def pad2d(input, paddings=(0, 0, 0, 0), mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    helper = LayerHelper("pad2d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="pad2d", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"paddings": list(paddings), "mode": mode,
+                            "pad_value": float(pad_value),
+                            "data_format": data_format})
+    return out
+
+
+def hash(input, hash_size, num_hash=1, name=None):
+    """num_hash integer hashes per input row, mod hash_size
+    (hash_op.cc)."""
+    helper = LayerHelper("hash", name=name)
+    out = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="hash", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"num_hash": num_hash, "mod_by": hash_size})
     return out

@@ -5,7 +5,7 @@ role) for the single-input, single-output ops: the activations, plus
 ``cumsum``, ``clip``, ``clip_by_norm`` and ``maxout``. Keyword arguments
 that name one of the op's attrs become that attr. Also the random
 layers ``uniform_random``, ``gaussian_random``, ``sampling_id`` and the
-two ``*_batch_size_like`` draws.
+two ``*_batch_size_like`` draws, the ``logical_*`` layers and ``fill``.
 """
 
 from paddle_tpu_torch.core import op_registry
@@ -135,3 +135,41 @@ gaussian_random_batch_size_like = _make_batch_size_like(
     "gaussian_random_batch_size_like", {"mean": 0.0, "std": 1.0, "seed": 0})
 uniform_random_batch_size_like = _make_batch_size_like(
     "uniform_random_batch_size_like", {"min": -1.0, "max": 1.0, "seed": 0})
+
+
+def _make_binary_logical(op_type):
+    def layer_fn(x, y=None, out=None, name=None):
+        helper = LayerHelper(op_type, name=name)
+        if out is None:
+            out = helper.create_variable_for_type_inference("bool")
+        inputs = {"X": [x]}
+        if y is not None:
+            inputs["Y"] = [y]
+        helper.append_op(type=op_type, inputs=inputs, outputs={"Out": [out]})
+        return out
+
+    layer_fn.__name__ = op_type
+    return layer_fn
+
+
+logical_and = _make_binary_logical("logical_and")
+logical_or = _make_binary_logical("logical_or")
+logical_xor = _make_binary_logical("logical_xor")
+logical_not = _make_binary_logical("logical_not")
+
+
+def fill(shape, value, dtype="float32", name=None):
+    """Materialize an explicit value list (fill_op.cc)."""
+    helper = LayerHelper("fill", name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="fill",
+        outputs={"Out": [out]},
+        attrs={"shape": list(shape), "value": [float(v) for v in value],
+               "dtype": dtype},
+    )
+    return out
+
+
+__all__ += ["logical_and", "logical_or", "logical_xor", "logical_not",
+            "fill"]

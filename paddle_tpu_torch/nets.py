@@ -1,14 +1,16 @@
 """Composite network helpers (python/paddle/fluid/nets.py parity).
 
-Counterpart of ``paddle_tpu/nets.py`` for ``simple_img_conv_pool``, the
-helper the MNIST model builds from, and ``scaled_dot_product_attention``
-(plain products and a softmax, no kernel, as in the JAX package); the
-others wait for ops the port does not register yet (ROADMAP).
+Counterpart of ``paddle_tpu/nets.py``: ``simple_img_conv_pool`` (the
+MNIST model's), ``img_conv_group`` (VGG's), ``glu`` and
+``scaled_dot_product_attention`` (plain products and a softmax, no
+kernel, as in the JAX package). ``sequence_conv_pool`` waits for
+``sequence_conv`` (ROADMAP A11).
 """
 
 from paddle_tpu_torch import layers
 
-__all__ = ["simple_img_conv_pool", "scaled_dot_product_attention"]
+__all__ = ["simple_img_conv_pool", "img_conv_group", "glu",
+           "scaled_dot_product_attention"]
 
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
@@ -25,6 +27,43 @@ def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
         input=conv_out, pool_size=pool_size, pool_type=pool_type,
         pool_stride=pool_stride, pool_padding=pool_padding,
         global_pooling=global_pooling)
+
+
+def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
+                   conv_filter_size=3, conv_act=None, param_attr=None,
+                   conv_with_batchnorm=False, conv_batchnorm_drop_rate=0.0,
+                   pool_stride=1, pool_type="max", use_cudnn=True):
+    tmp = input
+    assert isinstance(conv_num_filter, (list, tuple))
+
+    def _expand(v):
+        return v if hasattr(v, "__len__") else [v] * len(conv_num_filter)
+
+    conv_padding = _expand(conv_padding)
+    conv_filter_size = _expand(conv_filter_size)
+    param_attr = (param_attr if isinstance(param_attr, (list, tuple))
+                  else [param_attr] * len(conv_num_filter))
+    conv_with_batchnorm = _expand(conv_with_batchnorm)
+    conv_batchnorm_drop_rate = _expand(conv_batchnorm_drop_rate)
+
+    for i in range(len(conv_num_filter)):
+        local_conv_act = None if conv_with_batchnorm[i] else conv_act
+        tmp = layers.conv2d(
+            input=tmp, num_filters=conv_num_filter[i],
+            filter_size=conv_filter_size[i], padding=conv_padding[i],
+            param_attr=param_attr[i], act=local_conv_act)
+        if conv_with_batchnorm[i]:
+            tmp = layers.batch_norm(input=tmp, act=conv_act)
+            drop_rate = conv_batchnorm_drop_rate[i]
+            if abs(drop_rate) > 1e-5:
+                tmp = layers.dropout(x=tmp, dropout_prob=drop_rate)
+    return layers.pool2d(input=tmp, pool_size=pool_size, pool_type=pool_type,
+                         pool_stride=pool_stride)
+
+
+def glu(input, dim=-1):
+    a, b = layers.split(input, num_or_sections=2, dim=dim)
+    return layers.elementwise_mul(a, layers.sigmoid(b))
 
 
 def scaled_dot_product_attention(queries, keys, values, num_heads=1,

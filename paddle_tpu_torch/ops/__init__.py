@@ -23,3 +23,4 @@ from paddle_tpu_torch.ops import metric_ops  # noqa: F401
 from paddle_tpu_torch.ops import rnn_ops  # noqa: F401
 from paddle_tpu_torch.ops import seq2seq_ops  # noqa: F401
 from paddle_tpu_torch.ops import fused_ops  # noqa: F401
+from paddle_tpu_torch.ops import moe_ops  # noqa: F401

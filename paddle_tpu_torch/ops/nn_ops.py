@@ -1,4 +1,4 @@
-"""Neural-network ops: conv2d, pool2d, batch_norm and layer_norm.
+"""Neural-network ops: conv2d, pool2d, batch_norm, layer_norm and lrn.
 
 Counterpart of ``paddle_tpu/ops/nn_ops.py`` for the ops this slice runs.
 The JAX package computes conv2d and pool2d with XLA's convolution and
@@ -193,4 +193,33 @@ register_op(
     attrs={"epsilon": 1e-5, "begin_norm_axis": 1},
     lower=_lower_layer_norm,
     intermediate_outputs=("Mean", "Variance"),
+)
+
+
+def _lower_lrn(ctx, ins, attrs):
+    """lrn_op.cc as the JAX package lowers it: ``alpha`` multiplies the
+    window's sum of squares undivided by ``n`` (not torch's
+    LocalResponseNorm), and the window of channel c is
+    ``[c - (n-1)//2, c + n - 1 - (n-1)//2]``: for an even ``n`` one more
+    channel above than below."""
+    x = ins["X"][0]
+    n = attrs.get("n", 5)
+    lo = (n - 1) // 2
+    pad = F.pad(torch.square(x), (0, 0, 0, 0, lo, n - 1 - lo))
+    c = int(x.shape[1])
+    acc = 0
+    for i in range(n):
+        acc = acc + pad[:, i:i + c]
+    mid = attrs.get("k", 2.0) + attrs.get("alpha", 1e-4) * acc
+    return {"Out": x / torch.pow(mid, attrs.get("beta", 0.75)),
+            "MidOut": mid}
+
+
+register_op(
+    "lrn",
+    inputs=["X"],
+    outputs=["Out", "MidOut"],
+    attrs={"n": 5, "k": 2.0, "alpha": 1e-4, "beta": 0.75},
+    lower=_lower_lrn,
+    intermediate_outputs=("MidOut",),
 )

@@ -305,6 +305,7 @@ def test_paged_plan_reads_static_shapes_only():
     (32, 8, 1, 4), (32, 8, 4, 4), (1, 8, 3, 4),     # decode, verify
     (1, 8, 256, 32), (2, 4, 5, 32),                   # few blocks: 32 rows
     (64, 8, 256, 64), (33, 4, 65, 64),                # enough: 64 rows
+    (16, 12, 512, 64), (2, 12, 512, 64),              # Switch train, check
 ])
 def test_flash_tile_choice(B, H, T, want):
     plan = tfa.flash_plan(B, H, T, 256, 64, H100_SMS, H100_SMEM)
@@ -437,6 +438,7 @@ BWD_SHAPES = [
     (3, 4, 4, 130, 130, 64), (9, 4, 4, 256, 256, 128), (2, 3, 3, 70, 70, 33),
     (2, 3, 3, 45, 45, 40), (5, 2, 2, 1, 70, 128), (33, 4, 4, 65, 65, 64),
     (4, 16, 1, 100, 300, 1), (7, 6, 2, 513, 77, 96), (1, 1, 1, 1, 1, 8),
+    (16, 12, 12, 512, 512, 64), (2, 12, 12, 512, 512, 64),
 ]
 
 
@@ -499,6 +501,19 @@ def test_flash_bwd_plan_at_the_train_shape():
         "dq_bf16": {"rows": 64, "threads": 128, "tile": 32, "stages": 2,
                     "smem": 2 * 72 * (2 * 64 + 2 * 2 * 32) + 4 * 2 * 32,
                     "grid": (4, 8, 64)}}
+
+
+def test_flash_plans_at_the_switch_shape():
+    """Switch-Base-8's train step, q/k/v [16, 12, 512, 64] with a key
+    mask, on 132 SMs: B1 in 64-row tiles, 8 a sequence; B2 and B3 in the
+    train shape's tiles, 8 blocks a head and 12 heads."""
+    assert tfa.flash_plan(16, 12, 512, 512, 64, H100_SMS, H100_SMEM) == {
+        "block_q": 64, "blocks": 16 * 12 * 8, "threads": 256}
+    plan = tfa.flash_bwd_plan(16, 12, 12, 512, 512, 64)
+    assert plan["dkv"] == {"rows": 64, "threads": 128, "smem": 70144,
+                           "grid": (8, 12, 16)}
+    assert plan["dq"] == {"rows": 64, "threads": 128, "smem": 52352,
+                          "grid": (8, 12, 16)}
 
 
 BF16_SHAPES = [

@@ -1,8 +1,8 @@
 """The port's prefix cache (``SlotDecodeSession(prefix_cache_pages=...)``)
 against the JAX package's, on the same weights: the twins of
 ``tests/test_kv_reuse.py``'s ``test_prefix_cache_hit_bit_identical_and_skips_prefill``
-and ``test_prefix_fork_shares_pages_until_cow_and_conserves`` (greedy:
-the port's sampled decode waits for ROADMAP.md A6).
+and ``test_prefix_fork_shares_pages_until_cow_and_conserves`` (greedy;
+the sampled twins are in ``tests/test_torch_sampled_decode.py``).
 
 The model is the one ``tests/test_kv_reuse.py`` trains (2 layers, so
 prefill writes and cached pages are exercised past layer 0; 25 Adam steps
