@@ -319,6 +319,44 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``switch_transformer`` reproduced on the card from their feeds within
    1e-4.
 
+18. The detection slice (SSD), after step 17. ``kernel greedy_nms`` /
+   ``kernel det_match`` lines: the port's own detection kernels
+   (``csrc/detection.cu``) against their plain versions on the card, bit
+   for bit, on synthetic edge cases: ``greedy_nms`` at multiclass_nms's
+   eval-head shape (32 images x 20 classes, 400 candidates, thr 0.3),
+   with eta 0.9, on pixel boxes, at generate_proposals' test shape (with
+   and without eta), at its pre_nms_topN of 6,000 (the shared-memory
+   path above 48 KB) and 12,000, and at multiclass_nms's nms_top_k -1 on
+   the 28,276 priors (both rows past the shared memory: boxes read from
+   device memory), a row with nothing eligible; ``det_match`` at the
+   eval head's [32, 200] against 16 gts, with and without difficult gts,
+   and at keep_top_k -1's 8,000 detections an image (read from device
+   memory). ``ssd``: ``models/ssd.py``'s own backbone (five convolutions,
+   32/64/128 channels) and multibox head at SSD300's input size (300 x
+   300) and PASCAL VOC's 21 classes (28,276 priors, nms_top_k 400,
+   keep_top_k 200), batch 32, 1..8 boxes an image padded to 16, one
+   fixed batch, ``Adam(3e-3)``, 5 + 20 steps on a fresh executor:
+   images/s, step ms, peak memory, a profiled step's busy share and
+   launches, the detection kernels' launches in the train steps
+   (reported: the train program holds the eval head, and the executor
+   runs every op); gates on finite losses that fall and no grad-op
+   rerun; then the eval head on the test clone on another fresh
+   executor: Count per image and the mAP (in [0, 1]), both kernels
+   launched there (gated), and the eval head's own NMS rows and match
+   through the kernels equal to their plain versions; both kernels timed
+   on those rows (``time greedy_nms`` / ``time det_match``: graph
+   replays, the plain loop eager, bounds counting the IoU tests and
+   areas this data needs at the FP32 instruction rate, or the bytes).
+   ``ssd card vs cpu``: 2 images at 96 x 96, the dense
+   heads within 1e-3, then multiclass_nms and detection_map on the
+   card's own boxes and scores on both sides: equal rows and counts, mAP
+   within 1e-6. ``sweep`` lines: every detection op type and the twelve
+   new loss op types on the card against the CPU at the CPU tests'
+   shapes (gradients of the ROI ops and the losses too), within 1e-4,
+   selections and threefry draws equal. The goldens gain ``ssd`` (the
+   dense location head of the pruned test clone). The timing phase's
+   threefry rows gain Switch-Base-8's dropout site, [16, 512, 768].
+
 A line of its own before the last holds the kernels' JSON record (for
 flash_fwd, the backward pair, their bf16 entries, paged_decode (full
 occupancy and the serving mix of lengths), lstm_cell and threefry also
@@ -328,7 +366,9 @@ predictor runs have a row of their
 own, lstm_cell's frontend batches too; the frontend's launches are part
 of the serving windows; threefry's record names no TPU kernel and
 carries ``other_generator_ms``, torch.rand's time; the bf16 entries'
-records carry ``"entry": "bf16"`` and the AMP train steps' launches);
+records carry ``"entry": "bf16"`` and the AMP train steps' launches;
+greedy_nms and det_match, the port's own, carry the ssd phase's
+launches: its train steps' and its eval head's);
 the last line is ``{"ok": true, "device": {...}}``. Any failure exits nonzero
 before that line. The script needs one CUDA card and the rest of the
 repository beside it: without either it fails at once.
@@ -494,6 +534,27 @@ CNNS = [("googlenet", (3, 224, 224), 1000, 64),
 CNN_LR, CNN_MOMENTUM, CNN_SEED = 0.01, 0.9, 9
 CNN_WARMUP, CNN_STEPS = 5, 10
 GOLDEN_TOL = 1e-4      # the card's output against the JAX package's golden
+# SSD as models/ssd.py builds it (its own five-convolution backbone, not
+# SSD300's VGG-16), at SSD300's input size and PASCAL VOC's 21 classes
+# (Liu et al., "SSD: Single Shot MultiBox Detector", 2016): the model's
+# multibox head, 28,276 priors;
+# detection_output's nms_top_k 400 and keep_top_k 200. Batch 32, 1..8
+# ground-truth boxes an image padded to 16, Adam(3e-3) as
+# tests/test_detection.py trains the model
+SSD_IMG, SSD_CLASSES, SSD_MAX_GT, SSD_KEEP = 300, 21, 16, 200
+SSD_NMS_TOP_K, SSD_NMS_THR = 400, 0.3   # detection_output's defaults
+SSD_PRIORS = 28276     # models/ssd.py's prior boxes at 300 x 300
+SSD_BATCH, SSD_MAX_BOXES, SSD_LR, SSD_SEED = 32, 8, 3e-3, 19
+SSD_WARMUP, SSD_STEPS = 5, 20
+# card against CPU: 2 images at 96 x 96, the dense heads within this
+SSD_CVC_IMG, SSD_CVC_BATCH, SSD_CVC_TOL = 96, 2, 1e-3
+SWEEP_TOL = 1e-4       # the detection and loss ops, card against CPU
+# the greedy NMS's and the match's IoU, at the FP32 instruction rate: a
+# test is the overlap's width and height (min, max, subtract, offset,
+# clamp: 2 x 5), its product, the union (add, subtract), its clamp, the
+# divide and the compare; a box's area (2 x (subtract, offset, clamp)
+# and a product) is computed once, not in every test
+IOU_TEST_OPS, AREA_OPS = 16, 7
 # the names of matrix-product kernels in a profile (cuBLAS's GEMMs and
 # cuDNN's implicit-GEMM convolutions)
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
@@ -2185,7 +2246,8 @@ def rng_phase(torch):
                      "differs from the CPU's" % (label, mode))
     print("threefry: the plain version's bits, uniforms and masks on the "
           "card equal the CPU's")
-    # timed rows: the train step's dropout site and the sampler's draw
+    # timed rows: the train step's dropout site, the sampler's draw and a
+    # Switch-Base-8 dropout site
     dev = torch.device("cuda")
     site = 1
     for d in DROPOUT_SITE:
@@ -2202,7 +2264,12 @@ def rng_phase(torch):
             ("threefry_sampler", slot_chain, VOCAB, prng.MODE_UNIFORM,
              dict(lo=prng.TINY, hi=1.0), "uniform", 4,
              "Gumbel uniforms [%d,%d], %d keys, 2 row folds"
-             % (NUM_SLOTS, VOCAB, NUM_SLOTS))):
+             % (NUM_SLOTS, VOCAB, NUM_SLOTS)),
+            ("threefry_switch", run_chain, SW_BATCH * SW_LEN * SW_D,
+             prng.MODE_BERNOULLI, dict(p=1.0 - SW_DROPOUT,
+                                       dtype=torch.float32), "bernoulli", 4,
+             "dropout mask [%d,%d,%d] float32, one key, 2 folds (a "
+             "Switch-Base-8 dropout site)" % (SW_BATCH, SW_LEN, SW_D))):
         ms = cuda_ms(lambda chain, n=n, code=code, kw=kw:
                      kt.threefry_draw(chain, n, code, **kw), [dict(chain=chain)])
         plain_ms = eager_ms(lambda i, chain=chain, n=n, code=code, kw=kw:
@@ -3310,7 +3377,8 @@ def profile_call(torch, label, fn, top=8):
             print("%s profile: port kernel %8.3f ms %5d calls  %s"
                   % (label, e.self_device_time_total / 1e3, e.count,
                      name[:70]))
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms, gemm_ms=gemm_ms)
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, gemm_ms=gemm_ms,
+                launches=sum(e.count for e in events))
 
 
 class StepProbe(object):
@@ -5835,10 +5903,12 @@ def golden_card_phase(np, torch, fluid, exe):
     the JAX package) reproduced on the card from their feeds, as
     ``tests/golden_models.py`` builds them: within GOLDEN_TOL."""
     from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.io import prune_program
     from paddle_tpu_torch.models import (
         alexnet,
         googlenet,
         se_resnext,
+        ssd,
         switch_transformer,
         vgg,
     )
@@ -5856,6 +5926,9 @@ def golden_card_phase(np, torch, fluid, exe):
         "switch_transformer": (lambda: switch_transformer.build(
             vocab_size=80, max_length=12, n_layer=2, n_head=2, d_model=32,
             d_inner=64, num_experts=2, moe_every=2, dropout=0.0), "logits"),
+        # the dense location head of the pruned test clone
+        "ssd": (lambda: ssd.build(img_shape=(3, 96, 96), class_num=4),
+                "mbox_locs"),
     }
     for name, (build, key) in builds.items():
         golden = np.load(os.path.join(HERE, "tests", "golden",
@@ -5870,10 +5943,14 @@ def golden_card_phase(np, torch, fluid, exe):
         feed = {k[len("feed_"):]: golden[k] for k in golden.files
                 if k.startswith("feed_")}
         n = next(iter(feed.values())).shape[0]
-        for f in feeds:
-            feed.setdefault(f.name, np.zeros((n, 1), "int64"))
-        (out,) = exe.run(main.clone(for_test=True), feed=feed,
-                         fetch_list=[outs[key]], scope=scope)
+        test = main.clone(for_test=True)
+        if name == "ssd":
+            test = prune_program(test, list(feed), [outs[key].name])
+        else:
+            for f in feeds:
+                feed.setdefault(f.name, np.zeros((n, 1), "int64"))
+        (out,) = exe.run(test, feed=feed, fetch_list=[outs[key].name],
+                         scope=scope)
         err = float(np.abs(np.asarray(out) - golden["expected"]).max())
         print("golden %s on the card: output %s, max abs diff %.3e from "
               "tests/golden/%s.npz  tol %.0e"
@@ -5881,6 +5958,798 @@ def golden_card_phase(np, torch, fluid, exe):
         if not err <= GOLDEN_TOL:
             fail("golden %s: the card's output is %.3e from the golden"
                  % (name, err))
+
+
+# -- detection (SSD) ------------------------------------------------------------
+
+def nms_case(torch, gen, rows, k, scale=1.0, clusters=20):
+    """Score-sorted NMS candidates as ``multiclass_nms`` hands them to
+    ``greedy_nms``: ``rows`` rows of ``k`` boxes around ``clusters``
+    centres each (so suppression happens), scores on a 0.01 grid (ties,
+    kept in index order by the stable sort) with about a tenth below
+    the 0.01 score threshold. Returns (boxes [rows, k, 4], eligible)."""
+    dev = torch.device("cuda")
+    centres = 0.8 * scale * torch.rand(rows, clusters, 2, generator=gen,
+                                       device=dev) + 0.1 * scale
+    pick = torch.randint(0, clusters, (rows, k), generator=gen, device=dev)
+    ctr = torch.gather(centres, 1, pick[..., None].expand(rows, k, 2))
+    ctr = ctr + 0.02 * scale * torch.randn(rows, k, 2, generator=gen,
+                                           device=dev)
+    wh = scale * (0.05 + 0.2 * torch.rand(rows, k, 2, generator=gen,
+                                          device=dev))
+    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], dim=2)
+    scores = torch.round(torch.rand(rows, k, generator=gen, device=dev)
+                         * 100) / 100
+    order = torch.sort(-scores, dim=1, stable=True).indices
+    boxes = torch.gather(boxes, 1, order[..., None].expand(rows, k, 4))
+    return boxes.contiguous(), torch.gather(scores, 1, order) > 0.1
+
+
+def nms_tests(torch, kdet, boxes, eligible, keep, thr, offset):
+    """The IoU tests the greedy NMS needs on these candidates (eta 1):
+    each kept candidate against every kept one before it, each
+    suppressed one up to the first kept candidate that suppresses it,
+    in the kept list's order."""
+    k = boxes.shape[1]
+    ov = kdet.iou(boxes, boxes, offset)
+    before = torch.ones(k, k, dtype=torch.bool,
+                        device=boxes.device).tril(-1)
+    pos = torch.cumsum(keep.to(torch.int64), dim=1)  # 1-based list slot
+    sup = before & keep[:, None, :] & (ov > thr)
+    first = torch.where(sup, pos[:, None, :], k + 1).amin(dim=2)
+    kept_before = pos - keep.to(torch.int64)
+    tests = torch.where(keep, kept_before, first)
+    return int(torch.where(eligible, tests, 0).sum())
+
+
+def det_match_arrays(np, n, d, g, classes, seed):
+    """``detection_map``'s inputs as the SSD eval head gives them: per
+    image 1..8 ground-truth boxes padded to ``g`` (label -1), ``d``
+    detections (most near a gt, some of another class, some anywhere;
+    scores on a 0.01 grid; the last rows label -1 padding, as
+    multiclass_nms pads), a fifth of the gts difficult. Returns numpy
+    (det, gt_label, gt_box, difficult)."""
+    rng = np.random.RandomState(seed)
+    gt_box = np.zeros((n, g, 4), "float32")
+    gt_label = np.full((n, g), -1, "int32")
+    det = np.zeros((n, d, 6), "float32")
+    for i in range(n):
+        m = rng.randint(1, min(SSD_MAX_BOXES, g) + 1)
+        xy = rng.uniform(0, 0.7, (m, 2))
+        gt_box[i, :m] = np.concatenate([xy, xy + rng.uniform(
+            0.1, 0.3, (m, 2))], 1)
+        gt_label[i, :m] = rng.randint(1, classes, m)
+        live = rng.randint(d // 2, d + 1)
+        src = rng.randint(0, m, live)
+        near = rng.rand(live) < 0.6
+        det[i, :live, 0] = np.where(near & (rng.rand(live) < 0.8),
+                                    gt_label[i, src],
+                                    rng.randint(1, classes, live))
+        xy = rng.uniform(0, 0.7, (live, 2))
+        anywhere = np.concatenate([xy, xy + rng.uniform(0.1, 0.3,
+                                                        (live, 2))], 1)
+        det[i, :live, 2:] = np.where(
+            near[:, None], gt_box[i, src] + 0.03 * rng.randn(live, 4),
+            anywhere)
+        det[i, :live, 1] = np.round(rng.uniform(0.01, 1.0, live), 2)
+        det[i, live:, 0] = -1
+    return det, gt_label, gt_box, rng.rand(n, g) < 0.2
+
+
+def det_match_case(np, torch, n, d, g, classes, seed):
+    """``det_match_arrays`` on the card, with the detections' global
+    rank: (det, rank, gt_label, gt_box, difficult)."""
+    from paddle_tpu_torch.ops import detection_ops
+
+    dev = torch.device("cuda")
+    det, lab, box, diff = (torch.from_numpy(a).to(dev) for a in
+                           det_match_arrays(np, n, d, g, classes, seed))
+    _, rank = detection_ops.global_rank(det)
+    return det, rank, lab, box, diff
+
+
+def detection_kernel_phase(np, torch):
+    """The port's two detection kernels against their plain versions on
+    the card, bit for bit, on synthetic edge cases (module docstring,
+    step 18; ``ssd_phase`` times them on the SSD eval head's own rows):
+    ``greedy_nms`` at multiclass_nms's eval-head shape (20 classes of 32
+    images, 400 candidates), with eta < 1, on pixel boxes, at
+    generate_proposals' test shape and at its default pre_nms_topN of
+    6,000 (the kernel's large shared-memory path), at its pre_nms_topN of
+    12,000 and at multiclass_nms's nms_top_k -1 on the 28,276 priors
+    (rows past the shared memory), a row with nothing eligible;
+    ``det_match`` at the eval head's [32, 200] against 16 gts, with and
+    without difficult ground truth, and at keep_top_k -1's 8,000
+    detections an image (past the shared memory). Returns the worst
+    error of each."""
+    from paddle_tpu_torch.kernels import detection as kdet
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SSD_SEED)
+    rows_ssd = SSD_BATCH * (SSD_CLASSES - 1)
+    worst = {"greedy_nms": 0.0, "det_match": 0.0}
+    cases = [
+        ("multiclass_nms eval head", rows_ssd, SSD_NMS_TOP_K, 1.0,
+         SSD_NMS_THR, 1.0, 0.0),
+        ("multiclass_nms eta 0.9", rows_ssd, SSD_NMS_TOP_K, 1.0, 0.7, 0.9,
+         0.0),
+        ("multiclass_nms pixel boxes", 64, SSD_NMS_TOP_K, 300.0, 0.5, 1.0,
+         1.0),
+        ("generate_proposals test", 2, 24, 32.0, 0.7, 1.0, 0.0),
+        ("generate_proposals test, eta 0.9", 2, 24, 32.0, 0.7, 0.9, 0.0),
+        ("generate_proposals pre_nms_topN 6000", 2, 6000, 800.0, 0.7, 1.0,
+         0.0),
+        ("generate_proposals pre_nms_topN 12000", 2, 12000, 800.0, 0.7,
+         0.9, 0.0),
+        ("multiclass_nms nms_top_k -1", 1, SSD_PRIORS, 1.0, SSD_NMS_THR,
+         1.0, 0.0),
+        ("one candidate", 3, 1, 1.0, 0.3, 1.0, 0.0),
+    ]
+    for label, rows, k, scale, thr, eta, offset in cases:
+        boxes, elig = nms_case(torch, gen, rows, k, scale)
+        if label == "one candidate":
+            elig[0] = False  # a row with nothing eligible
+        got = kdet.greedy_nms(boxes, elig, thr, eta, offset)
+        want = kdet.greedy_nms_plain(boxes, elig, thr, eta, offset)
+        torch.cuda.synchronize()
+        err = float((got.int() - want.int()).abs().max())
+        worst["greedy_nms"] = max(worst["greedy_nms"], err)
+        print("kernel greedy_nms %-38s [%d,%d] thr %.2f eta %.1f offset "
+              "%.0f (%s): kept %d of %d eligible; keep mask equal to the "
+              "plain version's %s (tol 0: bit for bit)"
+              % (label, rows, k, thr, eta, offset,
+                 "staged" if k <= kdet.NMS_MAX_K else "unstaged",
+                 int(want.sum()), int(elig.sum()), bool(err == 0)))
+        if err:
+            fail("greedy_nms %s: the keep mask differs from the plain "
+                 "version's" % label)
+    for label, n, d, eval_diff in (
+            ("eval head", SSD_BATCH, SSD_KEEP, True),
+            ("eval head, difficult skipped", SSD_BATCH, SSD_KEEP, False),
+            ("keep_top_k -1", 2, SSD_NMS_TOP_K * (SSD_CLASSES - 1), True)):
+        det, rank, lab, box, diff = det_match_case(
+            np, torch, n, d, SSD_MAX_GT, SSD_CLASSES,
+            SSD_SEED + int(eval_diff))
+        got = kdet.det_match(det, rank, lab, box, diff, 0.5, eval_diff)
+        want = kdet.det_match_plain(det, rank, lab, box, diff, 0.5,
+                                    eval_diff)
+        torch.cuda.synchronize()
+        err = max(float((a.int() - b.int()).abs().max())
+                  for a, b in zip(got, want))
+        worst["det_match"] = max(worst["det_match"], err)
+        print("kernel det_match %-30s [%d,%d] against %d gts, "
+              "evaluate_difficult %s: %d true and %d false positives; "
+              "equal to the plain version's %s (tol 0: bit for bit)"
+              % (label, n, d, SSD_MAX_GT, eval_diff, int(want[0].sum()),
+                 int(want[1].sum()), bool(err == 0)))
+        if err:
+            fail("det_match %s: the flags differ from the plain version's"
+                 % label)
+    return worst
+
+
+def detection_timing(np, torch, nms_args, match_args):
+    """Both detection kernels timed on the SSD eval head's own inputs:
+    ``nms_args`` (boxes [rows, k, 4], eligible, thr, eta, offset) as
+    multiclass_nms hands them to ``greedy_nms``, ``match_args`` (det,
+    rank, gt_label, gt_box, difficult, thr, evaluate_difficult) as
+    detection_map hands them to ``det_match``. Kernel: graph replays over
+    copies; plain loop: eager; bounds from the IoU tests and areas this
+    data needs at the FP32 instruction rate, or the bytes."""
+    from paddle_tpu_torch.kernels import detection as kdet
+
+    boxes, elig, thr, eta, offset = nms_args
+    rows, k = elig.shape
+    keep = kdet.greedy_nms_plain(boxes, elig, thr, eta, offset)
+    tests = nms_tests(torch, kdet, boxes, elig, keep, thr, offset)
+    n_elig = int(elig.sum())
+    timing = {}
+    timing["greedy_nms"] = dict(
+        shape="the SSD eval head's multiclass_nms rows [%d,%d] (%d images "
+        "x %d classes, nms_top_k %d), thr %.2f eta %g: %d eligible, %d "
+        "kept, %d IoU tests" % (rows, k, SSD_BATCH, SSD_CLASSES - 1, k, thr,
+                                eta, n_elig, int(keep.sum()), tests),
+        ms=cuda_ms(lambda boxes, elig: kdet.greedy_nms(
+            boxes, elig, thr, eta, offset), copies(dict(boxes=boxes,
+                                                        elig=elig))),
+        plain_ms=eager_ms(lambda i: kdet.greedy_nms_plain(
+            boxes, elig, thr, eta, offset), [0], iters=3),
+        library_ms=None,
+        bound=bound(rows * k * (16 + 1 + 1),
+                    tests * IOU_TEST_OPS + n_elig * AREA_OPS,
+                    PEAK_FP32_OPS))
+    det, rank, lab, box, diff, mthr, eval_diff = match_args
+    n, d, g = det.shape[0], det.shape[1], lab.shape[1]
+    # the IoUs this data needs: each valid detection against the gts of
+    # its class; the areas of the valid detections and the real gts
+    valid = det[:, :, 0] >= 0
+    cls = det[:, :, 0].to(torch.int32)
+    pairs = int((valid[:, :, None]
+                 & (lab[:, None, :] == cls[:, :, None])).sum())
+    boxes_n = int(valid.sum()) + int((lab >= 0).sum())
+    timing["det_match"] = dict(
+        shape="the SSD eval head's detection_map: det [%d,%d,6] (%d valid), "
+        "%d gts an image (%d real), %d same-class pairs"
+        % (n, d, int(valid.sum()), g, int((lab >= 0).sum()), pairs),
+        ms=cuda_ms(lambda det: kdet.det_match(
+            det, rank, lab, box, diff, mthr, eval_diff),
+            copies(dict(det=det))),
+        plain_ms=eager_ms(lambda i: kdet.det_match_plain(
+            det, rank, lab, box, diff, mthr, eval_diff), [0], iters=3),
+        library_ms=None,
+        bound=bound(n * d * (24 + 8 + 2) + n * g * (4 + 16 + 1),
+                    pairs * IOU_TEST_OPS + boxes_n * AREA_OPS,
+                    PEAK_FP32_OPS))
+    for name, r in timing.items():
+        print("time %-20s %s: kernel %.4f ms, plain %.4f ms, library none, "
+              "bound %.4f ms (%s; float instructions at %.1f T/s)"
+              % (name, r["shape"], r["ms"], r["plain_ms"], r["bound"][0],
+                 r["bound"][1], PEAK_FP32_OPS / 1e12))
+    return timing
+
+
+def ssd_program(fluid, img, classes=SSD_CLASSES, max_gt=SSD_MAX_GT):
+    """models/ssd.py's train program, its test clone (the eval head)
+    taken before the optimizer: (main, startup, test, loss, extras)."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import ssd
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SSD_SEED
+    with unique_name.guard({}), fluid.program_guard(main, startup):
+        loss, _, extras = ssd.build(img_shape=(3, img, img),
+                                    class_num=classes, max_gt=max_gt,
+                                    nms_keep_top_k=SSD_KEEP)
+        test = main.clone(for_test=True)
+        fluid.optimizer.Adam(learning_rate=SSD_LR).minimize(loss)
+    return main, startup, test, loss, extras
+
+
+def ssd_feed(np, batch, img, seed):
+    """One fixed batch: images uniform in [0, 1), 1..8 boxes an image
+    (corners in [0, 1], sides 0.1..0.3) padded to SSD_MAX_GT with zero
+    boxes and label -1, labels 1..20."""
+    rng = np.random.RandomState(seed)
+    gt_box = np.zeros((batch, SSD_MAX_GT, 4), "float32")
+    gt_label = np.full((batch, SSD_MAX_GT), -1, "int32")
+    for i in range(batch):
+        m = rng.randint(1, SSD_MAX_BOXES + 1)
+        xy = rng.uniform(0, 0.7, (m, 2))
+        gt_box[i, :m] = np.concatenate([xy, xy + rng.uniform(
+            0.1, 0.3, (m, 2))], 1)
+        gt_label[i, :m] = rng.randint(1, SSD_CLASSES, m)
+    return {"image": rng.rand(batch, 3, img, img).astype("float32"),
+            "gt_box": gt_box, "gt_label": gt_label}
+
+
+def eval_names(test):
+    """The eval head's op of each kernel: (multiclass_nms's attrs, its
+    BBoxes, Scores and Count names)."""
+    op = [o for o in test.global_block().ops if o.type == "multiclass_nms"]
+    if len(op) != 1:
+        fail("the SSD eval head holds %d multiclass_nms ops, not 1"
+             % len(op))
+    op = op[0]
+    return (op.attrs, op.input("BBoxes")[0], op.input("Scores")[0],
+            op.output("Count")[0])
+
+
+def ssd_phase(np, torch, fluid, kernels):
+    """SSD, models/ssd.py's backbone at a 300 x 300 input and VOC's 21
+    classes (module docstring, step 18): 5 + 20 Adam steps on a fresh
+    executor, then the eval head (NMS and mAP) on the test clone on
+    another; the kernels' counts reset just before the steps and read
+    after the eval head. Then both detection kernels against their plain
+    versions and timed on the eval head's own inputs. Returns {"rate",
+    "launches", "timing", ...}."""
+    from paddle_tpu_torch.kernels import detection as kdet
+    from paddle_tpu_torch.ops import detection_ops
+
+    main, startup, test, loss, extras = ssd_program(fluid, SSD_IMG)
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    feed = ssd_feed(np, SSD_BATCH, SSD_IMG, SSD_SEED)
+    n_priors = int(extras["mbox_locs"].shape[1])
+    for k in kernels.values():
+        k.reset()
+    losses = []
+    for _ in range(SSD_WARMUP):
+        (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        losses.append(float(np.asarray(lv).reshape(-1)[0]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    gc.collect()
+    gc.freeze()
+    for _ in range(SSD_STEPS):
+        t0 = time.perf_counter()
+        (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(np.asarray(lv).reshape(-1)[0]))
+    gc.unfreeze()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reran = exe.grad_op_reruns
+    train_counts = kernel_counts(kernels)
+    prof = profile_call(torch, "ssd step", lambda: exe.run(
+        main, feed=feed, fetch_list=[loss], scope=scope), top=6)
+    mean_ms = float(np.mean(step_ms))
+    rate = SSD_BATCH / mean_ms * 1e3
+    busy = (float("nan") if prof is None
+            else 100.0 * prof["busy_ms"] / prof["wall_ms"])
+    late = float(np.mean(losses[-5:]))
+    print("ssd: %d ops, %d priors, batch %d x 3x%dx%d, %d classes, "
+          "Adam(%g): %d timed steps, mean %.1f ms/step (min %.1f, max "
+          "%.1f): %.1f images/s; peak memory %.2f GiB; card busy %.1f %% "
+          "of a profiled step, %s launches a step; loss step 1 %.6f, mean "
+          "of the last 5 %.6f; grad-op reruns %d"
+          % (len(main.global_block().ops), n_priors, SSD_BATCH, SSD_IMG,
+             SSD_IMG, SSD_CLASSES, SSD_LR, SSD_STEPS, mean_ms,
+             min(step_ms), max(step_ms), rate, peak, busy,
+             "?" if prof is None else prof["launches"], losses[0], late,
+             reran))
+    print("ssd: losses %s" % ["%.4f" % v for v in losses])
+    if not np.isfinite(losses).all():
+        fail("an SSD loss is not finite: %s" % losses)
+    if not late < losses[0]:
+        fail("the SSD loss did not fall: %s" % losses)
+    if reran:
+        fail("%d grad ops reran their forward in the SSD steps" % reran)
+    # models/ssd.py builds the eval head into the train program too, and
+    # the executor runs every op of a program, so a train step may run
+    # the NMS and the mAP (the JAX package's jit drops them as dead code):
+    # reported, not gated
+    print("ssd: greedy_nms launches %d, det_match launches %d in the %d "
+          "train steps (ops no loss needs, run by the executor)"
+          % (train_counts["greedy_nms"], train_counts["det_match"],
+             SSD_WARMUP + SSD_STEPS))
+    # the eval head on a fresh executor, on the trained scope
+    attrs, box_name, score_name, count_name = eval_names(test)
+    ev = fluid.Executor()
+    pre_eval = kernel_counts(kernels)
+    t0 = time.perf_counter()
+    out, m_ap, count, nms_boxes, nms_scores = ev.run(
+        test, feed=feed, scope=scope,
+        fetch_list=[extras["nmsed_out"], extras["map_eval"], count_name,
+                    box_name, score_name])
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    counts = kernel_counts(kernels)
+    evals = {k: counts[k] - pre_eval[k] for k in ("greedy_nms",
+                                                  "det_match")}
+    out, count = np.asarray(out), np.asarray(count)
+    m_ap = float(np.asarray(m_ap).reshape(-1)[0])
+    print("ssd eval head: %.1f ms; nmsed_out %s, Count per image %s; mAP "
+          "%.6f; greedy_nms launches %d, det_match launches %d"
+          % (eval_ms, list(out.shape), count.tolist(), m_ap,
+             evals["greedy_nms"], evals["det_match"]))
+    if out.shape != (SSD_BATCH, SSD_KEEP, 6) or not np.isfinite(out).all():
+        fail("the SSD eval head's nmsed_out is %s, finite %s"
+             % (out.shape, np.isfinite(out).all()))
+    if not ((count >= 0) & (count <= SSD_KEEP)).all():
+        fail("an SSD Count lies outside 0..%d: %s" % (SSD_KEEP, count))
+    if not 0.0 <= m_ap <= 1.0:
+        fail("the SSD mAP %.6f lies outside [0, 1]" % m_ap)
+    if not evals["greedy_nms"] or not evals["det_match"]:
+        fail("the SSD eval head did not launch greedy_nms (%d) and "
+             "det_match (%d)" % (evals["greedy_nms"], evals["det_match"]))
+    # the eval head's own inputs through the kernels and their plain
+    # versions: equal bit for bit (launches past the counts read above)
+    dev = torch.device("cuda")
+    s, b = detection_ops.nms_candidates(
+        torch.from_numpy(np.asarray(nms_scores)).to(dev),
+        torch.from_numpy(np.asarray(nms_boxes)).to(dev), attrs)
+    got = detection_ops.nms_keep(s, b, attrs)
+    want = detection_ops.nms_keep(s, b, attrs, nms=kdet.greedy_nms_plain)
+    det = torch.from_numpy(out).to(dev)
+    _, rank = detection_ops.global_rank(det)
+    lab = torch.from_numpy(feed["gt_label"]).to(dev)
+    box = torch.from_numpy(feed["gt_box"]).to(dev)
+    diff = torch.zeros_like(lab, dtype=torch.bool)
+    map_attrs = [o for o in test.global_block().ops
+                 if o.type == "detection_map"][0].attrs
+    mthr = map_attrs.get("overlap_threshold", 0.5)
+    eval_diff = map_attrs.get("evaluate_difficult", True)
+    tp, fp = kdet.det_match(det, rank, lab, box, diff, mthr, eval_diff)
+    tp_p, fp_p = kdet.det_match_plain(det, rank, lab, box, diff, mthr,
+                                      eval_diff)
+    equal = (torch.equal(got, want) and torch.equal(tp, tp_p)
+             and torch.equal(fp, fp_p))
+    print("ssd eval head: its NMS rows [%d,%d] (%d kept) and its match "
+          "(%d true, %d false positives) through the kernels equal the "
+          "plain versions' %s" % (s.shape[0] * s.shape[1], s.shape[2],
+                                  int(want.sum()), int(tp_p.sum()),
+                                  int(fp_p.sum()), equal))
+    if not equal:
+        fail("the SSD eval head's kernels differ from their plain versions")
+    n, m, k = s.shape
+    eta = attrs.get("nms_eta", 1.0)
+    if eta != 1.0:
+        fail("nms_tests counts the IoU tests at a fixed threshold, not "
+             "eta %g" % eta)
+    timing = detection_timing(
+        np, torch,
+        (b.reshape(n * m, k, 4).contiguous(),
+         (s > attrs.get("score_threshold", 0.0)).reshape(n * m, k),
+         attrs.get("nms_threshold", 0.3), eta,
+         0.0 if attrs.get("normalized", True) else 1.0),
+        (det, rank, lab, box, diff, mthr, eval_diff))
+    return dict(rate=rate, step_ms=mean_ms, peak=peak, busy=busy,
+                launches={"greedy_nms": counts["greedy_nms"],
+                          "det_match": counts["det_match"]},
+                timing=timing)
+
+
+def ssd_card_vs_cpu_phase(np, torch, fluid):
+    """SSD at 96 x 96 (21 classes, 2 images): the eval head on the card
+    and on the CPU from the same parameters, the dense heads within
+    SSD_CVC_TOL; then multiclass_nms and detection_map, in a program of
+    their own, fed the card's own boxes and scores on both sides: equal
+    selections, mAP within 1e-6."""
+    _, startup, test, _, extras = ssd_program(fluid, SSD_CVC_IMG)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    cpu_scope = cpu_copy(np, fluid, test, scope)
+    feed = ssd_feed(np, SSD_CVC_BATCH, SSD_CVC_IMG, SSD_SEED + 1)
+    attrs, box_name, score_name, count_name = eval_names(test)
+    fetch = [extras["mbox_locs"], extras["mbox_confs"], extras["nmsed_out"],
+             count_name, box_name, score_name]
+    card = [np.asarray(v) for v in exe.run(test, feed=feed, scope=scope,
+                                           fetch_list=fetch)]
+    cpu = [np.asarray(v) for v in fluid.Executor(fluid.CPUPlace()).run(
+        test, feed=feed, scope=cpu_scope, fetch_list=fetch)]
+    head_err = max(float(np.abs(a - b).max())
+                   for a, b in zip(card[:2], cpu[:2]))
+    # the selection ops on the card's own boxes and scores, both sides
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        n_priors, n_cls = card[4].shape[1], card[5].shape[1]
+        bv = fluid.layers.data("boxes", [n_priors, 4])
+        sv = fluid.layers.data("scores", [n_cls, n_priors])
+        lv = fluid.layers.data("gt_label", [SSD_MAX_GT], dtype="int32")
+        gv = fluid.layers.data("gt_box", [SSD_MAX_GT, 4])
+        nms_out, nms_count = fluid.layers.multiclass_nms(
+            bv, sv, background_label=attrs["background_label"],
+            score_threshold=attrs["score_threshold"],
+            nms_top_k=attrs["nms_top_k"],
+            nms_threshold=attrs["nms_threshold"], nms_eta=attrs["nms_eta"],
+            keep_top_k=attrs["keep_top_k"], normalized=attrs["normalized"])
+        m_ap = fluid.layers.detection_map(nms_out, lv, gv,
+                                          class_num=SSD_CLASSES)
+    sel_feed = dict(boxes=card[4], scores=card[5],
+                    gt_label=feed["gt_label"], gt_box=feed["gt_box"])
+    sel = {}
+    for dev, ex in (("card", fluid.Executor()),
+                    ("cpu", fluid.Executor(fluid.CPUPlace()))):
+        sel[dev] = [np.asarray(v) for v in ex.run(
+            main, feed=sel_feed, fetch_list=[nms_out, nms_count, m_ap])]
+    same_sel = (np.array_equal(sel["card"][0], sel["cpu"][0])
+                and np.array_equal(sel["card"][1], sel["cpu"][1])
+                and np.array_equal(sel["card"][0], card[2])
+                and np.array_equal(sel["card"][1], card[3]))
+    map_err = abs(float(sel["card"][2]) - float(sel["cpu"][2]))
+    print("ssd card vs cpu: %dx%d, %d images: mbox_locs / mbox_confs max "
+          "abs diff %.3e (tol %.0e); multiclass_nms on the card's boxes and "
+          "scores: Count %s card, %s cpu, rows equal %s (and equal to the "
+          "eval head's); detection_map %.6f card, %.6f cpu, diff %.1e "
+          "(tol 1e-6)" % (SSD_CVC_IMG, SSD_CVC_IMG, SSD_CVC_BATCH, head_err,
+                          SSD_CVC_TOL, sel["card"][1].tolist(),
+                          sel["cpu"][1].tolist(), same_sel,
+                          float(sel["card"][2]), float(sel["cpu"][2]),
+                          map_err))
+    if not head_err <= SSD_CVC_TOL:
+        fail("the SSD dense heads differ between card and CPU: %.3e"
+             % head_err)
+    if not same_sel or not map_err <= 1e-6:
+        fail("multiclass_nms / detection_map differ between card and CPU "
+             "on equal inputs")
+
+
+def sweep_cases(np, fluid):
+    """(name, build(fluid) -> fetch vars, feed, grad input names or ())
+    for every detection op type and the twelve loss op types, at
+    tests/test_detection.py's and tests/test_torch_loss_ops.py's
+    shapes."""
+    L = fluid.layers
+    rng = np.random.RandomState(SSD_SEED)
+
+    def boxes(n, scale=1.0):
+        xy = rng.uniform(0, 0.7 * scale, (n, 2))
+        return np.concatenate([xy, xy + rng.uniform(
+            0.1 * scale, 0.3 * scale, (n, 2))], 1).astype("float32")
+
+    def f32(*shape):
+        return rng.randn(*shape).astype("float32")
+
+    def data(name, arr, **kw):
+        return L.data(name, list(arr.shape[1:]), dtype=str(arr.dtype), **kw)
+
+    cases = []
+
+    def add(name, feed, build, grads=()):
+        cases.append((name, feed, build, grads))
+
+    priors = boxes(8)
+    gt = np.stack([boxes(3) for _ in range(2)])
+    gt[1, 2] = 0.0
+    add("prior_box", {"feat": f32(2, 4, 3, 3), "img": f32(2, 3, 30, 30)},
+        lambda: list(L.prior_box(L.data("feat", [4, 3, 3]),
+                                 L.data("img", [3, 30, 30]), [6.0, 12.0],
+                                 [12.0, 20.0], [2.0, 3.0], flip=True,
+                                 clip=True)))
+    add("density_prior_box", {"feat": f32(1, 4, 4, 4),
+                              "img": f32(1, 3, 32, 32)},
+        lambda: list(L.density_prior_box(
+            L.data("feat", [4, 4, 4]), L.data("img", [3, 32, 32]),
+            densities=[2, 1], fixed_sizes=[8.0, 16.0], clip=True)))
+    add("anchor_generator", {"feat": f32(1, 8, 2, 2)},
+        lambda: list(L.anchor_generator(
+            L.data("feat", [8, 2, 2]), anchor_sizes=[32.0, 64.0],
+            aspect_ratios=[0.5, 1.0], stride=[16.0, 16.0])))
+    def coder(gv, pv, lv):
+        return [L.iou_similarity(gv, pv), L.box_coder(pv, None, gv),
+                L.box_coder(pv, None, lv, code_type="decode_center_size")]
+
+    add("iou_similarity + box_coder", {"gt": gt, "pb": priors,
+                                       "loc": 0.1 * f32(2, 8, 4)},
+        lambda: coder(L.data("gt", [3, 4]),
+                      L.data("pb", [8, 4], append_batch_size=False),
+                      L.data("loc", [8, 4])))
+    add("polygon_box_transform", {"x": f32(1, 4, 3, 3)},
+        lambda: [L.polygon_box_transform(L.data("x", [4, 3, 3]))])
+    dist = np.stack([np.maximum(0, rng.rand(3, 8) - 0.4) for _ in range(2)]
+                    ).astype("float32")
+    dist[1, 2] = 0.0
+    for mt in ("bipartite", "per_prediction"):
+        add("bipartite_match " + mt, {"dist": dist},
+            lambda mt=mt: list(L.bipartite_match(L.data("dist", [3, 8]), mt,
+                                                 0.3)))
+    midx = np.array([[0, -1, 2, 1, -1], [2, 2, -1, 0, 1]], "int32")
+    def assign(xv, x4v, mv, nv):
+        return (list(L.target_assign(xv, mv, negative_mask=nv))
+                + list(L.target_assign(x4v, mv, mismatch_value=0.5)))
+
+    add("target_assign", {"x": f32(2, 3, 4), "x4": f32(2, 3, 5, 4),
+                          "m": midx,
+                          "neg": (rng.rand(2, 5) < 0.3).astype("float32")},
+        lambda: assign(L.data("x", [3, 4]), L.data("x4", [3, 5, 4]),
+                       L.data("m", [5], dtype="int32"), L.data("neg", [5])))
+    mine_feed = {"cl": np.round(rng.rand(2, 12), 1).astype("float32"),
+                 "mi": np.where(rng.rand(2, 12) < 0.2, 0, -1).astype(
+                     "int32"),
+                 "md": rng.rand(2, 12).astype("float32")}
+
+    def mine():
+        from paddle_tpu_torch.layer_helper import LayerHelper
+
+        helper = LayerHelper("mine_hard_examples")
+        neg = helper.create_variable_for_type_inference("float32")
+        upd = helper.create_variable_for_type_inference("int32")
+        helper.append_op(
+            type="mine_hard_examples",
+            inputs={"ClsLoss": [L.data("cl", [12])],
+                    "MatchIndices": [L.data("mi", [12], dtype="int32")],
+                    "MatchDist": [L.data("md", [12])]},
+            outputs={"NegMask": [neg], "UpdatedMatchIndices": [upd]})
+        return [neg, upd]
+
+    add("mine_hard_examples", mine_feed, mine)
+    nb = np.stack([boxes(16, 20.0) for _ in range(2)])
+    nb[:, 8:] = nb[:, :8] + 0.5
+    add("multiclass_nms", {"b": nb, "s": np.round(rng.rand(2, 4, 16), 1)
+                           .astype("float32")},
+        lambda: list(L.multiclass_nms(
+            L.data("b", [16, 4]), L.data("s", [4, 16]), background_label=2,
+            score_threshold=0.15, nms_top_k=12, nms_threshold=0.7,
+            nms_eta=0.8, keep_top_k=20, normalized=False)))
+    det, lab, gbox, diff = det_match_arrays(np, 3, 8, 4, 4, SSD_SEED)
+    for ap in ("integral", "11point"):
+        add("detection_map " + ap, {"d": det, "l": lab, "b": gbox,
+                                    "f": diff.astype("float32")},
+            lambda ap=ap: [L.detection_map(
+                L.data("d", [8, 6]), L.data("l", [4], dtype="int32"),
+                L.data("b", [4, 4]), gt_difficult=L.data("f", [4]),
+                class_num=4, ap_version=ap, evaluate_difficult=False)])
+    x_roi = f32(2, 3, 8, 8)
+    rois = np.array([[0, 0, 7, 7], [2, 2, 6, 6], [1.3, 4.1, 9.0, 7.7]],
+                    "float32")
+    batch = np.array([0, 1, 1], "int32")
+    roi_feed = {"x": x_roi, "r": rois, "bi": batch}
+
+    def roi(fn):
+        def build():
+            xv = L.data("x", [3, 8, 8], stop_gradient=False)
+            rv = L.data("r", [4])
+            bv = L.data("bi", [], dtype="int32")
+            return [fn(xv, rv, bv)]
+        return build
+
+    add("roi_pool", roi_feed, roi(lambda x, r, b: L.roi_pool(
+        x, r, 2, 3, 0.9, rois_batch=b)), ("x",))
+    add("roi_align", roi_feed, roi(lambda x, r, b: L.roi_align(
+        x, r, 3, 3, 0.8, sampling_ratio=2, rois_batch=b)), ("x",))
+    quads = np.array([[0, 0, 7, 0, 7, 7, 0, 7],
+                      [1, 1, 6, 0.5, 7, 6, 0.5, 5.5]], "float32")
+    add("roi_perspective_transform", {"x": x_roi[:1], "q": quads},
+        lambda: [L.roi_perspective_transform(
+            L.data("x", [3, 8, 8], stop_gradient=False), L.data("q", [8]),
+            4, 5, 0.9)], ("x",))
+    anchors = boxes(32, 30.0)
+    rgt = np.stack([boxes(3, 30.0) for _ in range(2)])
+    rgt[0, 2] = 0.0
+    add("rpn_target_assign (threefry)",
+        {"a": anchors, "g": rgt, "im": np.tile(np.array(
+            [[40.0, 40.0, 1.0]], "float32"), (2, 1)),
+         "bp": f32(2, 32, 4), "cl": f32(2, 32, 1)},
+        lambda: list(L.rpn_target_assign(
+            L.data("bp", [32, 4]), L.data("cl", [32, 1]),
+            L.data("a", [32, 4], append_batch_size=False), None,
+            L.data("g", [3, 4]), im_info=L.data("im", [3]),
+            rpn_batch_size_per_im=16, rpn_straddle_thresh=-1.0,
+            rpn_positive_overlap=0.6, use_random=True)))
+
+    def proposals():
+        anc, var = L.anchor_generator(
+            L.data("feat", [8, 4, 4]), anchor_sizes=[8.0],
+            aspect_ratios=[0.5, 1.0, 2.0], stride=[8.0, 8.0])
+        return list(L.generate_proposals(
+            L.data("s", [3, 4, 4]), L.data("d", [12, 4, 4]),
+            L.data("im", [3]), anc, var, pre_nms_top_n=24,
+            post_nms_top_n=8, nms_thresh=0.7, min_size=1.0, eta=0.9))
+
+    add("generate_proposals", {
+        "s": rng.uniform(0, 1, (2, 3, 4, 4)).astype("float32"),
+        "d": 0.1 * f32(2, 12, 4, 4),
+        "im": np.array([[32.0, 32.0, 1.0], [28.0, 30.0, 2.0]], "float32"),
+        "feat": f32(2, 8, 4, 4)}, proposals)
+    pgt = np.stack([boxes(3, 30.0) for _ in range(2)])
+    prois = np.concatenate([pgt[0, :2] + 0.8 * f32(2, 4), boxes(18, 30.0)])
+    add("generate_proposal_labels (threefry)",
+        {"r": prois, "c": np.array([[1, 2, -1], [2, 1, 1]], "int32"),
+         "g": pgt},
+        lambda: list(L.generate_proposal_labels(
+            L.data("r", [20, 4], append_batch_size=False),
+            L.data("c", [3], dtype="int32"), None, L.data("g", [3, 4]),
+            batch_size_per_im=8, class_nums=3, use_random=True)))
+
+    # the loss op types (tests/test_torch_loss_ops.py's inputs); the
+    # gradient of the main output's sum to the differentiable inputs
+    def op(op_type, slots, outs, main, attrs):
+        def build():
+            blk = fluid.default_main_program().global_block()
+            ins = {s: [L.data(s.lower(), list(feed_of[op_type][s.lower()]
+                                              .shape[1:]),
+                              stop_gradient=False).name] for s in slots}
+            out_vars = [blk.create_var(name="out_" + o.lower())
+                        for o in outs]
+            blk.append_op(type=op_type, inputs=ins,
+                          outputs={o: [v.name]
+                                   for o, v in zip(outs, out_vars)},
+                          attrs=attrs)
+            return out_vars[main:] + out_vars[:main]
+        return build
+
+    p = rng.uniform(0.1, 0.9, (6, 1)).astype("float32")
+    lbl = (rng.rand(6, 1) > 0.5).astype("float32")
+    feed_of = {
+        "sigmoid_cross_entropy_with_logits": {"x": f32(4, 5), "label": rng
+                                              .rand(4, 5).astype("float32")},
+        "bce_loss": {"x": rng.uniform(0.05, 0.95, (4, 3)).astype("float32"),
+                     "label": (rng.rand(4, 3) > 0.5).astype("float32")},
+        "squared_l2_distance": {"x": f32(3, 4), "y": f32(3, 4)},
+        "squared_l2_norm": {"x": f32(3, 4)},
+        "smooth_l1_loss": {"x": f32(4, 3), "y": f32(4, 3),
+                           "insideweight": rng.rand(4, 3).astype("float32"),
+                           "outsideweight": rng.rand(4, 3).astype(
+                               "float32")},
+        "huber_loss": {"x": f32(3, 1), "y": 2 * f32(3, 1)},
+        "log_loss": {"predicted": p, "labels": lbl},
+        "hinge_loss": {"logits": f32(3, 1), "labels": lbl[:3]},
+        "rank_loss": {"label": lbl[:3], "left": f32(3, 1),
+                      "right": f32(3, 1)},
+        "margin_rank_loss": {"label": np.array([[1.0], [1.0], [-1.0]],
+                                               "float32"),
+                             "x1": f32(3, 1), "x2": f32(3, 1)},
+        "kldiv_loss": {"x": np.log(rng.dirichlet(np.ones(5), 4)).astype(
+            "float32"), "target": rng.dirichlet(np.ones(5), 4).astype(
+                "float32")},
+        "modified_huber_loss": {"x": np.array([[2.2], [0.4], [-0.3], [-3.1]],
+                                              "float32"),
+                                "y": np.array([[1.0], [1.0], [0.0], [1.0]],
+                                              "float32")},
+    }
+    # (op type, input slots, output slots, the main output, attrs, the
+    # inputs with a gradient)
+    specs = [
+        ("sigmoid_cross_entropy_with_logits", ["X", "Label"], ["Out"], 0,
+         {}, ("x",)),
+        ("bce_loss", ["X", "Label"], ["Out"], 0, {}, ("x",)),
+        ("squared_l2_distance", ["X", "Y"], ["sub_result", "Out"], 1, {},
+         ("x", "y")),
+        ("squared_l2_norm", ["X"], ["Out"], 0, {}, ("x",)),
+        ("smooth_l1_loss", ["X", "Y", "InsideWeight", "OutsideWeight"],
+         ["Diff", "Out"], 1, {"sigma": 1.5}, ("x", "y")),
+        ("huber_loss", ["X", "Y"], ["Residual", "Out"], 1, {"delta": 1.0},
+         ("x", "y")),
+        ("log_loss", ["Predicted", "Labels"], ["Loss"], 0, {},
+         ("predicted",)),
+        ("hinge_loss", ["Logits", "Labels"], ["Loss"], 0, {}, ("logits",)),
+        ("rank_loss", ["Label", "Left", "Right"], ["Out"], 0, {},
+         ("left", "right")),
+        ("margin_rank_loss", ["Label", "X1", "X2"], ["Activated", "Out"], 1,
+         {"margin": 0.1}, ("x1", "x2")),
+        ("kldiv_loss", ["X", "Target"], ["Loss"], 0,
+         {"reduction": "batchmean"}, ("x",)),
+        ("modified_huber_loss", ["X", "Y"], ["Out", "IntermediateVal"], 0,
+         {}, ("x",)),
+    ]
+    for op_type, slots, outs, main, attrs, grads in specs:
+        add(op_type, feed_of[op_type], op(op_type, slots, outs, main, attrs),
+            grads)
+    return cases
+
+
+def detection_sweep_phase(np, torch, fluid):
+    """Every new op type (17 detection, 12 loss) on the card against the
+    CPU (module docstring, step 18): each case's program run on a fresh
+    card executor and a fresh CPU executor (each running its startup
+    program first, so the random ops draw from equal keys), outputs and
+    gradients within SWEEP_TOL, selections and draws equal."""
+    from paddle_tpu_torch import unique_name
+
+    worst, n_ops = 0.0, set()
+    for name, feed, build, grads in sweep_cases(np, fluid):
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = SSD_SEED
+        with unique_name.guard({}), fluid.program_guard(main, startup):
+            outs = build()
+            fetch = list(outs)
+            if grads:
+                # the gradient of the first output's sum
+                blk = main.global_block()
+                fetch += fluid.backward.calc_gradient(
+                    fluid.layers.reduce_sum(outs[0]),
+                    [blk.var(g) for g in grads])
+        n_ops.update(op.type for op in main.global_block().ops)
+        res = {}
+        for dev, ex in (("card", fluid.Executor()),
+                        ("cpu", fluid.Executor(fluid.CPUPlace()))):
+            ex.run(startup)
+            res[dev] = [np.asarray(v) for v in ex.run(main, feed=feed,
+                                                      fetch_list=fetch)]
+        err = 0.0
+        for a, b in zip(res["card"], res["cpu"]):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                fail("sweep %s: card %s %s against cpu %s %s"
+                     % (name, a.shape, a.dtype, b.shape, b.dtype))
+            if a.dtype.kind == "f":
+                e = float(np.abs(a.astype("float64") - b).max()) \
+                    if a.size else 0.0
+                if not e <= SWEEP_TOL:
+                    fail("sweep %s: card and CPU differ by %.3e"
+                         % (name, e))
+                err = max(err, e)
+            elif not np.array_equal(a, b):
+                fail("sweep %s: the card's selection differs from the CPU's"
+                     % name)
+        worst = max(worst, err)
+        print("sweep %-38s %d outputs%s: card against cpu max abs diff "
+              "%.2e (tol %.0e), selections equal"
+              % (name, len(outs), " + %d gradients" % len(grads) if grads
+                 else "", err, SWEEP_TOL))
+    from paddle_tpu_torch.core import op_registry
+
+    det_types = {t for t in op_registry.registered_ops()
+                 if op_registry.get_op_def(t).lower.__module__
+                 == "paddle_tpu_torch.ops.detection_ops"}
+    missing = det_types - n_ops
+    print("sweep: %d op types run, the detection ops' %d all among them: %s"
+          % (len(n_ops), len(det_types), not missing))
+    if missing:
+        fail("the sweep ran no case of %s" % sorted(missing))
+    return worst
 
 
 def main():
@@ -6094,6 +6963,14 @@ def main():
     cnn_phase(np, torch, fluid)
     golden_card_phase(np, torch, fluid, exe)
     mark("cnn, goldens")
+    torch.cuda.empty_cache()
+    worst.update(detection_kernel_phase(np, torch))
+    mark("detection kernels")
+    ssd_run = ssd_phase(np, torch, fluid, KERNELS)
+    torch.cuda.empty_cache()
+    ssd_card_vs_cpu_phase(np, torch, fluid)
+    detection_sweep_phase(np, torch, fluid)
+    mark("ssd, sweep")
     print("phase seconds (since the card check, at the end of each): %s"
           % json.dumps(marks))
 
@@ -6217,23 +7094,18 @@ def main():
                       + switch_launches["threefry"])
     threefry_shapes = shape_rows(rng_timing, [
         ("threefry", drop_site), ("threefry_sampler", sampled_total),
-        ("threefry_graph_data", data_draws)],
+        ("threefry_graph_data", data_draws),
+        ("threefry_switch", switch_launches["threefry"])],
         "the training phases' timed steps (fp32 and AMP) and the captured "
         "dropout program (the dropout site), the sampled serving windows "
-        "(the sampler's draw), or the graph-data ResNet-50 phases' timed "
+        "(the sampler's draw), the graph-data ResNet-50 phases' timed "
         "steps, fp32 and AMP (random_data_generator's three draws: ms and "
-        "bound are a step's three launches), counted by the wrapper where "
-        "it launches")
+        "bound are a step's three launches), or the switch phase's timed "
+        "steps (%d dropout sites a step), counted by the wrapper where it "
+        "launches" % (2 * SW_LAYERS))
     for r in threefry_shapes:
         r["other_generator_ms"] = rng_timing[r["row"]]["philox_ms"]
-    # the Switch step's dropout masks, a shape not timed here
-    threefry_shapes.append(dict(
-        row="threefry_switch", launches=switch_launches["threefry"],
-        shape="dropout masks [%d,%d,%d]: the Switch-Base-8 step's %d sites"
-        % (SW_BATCH, SW_LEN, SW_D, 2 * SW_LAYERS),
-        launches_of="the switch phase's timed steps; not timed", ms=None,
-        plain_ms=None, bound_ms=None, bound_by=None, library_ms=None,
-        other_generator_ms=None))
+
     def amp_record(name, source, line, row, launches_of):
         """A bf16 entry: its numbers at the AMP train step's key-mask
         shape and, per timed shape, the AMP steps' launches at it."""
@@ -6257,6 +7129,20 @@ def main():
                     plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
                     bound_by=t["bound"][1], library_ms=t["library_ms"],
                     shapes=shapes)
+
+    def det_record(name, loop):
+        """A detection kernel (the port's own): its numbers on the SSD
+        eval head's own inputs, its launches in the ssd phase (train
+        steps and eval head)."""
+        t = ssd_run["timing"][name]
+        return dict(name=name, route="cuda",
+                    source="paddle_tpu_torch/csrc/detection.cu",
+                    replaces="none: the port's own kernel (%s)" % loop,
+                    launches=ssd_run["launches"][name],
+                    max_abs_err=worst[name], ms=t["ms"],
+                    plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
+                    bound_by=t["bound"][1], library_ms=None,
+                    shape=t["shape"])
 
     amp_of = ("the AMP training phase's timed steps at this shape class, "
               "counted by the wrapper where it launches")
@@ -6323,6 +7209,13 @@ def main():
                    "flash_bwd_dkv_bf16", amp_of),
         amp_record("flash_bwd_dq_bf16", "flash_bwd_dq_bf16.cu", 376,
                    "flash_bwd_dq_bf16", amp_of),
+        det_record("greedy_nms", "the greedy NMS of multiclass_nms and "
+                   "generate_proposals, lax.fori_loops inside the JAX "
+                   "package's executable: paddle_tpu/ops/detection_ops.py:"
+                   "343-371 and :941-955"),
+        det_record("det_match", "detection_map's greedy match, a "
+                   "lax.fori_loop inside the JAX package's executable: "
+                   "paddle_tpu/ops/detection_ops.py:1037-1067"),
     ]}
     print(card)
     print(json.dumps(record))

@@ -15,3 +15,4 @@ from paddle_tpu_torch.layers.sequence import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.attention import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.metric_op import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.rnn import *  # noqa: F401,F403
+from paddle_tpu_torch.layers.detection import *  # noqa: F401,F403

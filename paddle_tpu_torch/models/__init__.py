@@ -1,6 +1,5 @@
 """Model builders (counterpart of ``paddle_tpu/models/``): each model
-module exposes ``build(...) -> (loss, feeds, extras)``. ``ssd`` waits for
-the detection ops (ROADMAP A4)."""
+module exposes ``build(...) -> (loss, feeds, extras)``."""
 
 from paddle_tpu_torch.models import mnist  # noqa: F401
 from paddle_tpu_torch.models import vgg  # noqa: F401
@@ -12,3 +11,4 @@ from paddle_tpu_torch.models import machine_translation  # noqa: F401
 from paddle_tpu_torch.models import se_resnext  # noqa: F401
 from paddle_tpu_torch.models import googlenet  # noqa: F401
 from paddle_tpu_torch.models import alexnet  # noqa: F401
+from paddle_tpu_torch.models import ssd  # noqa: F401
