@@ -356,6 +356,41 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    selections and threefry draws equal. The goldens gain ``ssd`` (the
    dense location head of the pruned test clone). The timing phase's
    threefry rows gain Switch-Base-8's dropout site, [16, 512, 768].
+19. Sequence labelling and OCR, after step 18. ``kernel crf`` lines: the
+   port's own CRF kernels (``csrc/crf.cu``: K3 ``crf_logz``, its forward
+   entry and its backward entry, the beta recursion; K4 ``crf_viterbi``)
+   against their plain versions at the role labeller's emissions [32,
+   80, 59] with its batch's lengths and at edge rows (lengths 0, 1 and
+   full, 5 tags): alpha, log Z and both gradients within 1e-5 of the
+   largest value, the Viterbi paths equal (with tied scores too);
+   ``kernel ctc_loss`` lines: K5 (``csrc/ctc.cu``) at CRNN's logits [32,
+   64, 96] with its batch's labels, with and without ``norm_by_times``,
+   and at edge rows (an empty label, one frame, a label that needs more
+   frames than its row has: the JAX op's huge finite loss): loss and
+   dLogits within 1e-5 |plain| + 1e-6. B6 and B7 gain cases at the new
+   shapes (D 128 with a sigmoid cell and a relu candidate, forward and
+   reverse; D 200 with a relu candidate). ``time`` lines: the three
+   kernels (both K3 entries), B6 at the role labeller's shape and B7 at
+   CRNN's, K5 beside ``F.ctc_loss`` forward and backward. ``srl``: the
+   PaddlePaddle book's role labeller (``db_lstm``, depth 8, hidden 512,
+   the CoNLL-2005 dictionaries, the CRF, ``chunk_eval`` IOB with 29
+   chunk types), batch 32, lengths 5..80, SGD on ``exponential_decay``,
+   5 + 20 steps; ``crnn``: CRNN-CTC (``crnn_ctc_model.py``: [1, 48, 512]
+   images, 96 classes with the blank, GRU width 200), batch 32,
+   ``Momentum`` with L2 decay, 5 + 20 steps: step ms, sentences or
+   images a second, peak memory, a profiled step's busy share and
+   launches, each kernel's launches a step (gated > 0), grad-op reruns
+   (gated 0), losses finite and falling; then each test clone decodes
+   the batch: chunk_eval's precision, recall and F1 (gated in [0, 1]),
+   the summed edit distance of the greedy decode; the share of a
+   role-labeller step that B6's backward (the plain loop's recompute)
+   takes. ``nlp card vs cpu``: both models at 2 layers / 2 conv groups
+   and batch 4, 3 steps on the card and on the CPU from the same state
+   (losses within 1e-4), then the decoders on the card's own emissions
+   and logits on both sides: equal paths, chunk counts and edit
+   distances. ``nlp`` sweep lines: each of the 22 new op types on the
+   card against the CPU at the CPU tests' shapes (gradients too), within
+   1e-4, selections and nce's threefry draws equal.
 
 A line of its own before the last holds the kernels' JSON record (for
 flash_fwd, the backward pair, their bf16 entries, paged_decode (full
@@ -368,7 +403,9 @@ of the serving windows; threefry's record names no TPU kernel and
 carries ``other_generator_ms``, torch.rand's time; the bf16 entries'
 records carry ``"entry": "bf16"`` and the AMP train steps' launches;
 greedy_nms and det_match, the port's own, carry the ssd phase's
-launches: its train steps' and its eval head's);
+launches: its train steps' and its eval head's; crf_logz, crf_logz_bwd
+and crf_viterbi the srl phase's, ctc_loss the crnn phase's; lstm_cell
+and gru_cell gain a row at the role labeller's and CRNN's shapes);
 the last line is ``{"ok": true, "device": {...}}``. Any failure exits nonzero
 before that line. The script needs one CUDA card and the rest of the
 repository beside it: without either it fails at once.
@@ -549,6 +586,38 @@ SSD_WARMUP, SSD_STEPS = 5, 20
 # card against CPU: 2 images at 96 x 96, the dense heads within this
 SSD_CVC_IMG, SSD_CVC_BATCH, SSD_CVC_TOL = 96, 2, 1e-3
 SWEEP_TOL = 1e-4       # the detection and loss ops, card against CPU
+# the role labeller of the PaddlePaddle book, ch. 7 (label_semantic_roles,
+# the db_lstm network) at the book's widths: CoNLL-2005's dictionaries
+# (44,068 words, 3,162 predicates, 59 labels), word_dim 32, mark_dim 5,
+# hidden_dim 512 (dynamic_lstm size 512: D 128), depth 8; SGD on
+# exponential_decay(0.01, 100000, 0.5, staircase=True); batch 32,
+# lengths 5..80 padded to 80
+SRL_BATCH, SRL_LEN, SRL_MIN_LEN, SRL_DEPTH, SRL_HIDDEN = 32, 80, 5, 8, 512
+SRL_LABELS, SRL_LR, SRL_SEED = 59, (0.01, 100000, 0.5), 23
+# CRNN-CTC as PaddlePaddle/models fluid/ocr_recognition crnn_ctc_model.py
+# builds it: gray [1, 48, 512] images, 95 classes and the blank, conv
+# groups of 16, 32, 64 and 128 channels, GRU width 200; Momentum(1e-3,
+# 0.9) with L2 decay 4e-4; batch 32, labels of 4..24 characters
+CRNN_BATCH, CRNN_IMG, CRNN_CLASSES, CRNN_RNN = 32, (1, 48, 512), 95, 200
+CRNN_CHANNELS, CRNN_MAX_LABEL, CRNN_MIN_LABEL = (16, 32, 64, 128), 24, 4
+CRNN_LR, CRNN_MOMENTUM, CRNN_L2, CRNN_SEED = 1e-3, 0.9, 4e-4, 29
+NLP_WARMUP, NLP_STEPS = 5, 20
+# K3 against its plain version: fp32 log-sum-exps in another order, over
+# up to 80 steps, relative to the largest value
+CRF_TOL = 1e-5
+# K5 against its plain version: |kernel - plain| <= CTC_RTOL |plain| +
+# CTC_ATOL, loss and dLogits
+CTC_RTOL, CTC_ATOL = 1e-5, 1e-6
+# card against CPU: both models at 2 layers / 2 conv groups, batch 4
+NLP_CVC_BATCH, NLP_CVC_STEPS, NLP_CVC_TOL = 4, 3, 1e-4
+# the op types this slice adds, each run by the nlp sweep
+NLP_OP_TYPES = (
+    "linear_chain_crf", "crf_decoding", "warpctc", "ctc_align",
+    "edit_distance", "chunk_eval", "auc", "precision_recall", "mean_iou",
+    "positive_negative_pair", "nce", "hierarchical_sigmoid", "im2sequence",
+    "depthwise_conv2d", "depthwise_conv2d_transpose", "conv3d",
+    "conv2d_transpose", "conv3d_transpose", "pool3d", "group_norm",
+    "bilinear_interp", "nearest_interp")
 # the greedy NMS's and the match's IoU, at the FP32 instruction rate: a
 # test is the overlap's width and height (min, max, subtract, offset,
 # clamp: 2 x 5), its product, the union (add, subtract), its clamp, the
@@ -3917,6 +3986,7 @@ def lstm_cases(torch, gen):
     lim = regime_limit("lstm_cell")
     ragged = rnn_lens(torch, gen, B, T, RNN_MIN_LEN)
     mt_lens = rnn_lens(torch, gen, MT_BATCH, MT_SEQ, 8)
+    srl_lens = rnn_lens(torch, gen, SRL_BATCH, SRL_LEN, SRL_MIN_LEN)
     edge = [6, 4, 6, 2, 5]
     return [
         ("stacked_D512", lstm_case(torch, gen, B, T, RNN_HID, lens=ragged),
@@ -3964,6 +4034,13 @@ def lstm_cases(torch, gen):
         ("acts_identity_sigmoid_relu", lstm_case(
             torch, gen, 5, 6, 48, lens=edge, peep=False,
             acts=("identity", "sigmoid", "relu")), True),
+        # the role labeller's layers: D 128, sigmoid cell, relu candidate
+        ("srl_D128_sigmoid_relu", lstm_case(
+            torch, gen, SRL_BATCH, SRL_LEN, SRL_HIDDEN // 4, lens=srl_lens,
+            acts=("sigmoid", "sigmoid", "relu")), True),
+        ("srl_D128_sigmoid_relu_reverse", lstm_case(
+            torch, gen, SRL_BATCH, SRL_LEN, SRL_HIDDEN // 4, lens=srl_lens,
+            reverse=True, acts=("sigmoid", "sigmoid", "relu")), True),
     ]
 
 
@@ -4031,6 +4108,14 @@ def gru_cases(torch, gen):
         ("acts_relu_identity_D200_regime_b", gru_case(
             torch, gen, 5, 6, 200, lens=edge, init=True,
             acts=("relu", "identity")), True),
+        # CRNN's GRUs: D 200, relu candidate, forward and reverse
+        ("crnn_D200_relu", gru_case(
+            torch, gen, CRNN_BATCH, CRNN_IMG[2] // 8, CRNN_RNN,
+            acts=("sigmoid", "relu")), True),
+        ("crnn_D200_relu_reverse_ragged", gru_case(
+            torch, gen, CRNN_BATCH, CRNN_IMG[2] // 8, CRNN_RNN,
+            lens=rnn_lens(torch, gen, CRNN_BATCH, CRNN_IMG[2] // 8, 4),
+            reverse=True, acts=("sigmoid", "relu")), True),
     ]
 
 
@@ -6691,16 +6776,15 @@ def sweep_cases(np, fluid):
     return cases
 
 
-def detection_sweep_phase(np, torch, fluid):
-    """Every new op type (17 detection, 12 loss) on the card against the
-    CPU (module docstring, step 18): each case's program run on a fresh
-    card executor and a fresh CPU executor (each running its startup
-    program first, so the random ops draw from equal keys), outputs and
-    gradients within SWEEP_TOL, selections and draws equal."""
+def run_sweep(np, fluid, cases, label):
+    """Each case's program run on a fresh card executor and a fresh CPU
+    executor (each running its startup program first, so the random ops
+    draw from equal keys), outputs and gradients within SWEEP_TOL,
+    selections and draws equal; returns (worst error, op types run)."""
     from paddle_tpu_torch import unique_name
 
     worst, n_ops = 0.0, set()
-    for name, feed, build, grads in sweep_cases(np, fluid):
+    for name, feed, build, grads in cases:
         main, startup = fluid.Program(), fluid.Program()
         main.random_seed = startup.random_seed = SSD_SEED
         with unique_name.guard({}), fluid.program_guard(main, startup):
@@ -6735,12 +6819,19 @@ def detection_sweep_phase(np, torch, fluid):
                 fail("sweep %s: the card's selection differs from the CPU's"
                      % name)
         worst = max(worst, err)
-        print("sweep %-38s %d outputs%s: card against cpu max abs diff "
+        print("%s %-38s %d outputs%s: card against cpu max abs diff "
               "%.2e (tol %.0e), selections equal"
-              % (name, len(outs), " + %d gradients" % len(grads) if grads
-                 else "", err, SWEEP_TOL))
+              % (label, name, len(outs), " + %d gradients" % len(grads)
+                 if grads else "", err, SWEEP_TOL))
+    return worst, n_ops
+
+
+def detection_sweep_phase(np, torch, fluid):
+    """Every new op type (17 detection, 12 loss) on the card against the
+    CPU (module docstring, step 18), through ``run_sweep``."""
     from paddle_tpu_torch.core import op_registry
 
+    worst, n_ops = run_sweep(np, fluid, sweep_cases(np, fluid), "sweep")
     det_types = {t for t in op_registry.registered_ops()
                  if op_registry.get_op_def(t).lower.__module__
                  == "paddle_tpu_torch.ops.detection_ops"}
@@ -6749,6 +6840,679 @@ def detection_sweep_phase(np, torch, fluid):
           % (len(n_ops), len(det_types), not missing))
     if missing:
         fail("the sweep ran no case of %s" % sorted(missing))
+    return worst
+
+
+# -- sequence labelling and OCR: the role labeller and CRNN-CTC ----------------
+
+
+def srl_feed(np, batch, seed, min_len=None):
+    """The role labeller's batch: ``label_semantic_roles.iob_batch`` at
+    the book's dictionaries, lengths SRL_MIN_LEN..SRL_LEN."""
+    from paddle_tpu_torch.models import label_semantic_roles as srl
+
+    return srl.iob_batch(np, np.random.RandomState(seed), batch, SRL_LEN,
+                         SRL_MIN_LEN if min_len is None else min_len)
+
+
+def crnn_feed(np, batch, seed):
+    from paddle_tpu_torch.models import crnn_ctc
+
+    return crnn_ctc.batch(np, np.random.RandomState(seed), batch, CRNN_IMG,
+                          CRNN_CLASSES, CRNN_MAX_LABEL, CRNN_MIN_LABEL)
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want|."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                  1e-30)
+
+
+def crf_cases(np, torch, gen):
+    """(name, x, trans, lens) of K3 and K4: the role labeller's emissions
+    shape [SRL_BATCH, SRL_LEN, SRL_LABELS] with its batch's lengths, and
+    edge rows (lengths 1, 0 and full; K 59 and 5)."""
+    lens = torch.from_numpy(srl_feed(np, SRL_BATCH, SRL_SEED)["length"]
+                            .reshape(-1)).cuda()
+
+    def rnd(*shape, s=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * s
+
+    K = SRL_LABELS
+    return [
+        ("srl", rnd(SRL_BATCH, SRL_LEN, K), rnd(K + 2, K, s=0.5), lens),
+        ("edge_K59", rnd(5, 7, K), rnd(K + 2, K, s=0.5),
+         torch.tensor([7, 1, 0, 3, 7], device="cuda")),
+        ("edge_K5", rnd(4, 9, 5, s=3.0), rnd(7, 5), torch.tensor(
+            [1, 9, 4, 2], device="cuda")),
+    ]
+
+
+def ctc_cases(np, torch, gen):
+    """(name, logits, label, t_len, l_len, blank, norm_by_times) of K5:
+    CRNN's logits shape [CRNN_BATCH, 64, 96] with its batch's labels
+    (blank 95), and edge rows (blank 0): an empty label, a label that
+    needs more frames than its row has, a row of one frame."""
+    f = crnn_feed(np, CRNN_BATCH, CRNN_SEED)
+    label = torch.from_numpy(f["label"]).cuda()
+    l_len = torch.from_numpy(f["label_length"].reshape(-1)).cuda()
+    T, V = CRNN_IMG[2] // 8, CRNN_CLASSES + 1
+    t_len = torch.full((CRNN_BATCH,), T, device="cuda")
+    logits = torch.randn(CRNN_BATCH, T, V, generator=gen, device="cuda") * 2
+    edge = (torch.randn(4, 8, 6, generator=gen, device="cuda"),
+            torch.tensor([[3, 4, 3], [2, 2, 2], [1, 0, 0], [5, 1, 2]],
+                         device="cuda"),
+            torch.tensor([8, 4, 1, 8], device="cuda"),
+            torch.tensor([0, 3, 1, 3], device="cuda"), 0)
+    crnn = (logits, label, t_len, l_len, CRNN_CLASSES)
+    return [("crnn", *crnn, True), ("crnn_unnormed", *crnn, False),
+            ("edge_norm", *edge, True), ("edge", *edge, False)]
+
+
+def nlp_kernel_phase(np, torch):
+    """K3 (``crf_logz`` forward and backward), K4 (``crf_viterbi``) and K5
+    (``ctc_loss``) against their plain versions on the same CUDA tensors
+    at the role labeller's and CRNN's shapes and the edge rows; returns
+    (worst error of each, timing rows). K3 within CRF_TOL of the largest
+    value (alpha, log Z, dEmission, dTransition), K4's paths equal (and
+    with tied scores), K5's loss and dLogits within CTC_RTOL |plain| +
+    CTC_ATOL."""
+    from paddle_tpu_torch.kernels import crf as kcrf
+    from paddle_tpu_torch.kernels import ctc as kctc
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    worst = {"crf_logz": 0.0, "crf_logz_bwd": 0.0, "crf_viterbi": 0.0,
+             "ctc_loss": 0.0}
+    cases = crf_cases(np, torch, gen)
+    for name, x, tr, lens in cases:
+        alpha, alpha_n, logz = kcrf._logz_launch(x, tr, lens)
+        alpha_p, alpha_np, logz_p = kcrf.crf_logz_plain(x, tr, lens)
+        g = torch.randn(x.shape[0], generator=gen, device="cuda")
+        dx, dtr = kcrf._logz_bwd_launch(x, tr, lens, alpha_n, g)
+        dx_p, dtr_p = kcrf.crf_logz_backward_plain(x, tr, lens, alpha_np, g)
+        path = kcrf.crf_viterbi(x, tr, lens)
+        path_p = kcrf.crf_viterbi_plain(x, tr, lens)
+        ties, zero = torch.round(x), torch.zeros_like(tr)
+        tie_eq = torch.equal(kcrf.crf_viterbi(ties, zero, lens),
+                             kcrf.crf_viterbi_plain(ties, zero, lens))
+        torch.cuda.synchronize()
+        fwd = max(rel_err(alpha, alpha_p), rel_err(logz, logz_p),
+                  rel_err(alpha_n, alpha_np))
+        bwd = max(rel_err(dx, dx_p), rel_err(dtr, dtr_p))
+        equal = torch.equal(path, path_p)
+        print("kernel crf %-10s x %s, lengths %d..%d: crf_logz alpha / log Z "
+              "(and the normalised alpha) rel err %.2e, crf_logz_bwd dEmission / "
+              "dTransition rel err "
+              "%.2e (tol %.0e); crf_viterbi paths equal %s, with tied scores "
+              "%s" % (name, list(x.shape), int(lens.min()), int(lens.max()),
+                      fwd, bwd, CRF_TOL, equal, tie_eq))
+        if not (fwd <= CRF_TOL and bwd <= CRF_TOL and equal and tie_eq):
+            fail("K3 / K4 disagree with their plain versions on %s" % name)
+        worst["crf_logz"] = max(worst["crf_logz"], fwd)
+        worst["crf_logz_bwd"] = max(worst["crf_logz_bwd"], bwd)
+    ctc = ctc_cases(np, torch, gen)
+    for name, lg, lab, tl, ll, blank, norm in ctc:
+        loss, grad = kctc._launch(lg, lab, tl, ll, blank, norm, True)
+        loss_p, grad_p = kctc.ctc_loss_plain(lg, lab, tl, ll, blank, norm)
+        torch.cuda.synchronize()
+        over = max(float(((a - b).abs() - CTC_RTOL * b.abs()).max())
+                   for a, b in ((loss, loss_p), (grad, grad_p)))
+        err = float((grad - grad_p).abs().max())
+        print("kernel ctc_loss %-13s logits %s, blank %d, norm_by_times %s: "
+              "loss %.4g..%.4g; loss and dLogits beyond %.0e |plain| by at "
+              "most %.2e (tol %.0e); max |dLogits| err %.2e"
+              % (name, list(lg.shape), blank, norm, float(loss_p.min()),
+                 float(loss_p.max()), CTC_RTOL, over, CTC_ATOL, err))
+        if not over <= CTC_ATOL or not torch.isfinite(loss).all():
+            fail("K5 disagrees with its plain version on %s" % name)
+        worst["ctc_loss"] = max(worst["ctc_loss"], err)
+    return worst, nlp_timing(torch, cases[0], ctc[0])
+
+
+def nlp_timing(torch, crf_case, ctc_case):
+    """K3 (both entries), K4 and K5 timed at the role labeller's and
+    CRNN's shapes: kernels from graph replays over copies (inputs well
+    inside the L2 cache: warm), plain versions eager; K5 beside
+    ``F.ctc_loss(reduction='none')`` forward and backward on the same
+    log-probabilities (its kernels' device time from a profiler trace).
+    Bounds from the work these inputs need: exponentials and adds as
+    FP32 instructions at PEAK_FP32_OPS, or the bytes."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import crf as kcrf
+    from paddle_tpu_torch.kernels import ctc as kctc
+
+    _, x, tr, lens = crf_case
+    B, T, K = x.shape
+    live = float((lens.clamp(1, T) - 1).sum())  # the recursions' steps
+    _, alpha_n, _ = kcrf._logz_launch(x, tr, lens)
+    g = torch.ones(B, device="cuda")
+    shape = ("the role labeller's emissions x [%d,%d,%d], lengths %d..%d "
+             "(%d steps)" % (B, T, K, int(lens.min()), int(lens.max()),
+                             live))
+    rows = {}
+    rows["crf_logz"] = dict(
+        shape=shape,
+        ms=cuda_ms(lambda x: kcrf._logz_launch(x, tr, lens),
+                   copies(dict(x=x))),
+        plain_ms=eager_ms(lambda i: kcrf.crf_logz_plain(x, tr, lens), [0],
+                          iters=3),
+        library_ms=None,
+        bound=bound(4.0 * (3 * B * T * K + (K + 2) * K + 3 * B),
+                    12.0 * live * K * K, PEAK_FP32_OPS))
+    rows["crf_logz_bwd"] = dict(
+        shape=shape,
+        ms=cuda_ms(lambda x: kcrf._logz_bwd_launch(x, tr, lens, alpha_n, g),
+                   copies(dict(x=x))),
+        plain_ms=eager_ms(lambda i: kcrf.crf_logz_backward_plain(
+            x, tr, lens, alpha_n, g), [0], iters=3),
+        library_ms=None,
+        bound=bound(4.0 * (3 * B * T * K + 2 * (K + 2) * K + 3 * B),
+                    18.0 * live * K * K, PEAK_FP32_OPS))
+    rows["crf_viterbi"] = dict(
+        shape=shape,
+        ms=cuda_ms(lambda x: kcrf.crf_viterbi(x, tr, lens),
+                   copies(dict(x=x))),
+        plain_ms=eager_ms(lambda i: kcrf.crf_viterbi_plain(x, tr, lens), [0],
+                          iters=3),
+        library_ms=None,
+        bound=bound(4.0 * (B * T * K + (K + 2) * K + B) + 8.0 * B * T,
+                    2.0 * live * K * K, PEAK_FP32_OPS))
+    _, lg, lab, tl, ll, blank, norm = ctc_case
+    Bc, Tc, V = lg.shape
+    states = float(((2 * ll + 1) * (tl.clamp(max=Tc) - 1)).sum())
+    lp_in = torch.log_softmax(lg, 2).transpose(0, 1).detach()
+
+    def library(i):
+        lp = lp_in.clone().requires_grad_(True)
+        loss = F.ctc_loss(lp, lab, tl, ll, blank=blank, reduction="none")
+        loss.backward(torch.ones_like(loss))
+
+    rows["ctc_loss"] = dict(
+        shape="CRNN's logits [%d,%d,%d], labels of %d..%d, blank %d, "
+        "norm_by_times; loss and dLogits" % (Bc, Tc, V, int(ll.min()),
+                                             int(ll.max()), blank),
+        ms=cuda_ms(lambda lg: kctc._launch(lg, lab, tl, ll, blank, norm,
+                                           True), copies(dict(lg=lg))),
+        plain_ms=eager_ms(lambda i: kctc.ctc_loss_plain(
+            lg, lab, tl, ll, blank, norm), [0], iters=3),
+        library_ms=device_ms(torch, library, [0]),
+        bound=bound(4.0 * (2 * Bc * Tc * V + Bc * lab.shape[1] + 3 * Bc),
+                    32.0 * states + 7.0 * Bc * Tc * V, PEAK_FP32_OPS))
+    for name, r in rows.items():
+        lib = ("%.4f ms (F.ctc_loss, reduction='none', forward and backward "
+               "on the log-probabilities; its kernels' device time)"
+               % r["library_ms"] if r["library_ms"] is not None else "none")
+        print("time %-20s %s: kernel %.4f ms, plain %.4f ms, library %s, "
+              "bound %.4f ms (%s)" % (name, r["shape"], r["ms"], r["plain_ms"],
+                                      lib, r["bound"][0], r["bound"][1]))
+    return rows
+
+
+def nlp_rnn_timing(np, torch):
+    """B6 and B7 timed at this slice's shapes: the role labeller's LSTM
+    (xw [32, 80, 512], D 128, peepholes, sigmoid cell, relu candidate,
+    its batch's lengths) and CRNN's GRU (xw [32, 64, 600], D 200, relu
+    candidate, full lengths); bounds as rnn_timing_phase's."""
+    from paddle_tpu_torch.kernels import gru_cell as gc
+    from paddle_tpu_torch.kernels import lstm_cell as lc
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    lens = torch.from_numpy(srl_feed(np, SRL_BATCH, SRL_SEED)["length"]
+                            .reshape(-1)).cuda()
+    B, T, D = SRL_BATCH, SRL_LEN, SRL_HIDDEN // 4
+    V = float(lens.sum())
+    kw = copies(lstm_case(torch, gen, B, T, D, lens=lens,
+                          acts=("sigmoid", "sigmoid", "relu")))
+    rows = {"lstm_cell_srl": dict(
+        shape="the role labeller: xw [%d,%d,%d], D %d, peepholes, sigmoid "
+        "cell, relu candidate, lengths %d..%d (%d of %d steps valid)"
+        % (B, T, 4 * D, D, int(lens.min()), int(lens.max()), V, B * T),
+        ms=cuda_ms(lc.lstm_cell_forward, kw),
+        plain_ms=cuda_ms(lc.lstm_reference, kw, iters=6, reps=3),
+        library_ms=None,
+        bound=bound(4.0 * (V * 4 * D + 2 * B * T * D + 4 * D * D + 7 * D
+                           + B * T), 8.0 * V * D * D))}
+    B, T, D = CRNN_BATCH, CRNN_IMG[2] // 8, CRNN_RNN
+    kw = copies(gru_case(torch, gen, B, T, D, acts=("sigmoid", "relu")))
+    rows["gru_cell_crnn"] = dict(
+        shape="CRNN: xw [%d,%d,%d], D %d, relu candidate, full lengths"
+        % (B, T, 3 * D, D),
+        ms=cuda_ms(gc.gru_cell_forward, kw),
+        plain_ms=cuda_ms(gc.gru_reference, kw, iters=6, reps=3),
+        library_ms=None,
+        bound=bound(4.0 * (B * T * 3 * D + B * T * D + 3 * D * D + 3 * D),
+                    6.0 * B * T * D * D))
+    for name, r in rows.items():
+        print("time %-20s %s: kernel %.4f ms, plain %.4f ms, library none, "
+              "bound %.4f ms (%s)" % (name, r["shape"], r["ms"], r["plain_ms"],
+                                      r["bound"][0], r["bound"][1]))
+    return rows
+
+
+def srl_program(fluid, depth=None):
+    """The role labeller's train program (SGD on exponential_decay) and
+    its test clone, taken before the optimizer: (main, startup, test,
+    avg_cost, extras)."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import label_semantic_roles as srl
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SRL_SEED
+    with unique_name.guard({}), fluid.program_guard(main, startup):
+        avg_cost, _, extras = srl.build(fluid, max_len=SRL_LEN,
+                                        hidden_dim=SRL_HIDDEN,
+                                        depth=depth or SRL_DEPTH)
+        test = main.clone(for_test=True)
+        lr = fluid.layers.exponential_decay(*SRL_LR, staircase=True)
+        fluid.optimizer.SGD(learning_rate=lr).minimize(avg_cost)
+    return main, startup, test, avg_cost, extras
+
+
+def crnn_program(fluid, batch=None, channels=None):
+    """CRNN-CTC's train program (Momentum with L2 decay) and its test
+    clone: (main, startup, test, sum_cost, extras)."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import crnn_ctc
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = CRNN_SEED
+    with unique_name.guard({}), fluid.program_guard(main, startup):
+        sum_cost, extras = crnn_ctc.build(
+            fluid, batch_size=batch or CRNN_BATCH, img_shape=CRNN_IMG,
+            num_classes=CRNN_CLASSES, max_label=CRNN_MAX_LABEL,
+            channels=channels or CRNN_CHANNELS, rnn_hidden=CRNN_RNN)
+        test = main.clone(for_test=True)
+        fluid.optimizer.Momentum(
+            learning_rate=CRNN_LR, momentum=CRNN_MOMENTUM,
+            regularization=fluid.regularizer.L2Decay(CRNN_L2)).minimize(
+                sum_cost)
+    return main, startup, test, sum_cost, extras
+
+
+def nlp_train(np, torch, fluid, kernels, label, main, startup, loss, feed,
+              per_step, items):
+    """NLP_WARMUP + NLP_STEPS steps of ``main`` on a fresh executor, the
+    kernels' counts reset just before and read after the timed steps
+    (``per_step``'s kernels gated > 0), one profiled step; prints and
+    returns the step numbers."""
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    losses = []
+    for _ in range(NLP_WARMUP):
+        (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        losses.append(float(np.asarray(lv).reshape(-1)[0]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.reset()
+    step_ms = []
+    gc.collect()
+    gc.freeze()
+    for _ in range(NLP_STEPS):
+        t0 = time.perf_counter()
+        (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(np.asarray(lv).reshape(-1)[0]))
+    gc.unfreeze()
+    counts = kernel_counts(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reran = exe.grad_op_reruns
+    prof = profile_call(torch, label + " step", lambda: exe.run(
+        main, feed=feed, fetch_list=[loss], scope=scope), top=6)
+    mean_ms = float(np.mean(step_ms))
+    busy = (float("nan") if prof is None
+            else 100.0 * prof["busy_ms"] / prof["wall_ms"])
+    late = float(np.mean(losses[-5:]))
+    launches = {k: counts[k] for k in per_step}
+    print("%s: %d ops, %d timed steps, mean %.1f ms/step (min %.1f, max "
+          "%.1f): %.1f %s/s; peak memory %.2f GiB; card busy %.1f %% of a "
+          "profiled step, %s launches a step; %s; loss step 1 %.6f, mean of "
+          "the last 5 %.6f; grad-op reruns %d"
+          % (label, len(main.global_block().ops), NLP_STEPS, mean_ms,
+             min(step_ms), max(step_ms), items / mean_ms * 1e3,
+             {"srl": "sentences", "crnn": "images"}[label], peak, busy,
+             "?" if prof is None else prof["launches"],
+             ", ".join("%s %d (%.1f a step)" % (k, n, n / NLP_STEPS)
+                       for k, n in launches.items()), losses[0], late, reran))
+    print("%s: losses %s" % (label, ["%.4f" % v for v in losses]))
+    if not np.isfinite(losses).all():
+        fail("a %s loss is not finite: %s" % (label, losses))
+    if not late < losses[0]:
+        fail("the %s loss did not fall: %s" % (label, losses))
+    if reran:
+        fail("%d grad ops reran their forward in the %s steps"
+             % (reran, label))
+    missing = [k for k, n in launches.items() if not n]
+    if missing:
+        fail("the %s steps launched no %s" % (label, missing))
+    return dict(scope=scope, step_ms=mean_ms, rate=items / mean_ms * 1e3,
+                peak=peak, busy=busy, launches=launches, losses=losses)
+
+
+def lstm_backward_share(torch, step_ms, n_layers):
+    """The share of a role-labeller step that B6's backward takes: it
+    recomputes through the plain loop under autograd (ROADMAP B item
+    11). Host clock around the forward and the backward of one layer at
+    its shape (full lengths), times the layers, against the step."""
+    from paddle_tpu_torch.kernels import lstm_cell as lc
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    kw = lstm_case(torch, gen, SRL_BATCH, SRL_LEN, SRL_HIDDEN // 4,
+                   acts=("sigmoid", "sigmoid", "relu"))
+    xw = kw["xw"].requires_grad_(True)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hid, _ = lc.fused_lstm(xw, kw["w_h"], kw["bias"],
+                               peephole=tuple(kw["peephole"]),
+                               gate_act="sigmoid", cell_act="sigmoid",
+                               cand_act="relu")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.autograd.grad(hid.sum(), [xw])
+        torch.cuda.synchronize()
+        times.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+    fwd, bwd = (min(t[i] for t in times) for i in (0, 1))
+    print("srl: one LSTM layer [%d,%d,%d] alone: forward (B6) %.2f ms, "
+          "backward (the plain loop's recompute) %.2f ms; %d layers' "
+          "backward %.1f ms, %.1f %% of the %.1f ms step"
+          % (SRL_BATCH, SRL_LEN, SRL_HIDDEN, fwd, bwd, n_layers,
+             n_layers * bwd, 100.0 * n_layers * bwd / step_ms, step_ms))
+    return n_layers * bwd / step_ms
+
+
+def srl_phase(np, torch, fluid, kernels):
+    """The role labeller at the book's widths (module docstring, step
+    19): 5 + 20 SGD steps on one batch, then decoding and chunk_eval on
+    the test clone. Returns the step numbers and the launches (the
+    decode's Viterbi launch included)."""
+    main, startup, test, loss, extras = srl_program(fluid)
+    feed = srl_feed(np, SRL_BATCH, SRL_SEED)
+    run = nlp_train(np, torch, fluid, kernels, "srl", main, startup, loss,
+                    feed, ("lstm_cell", "crf_logz", "crf_logz_bwd",
+                           "crf_viterbi"), SRL_BATCH)
+    run["lstm_backward_share"] = lstm_backward_share(torch, run["step_ms"],
+                                                     SRL_DEPTH)
+    pre = kernel_counts(kernels)
+    t0 = time.perf_counter()
+    path, p, r, f1, n_inf, n_lab, n_cor = (np.asarray(v) for v in
+                                           fluid.Executor().run(
+        test, feed=feed, scope=run["scope"],
+        fetch_list=[extras["decode"]] + list(extras["chunk"])))
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    vit = kernel_counts(kernels)["crf_viterbi"] - pre["crf_viterbi"]
+    p, r, f1 = (float(v.reshape(-1)[0]) for v in (p, r, f1))
+    print("srl decode (test clone): %.1f ms; path %s; chunk_eval precision "
+          "%.4f recall %.4f F1 %.4f (%d inferred, %d labelled, %d correct "
+          "chunks); crf_viterbi launches %d"
+          % (eval_ms, list(path.shape), p, r, f1, int(n_inf[0]),
+             int(n_lab[0]), int(n_cor[0]), vit))
+    if not all(0.0 <= v <= 1.0 for v in (p, r, f1)) or not vit:
+        fail("the role labeller's decode: P %s R %s F1 %s, %d Viterbi "
+             "launches" % (p, r, f1, vit))
+    live = np.arange(SRL_LEN)[None, :] < feed["length"]
+    if (path[~live] != 0).any() or not ((path >= 0)
+                                        & (path < SRL_LABELS)).all():
+        fail("the role labeller's Viterbi path leaves 0..%d or is not 0 "
+             "past a length" % (SRL_LABELS - 1))
+    run["launches"]["crf_viterbi"] += vit
+    run.update(f1=f1, eval_ms=eval_ms)
+    return run
+
+
+def crnn_phase(np, torch, fluid, kernels):
+    """CRNN-CTC at 48 x 512, 95 classes (module docstring, step 19):
+    5 + 20 Momentum steps on one batch, then greedy decoding and the
+    edit distance on the test clone."""
+    main, startup, test, loss, extras = crnn_program(fluid)
+    feed = crnn_feed(np, CRNN_BATCH, CRNN_SEED)
+    run = nlp_train(np, torch, fluid, kernels, "crnn", main, startup, loss,
+                    feed, ("gru_cell", "ctc_loss"), CRNN_BATCH)
+    t0 = time.perf_counter()
+    dec, dec_len, dist = (np.asarray(v) for v in fluid.Executor().run(
+        test, feed=feed, scope=run["scope"],
+        fetch_list=[extras["decoded"], extras["decoded_len"],
+                    extras["edit_distance"]]))
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    dist = float(dist.reshape(-1)[0])
+    print("crnn decode (test clone): %.1f ms; greedy paths %s, lengths "
+          "%d..%d; summed edit distance %.0f over %d label characters"
+          % (eval_ms, list(dec.shape), int(dec_len.min()),
+             int(dec_len.max()), dist, int(feed["label_length"].sum())))
+    if not (np.isfinite(dist) and dist >= 0 and ((dec >= 0)
+                                                 & (dec <= CRNN_CLASSES))
+            .all()):
+        fail("CRNN's decode: edit distance %s, classes %d..%d"
+             % (dist, int(dec.min()), int(dec.max())))
+    run.update(edit_distance=dist, eval_ms=eval_ms)
+    return run
+
+
+def nlp_card_vs_cpu_phase(np, torch, fluid):
+    """Each model at 2 layers / 2 conv groups and a small batch, the port
+    on the card against the port on the CPU from the same state:
+    NLP_CVC_STEPS losses within NLP_CVC_TOL of max(1, |loss|); then the
+    decode ops fed the card's own emissions and transitions, or logits,
+    on both sides: Viterbi paths, chunk counts, greedy paths and edit
+    distances equal."""
+    L = fluid.layers
+    last = {}
+    for label in ("srl", "crnn"):
+        if label == "srl":
+            main, startup, _, loss, extras = srl_program(fluid, depth=2)
+            feed = srl_feed(np, NLP_CVC_BATCH, SRL_SEED + 1)
+            out = extras["feature"]
+        else:
+            main, startup, _, loss, extras = crnn_program(
+                fluid, batch=NLP_CVC_BATCH, channels=CRNN_CHANNELS[:2])
+            feed = crnn_feed(np, NLP_CVC_BATCH, CRNN_SEED + 1)
+            out = extras["logits"]
+        exe = fluid.Executor()
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        cpu_scope = cpu_copy(np, fluid, main, scope)
+        got = {"card": [], "cpu": []}
+        for dev, ex, sc in (("card", exe, scope), ("cpu", fluid.Executor(
+                fluid.CPUPlace()), cpu_scope)):
+            for _ in range(NLP_CVC_STEPS):
+                vals = ex.run(main, feed=feed, fetch_list=[loss, out],
+                              scope=sc)
+                got[dev].append((float(np.asarray(vals[0]).reshape(-1)[0]),
+                                 np.asarray(vals[1])))
+        err = max(abs(a[0] - b[0]) / max(1.0, abs(b[0]))
+                  for a, b in zip(got["card"], got["cpu"]))
+        last[label] = (got["card"][-1][1], scope)
+        print("nlp card vs cpu %s: %d steps, losses card %s cpu %s, max "
+              "diff %.2e of max(1, |loss|) (tol %.0e)"
+              % (label, NLP_CVC_STEPS, ["%.6f" % v[0] for v in got["card"]],
+                 ["%.6f" % v[0] for v in got["cpu"]], err, NLP_CVC_TOL))
+        if not err <= NLP_CVC_TOL:
+            fail("%s: card and CPU losses differ by %.2e" % (label, err))
+    em = last["srl"][0]
+    trans = last["srl"][1].get_value("crfw").cpu().numpy()
+    lg = last["crnn"][0]
+    f = srl_feed(np, NLP_CVC_BATCH, SRL_SEED + 1)
+    fc = crnn_feed(np, NLP_CVC_BATCH, CRNN_SEED + 1)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        ev = L.data("em", list(em.shape[1:]))
+        tv = L.data("trans", list(trans.shape), append_batch_size=False)
+        lab = L.data("target", [SRL_LEN], dtype="int64")
+        ln = L.data("length", [1], dtype="int64")
+        blk = main.global_block()
+        path = blk.create_var(name="path", dtype="int64")
+        blk.append_op(type="crf_decoding",
+                      inputs={"Emission": [ev.name], "Transition": [tv.name],
+                              "Length": [ln.name]},
+                      outputs={"ViterbiPath": [path.name]})
+        chunks = L.chunk_eval(path, lab, "IOB", (SRL_LABELS - 1) // 2,
+                              length=ln)
+        lv = L.data("logits", list(lg.shape[1:]))
+        cl = L.data("label", [CRNN_MAX_LABEL], dtype="int64")
+        cll = L.data("label_length", [1], dtype="int64")
+        dec, dec_len = L.ctc_greedy_decoder(lv, blank=CRNN_CLASSES)
+        dist, _ = L.edit_distance(dec, cl, normalized=False,
+                                  input_length=dec_len, label_length=cll)
+    feed = {"em": em, "trans": trans, "target": f["target"],
+            "length": f["length"], "logits": lg,
+            "label": fc["label"].astype("int64"),
+            "label_length": fc["label_length"]}
+    fetch = [path, dec, dec_len, dist] + list(chunks[3:])
+    res = {dev: [np.asarray(v) for v in ex.run(main, feed=feed,
+                                               fetch_list=fetch)]
+           for dev, ex in (("card", fluid.Executor()),
+                           ("cpu", fluid.Executor(fluid.CPUPlace())))}
+    same = all(np.array_equal(a, b) for a, b in zip(res["card"],
+                                                     res["cpu"]))
+    print("nlp card vs cpu decode: crf_decoding on the card's emissions %s "
+          "and chunk_eval, ctc_greedy_decoder and edit_distance on its "
+          "logits %s: card and CPU equal %s (edit distances %s, %d correct "
+          "chunks)" % (list(em.shape), list(lg.shape), same,
+                       res["card"][3].reshape(-1).tolist(),
+                       int(res["card"][-1].reshape(-1)[0])))
+    if not same:
+        fail("the decoders differ between card and CPU on equal inputs")
+
+
+def nlp_sweep_cases(np, fluid):
+    """(name, feed, build() -> fetch vars, grad input names) for each of
+    the 22 op types this slice adds, at tests/test_torch_nlp.py's,
+    tests/test_torch_metric_ops.py's and tests/test_torch_nn_rest.py's
+    shapes."""
+    L = fluid.layers
+    rng = np.random.RandomState(CRNN_SEED)
+    cases = []
+
+    def f32(*shape):
+        return rng.randn(*shape).astype("float32")
+
+    def add(name, feed, build, grads=()):
+        def run():
+            v = {k: L.data(k, list(a.shape[1:]), dtype=str(a.dtype),
+                           stop_gradient=k not in grads)
+                 for k, a in feed.items()}
+            return build(v)
+        cases.append((name, feed, run, grads))
+
+    def raw(op_type, ins, outs, attrs):
+        blk = fluid.default_main_program().global_block()
+        out_vars = [blk.create_var(name="out_" + o.lower()) for o in outs]
+        blk.append_op(type=op_type,
+                      inputs={k: [v.name] for k, v in ins.items()},
+                      outputs={o: [v.name] for o, v in zip(outs, out_vars)},
+                      attrs=attrs)
+        return out_vars
+
+    def crf_ops(v):
+        attr = fluid.ParamAttr(name="crfw")
+        cost = L.linear_chain_crf(v["em"], v["lab"], length=v["ln"],
+                                  param_attr=attr)
+        return [cost, L.crf_decoding(v["em"], attr, length=v["ln"]),
+                L.crf_decoding(v["em"], attr, label=v["lab"],
+                               length=v["ln"])]
+
+    add("linear_chain_crf + crf_decoding",
+        {"em": f32(4, 6, 5), "lab": rng.randint(0, 5, (4, 6)).astype("int64"),
+         "ln": np.array([[6], [1], [4], [3]], "int64")}, crf_ops, ("em",))
+    ctc = {"lg": f32(4, 8, 6),
+           "lb": np.array([[3, 4, 3], [2, 2, 2], [1, 0, 0], [5, 1, 2]],
+                          "int64"),
+           "tl": np.array([[8], [4], [1], [8]], "int64"),
+           "ll": np.array([[0], [3], [1], [3]], "int64")}
+    add("warpctc (norm_by_times)", ctc, lambda v: [L.warpctc(
+        v["lg"], v["lb"], blank=0, norm_by_times=True, input_length=v["tl"],
+        label_length=v["ll"])], ("lg",))
+
+    def greedy(v):
+        out, n = L.ctc_greedy_decoder(v["lg"], blank=0)
+        return [out, n] + list(L.edit_distance(
+            out, v["lb"], normalized=True, input_length=n,
+            label_length=v["ll"]))
+
+    add("ctc_align + edit_distance", ctc, greedy)
+    tags = rng.randint(0, 7, (4, 9)).astype("int64")
+    add("chunk_eval (IOB, type 1 excluded)",
+        {"inf": np.where(rng.rand(4, 9) < 0.7, tags, rng.randint(
+            0, 7, (4, 9))).astype("int64"), "lab": tags,
+         "ln": np.array([9, 0, 4, 7], "int64")},
+        lambda v: list(L.chunk_eval(v["inf"], v["lab"], "IOB", 3, [1],
+                                    length=v["ln"])))
+    probs = rng.rand(12, 3).astype("float32")
+    probs /= probs.sum(1, keepdims=True)
+    labels = rng.randint(0, 3, (12, 1)).astype("int64")
+    add("auc", {"p": probs[:, :2] / probs[:, :2].sum(1, keepdims=True),
+                "l": (labels > 0).astype("int64")},
+        lambda v: [L.auc(v["p"], v["l"], num_thresholds=50)[0]])
+    add("precision_recall", {"p": probs, "l": labels},
+        lambda v: list(L.precision_recall(v["p"], v["l"], 3)))
+    add("mean_iou", {"p": rng.randint(0, 4, (6, 5)).astype("int32"),
+                     "l": rng.randint(0, 4, (6, 5)).astype("int32")},
+        lambda v: list(L.mean_iou(v["p"], v["l"], 4)))
+    add("positive_negative_pair",
+        {"s": np.round(f32(10, 2), 1), "l": rng.randint(0, 3, (10, 1))
+         .astype("float32"), "q": rng.randint(0, 3, (10, 1)).astype(
+             "int64")},
+        lambda v: raw("positive_negative_pair", {
+            "Score": v["s"], "Label": v["l"], "QueryID": v["q"]},
+            ["PositivePair", "NegativePair", "NeutralPair"], {"column": 1}))
+
+    def nce(v):
+        cost = L.nce(v["x"], v["l"], num_total_classes=20, num_neg_samples=6)
+        blk = fluid.default_main_program().global_block()
+        return [cost, blk.var(blk.ops[-1].output("SampleLabels")[0])]
+
+    add("nce (threefry draws)", {"x": f32(5, 8), "l": rng.randint(
+        0, 20, (5, 1)).astype("int64")}, nce, ("x",))
+    add("hierarchical_sigmoid", {"x": f32(5, 8), "l": rng.randint(
+        0, 7, (5, 1)).astype("int64")},
+        lambda v: [L.hsigmoid(v["x"], v["l"], 7)], ("x",))
+    img, vol = f32(2, 3, 9, 10), f32(2, 3, 5, 6, 7)
+    add("im2sequence", {"x": img}, lambda v: [L.im2sequence(
+        v["x"], filter_size=[3, 2], stride=[2, 1], padding=[1, 0, 1, 1])],
+        ("x",))
+    add("depthwise_conv2d", {"x": img}, lambda v: [L.depthwise_conv2d(
+        v["x"], 6, 3, stride=2, padding=1)], ("x",))
+    add("depthwise_conv2d_transpose", {"x": img, "w": f32(3, 2, 3, 3)},
+        lambda v: raw("depthwise_conv2d_transpose",
+                      {"Input": v["x"], "Filter": v["w"]}, ["Output"],
+                      {"strides": [2, 2], "paddings": [1, 1]}), ("x", "w"))
+    add("conv3d", {"x": vol}, lambda v: [L.conv3d(
+        v["x"], 4, 3, padding=1, stride=[1, 2, 1])], ("x",))
+    add("conv2d_transpose (output_size)", {"x": img},
+        lambda v: [L.conv2d_transpose(v["x"], 4, output_size=[18, 20],
+                                      filter_size=3, padding=1, stride=2)],
+        ("x",))
+    add("conv3d_transpose", {"x": vol}, lambda v: [L.conv3d_transpose(
+        v["x"], 2, filter_size=3, stride=2, padding=1)], ("x",))
+    add("pool3d (max ceil, avg exclusive)", {"x": vol},
+        lambda v: [L.pool3d(v["x"], 2, "max", 2, ceil_mode=True),
+                   L.pool3d(v["x"], 3, "avg", 2, pool_padding=1)], ("x",))
+    add("group_norm", {"x": f32(2, 6, 4, 5)},
+        lambda v: [L.group_norm(v["x"], 3)], ("x",))
+    add("bilinear_interp (up, down)", {"x": img},
+        lambda v: [L.image_resize(v["x"], out_shape=[15, 17]),
+                   L.resize_bilinear(v["x"], out_shape=[4, 6])], ("x",))
+    add("nearest_interp", {"x": img}, lambda v: [L.image_resize(
+        v["x"], out_shape=[13, 7], resample="NEAREST")], ("x",))
+    return cases
+
+
+def nlp_sweep_phase(np, fluid):
+    """Each of the 22 op types of this slice on the card against the CPU
+    (module docstring, step 19), as the detection sweep runs its ops:
+    values within SWEEP_TOL (convolutions with TF32 off), selections and
+    nce's draws equal."""
+    worst, n_ops = run_sweep(np, fluid, nlp_sweep_cases(np, fluid), "nlp")
+    missing = set(NLP_OP_TYPES) - n_ops
+    print("nlp sweep: %d op types run, this slice's %d all among them: %s"
+          % (len(n_ops), len(NLP_OP_TYPES), not missing))
+    if missing:
+        fail("the nlp sweep ran no case of %s" % sorted(missing))
     return worst
 
 
@@ -6838,8 +7602,10 @@ def main():
             for i, (n, per_sm, ms) in enumerate(plans))))
     worst.update(rnn_kernel_phase(torch))
     rnn_timing = rnn_timing_phase(torch)
-    for kname in ("lstm_cell", "gru_cell"):
-        for D in (RNN_HID, RNN_PKG_HID):
+    for kname, widths in (("lstm_cell", (RNN_HID, RNN_PKG_HID,
+                                          SRL_HIDDEN // 4)),
+                          ("gru_cell", (RNN_HID, RNN_PKG_HID, CRNN_RNN))):
+        for D in widths:
             print("plan %s B %d D %d: %s" % (kname, RNN_BATCH, D, plan_line(
                 kname, RNN_BATCH, D)))
     for name, r in sorted(rnn_timing.items()):
@@ -6971,6 +7737,18 @@ def main():
     ssd_card_vs_cpu_phase(np, torch, fluid)
     detection_sweep_phase(np, torch, fluid)
     mark("ssd, sweep")
+    torch.cuda.empty_cache()
+    nlp_worst, nlp_time = nlp_kernel_phase(np, torch)
+    worst.update(nlp_worst)
+    nlp_rnn = nlp_rnn_timing(np, torch)
+    mark("nlp kernels")
+    srl_run = srl_phase(np, torch, fluid, KERNELS)
+    torch.cuda.empty_cache()
+    crnn_run = crnn_phase(np, torch, fluid, KERNELS)
+    torch.cuda.empty_cache()
+    nlp_card_vs_cpu_phase(np, torch, fluid)
+    nlp_sweep_phase(np, fluid)
+    mark("srl, crnn, nlp card vs cpu, nlp sweep")
     print("phase seconds (since the card check, at the end of each): %s"
           % json.dumps(marks))
 
@@ -7065,14 +7843,23 @@ def main():
         fail("flash_fwd's launches by shape class %s do not add up to its "
              "%d launches" % ([r["launches"] for r in flash_shapes],
                               flash_total))
+    rnn_timing.update(nlp_rnn)
     lstm_shapes = shape_rows(rnn_timing, [
         ("lstm_cell_D%d" % RNN_HID, lstm_infer + lstm_train + lstm_pred),
         ("lstm_cell_D%d_full" % RNN_HID, 0),
         ("lstm_cell_D%d" % RNN_PKG_HID, 0),
         ("lstm_cell_D%d_full" % RNN_PKG_HID, 0),
-        ("lstm_cell_mt", mt_launches)],
-        "the stacked LSTM's training, inference and predictor runs (D 512) "
-        "or the MT steps (the MT shape)")
+        ("lstm_cell_mt", mt_launches),
+        ("lstm_cell_srl", srl_run["launches"]["lstm_cell"])],
+        "the stacked LSTM's training, inference and predictor runs (D 512), "
+        "the MT steps (the MT shape) or the role labeller's timed steps "
+        "(the srl shape)")
+    gru_shapes = shape_rows(rnn_timing, [
+        ("gru_cell_D%d" % RNN_HID, gru_train + gru_pred),
+        ("gru_cell_D%d" % RNN_PKG_HID, 0),
+        ("gru_cell_crnn", crnn_run["launches"]["gru_cell"])],
+        "the stacked GRU's training and predictor runs (D 512) or CRNN's "
+        "timed steps (the crnn shape)")
     # the frontend's predict batches: the saved stacked LSTM at the
     # ladder's batch rungs, a shape not timed here
     lstm_shapes.append(dict(
@@ -7144,6 +7931,19 @@ def main():
                     bound_by=t["bound"][1], library_ms=None,
                     shape=t["shape"])
 
+    def nlp_record(name, source, loop, launches, err_kind):
+        """One of the port's own CRF / CTC kernels: its numbers at the
+        role labeller's or CRNN's shape, its launches in the srl or crnn
+        phase (timed steps, and the decode)."""
+        t = nlp_time[name]
+        return dict(name=name, route="cuda",
+                    source="paddle_tpu_torch/csrc/%s" % source,
+                    replaces="none: the port's own kernel (%s)" % loop,
+                    launches=launches, max_abs_err=worst[name],
+                    err_kind=err_kind, ms=t["ms"], plain_ms=t["plain_ms"],
+                    bound_ms=t["bound"][0], bound_by=t["bound"][1],
+                    library_ms=t["library_ms"], shape=t["shape"])
+
     amp_of = ("the AMP training phase's timed steps at this shape class, "
               "counted by the wrapper where it launches")
     record = {"kernels": [
@@ -7188,9 +7988,13 @@ def main():
         # the MT steps
         dict(rnn_record("lstm_cell", "lstm_cell.py", 94,
                         lstm_infer + lstm_train + lstm_pred + mt_launches
-                        + fe_launches["lstm_cell"]),
+                        + fe_launches["lstm_cell"]
+                        + srl_run["launches"]["lstm_cell"]),
              shapes=lstm_shapes),
-        rnn_record("gru_cell", "gru_cell.py", 55, gru_train + gru_pred),
+        dict(rnn_record("gru_cell", "gru_cell.py", 55,
+                        gru_train + gru_pred
+                        + crnn_run["launches"]["gru_cell"]),
+             shapes=gru_shapes),
         dict(name="threefry", route="cuda",
              source="paddle_tpu_torch/csrc/threefry.cu",
              replaces="none: the port's own kernel (jax's threefry2x32 "
@@ -7216,6 +8020,26 @@ def main():
         det_record("det_match", "detection_map's greedy match, a "
                    "lax.fori_loop inside the JAX package's executable: "
                    "paddle_tpu/ops/detection_ops.py:1037-1067"),
+        nlp_record("crf_logz", "crf.cu", "linear_chain_crf's forward "
+                   "recursion, a lax.scan inside the JAX package's "
+                   "executable: paddle_tpu/ops/crf_ops.py:44-55",
+                   srl_run["launches"]["crf_logz"],
+                   "relative to the largest alpha or log Z"),
+        nlp_record("crf_logz_bwd", "crf.cu", "the gradient of that "
+                   "recursion, jax.vjp over the scan there: the beta "
+                   "recursion and the marginals",
+                   srl_run["launches"]["crf_logz_bwd"],
+                   "relative to the largest gradient entry"),
+        nlp_record("crf_viterbi", "crf.cu", "crf_decoding's Viterbi "
+                   "recursion and backtrack, lax.scans there: "
+                   "paddle_tpu/ops/crf_ops.py:107-137",
+                   srl_run["launches"]["crf_viterbi"],
+                   "0: the paths are equal"),
+        nlp_record("ctc_loss", "ctc.cu", "warpctc's alpha lattice, a "
+                   "lax.scan there, and its jax.vjp: "
+                   "paddle_tpu/ops/ctc_ops.py:63-94",
+                   crnn_run["launches"]["ctc_loss"],
+                   "absolute, dLogits"),
     ]}
     print(card)
     print(json.dumps(record))

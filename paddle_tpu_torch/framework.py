@@ -99,6 +99,12 @@ class Variable(object):
     def __rtruediv__(self, other):
         return self._binary(other, "elementwise_div", reverse=True)
 
+    def __pow__(self, other):
+        return self._binary(other, "elementwise_pow")
+
+    def __rpow__(self, other):
+        return self._binary(other, "elementwise_pow", reverse=True)
+
     def __neg__(self):
         from paddle_tpu_torch.layers import nn
 
@@ -374,6 +380,17 @@ class Program(object):
             yield
         finally:
             self._op_role, self._op_role_var = prev_role, prev_var
+
+    @contextlib.contextmanager
+    def _lr_schedule_guard(self):
+        """Ops appended inside are stamped ``op_role = LRSched``
+        (framework.py:484)."""
+        prev = self._op_role
+        self._op_role = OpRole.LRSched
+        try:
+            yield
+        finally:
+            self._op_role = prev
 
     def clone(self, for_test=False):
         """Deep copy; ``for_test`` flips every ``is_test`` attr (dropout's

@@ -28,7 +28,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("flash_fwd.cu", "flash_fwd_bf16.cu", "flash_bwd.cu",
            "flash_bwd_dkv_bf16.cu", "flash_bwd_dq_bf16.cu", "paged_decode.cu",
            "tree_decode.cu", "lstm_cell.cu", "gru_cell.cu", "threefry.cu",
-           "detection.cu")
+           "detection.cu", "crf.cu", "ctc.cu")
 # included; in the hash
 HEADERS = ("recurrence.cuh", "decode_split.cuh", "mma_bf16.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")

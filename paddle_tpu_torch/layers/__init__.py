@@ -16,3 +16,15 @@ from paddle_tpu_torch.layers.attention import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.metric_op import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.rnn import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.detection import *  # noqa: F401,F403
+from paddle_tpu_torch.layers.nlp import *  # noqa: F401,F403
+from paddle_tpu_torch.layers import learning_rate_scheduler  # noqa: F401
+from paddle_tpu_torch.layers.learning_rate_scheduler import (  # noqa: F401
+    exponential_decay,
+    natural_exp_decay,
+    inverse_time_decay,
+    polynomial_decay,
+    piecewise_decay,
+    noam_decay,
+    cosine_decay,
+    append_LARS,
+)

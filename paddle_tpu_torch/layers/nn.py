@@ -61,6 +61,24 @@ __all__ = [
     "pad",
     "pad2d",
     "hash",
+    "conv3d",
+    "conv2d_transpose",
+    "conv3d_transpose",
+    "depthwise_conv2d",
+    "pool3d",
+    "group_norm",
+    "l2_normalize",
+    "prelu",
+    "image_resize",
+    "resize_bilinear",
+    "image_resize_short",
+    "im2sequence",
+    "cos_sim",
+    "multiplex",
+    "bilinear_tensor_product",
+    "mean_iou",
+    "dice_loss",
+    "autoincreased_step_counter",
 ]
 
 
@@ -587,3 +605,339 @@ def hash(input, hash_size, num_hash=1, name=None):
                      outputs={"Out": [out]},
                      attrs={"num_hash": num_hash, "mod_by": hash_size})
     return out
+
+
+def _triple(v):
+    return [v, v, v] if isinstance(v, int) else list(v)
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, act=None, name=None):
+    """3-D convolution over NCDHW (nn.py:264)."""
+    helper = LayerHelper("conv3d", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    groups = groups or 1
+    num_channels = int(input.shape[1])
+    filter_shape = [num_filters, num_channels // groups] + _triple(
+        filter_size)
+    w = helper.create_parameter(attr=helper.param_attr, shape=filter_shape,
+                                dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="conv3d",
+        inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={"strides": _triple(stride), "paddings": _triple(padding),
+               "dilations": _triple(dilation), "groups": groups},
+    )
+    pre_act = helper.append_bias_op(out, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def depthwise_conv2d(input, num_filters, filter_size, stride=1, padding=0,
+                     dilation=1, param_attr=None, bias_attr=None, act=None,
+                     name=None):
+    """A convolution with one group per input channel (nn.py:296)."""
+    helper = LayerHelper("depthwise_conv2d", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    w = helper.create_parameter(
+        attr=helper.param_attr, shape=[num_filters, 1] + _pair(filter_size),
+        dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="depthwise_conv2d",
+        inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={"strides": _pair(stride), "paddings": _pair(padding),
+               "dilations": _pair(dilation),
+               "groups": int(input.shape[1])},
+    )
+    pre_act = helper.append_bias_op(out, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def _conv_transpose_layer(op_type, nd, input, num_filters, output_size,
+                          filter_size, padding, stride, dilation, groups,
+                          param_attr, bias_attr, act, name):
+    helper = LayerHelper(op_type, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    groups = groups or 1
+    if filter_size is None:
+        raise ValueError("filter_size must be given for %s" % op_type)
+    spread = _pair if nd == 2 else _triple
+    filter_shape = [int(input.shape[1]), num_filters // groups] + spread(
+        filter_size)
+    w = helper.create_parameter(attr=helper.param_attr, shape=filter_shape,
+                                dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if output_size is not None and isinstance(output_size, int):
+        output_size = [output_size] * nd
+    helper.append_op(
+        type=op_type,
+        inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={"strides": spread(stride), "paddings": spread(padding),
+               "dilations": spread(dilation), "groups": groups,
+               "output_size": list(output_size or [])},
+    )
+    pre_act = helper.append_bias_op(out, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, act=None, name=None):
+    """2-D transposed convolution (nn.py:326); the filter ``[in_c,
+    num_filters / groups, kh, kw]``."""
+    return _conv_transpose_layer(
+        "conv2d_transpose", 2, input, num_filters, output_size, filter_size,
+        padding, stride, dilation, groups, param_attr, bias_attr, act, name)
+
+
+def conv3d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, act=None, name=None):
+    """3-D transposed convolution (nn.py:1199)."""
+    return _conv_transpose_layer(
+        "conv3d_transpose", 3, input, num_filters, output_size, filter_size,
+        padding, stride, dilation, groups, param_attr, bias_attr, act, name)
+
+
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, exclusive=True, name=None):
+    """NCDHW 3-D pooling (nn.py:1008)."""
+    helper = LayerHelper("pool3d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="pool3d",
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": _triple(pool_size),
+               "strides": _triple(pool_stride),
+               "paddings": _triple(pool_padding),
+               "global_pooling": global_pooling, "ceil_mode": ceil_mode,
+               "exclusive": exclusive},
+    )
+    return out
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, name=None):
+    """Group normalization (nn.py:519): scale (ones) and bias
+    ``[channels]``."""
+    helper = LayerHelper("group_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    channels = int(input.shape[1])
+    s = helper.create_parameter(
+        attr=helper.param_attr, shape=[channels], dtype=dtype,
+        default_initializer=init_mod.ConstantInitializer(1.0))
+    b = helper.create_parameter(
+        attr=helper.bias_attr or ParamAttr(), shape=[channels], dtype=dtype,
+        is_bias=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    mean = helper.create_variable_for_type_inference(dtype,
+                                                     stop_gradient=True)
+    var = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    helper.append_op(
+        type="group_norm",
+        inputs={"X": [input], "Scale": [s], "Bias": [b]},
+        outputs={"Y": [out], "Mean": [mean], "Variance": [var]},
+        attrs={"epsilon": epsilon, "groups": groups},
+    )
+    return helper.append_activation(out)
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    norm = helper.create_variable_for_type_inference(x.dtype,
+                                                     stop_gradient=True)
+    helper.append_op(
+        type="l2_normalize",
+        inputs={"X": [x]},
+        outputs={"Out": [out], "Norm": [norm]},
+        attrs={"axis": axis, "epsilon": epsilon},
+    )
+    return out
+
+
+def prelu(x, mode, param_attr=None, name=None):
+    """PReLU with one alpha (``all``), one a channel or one an element
+    (nn.py:911), alpha initialised to 0.25."""
+    helper = LayerHelper("prelu", param_attr=param_attr, name=name)
+    if mode == "all":
+        alpha_shape = [1]
+    elif mode == "channel":
+        alpha_shape = [int(x.shape[1])]
+    else:
+        alpha_shape = [int(d) for d in x.shape[1:]]
+    alpha = helper.create_parameter(
+        attr=helper.param_attr, shape=alpha_shape, dtype=x.dtype,
+        default_initializer=init_mod.ConstantInitializer(0.25))
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="prelu",
+        inputs={"X": [x], "Alpha": [alpha]},
+        outputs={"Out": [out]},
+        attrs={"mode": mode},
+    )
+    return out
+
+
+def image_resize(input, out_shape=None, scale=None, resample="BILINEAR",
+                 name=None):
+    """bilinear_interp or nearest_interp to ``out_shape`` or ``scale``
+    times the input (nn.py:937)."""
+    helper = LayerHelper("image_resize", name=name)
+    if out_shape is None:
+        h = int(int(input.shape[2]) * scale)
+        w = int(int(input.shape[3]) * scale)
+    else:
+        h, w = int(out_shape[0]), int(out_shape[1])
+    op_type = ("bilinear_interp" if resample.upper() == "BILINEAR"
+               else "nearest_interp")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type=op_type,
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={"out_h": h, "out_w": w},
+    )
+    return out
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None):
+    return image_resize(input, out_shape, scale, "BILINEAR", name)
+
+
+def image_resize_short(input, out_short_len, resample="BILINEAR",
+                       name=None):
+    """Resize so the short side is ``out_short_len``, keeping the aspect
+    ratio; the long side rounds half up, as the reference does
+    (nn.py:1310)."""
+    in_h, in_w = int(input.shape[2]), int(input.shape[3])
+    if in_h < in_w:
+        out_h = out_short_len
+        out_w = int(in_w * out_short_len / float(in_h) + 0.5)
+    else:
+        out_w = out_short_len
+        out_h = int(in_h * out_short_len / float(in_w) + 0.5)
+    return image_resize(input, out_shape=[out_h, out_w], resample=resample,
+                        name=name)
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, name=None):
+    """Each filter-sized patch a row, ``[N * oh * ow, C * kh * kw]``
+    (nn.py:960); ``padding`` of 2 (up and left, repeated) or 4."""
+    helper = LayerHelper("im2sequence", name=name)
+    p = _pair(padding)
+    if len(p) == 2:
+        p = p + p
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="im2sequence",
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={"kernels": _pair(filter_size), "strides": _pair(stride),
+               "paddings": p},
+    )
+    return out
+
+
+def cos_sim(X, Y, name=None):
+    """Row-wise cosine similarity (cos_sim_op.cc); Y may be [1, D]."""
+    helper = LayerHelper("cos_sim", name=name)
+    out = helper.create_variable_for_type_inference(X.dtype)
+    xnorm = helper.create_variable_for_type_inference(X.dtype)
+    ynorm = helper.create_variable_for_type_inference(X.dtype)
+    helper.append_op(
+        type="cos_sim",
+        inputs={"X": [X], "Y": [Y]},
+        outputs={"Out": [out], "XNorm": [xnorm], "YNorm": [ynorm]},
+    )
+    return out
+
+
+def multiplex(inputs, index, name=None):
+    """Row-wise select among candidate tensors (multiplex_op.cc)."""
+    helper = LayerHelper("multiplex", name=name)
+    out = helper.create_variable_for_type_inference(inputs[0].dtype)
+    helper.append_op(
+        type="multiplex",
+        inputs={"Ids": [index], "X": list(inputs)},
+        outputs={"Out": [out]},
+    )
+    return out
+
+
+def bilinear_tensor_product(x, y, size, act=None, name=None,
+                            param_attr=None, bias_attr=None):
+    """out_k = x^T W_k y (bilinear_tensor_product_op.cc) with a learned
+    ``[size, Mx, My]`` weight, an optional ``[1, size]`` bias and
+    activation."""
+    helper = LayerHelper("bilinear_tensor_product", name=name,
+                         param_attr=param_attr, bias_attr=bias_attr, act=act)
+    w = helper.create_parameter(attr=helper.param_attr,
+                                shape=[size, x.shape[-1], y.shape[-1]],
+                                dtype=x.dtype)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    inputs = {"X": [x], "Y": [y], "Weight": [w]}
+    if helper.bias_attr is not None:
+        inputs["Bias"] = [helper.create_parameter(
+            attr=helper.bias_attr, shape=[1, size], dtype=x.dtype,
+            is_bias=True)]
+    helper.append_op(type="bilinear_tensor_product", inputs=inputs,
+                     outputs={"Out": [out]})
+    return helper.append_activation(out)
+
+
+def mean_iou(input, label, num_classes, name=None):
+    """Segmentation mean IoU (mean_iou_op.cc): (mean IoU, wrong,
+    correct), the last two for streaming accumulation."""
+    helper = LayerHelper("mean_iou", name=name)
+    miou = helper.create_variable_for_type_inference("float32")
+    wrong = helper.create_variable_for_type_inference("int32")
+    correct = helper.create_variable_for_type_inference("int32")
+    helper.append_op(
+        type="mean_iou",
+        inputs={"Predictions": [input], "Labels": [label]},
+        outputs={"OutMeanIou": [miou], "OutWrong": [wrong],
+                 "OutCorrect": [correct]},
+        attrs={"num_classes": num_classes},
+    )
+    return miou, wrong, correct
+
+
+def dice_loss(input, label, epsilon=1e-5, name=None):
+    """Dice loss (nn.py:1279): integer class labels one-hot over the last
+    dim of ``input``, float labels taken as masks; over the last dim,
+    then the mean over samples."""
+    from paddle_tpu_torch.layers import tensor as tensor_layers
+
+    if str(label.dtype).startswith("int"):
+        label = one_hot(label, depth=int(input.shape[-1]))
+        if len(label.shape) > len(input.shape):
+            label = squeeze(label, axes=[len(input.shape) - 1])
+    label = tensor_layers.cast(label, input.dtype)
+    reduce_dim = len(input.shape) - 1
+    inse = reduce_sum(elementwise_mul(input, label), dim=reduce_dim)
+    denominator = elementwise_add(reduce_sum(input, dim=reduce_dim),
+                                  reduce_sum(label, dim=reduce_dim))
+    dice_score = scale(
+        elementwise_div(scale(inse, scale=2.0), elementwise_add(
+            denominator, tensor_layers.fill_constant([1], input.dtype,
+                                                     epsilon))),
+        scale=-1.0, bias=1.0)
+    return reduce_mean(dice_score)
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """A persistable step counter incremented once a run (nn.py:1327),
+    on the LR schedulers' counter machinery."""
+    from paddle_tpu_torch.layers import learning_rate_scheduler as lrs
+
+    return lrs._global_step_counter(
+        counter_name=counter_name or "@STEP_COUNTER@", begin=begin,
+        step=step)

@@ -25,3 +25,5 @@ from paddle_tpu_torch.ops import seq2seq_ops  # noqa: F401
 from paddle_tpu_torch.ops import fused_ops  # noqa: F401
 from paddle_tpu_torch.ops import moe_ops  # noqa: F401
 from paddle_tpu_torch.ops import detection_ops  # noqa: F401
+from paddle_tpu_torch.ops import crf_ops  # noqa: F401
+from paddle_tpu_torch.ops import ctc_ops  # noqa: F401

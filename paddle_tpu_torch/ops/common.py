@@ -56,3 +56,12 @@ def scalar_like(value, x):
     if x.dtype == torch.bool:
         return bool(value)
     return int(value)
+
+
+def optional_lengths(ins, x, key="Length"):
+    """``[B]`` int64 lengths from an optional per-row length input; the
+    full padded time dimension ``x.shape[1]`` without one."""
+    if ins.get(key):
+        return ins[key][0].reshape(-1).to(torch.int64)
+    return torch.full((x.shape[0],), x.shape[1], dtype=torch.int64,
+                      device=x.device)

@@ -1,10 +1,11 @@
-"""Neural-network ops: conv2d, pool2d, batch_norm, layer_norm and lrn.
+"""Neural-network ops: the convolutions (2-D, 3-D, depthwise and
+transposed), pooling (2-D and 3-D), batch, layer and group norm, lrn,
+im2sequence and the bilinear and nearest resizes.
 
-Counterpart of ``paddle_tpu/ops/nn_ops.py`` for the ops this slice runs.
-The JAX package computes conv2d and pool2d with XLA's convolution and
-reduce-window, outside any Pallas kernel; here they are torch's
-convolution (cuDNN on the card, TF32 off: ``Executor``) and pooling
-calls. Pooling is written so that it computes what the JAX lowering
+Counterpart of ``paddle_tpu/ops/nn_ops.py``. The JAX package computes
+the convolutions and pooling with XLA's convolution and reduce-window,
+outside any Pallas kernel; here they are torch's convolution (cuDNN on
+the card, TF32 off: ``Executor``) and pooling calls. Pooling is written so that it computes what the JAX lowering
 computes where torch's own options would differ: the padding is explicit
 (``F.pad``, so a pad above half the window is allowed, as XLA allows
 it), ``ceil_mode`` uses the reference's clamp on the last window, and
@@ -14,6 +15,7 @@ whole window, ``ceil_mode`` or not.
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -223,3 +225,247 @@ register_op(
     lower=_lower_lrn,
     intermediate_outputs=("MidOut",),
 )
+
+
+def _conv_attrs(attrs, nd):
+    return dict(stride=_pair(attrs.get("strides", [1] * nd), nd),
+                padding=_pair(attrs.get("paddings", [0] * nd), nd),
+                dilation=_pair(attrs.get("dilations", [1] * nd), nd))
+
+
+def _lower_depthwise_conv2d(ctx, ins, attrs):
+    """groups = the input's channels; filter ``[C * mult, 1, kh, kw]``."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    return F.conv2d(x, w, groups=int(x.shape[1]), **_conv_attrs(attrs, 2))
+
+
+register_op(
+    "depthwise_conv2d",
+    inputs=["Input", "Filter"],
+    outputs=["Output"],
+    attrs={"strides": [1, 1], "paddings": [0, 0], "dilations": [1, 1],
+           "groups": 1, "data_format": "NCHW"},
+    lower=_lower_depthwise_conv2d,
+)
+
+
+def _lower_conv3d(ctx, ins, attrs):
+    return F.conv3d(ins["Input"][0], ins["Filter"][0],
+                    groups=attrs.get("groups", 1), **_conv_attrs(attrs, 3))
+
+
+register_op(
+    "conv3d",
+    inputs=["Input", "Filter"],
+    outputs=["Output"],
+    attrs={"strides": [1, 1, 1], "paddings": [0, 0, 0],
+           "dilations": [1, 1, 1], "groups": 1},
+    lower=_lower_conv3d,
+)
+
+
+def _output_padding(output_size, x, w, attrs, nd):
+    """conv_transpose_op.cc: ``output_size`` picks one of the
+    stride-ambiguous output sizes; its surplus over the smallest, which
+    must lie in [0, stride), is the extra high-side size
+    (``nn_ops.py:200-218``)."""
+    if not output_size:
+        return [0] * nd
+    a = _conv_attrs(attrs, nd)
+    extras = []
+    for d in range(nd):
+        keff = (int(w.shape[2 + d]) - 1) * a["dilation"][d] + 1
+        base = (int(x.shape[2 + d]) - 1) * a["stride"][d] \
+            - 2 * a["padding"][d] + keff
+        surplus = int(output_size[d]) - base
+        if not 0 <= surplus < a["stride"][d]:
+            raise ValueError(
+                "conv_transpose: output_size %d for dim %d not reachable "
+                "(base %d, stride %d)" % (output_size[d], d, base,
+                                          a["stride"][d]))
+        extras.append(surplus)
+    return extras
+
+
+def _conv_transpose(ins, attrs, nd, groups=None):
+    """The transposed convolution (the gradient of a convolution), with
+    Paddle's filter ``[in_c, out_c / groups, *k]``, which is torch's own
+    layout for it."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    fn = F.conv_transpose2d if nd == 2 else F.conv_transpose3d
+    return fn(x, w, groups=groups or attrs.get("groups", 1),
+              output_padding=_output_padding(attrs.get("output_size"), x, w,
+                                             attrs, nd),
+              **_conv_attrs(attrs, nd))
+
+
+register_op(
+    "conv2d_transpose",
+    inputs=["Input", "Filter"],
+    outputs=["Output"],
+    attrs={"strides": [1, 1], "paddings": [0, 0], "dilations": [1, 1],
+           "groups": 1, "output_size": []},
+    lower=lambda ctx, ins, attrs: _conv_transpose(ins, attrs, 2),
+)
+
+register_op(
+    "depthwise_conv2d_transpose",
+    inputs=["Input", "Filter"],
+    outputs=["Output"],
+    attrs={"strides": [1, 1], "paddings": [0, 0], "dilations": [1, 1],
+           "groups": 1, "output_size": None, "data_format": "NCHW"},
+    lower=lambda ctx, ins, attrs: _conv_transpose(
+        ins, attrs, 2, groups=int(ins["Input"][0].shape[1])),
+)
+
+register_op(
+    "conv3d_transpose",
+    inputs=["Input", "Filter"],
+    outputs=["Output"],
+    attrs={"strides": [1, 1, 1], "paddings": [0, 0, 0],
+           "dilations": [1, 1, 1], "groups": 1, "output_size": []},
+    lower=lambda ctx, ins, attrs: _conv_transpose(ins, attrs, 3),
+)
+
+
+def _lower_pool3d(ctx, ins, attrs):
+    """NCDHW pooling, pool2d's rules over three spatial dims."""
+    x = ins["X"][0]
+    is_max = attrs.get("pooling_type", "max") == "max"
+    if attrs.get("global_pooling", False):
+        return (x.amax(dim=(2, 3, 4), keepdim=True) if is_max
+                else x.mean(dim=(2, 3, 4), keepdim=True))
+    ksize = _pair(attrs.get("ksize", [2, 2, 2]), 3)
+    strides = _pair(attrs.get("strides", [1, 1, 1]), 3)
+    pads = _pool_pads(x, ksize, strides,
+                      _pair(attrs.get("paddings", [0, 0, 0]), 3),
+                      attrs.get("ceil_mode", False))
+    flat = [p for lo_hi in reversed(pads) for p in lo_hi]
+    if is_max:
+        return F.max_pool3d(F.pad(x, flat, value=-math.inf), ksize, strides)
+    summed = F.avg_pool3d(F.pad(x, flat), ksize, strides, divisor_override=1)
+    if not attrs.get("exclusive", True):
+        return summed / float(np.prod(ksize))
+    ones = F.pad(x.new_ones((1, 1) + tuple(x.shape[2:])), flat)
+    return summed / F.avg_pool3d(ones, ksize, strides, divisor_override=1)
+
+
+register_op(
+    "pool3d",
+    inputs=["X"],
+    outputs=["Out"],
+    attrs={"pooling_type": "max", "ksize": [2, 2, 2], "strides": [1, 1, 1],
+           "paddings": [0, 0, 0], "global_pooling": False,
+           "exclusive": True, "ceil_mode": False, "adaptive": False,
+           "use_cudnn": False},
+    lower=_lower_pool3d,
+)
+
+
+def _lower_group_norm(ctx, ins, attrs):
+    x = ins["X"][0]
+    groups = attrs.get("groups", 1)
+    eps = float(attrs.get("epsilon", 1e-5))
+    n, c = int(x.shape[0]), int(x.shape[1])
+    rest = tuple(x.shape[2:])
+    xg = x.reshape((n, groups, c // groups) + rest)
+    axes = tuple(range(2, xg.dim()))
+    mean = xg.mean(dim=axes, keepdim=True)
+    var = torch.square(xg - mean).mean(dim=axes, keepdim=True)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    bshape = (1, c) + (1,) * len(rest)
+    if ins.get("Scale"):
+        y = y * ins["Scale"][0].reshape(bshape)
+    if ins.get("Bias"):
+        y = y + ins["Bias"][0].reshape(bshape)
+    return {"Y": y, "Mean": mean.reshape(n, groups),
+            "Variance": var.reshape(n, groups)}
+
+
+register_op(
+    "group_norm",
+    inputs=["X", "Scale", "Bias"],
+    outputs=["Y", "Mean", "Variance"],
+    attrs={"epsilon": 1e-5, "groups": 1},
+    lower=_lower_group_norm,
+    intermediate_outputs=("Mean", "Variance"),
+)
+
+
+def _lower_im2sequence(ctx, ins, attrs):
+    """Each ``[kh, kw]`` patch a row: ``[N * oh * ow, C * kh * kw]``, the
+    features channel-major, the order of
+    ``conv_general_dilated_patches`` and of ``F.unfold``."""
+    x = ins["X"][0]
+    kernels = list(attrs.get("kernels", [1, 1]))
+    pads = list(attrs.get("paddings", [0, 0, 0, 0]))  # up, left, down, right
+    xp = F.pad(x, [pads[1], pads[3], pads[0], pads[2]])
+    cols = F.unfold(xp, kernels, stride=list(attrs.get("strides", [1, 1])))
+    return cols.transpose(1, 2).reshape(-1, cols.shape[1])
+
+
+register_op(
+    "im2sequence",
+    inputs=["X"],
+    outputs=["Out"],
+    attrs={"kernels": [1, 1], "strides": [1, 1], "paddings": [0, 0, 0, 0]},
+    lower=_lower_im2sequence,
+)
+
+
+def _resize_weights(n_in, n_out, device):
+    """``jax.image.resize``'s linear weights ``[n_out, n_in]``
+    (``compute_weight_mat``, triangle kernel, antialiased when shrinking):
+    half-pixel sample points ``(o + 0.5) * n_in / n_out - 0.5``, the
+    kernel widened by ``n_in / n_out`` when that exceeds 1, each row
+    normalised, rows whose sample lies outside the input zero."""
+    inv = 1.0 / (n_out / n_in)
+    kscale = max(inv, 1.0)
+    sample = ((torch.arange(n_out, dtype=torch.float32, device=device) + 0.5)
+              * inv - 0.5)
+    dist = (sample[:, None] - torch.arange(n_in, dtype=torch.float32,
+                                           device=device)[None, :]).abs() \
+        / kscale
+    w = torch.clamp_min(1.0 - dist.abs(), 0.0)
+    total = w.sum(1, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[:, None], w, torch.zeros_like(w))
+
+
+def _interp(x, out_h, out_w, method):
+    """bilinear_interp / nearest_interp as ``jax.image.resize`` computes
+    them over NCHW (``nn_ops.py:562-583``): half-pixel centres, not
+    ``align_corners``; a dim of unchanged size is left as it is."""
+    h, w = int(x.shape[2]), int(x.shape[3])
+    if method == "nearest":
+        for dim, n_in, n_out in ((2, h, out_h), (3, w, out_w)):
+            if n_in == n_out:
+                continue
+            idx = torch.floor((torch.arange(n_out, dtype=torch.float32,
+                                            device=x.device) + 0.5)
+                              * float(n_in) / float(n_out)).to(torch.int64)
+            x = x.index_select(dim, idx)
+        return x
+    if h != out_h:
+        x = torch.einsum("nchw,oh->ncow", x,
+                         _resize_weights(h, out_h, x.device).to(x.dtype))
+    if w != out_w:
+        x = torch.einsum("nchw,ow->ncho", x,
+                         _resize_weights(w, out_w, x.device).to(x.dtype))
+    return x
+
+
+for _interp_type, _method in (("bilinear_interp", "bilinear"),
+                              ("nearest_interp", "nearest")):
+    register_op(
+        _interp_type,
+        inputs=["X", "OutSize"],
+        outputs=["Out"],
+        attrs={"out_h": -1, "out_w": -1, "interp_method": _method},
+        lower=lambda ctx, ins, attrs, m=_method: _interp(
+            ins["X"][0], attrs["out_h"], attrs["out_w"], m),
+        no_grad_inputs=("OutSize",),
+    )

@@ -1,4 +1,5 @@
-"""Decode-loop token selection: slot_decode_sample.
+"""Decode-loop token selection (slot_decode_sample) and the sampled and
+factorized softmax costs (nce, hierarchical_sigmoid).
 
 Counterpart of ``paddle_tpu/ops/sampling_ops.py`` ``slot_decode_sample``,
 ``sample_step_tokens`` and ``slot_lifecycle_advance``: greedy argmax, or
@@ -105,4 +106,99 @@ register_op(
     lower=_lower_slot_decode_sample,
     grad=None,
     no_grad_inputs=("Pos", "Done"),
+)
+
+
+def _softplus(x):
+    """``jax.nn.softplus``: log(1 + e^x) as ``logaddexp(x, 0)``."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _lower_nce(ctx, ins, attrs):
+    """nce_op.cc with the uniform sampler (``sampling_ops.py:19-61``):
+    ``num_neg_samples`` negatives a row drawn with ``randint`` from the
+    op's threefry key (``ctx.rng()``, the JAX package's key, so the same
+    classes), the logits of the true and sampled classes corrected by
+    log(k q(y)), the logistic NCE cost ``[B, 1]``."""
+    x = ins["Input"][0]  # [B, D]
+    w = ins["Weight"][0]  # [V, D]
+    b = x.shape[0]
+    label = ins["Label"][0].reshape(b, -1).to(torch.int64)  # [B, Nt]
+    bias = ins.get("Bias", [None])[0]
+    num_total = int(attrs.get("num_total_classes", w.shape[0]))
+    num_neg = int(attrs.get("num_neg_samples", 10))
+    n_true = label.shape[1]
+    if int(attrs.get("sampler", 0)) != 0:
+        raise NotImplementedError(
+            "nce: only the uniform sampler is lowered; log_uniform/"
+            "custom_dist need their own noise-probability correction")
+    key = ctx.rng()
+    if key is None:  # build-time shape inference
+        neg = torch.zeros((b, num_neg), dtype=torch.int64, device=x.device)
+    else:
+        neg = prng.randint(key, (b, num_neg), 0, num_total, device=x.device)
+    samples = torch.cat([label, neg], 1)  # [B, Nt + Nn]
+    logits = torch.einsum("bd,bsd->bs", x, w[samples])
+    if bias is not None:
+        logits = logits + bias.reshape(-1)[samples]
+    # the uniform noise q = 1 / V: log(k q) in float32, as jnp.log takes it
+    adjusted = logits - float(np.log(np.float32(num_neg / num_total)))
+    cost = (_softplus(-adjusted[:, :n_true]).sum(1, keepdim=True) / n_true
+            + _softplus(adjusted[:, n_true:]).sum(1, keepdim=True))
+    sample_weight = ins.get("SampleWeight", [None])[0]
+    if sample_weight is not None:
+        cost = cost * sample_weight.reshape(-1, 1)
+    return {"Cost": cost, "SampleLogits": logits, "SampleLabels": samples}
+
+
+register_op(
+    "nce",
+    inputs=["Input", "Label", "Weight", "Bias", "SampleWeight"],
+    outputs=["Cost", "SampleLogits", "SampleLabels"],
+    attrs={"num_total_classes": 0, "num_neg_samples": 10, "sampler": 0,
+           "seed": 0, "is_sparse": False},
+    lower=_lower_nce,
+    no_grad_inputs=("Label", "SampleWeight"),
+    intermediate_outputs=("SampleLogits", "SampleLabels"),
+)
+
+
+def _lower_hierarchical_sigmoid(ctx, ins, attrs):
+    """hierarchical_sigmoid_op.cc over a complete binary tree in heap
+    order (``sampling_ops.py:79-108``): class c's leaf is node c +
+    num_classes, internal node n's weights are row n - 1; the cost sums
+    -log P(bit | node) along the path, ``PreOut`` holds each level's
+    logit (0 above the root)."""
+    x = ins["X"][0]  # [B, D]
+    w = ins["W"][0]  # [num_classes - 1, D]
+    label = ins["Label"][0].reshape(-1).to(torch.int64)
+    bias = ins.get("Bias", [None])[0]
+    num_classes = int(attrs.get("num_classes", w.shape[0] + 1))
+    code = label + num_classes
+    max_depth = max(1, int(num_classes - 1).bit_length())
+    losses = torch.zeros((x.shape[0], 1), dtype=x.dtype, device=x.device)
+    pre_out = []
+    for j in range(max_depth, 0, -1):
+        node = code >> j
+        valid = node >= 1
+        bit = (code >> (j - 1)) & 1
+        row = (node - 1).clamp(0, num_classes - 2)
+        s = (x * w[row]).sum(1)
+        if bias is not None:
+            s = s + bias.reshape(-1)[row]
+        step = _softplus(s) - bit.to(s.dtype) * s
+        zero = torch.zeros_like(s)
+        losses = losses + torch.where(valid, step, zero)[:, None]
+        pre_out.append(torch.where(valid, s, zero))
+    return {"Out": losses, "PreOut": torch.stack(pre_out, 1)}
+
+
+register_op(
+    "hierarchical_sigmoid",
+    inputs=["X", "W", "Label", "Bias"],
+    outputs=["Out", "PreOut"],
+    attrs={"num_classes": 2},
+    lower=_lower_hierarchical_sigmoid,
+    no_grad_inputs=("Label",),
+    intermediate_outputs=("PreOut",),
 )

@@ -65,8 +65,8 @@ from paddle_tpu_torch.kernels import paged_attention as tpa
 H100_SMS = 132
 H100_SMEM = 232448
 SHAPES = [(B, D) for B in (1, 3, 5, 7, 32, 33, 100, 300)
-          for D in (1, 7, 40, 64, 96, 119, 120, 121, 128, 512, 515, 1100,
-                    1400, 2048)]
+          for D in (1, 7, 40, 64, 96, 119, 120, 121, 128, 200, 512, 515,
+                    1100, 1400, 2048)]
 
 
 def _plan_blocks(plan, B, D, gates=4):
@@ -614,3 +614,18 @@ def test_flash_dq_bf16_plan_stays_within_the_card(d):
                                    * p["tile"])
                          + 4 * p["stages"] * p["tile"])
     assert 0 < p["smem"] <= H100_SMEM
+
+
+def test_plans_at_the_role_labeller_and_crnn_shapes():
+    """B6 at the role labeller's D 128 and B7 at CRNN's D 200 (batch 32,
+    as the H100 ran them): regime (b), every hidden unit in exactly one
+    block of 32 (B6) or 50 (B7) units, one row a block."""
+    lstm = tl.lstm_plan(32, 128, H100_SMS, H100_SMEM)
+    assert (lstm["regime"], lstm["blocks"], lstm["threads"], lstm["units"],
+            lstm["rows"], lstm["smem"]) == ("b", 128, 512, 32, 1, 68112)
+    gru = tg.gru_plan(32, 200, H100_SMS, H100_SMEM)
+    assert (gru["regime"], gru["blocks"], gru["threads"], gru["units"],
+            gru["rows"], gru["smem"]) == ("b", 128, 448, 50, 1, 121712)
+    for plan, d, gates in ((lstm, 128, 4), (gru, 200, 3)):
+        cols = [c for _, cs in _plan_blocks(plan, 32, d, gates) for c in cs]
+        assert sorted(set(cols)) == list(range(gates * d))
