@@ -391,6 +391,46 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    distances. ``nlp`` sweep lines: each of the 22 new op types on the
    card against the CPU at the CPU tests' shapes (gradients too), within
    1e-4, selections and nce's threefry draws equal.
+20. Vision, quantization and sequence ops, after step 19 (no hand-written
+   kernel on these paths: the JAX package computes them in plain XLA).
+   ``vision/quant`` and ``seq`` sweep lines: each of the 29 new op types
+   on the card against the CPU at the CPU tests' shapes and at one
+   realistic shape each (ResNet-50's stem [128, 64, 112, 112] through
+   max_pool2d_with_index and unpool, a spatial transformer's [32, 64, 56,
+   56], SPP-net's conv5, a conv input through the fake quantize ops,
+   layer4's int8 weight, the sentiment CNN's [128, 600, 128] through the
+   sequence ops and both 3- and 4-wide convolutions), values and
+   gradients within 1e-5 of the largest value (TF32 off), masks, rank
+   tables and quantized values equal (a flipped quantized value fails
+   and is counted), the fused sequence ops against their unfused chains.
+   ``resnet fp32`` / ``resnet qat``: ResNet-50 at batch 128 x 224^2,
+   Momentum as step 13 trains it, first float32 and then with
+   ``QuantizeTranspiler(activation_quantize_type="range_abs_max")
+   .training_transpile`` before ``minimize`` (104 fake quantize /
+   dequantize pairs), 5 + 20 steps each on a fresh executor: step ms
+   (mean, min, max), images/s, peak memory, a profiled step's busy share
+   and launches (the fake quantize ops' launches as the QAT step's less
+   the float32 step's), grad-op reruns gated 0, losses finite and
+   falling; then the training-mode forward and the QAT test clone
+   pruned and frozen (the snapped weights against the QAT program's
+   dequantized ones within 1e-6; the frozen outputs against the QAT
+   program's reported beside tests/test_quantize_transpiler.py's 0.15,
+   with the share of inputs the test-mode quantizers clip), saved as
+   float32, converted to int8 and saved again (the weight
+   bytes of both), and served 20 times through ``NativeConfig`` (ms a
+   run, outputs within 1e-5 of the frozen program's, relative to the
+   largest). ``sentiment``: the PaddlePaddle book's ch. 6
+   ``convolution_net`` at its widths (vocabulary 5,148, embedding 128,
+   windows 3 and 4 of 512, batch 128 x 600, lengths 16..600,
+   Adagrad(0.002)), 5 + 20 steps with the same figures, then saved and
+   served 20 times through ``AnalysisConfig`` (the "inference" passes;
+   the branches are tanh, so nothing is fused): ms a run, outputs within
+   1e-5 of the in-session test run. ``seq/quant card vs cpu``: the
+   sentiment CNN at embedding 16, hid 32, T 24 and
+   tests/test_quantize_transpiler.py's convnet under QAT (abs_max and
+   range_abs_max), 3 steps on the card and the CPU from one state
+   (losses within 1e-4), then both frozen and converted to int8 from the
+   card's trained state: outputs within 1e-5, int8 tensors equal.
 
 A line of its own before the last holds the kernels' JSON record (for
 flash_fwd, the backward pair, their bf16 entries, paged_decode (full
@@ -602,6 +642,9 @@ CRNN_BATCH, CRNN_IMG, CRNN_CLASSES, CRNN_RNN = 32, (1, 48, 512), 95, 200
 CRNN_CHANNELS, CRNN_MAX_LABEL, CRNN_MIN_LABEL = (16, 32, 64, 128), 24, 4
 CRNN_LR, CRNN_MOMENTUM, CRNN_L2, CRNN_SEED = 1e-3, 0.9, 4e-4, 29
 NLP_WARMUP, NLP_STEPS = 5, 20
+# what a step of each model trained through nlp_train takes in
+NLP_UNITS = {"srl": "sentences", "crnn": "images", "resnet fp32": "images",
+             "resnet qat": "images", "sentiment": "sentences"}
 # K3 against its plain version: fp32 log-sum-exps in another order, over
 # up to 80 steps, relative to the largest value
 CRF_TOL = 1e-5
@@ -624,6 +667,39 @@ NLP_OP_TYPES = (
 # divide and the compare; a box's area (2 x (subtract, offset, clamp)
 # and a product) is computed once, not in every test
 IOU_TEST_OPS, AREA_OPS = 16, 7
+# vision, quantization and sequence ops (step 20): the op types the
+# sweeps must run, each within VQ_SWEEP_TOL of the largest |value| of its
+# output, card against CPU (quantized values equal)
+VISION_QUANT_OP_TYPES = (
+    "affine_channel", "affine_grid", "grid_sampler", "max_pool2d_with_index",
+    "max_pool3d_with_index", "unpool", "spp", "fake_quantize_abs_max",
+    "fake_quantize_range_abs_max", "fake_dequantize_max_abs",
+    "dequantize_weight")
+SEQ_OP_TYPES = (
+    "sequence_softmax", "sequence_reverse", "sequence_expand",
+    "sequence_conv", "sequence_concat", "sequence_expand_as", "sequence_pad",
+    "sequence_unpad", "sequence_slice", "sequence_erase",
+    "sequence_enumerate", "sequence_scatter", "sequence_reshape",
+    "lod_reset", "lod_rank_table", "reorder_lod_tensor_by_rank",
+    "fusion_seqconv_eltadd_relu", "fusion_seqexpand_concat_fc")
+VQ_SWEEP_TOL, QUANT_SEED = 1e-5, 31
+# QAT ResNet-50: tests/test_quantize_transpiler.py's tolerance for the
+# frozen program's outputs against the QAT program's (printed beside the
+# ResNet's, which is reported); the int8 model's against the frozen
+# program's relative to the largest value
+QAT_FREEZE_TOL, QAT_PRED_TOL, QAT_PRED_RUNS = 0.15, 1e-5, 20
+# the snapped weights against the QAT program's dequantized ones (two
+# roundings of the same grid value), relative to the largest
+QAT_SNAP_TOL = 1e-6
+# the sentiment classifier of the PaddlePaddle book, ch. 6
+# (understand_sentiment, convolution_net) at the book's widths: the IMDB
+# word_dict() at its cutoff of 150 (5,148 ids), embedding 128, hid_dim 512,
+# windows 3 and 4, 2 classes, batch 128, Adagrad(0.002); lengths 16..600
+# padded to 600
+SENT_BATCH, SENT_LEN, SENT_MIN_LEN, SENT_EMB, SENT_HID = 128, 600, 16, 128, 512
+SENT_SEED, SENT_PRED_RUNS, SENT_PRED_TOL = 37, 20, 1e-5
+# card against CPU at small size: 3 steps, losses within this
+SEQ_CVC_STEPS, SEQ_CVC_TOL = 3, 1e-4
 # the names of matrix-product kernels in a profile (cuBLAS's GEMMs and
 # cuDNN's implicit-GEMM convolutions)
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
@@ -6776,15 +6852,21 @@ def sweep_cases(np, fluid):
     return cases
 
 
-def run_sweep(np, fluid, cases, label):
+def run_sweep(np, fluid, cases, label, tol=SWEEP_TOL, relative=False):
     """Each case's program run on a fresh card executor and a fresh CPU
     executor (each running its startup program first, so the random ops
-    draw from equal keys), outputs and gradients within SWEEP_TOL,
-    selections and draws equal; returns (worst error, op types run)."""
+    draw from equal keys), outputs and gradients within ``tol`` (with
+    ``relative``, of max(1, the largest |value| of the output)),
+    selections and draws equal; a case's optional fifth item names the
+    float outputs (by index) that must be equal (quantized values: each
+    that differs is counted and reported as a flip). Returns (worst
+    error, op types run)."""
     from paddle_tpu_torch import unique_name
 
     worst, n_ops = 0.0, set()
-    for name, feed, build, grads in cases:
+    for case in cases:
+        name, feed, build, grads = case[:4]
+        exact = case[4] if len(case) > 4 else ()
         main, startup = fluid.Program(), fluid.Program()
         main.random_seed = startup.random_seed = SSD_SEED
         with unique_name.guard({}), fluid.program_guard(main, startup):
@@ -6804,25 +6886,40 @@ def run_sweep(np, fluid, cases, label):
             res[dev] = [np.asarray(v) for v in ex.run(main, feed=feed,
                                                       fetch_list=fetch)]
         err = 0.0
-        for a, b in zip(res["card"], res["cpu"]):
+        for i, (a, b) in enumerate(zip(res["card"], res["cpu"])):
             if a.shape != b.shape or a.dtype != b.dtype:
                 fail("sweep %s: card %s %s against cpu %s %s"
                      % (name, a.shape, a.dtype, b.shape, b.dtype))
+            if i in exact:
+                flips = int((a != b).sum())
+                if flips:
+                    fail("sweep %s: %d of %d quantized values flip between "
+                         "card and CPU (output %d)" % (name, flips, a.size,
+                                                       i))
             if a.dtype.kind == "f":
-                e = float(np.abs(a.astype("float64") - b).max()) \
-                    if a.size else 0.0
-                if not e <= SWEEP_TOL:
-                    fail("sweep %s: card and CPU differ by %.3e"
-                         % (name, e))
+                # equal infinities (spp's windows wholly in its padding)
+                # agree
+                with np.errstate(invalid="ignore"):
+                    e = float(np.where(a == b, 0.0, np.abs(
+                        a.astype("float64") - b)).max()) if a.size else 0.0
+                if relative and a.size:
+                    e /= max(1.0, float(np.abs(b[np.isfinite(b)]).max(
+                        initial=0.0)))
+                if not e <= tol:
+                    fail("sweep %s: card and CPU differ by %.3e (output %d "
+                         "of %d, the gradients last)"
+                         % (name, e, i, len(res["card"])))
                 err = max(err, e)
             elif not np.array_equal(a, b):
                 fail("sweep %s: the card's selection differs from the CPU's"
                      % name)
         worst = max(worst, err)
-        print("%s %-38s %d outputs%s: card against cpu max abs diff "
-              "%.2e (tol %.0e), selections equal"
+        print("%s %-38s %d outputs%s: card against cpu max %s diff "
+              "%.2e (tol %.0e), selections equal%s"
               % (label, name, len(outs), " + %d gradients" % len(grads)
-                 if grads else "", err, SWEEP_TOL))
+                 if grads else "", "relative" if relative else "abs", err,
+                 tol, ", %d quantized outputs equal (0 flips)" % len(exact)
+                 if exact else ""))
     return worst, n_ops
 
 
@@ -7172,7 +7269,7 @@ def nlp_train(np, torch, fluid, kernels, label, main, startup, loss, feed,
           "the last 5 %.6f; grad-op reruns %d"
           % (label, len(main.global_block().ops), NLP_STEPS, mean_ms,
              min(step_ms), max(step_ms), items / mean_ms * 1e3,
-             {"srl": "sentences", "crnn": "images"}[label], peak, busy,
+             NLP_UNITS[label], peak, busy,
              "?" if prof is None else prof["launches"],
              ", ".join("%s %d (%.1f a step)" % (k, n, n / NLP_STEPS)
                        for k, n in launches.items()), losses[0], late, reran))
@@ -7188,7 +7285,10 @@ def nlp_train(np, torch, fluid, kernels, label, main, startup, loss, feed,
     if missing:
         fail("the %s steps launched no %s" % (label, missing))
     return dict(scope=scope, step_ms=mean_ms, rate=items / mean_ms * 1e3,
-                peak=peak, busy=busy, launches=launches, losses=losses)
+                peak=peak, busy=busy, launches=launches, losses=losses,
+                min_ms=min(step_ms), max_ms=max(step_ms),
+                step_launches=None if prof is None else prof["launches"],
+                kernel_launches=counts)
 
 
 def lstm_backward_share(torch, step_ms, n_layers):
@@ -7379,6 +7479,41 @@ def nlp_card_vs_cpu_phase(np, torch, fluid):
         fail("the decoders differ between card and CPU on equal inputs")
 
 
+def sweep_raw(fluid, op_type, ins, outs, attrs):
+    """One op of ``op_type`` appended to the default program: ``ins``
+    slot -> variable (or a list of them), ``outs`` the output slots; the
+    output variables in that order."""
+    from paddle_tpu_torch import unique_name
+
+    blk = fluid.default_main_program().global_block()
+    out_vars = [blk.create_var(name=unique_name.generate("out_" + o.lower()))
+                for o in outs]
+    blk.append_op(type=op_type,
+                  inputs={k: [x.name for x in (v if isinstance(v, list)
+                                               else [v])]
+                          for k, v in ins.items()},
+                  outputs={o: [v.name] for o, v in zip(outs, out_vars)},
+                  attrs=attrs)
+    return out_vars
+
+
+def sweep_case_adder(np, fluid, cases):
+    """``add(name, feed, build, grads, exact)``: a case whose data
+    variables are made from ``feed``'s arrays (those named in ``grads``
+    take a gradient)."""
+    L = fluid.layers
+
+    def add(name, feed, build, grads=(), exact=()):
+        def run():
+            v = {k: L.data(k, list(a.shape[1:]), dtype=str(a.dtype),
+                           stop_gradient=k not in grads)
+                 for k, a in feed.items()}
+            return build(v)
+        cases.append((name, feed, run, grads, exact))
+
+    return add
+
+
 def nlp_sweep_cases(np, fluid):
     """(name, feed, build() -> fetch vars, grad input names) for each of
     the 22 op types this slice adds, at tests/test_torch_nlp.py's,
@@ -7387,26 +7522,13 @@ def nlp_sweep_cases(np, fluid):
     L = fluid.layers
     rng = np.random.RandomState(CRNN_SEED)
     cases = []
+    add = sweep_case_adder(np, fluid, cases)
 
     def f32(*shape):
         return rng.randn(*shape).astype("float32")
 
-    def add(name, feed, build, grads=()):
-        def run():
-            v = {k: L.data(k, list(a.shape[1:]), dtype=str(a.dtype),
-                           stop_gradient=k not in grads)
-                 for k, a in feed.items()}
-            return build(v)
-        cases.append((name, feed, run, grads))
-
     def raw(op_type, ins, outs, attrs):
-        blk = fluid.default_main_program().global_block()
-        out_vars = [blk.create_var(name="out_" + o.lower()) for o in outs]
-        blk.append_op(type=op_type,
-                      inputs={k: [v.name] for k, v in ins.items()},
-                      outputs={o: [v.name] for o, v in zip(outs, out_vars)},
-                      attrs=attrs)
-        return out_vars
+        return sweep_raw(fluid, op_type, ins, outs, attrs)
 
     def crf_ops(v):
         attr = fluid.ParamAttr(name="crfw")
@@ -7514,6 +7636,773 @@ def nlp_sweep_phase(np, fluid):
     if missing:
         fail("the nlp sweep ran no case of %s" % sorted(missing))
     return worst
+
+
+# -- vision, quantization and sequence ops: QAT ResNet-50, the sentiment CNN --
+
+
+def vision_quant_sweep_cases(np, fluid):
+    """The 7 vision and 4 quantize op types at the CPU tests' shapes
+    (tests/test_torch_vision_ops.py, tests/test_torch_quantize.py) and
+    at one realistic shape each: ResNet-50's stem [128, 64, 112, 112]
+    (3 x 3, stride 2) for max_pool2d_with_index and unpool, a spatial
+    transformer over [32, 64, 56, 56], SPP-net's conv5 [32, 256, 13, 13]
+    (3 levels), a conv input [128, 64, 56, 56] for the fake quantize
+    ops, and layer4's [512, 512, 3, 3] int8 weight."""
+    L = fluid.layers
+    rng = np.random.RandomState(QUANT_SEED)
+    cases = []
+    add = sweep_case_adder(np, fluid, cases)
+
+    def f32(*shape):
+        return rng.randn(*shape).astype("float32")
+
+    def tied(*shape):
+        # relu'd halves: most windows hold tied maxima
+        return np.maximum(np.round(f32(*shape) * 2) / 2, 0).astype(
+            "float32")
+
+    eye = np.tile(np.asarray([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], "float32"),
+                  (32, 1, 1))
+    add("affine_channel (NCHW, NHWC)", {"x": f32(2, 3, 4, 5),
+                                        "y": f32(2, 4, 5, 3)},
+        lambda v: [L.affine_channel(v["x"]),
+                   L.affine_channel(v["y"], data_layout="NHWC")], ("x",))
+    add("affine_channel [32,256,56,56]", {"x": f32(32, 256, 56, 56)},
+        lambda v: [L.affine_channel(v["x"])], ("x",))
+
+    def transformer(shape):
+        def build(v):
+            grid = L.affine_grid(v["theta"], out_shape=shape)
+            return [L.grid_sampler(v["x"], grid), grid]
+        return build
+
+    add("affine_grid + grid_sampler (identity)",
+        {"x": f32(2, 3, 5, 6), "theta": eye[:2]},
+        transformer([2, 3, 5, 6]), ("theta", "x"))
+    # at the realistic shape each op alone: composed, the sampler
+    # multiplies affine_grid's rounding (a float32 product, summed in
+    # another order on the card) by the image's slope times (W - 1) / 2
+    # (``transformer_composed`` reports it)
+    theta = (eye + 0.1 * f32(32, 2, 3)).astype("float32")
+    add("affine_grid [32,2,3] -> [32,56,56,2]", {"theta": theta},
+        lambda v: [L.affine_grid(v["theta"], out_shape=[32, 64, 56, 56])],
+        ("theta",))
+    add("grid_sampler [32,64,56,56]",
+        {"x": f32(32, 64, 56, 56), "grid": np.einsum(
+            "hwc,nkc->nhwk", np.stack(list(np.meshgrid(
+                np.linspace(-1, 1, 56), np.linspace(-1, 1, 56)))
+                + [np.ones((56, 56))], axis=-1), theta).astype("float32")},
+        lambda v: [L.grid_sampler(v["x"], v["grid"])], ("x", "grid"))
+
+    def pool(k, s, p, nd=2, unpool=False):
+        def build(v):
+            out, mask = sweep_raw(
+                fluid, "max_pool%dd_with_index" % nd, {"X": v["x"]},
+                ["Out", "Mask"], {"ksize": k, "strides": s, "paddings": p})
+            if not unpool:
+                return [out, mask]
+            (up,) = sweep_raw(fluid, "unpool", {"X": out, "Indices": mask},
+                              ["Out"], {"ksize": k, "strides": s,
+                                        "paddings": p})
+            return [up, out, mask]
+        return build
+
+    add("max_pool2d_with_index", {"x": f32(2, 3, 6, 8)},
+        pool([2, 3], [2, 2], [1, 1]), ("x",))
+    add("max_pool2d_with_index (tied)", {"x": tied(2, 3, 7, 7)},
+        pool([3, 3], [2, 2], [1, 1]), ("x",))
+    add("max_pool3d_with_index (tied)", {"x": tied(1, 2, 5, 4, 5)},
+        pool([3, 2, 3], [2, 2, 2], [1, 0, 1], nd=3), ("x",))
+    add("unpool (overlapping windows)", {"x": tied(2, 3, 7, 7)},
+        pool([3, 3], [2, 2], [1, 1], unpool=True), ("x",))
+    add("max_pool2d_with_index + unpool [128,64,112,112]",
+        {"x": tied(RESNET_BATCH, 64, 112, 112)},
+        pool([3, 3], [2, 2], [1, 1], unpool=True), ("x",))
+
+    def spp(height, ptype):
+        return lambda v: sweep_raw(fluid, "spp", {"X": v["x"]}, ["Out"],
+                                   {"pyramid_height": height,
+                                    "pooling_type": ptype})
+
+    add("spp (max, tied, 5 x 7)", {"x": tied(2, 2, 5, 7)}, spp(3, "max"),
+        ("x",))
+    add("spp (avg, exclusive, 5 x 5)", {"x": f32(1, 2, 5, 5)},
+        spp(3, "avg"), ("x",))
+    add("spp [32,256,13,13] (max)", {"x": tied(32, 256, 13, 13)},
+        spp(3, "max"), ("x",))
+    add("spp [32,256,13,13] (avg)", {"x": f32(32, 256, 13, 13)},
+        spp(3, "avg"), ("x",))
+
+    def quant(v):
+        out, scale = L.fake_quantize_abs_max(v["x"])
+        q, qs = sweep_raw(fluid, "fake_quantize_range_abs_max",
+                          {"X": v["x"], "InScale": v["s"]},
+                          ["Out", "OutScale"], {"is_test": False})
+        t, _ = sweep_raw(fluid, "fake_quantize_range_abs_max",
+                         {"X": v["x"], "InScale": v["s"]},
+                         ["Out", "OutScale"], {"is_test": True})
+        (dq,) = sweep_raw(fluid, "fake_dequantize_max_abs",
+                          {"X": q, "Scale": qs}, ["Out"],
+                          {"max_range": 127.0})
+        return [out, q, t, dq, scale, qs]
+
+    for shape in ((4, 7), (RESNET_BATCH, 64, 56, 56)):
+        x = f32(*shape)
+        add("fake quantize / dequantize %s" % list(shape),
+            {"x": x, "s": np.asarray([[0.5 * float(np.abs(x).max())]],
+                                     "float32")}, quant, ("x",),
+            (0, 1, 2))
+
+    def dequant(v):
+        return sweep_raw(fluid, "dequantize_weight",
+                         {"X": v["w"], "Scale": v["s"]}, ["Out"], {})
+
+    add("dequantize_weight [512,512,3,3]",
+        {"w": rng.randint(-128, 128, (512, 512, 3, 3)).astype("int8"),
+         "s": np.asarray([[0.0123]], "float32")}, dequant, (), (0,))
+    return cases
+
+
+def transformer_composed(np, fluid):
+    """affine_grid into grid_sampler at [32, 64, 56, 56] on the card and
+    the CPU, each output's difference relative to max(1, its largest
+    |value|) beside the grid's slope factor (W - 1) / 2 (reported: the
+    sweep gates each op alone)."""
+    L = fluid.layers
+    rng = np.random.RandomState(QUANT_SEED + 1)
+    eye = np.tile(np.asarray([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], "float32"),
+                  (32, 1, 1))
+    feed = {"x": rng.randn(32, 64, 56, 56).astype("float32"),
+            "theta": (eye + 0.1 * rng.randn(32, 2, 3)).astype("float32")}
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = L.data("x", [64, 56, 56], stop_gradient=False)
+        theta = L.data("theta", [2, 3], stop_gradient=False)
+        grid = L.affine_grid(theta, out_shape=[32, 64, 56, 56])
+        out = L.grid_sampler(x, grid)
+        grads = fluid.backward.calc_gradient(L.reduce_sum(out), [theta, x])
+    res = {dev: [np.asarray(v) for v in ex.run(
+        main, feed=feed, fetch_list=[out, grid] + grads)]
+        for dev, ex in (("card", fluid.Executor()),
+                        ("cpu", fluid.Executor(fluid.CPUPlace())))}
+    print("vision/quant affine_grid + grid_sampler [32,64,56,56] composed "
+          "(reported): card against cpu, relative to max(1, |largest|): %s; "
+          "the grid's rounding times the slope factor (W - 1) / 2 = 27.5"
+          % ", ".join("%s %.2e" % (n, float(
+              np.abs(a.astype("float64") - b).max()
+              / max(1.0, float(np.abs(b).max()))))
+                      for n, a, b in zip(("out", "grid", "dtheta", "dx"),
+                                         res["card"], res["cpu"])))
+
+
+def vision_quant_sweep_phase(np, torch, fluid):
+    """Each vision and quantize op type of step 20 on the card against
+    the CPU, through ``run_sweep``: values within 1e-5 of the largest
+    (TF32 off), masks equal, quantized values equal (a flip fails); then
+    the composed spatial transformer, reported."""
+    worst, n_ops = run_sweep(np, fluid, vision_quant_sweep_cases(np, fluid),
+                             "vision/quant", tol=VQ_SWEEP_TOL, relative=True)
+    transformer_composed(np, fluid)
+    missing = set(VISION_QUANT_OP_TYPES) - n_ops
+    print("vision/quant sweep: %d op types run, this slice's %d all among "
+          "them: %s; worst %.2e" % (len(n_ops), len(VISION_QUANT_OP_TYPES),
+                                     not missing, worst))
+    if missing:
+        fail("the vision/quant sweep ran no case of %s" % sorted(missing))
+    return worst
+
+
+def seq_sweep_cases(np, fluid):
+    """The 16 sequence op types and the two fused ones at the CPU tests'
+    shapes (tests/test_torch_sequence.py) and at the sentiment CNN's:
+    [128, 600] ids, lengths 16..600, the embedding's [128, 600, 128] and
+    its 3- and 4-wide convolutions to 512."""
+    L = fluid.layers
+    rng = np.random.RandomState(SENT_SEED + 1)
+    cases = []
+    add = sweep_case_adder(np, fluid, cases)
+
+    def f32(*shape):
+        return rng.randn(*shape).astype("float32")
+
+    def col(*v):
+        return np.asarray(v, "int64").reshape(-1, 1)
+
+    B, T, E, H = SENT_BATCH, SENT_LEN, SENT_EMB, SENT_HID
+    lens = rng.randint(SENT_MIN_LEN, T + 1, (B, 1)).astype("int64")
+    lens[:4] = [[T], [SENT_MIN_LEN], [T], [T // 2]]   # ties, extremes
+    add("sequence_softmax, reverse, first / last step",
+        {"s": f32(2, 5), "x": f32(2, 5, 3), "l": col(5, 2)},
+        lambda v: [L.sequence_softmax(v["s"], length=v["l"]),
+                   L.sequence_reverse(v["x"], length=v["l"]),
+                   L.sequence_first_step(v["x"], length=v["l"]),
+                   L.sequence_last_step(v["x"], length=v["l"])], ("s",))
+    add("sequence_softmax [128,600]", {"s": f32(B, T), "l": lens},
+        lambda v: [L.sequence_softmax(v["s"], length=v["l"])], ("s",))
+    add("sequence_reverse [128,600,128]", {"x": f32(B, T, E), "l": lens},
+        lambda v: [L.sequence_reverse(v["x"], length=v["l"])], ("x",))
+    add("sequence_conv (3, tanh)", {"x": f32(2, 5, 3), "l": col(5, 3)},
+        lambda v: [L.sequence_conv(v["x"], 4, 3, length=v["l"],
+                                   act="tanh")], ("x",))
+    for width in (3, 4):
+        add("sequence_conv + sqrt pool [128,600,128] (%d)" % width,
+            {"x": f32(B, T, E), "l": lens},
+            lambda v, w=width: [L.sequence_pool(L.sequence_conv(
+                v["x"], H, w, length=v["l"], act="tanh"), "sqrt",
+                length=v["l"])], ("x",))
+    add("sequence_expand, expand_as",
+        {"x": f32(3, 2), "y": f32(3, 4, 1), "z": f32(3, 4, 2)},
+        lambda v: [L.sequence_expand(v["x"], v["y"]),
+                   L.sequence_expand_as(v["x"], v["z"])], ("x",))
+    add("sequence_concat", {"x": f32(2, 3, 2), "y": f32(2, 4, 2),
+                            "lx": col(2, 1), "ly": col(4, 1)},
+        lambda v: [L.sequence_concat([v["x"], v["y"]],
+                                     lengths=[v["lx"], v["ly"]])],
+        ("x", "y"))
+    add("sequence_concat [128,600,128] x 2", {"x": f32(B, T, E),
+                                              "y": f32(B, T, E), "lx": lens,
+                                              "ly": lens[::-1].copy()},
+        lambda v: [L.sequence_concat([v["x"], v["y"]],
+                                     lengths=[v["lx"], v["ly"]])],
+        ("x", "y"))
+    add("sequence_pad, unpad, slice",
+        {"x": f32(2, 6, 2), "l": col(3, 6), "o": col(2, 0)},
+        lambda v: [L.sequence_pad(v["x"], L.fill_constant(
+            [1], "float32", 0.25), maxlen=8, length=v["l"])[0],
+            L.sequence_unpad(v["x"], v["l"]),
+            L.sequence_slice(v["x"], v["o"], v["l"])], ("x",))
+    add("sequence_pad [128,600,128] to 640", {"x": f32(B, T, E), "l": lens},
+        lambda v: list(L.sequence_pad(v["x"], L.fill_constant(
+            [1], "float32", -1.0), maxlen=640, length=v["l"])), ("x",))
+    ids = rng.randint(0, 6, (B, T)).astype("int64")
+    add("sequence_erase, enumerate [128,600]", {"ids": ids, "l": lens},
+        lambda v: list(L.sequence_erase(v["ids"], tokens=[2, 0],
+                                        length=v["l"]))
+        + [L.sequence_enumerate(v["ids"], win_size=3, pad_value=-1,
+                                length=v["l"])])
+    add("sequence_scatter", {"x": f32(4, 9, 3), "i": rng.randint(
+        0, 9, (4, 5)).astype("int32"), "u": f32(4, 5, 3)},
+        lambda v: [L.sequence_scatter(v["x"], v["i"], v["u"])], ("x", "u"))
+    add("sequence_reshape", {"x": f32(4, 6, 8)},
+        lambda v: [L.sequence_reshape(v["x"], 4)], ("x",))
+    add("lod_reset", {"x": f32(4, 6, 3)},
+        lambda v: list(L.lod_reset(v["x"], target_lod=[0, 5, 6, 20, 24])),
+        ("x",))
+
+    def rank(v):
+        table = L.lod_rank_table(lengths=v["l"])
+        return [L.reorder_lod_tensor_by_rank(v["x"], table), table.index,
+                table.length]
+
+    add("lod_rank_table + reorder [128]", {"x": f32(B, 40), "l": lens},
+        rank, ("x",))
+
+    def fused(v):
+        (out,) = sweep_raw(fluid, "fusion_seqconv_eltadd_relu",
+                           {"X": v["x"], "Filter": v["w"], "Bias": v["b"],
+                            "Length": v["l"]}, ["Out"],
+                           {"contextLength": 3, "contextStart": -1})
+        return [out]
+
+    add("fusion_seqconv_eltadd_relu [128,600,128]",
+        {"x": f32(B, T, E), "w": (0.1 * f32(3 * E, H)).astype("float32"),
+         "b": f32(1, H), "l": lens}, fused, ("x", "w"))
+
+    def expand_fc(v):
+        return sweep_raw(fluid, "fusion_seqexpand_concat_fc",
+                         {"X": [v["x"], v["y"]], "FCWeight": v["w"],
+                          "FCBias": v["b"]}, ["Out", "FCOut"],
+                         {"fc_activation": "relu"})
+
+    add("fusion_seqexpand_concat_fc", {"x": f32(4, 7, 3), "y": f32(4, 5),
+                                       "w": f32(8, 6), "b": f32(1, 6)},
+        expand_fc, ("x", "y"))
+    return cases
+
+
+def fused_chain_check(np, fluid):
+    """Both fused sequence ops against their unfused chains, on the card:
+    fusion_seqconv_eltadd_relu against sequence_conv + elementwise_add +
+    relu at the sentiment shape, fusion_seqexpand_concat_fc against
+    sequence_expand_as + concat + fc."""
+    L = fluid.layers
+    rng = np.random.RandomState(SENT_SEED + 2)
+    B, T, E, H = SENT_BATCH, SENT_LEN, SENT_EMB, SENT_HID
+    feed = {"x": rng.randn(B, T, E).astype("float32"),
+            "l": rng.randint(SENT_MIN_LEN, T + 1, (B, 1)).astype("int64"),
+            "v": rng.randn(B, 5).astype("float32")}
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SENT_SEED
+    with fluid.program_guard(main, startup):
+        x = L.data("x", [T, E])
+        ln = L.data("l", [1], dtype="int64")
+        vec = L.data("v", [5])
+        conv = L.sequence_conv(x, H, 3, length=ln,
+                               param_attr=fluid.ParamAttr(name="sc_w"),
+                               bias_attr=fluid.ParamAttr(name="sc_b"))
+        chain = L.relu(conv)
+        (fused,) = sweep_raw(fluid, "fusion_seqconv_eltadd_relu",
+                             {"X": x, "Filter": main.global_block().var(
+                                 "sc_w"), "Bias": main.global_block().var(
+                                     "sc_b"), "Length": ln}, ["Out"],
+                             {"contextLength": 3, "contextStart": -1})
+        cat = L.concat([x, L.sequence_expand_as(vec, x)], axis=2)
+        fc = L.fc(cat, 6, num_flatten_dims=2, act="relu",
+                  param_attr=fluid.ParamAttr(name="fx_w"),
+                  bias_attr=fluid.ParamAttr(name="fx_b"))
+        blk = main.global_block()
+        out = blk.create_var(name="fx_out")
+        fco = blk.create_var(name="fx_fco")
+        blk.append_op(type="fusion_seqexpand_concat_fc",
+                      inputs={"X": [x.name, vec.name], "FCWeight": ["fx_w"],
+                              "FCBias": ["fx_b"]},
+                      outputs={"Out": [out.name], "FCOut": [fco.name]},
+                      attrs={"fc_activation": "relu"})
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    a, b, c, d = (np.asarray(v) for v in exe.run(
+        main, feed=feed, fetch_list=[chain, fused, fc, out], scope=scope))
+    e1 = float(np.abs(a - b).max() / max(1.0, np.abs(a).max()))
+    e2 = float(np.abs(c - d).max() / max(1.0, np.abs(c).max()))
+    print("seq fused against unfused on the card: "
+          "fusion_seqconv_eltadd_relu %s %.2e, fusion_seqexpand_concat_fc "
+          "%s %.2e (relative, tol %.0e)"
+          % (list(b.shape), e1, list(d.shape), e2, VQ_SWEEP_TOL))
+    if not (e1 <= VQ_SWEEP_TOL and e2 <= VQ_SWEEP_TOL):
+        fail("a fused sequence op differs from its unfused chain")
+
+
+def seq_sweep_phase(np, torch, fluid):
+    """Each sequence op type of step 20 (the fused two included) on the
+    card against the CPU, through ``run_sweep``, then the fused ops
+    against their chains."""
+    worst, n_ops = run_sweep(np, fluid, seq_sweep_cases(np, fluid), "seq",
+                             tol=VQ_SWEEP_TOL, relative=True)
+    missing = set(SEQ_OP_TYPES) - n_ops
+    print("seq sweep: %d op types run, this slice's %d all among them: %s; "
+          "worst %.2e" % (len(n_ops), len(SEQ_OP_TYPES), not missing, worst))
+    if missing:
+        fail("the seq sweep ran no case of %s" % sorted(missing))
+    fused_chain_check(np, fluid)
+    return worst
+
+
+def qat_resnet_program(fluid, qat):
+    """ResNet's train program as ``resnet_train_program`` builds it, with
+    ``qat`` ``QuantizeTranspiler.training_transpile`` before ``minimize``;
+    the test clone and a training-mode forward clone taken between:
+    (main, startup, test, forward, loss, predict, transpiler or None)."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.transpiler import QuantizeTranspiler
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = RESNET_SEED
+    qt = (QuantizeTranspiler(activation_quantize_type="range_abs_max")
+          if qat else None)
+    with unique_name.guard({}), fluid.program_guard(main, startup):
+        pixel = fluid.layers.data(name="bench_pixel",
+                                  shape=[3, RESNET_IMG, RESNET_IMG],
+                                  dtype="float32")
+        label = fluid.layers.data(name="bench_label", shape=[1],
+                                  dtype="int64")
+        predict = resnet.resnet_imagenet(pixel, RESNET_CLASSES,
+                                         depth=RESNET_DEPTH)
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(
+            input=predict, label=label))
+        if qt is not None:
+            qt.training_transpile(main, startup)
+        test = main.clone(for_test=True)
+        forward = main.clone()
+        fluid.optimizer.Momentum(learning_rate=RESNET_LR,
+                                 momentum=RESNET_MOMENTUM).minimize(loss)
+    return main, startup, test, forward, loss, predict, qt
+
+
+def dir_bytes(np, path, dtype=None):
+    """The bytes of a saved model's ``.npy`` files (those of ``dtype``
+    only, when given)."""
+    total = 0
+    for fn in os.listdir(path):
+        if not fn.endswith(".npy"):
+            continue
+        if dtype is not None and np.load(os.path.join(path, fn),
+                                         mmap_mode="r").dtype != dtype:
+            continue
+        total += os.path.getsize(os.path.join(path, fn))
+    return total
+
+
+def rel_max(np, got, want):
+    return float(np.abs(np.asarray(got, "float64") - want).max()
+                 / max(float(np.abs(want).max()), 1e-30))
+
+
+def train_mode_freeze(np, fluid, exe, fwd, predict, qt, scope, pfeed):
+    """tests/test_quantize_transpiler.py's comparison in training mode
+    (batch statistics, as its convnet without batch norm has): the QAT
+    forward program and its frozen copy on a card copy of the trained
+    state. Reported beside the JAX test's tolerance, not gated: the
+    difference is the activations' 8-bit noise at the running scales the
+    25 steps left, which the float32 sums' nondeterministic order on the
+    card moves from run to run (the freeze itself is held exactly by the
+    snapped weights and the int8 outputs)."""
+    from paddle_tpu_torch.io import prune_program
+
+    fwd = prune_program(fwd, ["bench_pixel"], [predict.name])
+    acts = [(op.input("X")[0], op.input("InScale")[0])
+            for op in fwd.global_block().ops
+            if op.type == "fake_quantize_range_abs_max"]
+    copy = cpu_copy(np, fluid, fwd, scope, device="cuda")
+    vals = exe.run(fwd, feed=pfeed, fetch_list=[predict]
+                   + [a for a, _ in acts], scope=copy)
+    ratio = sorted(float(np.asarray(copy.get_value(sn).cpu()).reshape(-1)[0])
+                   / max(float(np.abs(np.asarray(v)).max()), 1e-30)
+                   for v, (_, sn) in zip(vals[1:], acts))
+    qat = np.asarray(vals[0])
+    vals = None
+    qt.freeze_program(fwd, scope=copy)
+    (frozen,) = exe.run(fwd, feed=pfeed, fetch_list=[predict], scope=copy)
+    frozen = np.asarray(frozen)
+    diff = float(np.abs(frozen - qat).max())
+    top1 = float(np.mean(frozen.argmax(1) == qat.argmax(1)))
+    print("resnet qat freeze, training mode (batch statistics, %d images): "
+          "the frozen forward program against the QAT one: max abs diff "
+          "%.3e (reported; the JAX test's convnet holds %.2f), top-1 "
+          "agreement %.3f; the %d activation quantizers' running scales are "
+          "%.2f-%.2fx (median %.2fx) this batch's own largest |input|"
+          % (RESNET_PRED_BATCH, diff, QAT_FREEZE_TOL, top1, len(acts),
+             ratio[0], ratio[-1], ratio[len(ratio) // 2]))
+    if not np.isfinite(frozen).all():
+        fail("the frozen QAT ResNet-50's training-mode outputs are not "
+             "finite")
+
+
+def qat_resnet_phase(np, torch, fluid, kernels, model_root):
+    """ResNet-50 at 128 x 224^2, float32 and then quantization-aware
+    (module docstring, step 20), each 5 + 20 Momentum steps on a fresh
+    executor; the training-mode forward frozen on a copy of the state
+    (its outputs against the QAT forward's reported beside the JAX
+    test's 0.15);
+    the QAT test clone pruned, frozen (the snapped weights against its
+    dequantized ones; its outputs against the QAT test program's
+    reported with the share of activations the test-mode quantizers
+    clip), converted to int8, saved beside the frozen float32 model and
+    served 20 times through a ``Predictor`` (within QAT_PRED_TOL of the
+    frozen program). Returns the step numbers of both runs."""
+    from paddle_tpu_torch.inference import NativeConfig, \
+        create_paddle_predictor
+    from paddle_tpu_torch.io import prune_program
+
+    rng = np.random.RandomState(SEED)
+    feed = {"bench_pixel": rng.rand(RESNET_BATCH, 3, RESNET_IMG,
+                                    RESNET_IMG).astype("float32"),
+            "bench_label": rng.randint(0, RESNET_CLASSES,
+                                       (RESNET_BATCH, 1)).astype("int64")}
+    main, startup, _, _, loss, _, _ = qat_resnet_program(fluid, qat=False)
+    n_f32 = len(main.global_block().ops)
+    f32 = nlp_train(np, torch, fluid, kernels, "resnet fp32", main, startup,
+                    loss, feed, (), RESNET_BATCH)
+    f32.pop("scope")
+    main = startup = None
+    torch.cuda.empty_cache()
+    main, startup, test, fwd, loss, predict, qt = qat_resnet_program(
+        fluid, qat=True)
+    types = [op.type for op in main.global_block().ops]
+    pairs = types.count("fake_dequantize_max_abs")
+    print("resnet qat: %d ops (%d float32), %d fake quantize / dequantize "
+          "pairs (%d range_abs_max on activations, %d abs_max on weights), "
+          "Momentum(%g, %g)"
+          % (len(types), n_f32, pairs,
+             types.count("fake_quantize_range_abs_max"),
+             types.count("fake_quantize_abs_max"), RESNET_LR,
+             RESNET_MOMENTUM))
+    run = nlp_train(np, torch, fluid, kernels, "resnet qat", main, startup,
+                    loss, feed, (), RESNET_BATCH)
+    fired = {k: n for k, n in run["kernel_launches"].items() if n}
+    fq = (None if run["step_launches"] is None or f32["step_launches"] is None
+          else run["step_launches"] - f32["step_launches"])
+    print("resnet qat: %.1f ms a step (min %.1f, max %.1f), %.1f images/s, "
+          "peak %.2f GiB, card busy %.1f %%, %s launches a step, the fake "
+          "quantize / dequantize ops' %s a step (its launches less the "
+          "float32 step's); float32 beside it in this call: %.1f ms (min "
+          "%.1f, max %.1f), %.1f images/s, peak %.2f GiB, busy %.1f %%, %s "
+          "launches; the QAT step %.2fx the float32 step; hand-written "
+          "kernels launched in the timed steps: %s"
+          % (run["step_ms"], run["min_ms"], run["max_ms"], run["rate"],
+             run["peak"], run["busy"], run["step_launches"], fq,
+             f32["step_ms"], f32["min_ms"], f32["max_ms"], f32["rate"],
+             f32["peak"], f32["busy"], f32["step_launches"],
+             run["step_ms"] / f32["step_ms"], fired or "none"))
+    scope = run["scope"]
+    exe = fluid.Executor()
+    pfeed = {"bench_pixel": feed["bench_pixel"][:RESNET_PRED_BATCH]}
+    train_mode_freeze(np, fluid, exe, fwd, predict, qt, scope, pfeed)
+    test = prune_program(test, ["bench_pixel"], [predict.name])
+    acts = [(op.input("X")[0], op.input("InScale")[0])
+            for op in test.global_block().ops
+            if op.type == "fake_quantize_range_abs_max"]
+    weights = sorted(n[:-len(".quantized")] for op in test.global_block().ops
+                     if op.type == "fake_quantize_abs_max"
+                     for n in op.output("Out"))
+    vals = exe.run(test, feed=pfeed, fetch_list=[predict]
+                   + [n + ".dequantized" for n in weights]
+                   + [a for a, _ in acts], scope=scope)
+    qat_out = np.asarray(vals[0])
+    dequantized = dict(zip(weights, vals[1:1 + len(weights)]))
+    clipped = sum(int((np.abs(np.asarray(v)) > float(np.asarray(
+        scope.get_value(sn).cpu()).reshape(-1)[0])).sum())
+        for v, (_, sn) in zip(vals[1 + len(weights):], acts))
+    n_act = sum(np.asarray(v).size for v in vals[1 + len(weights):])
+    vals = None
+    t0 = time.perf_counter()
+    scales = qt.freeze_program(test, scope=scope)
+    freeze_ms = (time.perf_counter() - t0) * 1e3
+    left = [op.type for op in test.global_block().ops
+            if op.type.startswith("fake_")]
+    snap = max(rel_max(np, scope.get_value(n).cpu().numpy(), np.asarray(
+        dequantized[n])) for n in scales)
+    (frozen,) = exe.run(test, feed=pfeed, fetch_list=[predict], scope=scope)
+    frozen = np.asarray(frozen)
+    diff = float(np.abs(frozen - qat_out).max())
+    top1 = float(np.mean(frozen.argmax(1) == qat_out.argmax(1)))
+    print("resnet qat freeze: %d weights snapped in %.0f ms, %d fake ops "
+          "left; the snapped weights against the QAT program's dequantized "
+          "ones %.2e relative (tol %.0e); test mode (moving statistics, %d "
+          "images): %.2f %% of the %d activation quantizers' inputs lie "
+          "past their running scale (clipped), and the frozen program's "
+          "outputs differ from the QAT test program's by %.3e, top-1 "
+          "agreement %.3f (reported: the clipping is what freezing removes)"
+          % (len(scales), freeze_ms, len(left), snap, QAT_SNAP_TOL,
+             RESNET_PRED_BATCH, 100.0 * clipped / max(n_act, 1), len(acts),
+             diff, top1))
+    if left or len(scales) != len(weights) or not np.isfinite(frozen).all() \
+            or not snap <= QAT_SNAP_TOL:
+        fail("freezing the QAT ResNet-50: %d scales of %d weights, fake ops "
+             "%s, snapped weights %.3e" % (len(scales), len(weights), left,
+                                           snap))
+    f32_dir = os.path.join(model_root, "resnet50_frozen")
+    fluid.io.save_inference_model(f32_dir, ["bench_pixel"], [predict], exe,
+                                  main_program=test, scope=scope)
+    converted = qt.convert_to_int8(test, scope=scope, scales=scales)
+    (int8_out,) = exe.run(test, feed=pfeed, fetch_list=[predict],
+                          scope=scope)
+    in_session = rel_max(np, int8_out, frozen)
+    int8_dir = os.path.join(model_root, "resnet50_int8")
+    fluid.io.save_inference_model(int8_dir, ["bench_pixel"], [predict], exe,
+                                  main_program=test, scope=scope)
+    f32_bytes = dir_bytes(np, f32_dir)
+    i8_bytes = dir_bytes(np, int8_dir)
+    i8_only = dir_bytes(np, int8_dir, np.int8)
+    pred = create_paddle_predictor(NativeConfig(int8_dir))
+    outs, ms = [], []
+    for _ in range(QAT_PRED_RUNS):
+        t0 = time.perf_counter()
+        (o,) = pred.run(pfeed)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(np.asarray(o))
+    err = max(rel_max(np, o, frozen) for o in outs)
+    n_deq = [op.type for op in pred._program.global_block().ops].count(
+        "dequantize_weight")
+    print("resnet qat int8: %d weights converted, %d dequantize_weight ops "
+          "served; saved weights %d bytes (int8 tensors %d) against the "
+          "frozen float32 model's %d: %.3fx; Predictor (NativeConfig, the "
+          "card) %d runs of %d images: %.2f ms a run (min %.2f, max %.2f); "
+          "int8 outputs against the frozen program's: in session %.2e, "
+          "Predictor %.2e relative to the largest (tol %.0e)"
+          % (len(converted), n_deq, i8_bytes, i8_only, f32_bytes,
+             i8_bytes / float(f32_bytes), QAT_PRED_RUNS, RESNET_PRED_BATCH,
+             float(np.mean(ms)), min(ms), max(ms), in_session, err,
+             QAT_PRED_TOL))
+    if not (len(converted) == len(scales) and n_deq == len(converted)
+            and i8_only and i8_bytes < f32_bytes):
+        fail("the int8 ResNet-50 model: %d converted, %d dequantize ops, "
+             "%d bytes against %d" % (len(converted), n_deq, i8_bytes,
+                                      f32_bytes))
+    if not (in_session <= QAT_PRED_TOL and err <= QAT_PRED_TOL):
+        fail("the int8 ResNet-50's outputs leave the frozen program's: "
+             "%.3e, %.3e" % (in_session, err))
+    run.pop("scope")
+    return dict(qat=run, f32=f32, pred_ms=float(np.mean(ms)),
+                int8_bytes=i8_bytes, f32_bytes=f32_bytes)
+
+
+def sentiment_program(fluid, **kw):
+    """The book's convolution_net train program (Adagrad) and its test
+    clone: (main, startup, test, loss, prediction)."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import understand_sentiment as sentiment
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SENT_SEED
+    with unique_name.guard({}), fluid.program_guard(main, startup):
+        loss, _, pred = sentiment.build(fluid, **kw)
+        test = main.clone(for_test=True)
+        fluid.optimizer.Adagrad(
+            learning_rate=sentiment.LEARNING_RATE).minimize(loss)
+    return main, startup, test, loss, pred
+
+
+def sentiment_phase(np, torch, fluid, kernels, model_root):
+    """The book's sentiment CNN at its widths (module docstring, step 20):
+    5 + 20 Adagrad steps on one batch, then the test clone saved and
+    served 20 times through ``AnalysisConfig`` (the "inference" passes)
+    against the in-session test run."""
+    from paddle_tpu_torch.inference import AnalysisConfig, \
+        create_paddle_predictor
+    from paddle_tpu_torch.models import understand_sentiment as sentiment
+
+    main, startup, test, loss, pred = sentiment_program(
+        fluid, max_len=SENT_LEN)
+    feed = sentiment.batch(np, np.random.RandomState(SENT_SEED), SENT_BATCH,
+                           SENT_LEN, SENT_MIN_LEN)
+    print("sentiment: convolution_net, vocabulary %d, embedding %d, "
+          "windows 3 and 4 of %d (tanh, sqrt pooling), %d classes, batch "
+          "%d x %d (lengths %d..%d), Adagrad(%g)"
+          % (sentiment.WORD_DICT, sentiment.EMB_DIM, sentiment.HID_DIM,
+             sentiment.CLASS_DIM, SENT_BATCH, SENT_LEN,
+             int(feed["length"].min()), int(feed["length"].max()),
+             sentiment.LEARNING_RATE))
+    run = nlp_train(np, torch, fluid, kernels, "sentiment", main, startup,
+                    loss, feed, (), SENT_BATCH)
+    fired = {k: n for k, n in run["kernel_launches"].items() if n}
+    print("sentiment: %.1f ms a step (min %.1f, max %.1f), %.1f "
+          "sentences/s, peak %.2f GiB, card busy %.1f %%, %s launches a "
+          "step; hand-written kernels launched: %s"
+          % (run["step_ms"], run["min_ms"], run["max_ms"], run["rate"],
+             run["peak"], run["busy"], run["step_launches"],
+             fired or "none"))
+    exe = fluid.Executor()
+    pfeed = {"words": feed["words"], "length": feed["length"]}
+    (ref,) = exe.run(test, feed=feed, fetch_list=[pred], scope=run["scope"])
+    ref = np.asarray(ref)
+    path = os.path.join(model_root, "sentiment_cnn")
+    fluid.io.save_inference_model(path, ["words", "length"], [pred], exe,
+                                  main_program=test, scope=run["scope"])
+    p = create_paddle_predictor(AnalysisConfig(path))
+    types = [op.type for op in p._program.global_block().ops]
+    outs, ms = [], []
+    for _ in range(SENT_PRED_RUNS):
+        t0 = time.perf_counter()
+        (o,) = p.run(pfeed)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(np.asarray(o))
+    err = max(float(np.abs(o - ref).max()) for o in outs)
+    n_fused = types.count("fusion_seqconv_eltadd_relu")
+    print("sentiment predictor (AnalysisConfig, the card): %d ops after "
+          "the inference passes, %d sequence_conv + add + relu fused (the "
+          "book's branches are tanh), %d fc; %d runs of %d sentences: %.2f "
+          "ms a run (min %.2f, max %.2f), %.1f sentences/s; against the "
+          "in-session test run max abs diff %.2e (tol %.0e)"
+          % (len(types), n_fused, types.count("fc"), SENT_PRED_RUNS,
+             SENT_BATCH, float(np.mean(ms)), min(ms), max(ms),
+             SENT_BATCH / float(np.mean(ms)) * 1e3, err, SENT_PRED_TOL))
+    if types.count("sequence_conv") != 2 or n_fused \
+            or not err <= SENT_PRED_TOL:
+        fail("the sentiment predictor: %s, diff %.3e" % (types, err))
+    run.pop("scope")
+    run.update(pred_ms=float(np.mean(ms)), fused=n_fused)
+    return run
+
+
+def card_cpu_steps(np, fluid, main, startup, loss, feeds):
+    """``feeds`` run through ``main`` on a card executor and, from a
+    copy of the card's initial state, on a CPU one: (card losses, CPU
+    losses, card scope)."""
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    cpu_scope = cpu_copy(np, fluid, main, scope)
+    got = {}
+    for dev, ex, sc in (("card", exe, scope), ("cpu", fluid.Executor(
+            fluid.CPUPlace()), cpu_scope)):
+        got[dev] = [float(np.asarray(ex.run(main, feed=f, fetch_list=[loss],
+                                            scope=sc)[0]).reshape(-1)[0])
+                    for f in feeds]
+    return got["card"], got["cpu"], scope
+
+
+def seq_quant_card_vs_cpu_phase(np, torch, fluid):
+    """Step 20's card-against-CPU runs at small size: the sentiment CNN at
+    embedding 16, hid 32, T 24 and tests/test_quantize_transpiler.py's
+    convnet under QAT (abs_max and range_abs_max activations), 3 steps
+    each from one state (losses within CVC_TOL); then each QAT test clone
+    frozen and converted to int8 on both sides from the card's trained
+    state: frozen and int8 outputs within 1e-5, int8 tensors equal."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.io import prune_program
+    from paddle_tpu_torch.models import understand_sentiment as sentiment
+    from paddle_tpu_torch.transpiler import QuantizeTranspiler
+
+    L = fluid.layers
+    r = np.random.RandomState(SENT_SEED + 3)
+    main, startup, _, loss, _ = sentiment_program(
+        fluid, max_len=24, emb_dim=16, hid_dim=32)
+    feeds = [sentiment.batch(np, r, 8, 24, 3) for _ in range(SEQ_CVC_STEPS)]
+    card, cpu, _ = card_cpu_steps(np, fluid, main, startup, loss, feeds)
+    err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(card, cpu))
+    print("seq/quant card vs cpu sentiment (emb 16, hid 32, T 24): losses "
+          "card %s cpu %s, max diff %.2e of max(1, |loss|) (tol %.0e)"
+          % (["%.6f" % v for v in card], ["%.6f" % v for v in cpu], err,
+             SEQ_CVC_TOL))
+    if not err <= SEQ_CVC_TOL:
+        fail("the sentiment CNN's card and CPU losses differ by %.2e" % err)
+    for act_type in ("abs_max", "range_abs_max"):
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = 3
+        qt = QuantizeTranspiler(activation_quantize_type=act_type)
+        with unique_name.guard({}), fluid.program_guard(main, startup):
+            img = L.data("img", [1, 8, 8])
+            label = L.data("label", [1], dtype="int64")
+            c = L.conv2d(img, num_filters=4, filter_size=3, padding=1,
+                         act="relu")
+            logits = L.fc(L.flatten(c), size=3)
+            loss = L.mean(L.softmax_with_cross_entropy(logits, label))
+            qt.training_transpile(main, startup)
+            test = main.clone(for_test=True)
+            fluid.optimizer.Adam(learning_rate=5e-3).minimize(loss)
+        feeds = []
+        for _ in range(SEQ_CVC_STEPS):
+            y = r.randint(0, 3, (8, 1)).astype("int64")
+            x = np.zeros((8, 1, 8, 8), "float32")
+            for i, lab in enumerate(y[:, 0]):
+                x[i, 0, int(lab) * 2:(int(lab) + 1) * 2, :] = 1.0
+            feeds.append({"img": (x + 0.1 * r.rand(8, 1, 8, 8)).astype(
+                "float32"), "label": y})
+        card, cpu, scope = card_cpu_steps(np, fluid, main, startup, loss,
+                                          feeds)
+        err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(card, cpu))
+        cpu_scope = cpu_copy(np, fluid, main, scope)
+        outs = {}
+        for dev, ex, sc in (("card", fluid.Executor(), scope),
+                            ("cpu", fluid.Executor(fluid.CPUPlace()),
+                             cpu_scope)):
+            t = prune_program(test, ["img"], [logits.name])
+            scales = qt.freeze_program(t, scope=sc)
+            (frozen,) = ex.run(t, feed={"img": feeds[0]["img"]},
+                               fetch_list=[logits], scope=sc)
+            qt.convert_to_int8(t, scope=sc, scales=scales)
+            (i8,) = ex.run(t, feed={"img": feeds[0]["img"]},
+                           fetch_list=[logits], scope=sc)
+            tensors = [sc.get_value(n + ".int8").cpu().numpy()
+                       for n in sorted(scales)]
+            outs[dev] = (np.asarray(frozen), np.asarray(i8), tensors)
+        e_frozen = rel_max(np, outs["card"][0], outs["cpu"][0])
+        e_int8 = rel_max(np, outs["card"][1], outs["cpu"][1])
+        same = all(np.array_equal(a, b) for a, b in zip(outs["card"][2],
+                                                        outs["cpu"][2]))
+        print("seq/quant card vs cpu qat convnet (%s): losses card %s cpu "
+              "%s, max diff %.2e (tol %.0e); frozen outputs %.2e, int8 "
+              "outputs %.2e relative (tol %.0e); int8 tensors equal %s"
+              % (act_type, ["%.6f" % v for v in card],
+                 ["%.6f" % v for v in cpu], err, SEQ_CVC_TOL, e_frozen,
+                 e_int8, QAT_PRED_TOL, same))
+        if not (err <= SEQ_CVC_TOL and e_frozen <= QAT_PRED_TOL
+                and e_int8 <= QAT_PRED_TOL and same):
+            fail("the QAT convnet (%s) differs between card and CPU"
+                 % act_type)
 
 
 def main():
@@ -7749,6 +8638,18 @@ def main():
     nlp_card_vs_cpu_phase(np, torch, fluid)
     nlp_sweep_phase(np, fluid)
     mark("srl, crnn, nlp card vs cpu, nlp sweep")
+    torch.cuda.empty_cache()
+    vision_quant_sweep_phase(np, torch, fluid)
+    seq_sweep_phase(np, torch, fluid)
+    mark("vision/quant and seq sweeps")
+    torch.cuda.empty_cache()
+    model_root = tempfile.mkdtemp(prefix="chip_smoke_models_")
+    qat_resnet_phase(np, torch, fluid, KERNELS, model_root)
+    torch.cuda.empty_cache()
+    sentiment_phase(np, torch, fluid, KERNELS, model_root)
+    shutil.rmtree(model_root)
+    seq_quant_card_vs_cpu_phase(np, torch, fluid)
+    mark("qat resnet, sentiment, seq/quant card vs cpu")
     print("phase seconds (since the card check, at the end of each): %s"
           % json.dumps(marks))
 

@@ -12,11 +12,9 @@ returning a new Program). Register with :func:`register_pass`; run with
 :class:`PassManager` or :func:`apply_pass`.
 
 ``fuse_batch_norm`` folds conv (+ bias) + batch_norm
-(``transpiler.InferenceTranspiler``). ``seqconv_eltadd_relu_fuse``
-stands in the list as the reference orders it, but the port registers no
-``sequence_conv`` op, so no program it runs holds one: on such a program
-it changes nothing, and on a program that holds the op (one saved by the
-JAX package) it raises, naming the ROADMAP item that ports it.
+(``transpiler.InferenceTranspiler``); ``seqconv_eltadd_relu_fuse``
+collapses sequence_conv + elementwise_add(bias) + relu into
+``fusion_seqconv_eltadd_relu``.
 """
 
 import inspect
@@ -97,15 +95,6 @@ class PassManager(object):
         return program
 
 
-def _refuse_op(program, op_type, pass_name, roadmap):
-    for block in program.blocks:
-        if any(op.type == op_type for op in block.ops):
-            raise NotImplementedError(
-                "%s: the program holds %s ops, which the port does not "
-                "run yet (ROADMAP %s)" % (pass_name, op_type, roadmap))
-    return program
-
-
 @register_pass("fuse_batch_norm")
 def _fuse_batch_norm(program, scope=None, **kwargs):
     """conv (+ bias) + batch_norm fold (ConvBNFusePass / inference
@@ -124,13 +113,6 @@ def _amp_rewrite(program, scope=None, dtype="bfloat16", **kwargs):
 
     rewrite_program_amp(program, dtype)
     return program
-
-
-@register_pass("seqconv_eltadd_relu_fuse")
-def _seqconv_eltadd_relu_fuse(program, scope=None, **kwargs):
-    """sequence_conv + bias add + relu -> fusion_seqconv_eltadd_relu."""
-    return _refuse_op(program, "sequence_conv", "seqconv_eltadd_relu_fuse",
-                      "A11")
 
 
 @register_pass("prune_feed_fetch")
@@ -367,6 +349,56 @@ def _embedding_fc_lstm_fuse(program, scope=None, feed_names=None,
                                 "fused_embedding_fc_lstm", inputs=inputs,
                                 outputs=dict(lstm.outputs), attrs=attrs)
                 block.vars.pop(m.var("mid"), None)
+                changed = True
+    program._bump_version()
+    return program
+
+
+@register_pass("seqconv_eltadd_relu_fuse")
+def _seqconv_eltadd_relu_fuse(program, scope=None, feed_names=None,
+                              fetch_names=None, **kwargs):
+    """sequence_conv + elementwise_add(persistable bias) + relu ->
+    fusion_seqconv_eltadd_relu (the reference pass of the same name)."""
+    protected = set(feed_names or ()) | set(fetch_names or ())
+    for block in program.blocks:
+        changed = True
+        while changed:
+            changed = False
+            pat = GraphPatternDetector()
+            pat.op("conv", "sequence_conv", outputs={"Out": "mid"})
+            pat.op("add", "elementwise_add",
+                   inputs={"X": "mid", "Y": "b"}, outputs={"Out": "mid2"})
+            pat.op("relu", "relu", inputs={"X": "mid2"},
+                   outputs={"Out": "out"})
+            for m, live in _live_matches(pat, block):
+                if not live:
+                    changed = True
+                    continue
+                if not _persistable(block, m.var("b")):
+                    continue
+                bvar = block.vars.get(m.var("b"))
+                if len(getattr(bvar, "shape", ()) or ()) != 1:
+                    continue
+                if m.op("add").attrs.get("axis", -1) not in (-1, 2):
+                    continue
+                if not _chain_clear(block, protected, [
+                        (m.var("mid"), m.op_index("add")),
+                        (m.var("mid2"), m.op_index("relu"))]):
+                    continue
+                conv = m.op("conv")
+                inputs = dict(conv.inputs)
+                inputs["Bias"] = [m.var("b")]
+                attrs = {k: v for k, v in conv.attrs.items()
+                         if not k.startswith("__")}
+                idxs = m.op_indices()
+                for i in reversed(idxs):
+                    block.remove_op(i)
+                block.insert_op(idxs[0], "fusion_seqconv_eltadd_relu",
+                                inputs=inputs,
+                                outputs={"Out": [m.var("out")]},
+                                attrs=attrs)
+                for label in ("mid", "mid2"):
+                    block.vars.pop(m.var(label), None)
                 changed = True
     program._bump_version()
     return program

@@ -40,6 +40,10 @@ class Scope(object):
             scope = scope._parent
         return None
 
+    def erase(self, names):
+        for n in names:
+            self._vars.pop(n, None)
+
     def new_scope(self):
         """A child scope: lookups fall through to this one."""
         return Scope(parent=self)

@@ -79,6 +79,12 @@ __all__ = [
     "mean_iou",
     "dice_loss",
     "autoincreased_step_counter",
+    "affine_channel",
+    "affine_grid",
+    "grid_sampler",
+    "lod_reset",
+    "fake_quantize_abs_max",
+    "sequence_expand",
 ]
 
 
@@ -941,3 +947,99 @@ def autoincreased_step_counter(counter_name=None, begin=1, step=1):
     return lrs._global_step_counter(
         counter_name=counter_name or "@STEP_COUNTER@", begin=begin,
         step=step)
+
+
+def affine_channel(x, scale=None, bias=None, data_layout="NCHW", name=None):
+    """Per-channel affine (nn.py:1033): out = scale_c * x + bias_c, the
+    conv + frozen-BN idiom. Without scale / bias, per-channel parameters
+    are created (1 and 0: the identity until trained)."""
+    helper = LayerHelper("affine_channel", name=name)
+    channels = int(x.shape[1] if data_layout == "NCHW" else x.shape[-1])
+    if scale is None:
+        scale = helper.create_parameter(
+            attr=None, shape=[channels], dtype=x.dtype,
+            default_initializer=init_mod.ConstantInitializer(1.0))
+    if bias is None:
+        bias = helper.create_parameter(
+            attr=None, shape=[channels], dtype=x.dtype, is_bias=True)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="affine_channel",
+        inputs={"X": [x], "Scale": [scale], "Bias": [bias]},
+        outputs={"Out": [out]},
+        attrs={"data_layout": data_layout})
+    return out
+
+
+def affine_grid(theta, out_shape, name=None):
+    """Affine sampling grid of a spatial transformer (nn.py:1060);
+    out_shape is static."""
+    helper = LayerHelper("affine_grid", name=name)
+    out = helper.create_variable_for_type_inference(theta.dtype)
+    if not isinstance(out_shape, (list, tuple)):
+        raise TypeError("affine_grid: out_shape must be a static list/tuple "
+                        "(XLA needs static shapes)")
+    helper.append_op(
+        type="affine_grid",
+        inputs={"Theta": [theta]},
+        outputs={"Output": [out]},
+        attrs={"output_shape": list(out_shape)})
+    return out
+
+
+def grid_sampler(x, grid, name=None):
+    """Bilinear sampling of x at normalized grid coordinates
+    (nn.py:1077)."""
+    helper = LayerHelper("grid_sampler", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="grid_sampler",
+        inputs={"X": [x], "Grid": [grid]},
+        outputs={"Output": [out]})
+    return out
+
+
+def lod_reset(x, target_lod=None, name=None):
+    """Re-segment a padded sequence batch (nn.py:1161): (out, length),
+    the re-chunked [B', T', ...] tensor and its Length column. The
+    segmentation is the static target_lod."""
+    if not target_lod:
+        raise ValueError(
+            "lod_reset: target_lod is required (the reference's "
+            "runtime-Y segmenter cannot exist under static XLA shapes)")
+    helper = LayerHelper("lod_reset", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    length = helper.create_variable_for_type_inference("int64")
+    helper.append_op(
+        type="lod_reset",
+        inputs={"X": [x]},
+        outputs={"Out": [out], "Length": [length]},
+        attrs={"target_lod": list(target_lod)})
+    return out, length
+
+
+def fake_quantize_abs_max(x, bit_length=8, name=None):
+    """QAT fake quantization (nn.py:1184): (quantized, scale); gradients
+    pass straight through the rounding."""
+    helper = LayerHelper("fake_quantize_abs_max", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    scale = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="fake_quantize_abs_max",
+        inputs={"X": [x]},
+        outputs={"Out": [out], "OutScale": [scale]},
+        attrs={"bit_length": bit_length})
+    return out, scale
+
+
+def sequence_expand(x, y, ref_level=-1, name=None):
+    """Each row of x repeated across y's time dimension, then flattened
+    (nn.py:1338; y supplies max_len)."""
+    helper = LayerHelper("sequence_expand", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="sequence_expand",
+        inputs={"X": [x], "Y": [y]},
+        outputs={"Out": [out]},
+        attrs={"ref_level": ref_level})
+    return out

@@ -1,16 +1,15 @@
 """Composite network helpers (python/paddle/fluid/nets.py parity).
 
 Counterpart of ``paddle_tpu/nets.py``: ``simple_img_conv_pool`` (the
-MNIST model's), ``img_conv_group`` (VGG's), ``glu`` and
-``scaled_dot_product_attention`` (plain products and a softmax, no
-kernel, as in the JAX package). ``sequence_conv_pool`` waits for
-``sequence_conv`` (ROADMAP A11).
+MNIST model's), ``img_conv_group`` (VGG's), ``sequence_conv_pool`` (the
+sentiment CNN's), ``glu`` and ``scaled_dot_product_attention`` (plain
+products and a softmax, no kernel, as in the JAX package).
 """
 
 from paddle_tpu_torch import layers
 
-__all__ = ["simple_img_conv_pool", "img_conv_group", "glu",
-           "scaled_dot_product_attention"]
+__all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool",
+           "glu", "scaled_dot_product_attention"]
 
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
@@ -59,6 +58,16 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
                 tmp = layers.dropout(x=tmp, dropout_prob=drop_rate)
     return layers.pool2d(input=tmp, pool_size=pool_size, pool_type=pool_type,
                          pool_stride=pool_stride)
+
+
+def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
+                       act="sigmoid", pool_type="max", length=None):
+    """Sequence convolution + pooling block (nets.py:109): on the padded
+    layout input is [B, T, N]; ``length`` masks the pooled tail."""
+    conv_out = layers.sequence_conv(
+        input=input, num_filters=num_filters, filter_size=filter_size,
+        param_attr=param_attr, act=act, length=length)
+    return layers.sequence_pool(conv_out, pool_type, length=length)
 
 
 def glu(input, dim=-1):

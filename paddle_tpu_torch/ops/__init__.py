@@ -27,3 +27,5 @@ from paddle_tpu_torch.ops import moe_ops  # noqa: F401
 from paddle_tpu_torch.ops import detection_ops  # noqa: F401
 from paddle_tpu_torch.ops import crf_ops  # noqa: F401
 from paddle_tpu_torch.ops import ctc_ops  # noqa: F401
+from paddle_tpu_torch.ops import quantize_ops  # noqa: F401
+from paddle_tpu_torch.ops import vision_ops  # noqa: F401

@@ -65,3 +65,19 @@ def optional_lengths(ins, x, key="Length"):
         return ins[key][0].reshape(-1).to(torch.int64)
     return torch.full((x.shape[0],), x.shape[1], dtype=torch.int64,
                       device=x.device)
+
+
+def compact_rows(x, keep, pad_value):
+    """Stable left-compaction of the kept elements of each row of ``x``
+    ``[B, T]``: (compacted, kept count ``[B]`` int32), the dropped places
+    filled with ``pad_value`` (a stable sort of the positions, kept ones
+    first, as the JAX package's ``compact_rows``)."""
+    t = x.shape[1]
+    ar = torch.arange(t, device=x.device)
+    order = torch.sort(torch.where(keep, ar[None, :], t + ar[None, :]),
+                       dim=1, stable=True).indices
+    gathered = torch.gather(x, 1, order)
+    n_keep = keep.sum(1).to(torch.int32)
+    out = torch.where(ar[None, :] < n_keep[:, None], gathered,
+                      torch.full_like(gathered, pad_value))
+    return out, n_keep

@@ -16,7 +16,7 @@ import torch
 
 from paddle_tpu_torch.core.op_registry import register_op
 from paddle_tpu_torch.kernels.ctc import ctc_loss
-from paddle_tpu_torch.ops.common import optional_lengths
+from paddle_tpu_torch.ops.common import compact_rows, optional_lengths
 
 
 def _lower_warpctc(ctx, ins, attrs):
@@ -39,22 +39,6 @@ register_op(
     no_grad_inputs=("Label", "LogitsLength", "LabelLength"),
     intermediate_outputs=("WarpCTCGrad",),
 )
-
-
-def compact_rows(x, keep, pad_value):
-    """Stable left-compaction of the kept elements of each row of ``x``
-    ``[B, T]``: (compacted, kept count ``[B]`` int32), the dropped places
-    filled with ``pad_value`` (``ops/common.py`` ``compact_rows`` of the
-    JAX package: a stable sort of the positions, kept ones first)."""
-    t = x.shape[1]
-    ar = torch.arange(t, device=x.device)
-    order = torch.sort(torch.where(keep, ar[None, :], t + ar[None, :]),
-                       dim=1, stable=True).indices
-    gathered = torch.gather(x, 1, order)
-    n_keep = keep.sum(1).to(torch.int32)
-    out = torch.where(ar[None, :] < n_keep[:, None], gathered,
-                      torch.full_like(gathered, pad_value))
-    return out, n_keep
 
 
 def _lower_ctc_align(ctx, ins, attrs):

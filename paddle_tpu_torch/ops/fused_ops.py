@@ -1,9 +1,11 @@
 """Fused ops that the inference passes (``core/passes.py``) produce: fc,
-fusion_lstm, fusion_gru and fused_embedding_fc_lstm.
+fusion_lstm, fusion_gru, fused_embedding_fc_lstm,
+fusion_seqconv_eltadd_relu and fusion_seqexpand_concat_fc.
 
-Counterpart of ``paddle_tpu/ops/fused_ops.py`` for these four (the
-reference's fc_op and fusion_{lstm,gru}_op, targets of fc_fuse_pass.cc
-and fc_{lstm,gru}_fuse_pass.cc). Each is a composition of the ops it
+Counterpart of ``paddle_tpu/ops/fused_ops.py`` for these six (the
+reference's fc_op, fusion_{lstm,gru}_op and fusion_seq* ops, targets of
+fc_fuse_pass.cc, fc_{lstm,gru}_fuse_pass.cc and
+seqconv_eltadd_relu_fuse_pass.cc). Each is a composition of the ops it
 replaces: the projection is one matrix product, and the recurrence goes
 through ``dynamic_lstm`` / ``dynamic_gru``'s lowering, so on the card a
 fused op launches the ``lstm_cell`` / ``gru_cell`` kernel as the op it
@@ -20,6 +22,7 @@ from paddle_tpu_torch.ops.rnn_ops import (
     _lower_dynamic_gru,
     _lower_dynamic_lstm,
 )
+from paddle_tpu_torch.ops.sequence_ops import _lower_sequence_conv
 from paddle_tpu_torch.ops.tensor_ops import _lower_lookup_table
 
 # the activations fc_fuse absorbs (gelu as jax.nn.gelu computes it: the
@@ -29,6 +32,7 @@ _ACT = {
     "tanh": torch.tanh,
     "sigmoid": torch.sigmoid,
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "identity": lambda x: x,
 }
 
 
@@ -124,4 +128,47 @@ register_op(
     lower=_lower_fused_embedding_fc_lstm,
     no_grad_inputs=("Ids", "Length"),
     infer_shape=_infer_rnn_shapes(("Hidden", "Cell"), "Ids", "WeightH"),
+)
+
+
+def _lower_fusion_seqconv_eltadd_relu(ctx, ins, attrs):
+    """sequence_conv + bias add + relu in one op."""
+    out = _lower_sequence_conv(ctx, ins, attrs)["Out"]
+    if ins.get("Bias"):
+        out = out + ins["Bias"][0].reshape(-1)
+    return torch.relu(out)
+
+
+register_op(
+    "fusion_seqconv_eltadd_relu",
+    inputs=["X", "Filter", "Bias", "Length"],
+    outputs=["Out"],
+    attrs={"contextLength": 3, "contextStart": -1, "contextStride": 1},
+    lower=_lower_fusion_seqconv_eltadd_relu,
+    no_grad_inputs=("Length",),
+)
+
+
+def _lower_fusion_seqexpand_concat_fc(ctx, ins, attrs):
+    """X[0] is the sequence [B, T, M0]; every further X[i] a per-sequence
+    vector [B, Mi] broadcast along T (the sequence_expand), all
+    concatenated and run through one fc."""
+    xs = ins["X"]
+    t = xs[0].shape[1]
+    cols = [xs[0]] + [v[:, None, :].expand(v.shape[0], t, v.shape[1])
+                      for v in xs[1:]]
+    out = torch.cat(cols, dim=-1) @ ins["FCWeight"][0]
+    if ins.get("FCBias"):
+        out = out + ins["FCBias"][0].reshape(-1)
+    return {"Out": _ACT[attrs.get("fc_activation", "identity")](out),
+            "FCOut": out}
+
+
+register_op(
+    "fusion_seqexpand_concat_fc",
+    inputs=["*X", "FCWeight", "FCBias"],
+    outputs=["Out", "FCOut"],
+    attrs={"fc_activation": "identity"},
+    intermediate_outputs=("FCOut",),
+    lower=_lower_fusion_seqexpand_concat_fc,
 )

@@ -1,7 +1,8 @@
 """Graph-to-graph transpilers (python/paddle/fluid/transpiler parity).
 
-Counterpart of ``paddle_tpu/transpiler/`` for ``InferenceTranspiler`` and
-the bf16 AMP rewrite (``rewrite_program_amp``, ``amp_guard``).
+Counterpart of ``paddle_tpu/transpiler/`` for ``InferenceTranspiler``,
+``QuantizeTranspiler`` and the bf16 AMP rewrite (``rewrite_program_amp``,
+``amp_guard``).
 """
 
 from paddle_tpu_torch.transpiler.amp_transpiler import (  # noqa: F401
@@ -12,4 +13,7 @@ from paddle_tpu_torch.transpiler.amp_transpiler import (  # noqa: F401
 )
 from paddle_tpu_torch.transpiler.inference_transpiler import (  # noqa: F401
     InferenceTranspiler,
+)
+from paddle_tpu_torch.transpiler.quantize_transpiler import (  # noqa: F401
+    QuantizeTranspiler,
 )

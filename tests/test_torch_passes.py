@@ -5,8 +5,9 @@ fusion tests (structure, and outputs equal to the unfused program's),
 then ``AnalysisConfig``'s op-type list against the JAX package's on the
 same saved stacked-LSTM, GRU and MLP models, outputs within 1e-5 of the
 unfused predictor's and of the JAX package's;
-``seqconv_eltadd_relu_fuse`` changes nothing on a program the port runs
-and refuses one that holds the op it rewrites. ``fuse_batch_norm``'s
+``seqconv_eltadd_relu_fuse`` changes nothing on a program without its
+chain (its fusions are held in ``tests/test_torch_sequence.py``).
+``fuse_batch_norm``'s
 folds are held in ``tests/test_torch_resnet.py``. The twins reduce with
 ``mean``."""
 
@@ -248,15 +249,17 @@ def test_registered_passes():
 @pytest.mark.parametrize("name,op_type,roadmap", [
     ("seqconv_eltadd_relu_fuse", "sequence_conv", "A11")])
 def test_unported_op_passes(name, op_type, roadmap):
-    """A no-op on a program the port runs; a refusal, naming the ROADMAP
-    item, on one that holds the op the pass rewrites (here, as the
-    deserialized program of a model the JAX package saved would)."""
+    """The pass that refused ``op_type`` until the op was ported (ROADMAP
+    ``roadmap``) is a no-op on a program without its chain, and on one
+    that holds the op without the add + relu after it (here, as the
+    deserialized program of a model the JAX package saved would) it
+    changes nothing and no longer raises."""
     main, _, _ = _mlp_infer_program()
     before = [op.type for op in main.block(0).ops]
     assert [op.type for op in apply_pass(main, name).block(0).ops] == before
     main.block(0).ops[-1].type = op_type
-    with pytest.raises(NotImplementedError, match=roadmap):
-        apply_pass(main, name)
+    after = [op.type for op in apply_pass(main, name).block(0).ops]
+    assert after == before[:-1] + [op_type]
 
 
 # -- AnalysisConfig against the JAX package on saved models --------------
