@@ -431,6 +431,35 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    range_abs_max), 3 steps on the card and the CPU from one state
    (losses within 1e-4), then both frozen and converted to int8 from the
    card's trained state: outputs within 1e-5, int8 tensors equal.
+21. Sub-blocks and control flow, after step 20 (B6's check and timing at
+   the encoder-decoder's width run with step 10's timings: ``kernel
+   lstm_cell lstm_cell_encdec*`` and ``time lstm_cell_encdec*`` lines,
+   xw [64, 50, 128], D 32, with peepholes and the batch's source
+   lengths, and without peepholes at full lengths beside
+   ``torch.nn.LSTM(32, 32)``, against its plain version within 1e-4).
+   ``dyn_rnn_lstm``: the book test's DynamicRNN LSTM
+   (four fc-sum gates in a ``recurrent`` step; embedding 32, lstm_size
+   128) on the sentiment CNN's batch (128 x 600, lengths 16..600),
+   Adagrad(0.002), 3 + 5 steps: step ms, sentences/s, peak memory,
+   launches, a profiled step's busy share, reruns gated 0, losses
+   falling, no host read; its test clone saved and served 20 times
+   through ``NativeConfig`` on 8 sentences (ms a run, outputs within 1e-5
+   of the executor's). ``encdec``: the book's RNN encoder-decoder
+   (dictionary 30,000, words 16, hidden 32; Adagrad(1e-4) with
+   L2Decay(0.1)) at batch 64, lengths 10..50, 3 + 5 steps with the same
+   figures, B6 gated at one launch a step, its device ms in the
+   profiled step. ``book card vs cpu``: one step of each at batch 16
+   (dyn_rnn_lstm's sentences cut to 120 words) on the card and on the
+   CPU from one state, the loss and every gradient
+   within 1e-4 of the largest value. ``control flow``: StaticRNN with a
+   dropout in the step, DynamicRNN masked (with gradients), a bounded
+   While with its gradient, an unbounded While growing a tensor array,
+   cond, Switch (three cases and a default), IfElse and
+   lod_tensor_to_array and back, each on the card and on the CPU (floats
+   within 1e-5, integers equal) with its host reads; then
+   ``run_multi_step`` of the bounded While's train program captured
+   against ``FLAGS_cuda_graph=0`` (equal, no host read) and the
+   unbounded While's and cond's programs refused capture by name.
 
 A line of its own before the last holds the kernels' JSON record (for
 flash_fwd, the backward pair, their bf16 entries, paged_decode (full
@@ -445,7 +474,8 @@ records carry ``"entry": "bf16"`` and the AMP train steps' launches;
 greedy_nms and det_match, the port's own, carry the ssd phase's
 launches: its train steps' and its eval head's; crf_logz, crf_logz_bwd
 and crf_viterbi the srl phase's, ctc_loss the crnn phase's; lstm_cell
-and gru_cell gain a row at the role labeller's and CRNN's shapes);
+and gru_cell gain a row at the role labeller's and CRNN's shapes,
+lstm_cell two at the encoder-decoder's);
 the last line is ``{"ok": true, "device": {...}}``. Any failure exits nonzero
 before that line. The script needs one CUDA card and the rest of the
 repository beside it: without either it fails at once.
@@ -644,7 +674,8 @@ CRNN_LR, CRNN_MOMENTUM, CRNN_L2, CRNN_SEED = 1e-3, 0.9, 4e-4, 29
 NLP_WARMUP, NLP_STEPS = 5, 20
 # what a step of each model trained through nlp_train takes in
 NLP_UNITS = {"srl": "sentences", "crnn": "images", "resnet fp32": "images",
-             "resnet qat": "images", "sentiment": "sentences"}
+             "resnet qat": "images", "sentiment": "sentences",
+             "dyn_rnn_lstm": "sentences", "encdec": "sentence pairs"}
 # K3 against its plain version: fp32 log-sum-exps in another order, over
 # up to 80 steps, relative to the largest value
 CRF_TOL = 1e-5
@@ -700,6 +731,24 @@ SENT_BATCH, SENT_LEN, SENT_MIN_LEN, SENT_EMB, SENT_HID = 128, 600, 16, 128, 512
 SENT_SEED, SENT_PRED_RUNS, SENT_PRED_TOL = 37, 20, 1e-5
 # card against CPU at small size: 3 steps, losses within this
 SEQ_CVC_STEPS, SEQ_CVC_TOL = 3, 1e-4
+# step 21: the book's DynamicRNN sentiment LSTM (dyn_rnn_lstm: embedding
+# 32, lstm_size 128) on the sentiment CNN's batches (SENT_*), and the
+# book's RNN encoder-decoder (dictionary 30,000, words 16, hidden 32,
+# Adagrad(1e-4) with L2Decay(0.1)) at batch 64, source and target
+# lengths 10..50; 3 warm-up and 5 timed steps each on a fresh executor
+BOOK_WARMUP, BOOK_STEPS = 3, 5
+ED_BATCH, ED_LEN, ED_MIN_LEN, ED_SEED = 64, 50, 10, 43
+# dyn_rnn_lstm's test clone served through a Predictor: runs, sentences a
+# run, outputs against the executor's
+BOOK_PRED_RUNS, BOOK_PRED_BATCH, BOOK_PRED_TOL = 20, 8, 1e-5
+# one step of each model on the card and on the CPU from one state, at
+# this batch (dyn_rnn_lstm's sentences cut to BOOK_CVC_LEN words: the
+# CPU's step is its 35 ops a word): the loss and every gradient within
+# BOOK_CVC_TOL of the largest value
+BOOK_CVC_BATCH, BOOK_CVC_LEN, BOOK_CVC_TOL = 16, 120, 1e-4
+# the control-flow sweep, card against CPU: floats within this, integers
+# equal
+CF_TOL = 1e-5
 # the names of matrix-product kernels in a profile (cuBLAS's GEMMs and
 # cuDNN's implicit-GEMM convolutions)
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
@@ -3523,7 +3572,9 @@ def profile_call(torch, label, fn, top=8):
                   % (label, e.self_device_time_total / 1e3, e.count,
                      name[:70]))
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, gemm_ms=gemm_ms,
-                launches=sum(e.count for e in events))
+                launches=sum(e.count for e in events),
+                kernel_ms={e.key: e.self_device_time_total / 1e3
+                           for e in events})
 
 
 class StepProbe(object):
@@ -7227,8 +7278,8 @@ def crnn_program(fluid, batch=None, channels=None):
 
 
 def nlp_train(np, torch, fluid, kernels, label, main, startup, loss, feed,
-              per_step, items):
-    """NLP_WARMUP + NLP_STEPS steps of ``main`` on a fresh executor, the
+              per_step, items, warmup=NLP_WARMUP, steps=NLP_STEPS):
+    """``warmup`` + ``steps`` steps of ``main`` on a fresh executor, the
     kernels' counts reset just before and read after the timed steps
     (``per_step``'s kernels gated > 0), one profiled step; prints and
     returns the step numbers."""
@@ -7236,7 +7287,7 @@ def nlp_train(np, torch, fluid, kernels, label, main, startup, loss, feed,
     exe = fluid.Executor()
     exe.run(startup, scope=scope)
     losses = []
-    for _ in range(NLP_WARMUP):
+    for _ in range(warmup):
         (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
         losses.append(float(np.asarray(lv).reshape(-1)[0]))
     torch.cuda.synchronize()
@@ -7246,7 +7297,7 @@ def nlp_train(np, torch, fluid, kernels, label, main, startup, loss, feed,
     step_ms = []
     gc.collect()
     gc.freeze()
-    for _ in range(NLP_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
         torch.cuda.synchronize()
@@ -7267,11 +7318,11 @@ def nlp_train(np, torch, fluid, kernels, label, main, startup, loss, feed,
           "%.1f): %.1f %s/s; peak memory %.2f GiB; card busy %.1f %% of a "
           "profiled step, %s launches a step; %s; loss step 1 %.6f, mean of "
           "the last 5 %.6f; grad-op reruns %d"
-          % (label, len(main.global_block().ops), NLP_STEPS, mean_ms,
+          % (label, len(main.global_block().ops), steps, mean_ms,
              min(step_ms), max(step_ms), items / mean_ms * 1e3,
              NLP_UNITS[label], peak, busy,
              "?" if prof is None else prof["launches"],
-             ", ".join("%s %d (%.1f a step)" % (k, n, n / NLP_STEPS)
+             ", ".join("%s %d (%.1f a step)" % (k, n, n / steps)
                        for k, n in launches.items()), losses[0], late, reran))
     print("%s: losses %s" % (label, ["%.4f" % v for v in losses]))
     if not np.isfinite(losses).all():
@@ -7288,7 +7339,8 @@ def nlp_train(np, torch, fluid, kernels, label, main, startup, loss, feed,
                 peak=peak, busy=busy, launches=launches, losses=losses,
                 min_ms=min(step_ms), max_ms=max(step_ms),
                 step_launches=None if prof is None else prof["launches"],
-                kernel_launches=counts)
+                kernel_launches=counts,
+                kernel_ms={} if prof is None else prof["kernel_ms"])
 
 
 def lstm_backward_share(torch, step_ms, n_layers):
@@ -8405,6 +8457,505 @@ def seq_quant_card_vs_cpu_phase(np, torch, fluid):
                  % act_type)
 
 
+# -- step 21: sub-blocks and control flow, the book's RNN models --------------
+
+
+def encdec_feed(np, batch, seed, dict_size=None):
+    """One batch of the encoder-decoder (models/rnn_encoder_decoder.py's
+    ``batch``): ``batch`` pairs, lengths ED_MIN_LEN..ED_LEN."""
+    from paddle_tpu_torch.models import rnn_encoder_decoder as encdec
+
+    return encdec.batch(np, np.random.RandomState(seed), batch, ED_LEN,
+                        ED_MIN_LEN, dict_size or encdec.DICT_SIZE)
+
+
+def encdec_kernel_phase(np, torch):
+    """B6 at the encoder-decoder's width (module docstring, step 21):
+    the encoder's ``dynamic_lstm`` input ``[64, 50, 128]`` (D 32) with
+    peepholes and the batch's source lengths, as the train steps give
+    it, and without peepholes at full lengths (the library's shape),
+    each against its plain version (RNN_TOL) and timed: kernel, plain
+    version, bound, and ``torch.nn.LSTM(32, 32)`` (cuDNN, which also
+    computes the input product) at the no-peephole shape. Returns (the
+    worst error, the timing rows)."""
+    from paddle_tpu_torch.kernels import lstm_cell as lc
+    from paddle_tpu_torch.models import rnn_encoder_decoder as encdec
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    B, T, D = ED_BATCH, ED_LEN, encdec.HIDDEN_DIM
+    lens = torch.from_numpy(encdec_feed(np, B, ED_SEED)["src_length"]
+                            .reshape(-1)).cuda()
+    V = float(lens.sum())
+    worst, rows = 0.0, {}
+    for name, kw in (("lstm_cell_encdec", lstm_case(torch, gen, B, T, D,
+                                                    lens=lens)),
+                     ("lstm_cell_encdec_full", lstm_case(torch, gen, B, T, D,
+                                                         peep=False))):
+        print("plan lstm_cell %-28s %s" % (name, plan_line("lstm_cell", B,
+                                                              D)))
+        outs, refs = lc.lstm_cell_forward(**kw), lc.lstm_reference(**kw)
+        torch.cuda.synchronize()
+        worst = max(worst, rnn_check(torch, "lstm_cell", name, outs, refs,
+                                     kw, False))
+    kw = copies(lstm_case(torch, gen, B, T, D, lens=lens))
+    rows["lstm_cell_encdec"] = dict(
+        shape="the encoder-decoder's encoder: xw [%d,%d,%d], D %d, "
+        "peepholes, lengths %d..%d (%d of %d steps valid)"
+        % (B, T, 4 * D, D, int(lens.min()), int(lens.max()), V, B * T),
+        ms=cuda_ms(lc.lstm_cell_forward, kw),
+        plain_ms=cuda_ms(lc.lstm_reference, kw, iters=6, reps=3),
+        library_ms=None,
+        bound=bound(4.0 * (V * 4 * D + 2 * B * T * D + 4 * D * D + 7 * D
+                           + B * T), 8.0 * V * D * D))
+    kw = copies(lstm_case(torch, gen, B, T, D, peep=False))
+    lstm = torch.nn.LSTM(D, D, batch_first=True).cuda()
+    xs = [torch.randn(B, T, D, generator=gen, device="cuda")
+          for _ in range(3)]
+    with torch.no_grad():
+        lib_ms = device_ms(torch, lambda i: lstm(xs[i]), xs)
+    rows["lstm_cell_encdec_full"] = dict(
+        shape="xw [%d,%d,%d], D %d, no peepholes, full lengths"
+        % (B, T, 4 * D, D),
+        ms=cuda_ms(lc.lstm_cell_forward, kw),
+        plain_ms=cuda_ms(lc.lstm_reference, kw, iters=6, reps=3),
+        library_ms=lib_ms,
+        bound=bound(4.0 * (B * T * 4 * D + 2 * B * T * D + 4 * D * D
+                           + 4 * D), 8.0 * B * T * D * D))
+    for name, r in rows.items():
+        lib = ("%.4f ms (torch.nn.LSTM, cuDNN, input product included; its "
+               "kernels' device time)" % r["library_ms"]
+               if r["library_ms"] is not None else "none (peepholes)")
+        print("time %-20s %s: kernel %.4f ms, plain %.4f ms, library %s, "
+              "bound %.4f ms (%s)" % (name, r["shape"], r["ms"],
+                                      r["plain_ms"], lib, r["bound"][0],
+                                      r["bound"][1]))
+    return worst, rows
+
+
+def book_program(fluid, model, **kw):
+    """The train program of ``model`` ("dyn_rnn_lstm" with Adagrad(0.002)
+    and its test clone, or "encdec" with the book's Adagrad and L2
+    decay): (main, startup, test or None, loss, prediction, params and
+    grads)."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import rnn_encoder_decoder as encdec
+    from paddle_tpu_torch.models import understand_sentiment as sentiment
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = (
+        SENT_SEED if model == "dyn_rnn_lstm" else ED_SEED)
+    test = None
+    with unique_name.guard({}), fluid.program_guard(main, startup):
+        if model == "dyn_rnn_lstm":
+            loss, _, pred = sentiment.build(fluid, net="lstm", **kw)
+            test = main.clone(for_test=True)
+            _, pg = fluid.optimizer.Adagrad(
+                learning_rate=sentiment.LEARNING_RATE).minimize(loss)
+        else:
+            loss, pred = encdec.build(fluid, **kw)
+            _, pg = encdec.optimizer(fluid).minimize(loss)
+    return main, startup, test, loss, pred, pg
+
+
+def book_predictor(np, fluid, run, test, pred, feed, model_root):
+    """dyn_rnn_lstm's test clone saved and served BOOK_PRED_RUNS times
+    through ``NativeConfig`` on BOOK_PRED_BATCH sentences: ms a run,
+    outputs against the executor's on the same sentences."""
+    from paddle_tpu_torch.inference import NativeConfig, \
+        create_paddle_predictor
+
+    exe = fluid.Executor()
+    pfeed = {k: feed[k][:BOOK_PRED_BATCH] for k in ("words", "length")}
+    (ref,) = exe.run(test, feed=dict(pfeed, label=feed["label"][
+        :BOOK_PRED_BATCH]), fetch_list=[pred], scope=run["scope"])
+    ref = np.asarray(ref)
+    path = os.path.join(model_root, "dyn_rnn_lstm")
+    fluid.io.save_inference_model(path, ["words", "length"], [pred], exe,
+                                  main_program=test, scope=run["scope"])
+    p = create_paddle_predictor(NativeConfig(path))
+    outs, ms = [], []
+    for _ in range(BOOK_PRED_RUNS):
+        t0 = time.perf_counter()
+        (o,) = p.run(pfeed)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(np.asarray(o))
+    err = max(float(np.abs(o - ref).max()) for o in outs)
+    types = [op.type for op in p._program.global_block().ops]
+    print("dyn_rnn_lstm predictor (NativeConfig, the card): %d ops, %d "
+          "blocks (%s recurrent); %d runs of %d sentences (lengths "
+          "%d..%d): %.2f ms a run (min %.2f, max %.2f), %.1f sentences/s; "
+          "against the executor's test run max abs diff %.2e (tol %.0e)"
+          % (len(types), p._program.num_blocks, types.count("recurrent"),
+             BOOK_PRED_RUNS, BOOK_PRED_BATCH, int(pfeed["length"].min()),
+             int(pfeed["length"].max()), float(np.mean(ms)), min(ms),
+             max(ms), BOOK_PRED_BATCH / float(np.mean(ms)) * 1e3, err,
+             BOOK_PRED_TOL))
+    if types.count("recurrent") != 1 or not err <= BOOK_PRED_TOL:
+        fail("the dyn_rnn_lstm predictor: %s, diff %.3e" % (types, err))
+    return float(np.mean(ms)), err
+
+
+def book_rnn_phase(np, torch, fluid, kernels, model_root):
+    """Step 21's two book models at their widths: BOOK_WARMUP +
+    BOOK_STEPS steps each (``nlp_train``: step ms, rate, peak memory,
+    launches, a profiled step's busy share, reruns gated 0, losses
+    falling), dyn_rnn_lstm's test clone through a ``Predictor``, and the
+    encoder-decoder's B6 launches and device ms in the profiled step.
+    Returns {model: run}."""
+    from paddle_tpu_torch.models import rnn_encoder_decoder as encdec
+    from paddle_tpu_torch.models import understand_sentiment as sentiment
+    from paddle_tpu_torch.ops import subblock_ops
+
+    out = {}
+    main, startup, test, loss, pred, _ = book_program(
+        fluid, "dyn_rnn_lstm", max_len=SENT_LEN)
+    feed = sentiment.batch(np, np.random.RandomState(SENT_SEED), SENT_BATCH,
+                           SENT_LEN, SENT_MIN_LEN)
+    print("dyn_rnn_lstm: the book test's DynamicRNN LSTM (four fc-sum "
+          "gates in the step), vocabulary %d, embedding %d, lstm_size %d, "
+          "%d classes, batch %d x %d (lengths %d..%d), Adagrad(%g); %d ops "
+          "in block 0, %d in the step"
+          % (sentiment.WORD_DICT, sentiment.LSTM_EMB_DIM,
+             sentiment.LSTM_SIZE, sentiment.CLASS_DIM, SENT_BATCH, SENT_LEN,
+             int(feed["length"].min()), int(feed["length"].max()),
+             sentiment.LEARNING_RATE, len(main.global_block().ops),
+             len(main.block(1).ops)))
+    subblock_ops.reset_host_reads()
+    run = nlp_train(np, torch, fluid, kernels, "dyn_rnn_lstm", main, startup,
+                    loss, feed, (), SENT_BATCH, warmup=BOOK_WARMUP,
+                    steps=BOOK_STEPS)
+    if any(subblock_ops.HOST_READS.values()):
+        fail("dyn_rnn_lstm read a predicate on the host: %s"
+             % subblock_ops.HOST_READS)
+    fired = {k: n for k, n in run["kernel_launches"].items() if n}
+    print("dyn_rnn_lstm: %.1f ms a step (min %.1f, max %.1f), %.1f "
+          "sentences/s, peak %.2f GiB, card busy %.1f %%, %s launches a "
+          "step; hand-written kernels launched: %s"
+          % (run["step_ms"], run["min_ms"], run["max_ms"], run["rate"],
+             run["peak"], run["busy"], run["step_launches"],
+             fired or "none"))
+    run["pred_ms"], run["pred_err"] = book_predictor(
+        np, fluid, run, test, pred, feed, model_root)
+    run.pop("scope")
+    out["dyn_rnn_lstm"] = run
+    main, startup, _, loss, _, _ = book_program(
+        fluid, "encdec", max_src_len=ED_LEN, max_trg_len=ED_LEN)
+    feed = encdec_feed(np, ED_BATCH, ED_SEED)
+    print("encdec: the book's RNN encoder-decoder (fc tanh, dynamic_lstm, "
+          "last step; a DynamicRNN decoder from the context), dictionary "
+          "%d, words %d, hidden %d, batch %d, source lengths %d..%d, "
+          "target lengths %d..%d, Adagrad(%g) with L2Decay(%g)"
+          % (encdec.DICT_SIZE, encdec.WORD_DIM, encdec.HIDDEN_DIM, ED_BATCH,
+             int(feed["src_length"].min()), int(feed["src_length"].max()),
+             int(feed["target_length"].min()),
+             int(feed["target_length"].max()), encdec.LEARNING_RATE,
+             encdec.L2_COEFF))
+    run = nlp_train(np, torch, fluid, kernels, "encdec", main, startup, loss,
+                    feed, ("lstm_cell",), ED_BATCH, warmup=BOOK_WARMUP,
+                    steps=BOOK_STEPS)
+    b6 = [ms for k, ms in run["kernel_ms"].items() if "lstm_cell_kernel" in k]
+    print("encdec: %.1f ms a step (min %.1f, max %.1f), %.1f sentence "
+          "pairs/s, peak %.2f GiB, card busy %.1f %%, %s launches a step; "
+          "lstm_cell (B6, D %d) %d launches in %d timed steps, %s in the "
+          "profiled step"
+          % (run["step_ms"], run["min_ms"], run["max_ms"], run["rate"],
+             run["peak"], run["busy"], run["step_launches"],
+             encdec.HIDDEN_DIM, run["launches"]["lstm_cell"], BOOK_STEPS,
+             "%.4f device ms" % sum(b6) if b6 else
+             "not in the profiler's trace (not measured)"))
+    if run["launches"]["lstm_cell"] != BOOK_STEPS:
+        fail("encdec: %d lstm_cell launches in %d steps"
+             % (run["launches"]["lstm_cell"], BOOK_STEPS))
+    run["b6_profiled_ms"] = sum(b6) if b6 else None
+    run.pop("scope")
+    out["encdec"] = run
+    return out
+
+
+def book_card_vs_cpu_phase(np, torch, fluid):
+    """Both book models, one step each on the card and on the CPU from
+    the card's initial state (``cpu_copy``, the convert module's
+    persistables carry), at batch BOOK_CVC_BATCH (dyn_rnn_lstm at
+    BOOK_CVC_LEN words): the loss and every parameter's gradient within
+    BOOK_CVC_TOL of each value's largest entry."""
+    from paddle_tpu_torch.models import understand_sentiment as sentiment
+
+    cases = [
+        ("dyn_rnn_lstm", dict(max_len=BOOK_CVC_LEN), sentiment.batch(
+            np, np.random.RandomState(SENT_SEED + 5), BOOK_CVC_BATCH,
+            BOOK_CVC_LEN, SENT_MIN_LEN)),
+        ("encdec", dict(max_src_len=ED_LEN, max_trg_len=ED_LEN),
+         encdec_feed(np, BOOK_CVC_BATCH, ED_SEED + 5))]
+    for model, kw, feed in cases:
+        main, startup, _, loss, _, pg = book_program(fluid, model, **kw)
+        names = [g.name for _, g in pg]
+        exe = fluid.Executor()
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        cpu_scope = cpu_copy(np, fluid, main, scope)
+        got = {}
+        for dev, ex, sc in (("card", exe, scope), ("cpu", fluid.Executor(
+                fluid.CPUPlace()), cpu_scope)):
+            got[dev] = [np.asarray(v) for v in ex.run(
+                main, feed=feed, fetch_list=[loss] + names, scope=sc)]
+        # each value against its own largest entry (1e-6 at least)
+        errs = [float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                  1e-6)
+                for a, b in zip(got["card"], got["cpu"])]
+        print("book card vs cpu %s (batch %d x %d): loss card %.6f cpu "
+              "%.6f, relative diff %.2e; %d gradients, worst %.2e of the "
+              "largest value (tol %.0e)"
+              % (model, BOOK_CVC_BATCH, feed.get(
+                  "words", feed.get("src_word_id")).shape[1],
+                 float(got["card"][0].reshape(-1)[0]),
+                 float(got["cpu"][0].reshape(-1)[0]), errs[0], len(names),
+                 max(errs[1:]), BOOK_CVC_TOL))
+        if not max(errs) <= BOOK_CVC_TOL:
+            fail("book card vs cpu %s: %.3e" % (model, max(errs)))
+
+
+def cf_cases(np, fluid):
+    """The control-flow sweep's programs: (name, build(fluid) -> fetch
+    vars, feeds), each as tests/test_torch_control_flow.py builds it."""
+    L = fluid.layers
+    r = np.random.RandomState(47)
+
+    def static_rnn_dropout(fl):
+        inp = L.data("x", shape=[6, 64])
+        rnn = L.StaticRNN()
+        with rnn.step():
+            x_t = rnn.step_input(inp)
+            h_prev = rnn.memory(shape=[-1, 64], batch_ref=inp,
+                                init_value=1.0)
+            h = L.elementwise_add(L.dropout(x_t, dropout_prob=0.5), h_prev)
+            rnn.update_memory(h_prev, h)
+            rnn.step_output(h)
+        return [rnn()]
+
+    def dynamic_rnn(fl):
+        x = L.data("x", shape=[7, 16])
+        ln = L.data("len", shape=[1], dtype="int64")
+        rnn = L.DynamicRNN(lengths=ln)
+        with rnn.block():
+            w = rnn.step_input(x)
+            h_prev = rnn.memory(shape=[-1, 32], batch_ref=x)
+            h = L.fc(input=[w, h_prev], size=32, act="tanh")
+            rnn.update_memory(h_prev, h)
+            rnn.output(h)
+        out = rnn()
+        loss = L.mean(L.square(L.sequence_last_step(out, length=ln)))
+        grads = fl.backward.append_backward(loss)
+        return [out, loss] + [g for _, g in sorted(
+            grads, key=lambda pg: pg[0].name)]
+
+    def bounded_while(fl):
+        x = L.data(name="x", shape=[8], append_batch_size=False)
+        w = L.create_parameter([8], "float32", name="w_loop")
+        acc = L.fill_constant([8], "float32", 0.0)
+        i = L.fill_constant([1], "int64", 0)
+        limit = L.fill_constant([1], "int64", 5)
+        cond = L.less_than(i, limit)
+        loop = L.While(cond, max_iterations=8)
+        with loop.block():
+            acc2 = L.elementwise_add(acc, L.tanh(L.elementwise_mul(x, w)))
+            L.assign(acc2, acc)
+            L.increment(i, value=1, in_place=True)
+            L.less_than(i, limit, cond=cond)
+        loss = L.mean(L.square(acc))
+        return [loss, acc, i] + fl.backward.calc_gradient([loss], [w])
+
+    def unbounded_array(fl):
+        x = L.data("x", shape=[5])
+        i = L.fill_constant([1], "int64", 1)
+        limit = L.fill_constant([1], "int64", 6)
+        arr = L.array_write(x, L.fill_constant([1], "int64", 0),
+                            capacity=8)
+        cond = L.less_than(i, limit)
+        w = L.While(cond)
+        with w.block():
+            prev = L.array_read(arr, L.elementwise_sub(
+                i, L.fill_constant([1], "int64", 1)))
+            L.array_write(L.tanh(L.scale(prev, scale=2.0)), i, array=arr)
+            L.increment(i, value=1, in_place=True)
+            L.less_than(i, limit, cond=cond)
+        return [L.array_read(arr, L.fill_constant([1], "int64", 5)),
+                L.array_read(arr, L.fill_constant([1], "int64", 11)),
+                L.array_length(arr), i]
+
+    def cond(fl):
+        x = L.data("x", shape=[4])
+        p = L.data("p", shape=[1], dtype="bool", append_batch_size=False)
+        return [L.cond(p, lambda: L.scale(x, scale=2.0),
+                       lambda: L.tanh(x))]
+
+    def switch(fl):
+        x = L.data("x", shape=[1], append_batch_size=False)
+        out = L.fill_constant([1], "float32", 0.0)
+        sw = L.Switch()
+        with sw.case(L.less_than(x, L.fill_constant([1], "float32", 1.0))):
+            L.assign(L.scale(x, scale=10.0), out)
+        with sw.case(L.less_than(x, L.fill_constant([1], "float32", 2.0))):
+            L.assign(L.scale(x, scale=100.0), out)
+        with sw.case(L.less_than(x, L.fill_constant([1], "float32", 3.0))):
+            L.assign(L.fill_constant([1], "float32", -3.0), out)
+        with sw.default():
+            L.assign(L.fill_constant([1], "float32", -1.0), out)
+        return [out]
+
+    def ifelse(fl):
+        x = L.data("x", shape=[3])
+        c = L.data("c", shape=[1], dtype="bool")
+        ie = L.IfElse(c)
+        with ie.true_block():
+            ie.output(L.scale(x, scale=10.0))
+        with ie.false_block():
+            ie.output(L.tanh(x))
+        return list(ie())
+
+    def lod_array(fl):
+        x = L.data("x", shape=[5, 3])
+        x.stop_gradient = False
+        ln = L.data("len", shape=[1], dtype="int64")
+        table = L.lod_rank_table(x, lengths=ln)
+        arr = L.lod_tensor_to_array(x, table)
+        back = L.array_to_lod_tensor(arr, table)
+        loss = L.reduce_sum(L.square(back))
+        return [back, L.array_length(arr)] + fl.backward.calc_gradient(
+            [loss], [x])
+
+    f32 = lambda *shape: r.randn(*shape).astype("float32")  # noqa: E731
+    return [
+        ("StaticRNN dropout", static_rnn_dropout,
+         [{"x": np.ones((4, 6, 64), "float32")}]),
+        ("DynamicRNN masked", dynamic_rnn,
+         [{"x": f32(5, 7, 16), "len": np.array([[3], [7], [1], [5], [7]],
+                                                "int64")}]),
+        ("bounded While + grad", bounded_while, [{"x": f32(8)}]),
+        ("unbounded While + array", unbounded_array, [{"x": f32(3, 5)}]),
+        ("cond", cond, [{"x": f32(2, 4), "p": np.array([v])}
+                        for v in (True, False)]),
+        ("Switch", switch, [{"x": np.array([v], "float32")}
+                            for v in (0.5, 1.5, 2.5, 7.0)]),
+        ("IfElse", ifelse, [{"x": f32(4, 3), "c": np.array(
+            [[True], [False], [True], [False]])}]),
+        ("lod_tensor_to_array and back", lod_array,
+         [{"x": f32(2, 5, 3), "len": np.array([[2], [5]], "int64")}]),
+    ]
+
+
+def control_flow_phase(np, torch, fluid):
+    """The control-flow sweep (module docstring, step 21): each
+    construct's program run on the card and on the CPU (each side its
+    own startup: the initializers' threefry draws are bit-equal), floats
+    within CF_TOL, integers equal, the host reads of each; then
+    ``run_multi_step`` of the bounded While's train program captured
+    against ``FLAGS_cuda_graph=0`` (equal), and the unbounded While's
+    and cond's programs refused capture by name."""
+    from paddle_tpu_torch import flags, unique_name
+    from paddle_tpu_torch.ops import subblock_ops
+
+    def build(fn):
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = 53
+        with unique_name.guard({}), fluid.program_guard(main, startup):
+            fetch = fn(fluid)
+        return main, startup, fetch
+
+    for name, fn, feeds in cf_cases(np, fluid):
+        main, startup, fetch = build(fn)
+        got, reads = {}, {}
+        for dev, exe in (("card", fluid.Executor()),
+                         ("cpu", fluid.Executor(fluid.CPUPlace()))):
+            scope = fluid.Scope()
+            exe.run(startup, scope=scope)
+            subblock_ops.reset_host_reads()
+            got[dev] = [[np.asarray(v) for v in exe.run(
+                main, feed=f, fetch_list=fetch, scope=scope)] for f in feeds]
+            reads[dev] = dict(subblock_ops.HOST_READS)
+            if dev == "card":
+                torch.cuda.synchronize()
+        worst, same = 0.0, True
+        for a_run, b_run in zip(got["card"], got["cpu"]):
+            for a, b in zip(a_run, b_run):
+                if np.issubdtype(b.dtype, np.floating):
+                    worst = max(worst, float(np.abs(a - b).max()))
+                else:
+                    same = same and np.array_equal(a.astype(np.int64),
+                                                   b.astype(np.int64))
+        types = sorted({op.type for blk in main.blocks for op in blk.ops
+                        if op.type in ("recurrent", "while", "while_grad",
+                                       "cond", "where_select",
+                                       "write_to_array", "read_from_array",
+                                       "lod_tensor_to_array",
+                                       "array_to_lod_tensor",
+                                       "recurrent_grad")})
+        print("control flow %-30s %d blocks, %s; %d run(s): card vs cpu "
+              "max abs diff %.2e (tol %.0e), integers equal %s; host reads "
+              "on the card: while %d, cond %d"
+              % (name, main.num_blocks, ", ".join(types), len(feeds), worst,
+                 CF_TOL, same, reads["card"]["while"], reads["card"]["cond"]))
+        if not (worst <= CF_TOL and same) or reads["card"] != reads["cpu"]:
+            fail("control flow %s: card and CPU differ (%.3e, %s, reads %s "
+                 "against %s)" % (name, worst, same, reads["card"],
+                                  reads["cpu"]))
+    cases = {n: (fn, feeds) for n, fn, feeds in cf_cases(np, fluid)}
+    fn, feeds = cases["bounded While + grad"]
+
+    def train_loop(fl):
+        out = fn(fl)
+        fl.optimizer.SGD(learning_rate=0.1).minimize(out[0])
+        return out[:3]
+
+    got, launches = {}, {}
+    for graph in (True, False):
+        flags.set_flag("cuda_graph", graph)
+        try:
+            main, startup, fetch = build(train_loop)
+            exe = fluid.Executor()
+            scope = fluid.Scope()
+            exe.run(startup, scope=scope)
+            subblock_ops.reset_host_reads()
+            got[graph] = [[np.asarray(v) for v in exe.run_multi_step(
+                main, 4, feed=feeds[0], fetch_list=fetch, scope=scope)]
+                for _ in range(3)]
+            torch.cuda.synchronize()
+            launches[graph] = (exe.graph_stats()["graphs"],
+                               exe.eager_multi_step,
+                               dict(subblock_ops.HOST_READS))
+        finally:
+            flags.set_flag("cuda_graph", True)
+    equal = all(np.array_equal(a, b) for ra, rb in zip(got[True], got[False])
+                for a, b in zip(ra, rb))
+    print("control flow capture: the bounded While's train program, 3 "
+          "run_multi_step calls of 4 steps: captured (graphs %d, eager "
+          "loops %d, host reads %s) against FLAGS_cuda_graph=0 (eager "
+          "loops %d): equal %s; losses %s"
+          % (launches[True][0], launches[True][1], launches[True][2],
+             launches[False][1], equal,
+             ["%.6f" % float(r[0].reshape(-1)[0]) for r in got[True]]))
+    if not (equal and launches[True][0] == 1 and launches[True][1] == 0
+            and launches[False][1] == 3
+            and not any(launches[True][2].values())):
+        fail("control flow capture: the captured bounded While differs from "
+             "the eager loop")
+    for name, op in (("unbounded While + array", "while"), ("cond", "cond")):
+        fn, feeds = cases[name]
+        main, startup, fetch = build(fn)
+        exe = fluid.Executor()
+        exe.run(startup)
+        try:
+            exe.run_multi_step(main, 2, feed=feeds[0], fetch_list=fetch)
+        except RuntimeError as e:
+            if "'%s'" % op not in str(e):
+                fail("control flow capture of %s: refused without naming "
+                     "%r: %s" % (name, op, e))
+            print("control flow capture %s: refused (%s)" % (name, e))
+        else:
+            fail("control flow capture of %s was not refused" % name)
+        if exe.graph_stats()["graphs"]:
+            fail("control flow capture of %s left a graph" % name)
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "paddle_tpu_torch")):
         fail("paddle_tpu_torch/ is not beside chip_smoke.py: run it from "
@@ -8491,6 +9042,10 @@ def main():
             for i, (n, per_sm, ms) in enumerate(plans))))
     worst.update(rnn_kernel_phase(torch))
     rnn_timing = rnn_timing_phase(torch)
+    # B6 at the encoder-decoder's width (step 21), beside the other RNN
+    # timings: its library time is a profiler trace too
+    encdec_worst, encdec_timing = encdec_kernel_phase(np, torch)
+    worst["lstm_cell"] = max(worst["lstm_cell"], encdec_worst)
     for kname, widths in (("lstm_cell", (RNN_HID, RNN_PKG_HID,
                                           SRL_HIDDEN // 4)),
                           ("gru_cell", (RNN_HID, RNN_PKG_HID, CRNN_RNN))):
@@ -8650,6 +9205,14 @@ def main():
     shutil.rmtree(model_root)
     seq_quant_card_vs_cpu_phase(np, torch, fluid)
     mark("qat resnet, sentiment, seq/quant card vs cpu")
+    torch.cuda.empty_cache()
+    model_root = tempfile.mkdtemp(prefix="chip_smoke_models_")
+    book = book_rnn_phase(np, torch, fluid, KERNELS, model_root)
+    shutil.rmtree(model_root)
+    torch.cuda.empty_cache()
+    book_card_vs_cpu_phase(np, torch, fluid)
+    control_flow_phase(np, torch, fluid)
+    mark("book rnn, control flow")
     print("phase seconds (since the card check, at the end of each): %s"
           % json.dumps(marks))
 
@@ -8745,16 +9308,21 @@ def main():
              "%d launches" % ([r["launches"] for r in flash_shapes],
                               flash_total))
     rnn_timing.update(nlp_rnn)
+    rnn_timing.update(encdec_timing)
+    encdec_launches = book["encdec"]["launches"]["lstm_cell"]
     lstm_shapes = shape_rows(rnn_timing, [
         ("lstm_cell_D%d" % RNN_HID, lstm_infer + lstm_train + lstm_pred),
         ("lstm_cell_D%d_full" % RNN_HID, 0),
         ("lstm_cell_D%d" % RNN_PKG_HID, 0),
         ("lstm_cell_D%d_full" % RNN_PKG_HID, 0),
         ("lstm_cell_mt", mt_launches),
-        ("lstm_cell_srl", srl_run["launches"]["lstm_cell"])],
+        ("lstm_cell_srl", srl_run["launches"]["lstm_cell"]),
+        ("lstm_cell_encdec", encdec_launches),
+        ("lstm_cell_encdec_full", 0)],
         "the stacked LSTM's training, inference and predictor runs (D 512), "
-        "the MT steps (the MT shape) or the role labeller's timed steps "
-        "(the srl shape)")
+        "the MT steps (the MT shape), the role labeller's timed steps "
+        "(the srl shape) or the encoder-decoder's timed steps (the encdec "
+        "shape)")
     gru_shapes = shape_rows(rnn_timing, [
         ("gru_cell_D%d" % RNN_HID, gru_train + gru_pred),
         ("gru_cell_D%d" % RNN_PKG_HID, 0),
@@ -8890,7 +9458,8 @@ def main():
         dict(rnn_record("lstm_cell", "lstm_cell.py", 94,
                         lstm_infer + lstm_train + lstm_pred + mt_launches
                         + fe_launches["lstm_cell"]
-                        + srl_run["launches"]["lstm_cell"]),
+                        + srl_run["launches"]["lstm_cell"]
+                        + encdec_launches),
              shapes=lstm_shapes),
         dict(rnn_record("gru_cell", "gru_cell.py", 55,
                         gru_train + gru_pred

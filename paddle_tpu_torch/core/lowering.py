@@ -21,6 +21,15 @@ marked, each op's inputs are cast by the white and black lists
 are the cast tensors and a white op's gradients come back in bf16. The
 tape's checks (``TapeEntry.snapshot`` / ``holds``) still read the
 tensors the environment holds, never the cast copies.
+
+Sub-blocks (``lower_sub_block``): the control-flow ops
+(``ops/subblock_ops.py``: ``recurrent``, ``while``, ``cond``) run a
+nested block's ops over an environment of their own, op by op through
+the same ``lower_op`` (AMP casts included), with the parent's
+``is_test``. A sub-block has no forward tape and no release plan of its
+own: on a train step the whole loop runs inside its op's forward tape
+entry, so every inner tensor stays on autograd's graph until the
+control-flow op returns.
 """
 
 from paddle_tpu_torch.core import amp as amp_core
@@ -44,6 +53,8 @@ class BlockLowerer(object):
         # grad ops that reran their forward (no tape entry, or one whose
         # inputs changed since the forward); the executor collects it
         self.grad_reruns = 0
+        # block idx -> the BlockLowerer of a sub-block this one runs
+        self._subs = {}
 
     def analyze(self, scope_names, feed_names):
         """Classify variable usage for a run.
@@ -57,21 +68,35 @@ class BlockLowerer(object):
         defined = set(feed_names)
         state_in, state_out = [], []
         seen_in, seen_out = set(), set()
-        for op in self.block.ops:
+        for op, block in self._iter_ops_recursive(self.block):
             for name in _valid(op.input_arg_names()):
                 if name in defined or name in seen_in:
                     continue
-                v = self.block._find_var_recursive(name)
+                v = block._find_var_recursive(name)
                 if v is not None and v.persistable and name in scope_names:
                     seen_in.add(name)
                     state_in.append(name)
             for name in _valid(op.output_arg_names()):
                 defined.add(name)
-                v = self.block._find_var_recursive(name)
+                v = block._find_var_recursive(name)
                 if v is not None and v.persistable and name not in seen_out:
                     seen_out.add(name)
                     state_out.append(name)
         return state_in, state_out
+
+    def _iter_ops_recursive(self, block):
+        """(op, its block) over ``block`` and, depth first after each op,
+        the blocks its ``sub_block`` / ``block`` / ``true_block`` /
+        ``false_block`` attrs name (``paddle_tpu/core/lowering.py:75-83``)."""
+        for op in block.ops:
+            yield op, block
+            for attr in ("sub_block", "block", "true_block", "false_block"):
+                idx = op.attrs.get(attr)
+                if isinstance(idx, int) and 0 <= idx < \
+                        self.program.num_blocks:
+                    for item in self._iter_ops_recursive(
+                            self.program.block(idx)):
+                        yield item
 
     def release_plan(self, keep):
         """For each op, the variable names no later op reads or writes and
@@ -139,7 +164,13 @@ class BlockLowerer(object):
             names = op.input(slot)
             if names:
                 try:
-                    ins[slot] = [env[n] for n in _valid(names)]
+                    if slot.endswith("@GRAD"):
+                        # a grad slot keeps its places beside the forward
+                        # outputs: a hole (no gradient reaches that
+                        # output) is None
+                        ins[slot] = [env[n] if n else None for n in names]
+                    else:
+                        ins[slot] = [env[n] for n in _valid(names)]
                 except KeyError as e:
                     raise RuntimeError(
                         "op %s reads uninitialized variable %s "
@@ -177,6 +208,19 @@ class BlockLowerer(object):
                             for n in _valid(op.input(s))])
             tape[grad_index] = entry
 
+    def lower_sub_block(self, block_idx, env, device, step_key):
+        """Run the ops of block ``block_idx`` over ``env`` (updated in
+        place and returned) with the parent's ``is_test``; ``step_key``
+        (a ``prng.KeyChain``, None during shape inference) keys them as
+        a block's run key does. No forward tape, no release plan."""
+        sub = self._subs.get(block_idx)
+        if sub is None:
+            sub = BlockLowerer(self.program, block_idx, is_test=self.is_test)
+            self._subs[block_idx] = sub
+        for op in sub.block.ops:
+            sub.lower_op(op, env, device, step_key)
+        return env
+
 
 def _make_rng(step_key, attrs):
     """An op's key, as the JAX package derives it
@@ -185,6 +229,9 @@ def _make_rng(step_key, attrs):
     ``fold_in(PRNGKey(seed), __rng_id__)``, the same every step);
     otherwise ``fold_in(step_key, __rng_id__)``. A ``prng.KeyChain``:
     nothing is computed until an op draws."""
+    if step_key is None:
+        # shape inference inside a sub-block: nothing draws
+        return lambda: None
     rng_id = int(attrs.get("__rng_id__", 0))
     seed = int(attrs.get("seed", 0) or 0)
 

@@ -170,12 +170,14 @@ def wanted_grads(grad_op, fwd_def):
 
 
 def _diff_index(ins, wanted):
-    """[(slot, i)]: the inputs both wanted and floating point."""
+    """[(slot, i)]: the inputs both wanted and floating-point tensors (a
+    tensor array, ``core.types.TensorArray``, takes no gradient)."""
     out = []
     for slot, arrs in ins.items():
         wants = wanted.get(slot, [False] * len(arrs))
         for i, a in enumerate(arrs):
-            if i < len(wants) and wants[i] and a.is_floating_point():
+            if (i < len(wants) and wants[i] and isinstance(a, torch.Tensor)
+                    and a.is_floating_point()):
                 out.append((slot, i))
     return out
 
@@ -262,13 +264,14 @@ class TapeEntry(object):
     def snapshot(self, tensors):
         """The tensors the forward's input names hold after the forward
         (a state input the op rewrites, as batch_norm's moving
-        statistics, holds the op's new value)."""
-        self.inputs = [(t, t._version) for t in tensors]
+        statistics, holds the op's new value; a tensor array has no
+        version and is compared by identity)."""
+        self.inputs = [(t, getattr(t, "_version", None)) for t in tensors]
 
     def holds(self, tensors):
         """The grad op reads exactly what the snapshot saw, unmodified."""
         return len(tensors) == len(self.inputs) and all(
-            t is u and t._version == v
+            t is u and getattr(t, "_version", None) == v
             for t, (u, v) in zip(tensors, self.inputs))
 
 

@@ -55,6 +55,15 @@ class CPUPlace(Place):
         return torch.device("cpu")
 
 
+class CUDAPinnedPlace(CPUPlace):
+    """Pinned host memory (place.h:51): a host place, as in the JAX
+    package; feeds reach the card from it as from ``CPUPlace``."""
+
+
+def core_version():
+    return "paddle_tpu_torch-core-0.1"
+
+
 class VarType(object):
     """Variable type tags (framework.proto:105 VarType.Type)."""
 
@@ -65,6 +74,25 @@ class VarType(object):
     LOD_TENSOR_ARRAY = "lod_tensor_array"
     READER = "reader"
     RAW = "raw"
+
+
+class TensorArray(object):
+    """A tensor array on the device (``VarType.LOD_TENSOR_ARRAY``): a
+    ``[capacity, ...]`` buffer and its ``size`` (an int32 scalar tensor),
+    the JAX package's ``(buffer, size)`` pair. Every array op keeps both
+    on the device: none reads the index or the size on the host. It has
+    no ``shape``: build-time shape inference leaves an array variable's
+    shape unknown, as the JAX package's does."""
+
+    __slots__ = ("buffer", "size")
+
+    def __init__(self, buffer, size):
+        self.buffer = buffer
+        self.size = size
+
+    def __repr__(self):
+        return "TensorArray(buffer %s %s, size %s)" % (
+            tuple(self.buffer.shape), self.buffer.dtype, self.size)
 
 
 _DTYPE_ALIASES = {

@@ -84,7 +84,13 @@ from paddle_tpu_torch.core import prng
 from paddle_tpu_torch.core.lowering import BlockLowerer
 from paddle_tpu_torch.kernels import build as _kbuild
 from paddle_tpu_torch.core.scope import Scope
-from paddle_tpu_torch.core.types import CUDAPlace, Place, device_dtype
+from paddle_tpu_torch.core.types import (
+    CUDAPlace,
+    Place,
+    TensorArray,
+    VarType,
+    device_dtype,
+)
 
 _global_scope = Scope()
 _scope_stack = [_global_scope]
@@ -107,7 +113,13 @@ def scope_guard(scope):
 def _to_numpy(t):
     """A numpy array the caller owns: the host copy of a card tensor, or
     a copy of a CPU tensor (which may be a scope value that a later run
-    writes in place)."""
+    writes in place). A tensor array becomes a ``LoDTensorArray`` of its
+    ``size`` written rows."""
+    if isinstance(t, TensorArray):
+        from paddle_tpu_torch.layers.control_flow import LoDTensorArray
+
+        n = int(t.size)
+        return LoDTensorArray(_to_numpy(t.buffer[j]) for j in range(n))
     t = t.detach()
     if t.dtype == torch.bfloat16:
         return _bf16_numpy(t)
@@ -161,6 +173,8 @@ def _nan_check_start(named):
         return None
     names, finite = [], []
     for name, t in named:
+        if isinstance(t, TensorArray):
+            t = t.buffer
         if isinstance(t, torch.Tensor) and t.is_floating_point():
             names.append(name)
             finite.append(torch.isfinite(t).all())
@@ -306,9 +320,14 @@ class Executor(object):
         for name, value in feed.items():
             # always a copy: ops that update state in place must never
             # write into the caller's array
+            var = program.global_block()._find_var_recursive(name)
+            if var is not None and var.type == VarType.LOD_TENSOR_ARRAY:
+                raise TypeError(
+                    "feed %r: a tensor array variable cannot be fed; write "
+                    "it in the program (array_write, lod_tensor_to_array)"
+                    % name)
             t = value.clone() if isinstance(value, torch.Tensor) else \
                 torch.from_numpy(np.array(value))
-            var = program.global_block()._find_var_recursive(name)
             if var is not None and var.dtype:
                 want = device_dtype(var.dtype)
                 same_kind = (t.dtype.is_floating_point
@@ -490,6 +509,7 @@ class Executor(object):
                 "creates persistables mid-run: %s" % sorted(extra_out))
         plan = (state_in, state_out, release, pairs)
         if self.graph_capturer is not None and flags.get("cuda_graph"):
+            _refuse_host_reads(program)
             out = self._graph_loop(program, steps, feeds, fetch_names, scope,
                                    plan, stack_fetches)
         else:
@@ -618,6 +638,29 @@ class Executor(object):
         allocator) and the analysis cache."""
         self._graphs.clear()
         self._analysis.clear()
+
+
+def _refuse_host_reads(program):
+    """A captured loop cannot read the card on the host: refuse, naming
+    the op, a program that holds an unbounded ``while`` (its condition
+    is read every iteration) or a ``cond`` (its predicate), in any
+    block. A bounded ``while`` (``max_iterations > 0``) reads nothing
+    and is captured."""
+    for block in program.blocks:
+        for i, op in enumerate(block.ops):
+            if op.type == "cond" or (
+                    op.type == "while"
+                    and not op.attrs.get("max_iterations", 0)):
+                what = ("reads its predicate" if op.type == "cond" else
+                        "reads its condition every iteration "
+                        "(max_iterations=0)")
+                raise RuntimeError(
+                    "run_multi_step cannot capture program %#x: op %r "
+                    "(block %d, op %d) %s on the host, which a CUDA graph "
+                    "cannot hold; bound the loop (While(cond, "
+                    "max_iterations=N)), or run the eager loop with "
+                    "FLAGS_cuda_graph=0" % (id(program), op.type,
+                                            block.idx, i, what))
 
 
 class _CUDAGraphCapturer(object):

@@ -62,6 +62,12 @@ class Variable(object):
     def ndim(self):
         return None if self.shape is None else len(self.shape)
 
+    def astype(self, dtype):
+        """This variable cast to ``dtype`` (a ``cast`` op)."""
+        from paddle_tpu_torch.layers import tensor as tensor_layers
+
+        return tensor_layers.cast(self, dtype)
+
     def __repr__(self):
         return "Variable(%s, shape=%s, dtype=%s%s)" % (
             self.name, self.shape, self.dtype,
@@ -183,6 +189,7 @@ class Block(object):
         self.parent_idx = parent_idx
         self.vars = {}  # name -> Variable
         self.ops = []
+        self.forward_block_idx = -1
 
     @property
     def parent_block(self):
@@ -208,6 +215,9 @@ class Block(object):
     def has_var(self, name):
         return name in self.vars
 
+    def has_var_recursive(self, name):
+        return self._find_var_recursive(name) is not None
+
     def create_var(self, name=None, **kwargs):
         from paddle_tpu_torch import unique_name
 
@@ -229,6 +239,21 @@ class Block(object):
         global_block.vars[name] = p
         self.program._bump_version()
         return p
+
+    def rename_var(self, old, new):
+        """Rename ``old`` to ``new`` in this block's symbol table and in
+        every op of the block."""
+        v = self.vars.pop(old)
+        v.name = new
+        self.vars[new] = v
+        for op in self.ops:
+            for names in list(op.inputs.values()) + list(
+                    op.outputs.values()):
+                for i, n in enumerate(names):
+                    if n == old:
+                        names[i] = new
+        self.program._bump_version()
+        return v
 
     def append_op(self, type, inputs=None, outputs=None, attrs=None,
                   infer_shape=True):
@@ -253,6 +278,16 @@ class Block(object):
         self.program._bump_version()
         return op
 
+    def prepend_op(self, type, inputs=None, outputs=None, attrs=None):
+        op = Operator(self, type, inputs, outputs, attrs)
+        self.ops.insert(0, op)
+        try:
+            _infer_op_shapes(self, op)
+        except Exception:
+            self.program._defer_shape_inference(self.idx, op)
+        self.program._bump_version()
+        return op
+
     def insert_op(self, index, type, inputs=None, outputs=None, attrs=None):
         """An op at ``index`` with no shape inference: the graph passes
         splice ops between ones whose outputs are already typed."""
@@ -267,6 +302,9 @@ class Block(object):
 
     def all_parameters(self):
         return [v for v in self.vars.values() if isinstance(v, Parameter)]
+
+    def iter_parameters(self):
+        return iter(self.all_parameters())
 
 
 class Program(object):
@@ -303,6 +341,19 @@ class Program(object):
 
     def current_block(self):
         return self.blocks[self.current_block_idx]
+
+    def create_block(self, parent_idx=None):
+        """A new block whose parent is ``parent_idx`` (the current block
+        by default); it becomes the current block."""
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        b = Block(self, len(self.blocks), parent_idx=parent)
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        return b
+
+    def rollback(self):
+        """Make the current block's parent current again."""
+        self.current_block_idx = self.current_block().parent_idx
 
     def _bump_version(self):
         self._version += 1
@@ -477,6 +528,34 @@ def _infer_op_shapes(block, op):
 
 def grad_var_name(name):
     return name + "@GRAD"
+
+
+_name_scope_stack = []
+
+
+@contextlib.contextmanager
+def name_scope(prefix=None):
+    """A naming scope for the ops built inside (framework.py name_scope
+    parity: kept on a stack, names are not prefixed)."""
+    _name_scope_stack.append(prefix or "")
+    try:
+        yield
+    finally:
+        _name_scope_stack.pop()
+
+
+def cpu_places(device_count=None):
+    """``device_count`` CPU places (one by default)."""
+    return [CPUPlace(i) for i in range(device_count or 1)]
+
+
+def tpu_places(device_ids=None):
+    """The card places (``TPUPlace`` is ``CUDAPlace``): the given ids, or
+    one per visible card (one where torch sees none, as the JAX package
+    falls back to its default devices)."""
+    if device_ids is None:
+        device_ids = range(max(1, torch.cuda.device_count()))
+    return [CUDAPlace(i) for i in device_ids]
 
 
 # ---------------------------------------------------------------------------

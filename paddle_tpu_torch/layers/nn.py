@@ -10,7 +10,7 @@ import numpy as np
 
 from paddle_tpu_torch import initializer as init_mod
 from paddle_tpu_torch.layer_helper import LayerHelper
-from paddle_tpu_torch.layers.ops import relu  # noqa: F401  (re-export)
+from paddle_tpu_torch.layers.ops import log, relu  # noqa: F401  (re-export)
 from paddle_tpu_torch.param_attr import ParamAttr
 
 __all__ = [
@@ -42,6 +42,7 @@ __all__ = [
     "transpose",
     "gather",
     "relu",
+    "log",
     "softmax",
     "mean",
     "topk",

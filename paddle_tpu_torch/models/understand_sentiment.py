@@ -1,7 +1,11 @@
-"""The sentiment classifier of the PaddlePaddle book, chapter 6
-(``understand_sentiment``, ``convolution_net``): an embedding, two
-``nets.sequence_conv_pool`` branches (windows 3 and 4, tanh, sqrt
-pooling), a softmax ``fc`` over both, cross entropy, Adagrad.
+"""The sentiment classifiers of the PaddlePaddle book, chapter 6
+(``understand_sentiment``): ``convolution_net`` (an embedding, two
+``nets.sequence_conv_pool`` branches, windows 3 and 4, tanh, sqrt
+pooling, a softmax ``fc`` over both) and ``dyn_rnn_lstm`` (the book
+test's LSTM written out of ``fc`` gates inside a ``DynamicRNN`` step,
+``python/paddle/fluid/tests/book/test_understand_sentiment.py``: an
+embedding of 32, a tanh ``fc`` of 128, the step, the last step, a
+softmax ``fc``); cross entropy, Adagrad.
 
 The JAX package has no such model file. ``build`` takes the framework
 module (``paddle_tpu_torch`` by default), so that the same network is
@@ -14,6 +18,8 @@ with ``<unk>``), embedding 128, ``hid_dim`` 512, 2 classes, batch 128,
 
 WORD_DICT, EMB_DIM, HID_DIM, CLASS_DIM = 5148, 128, 512, 2
 LEARNING_RATE = 0.002
+# dyn_rnn_lstm's widths in the book test
+LSTM_EMB_DIM, LSTM_SIZE = 32, 128
 
 
 def convolution_net(fluid, data, length, input_dim=WORD_DICT,
@@ -32,19 +38,71 @@ def convolution_net(fluid, data, length, input_dim=WORD_DICT,
                            act="softmax")
 
 
+def dyn_rnn_lstm(fluid, data, length, input_dim=WORD_DICT,
+                 class_dim=CLASS_DIM, emb_dim=LSTM_EMB_DIM,
+                 lstm_size=LSTM_SIZE):
+    """The book test's ``dyn_rnn_lstm``: the class probabilities
+    ``[B, class_dim]``. Each of the four gates is the sum of two ``fc``s
+    (the word's, with a bias, and the previous hidden state's, without);
+    the cell and hidden states are the step's memories. The padded words
+    ``[B, T, E]`` go through ``fc(num_flatten_dims=2)``; ``DynamicRNN``
+    masks every step past a sentence's ``length``, so the last step is
+    taken at each sentence's length. The upstream ``memory(value=...)``
+    keyword is ``init_value`` in both packages."""
+    L = fluid.layers
+    emb = L.embedding(input=data, size=[input_dim, emb_dim], is_sparse=True)
+    sentence = L.fc(input=emb, size=lstm_size, act="tanh",
+                    num_flatten_dims=2)
+    rnn = L.DynamicRNN(lengths=length)
+    with rnn.block():
+        word = rnn.step_input(sentence)
+        prev_hidden = rnn.memory(shape=[-1, lstm_size], batch_ref=sentence,
+                                 init_value=0.0)
+        prev_cell = rnn.memory(shape=[-1, lstm_size], batch_ref=sentence,
+                               init_value=0.0)
+
+        def gate_common(ipt, hidden, size):
+            gate0 = L.fc(input=ipt, size=size, bias_attr=True)
+            gate1 = L.fc(input=hidden, size=size, bias_attr=False)
+            return gate0 + gate1
+
+        forget_gate = L.sigmoid(x=gate_common(word, prev_hidden, lstm_size))
+        input_gate = L.sigmoid(x=gate_common(word, prev_hidden, lstm_size))
+        output_gate = L.sigmoid(x=gate_common(word, prev_hidden, lstm_size))
+        cell_gate = L.sigmoid(x=gate_common(word, prev_hidden, lstm_size))
+        cell = forget_gate * prev_cell + input_gate * cell_gate
+        hidden = output_gate * L.tanh(x=cell)
+        rnn.update_memory(prev_cell, cell)
+        rnn.update_memory(prev_hidden, hidden)
+        rnn.output(hidden)
+    last = L.sequence_last_step(rnn(), length=length)
+    return L.fc(input=last, size=class_dim, act="softmax")
+
+
 def build(fluid=None, max_len=600, input_dim=WORD_DICT, class_dim=CLASS_DIM,
-          emb_dim=EMB_DIM, hid_dim=HID_DIM):
-    """Data layers (``words``, ``length``, ``label``), the network, its
-    mean cross entropy and accuracy. Returns (avg_cost, accuracy,
-    prediction); the caller clones for test and minimizes."""
+          emb_dim=None, hid_dim=None, net="conv"):
+    """Data layers (``words``, ``length``, ``label``), the network
+    (``net="conv"``: ``convolution_net``; ``"lstm"``: ``dyn_rnn_lstm``,
+    with ``emb_dim`` its embedding and ``hid_dim`` its ``lstm_size``;
+    each net's book widths by default), its mean cross entropy and
+    accuracy. Returns (avg_cost, accuracy, prediction); the caller clones
+    for test and minimizes."""
     if fluid is None:
         import paddle_tpu_torch as fluid
+    if emb_dim is None:
+        emb_dim = LSTM_EMB_DIM if net == "lstm" else EMB_DIM
+    if hid_dim is None:
+        hid_dim = LSTM_SIZE if net == "lstm" else HID_DIM
     L = fluid.layers
     words = L.data(name="words", shape=[max_len], dtype="int64")
     length = L.data(name="length", shape=[1], dtype="int64")
     label = L.data(name="label", shape=[1], dtype="int64")
-    prediction = convolution_net(fluid, words, length, input_dim, class_dim,
-                                 emb_dim, hid_dim)
+    if net == "lstm":
+        prediction = dyn_rnn_lstm(fluid, words, length, input_dim,
+                                  class_dim, emb_dim, hid_dim)
+    else:
+        prediction = convolution_net(fluid, words, length, input_dim,
+                                     class_dim, emb_dim, hid_dim)
     cost = L.cross_entropy(input=prediction, label=label)
     avg_cost = L.mean(cost)
     accuracy = L.accuracy(input=prediction, label=label)

@@ -14,6 +14,7 @@ from paddle_tpu_torch.ops import io_ops  # noqa: F401
 from paddle_tpu_torch.ops import loss_ops  # noqa: F401
 from paddle_tpu_torch.ops import nn_ops  # noqa: F401
 from paddle_tpu_torch.ops import control_flow_ops  # noqa: F401
+from paddle_tpu_torch.ops import subblock_ops  # noqa: F401
 from paddle_tpu_torch.ops import attention_ops  # noqa: F401
 from paddle_tpu_torch.ops import sequence_ops  # noqa: F401
 from paddle_tpu_torch.ops import sampling_ops  # noqa: F401

@@ -1,8 +1,9 @@
 """Comparison and logical ops, increment, is_empty and where_select.
 
 Counterpart of ``paddle_tpu/ops/control_flow_ops.py`` for its elementwise
-ops (the sub-block ops are A11's). The comparisons broadcast as numpy
-does and ignore their ``axis`` attr, as the JAX package's do.
+ops (the sub-block ops are in ``subblock_ops.py``). The comparisons
+broadcast as numpy does and ignore their ``axis`` attr, as the JAX
+package's do.
 """
 
 import torch

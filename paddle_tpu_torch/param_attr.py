@@ -38,3 +38,12 @@ class ParamAttr(object):
         if isinstance(arg, bool):
             return ParamAttr() if arg else ParamAttr(trainable=False)
         raise TypeError("cannot convert %r to ParamAttr" % (arg,))
+
+
+class WeightNormParamAttr(ParamAttr):
+    """A parameter attribute carrying the weight-norm ``dim``
+    (param_attr.py WeightNormParamAttr parity)."""
+
+    def __init__(self, dim=None, **kwargs):
+        super(WeightNormParamAttr, self).__init__(**kwargs)
+        self.dim = dim

@@ -146,8 +146,12 @@ class SlotDecodeSession(object):
     def __init__(self, exe, num_slots, max_length=64, d_model=128,
                  bos_id=1, eos_id=2, scope=None, paged=False,
                  page_size=8, num_pages=None, num_groups=None, steps=1,
-                 sampler=None, prefix_cache_pages=0, speculative=None,
-                 degradation=None, **decoder_cfg):
+                 sampler=None, prefix_cache_pages=0, degradation=None,
+                 beam_width=1, speculative=None, **decoder_cfg):
+        if int(beam_width) != 1:
+            raise NotImplementedError(
+                "beam decode (beam_width > 1) is not ported yet (ROADMAP.md "
+                "A7: ops/beam_search_ops.py and the lane-tiled session)")
         # speculative decode config: int K (n-gram drafter) or a dict
         # {"k": K, "drafter": "ngram"|"model", ...drafter kwargs}
         if speculative is None:
