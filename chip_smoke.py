@@ -234,8 +234,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    (``resnet graph-data``) the same model with bench.py's default data,
    ``random_data_generator`` drawing the batch on the card, 5 + 10 steps:
    images/s beside the host-fed number, 3 threefry launches a step.
-14. ``optim``: the model of step 9 with ``GradientClipByGlobalNorm(1.0)``
-   and ``L2Decay`` trained 3 steps on the card and on the CPU with each
+14. ``optim``: the model of step 9, cut to one layer at its widths and
+   one sequence a step, with ``GradientClipByGlobalNorm(1.0)`` and
+   ``L2Decay`` trained 3 steps on the card and on the CPU with each
    of Momentum, Nesterov Momentum, LarsMomentum, Adagrad, Adamax,
    DecayedAdagrad, Adadelta, RMSProp (plain and centered) and Ftrl, then
    Momentum with ``L1Decay``; the Momentum run also builds a
@@ -375,9 +376,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    PaddlePaddle book's role labeller (``db_lstm``, depth 8, hidden 512,
    the CoNLL-2005 dictionaries, the CRF, ``chunk_eval`` IOB with 29
    chunk types), batch 32, lengths 5..80, SGD on ``exponential_decay``,
-   5 + 20 steps; ``crnn``: CRNN-CTC (``crnn_ctc_model.py``: [1, 48, 512]
+   3 + 10 steps; ``crnn``: CRNN-CTC (``crnn_ctc_model.py``: [1, 48, 512]
    images, 96 classes with the blank, GRU width 200), batch 32,
-   ``Momentum`` with L2 decay, 5 + 20 steps: step ms, sentences or
+   ``Momentum`` with L2 decay, 3 + 10 steps: step ms, sentences or
    images a second, peak memory, a profiled step's busy share and
    launches, each kernel's launches a step (gated > 0), grad-op reruns
    (gated 0), losses finite and falling; then each test clone decodes
@@ -407,7 +408,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    Momentum as step 13 trains it, first float32 and then with
    ``QuantizeTranspiler(activation_quantize_type="range_abs_max")
    .training_transpile`` before ``minimize`` (104 fake quantize /
-   dequantize pairs), 5 + 20 steps each on a fresh executor: step ms
+   dequantize pairs), 3 + 10 steps each on a fresh executor: step ms
    (mean, min, max), images/s, peak memory, a profiled step's busy share
    and launches (the fake quantize ops' launches as the QAT step's less
    the float32 step's), grad-op reruns gated 0, losses finite and
@@ -422,7 +423,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    largest). ``sentiment``: the PaddlePaddle book's ch. 6
    ``convolution_net`` at its widths (vocabulary 5,148, embedding 128,
    windows 3 and 4 of 512, batch 128 x 600, lengths 16..600,
-   Adagrad(0.002)), 5 + 20 steps with the same figures, then saved and
+   Adagrad(0.002)), 3 + 10 steps with the same figures, then saved and
    served 20 times through ``AnalysisConfig`` (the "inference" passes;
    the branches are tanh, so nothing is fused): ms a run, outputs within
    1e-5 of the in-session test run. ``seq/quant card vs cpu``: the
@@ -451,15 +452,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    profiled step. ``book card vs cpu``: one step of each at batch 16
    (dyn_rnn_lstm's sentences cut to 120 words) on the card and on the
    CPU from one state, the loss and every gradient
-   within 1e-4 of the largest value. ``control flow``: StaticRNN with a
+   within 1e-4 of the largest value. ``control flow``: the programs of
+   ``paddle_tpu_torch.testing.control_flow_cases`` (StaticRNN with a
    dropout in the step, DynamicRNN masked (with gradients), a bounded
    While with its gradient, an unbounded While growing a tensor array,
    cond, Switch (three cases and a default), IfElse and
-   lod_tensor_to_array and back, each on the card and on the CPU (floats
+   lod_tensor_to_array and back), each on the card and on the CPU (floats
    within 1e-5, integers equal) with its host reads; then
    ``run_multi_step`` of the bounded While's train program captured
    against ``FLAGS_cuda_graph=0`` (equal, no host read) and the
    unbounded While's and cond's programs refused capture by name.
+
+Every profiler trace (``trace_call``) is held to what ran while it was
+taken: each kernel-launch call of the traced call must have its kernel,
+and each hand-written kernel as many events as its wrapper counted. The
+profiler drops the device events of a trace's first launches, more of
+them the longer the process has run, so spin kernels launched ahead of
+the call take that loss (``lead_in``, left out of every figure); a trace
+that still falls short is taken again with a longer lead-in, and one
+that stays short is reported as not measured (``device_ms`` fails).
 
 A line of its own before the last holds the kernels' JSON record (for
 flash_fwd, the backward pair, their bf16 entries, paged_decode (full
@@ -568,8 +579,11 @@ RESNET_LR, RESNET_MOMENTUM, RESNET_SEED = 0.1, 0.9, 5
 RESNET_WARMUP, RESNET_STEPS = 10, 20
 RESNET_PRED_BATCH = 8
 RESNET_PRED_TOL = 1e-4  # AnalysisConfig (batch norms folded) vs Native
-# the optimizers against the CPU, on step 9's model (the CPU starts from
-# the card's initialized scope: its startup draws nothing)
+# the optimizers against the CPU, on step 9's model cut to one layer at
+# its widths and to one sequence a step (the CPU's steps took most of the
+# phase; the update rules are the same at any depth or batch); the CPU
+# starts from the card's initialized scope: its startup draws nothing
+OPTIM_LAYERS, OPTIM_BATCH = 1, 1
 OPTIM_CLIP, OPTIM_L2, OPTIM_L1 = 1.0, 1e-4, 1e-4
 OPTIM_AVG_RATE = 0.15
 
@@ -671,7 +685,7 @@ SRL_LABELS, SRL_LR, SRL_SEED = 59, (0.01, 100000, 0.5), 23
 CRNN_BATCH, CRNN_IMG, CRNN_CLASSES, CRNN_RNN = 32, (1, 48, 512), 95, 200
 CRNN_CHANNELS, CRNN_MAX_LABEL, CRNN_MIN_LABEL = (16, 32, 64, 128), 24, 4
 CRNN_LR, CRNN_MOMENTUM, CRNN_L2, CRNN_SEED = 1e-3, 0.9, 4e-4, 29
-NLP_WARMUP, NLP_STEPS = 5, 20
+NLP_WARMUP, NLP_STEPS = 3, 10
 # what a step of each model trained through nlp_train takes in
 NLP_UNITS = {"srl": "sentences", "crnn": "images", "resnet fp32": "images",
              "resnet qat": "images", "sentiment": "sentences",
@@ -855,34 +869,157 @@ def eager_ms(fn, inputs, iters=30):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, inputs, iters=10):
-    """Device milliseconds per call of ``fn(i)``: the time of its kernels,
-    summed from a torch.profiler trace of ``iters`` calls cycling through
-    ``inputs`` (after one warm-up call on each), so the host's launch
-    cost does not enter it. For a library call with many launches that a
-    CUDA graph may not hold (cuDNN's LSTM, autograd's backward of
-    ``scaled_dot_product_attention``). A trace can come back with
-    no device event; it is taken once more, and a second empty one
-    fails the run rather than report a time of 0."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# The kernel-launch calls (cudaLaunch*, cuLaunch*) a trace records.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaLaunchCooperativeKernel")
+# A hand-written kernel's symbols in a trace, where they are not its name
+# followed by ``_kernel``.
+KERNEL_SYMBOLS = {"flash_fwd": ("flash_fwd_rows_kernel",
+                                "flash_fwd_tiled_kernel"),
+                  "ctc_loss": ("ctc_kernel",)}
+# Host ms of spin kernels launched ahead of the traced call, one entry
+# per try (``trace_call``), and the name of the call's own range.
+TRACE_LEAD_IN_MS = (250.0, 1000.0, 3000.0)
+TRACE_MARK = "chip_smoke.traced_call"
 
-    for i in range(len(inputs)):
-        fn(i)
-    torch.cuda.synchronize()
-    for _ in range(2):
+
+def trace_symbol(name):
+    """A device event's kernel name without its return type, namespace,
+    template and parameters."""
+    head = name.replace("(anonymous namespace)::", "")
+    head = head.split("<")[0].split("(")[0].strip()
+    return head.split("::")[-1].split(" ")[-1]
+
+
+def lead_in(torch, ms):
+    """Tiny spin kernels (``torch.cuda._sleep``), one every 0.1 ms for
+    ``ms`` of host time, launched at the head of a trace: the profiler
+    drops the device events of a trace's first launches, more of them
+    the longer the process has run, and these take that loss instead of
+    the traced call."""
+    end = time.perf_counter() + ms / 1e3
+    while time.perf_counter() < end:
+        torch.cuda._sleep(100)
+        time.sleep(1e-4)
+
+
+def traced_kernels(prof):
+    """The device entries of ``prof.key_averages()`` with device time,
+    but ``lead_in``'s spin kernels and the device side of the
+    ``TRACE_MARK`` range."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0 and e.key != TRACE_MARK
+            and trace_symbol(e.key) != "spin_kernel"]
+
+
+def trace_gaps(prof, counted):
+    """What a trace lacks of what was launched in its ``TRACE_MARK``
+    range: the kernel-launch calls (``LAUNCH_CALLS``) there with no
+    device event of the same CUPTI correlation id, and the hand-written
+    kernels whose wrappers counted more launches (``counted``: {name:
+    n}) than the trace holds events of their symbols. Returns {"calls",
+    "lost" (the calls without their kernel: (name, its place among the
+    calls)), "short" ({kernel: (counted, traced)}), "lag_ms" (the least
+    and the median time from a launch call to its kernel's start:
+    negative where the trace maps the device's clock early)}."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    since = min([e.time_range.start for e in events if e.name == TRACE_MARK
+                 and e.device_type == DeviceType.CPU] or [0.0])
+    launched, started, symbols = [], {}, {}
+    for e in events:
+        if e.name == TRACE_MARK:
+            continue
+        if e.device_type == DeviceType.CUDA:
+            t = e.time_range.start
+            started[e.id] = min(started.get(e.id, t), t)
+            sym = trace_symbol(e.name)
+            symbols[sym] = symbols.get(sym, 0) + 1
+        elif e.name in LAUNCH_CALLS and e.time_range.start >= since:
+            launched.append((e.time_range.start, e.id, e.name))
+    launched.sort()
+    lost = [(name, k) for k, (_, i, name) in enumerate(launched)
+            if i not in started]
+    lags = sorted(started[i] - t for t, i, _ in launched if i in started)
+    short = {}
+    for name, n in counted.items():
+        got = sum(symbols.get(sym, 0)
+                  for sym in KERNEL_SYMBOLS.get(name, (name + "_kernel",)))
+        if got < n:
+            short[name] = (n, got)
+    nan = float("nan")
+    return dict(calls=len(launched), lost=lost, short=short,
+                lag_ms=(lags[0] / 1e3 if lags else nan,
+                        lags[len(lags) // 2] / 1e3 if lags else nan))
+
+
+def trace_call(torch, label, fn):
+    """``fn()`` under torch.profiler, in a ``TRACE_MARK`` range after a
+    ``lead_in``, held to what it launched (``trace_gaps``, with the
+    launch counts ``fn`` added to the wrappers' handles). A trace that
+    lacks a kernel is taken again with the next of
+    ``TRACE_LEAD_IN_MS``; each try prints its ``trace`` line (launch
+    calls, those without their kernel, short counts, the least and
+    median launch-to-start times). Returns (the profile, ``fn``'s wall
+    ms), or None (every number of it not measured) when the last try
+    still lacks some."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from paddle_tpu_torch.kernels import KERNELS
+
+    for lead_ms in TRACE_LEAD_IN_MS:
+        before = {n: k.launches for n, k in KERNELS.items()}
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for j in range(iters):
-                fn(j % len(inputs))
-            torch.cuda.synchronize()
-        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA)
-        if busy_us > 0:
-            return busy_us / 1e3 / iters
-        print("device_ms: a profiler trace held no device event; tracing "
-              "again")
-    fail("device_ms: two profiler traces held no device event")
+            lead_in(torch, lead_ms)
+            with record_function(TRACE_MARK):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        counted = {n: k.launches - before[n] for n, k in KERNELS.items()
+                   if k.launches > before[n]}
+        gaps = trace_gaps(prof, counted)
+        print("%s trace: %d kernel-launch calls, %d without their kernel%s; "
+              "hand-written kernels short %s; launch to start least %.3f "
+              "ms, median %.3f; lead-in %.0f ms"
+              % (label, gaps["calls"], len(gaps["lost"]),
+                 " (%s)" % ", ".join("%s, call %d" % c
+                                     for c in gaps["lost"][:4])
+                 if gaps["lost"] else "", gaps["short"] or "none",
+                 gaps["lag_ms"][0], gaps["lag_ms"][1], lead_ms))
+        if not gaps["lost"] and not gaps["short"]:
+            return prof, wall_ms
+    print("%s trace: still incomplete after %d tries (not measured)"
+          % (label, len(TRACE_LEAD_IN_MS)))
+    return None
+
+
+def device_ms(torch, fn, inputs, iters=10):
+    """Device milliseconds per call of ``fn(i)``: the time of its kernels,
+    summed from a torch.profiler trace (``trace_call``) of ``iters``
+    calls cycling through ``inputs`` (after one warm-up call on each), so
+    the host's launch cost does not enter it. For a library call with
+    many launches that a CUDA graph may not hold (cuDNN's LSTM,
+    autograd's backward of ``scaled_dot_product_attention``). A trace
+    that stays incomplete, or holds no device time, fails the run rather
+    than report a time short of the truth."""
+    for i in range(len(inputs)):
+        fn(i)
+    traced = trace_call(torch, "device_ms", lambda: [
+        fn(j % len(inputs)) for j in range(iters)])
+    if traced is None:
+        fail("device_ms: the profiler's trace lacks kernels that ran")
+    busy_us = sum(e.self_device_time_total
+                  for e in traced_kernels(traced[0]))
+    if not busy_us > 0:
+        fail("device_ms: the profiler's trace holds no device time")
+    return busy_us / 1e3 / iters
 
 
 def bound(nbytes, flops, peak_flops=PEAK_FP32_FLOPS):
@@ -3527,27 +3664,21 @@ def train_feed(np, batch):
 
 
 def profile_call(torch, label, fn, top=8):
-    """``fn()`` under torch.profiler: prints its wall time, the device's
-    busy share of it, the matrix-product kernels' share of the busy time
-    (names with one of ``GEMM_NAMES``), the device time by kernel (the
-    ``top`` largest) and that of each of the port's flash kernels (names
-    starting ``flash_``, a ``port kernel`` line each); returns
-    {"wall_ms", "busy_ms", "gemm_ms"}, or None where the trace holds no
-    device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    """``fn()`` under torch.profiler (``trace_call``: a trace that lacks
+    a kernel that ran is taken again): prints its wall time, the
+    device's busy share of it, the matrix-product kernels' share of the
+    busy time (names with one of ``GEMM_NAMES``), the device time by
+    kernel (the ``top`` largest) and that of each of the port's flash
+    kernels (names starting ``flash_``, a ``port kernel`` line each);
+    returns {"wall_ms", "busy_ms", "gemm_ms", "launches", "kernel_ms"},
+    or None where the trace stayed incomplete or holds no device
+    time."""
+    traced = trace_call(torch, label, fn)
+    if traced is None:
+        return None
+    prof, wall_ms = traced
     # the kernels themselves (CPU-side ops also carry their kernels' time)
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
+    events = traced_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     if not events:
         print("%s profile: no device time in the trace (not measured)"
@@ -5694,8 +5825,8 @@ def optim_runs(fluid):
 
 
 def optim_program(fluid, make_opt, average):
-    """Step 9's Transformer-base (dropout 0) with global-norm clipping
-    and ``make_opt()``; with ``average``, a ModelAverage and the loss's
+    """Step 9's Transformer-base at OPTIM_LAYERS layers (dropout 0) with
+    global-norm clipping and ``make_opt()``; with ``average``, a ModelAverage and the loss's
     forward slice to evaluate it. Returns (main, startup, loss, average,
     eval program)."""
     from paddle_tpu_torch import unique_name
@@ -5708,7 +5839,7 @@ def optim_program(fluid, make_opt, average):
     with unique_name.guard({}), fluid.program_guard(main, startup):
         loss, _, _ = transformer.build(
             src_vocab_size=VOCAB, trg_vocab_size=VOCAB, max_length=MAX_LEN,
-            n_layer=N_LAYER, n_head=N_HEAD, d_model=D_MODEL,
+            n_layer=OPTIM_LAYERS, n_head=N_HEAD, d_model=D_MODEL,
             d_inner=D_INNER, dropout=0.0, label_smooth_eps=LABEL_SMOOTH)
         fluid.clip.set_gradient_clip(
             fluid.clip.GradientClipByGlobalNorm(OPTIM_CLIP), program=main)
@@ -5733,7 +5864,8 @@ def optim_phase(np, torch, fluid, exe):
     from paddle_tpu_torch.convert import params_from_numpy
     from paddle_tpu_torch.testing import set_deterministic_params
 
-    feed = {k: v[:CVC_BATCH] for k, v in train_feed(np, TRAIN_BATCH).items()}
+    feed = {k: v[:OPTIM_BATCH]
+            for k, v in train_feed(np, TRAIN_BATCH).items()}
     cpu = fluid.Executor(fluid.CPUPlace())
     params, worst = None, 0.0
     for name, make_opt in optim_runs(fluid):
@@ -7378,7 +7510,7 @@ def lstm_backward_share(torch, step_ms, n_layers):
 
 def srl_phase(np, torch, fluid, kernels):
     """The role labeller at the book's widths (module docstring, step
-    19): 5 + 20 SGD steps on one batch, then decoding and chunk_eval on
+    19): 3 + 10 SGD steps on one batch, then decoding and chunk_eval on
     the test clone. Returns the step numbers and the launches (the
     decode's Viterbi launch included)."""
     main, startup, test, loss, extras = srl_program(fluid)
@@ -7418,7 +7550,7 @@ def srl_phase(np, torch, fluid, kernels):
 
 def crnn_phase(np, torch, fluid, kernels):
     """CRNN-CTC at 48 x 512, 95 classes (module docstring, step 19):
-    5 + 20 Momentum steps on one batch, then greedy decoding and the
+    3 + 10 Momentum steps on one batch, then greedy decoding and the
     edit distance on the test clone."""
     main, startup, test, loss, extras = crnn_program(fluid)
     feed = crnn_feed(np, CRNN_BATCH, CRNN_SEED)
@@ -8134,7 +8266,7 @@ def train_mode_freeze(np, fluid, exe, fwd, predict, qt, scope, pfeed):
 
 def qat_resnet_phase(np, torch, fluid, kernels, model_root):
     """ResNet-50 at 128 x 224^2, float32 and then quantization-aware
-    (module docstring, step 20), each 5 + 20 Momentum steps on a fresh
+    (module docstring, step 20), each 3 + 10 Momentum steps on a fresh
     executor; the training-mode forward frozen on a copy of the state
     (its outputs against the QAT forward's reported beside the JAX
     test's 0.15);
@@ -8299,7 +8431,7 @@ def sentiment_program(fluid, **kw):
 
 def sentiment_phase(np, torch, fluid, kernels, model_root):
     """The book's sentiment CNN at its widths (module docstring, step 20):
-    5 + 20 Adagrad steps on one batch, then the test clone saved and
+    3 + 10 Adagrad steps on one batch, then the test clone saved and
     served 20 times through ``AnalysisConfig`` (the "inference" passes)
     against the in-session test run."""
     from paddle_tpu_torch.inference import AnalysisConfig, \
@@ -8547,7 +8679,7 @@ def book_program(fluid, model, **kw):
     test = None
     with unique_name.guard({}), fluid.program_guard(main, startup):
         if model == "dyn_rnn_lstm":
-            loss, _, pred = sentiment.build(fluid, net="lstm", **kw)
+            loss, _, pred = sentiment.build_lstm(fluid, **kw)
             test = main.clone(for_test=True)
             _, pg = fluid.optimizer.Adagrad(
                 learning_rate=sentiment.LEARNING_RATE).minimize(loss)
@@ -8714,135 +8846,6 @@ def book_card_vs_cpu_phase(np, torch, fluid):
             fail("book card vs cpu %s: %.3e" % (model, max(errs)))
 
 
-def cf_cases(np, fluid):
-    """The control-flow sweep's programs: (name, build(fluid) -> fetch
-    vars, feeds), each as tests/test_torch_control_flow.py builds it."""
-    L = fluid.layers
-    r = np.random.RandomState(47)
-
-    def static_rnn_dropout(fl):
-        inp = L.data("x", shape=[6, 64])
-        rnn = L.StaticRNN()
-        with rnn.step():
-            x_t = rnn.step_input(inp)
-            h_prev = rnn.memory(shape=[-1, 64], batch_ref=inp,
-                                init_value=1.0)
-            h = L.elementwise_add(L.dropout(x_t, dropout_prob=0.5), h_prev)
-            rnn.update_memory(h_prev, h)
-            rnn.step_output(h)
-        return [rnn()]
-
-    def dynamic_rnn(fl):
-        x = L.data("x", shape=[7, 16])
-        ln = L.data("len", shape=[1], dtype="int64")
-        rnn = L.DynamicRNN(lengths=ln)
-        with rnn.block():
-            w = rnn.step_input(x)
-            h_prev = rnn.memory(shape=[-1, 32], batch_ref=x)
-            h = L.fc(input=[w, h_prev], size=32, act="tanh")
-            rnn.update_memory(h_prev, h)
-            rnn.output(h)
-        out = rnn()
-        loss = L.mean(L.square(L.sequence_last_step(out, length=ln)))
-        grads = fl.backward.append_backward(loss)
-        return [out, loss] + [g for _, g in sorted(
-            grads, key=lambda pg: pg[0].name)]
-
-    def bounded_while(fl):
-        x = L.data(name="x", shape=[8], append_batch_size=False)
-        w = L.create_parameter([8], "float32", name="w_loop")
-        acc = L.fill_constant([8], "float32", 0.0)
-        i = L.fill_constant([1], "int64", 0)
-        limit = L.fill_constant([1], "int64", 5)
-        cond = L.less_than(i, limit)
-        loop = L.While(cond, max_iterations=8)
-        with loop.block():
-            acc2 = L.elementwise_add(acc, L.tanh(L.elementwise_mul(x, w)))
-            L.assign(acc2, acc)
-            L.increment(i, value=1, in_place=True)
-            L.less_than(i, limit, cond=cond)
-        loss = L.mean(L.square(acc))
-        return [loss, acc, i] + fl.backward.calc_gradient([loss], [w])
-
-    def unbounded_array(fl):
-        x = L.data("x", shape=[5])
-        i = L.fill_constant([1], "int64", 1)
-        limit = L.fill_constant([1], "int64", 6)
-        arr = L.array_write(x, L.fill_constant([1], "int64", 0),
-                            capacity=8)
-        cond = L.less_than(i, limit)
-        w = L.While(cond)
-        with w.block():
-            prev = L.array_read(arr, L.elementwise_sub(
-                i, L.fill_constant([1], "int64", 1)))
-            L.array_write(L.tanh(L.scale(prev, scale=2.0)), i, array=arr)
-            L.increment(i, value=1, in_place=True)
-            L.less_than(i, limit, cond=cond)
-        return [L.array_read(arr, L.fill_constant([1], "int64", 5)),
-                L.array_read(arr, L.fill_constant([1], "int64", 11)),
-                L.array_length(arr), i]
-
-    def cond(fl):
-        x = L.data("x", shape=[4])
-        p = L.data("p", shape=[1], dtype="bool", append_batch_size=False)
-        return [L.cond(p, lambda: L.scale(x, scale=2.0),
-                       lambda: L.tanh(x))]
-
-    def switch(fl):
-        x = L.data("x", shape=[1], append_batch_size=False)
-        out = L.fill_constant([1], "float32", 0.0)
-        sw = L.Switch()
-        with sw.case(L.less_than(x, L.fill_constant([1], "float32", 1.0))):
-            L.assign(L.scale(x, scale=10.0), out)
-        with sw.case(L.less_than(x, L.fill_constant([1], "float32", 2.0))):
-            L.assign(L.scale(x, scale=100.0), out)
-        with sw.case(L.less_than(x, L.fill_constant([1], "float32", 3.0))):
-            L.assign(L.fill_constant([1], "float32", -3.0), out)
-        with sw.default():
-            L.assign(L.fill_constant([1], "float32", -1.0), out)
-        return [out]
-
-    def ifelse(fl):
-        x = L.data("x", shape=[3])
-        c = L.data("c", shape=[1], dtype="bool")
-        ie = L.IfElse(c)
-        with ie.true_block():
-            ie.output(L.scale(x, scale=10.0))
-        with ie.false_block():
-            ie.output(L.tanh(x))
-        return list(ie())
-
-    def lod_array(fl):
-        x = L.data("x", shape=[5, 3])
-        x.stop_gradient = False
-        ln = L.data("len", shape=[1], dtype="int64")
-        table = L.lod_rank_table(x, lengths=ln)
-        arr = L.lod_tensor_to_array(x, table)
-        back = L.array_to_lod_tensor(arr, table)
-        loss = L.reduce_sum(L.square(back))
-        return [back, L.array_length(arr)] + fl.backward.calc_gradient(
-            [loss], [x])
-
-    f32 = lambda *shape: r.randn(*shape).astype("float32")  # noqa: E731
-    return [
-        ("StaticRNN dropout", static_rnn_dropout,
-         [{"x": np.ones((4, 6, 64), "float32")}]),
-        ("DynamicRNN masked", dynamic_rnn,
-         [{"x": f32(5, 7, 16), "len": np.array([[3], [7], [1], [5], [7]],
-                                                "int64")}]),
-        ("bounded While + grad", bounded_while, [{"x": f32(8)}]),
-        ("unbounded While + array", unbounded_array, [{"x": f32(3, 5)}]),
-        ("cond", cond, [{"x": f32(2, 4), "p": np.array([v])}
-                        for v in (True, False)]),
-        ("Switch", switch, [{"x": np.array([v], "float32")}
-                            for v in (0.5, 1.5, 2.5, 7.0)]),
-        ("IfElse", ifelse, [{"x": f32(4, 3), "c": np.array(
-            [[True], [False], [True], [False]])}]),
-        ("lod_tensor_to_array and back", lod_array,
-         [{"x": f32(2, 5, 3), "len": np.array([[2], [5]], "int64")}]),
-    ]
-
-
 def control_flow_phase(np, torch, fluid):
     """The control-flow sweep (module docstring, step 21): each
     construct's program run on the card and on the CPU (each side its
@@ -8853,6 +8856,7 @@ def control_flow_phase(np, torch, fluid):
     and cond's programs refused capture by name."""
     from paddle_tpu_torch import flags, unique_name
     from paddle_tpu_torch.ops import subblock_ops
+    from paddle_tpu_torch.testing import control_flow_cases
 
     def build(fn):
         main, startup = fluid.Program(), fluid.Program()
@@ -8861,7 +8865,7 @@ def control_flow_phase(np, torch, fluid):
             fetch = fn(fluid)
         return main, startup, fetch
 
-    for name, fn, feeds in cf_cases(np, fluid):
+    for name, fn, feeds in control_flow_cases():
         main, startup, fetch = build(fn)
         got, reads = {}, {}
         for dev, exe in (("card", fluid.Executor()),
@@ -8898,7 +8902,7 @@ def control_flow_phase(np, torch, fluid):
             fail("control flow %s: card and CPU differ (%.3e, %s, reads %s "
                  "against %s)" % (name, worst, same, reads["card"],
                                   reads["cpu"]))
-    cases = {n: (fn, feeds) for n, fn, feeds in cf_cases(np, fluid)}
+    cases = {n: (fn, feeds) for n, fn, feeds in control_flow_cases()}
     fn, feeds = cases["bounded While + grad"]
 
     def train_loop(fl):

@@ -164,25 +164,6 @@ def _read_attr(r):
     raise ValueError("bad attr tag %d" % tag)
 
 
-def _recorded_dtype(block, v, deferred):
-    """The dtype the JAX package records for ``v``. An int64 temporary
-    an op produces is inferred there with 64-bit integers off and
-    recorded int32 (the run here keeps int64); state, feeds and the
-    outputs of an op whose build-time inference failed (``deferred``)
-    keep the dtype they are declared with, and a ``while``'s ``InitX``
-    var is declared with its carry's."""
-    dtype = v.dtype
-    op = v.op
-    if (dtype != "int64" or op is None or v.persistable or v.is_data):
-        return dtype
-    if op.type == "while" and v.name in op.output("InitX"):
-        carry = op.input("X")[op.output("InitX").index(v.name)]
-        src = block._find_var_recursive(carry)
-        return dtype if src is None else _recorded_dtype(block, src,
-                                                         deferred)
-    return dtype if id(op) in deferred else "int32"
-
-
 def serialize_program(program):
     """Program -> bytes (the PTPB flat binary)."""
     w = _Writer()
@@ -190,9 +171,6 @@ def serialize_program(program):
     w.u32(VERSION)
     w.u64(int(program.random_seed))
     w.u32(len(program.blocks))
-    # ops whose build-time shape inference failed: the JAX package's left
-    # their outputs' dtypes as declared
-    deferred = {id(op) for _, op in program._deferred_infer}
     for block in program.blocks:
         w.i32(block.idx)
         w.i32(block.parent_idx)
@@ -202,7 +180,7 @@ def serialize_program(program):
             v = block.vars[name]
             w.s(v.name)
             w.s(v.type)
-            dtype = _recorded_dtype(block, v, deferred)
+            dtype = v.recorded_dtype
             w.u8(1 if dtype is not None else 0)
             if dtype is not None:
                 w.s(str(dtype))

@@ -62,6 +62,21 @@ class Variable(object):
     def ndim(self):
         return None if self.shape is None else len(self.shape)
 
+    @property
+    def recorded_dtype(self):
+        """The dtype a saved program records for this var, as the JAX
+        package records it. Its shape inference runs with 64-bit integers
+        off, so an int64 temporary an op produces is recorded int32 (the
+        run here keeps int64); state, feeds and the outputs of an op whose
+        build-time inference is still deferred keep the dtype they are
+        declared with."""
+        op = self.op
+        if (self.dtype != "int64" or op is None or self.persistable
+                or self.is_data or any(
+                    o is op for _, o in self.block.program._deferred_infer)):
+            return self.dtype
+        return "int32"
+
     def astype(self, dtype):
         """This variable cast to ``dtype`` (a ``cast`` op)."""
         from paddle_tpu_torch.layers import tensor as tensor_layers

@@ -521,7 +521,9 @@ class While(object):
                 if n not in set(carry)
             ]
             # InitX saves the pre-loop carry values under fresh names so
-            # while_grad can restart the loop (Out aliases X in-place).
+            # while_grad can restart the loop (Out aliases X in-place). Each
+            # is declared with its carry's recorded dtype, as the JAX
+            # package copies the dtype its inference gave the carry.
             from paddle_tpu_torch import unique_name
 
             init_names = []
@@ -531,7 +533,7 @@ class While(object):
                 parent_block.create_var(
                     name=iname,
                     shape=None if v is None else v.shape,
-                    dtype="float32" if v is None else v.dtype,
+                    dtype="float32" if v is None else v.recorded_dtype,
                     stop_gradient=True,
                 )
                 init_names.append(iname)

@@ -7,12 +7,13 @@ test's LSTM written out of ``fc`` gates inside a ``DynamicRNN`` step,
 embedding of 32, a tanh ``fc`` of 128, the step, the last step, a
 softmax ``fc``); cross entropy, Adagrad.
 
-The JAX package has no such model file. ``build`` takes the framework
-module (``paddle_tpu_torch`` by default), so that the same network is
-built through either package. Padded layout: the words are ``[batch,
-max_len]`` ids plus ``[batch, 1]`` lengths instead of an LoD tensor. The
-book's widths: the IMDB ``word_dict()`` at its cutoff of 150 (5,148 ids
-with ``<unk>``), embedding 128, ``hid_dim`` 512, 2 classes, batch 128,
+The JAX package has no such model file. ``build`` (the CNN) and
+``build_lstm`` take the framework module (``paddle_tpu_torch`` by
+default), so that the same network is built through either package.
+Padded layout: the words are ``[batch, max_len]`` ids plus ``[batch, 1]``
+lengths instead of an LoD tensor. The book's widths: the IMDB
+``word_dict()`` at its cutoff of 150 (5,148 ids with ``<unk>``),
+embedding 128, ``hid_dim`` 512, 2 classes, batch 128,
 ``Adagrad(0.002)``.
 """
 
@@ -79,34 +80,40 @@ def dyn_rnn_lstm(fluid, data, length, input_dim=WORD_DICT,
     return L.fc(input=last, size=class_dim, act="softmax")
 
 
-def build(fluid=None, max_len=600, input_dim=WORD_DICT, class_dim=CLASS_DIM,
-          emb_dim=None, hid_dim=None, net="conv"):
-    """Data layers (``words``, ``length``, ``label``), the network
-    (``net="conv"``: ``convolution_net``; ``"lstm"``: ``dyn_rnn_lstm``,
-    with ``emb_dim`` its embedding and ``hid_dim`` its ``lstm_size``;
-    each net's book widths by default), its mean cross entropy and
-    accuracy. Returns (avg_cost, accuracy, prediction); the caller clones
-    for test and minimizes."""
+def _classifier(fluid, max_len, network):
+    """Data layers (``words``, ``length``, ``label``), ``network(words,
+    length)``'s class probabilities, their mean cross entropy and
+    accuracy: (avg_cost, accuracy, prediction)."""
     if fluid is None:
         import paddle_tpu_torch as fluid
-    if emb_dim is None:
-        emb_dim = LSTM_EMB_DIM if net == "lstm" else EMB_DIM
-    if hid_dim is None:
-        hid_dim = LSTM_SIZE if net == "lstm" else HID_DIM
     L = fluid.layers
     words = L.data(name="words", shape=[max_len], dtype="int64")
     length = L.data(name="length", shape=[1], dtype="int64")
     label = L.data(name="label", shape=[1], dtype="int64")
-    if net == "lstm":
-        prediction = dyn_rnn_lstm(fluid, words, length, input_dim,
-                                  class_dim, emb_dim, hid_dim)
-    else:
-        prediction = convolution_net(fluid, words, length, input_dim,
-                                     class_dim, emb_dim, hid_dim)
+    prediction = network(fluid, words, length)
     cost = L.cross_entropy(input=prediction, label=label)
     avg_cost = L.mean(cost)
     accuracy = L.accuracy(input=prediction, label=label)
     return avg_cost, accuracy, prediction
+
+
+def build(fluid=None, max_len=600, input_dim=WORD_DICT, class_dim=CLASS_DIM,
+          emb_dim=EMB_DIM, hid_dim=HID_DIM):
+    """``convolution_net``'s classifier: (avg_cost, accuracy,
+    prediction); the caller clones for test and minimizes."""
+    return _classifier(fluid, max_len, lambda fluid, words, length:
+                       convolution_net(fluid, words, length, input_dim,
+                                       class_dim, emb_dim, hid_dim))
+
+
+def build_lstm(fluid=None, max_len=600, input_dim=WORD_DICT,
+               class_dim=CLASS_DIM, emb_dim=LSTM_EMB_DIM,
+               lstm_size=LSTM_SIZE):
+    """``dyn_rnn_lstm``'s classifier: (avg_cost, accuracy, prediction);
+    the caller clones for test and minimizes."""
+    return _classifier(fluid, max_len, lambda fluid, words, length:
+                       dyn_rnn_lstm(fluid, words, length, input_dim,
+                                    class_dim, emb_dim, lstm_size))
 
 
 def batch(np, rng, size, max_len, min_len, input_dim=WORD_DICT,

@@ -32,7 +32,7 @@ from paddle_tpu_torch.models import understand_sentiment as sentiment
 from paddle_tpu_torch.testing import fresh_state
 
 TOL = 1e-5
-SENT = dict(max_len=6, input_dim=40, class_dim=2, emb_dim=8, hid_dim=16)
+SENT = dict(max_len=6, input_dim=40, class_dim=2, emb_dim=8, lstm_size=16)
 ED = dict(max_src_len=6, max_trg_len=6, dict_size=30, word_dim=8,
           hidden_dim=8)
 
@@ -44,7 +44,7 @@ def _fresh_torch_state():
 
 
 def _sentiment(pkg):
-    loss, _, _ = sentiment.build(pkg, net="lstm", **SENT)
+    loss, _, _ = sentiment.build_lstm(pkg, **SENT)
     _, pg = pkg.optimizer.Adagrad(
         learning_rate=sentiment.LEARNING_RATE * 50).minimize(loss)
     return loss, pg
@@ -155,7 +155,7 @@ def test_book_models_at_their_published_widths_build():
     words 16 and hidden 32 (B6 at D 32)."""
     main, startup = tfluid.Program(), tfluid.Program()
     with t_unique_name.guard({}), tfluid.program_guard(main, startup):
-        _, _, pred = sentiment.build(tfluid, max_len=8, net="lstm")
+        _, _, pred = sentiment.build_lstm(tfluid, max_len=8)
     shapes = {tuple(p.shape) for p in main.global_block().all_parameters()}
     assert (5148, 32) in shapes and (32, 128) in shapes \
         and (128, 128) in shapes

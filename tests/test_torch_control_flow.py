@@ -24,6 +24,7 @@ from paddle_tpu import unique_name as j_unique_name
 from paddle_tpu.core import program_bin as j_bin
 from paddle_tpu.core.scope import Scope as JScope
 from paddle_tpu_torch import flags as t_flags
+from paddle_tpu_torch import testing as cf
 from paddle_tpu_torch import unique_name as t_unique_name
 from paddle_tpu_torch.convert import persistables_from_numpy
 from paddle_tpu_torch.core import program_bin as t_bin
@@ -90,31 +91,13 @@ def _assert_same(res):
                                               j.astype(np.int64))
 
 
-def _while_loss(pkg, max_iterations, iters=3, n=4, name="w_while"):
-    L = pkg.layers
-    x = L.data(name="x", shape=[n], append_batch_size=False)
-    w = L.create_parameter([n], "float32", name=name)
-    acc = L.fill_constant([n], "float32", 0.0)
-    i = L.fill_constant([1], "int64", 0)
-    limit = L.fill_constant([1], "int64", iters)
-    cond = L.less_than(i, limit)
-    loop = L.While(cond, max_iterations=max_iterations)
-    with loop.block():
-        step = L.elementwise_mul(x, w)
-        acc2 = L.elementwise_add(acc, step)
-        L.assign(acc2, acc)
-        L.increment(i, value=1, in_place=True)
-        L.less_than(i, limit, cond=cond)
-    return L.mean(acc), w, acc, i
-
-
 # -- tests/test_while_grad.py twins ------------------------------------------
 
 
 @pytest.mark.parametrize("max_iters", [0, 8])
 def test_while_forward_bounded_and_unbounded(max_iters):
     def net(pkg):
-        loss, w, acc, i = _while_loss(pkg, max_iters, iters=5, n=2)
+        loss, w, acc, i = cf.while_loss(pkg, max_iters, iters=5, n=2)
         return [loss, acc, i, w]
 
     xv = np.array([1.5, -2.0], "float32")
@@ -127,7 +110,7 @@ def test_while_forward_bounded_and_unbounded(max_iters):
 
 def test_while_grad_matches_jax_and_analytic():
     def net(pkg):
-        loss, w, _, _ = _while_loss(pkg, 6)
+        loss, w, _, _ = cf.while_loss(pkg, 6)
         return [loss] + pkg.backward.calc_gradient([loss], [w])
 
     xv = np.array([0.5, -1.0, 2.0, 3.0], np.float32)
@@ -140,7 +123,7 @@ def test_while_grad_matches_jax_and_analytic():
 def test_while_grad_matches_numeric():
     main, startup, (loss, g) = _build(tfluid, t_unique_name, lambda pkg: (
         lambda lw: [lw[0]] + pkg.backward.calc_gradient([lw[0]], [lw[1]]))(
-            _while_loss(pkg, 6)))
+            cf.while_loss(pkg, 6)))
     exe = tfluid.Executor(tfluid.CPUPlace())
     scope = tfluid.Scope()
     exe.run(startup, scope=scope)
@@ -228,7 +211,7 @@ def test_while_grad_with_tensor_array_carry():
 def test_unbounded_while_refuses_a_gradient():
     main, startup, (loss, g) = _build(tfluid, t_unique_name, lambda pkg: (
         lambda lw: [lw[0]] + pkg.backward.calc_gradient([lw[0]], [lw[1]]))(
-            _while_loss(pkg, 0)))
+            cf.while_loss(pkg, 0)))
     exe = tfluid.Executor(tfluid.CPUPlace())
     exe.run(startup)
     with pytest.raises(RuntimeError, match="max_iterations=0"):
@@ -311,25 +294,7 @@ def test_dynamic_rnn_masked_with_gradients():
     feed = {"x": rng.randn(B, T, D).astype("float32"),
             "len": np.array([[2], [5], [3]], "int64")}
 
-    def net(pkg):
-        L = pkg.layers
-        x = L.data("x", shape=[T, D])
-        ln = L.data("len", shape=[1], dtype="int64")
-        rnn = L.DynamicRNN(lengths=ln)
-        with rnn.block():
-            w = rnn.step_input(x)
-            h_prev = rnn.memory(shape=[-1, H], batch_ref=x)
-            h = L.fc(input=[w, h_prev], size=H, act="tanh")
-            rnn.update_memory(h_prev, h)
-            rnn.output(h)
-        out = rnn()
-        last = L.sequence_last_step(out, length=ln)
-        loss = L.mean(L.square(last))
-        grads = pkg.backward.append_backward(loss)
-        return [out, loss] + [g for _, g in sorted(
-            grads, key=lambda pg: pg[0].name)]
-
-    res, exe = _run_both(net, [feed])
+    res, exe = _run_both(cf.dynamic_rnn, [feed])
     _assert_same(res)
     out = res["torch"][0][0]
     assert (out[0, 2:] == 0).all() and (out[2, 3:] == 0).all()
@@ -341,19 +306,8 @@ def test_dropout_mask_in_static_rnn_step_matches_jax():
     in both packages: equal outputs mean equal masks, step by step."""
     B, T, D = 4, 3, 16
 
-    def net(pkg):
-        L = pkg.layers
-        inp = L.data("x", shape=[T, D])
-        rnn = L.StaticRNN()
-        with rnn.step():
-            x_t = rnn.step_input(inp)
-            h_prev = rnn.memory(shape=[-1, D], batch_ref=inp, init_value=1.0)
-            h = L.elementwise_add(L.dropout(x_t, dropout_prob=0.5), h_prev)
-            rnn.update_memory(h_prev, h)
-            rnn.step_output(h)
-        return [rnn()]
-
-    res, _ = _run_both(net, [{"x": np.ones((B, T, D), "float32")}], steps=2)
+    res, _ = _run_both(cf.static_rnn_dropout,
+                       [{"x": np.ones((B, T, D), "float32")}], steps=2)
     _assert_same(res)
     out = res["torch"][0][0]
     steps = np.diff(np.concatenate([np.ones((B, 1, D)), out], 1), axis=1)
@@ -388,16 +342,7 @@ def test_while_loop_accumulates():
 def test_cond_branches(pred):
     xv = np.random.RandomState(2).randn(2, 4).astype("float32")
 
-    def net(pkg):
-        L = pkg.layers
-        x = L.data("x", shape=[4])
-        p = L.data("p", shape=[1], dtype="bool")
-        out = L.cond(p, lambda: L.scale(x, scale=2.0),
-                     lambda: L.scale(x, scale=-1.0))
-        keep = L.cond(p, lambda: L.scale(x, scale=3.0), lambda: x)
-        return [out, keep]
-
-    res, _ = _run_both(net, [{"x": xv, "p": np.array([pred])}])
+    res, _ = _run_both(cf.cond_pair, [{"x": xv, "p": np.array([pred])}])
     _assert_same(res)
     np.testing.assert_allclose(res["torch"][0][0],
                                xv * (2.0 if pred else -1.0), atol=1e-6)
@@ -420,25 +365,8 @@ def test_cond_branches_must_agree_on_shapes():
 
 
 def test_switch_three_cases_and_default():
-    def net(pkg):
-        L = pkg.layers
-        x = L.data("x", shape=[1], append_batch_size=False)
-        out = L.fill_constant([1], "float32", 0.0)
-        one = L.fill_constant([1], "float32", 1.0)
-        two = L.fill_constant([1], "float32", 2.0)
-        sw = L.Switch()
-        with sw.case(L.less_than(x, one)):
-            L.assign(L.scale(x, scale=10.0), out)
-        with sw.case(L.less_than(x, two)):
-            L.assign(L.scale(x, scale=100.0), out)
-        with sw.case(L.less_than(x, L.fill_constant([1], "float32", 3.0))):
-            L.assign(L.fill_constant([1], "float32", -3.0), out)
-        with sw.default():
-            L.assign(L.fill_constant([1], "float32", -1.0), out)
-        return [out]
-
     feeds = [{"x": np.array([v], "float32")} for v in (0.5, 1.5, 2.5, 7.0)]
-    res, _ = _run_both(net, feeds)
+    res, _ = _run_both(cf.switch, feeds)
     _assert_same(res)
     got = [float(r[0][0]) for r in res["torch"]]
     np.testing.assert_allclose(got, [5.0, 150.0, -3.0, -1.0])
@@ -460,42 +388,11 @@ def _switch_no_default(pkg):
 
 
 def test_ifelse_elementwise_merge():
-    def net(pkg):
-        L = pkg.layers
-        x = L.data("x", shape=[3])
-        c = L.data("c", shape=[1], dtype="bool")
-        ie = L.IfElse(c)
-        with ie.true_block():
-            ie.output(L.scale(x, scale=10.0))
-        with ie.false_block():
-            ie.output(L.scale(x, scale=0.0))
-        return list(ie())
-
     xv = np.ones((4, 3), "float32")
     cv = np.array([[True], [False], [True], [False]])
-    res, _ = _run_both(net, [{"x": xv, "c": cv}])
+    res, _ = _run_both(cf.ifelse, [{"x": xv, "c": cv}])
     _assert_same(res)
     np.testing.assert_allclose(res["torch"][0][0][:, 0], [10, 0, 10, 0])
-
-
-def _array_loop(pkg, max_iterations=0):
-    L = pkg.layers
-    x = L.data("x", shape=[3])
-    i = L.fill_constant([1], "int64", 1)
-    limit = L.fill_constant([1], "int64", 5)
-    i0 = L.fill_constant([1], "int64", 0)
-    arr = L.array_write(x, i0, capacity=8)
-    cond = L.less_than(i, limit)
-    w = L.While(cond, max_iterations=max_iterations)
-    with w.block():
-        prev = L.array_read(arr, L.elementwise_sub(
-            i, L.fill_constant([1], "int64", 1)))
-        L.array_write(L.scale(prev, scale=2.0), i, array=arr)
-        L.increment(i, value=1, in_place=True)
-        L.less_than(i, limit, cond=cond)
-    last = L.array_read(arr, L.fill_constant([1], "int64", 4))
-    past = L.array_read(arr, L.fill_constant([1], "int64", 11))
-    return [last, past, L.array_length(arr), i]
 
 
 def test_while_with_seeded_tensor_array():
@@ -503,7 +400,7 @@ def test_while_with_seeded_tensor_array():
     and grown inside; a read past the capacity clamps to the last row
     (zeros: never written), as XLA's dynamic index does."""
     xv = np.ones((2, 3), "float32")
-    res, _ = _run_both(_array_loop, [{"x": xv}])
+    res, _ = _run_both(cf.array_loop, [{"x": xv}])
     _assert_same(res)
     last, past, n, _ = res["torch"][0]
     np.testing.assert_allclose(last, 16.0 * xv, atol=1e-5)
@@ -576,21 +473,8 @@ def test_lod_tensor_to_array_and_back_with_gradient():
     B, T, D = 2, 4, 3
     xv = np.random.RandomState(9).randn(B, T, D).astype("float32")
 
-    def net(pkg):
-        L = pkg.layers
-        x = L.data("x", shape=[T, D])
-        x.stop_gradient = False
-        ln = L.data("len", shape=[1], dtype="int64")
-        table = L.lod_rank_table(x, lengths=ln)
-        arr = L.lod_tensor_to_array(x, table)
-        row = L.array_read(arr, L.fill_constant([1], "int64", 1))
-        back = L.array_to_lod_tensor(arr, table)
-        loss = L.reduce_sum(L.square(back))
-        (gx,) = pkg.backward.calc_gradient([loss], [x])
-        return [back, row, L.array_length(arr), gx]
-
-    res, _ = _run_both(net, [{"x": xv, "len": np.array([[2], [4]],
-                                                       "int64")}])
+    res, _ = _run_both(cf.lod_array, [{"x": xv, "len": np.array(
+        [[2], [4]], "int64")}])
     _assert_same(res)
     back, row, n, gx = res["torch"][0]
     np.testing.assert_allclose(back, xv, atol=0)
@@ -599,13 +483,24 @@ def test_lod_tensor_to_array_and_back_with_gradient():
     np.testing.assert_allclose(gx, 2 * xv, rtol=1e-6)
 
 
+
+@pytest.mark.parametrize("case", cf.control_flow_cases(),
+                         ids=lambda case: case[0])
+def test_control_flow_cases_match_jax(case):
+    """Each construct of the card's control-flow sweep (chip_smoke.py
+    holds the card's run to the CPU's) equals the JAX package's run."""
+    _, build, feeds = case
+    res, _ = _run_both(build, feeds)
+    _assert_same(res)
+
+
 # -- names, saved programs, capture ------------------------------------------
 
 
 def _multi_block(pkg):
     loss, *_ = _fc_rnn(pkg)
     L = pkg.layers
-    _array_loop(pkg)
+    cf.array_loop(pkg)
     p = L.data("p", shape=[1], dtype="bool")
     L.cond(p, lambda: L.scale(loss, scale=2.0), lambda: loss)
     pkg.optimizer.SGD(learning_rate=0.1).minimize(loss)
@@ -646,7 +541,7 @@ def test_run_multi_step_captures_a_bounded_while():
             return Graph(), 0
 
     def net(pkg, max_iterations):
-        loss, w, acc, _ = _while_loss(pkg, max_iterations, iters=3, n=2)
+        loss, w, acc, _ = cf.while_loss(pkg, max_iterations, iters=3, n=2)
         pkg.optimizer.SGD(learning_rate=0.1).minimize(loss)
         return [loss, acc]
 
