@@ -462,6 +462,62 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``run_multi_step`` of the bounded While's train program captured
    against ``FLAGS_cuda_graph=0`` (equal, no host read) and the
    unbounded While's and cond's programs refused capture by name.
+22. Beam decode. Right after step 7, on step 4's weights:
+   ``beam_serve``: ``SlotDecodeSession(beam_width=4)`` at step 4's
+   configuration (32 slots: 8 lanes of 4 hypotheses, ``steps=1``, each
+   step one captured CUDA graph), with ``proj_logits``' bias at eos
+   raised (in a child scope) until eos is among a hypothesis's 4 best
+   tokens in 5% of the first 8 steps' (hypothesis, step) pairs, so that
+   hypotheses finish and some lanes end early, serves the first 16
+   requests, one
+   admitted every 3 steps while a lane is free, with every kernel's count
+   reset just before: hypothesis and best-hypothesis tokens/s, host ms
+   per ``step()``, ``beam_cow_copies``, ``beam_reorder_pages``, B4 and B1
+   launches a step, gated at n_layer a step (and B1's admissions and
+   prefills); n-bests bos-led, forced prefixes kept, scores descending,
+   the pool drained. B4 and B1 held against their plain versions on the
+   session's own state 40 steps into 6 beams (hypotheses sharing their
+   parents' pages; done hypotheses and the 2 free lanes' slots at length
+   0: exactly 0, and at least one such slot), B4 timed there
+   (``paged_decode_beam``, its bound counting each shared page once).
+   (c) a mid-beam cancel of one hypothesis frees its whole lane; (d)
+   ``generate_beam(len_penalty=0.6)`` of one request equals the timed
+   run's n-best rescored by ``gnmt_rescore_nbest``; (b) the same
+   requests, cut to max_length 64, through a rebind session and under
+   ``FLAGS_beam_reorder=reference`` (the copy oracle, whose eager copies
+   of every moved hypothesis's pages took 141.6 s at max_length 256)
+   give tokens and scores equal bit for bit, the oracle copying pages
+   where the rebind run copied none, and (a) in that run each
+   dispatch's in-graph selection equals ``beam_step`` replayed on the
+   card on its own fetched logits and pre-step state, bit for bit, some
+   dispatches holding a done hypothesis beside live ones and some
+   leaving the order to the lowest-index tie rule. ``beam_wire``: that
+   request through ``ServingFrontend`` and ``ServingClient`` (beam
+   chunks, ``beam_end``, ``end``), reassembled equal to (d)'s in-process
+   result, n_layer B4 launches a chunk, and a severed beam stream frees
+   its lane. ``beam_card_vs_cpu``: the beam session at 2 layers (full
+   width otherwise), 2 lanes, max_length 64, on the card and on the CPU
+   from one state: scores within 1e-4 where the tokens are equal, else
+   the lanes' selections first differ at a step whose lattice margin
+   (the K-th less the (K+1)-th candidate, from the CPU's logits) is
+   below MARGIN_TOL. After step 10's MT steps, ``mt_beam``:
+   ``build_generator`` at its defaults on the weights those steps
+   trained, batch 32: ms a run, sentences/s, 2 B6 launches a run; card
+   against CPU (``sentence_check``): rows of equal ids have scores
+   within 1e-4; a row that differs passes only as a tie: the generator
+   stopped after t steps on both sides finds the first step where the
+   row's beams differ, and there the two sides' sorted totals are
+   within 1e-4; 90% of the rows are equal. After step 21,
+   ``book_beam``: the book's ``decoder_decode`` (dictionary 30,000,
+   word_dim 16, hidden 32, beam 2, max_length 8, batch 64, seeded
+   weights): ``run_multi_step`` captured against ``FLAGS_cuda_graph=0``,
+   bit for bit, no host read from the ``While``, 1 B6 launch a call,
+   sentences/s; card against CPU by ``sentence_check`` on the per-step
+   scores. ``rnn_ops_sweep``: ``dynamic_lstmp`` (peepholes and lengths,
+   neither, and [32, 50, 512] with P 64), ``lstm_unit``, ``gru_unit``
+   (names and integer codes) and ``row_conv``, forward and gradient,
+   card against CPU within 1e-5 of max(1, the largest value).
+   Each new phase prints its seconds; the script prints its total.
 
 Every profiler trace (``trace_call``) is held to what ran while it was
 taken: each kernel-launch call of the traced call must have its kernel,
@@ -486,7 +542,9 @@ greedy_nms and det_match, the port's own, carry the ssd phase's
 launches: its train steps' and its eval head's; crf_logz, crf_logz_bwd
 and crf_viterbi the srl phase's, ctc_loss the crnn phase's; lstm_cell
 and gru_cell gain a row at the role labeller's and CRNN's shapes,
-lstm_cell two at the encoder-decoder's);
+lstm_cell two at the encoder-decoder's; the beam phases' launches join
+flash_fwd's serving rows, paged_decode's ``paged_decode_beam`` row and
+lstm_cell's MT and encoder-decoder rows);
 the last line is ``{"ok": true, "device": {...}}``. Any failure exits nonzero
 before that line. The script needs one CUDA card and the rest of the
 repository beside it: without either it fails at once.
@@ -763,6 +821,31 @@ BOOK_CVC_BATCH, BOOK_CVC_LEN, BOOK_CVC_TOL = 16, 120, 1e-4
 # the control-flow sweep, card against CPU: floats within this, integers
 # equal
 CF_TOL = 1e-5
+# step 22: beam decode. beam_serve: the serve phase's configuration with
+# 4 hypotheses a lane (8 lanes), one decode step a step(), 16 requests
+# admitted one every 3 steps while a lane is free; n-bests rescored with
+# the GNMT length penalty 0.6 (bench.py's beam default)
+BEAM_K, BEAM_REQUESTS, BEAM_STAGGER, BEAM_LEN_PENALTY = 4, 16, 3, 0.6
+BEAM_WIRE_REQUEST = 3  # the request of (d) and of the wire phase
+# B4 and B1 held and B4 timed this far into 6 beams (2 lanes free)
+BEAM_TRAFFIC_STEPS, BEAM_TRAFFIC_LANES = 40, 6
+# proj_logits' bias at eos raised so that eos is among a hypothesis's K
+# best tokens in this share of the (hypothesis, step) pairs of the first
+# BEAM_EOS_PROBE steps (random weights never rank it there)
+BEAM_EOS_SHARE, BEAM_EOS_PROBE = 0.05, 8
+LOGITS_BIAS = "proj_logits.w_1"  # the output projection's bias [VOCAB]
+BEAM_ORACLE_LEN = 64     # the max_length of (a) and (b)
+# card against CPU: 2 layers at full width otherwise, 2 lanes, max_length
+# 64 (the CPU's steps at full width); scores within this
+BEAM_CVC_LAYERS, BEAM_CVC_LANES, BEAM_CVC_LEN = 2, 2, 64
+BEAM_SCORE_TOL = 1e-4
+BEAM_EQUAL_SHARE = 0.9  # of the n-best rows equal card against CPU
+MT_BEAM_RUNS = 5       # build_generator runs timed on the card
+# the book's decoder_decode: beam 2, max_length 8 and end id 10 as the
+# book test decodes, batch 64
+BOOK_BEAM_K, BOOK_BEAM_LEN, BOOK_END_ID = 2, 8, 10
+BOOK_BEAM_BATCH, BOOK_BEAM_RUNS = 64, 5
+RNN_OPS_TOL = 1e-5     # relative to max(1, the largest value)
 # the names of matrix-product kernels in a profile (cuBLAS's GEMMs and
 # cuDNN's implicit-GEMM convolutions)
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
@@ -1043,6 +1126,26 @@ def paged_decode_bound(lengths, dh):
               + 2 * 4 * len(lengths) * N_HEAD * dh
               + 8 * pages + 8 * len(lengths))
     return bound(nbytes, 4.0 * tokens * N_HEAD * dh)
+
+
+def paged_decode_shared_bound(lengths, table, dh):
+    """``paged_decode_bound`` where slots share pages (a beam lane's
+    hypotheses share their parents' prefix pages): the K and V rows of
+    each distinct page once, as many as the slot that reads most of it
+    reads, then the query and output rows, each slot's table entries
+    and the lengths; the operations of every slot over its own rows.
+    The kernel does not exploit the sharing: each slot's blocks read
+    their pages again."""
+    rows, refs = {}, 0
+    for s, n in enumerate(lengths):
+        for i in range(-(-n // PAGE_SIZE)):
+            p = int(table[s][i])
+            rows[p] = max(rows.get(p, 0), min(PAGE_SIZE, n - i * PAGE_SIZE))
+            refs += 1
+    nbytes = (2 * 4 * N_HEAD * dh * sum(rows.values())
+              + 2 * 4 * len(lengths) * N_HEAD * dh
+              + 8 * refs + 8 * len(lengths))
+    return bound(nbytes, 4.0 * sum(lengths) * N_HEAD * dh)
 
 
 def tree_decode_bound(bases, N, dh):
@@ -2667,7 +2770,7 @@ def kernel_counts(kernels):
 
 # -- session phases -------------------------------------------------------------
 
-def build_model(fluid, exe, scope):
+def build_model(fluid, exe, scope, n_layer=N_LAYER):
     from paddle_tpu_torch import unique_name
     from paddle_tpu_torch.models import transformer
     from paddle_tpu_torch.testing import set_deterministic_params
@@ -2675,7 +2778,7 @@ def build_model(fluid, exe, scope):
     main, startup = fluid.Program(), fluid.Program()
     with unique_name.guard({}), fluid.program_guard(main, startup):
         transformer.build(src_vocab_size=VOCAB, trg_vocab_size=VOCAB,
-                          max_length=MAX_LEN, n_layer=N_LAYER, n_head=N_HEAD,
+                          max_length=MAX_LEN, n_layer=n_layer, n_head=N_HEAD,
                           d_model=D_MODEL, d_inner=D_INNER, dropout=0.0,
                           label_smooth_eps=0.0)
     exe.run(startup, scope=scope)
@@ -4768,7 +4871,7 @@ def mt_phase(np, torch, fluid, exe, kernels):
              % per_step)
     if reran:
         fail("%d grad ops reran their forward in the MT steps" % reran)
-    return launches
+    return launches, scope
 
 
 def rnn_card_vs_cpu_phase(np, torch, fluid, exe):
@@ -5138,6 +5241,20 @@ def bucket_counts():
     return {r: c.value(bucket=str(r)) for r in range(1, 9)}
 
 
+def request_counts(text):
+    """``paddle_tpu_frontend_request_seconds``'s counts by (endpoint,
+    outcome) in a Prometheus exposition."""
+    counted = {}
+    for line in text.splitlines():
+        if line.startswith("paddle_tpu_frontend_request_seconds_count{"):
+            labels = dict(kv.split("=") for kv in
+                          line[line.index("{") + 1:line.index("}")]
+                          .replace('"', "").split(","))
+            counted[(labels["endpoint"], labels["outcome"])] = \
+                int(float(line.split()[-1]))
+    return counted
+
+
 def frontend_phase(np, torch, fluid, exe, kernels, serve_out, serve_rate,
                    lstm_dir):
     """The serving plane on the card: one ``ServingFrontend`` on
@@ -5170,6 +5287,7 @@ def frontend_phase(np, torch, fluid, exe, kernels, serve_out, serve_rate,
     from paddle_tpu_torch.serving import loadgen
     from paddle_tpu_torch.serving.client import ServingClient
     from paddle_tpu_torch.serving.frontend import ServingFrontend
+    from paddle_tpu_torch.observability.metrics_registry import REGISTRY
     from paddle_tpu_torch.serving.server import (
         BatchingServer,
         DeadlineExceededError,
@@ -5177,6 +5295,7 @@ def frontend_phase(np, torch, fluid, exe, kernels, serve_out, serve_rate,
     )
 
     t_phase = time.perf_counter()
+    base_counts = request_counts(REGISTRY.to_prometheus())
     scope = fluid.Scope()
     build_model(fluid, exe, scope)
     sess = session(exe, scope.new_scope(), NUM_SLOTS)
@@ -5467,15 +5586,11 @@ def frontend_phase(np, torch, fluid, exe, kernels, serve_out, serve_rate,
         time.sleep(0.05)
     if got != want:
         fail("frontend: stats count %s, expected %s" % (got, want))
-    text = cl.metrics()
-    counted = {}
-    for line in text.splitlines():
-        if line.startswith("paddle_tpu_frontend_request_seconds_count{"):
-            labels = dict(kv.split("=") for kv in
-                          line[line.index("{") + 1:line.index("}")]
-                          .replace('"', "").split(","))
-            counted[(labels["endpoint"], labels["outcome"])] = \
-                int(float(line.split()[-1]))
+    # the registry is the process's: count this phase's requests, past
+    # what earlier phases' frontends (beam_wire) counted
+    counted = {k: n - base_counts.get(k, 0)
+               for k, n in request_counts(cl.metrics()).items()
+               if n != base_counts.get(k, 0)}
     if counted != want:
         fail("frontend: paddle_tpu_frontend_request_seconds counts %s, "
              "expected %s" % (counted, want))
@@ -8960,6 +9075,883 @@ def control_flow_phase(np, torch, fluid):
             fail("control flow capture of %s left a graph" % name)
 
 
+# -- step 22: beam decode ------------------------------------------------------
+
+def beam_session(exe, scope, num_slots=None, n_layer=None, max_length=None):
+    """A beam session of the serve phase's configuration (NUM_SLOTS,
+    N_LAYER, MAX_LEN unless given): ``BEAM_K`` hypotheses a lane, one
+    decode step a ``step()``, page headroom for the copy-reorder oracle's
+    fresh page lists."""
+    from paddle_tpu_torch.serving.generation import SlotDecodeSession
+
+    num_slots = num_slots or NUM_SLOTS
+    n_layer = n_layer or N_LAYER
+    max_length = max_length or MAX_LEN
+    npp = -(-max_length // PAGE_SIZE)
+    return SlotDecodeSession(
+        exe, num_slots=num_slots, max_length=max_length, d_model=D_MODEL,
+        paged=True, page_size=PAGE_SIZE, steps=1, eos_id=EOS, scope=scope,
+        beam_width=BEAM_K, num_pages=1 + 2 * num_slots * npp,
+        src_vocab_size=VOCAB, trg_vocab_size=VOCAB, n_layer=n_layer,
+        n_head=N_HEAD, d_inner=D_INNER)
+
+
+def beam_requests(np, length=None):
+    """The first BEAM_REQUESTS of ``requests``, sources cut to ``length``
+    (MAX_LEN unless given; every 8th with its forced prefix)."""
+    length = length or MAX_LEN
+    src, lens, prefixes = requests(np)
+    n = BEAM_REQUESTS
+    return (np.ascontiguousarray(src[:n, :length]),
+            np.minimum(lens[:n], length), prefixes[:n])
+
+
+def run_beams(np, torch, sess, kernels, reqs, hook=None):
+    """Serve the beam requests through ``sess``: one admission every
+    BEAM_STAGGER steps while a lane is free, the rest as lanes free, with
+    every kernel's count set to 0 just before. ``hook(phase)`` runs just
+    before ("pre") and after ("post") each ``step()``. Returns (results
+    ``{i: {"tokens", "scores"}}``, wall seconds, launches, host seconds of
+    each ``step()``)."""
+    src, lens, prefixes = reqs
+    n = len(src)
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.reset()
+    t0 = time.perf_counter()
+    owner, results, nxt, since, times = {}, {}, 0, BEAM_STAGGER, []
+    while len(results) < n:
+        if nxt < n and sess.free_beams and since >= BEAM_STAGGER:
+            lane = sess.admit_beam(src[nxt], lens[nxt],
+                                   prefix_tokens=prefixes[nxt])
+            owner[sess.register_beam_owner(lane)] = nxt
+            nxt, since = nxt + 1, 0
+        if hook is not None:
+            hook("pre")
+        ts = time.perf_counter()
+        sess.step()
+        times.append(time.perf_counter() - ts)
+        if hook is not None:
+            hook("post")
+        since += 1
+        for rid in list(owner):
+            r = sess.take_beam_result(rid)
+            if r is not None:
+                results[owner.pop(rid)] = r
+    torch.cuda.synchronize()
+    return results, time.perf_counter() - t0, kernel_counts(kernels), times
+
+
+def lattice_margins(torch, pre_ids, pre_scores, logp, eos):
+    """Per batch row of a ``[B, K, V]`` lattice step: the K-th largest
+    candidate total less the (K+1)-th, the candidates built as
+    ``beam_step`` builds them (a finished beam's one candidate is (eos,
+    its score)). A margin below MARGIN_TOL may flip the selection
+    between two devices that sum in other orders."""
+    from paddle_tpu_torch.ops.beam_search_ops import NEG_INF
+
+    B, K, V = logp.shape
+    finished = pre_ids == eos
+    total = pre_scores[:, :, None] + logp
+    total = torch.where(finished[:, :, None], torch.full_like(total, NEG_INF),
+                        total)
+    total[:, :, eos] = torch.where(finished, pre_scores, total[:, :, eos])
+    top = torch.topk(total.reshape(B, K * V), K + 1, dim=1).values
+    return (top[:, K - 1] - top[:, K]).double()
+
+
+def eos_shift(np, sess, reqs):
+    """The shift of ``proj_logits``' bias at EOS that puts eos among a
+    hypothesis's BEAM_K best tokens in a BEAM_EOS_SHARE of the
+    (hypothesis, step) pairs of BEAM_EOS_PROBE steps of every lane,
+    served by ``sess`` on the unshifted weights. Random weights rank eos
+    far from the top, so without the shift no hypothesis meets it and
+    the finished paths (frozen rows, writes to the trash page, done
+    slots beside live ones, lanes that end early) never run."""
+    src, lens, prefixes = reqs
+    sess._extra_step_fetches = [sess._beam_fetches["logits"]]
+    for i in range(NUM_SLOTS // BEAM_K):
+        sess.admit_beam(src[i], lens[i], prefix_tokens=prefixes[i])
+    gaps = []
+    for _ in range(BEAM_EOS_PROBE):
+        sess.step()
+        lg = sess.last_extra_fetches[0][:, 0, :].astype(np.float64)
+        other = np.delete(lg, EOS, axis=1)
+        kth = np.partition(other, -BEAM_K, axis=1)[:, -BEAM_K]
+        gaps.append(kth - lg[:, EOS])
+    for lane in sess.active_beams:
+        sess.cancel(sess.beam_slots(lane)[0])
+    gaps = np.concatenate(gaps)
+    return float(np.quantile(gaps, BEAM_EOS_SHARE)), gaps
+
+
+def in_graph_check(np, torch, sess):
+    """A ``run_beams`` hook holding each dispatch's in-graph selection to
+    ``beam_step`` replayed offline on the dispatch's own fetched logits
+    and the pre-step state, on the card: tokens, parents and scores equal
+    bit for bit over every slot. Returns (hook, counts: the dispatches
+    checked, those with a done hypothesis beside live ones in a lane,
+    those where equal totals among a lane's K selected or at its K-th
+    place left the order to the lowest-index rule, in a live lane and in
+    a free one)."""
+    from paddle_tpu_torch.ops.beam_search_ops import beam_step
+
+    f = sess._beam_fetches
+    sess._extra_step_fetches = [f["logits"], f["token"], f["parent"],
+                                f["score"]]
+    scope, S, K = sess._scope, NUM_SLOTS, BEAM_K
+    B = S // K
+    pre = {}
+    counts = dict(checked=0, done_beside_live=0, ties_live=0, ties_free=0)
+    base = torch.arange(B, device="cuda")[:, None] * K
+
+    def hook(phase):
+        if phase == "pre":
+            for n in ("pgd_tok", "pgd_done", "pgd_score"):
+                pre[n] = scope.get_value(n).clone().reshape(-1)
+            pre["live"] = torch.tensor(
+                [lane in sess._beam_live for lane in range(B)], device="cuda")
+            return
+        lg, tok, par, sc = (torch.from_numpy(np.ascontiguousarray(x)).cuda()
+                            for x in sess.last_extra_fetches)
+        logp = torch.log_softmax(lg[:, 0, :].float(), dim=-1)
+        ids = torch.where(pre["pgd_done"] > 0,
+                          torch.full_like(pre["pgd_tok"], EOS),
+                          pre["pgd_tok"])
+        scores = pre["pgd_score"].reshape(B, K).float()
+        logp = logp.reshape(B, K, -1)
+        want_tok, want_sc, want_par = beam_step(
+            ids.reshape(B, K), scores, logp, EOS, is_accumulated=False)
+        if not (torch.equal(want_tok.reshape(-1), tok.reshape(-1))
+                and torch.equal((base + want_par).reshape(-1),
+                                par.reshape(-1))
+                and torch.equal(want_sc.reshape(-1), sc.reshape(-1))):
+            fail("beam_serve (a): dispatch %d's in-graph selection differs "
+                 "from beam_step replayed on its logits" % counts["checked"])
+        counts["checked"] += 1
+        n_done = (pre["pgd_done"].reshape(B, K) > 0).sum(1)
+        if (pre["live"] & (n_done > 0) & (n_done < K)).any():
+            counts["done_beside_live"] += 1
+        tie = ((want_sc[:, 1:] == want_sc[:, :-1]).any(1)
+               | (lattice_margins(torch, ids.reshape(B, K), scores, logp,
+                                  EOS) == 0))
+        counts["ties_live"] += int((tie & pre["live"]).any())
+        counts["ties_free"] += int((tie & ~pre["live"]).any())
+
+    return hook, counts
+
+
+def paged_beam_inputs(torch, sess):
+    """B4's and B1's inputs at beam traffic, from a beam session's state:
+    layer 0's page pools, the page table (hypotheses sharing their
+    parents' pages), the lengths the step gives (0 for done and free
+    slots) and seeded queries; the cross attention's group rows and
+    masks gathered by ``group_of``."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    get = sess._scope.get_value
+    pos, done = get("pgd_pos").reshape(-1), get("pgd_done").reshape(-1)
+    dh = D_MODEL // N_HEAD
+    paged = dict(q=torch.randn(NUM_SLOTS, N_HEAD, dh, generator=g,
+                               device="cuda"),
+                 k_pool=get("pgd_kpool_0").clone(),
+                 v_pool=get("pgd_vpool_0").clone(),
+                 page_table=get("pgd_table").clone(),
+                 lengths=((pos + 1) * (1 - done)).clone())
+    gof = get("pgd_group_of").reshape(-1)
+    cross = dict(q=torch.randn(NUM_SLOTS, N_HEAD, 1, dh, generator=g,
+                               device="cuda"),
+                 k=get("pgd_kcross_0").index_select(0, gof),
+                 v=get("pgd_vcross_0").index_select(0, gof),
+                 kv_mask=get("pgd_src_mask").index_select(0, gof))
+    return paged, cross
+
+
+def beam_kernel_check(np, torch, sess, worst):
+    """B4 and B1 at the beam path's own inputs (``paged_beam_inputs``)
+    against their plain versions, and B4 timed there. Returns B4's timing
+    row."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    paged, cross = paged_beam_inputs(torch, sess)
+    lengths = paged["lengths"].tolist()
+    table = paged["page_table"]
+    live = [s for s, n in enumerate(lengths) if n > 0]
+    if not live:
+        fail("beam kernels: no live hypothesis to attend over")
+    n_pages = {s: pa.pages_for(lengths[s], PAGE_SIZE) for s in live}
+    pages = {int(p) for s in live for p in table[s, :n_pages[s]].tolist()}
+    refs = sum(n_pages.values())
+    in_lane = {s for lane in sess.active_beams for s in sess.beam_slots(lane)}
+    n_done = sum(1 for s in in_lane if lengths[s] == 0)
+    n_free = NUM_SLOTS - len(in_lane)
+    out = pa.paged_attention(**paged)
+    ref = pa.paged_attention_plain(**paged)
+    e4 = (out - ref).abs().max().item()
+    dead = torch.tensor([n <= 0 for n in lengths], device="cuda")
+    if not dead.any():
+        fail("paged_decode beam: no done or free slot at length 0")
+    if out[dead].abs().max().item() != 0.0:
+        fail("paged_decode beam: a done or free slot's output is not 0")
+    out1 = fa.flash_forward(**cross)
+    ref1 = fa.flash_forward_plain(**cross)
+    out1 = out1[0] if isinstance(out1, tuple) else out1
+    ref1 = ref1[0] if isinstance(ref1, tuple) else ref1
+    e1 = (out1 - ref1).abs().max().item()
+    print("kernel paged_decode beam_traffic      max_abs_err %.3e  tol %.0e: "
+          "%d live hypotheses, lengths %d..%d, %d page references to %d "
+          "distinct pages (shared by the lanes' hypotheses); at length 0 "
+          "(output exactly 0): %d done hypotheses of live lanes, %d slots "
+          "of free lanes"
+          % (e4, K2_TOL, len(live), min(lengths[s] for s in live),
+             max(lengths), refs, len(pages), n_done, n_free))
+    print("kernel flash_fwd beam_cross           max_abs_err %.3e  tol %.0e: "
+          "q [%d,%d,1,%d] over each hypothesis's group row [%d,%d,%d,%d], "
+          "4 hypotheses a group" % (e1, K1_TOL, NUM_SLOTS, N_HEAD,
+                                    D_MODEL // N_HEAD, NUM_SLOTS, N_HEAD,
+                                    MAX_LEN, D_MODEL // N_HEAD))
+    if not (e4 <= K2_TOL and e1 <= K1_TOL):
+        fail("beam kernels: paged_decode %.3e, flash_fwd %.3e above their "
+             "tolerances" % (e4, e1))
+    worst["paged_decode"] = max(worst["paged_decode"], e4)
+    worst["flash_fwd"] = max(worst["flash_fwd"], e1)
+    kw = copies(paged)
+    row = dict(
+        shape="%d slots (%d lanes x %d hypotheses, %d lanes live), %d "
+        "live at lengths %d..%d, %d done, %d free, %d page references to "
+        "%d pages, H %d, dh %d, page_size %d"
+        % (NUM_SLOTS, NUM_SLOTS // BEAM_K, BEAM_K, len(sess.active_beams),
+           len(live), min(lengths[s] for s in live), max(lengths), n_done,
+           n_free, refs, len(pages), N_HEAD, D_MODEL // N_HEAD, PAGE_SIZE),
+        ms=cuda_ms(pa.paged_attention, kw),
+        plain_ms=cuda_ms(pa.paged_attention_plain, kw), library_ms=None,
+        bound=paged_decode_shared_bound(lengths, table.tolist(),
+                                        D_MODEL // N_HEAD))
+    print("time %-20s %s: kernel %.4f ms, plain %.4f ms, library none, "
+          "bound %.4f ms (%s; each shared page's rows once; %.4f ms at a "
+          "read per reference)"
+          % ("paged_decode_beam", row["shape"], row["ms"], row["plain_ms"],
+             row["bound"][0], row["bound"][1],
+             paged_decode_bound(lengths, D_MODEL // N_HEAD)[0]))
+    return row
+
+
+def beam_serve_phase(np, torch, exe, scope, kernels, worst):
+    """``beam_serve`` (module docstring, step 22). Returns (the timed
+    run's launches, (d)'s rescored n-best of request BEAM_WIRE_REQUEST,
+    B4's timing row at beam traffic, the session)."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.models import transformer
+
+    t_phase = time.perf_counter()
+    reqs = beam_requests(np)
+    src, lens, prefixes = reqs
+    n_prefix = sum(p is not None for p in prefixes)
+    # every beam session of the phase (and beam_wire's) reads the bias
+    # raised at EOS from this child scope; the serve phase's stays
+    shift, gaps = eos_shift(np, beam_session(
+        exe, scope.new_scope(), max_length=BEAM_ORACLE_LEN),
+        beam_requests(np, BEAM_ORACLE_LEN))
+    bias = scope.get_value(LOGITS_BIAS).clone()
+    bias[EOS] += shift
+    bscope = scope.new_scope()
+    bscope.set_value(LOGITS_BIAS, bias)
+    print("beam_serve: proj_logits' bias at eos raised by %.4f: eos among "
+          "a hypothesis's %d best tokens in %.1f%% of %d (hypothesis, step) "
+          "pairs (median gap to the %d-th best %.4f)"
+          % (shift, BEAM_K, 100 * BEAM_EOS_SHARE, len(gaps), BEAM_K,
+             float(np.median(gaps))))
+    sess = beam_session(exe, bscope.new_scope())
+    eager0 = exe.eager_multi_step
+    results, wall, launches, times = run_beams(np, torch, sess, kernels,
+                                               reqs)
+    steps = sess.steps_done
+    met_eos = [int((r["tokens"][:, 1:] == EOS).any(1).sum())
+               for r in results.values()]
+    print("beam_serve: hypotheses that met eos %d of %d; lanes that ended "
+          "before max_length (every hypothesis met eos) %d of %d; best "
+          "hypothesis lengths %s"
+          % (sum(met_eos), BEAM_K * BEAM_REQUESTS,
+             sum(m == BEAM_K for m in met_eos), BEAM_REQUESTS,
+             sorted(generated_tokens(r["tokens"][0], prefixes[i])
+                    for i, r in results.items())))
+    if not sum(met_eos):
+        fail("beam_serve: no hypothesis met eos")
+    hyp_tokens = sum(int((r["tokens"][:, 1:] != EOS).sum())
+                     for r in results.values())
+    best_tokens = sum(generated_tokens(r["tokens"][0], prefixes[i])
+                      for i, r in results.items())
+    print("beam_serve: %d requests, %d lanes of %d, max_length %d, "
+          "admissions %d steps apart: wall %.3f s, %d step() calls, %d "
+          "hypothesis tokens (%.1f tokens/s), %d best-hypothesis tokens "
+          "(%.1f tokens/s); host ms per step() mean %.3f median %.3f; "
+          "graphs captured %d, eager run_multi_step calls %d"
+          % (BEAM_REQUESTS, NUM_SLOTS // BEAM_K, BEAM_K, MAX_LEN, BEAM_STAGGER,
+             wall, steps, hyp_tokens, hyp_tokens / wall, best_tokens,
+             best_tokens / wall, 1e3 * float(np.mean(times)),
+             1e3 * float(np.median(times)),
+             exe.graph_stats(sess.step_program)["graphs"],
+             exe.eager_multi_step - eager0))
+    print("beam_serve: beam_cow_copies %d, beam_reorder_pages %d, COW "
+          "dispatches %d; launches a step: paged_decode %.3f, flash_fwd "
+          "%.3f (decode rows %.3f); kernel launches %s"
+          % (sess.beam_cow_copies, sess.beam_reorder_pages,
+             sess.cow_dispatches, launches["paged_decode"] / steps,
+             launches["flash_fwd"] / steps,
+             launches.get("flash_fwd/decode", 0) / steps,
+             json.dumps(launches)))
+    expect_k1 = (BEAM_REQUESTS * N_LAYER + N_LAYER * steps
+                 + 2 * (N_LAYER - 1) * n_prefix)
+    if launches["paged_decode"] != N_LAYER * steps:
+        fail("beam_serve: paged_decode launched %d times, expected n_layer "
+             "x steps = %d" % (launches["paged_decode"], N_LAYER * steps))
+    if launches["flash_fwd"] != expect_k1:
+        fail("beam_serve: flash_fwd launched %d times, expected %d"
+             % (launches["flash_fwd"], expect_k1))
+    if exe.eager_multi_step != eager0:
+        fail("beam_serve: the beam step ran an eager loop, not its graph")
+    if sess.beam_reorder_pages != 0:
+        fail("beam_serve: the rebind reorder copied %d pages"
+             % sess.beam_reorder_pages)
+    for i, r in results.items():
+        t = r["tokens"]
+        if not (t[:, 0] == 1).all() or not ((t >= 0) & (t < VOCAB)).all():
+            fail("beam_serve: request %d's n-best is out of range or not "
+                 "bos-led" % i)
+        if prefixes[i] is not None and not (
+                t[:, 1:1 + len(prefixes[i])] == prefixes[i]).all():
+            fail("beam_serve: request %d lost its forced prefix" % i)
+        if not (np.isfinite(r["scores"]).all()
+                and (np.diff(r["scores"]) <= 0).all()):
+            fail("beam_serve: request %d's scores are not finite and "
+                 "descending: %s" % (i, r["scores"]))
+    if sess.pages_in_use != 0 or not sess.pool_conserved:
+        fail("beam_serve (c): the page pool did not drain")
+    # B4 and B1 at this traffic: BEAM_TRAFFIC_LANES lanes
+    # BEAM_TRAFFIC_STEPS steps in, hypotheses sharing their parents'
+    # pages, the other lanes free
+    for i in range(BEAM_TRAFFIC_LANES):
+        sess.admit_beam(src[i], lens[i], prefix_tokens=prefixes[i])
+    for _ in range(BEAM_TRAFFIC_STEPS):
+        sess.step()
+    beam_row = beam_kernel_check(np, torch, sess, worst)
+    for lane in sess.active_beams:
+        sess.cancel(sess.beam_slots(lane)[0])
+    # (c) a mid-beam cancel of one hypothesis frees the whole lane
+    lane = sess.admit_beam(src[1], lens[1], prefix_tokens=prefixes[1])
+    for _ in range(3):
+        sess.step()
+    in_use = sess.pages_in_use
+    sess.cancel(sess.beam_slots(lane)[2])
+    ok = (not sess.active_beams and sess.free_beams == NUM_SLOTS // BEAM_K
+          and sess.pages_in_use == 0 and sess.pool_conserved)
+    print("beam_serve (c): pool conserved after the run; a mid-beam cancel "
+          "of hypothesis 2 (%d pages in use) freed the whole lane: %s"
+          % (in_use, ok))
+    if not ok:
+        fail("beam_serve (c): the cancel did not free the lane")
+    # (d) generate_beam(len_penalty) is the timed run's n-best rescored
+    j = BEAM_WIRE_REQUEST
+    t_d, s_d = sess.generate_beam(src[j], lens[j], prefix_tokens=prefixes[j],
+                                  len_penalty=BEAM_LEN_PENALTY)
+    _, t_r, s_r = transformer.gnmt_rescore_nbest(
+        results[j]["tokens"], results[j]["scores"], EOS, BEAM_LEN_PENALTY)
+    ok_d = np.array_equal(t_d, t_r) and np.array_equal(s_d, s_r)
+    print("beam_serve (d): generate_beam(len_penalty=%.1f) of request %d "
+          "equals the timed run's n-best rescored by gnmt_rescore_nbest: %s "
+          "(penalized scores %s)" % (BEAM_LEN_PENALTY, j, ok_d,
+                                     ["%.5f" % x for x in s_d]))
+    if not ok_d:
+        fail("beam_serve (d): the rescored n-best differs")
+    # (a) and (b) at max_length BEAM_ORACLE_LEN: the same requests (their
+    # sources cut there) through a rebind session and the copy-reorder
+    # oracle, each of the oracle's dispatches replayed offline. The
+    # oracle copies every moved hypothesis's pages through the eager COW
+    # program: at max_length 256 the run took 141.6 s
+    oreqs = beam_requests(np, BEAM_ORACLE_LEN)
+    rebind = beam_session(exe, bscope.new_scope(), max_length=BEAM_ORACLE_LEN)
+    got, wall_got, _, _ = run_beams(np, torch, rebind, kernels, oreqs)
+    flags.set_flag("beam_reorder", "reference")
+    try:
+        oracle = beam_session(exe, bscope.new_scope(),
+                              max_length=BEAM_ORACLE_LEN)
+        hook, counts = in_graph_check(np, torch, oracle)
+        ref, wall_ref, _, _ = run_beams(np, torch, oracle, kernels, oreqs,
+                                        hook)
+    finally:
+        flags.set_flag("beam_reorder", "rebind")
+    same = all(np.array_equal(got[i]["tokens"], ref[i]["tokens"])
+               and np.array_equal(got[i]["scores"], ref[i]["scores"])
+               for i in got)
+    print("beam_serve (a): %d dispatches' in-graph selections equal "
+          "beam_step replayed on their logits, bit for bit; %d with a done "
+          "hypothesis beside live ones in a lane; equal totals left the "
+          "order to the lowest-index rule in %d (a live lane) and %d (a "
+          "free lane)" % (counts["checked"], counts["done_beside_live"],
+                          counts["ties_live"], counts["ties_free"]))
+    print("beam_serve (b): the %d requests at max_length %d, rebind (wall "
+          "%.3f s) against FLAGS_beam_reorder=reference (wall %.3f s): "
+          "tokens and scores equal bit for bit %s; reorder pages copied: "
+          "rebind %d, oracle %d (%d bytes); beam_cow_copies: rebind %d, "
+          "oracle %d" % (BEAM_REQUESTS, BEAM_ORACLE_LEN, wall_got, wall_ref,
+                         same, rebind.beam_reorder_pages,
+                         oracle.beam_reorder_pages,
+                         oracle.beam_reorder_pages * 2 * N_LAYER * N_HEAD
+                         * PAGE_SIZE * (D_MODEL // N_HEAD) * 4,
+                         rebind.beam_cow_copies, oracle.beam_cow_copies))
+    if not same or rebind.beam_reorder_pages or \
+            oracle.beam_reorder_pages <= 0 or counts["checked"] != \
+            oracle.steps_done:
+        fail("beam_serve (a)/(b): the oracle run differs, a run copied the "
+             "wrong pages or a dispatch went unchecked")
+    if not (counts["done_beside_live"]
+            and counts["ties_live"] + counts["ties_free"]):
+        fail("beam_serve (a): no dispatch held a done hypothesis beside "
+             "live ones, or none left the order to the tie rule")
+    for who in (rebind, oracle):
+        if who.pages_in_use != 0 or not who.pool_conserved:
+            fail("beam_serve (c): a page pool did not drain")
+    print("beam_serve: %.1f s" % (time.perf_counter() - t_phase))
+    return launches, (t_d, s_d), beam_row, sess
+
+
+def beam_wire_phase(np, torch, sess, kernels, want):
+    """``beam_wire``: request BEAM_WIRE_REQUEST through
+    ``ServingFrontend`` and ``ServingClient`` on the beam session of
+    ``beam_serve``, equal to the in-process ``generate_beam`` of it
+    (``want``: its tokens and penalized scores), and a severed beam
+    stream that frees its lane. Returns the launches of the wire
+    request's window."""
+    from paddle_tpu_torch.serving.client import ServingClient
+    from paddle_tpu_torch.serving.frontend import ServingFrontend
+
+    t_phase = time.perf_counter()
+    src, lens, prefixes = beam_requests(np)
+    j = BEAM_WIRE_REQUEST
+    want_t, want_s = want
+    with ServingFrontend(session=sess, host="127.0.0.1") as fe:
+        cl = ServingClient(fe.address)
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.reset()
+        events = []
+        steps0 = sess.steps_done
+        t0 = time.perf_counter()
+        got_t, got_s = cl.generate_beam(src[j], src_len=int(lens[j]),
+                                        prefix_tokens=prefixes[j],
+                                        len_penalty=BEAM_LEN_PENALTY,
+                                        on_event=events.append)
+        wall = time.perf_counter() - t0
+        launches = kernel_counts(kernels)
+        n_chunks = sum(e["event"] == "beam" for e in events)
+        cut = (j + 1) % len(src)
+        cut_steps = sess.steps_done
+        gen = cl.generate(src[cut], src_len=int(lens[cut]), beam=True)
+        first = next(gen)
+        second = next(gen)
+        cl.close()  # severed mid-beam: the close hook cancels the lane
+
+        def lane_freed():
+            # the decode worker owns the session: read only counters it
+            # sets last when a teardown completes
+            return (sess.free_beams == NUM_SLOTS // BEAM_K
+                    and not sess._beam_live and sess.pages_in_use == 0
+                    and sess.pool_conserved)
+
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline and not lane_freed():
+            time.sleep(0.02)
+        freed = lane_freed()
+        # a lane that ran to its end was not cancelled
+        cut_steps = sess.steps_done - cut_steps
+        freed = freed and cut_steps < MAX_LEN - 2
+    steps = sess.steps_done - steps0
+    equal = np.array_equal(got_t, want_t) and np.array_equal(got_s, want_s)
+    print("beam_wire: one request over the socket (len_penalty %.1f): wall "
+          "%.3f s, %d beam chunks, events %s ... %s; reassembled equal to "
+          "the in-process generate_beam %s; launches paged_decode %d, "
+          "flash_fwd %d" % (BEAM_LEN_PENALTY, wall, n_chunks,
+                            [e["event"] for e in events[:2]],
+                            [e["event"] for e in events[-2:]], equal,
+                            launches["paged_decode"], launches["flash_fwd"]))
+    print("beam_wire: a severed beam stream (%s, %s) freed its lane after "
+          "%d steps: %s" % (first["event"], second["event"], cut_steps,
+                            freed))
+    if not (equal and first["event"] == "admitted"
+            and first.get("beam_width") == BEAM_K and freed
+            and n_chunks >= 3):
+        fail("beam_wire: the wire beam differs from the in-process one or "
+             "the severed stream kept its lane")
+    if launches["paged_decode"] != N_LAYER * n_chunks:
+        fail("beam_wire: paged_decode launched %d times over %d chunks, "
+             "expected n_layer a chunk" % (launches["paged_decode"],
+                                           n_chunks))
+    print("beam_wire: %.1f s (%d steps on the wire and severed)"
+          % (time.perf_counter() - t_phase, steps))
+    return launches
+
+
+def record_lane_steps(sess, log):
+    """Wrap ``sess.step``: each step's (tokens, parents) per lane go to
+    ``log[lane]``."""
+    step = sess.step
+
+    def logged():
+        out = step()
+        for lane, ev in sess.last_beam_events.items():
+            log.setdefault(lane, []).append((ev["tokens"], ev["parents"]))
+        for lane, fin in sess.last_finished_beams.items():
+            log.setdefault(lane, []).append((fin["step_tokens"],
+                                             fin["parents"]))
+        return out
+
+    sess.step = logged
+
+
+def beam_card_vs_cpu_phase(np, torch, fluid, exe):
+    """``beam_card_vs_cpu``: the beam session at BEAM_CVC_LAYERS layers,
+    full width otherwise, BEAM_CVC_LANES lanes, max_length BEAM_CVC_LEN,
+    on the card and on the CPU from one state: scores within
+    BEAM_SCORE_TOL, tokens equal or first different at a step whose
+    lattice margin (K-th less (K+1)-th candidate, from the CPU's logits)
+    is below MARGIN_TOL."""
+    t_phase = time.perf_counter()
+    card_scope = fluid.Scope()
+    main = build_model(fluid, exe, card_scope, n_layer=BEAM_CVC_LAYERS)
+    cpu_scope = cpu_copy(np, fluid, main, card_scope)
+    src, lens, prefixes = beam_requests(np, BEAM_CVC_LEN)
+    S = BEAM_CVC_LANES * BEAM_K
+    runs, logs, margins = {}, {}, {}
+    for dev, ex, sc in (("card", exe, card_scope),
+                        ("cpu", fluid.Executor(fluid.CPUPlace()), cpu_scope)):
+        sess = beam_session(ex, sc.new_scope(), num_slots=S,
+                            n_layer=BEAM_CVC_LAYERS, max_length=BEAM_CVC_LEN)
+        logs[dev] = {}
+        record_lane_steps(sess, logs[dev])
+        if dev == "cpu":
+            sess._extra_step_fetches = [sess._beam_fetches["logits"]]
+            get, step = sess._scope.get_value, sess.step
+            margins[dev] = []
+
+            def margin_step(sess=sess, get=get, step=step):
+                pre = [get(n).reshape(-1).clone() for n in
+                       ("pgd_tok", "pgd_done", "pgd_score")]
+                out = step()
+                lg = torch.from_numpy(sess.last_extra_fetches[0][:, 0, :])
+                ids = torch.where(pre[1] > 0, torch.full_like(pre[0], EOS),
+                                  pre[0])
+                margins["cpu"].append(lattice_margins(
+                    torch, ids.reshape(-1, BEAM_K),
+                    pre[2].reshape(-1, BEAM_K).float(),
+                    torch.log_softmax(lg.float(), -1).reshape(
+                        -1, BEAM_K, VOCAB), EOS).numpy())
+                return out
+
+            sess.step = margin_step
+        lanes = [sess.admit_beam(src[i], lens[i], prefix_tokens=prefixes[i])
+                 for i in range(BEAM_CVC_LANES)]
+        rids = [sess.register_beam_owner(lane) for lane in lanes]
+        while sess.active_beams:
+            sess.step()
+        runs[dev] = [sess.take_beam_result(r) for r in rids]
+        if dev == "card":
+            torch.cuda.synchronize()
+    marg = np.stack(margins["cpu"])  # [steps, lanes]
+    for lane in range(BEAM_CVC_LANES):
+        a, b = runs["card"][lane], runs["cpu"][lane]
+        if np.array_equal(a["tokens"], b["tokens"]):
+            err = float(np.abs(a["scores"] - b["scores"]).max())
+            print("beam_card_vs_cpu lane %d: tokens equal, scores max abs "
+                  "diff %.2e (tol %.0e); smallest lattice margin %.2e"
+                  % (lane, err, BEAM_SCORE_TOL, marg[:, lane].min()))
+            if not err <= BEAM_SCORE_TOL:
+                fail("beam_card_vs_cpu: lane %d's scores differ by %.3e"
+                     % (lane, err))
+            continue
+        la, lb = logs["card"][lane], logs["cpu"][lane]
+        t = next(i for i in range(min(len(la), len(lb))) if la[i] != lb[i])
+        m = float(marg[t, lane])
+        print("beam_card_vs_cpu lane %d: the selections first differ at "
+              "step %d (card %s, cpu %s), lattice margin there %.2e (tol "
+              "%.0e)" % (lane, t, la[t], lb[t], m, MARGIN_TOL))
+        if not m < MARGIN_TOL:
+            fail("beam_card_vs_cpu: lane %d differs at step %d where the "
+                 "margin %.3e is not below %.0e" % (lane, t, m, MARGIN_TOL))
+    print("beam_card_vs_cpu: %d layers, %d lanes, max_length %d: %.1f s"
+          % (BEAM_CVC_LAYERS, BEAM_CVC_LANES, BEAM_CVC_LEN,
+             time.perf_counter() - t_phase))
+
+
+def sentence_check(np, label, card, cpu, stopped_at, tol=BEAM_SCORE_TOL):
+    """Card against CPU n-bests ``(ids [B, K, T], scores)`` of a beam
+    generator, the scores per step along each hypothesis ``[B, K, T]``
+    or final ``[B, K]``. A row whose ids are equal has scores within
+    ``tol``. A row whose ids differ passes only as a tie:
+    ``stopped_at(t)`` gives the (card, CPU) outputs of the same
+    generator stopped after t steps, ``(ids, totals [B, K])``, whose
+    beams are the full run's at step t; at the first step where the
+    row's beams differ, the two sides' K totals, sorted, are within
+    ``tol`` (they kept different candidates of equal total). At least
+    BEAM_EQUAL_SHARE of the rows are equal."""
+    ids_a, sc_a = card
+    ids_b, sc_b = cpu
+    B, T = ids_a.shape[0], ids_a.shape[2]
+    worst, diverged, cut = 0.0, [], {}
+    for b in range(B):
+        if np.array_equal(ids_a[b], ids_b[b]):
+            worst = max(worst, float(np.abs(sc_a[b] - sc_b[b]).max()))
+            continue
+        pos = int(np.argmax((ids_a[b] != ids_b[b]).any(axis=0)))
+        for t in range(max(1, pos), T + 1):
+            if t not in cut:
+                cut[t] = stopped_at(t)
+            (ia, ta), (ib, tb) = cut[t]
+            if not np.array_equal(ia[b], ib[b]):
+                break
+        else:
+            fail("%s: row %d differs, but no stopped run shows where"
+                 % (label, b))
+        gap = float(np.abs(np.sort(ta[b]) - np.sort(tb[b])).max())
+        diverged.append((b, t, round(gap, 9)))
+        if not gap <= tol:
+            fail("%s: row %d's beams first differ at step %d, where the "
+                 "two sides' totals are %.3e apart, above %.0e: not a tie"
+                 % (label, b, t, gap, tol))
+    n_equal = B - len(diverged)
+    print("%s: ids equal in %d of %d rows, scores max abs diff %.2e (tol "
+          "%.0e); rows that differ (row, the step where their beams first "
+          "differ, the sorted totals' gap there): %s"
+          % (label, n_equal, B, worst, tol, diverged))
+    if not worst <= tol:
+        fail("%s: scores differ by %.3e" % (label, worst))
+    if n_equal < BEAM_EQUAL_SHARE * B:
+        fail("%s: ids equal in only %d of %d rows" % (label, n_equal, B))
+
+
+def mt_beam_phase(np, torch, fluid, exe, kernels, mt_scope):
+    """``mt_beam``: ``build_generator`` at its defaults on the MT weights
+    the ``mt`` phase trained, batch MT_BATCH: sentences/s and B6 launches
+    on the card (2 a run: the encoder's two directions), then card
+    against CPU (``sentence_check``). Returns the timed runs'
+    ``lstm_cell`` launches."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import machine_translation as mt
+
+    t_phase = time.perf_counter()
+
+    def generator(max_len=32):
+        prog, startup = fluid.Program(), fluid.Program()
+        with unique_name.guard({}), fluid.program_guard(prog, startup):
+            ids, scores, _ = mt.build_generator(max_len=max_len)
+        return prog, ids, scores
+
+    prog, ids, scores = generator()
+    rng = np.random.RandomState(SEED + 1)
+    feed = {"source_sequence": rng.randint(3, 1000, (MT_BATCH, MT_SEQ)).astype(
+                "int64"),
+            "source_length": rng.randint(8, MT_SEQ + 1, (MT_BATCH, 1)).astype(
+                "int64")}
+    exe.run(prog, feed=feed, fetch_list=[ids, scores], scope=mt_scope)
+    torch.cuda.synchronize()
+    kernels["lstm_cell"].reset()
+    t0 = time.perf_counter()
+    for _ in range(MT_BEAM_RUNS):
+        card = exe.run(prog, feed=feed, fetch_list=[ids, scores],
+                       scope=mt_scope)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels["lstm_cell"].launches
+    print("mt_beam: build_generator (beam 4, max_len 32, 64 wide, vocabulary "
+          "1000), batch %d, %d runs: %.2f ms a run, %.1f sentences/s; "
+          "lstm_cell launches %d (%.1f a run)"
+          % (MT_BATCH, MT_BEAM_RUNS, 1e3 * wall / MT_BEAM_RUNS,
+             MT_BATCH * MT_BEAM_RUNS / wall, launches,
+             launches / MT_BEAM_RUNS))
+    if launches != 2 * MT_BEAM_RUNS:
+        fail("mt_beam: lstm_cell launched %d times, expected 2 a run"
+             % launches)
+    cpu_scope = cpu_copy(np, fluid, prog, mt_scope)
+    cpu = fluid.Executor(fluid.CPUPlace()).run(
+        prog, feed=feed, fetch_list=[ids, scores], scope=cpu_scope)
+
+    def stopped_at(t):
+        p, i, sc = generator(t)
+        return [[np.asarray(x) for x in ex.run(
+                    p, feed=feed, fetch_list=[i, sc], scope=where)]
+                for ex, where in ((exe, mt_scope),
+                                  (fluid.Executor(fluid.CPUPlace()),
+                                   cpu_scope))]
+
+    sentence_check(np, "mt_beam card vs cpu",
+                   [np.asarray(x) for x in card],
+                   [np.asarray(x) for x in cpu], stopped_at)
+    print("mt_beam: %.1f s" % (time.perf_counter() - t_phase))
+    return launches
+
+
+def book_beam_phase(np, torch, fluid, kernels):
+    """``book_beam``: the book's ``decoder_decode`` at its widths
+    (``set_deterministic_params`` weights), batch BOOK_BEAM_BATCH:
+    ``run_multi_step`` captured against the eager loop
+    (``FLAGS_cuda_graph=0``), bit for bit, with no host read from the
+    ``While``; sentences/s and B6 launches (the encoder, one a run); then
+    card against CPU (``sentence_check``). Returns the timed runs'
+    ``lstm_cell`` launches."""
+    from paddle_tpu_torch import flags, unique_name
+    from paddle_tpu_torch.models import rnn_encoder_decoder as red
+    from paddle_tpu_torch.ops import subblock_ops
+    from paddle_tpu_torch.testing import set_deterministic_params
+
+    t_phase = time.perf_counter()
+    K, B = BOOK_BEAM_K, BOOK_BEAM_BATCH
+
+    def decoder(max_length):
+        prog, startup = fluid.Program(), fluid.Program()
+        with unique_name.guard({}), fluid.program_guard(prog, startup):
+            L = fluid.layers
+            src = L.data(name="src_word_id", shape=[ED_LEN], dtype="int64")
+            src_len = L.data(name="src_length", shape=[1], dtype="int64")
+            context = red.encoder(fluid, src, src_len)
+            ids, scores = red.decoder_decode(fluid, context, src_len, B,
+                                             beam_size=K,
+                                             max_length=max_length,
+                                             end_id=BOOK_END_ID)
+        return prog, startup, ids, scores
+
+    prog, startup, ids, scores = decoder(BOOK_BEAM_LEN)
+    feed = encdec_feed(np, B, ED_SEED + 7)
+    feed = {k: feed[k] for k in ("src_word_id", "src_length")}
+    feed.update(red.init_beams(np, B, K, start_id=0))
+    runs, stats = {}, {}
+    for graph in (True, False):
+        flags.set_flag("cuda_graph", graph)
+        try:
+            ex = fluid.Executor()
+            scope = fluid.Scope()
+            ex.run(startup, scope=scope)
+            set_deterministic_params(prog, scope)
+            subblock_ops.reset_host_reads()
+
+            def call():
+                return [np.asarray(v) for v in ex.run_multi_step(
+                    prog, 1, feed=feed, fetch_list=[ids, scores],
+                    scope=scope)]
+
+            # the first calls warm up and capture; the timed ones replay
+            warm = [call() for _ in range(2)]
+            torch.cuda.synchronize()
+            kernels["lstm_cell"].reset()
+            t0 = time.perf_counter()
+            for _ in range(BOOK_BEAM_RUNS):
+                runs[graph] = call()
+            torch.cuda.synchronize()
+            if not all(np.array_equal(a, b) for w in warm
+                       for a, b in zip(w, runs[graph])):
+                fail("book_beam: a warm-up call differs from the timed "
+                     "ones")
+            stats[graph] = (time.perf_counter() - t0, ex.graph_stats()[
+                "graphs"], ex.eager_multi_step, subblock_ops.HOST_READS[
+                "while"], kernels["lstm_cell"].launches)
+            if graph:
+                card_scope = scope
+        finally:
+            flags.set_flag("cuda_graph", True)
+    (wall, graphs, eager, reads, launches) = stats[True]
+    equal = all(np.array_equal(a, b) for a, b in zip(runs[True],
+                                                     runs[False]))
+    print("book_beam: decoder_decode (dictionary %d, word_dim %d, hidden "
+          "%d), beam %d, max_length %d, batch %d, %d timed run_multi_step "
+          "calls after 2: captured %.2f ms a call (%.1f sentences/s; "
+          "graphs %d, eager loops "
+          "%d, host reads from the While %d), eager loop %.2f ms a call "
+          "(eager loops %d); captured equal to the eager loop bit for bit "
+          "%s; lstm_cell launches %d"
+          % (red.DICT_SIZE, red.WORD_DIM, red.HIDDEN_DIM, K, BOOK_BEAM_LEN,
+             B, BOOK_BEAM_RUNS, 1e3 * wall / BOOK_BEAM_RUNS,
+             B * BOOK_BEAM_RUNS / wall, graphs, eager, reads,
+             1e3 * stats[False][0] / BOOK_BEAM_RUNS, stats[False][2], equal,
+             launches))
+    if not (equal and graphs == 1 and eager == 0 and reads == 0
+            and stats[False][2] == BOOK_BEAM_RUNS + 2):
+        fail("book_beam: the captured decode differs from the eager loop, "
+             "ran eagerly or read the host")
+    if launches != BOOK_BEAM_RUNS:
+        fail("book_beam: lstm_cell launched %d times, expected one a run"
+             % launches)
+    cpu_scope = cpu_copy(np, fluid, prog, card_scope)
+    cpu = fluid.Executor(fluid.CPUPlace()).run(
+        prog, feed=feed, fetch_list=[ids, scores], scope=cpu_scope)
+
+    def stopped_at(t):
+        p, _, i, sc = decoder(t)
+        return [(o[0], o[1][:, :, -1]) for o in (
+            [np.asarray(x) for x in ex.run(p, feed=feed, fetch_list=[i, sc],
+                                            scope=where)]
+            for ex, where in ((fluid.Executor(), card_scope),
+                              (fluid.Executor(fluid.CPUPlace()),
+                               cpu_scope)))]
+
+    sentence_check(np, "book_beam card vs cpu", runs[True],
+                   [np.asarray(x) for x in cpu], stopped_at)
+    print("book_beam: %.1f s" % (time.perf_counter() - t_phase))
+    return launches
+
+
+def rnn_ops_sweep_cases(np, fluid):
+    """``dynamic_lstmp`` (peepholes and lengths, neither, and at a
+    realistic [32, 50, 512] with P 64), ``lstm_unit``, ``gru_unit`` (its
+    integer codes and names) and ``row_conv``: forward and the gradient of
+    each input."""
+    L = fluid.layers
+    rng = np.random.RandomState(SEED + 3)
+    cases = []
+    add = sweep_case_adder(np, fluid, cases)
+
+    def f32(*shape):
+        return (0.5 * rng.randn(*shape)).astype("float32")
+
+    lens = np.array([[12], [5], [12], [1]], "int64")
+    add("dynamic_lstmp peepholes, lengths",
+        {"x": f32(4, 12, 64), "l": lens},
+        lambda v: list(L.dynamic_lstmp(v["x"], 64, 8, length=v["l"])),
+        ["x"])
+    add("dynamic_lstmp no peepholes",
+        {"x": f32(4, 12, 64)},
+        lambda v: list(L.dynamic_lstmp(v["x"], 64, 8, use_peepholes=False,
+                                       proj_activation="identity")), ["x"])
+    big_lens = rng.randint(10, 51, (32, 1)).astype("int64")
+    add("dynamic_lstmp [32, 50, 512] P 64, lengths",
+        {"x": f32(32, 50, 512), "l": big_lens},
+        lambda v: list(L.dynamic_lstmp(v["x"], 512, 64, length=v["l"])),
+        ["x"])
+    add("lstm_unit", {"x": f32(8, 64), "c": f32(8, 16)},
+        lambda v: list(L.lstm_unit(v["x"], v["c"], forget_bias=1.0)),
+        ["x", "c"])
+    add("gru_unit", {"x": f32(8, 48), "h": f32(8, 16)},
+        lambda v: list(L.gru_unit(v["x"], v["h"], 48)), ["x", "h"])
+    add("gru_unit relu / identity codes", {"x": f32(8, 48), "h": f32(8, 16)},
+        lambda v: [sweep_raw(fluid, "gru_unit", {
+            "Input": v["x"], "HiddenPrev": v["h"],
+            "Weight": L.create_parameter([16, 48], "float32",
+                                         name="gru_codes_w")},
+            ["Gate", "ResetHiddenPrev", "Hidden"],
+            {"activation": 3, "gate_activation": 0})[2]], ["x", "h"])
+    add("row_conv", {"x": f32(4, 20, 16)},
+        lambda v: [L.row_conv(v["x"], 2)], ["x"])
+    return cases
+
+
+def rnn_ops_sweep_phase(np, torch, fluid):
+    t_phase = time.perf_counter()
+    worst, n_ops = run_sweep(np, fluid, rnn_ops_sweep_cases(np, fluid),
+                             "rnn_ops", tol=RNN_OPS_TOL, relative=True)
+    missing = {"dynamic_lstmp", "lstm_unit", "gru_unit", "row_conv"} - n_ops
+    if missing:
+        fail("the rnn_ops sweep ran no case of %s" % sorted(missing))
+    print("rnn_ops_sweep: worst %.2e (tol %.0e, relative to max(1, largest)): "
+          "%.1f s" % (worst, RNN_OPS_TOL, time.perf_counter() - t_phase))
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "paddle_tpu_torch")):
         fail("paddle_tpu_torch/ is not beside chip_smoke.py: run it from "
@@ -9090,7 +10082,15 @@ def main():
     spec_launches = speculative_phase(np, torch, fluid, exe, scope, KERNELS)
     spec_card_vs_cpu_phase(np, torch, fluid, exe, scope, main_prog)
     mark("prefix, dense, speculative, card vs cpu")
+    beam_launches, beam_want, timing["paged_decode_beam"], beam_sess = \
+        beam_serve_phase(np, torch, exe, scope, KERNELS, worst)
+    beam_wire_launches = beam_wire_phase(np, torch, beam_sess, KERNELS,
+                                         beam_want)
+    beam_sess = None
     scope = main_prog = None
+    torch.cuda.empty_cache()
+    beam_card_vs_cpu_phase(np, torch, fluid, exe)
+    mark("beam_serve, beam_wire, beam_card_vs_cpu")
     torch.cuda.empty_cache()
     train = train_phase(np, torch, fluid, exe, KERNELS)
     train_launches = train["launches"]
@@ -9139,7 +10139,10 @@ def main():
     shutil.rmtree(model_root)
     torch.cuda.empty_cache()
     mark("frontend")
-    mt_launches = mt_phase(np, torch, fluid, exe, KERNELS)
+    mt_launches, mt_scope = mt_phase(np, torch, fluid, exe, KERNELS)
+    mt_beam_launches = mt_beam_phase(np, torch, fluid, exe, KERNELS,
+                                     mt_scope)
+    mt_scope = None
     rnn_card_vs_cpu_phase(np, torch, fluid, exe)
     torch.cuda.empty_cache()
     model_root = tempfile.mkdtemp(prefix="chip_smoke_models_")
@@ -9217,8 +10220,14 @@ def main():
     book_card_vs_cpu_phase(np, torch, fluid)
     control_flow_phase(np, torch, fluid)
     mark("book rnn, control flow")
+    torch.cuda.empty_cache()
+    book_beam_launches = book_beam_phase(np, torch, fluid, KERNELS)
+    rnn_ops_sweep_phase(np, torch, fluid)
+    mark("book_beam, rnn_ops_sweep")
     print("phase seconds (since the card check, at the end of each): %s"
           % json.dumps(marks))
+    print("script total: %.1f s since the card check"
+          % (time.perf_counter() - t_start))
 
     def bwd_record(name, line):
         """B2 or B3: the key-mask shape's numbers (bound at the split-TF32
@@ -9270,7 +10279,7 @@ def main():
         return out
 
     serving = (launches, graph_launches, prefix_launches, dense_launches,
-               spec_launches, fe_launches)
+               spec_launches, fe_launches, beam_launches, beam_wire_launches)
 
     def both(label):
         """The launches at ``label`` over every serving window."""
@@ -9286,8 +10295,9 @@ def main():
         ("flash_fwd_switch", switch_launches["flash_fwd"])],
         "the launches at this shape class in the serving runs' request "
         "windows (captured, eager, prefix cache, dense, speculative, the "
-        "frontend), the training phase's or the switch phase's timed "
-        "steps, counted by the wrapper where it launches")
+        "frontend, beam in process and over the wire), the training "
+        "phase's or the switch phase's timed steps, counted by the wrapper "
+        "where it launches")
     # the causal calls of those request windows: the decoder over a
     # forced prefix at admission (paged prefill), a shape not timed here
     flash_shapes.append(dict(
@@ -9319,14 +10329,15 @@ def main():
         ("lstm_cell_D%d_full" % RNN_HID, 0),
         ("lstm_cell_D%d" % RNN_PKG_HID, 0),
         ("lstm_cell_D%d_full" % RNN_PKG_HID, 0),
-        ("lstm_cell_mt", mt_launches),
+        ("lstm_cell_mt", mt_launches + mt_beam_launches),
         ("lstm_cell_srl", srl_run["launches"]["lstm_cell"]),
-        ("lstm_cell_encdec", encdec_launches),
+        ("lstm_cell_encdec", encdec_launches + book_beam_launches),
         ("lstm_cell_encdec_full", 0)],
         "the stacked LSTM's training, inference and predictor runs (D 512), "
-        "the MT steps (the MT shape), the role labeller's timed steps "
-        "(the srl shape) or the encoder-decoder's timed steps (the encdec "
-        "shape)")
+        "the MT steps and the MT beam generator's timed runs (the MT "
+        "shape), the role labeller's timed steps (the srl shape) or the "
+        "encoder-decoder's timed steps and the book beam decoder's timed "
+        "runs (the encdec shape)")
     gru_shapes = shape_rows(rnn_timing, [
         ("gru_cell_D%d" % RNN_HID, gru_train + gru_pred),
         ("gru_cell_D%d" % RNN_PKG_HID, 0),
@@ -9445,8 +10456,13 @@ def main():
              bound_ms=timing["paged_decode"]["bound"][0],
              bound_by=timing["paged_decode"]["bound"][1],
              library_ms=None,
-             shapes=shape_rows(timing, [("paged_decode", 0),
-                                        ("paged_decode_ragged", 0)], "")),
+             shapes=shape_rows(timing, [
+                 ("paged_decode", 0), ("paged_decode_ragged", 0),
+                 ("paged_decode_beam", beam_launches["paged_decode"]
+                  + beam_wire_launches["paged_decode"])],
+                 "the beam_serve and beam_wire request windows (8 lanes of "
+                 "4 hypotheses sharing their parents' pages), counted by "
+                 "the wrapper where it launches")),
         dict(name="tree_decode", route="cuda",
              source="paddle_tpu_torch/csrc/tree_decode.cu",
              replaces="paddle_tpu/kernels/paged_attention.py:386",
@@ -9463,7 +10479,8 @@ def main():
                         lstm_infer + lstm_train + lstm_pred + mt_launches
                         + fe_launches["lstm_cell"]
                         + srl_run["launches"]["lstm_cell"]
-                        + encdec_launches),
+                        + encdec_launches + mt_beam_launches
+                        + book_beam_launches),
              shapes=lstm_shapes),
         dict(rnn_record("gru_cell", "gru_cell.py", 55,
                         gru_train + gru_pred

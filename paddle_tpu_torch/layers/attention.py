@@ -19,6 +19,7 @@ __all__ = [
     "paged_spec_kv_compact",
     "grouped_cross_attention",
     "slot_decode_sample",
+    "slot_beam_search",
     "slot_speculative_accept",
     "add_position_encoding",
     "moe_ffn",
@@ -262,6 +263,42 @@ def slot_decode_sample(logits, pos, done=None, strategy="greedy",
                "eos_id": int(eos_id), "max_length": int(max_length)},
     )
     return tok, new_pos, new_done
+
+
+def slot_beam_search(logits, tok, pos, done, score, beam_width,
+                     eos_id=2, max_length=0, name=None):
+    """Batched beam selection and parent gather over the slot pool
+    (``ops/beam_search_ops.py`` ``slot_beam_search``): the ``S = B * K``
+    slots are K-wide beam lanes, one top-K lattice per lane selects the
+    survivors, and each survivor takes its parent's position and done
+    state. The session gathers the page-table rows by the returned
+    GLOBAL parent indices. Returns ``(token, new_pos, new_done,
+    new_score, parent)``, all ``[S, 1]``."""
+    if int(beam_width) < 2:
+        raise ValueError(
+            "slot_beam_search needs beam_width >= 2 (width 1 is "
+            "slot_decode_sample's job), got %r" % (beam_width,))
+    if int(max_length) < 2:
+        raise ValueError(
+            "slot_beam_search needs max_length >= 2 (the decode "
+            "budget), got %r" % (max_length,))
+    helper = LayerHelper("slot_beam_search", name=name)
+    tok_out = helper.create_variable_for_type_inference("int64")
+    new_pos = helper.create_variable_for_type_inference("int64")
+    new_done = helper.create_variable_for_type_inference("int64")
+    new_score = helper.create_variable_for_type_inference("float32")
+    parent = helper.create_variable_for_type_inference("int64")
+    helper.append_op(
+        type="slot_beam_search",
+        inputs={"Logits": [logits], "Tok": [tok], "Pos": [pos],
+                "Done": [done], "Score": [score]},
+        outputs={"Out": [tok_out], "PosOut": [new_pos],
+                 "DoneOut": [new_done], "ScoreOut": [new_score],
+                 "ParentOut": [parent]},
+        attrs={"beam_width": int(beam_width), "eos_id": int(eos_id),
+               "max_length": int(max_length)},
+    )
+    return tok_out, new_pos, new_done, new_score, parent
 
 
 def slot_speculative_accept(logits, nodes, parent, pos, done,

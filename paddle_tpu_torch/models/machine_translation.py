@@ -4,11 +4,13 @@ Reference parity: ``benchmark/fluid/models/machine_translation.py``
 (seq_to_seq_net: bi-LSTM encoder + simple_attention LSTM decoder) and the
 generation path of ``tests/book/test_machine_translation.py`` (beam search).
 Dense-padded regime: [batch, max_len] token ids + [batch] lengths replace
-LoD packing; the decoder is the fused attention_lstm op.
+LoD packing; the decoder is the fused attention_lstm op, and generation
+is the fused whole-loop beam decoder.
 
-Counterpart of ``paddle_tpu/models/machine_translation.py`` for the
-training graph (``build``); the generation graph (``build_generator``,
-the whole-loop beam decoder) comes with the beam-decode slice.
+Counterpart of ``paddle_tpu/models/machine_translation.py``: the
+training graph (``build``) and the generation graph (``build_generator``,
+the whole-loop beam decoder ``attention_lstm_beam_decode``), which share
+the weights by name.
 """
 
 import paddle_tpu_torch as fluid
@@ -114,3 +116,29 @@ def build(
     denom = fluid.layers.reduce_sum(label_mask)
     avg_cost = fluid.layers.elementwise_div(total, denom)
     return avg_cost, [src, src_len, tgt, label, label_mask], {}
+
+
+def build_generator(src_vocab=1000, tgt_vocab=1000, src_seq_len=32,
+                    emb_dim=64, encoder_size=64, decoder_size=64,
+                    beam_size=4, max_len=32, start_id=1, end_id=2):
+    """The beam-search generation graph, sharing the training weights by
+    name. Returns (sentence_ids ``[B, beam, max_len]``, scores ``[B,
+    beam]``, feeds)."""
+    from paddle_tpu_torch.layer_helper import LayerHelper
+
+    src = fluid.layers.data(name="source_sequence", shape=[src_seq_len],
+                            dtype="int64")
+    src_len = fluid.layers.data(name="source_length", shape=[1],
+                                dtype="int64")
+    encoded_vector, encoded_proj, decoder_boot = _encoder(
+        src, src_len, src_vocab, emb_dim, encoder_size, decoder_size)
+    helper = LayerHelper("mt_generator")
+    tgt_emb_param = helper.create_parameter(
+        attr=ParamAttr(name=TGT_EMB_NAME), shape=[tgt_vocab, emb_dim],
+        dtype="float32")
+    ids, scores = fluid.layers.attention_lstm_beam_decode(
+        encoded_vector, encoded_proj, decoder_boot, tgt_emb_param,
+        size=decoder_size, vocab_size=tgt_vocab, beam_size=beam_size,
+        max_len=max_len, start_id=start_id, end_id=end_id,
+        encoder_len=src_len, name=DECODER_NAME)
+    return ids, scores, [src, src_len]

@@ -5,8 +5,11 @@ serving slices: the training ``build`` (dropout, label-smoothed loss),
 the inference program derived from it and the greedy re-score loop over
 it (``build_inference``, ``greedy_generate``: the program a saved
 Transformer serves), the position-encoding tables, the dense slot
-decoder, the paged slot decoder (greedy or sampled) with its speculative
-verify program, the draft decoder and the coalesced copy-on-write program.
+decoder, the paged slot decoder (greedy, sampled or beam) with its
+speculative verify program, the draft decoder, the coalesced
+copy-on-write program, and the offline beam API (``beam_generate``, the
+KV-cached dense decoder and ``cached_beam_generate``, the GNMT length
+penalty and ``gnmt_rescore_nbest``).
 Every build function mints the reference's variable and parameter
 names, so parameters bind by name across the two packages and across
 this package's programs.
@@ -179,6 +182,101 @@ def greedy_generate(exe, infer_prog, logits_var, src, src_len, max_length,
     return trg
 
 
+def _log_softmax_rows(step):
+    """Stable log-softmax over the vocab dim of [N, V] float64 rows."""
+    mx = step.max(-1, keepdims=True)
+    return step - mx - np.log(np.exp(step - mx).sum(-1, keepdims=True))
+
+
+def _gnmt_penalized_scores(trg_bk, scores, eos_id, len_penalty):
+    """The GNMT length-penalty division ``scores / ((5 + len) / 6) ** p``
+    over ``[..., K, T]`` hypothesis rows (length: through the first eos
+    after bos, or the whole budget), in float64."""
+    tail = trg_bk[..., 1:]
+    has_eos = (tail == eos_id).any(-1)
+    first = (tail == eos_id).argmax(-1)
+    lengths = np.where(has_eos, first + 1,
+                       trg_bk.shape[-1]).astype(np.float64)
+    lp = ((5.0 + lengths) / 6.0) ** float(len_penalty)
+    return np.asarray(scores, np.float64) / lp
+
+
+def _pick_best_beam(trg, pre_scores, bs, K, max_length, eos_id,
+                    len_penalty):
+    """The GNMT length-penalty choice among the final beams."""
+    trg_bk = trg.reshape(bs, K, max_length)
+    best = _gnmt_penalized_scores(
+        trg_bk, pre_scores, eos_id, len_penalty).argmax(-1)
+    return trg_bk[np.arange(bs), best]
+
+
+def gnmt_rescore_nbest(tokens, scores, eos_id, len_penalty):
+    """Rescore one final n-best (``tokens [K, T]`` bos-led rows,
+    ``scores [K]`` accumulated log-probs) with ``_pick_best_beam``'s GNMT
+    length penalty, and reorder it score-descending under the penalized
+    scores. Returns ``(order [K] int64, tokens[order],
+    penalized_scores[order] float32)``: ``order`` permutes the input
+    hypotheses (the wire forwards it so that a streaming client can
+    realign its survivor replay). The sort is stable, so ``len_penalty
+    = 0`` returns the identity order."""
+    tokens = np.asarray(tokens)
+    penalized = _gnmt_penalized_scores(tokens, scores, eos_id, len_penalty)
+    order = np.argsort(-penalized, kind="stable").astype(np.int64)
+    return order, tokens[order], penalized[order].astype(np.float32)
+
+
+def _beam_select(pre_ids, pre_scores, step, eos_id):
+    """``beam_step`` over host arrays: ``step`` ``[B, K, V]`` float32
+    log-probs. Returns numpy (token, selected scores, parent)."""
+    import torch
+
+    from paddle_tpu_torch.ops.beam_search_ops import beam_step
+
+    token, sel, parent = beam_step(
+        torch.from_numpy(pre_ids), torch.from_numpy(pre_scores),
+        torch.from_numpy(np.ascontiguousarray(step)), eos_id)
+    return token.numpy(), sel.numpy(), parent.numpy()
+
+
+def beam_generate(exe, infer_prog, logits_var, src, src_len, max_length,
+                  beam_size=4, bos_id=1, eos_id=2, len_penalty=0.6,
+                  scope=None):
+    """Beam-search decode over the fixed-shape inference program
+    (transformer.py:296): the beams ride the batch dimension (B * K
+    rows), each step's selection is ``ops.beam_search_ops.beam_step``
+    (finished beams frozen, the first step's duplicates suppressed), and
+    the GNMT length penalty picks the final beam. Returns [B,
+    max_length] int64, the best beam of each source."""
+    bs = src.shape[0]
+    K = int(beam_size)
+    src_k = np.repeat(src, K, axis=0)
+    len_k = np.repeat(src_len, K, axis=0)
+    trg = np.full((bs * K, max_length), eos_id, np.int64)
+    trg[:, 0] = bos_id
+    pre_ids = np.full((bs, K), bos_id, np.int64)
+    pre_scores = np.full((bs, K), -1e9, np.float32)
+    pre_scores[:, 0] = 0.0  # only beam 0 is live at t = 0
+    rows = np.arange(bs)[:, None]
+    for t in range(max_length - 1):
+        (lg,) = exe.run(infer_prog, feed={"src_word": src_k,
+                                          "src_len": len_k,
+                                          "trg_word": trg},
+                        fetch_list=[logits_var], scope=scope)
+        step = _log_softmax_rows(np.asarray(lg)[:, t, :].astype(np.float64))
+        token, sel_scores, parent = _beam_select(
+            pre_ids, pre_scores, step.reshape(bs, K, -1).astype(np.float32),
+            eos_id)
+        # the prefixes follow their beams (the decoder re-reads them)
+        trg_bk = trg.reshape(bs, K, max_length)[rows, parent]
+        trg_bk[:, :, t + 1] = token
+        trg = trg_bk.reshape(bs * K, max_length)
+        pre_ids, pre_scores = token, sel_scores
+        if (token == eos_id).all():
+            break
+    return _pick_best_beam(trg, pre_scores, bs, K, max_length, eos_id,
+                           len_penalty)
+
+
 def position_encoding_row(t, d_model, dtype="float32"):
     """Host mirror of the add_position_encoding table's row ``t``."""
     i = np.arange(d_model // 2, dtype=np.float64)
@@ -194,6 +292,217 @@ def position_encoding_table(max_length, d_model, dtype="float32"):
     return np.concatenate(
         [position_encoding_row(t, d_model, dtype=dtype)
          for t in range(int(max_length))], axis=0)
+
+
+def build_cached_decoder(batch_size, src_vocab_size=1000,
+                         trg_vocab_size=1000, max_length=64, n_layer=2,
+                         n_head=4, d_model=128, d_inner=512):
+    """Incremental (KV-cached) decoding (transformer.py:372): O(T)
+    attention per new token instead of a decoder rerun over the prefix.
+
+    Returns ``(prepare_prog, step_prog, logits_name)``. ``prepare_prog``
+    runs once per batch: the encoder, each layer's cross K/V
+    projections, the source mask and zeroed self-attention caches, all
+    into persistable scope variables. ``step_prog`` takes one token per
+    run (feeds ``cur_tok [B, 1]``, ``pe_row [B, 1, D]``, ``gen_pos
+    [1]``), writes the K/V caches in place with ``dynamic_update_slice``
+    and fetches ``[B, 1, V]`` logits. Build it under a fresh
+    ``unique_name`` scope as the training ``build()`` is built;
+    parameters bind by name."""
+    nn = fluid.layers
+    B, T, D = int(batch_size), int(max_length), int(d_model)
+    dh = D // n_head
+
+    def heads(x):
+        return nn.transpose(nn.reshape(x, shape=[0, 0, n_head, dh]),
+                            perm=[0, 2, 1, 3])
+
+    def merge(x):
+        return nn.reshape(nn.transpose(x, perm=[0, 2, 1, 3]),
+                          shape=[0, 0, n_head * dh])
+
+    def proj(x, size, name):
+        return nn.fc(x, size, num_flatten_dims=2, bias_attr=False, name=name)
+
+    with unique_name.guard({}):
+        prepare = fluid.Program()
+        with fluid.program_guard(prepare, fluid.Program()):
+            src = nn.data("src_word", shape=[T], dtype="int64")
+            src_len = nn.data("src_len", shape=[1], dtype="int64")
+            src_mask = nn.sequence_mask(src_len, maxlen=T, dtype="float32")
+            emb = nn.embedding(input=src, size=[src_vocab_size, D],
+                               param_attr=fluid.ParamAttr(name="src_emb"))
+            enc = nn.add_position_encoding(nn.scale(emb, scale=D ** 0.5))
+            for i in range(n_layer):
+                enc = encoder_layer(enc, src_mask, n_head, D, d_inner, 0.0,
+                                    True, "enc_%d" % i)
+            enc = _prenorm(enc, "enc_final")
+            blk = prepare.global_block()
+
+            def persist(name, value):
+                out = blk.create_var(name=name, shape=None, dtype="float32",
+                                     persistable=True)
+                nn.assign(value, output=out)
+
+            persist("gen_src_mask", src_mask)
+            for i in range(n_layer):
+                kc = heads(proj(enc, dh * n_head, "dec_%d_cmha_k" % i))
+                vc = heads(proj(enc, dh * n_head, "dec_%d_cmha_v" % i))
+                persist("gen_kcross_%d" % i, kc)
+                persist("gen_vcross_%d" % i, vc)
+                zeros = nn.fill_constant([B, n_head, T, dh], "float32", 0.0)
+                persist("gen_kcache_%d" % i, zeros)
+                persist("gen_vcache_%d" % i, zeros)
+
+        step = fluid.Program()
+        with fluid.program_guard(step, fluid.Program()):
+            blk = step.global_block()
+            cur = nn.data("cur_tok", shape=[1], dtype="int64")
+            pe_row = nn.data("pe_row", shape=[1, D], dtype="float32")
+            pos = nn.data("gen_pos", shape=[1], dtype="int64",
+                          append_batch_size=False)
+            # the cache's valid positions (<= pos) come from gen_pos in the
+            # program, so a caller cannot feed an inconsistent length
+            cache_mask = nn.expand(
+                nn.sequence_mask(
+                    fluid.layers.increment(pos, value=1, in_place=False),
+                    maxlen=T, dtype="float32"),
+                expand_times=[B, 1])
+
+            def pvar(name, shape):
+                return blk.create_var(name=name, shape=shape,
+                                      dtype="float32", persistable=True)
+
+            src_mask = pvar("gen_src_mask", [B, T])
+            emb = nn.embedding(input=cur, size=[trg_vocab_size, D],
+                               param_attr=fluid.ParamAttr(name="trg_emb"))
+            emb = nn.reshape(emb, shape=[0, 1, D])  # [B, 1, D]
+            h = nn.elementwise_add(nn.scale(emb, scale=D ** 0.5), pe_row)
+            for i in range(n_layer):
+                name = "dec_%d" % i
+                kcache = pvar("gen_kcache_%d" % i, [B, n_head, T, dh])
+                vcache = pvar("gen_vcache_%d" % i, [B, n_head, T, dh])
+                nx = _prenorm(h, name + "_sattn")
+                q = heads(proj(nx, dh * n_head, name + "_smha_q"))
+                k1 = heads(proj(nx, dh * n_head, name + "_smha_k"))
+                v1 = heads(proj(nx, dh * n_head, name + "_smha_v"))
+                kcache = nn.dynamic_update_slice(kcache, k1, pos, axis=2,
+                                                 out=kcache)
+                vcache = nn.dynamic_update_slice(vcache, v1, pos, axis=2,
+                                                 out=vcache)
+                att = fluid.layers.scaled_dot_product_attention(
+                    q, kcache, vcache, mask=cache_mask, sm_scale=dh ** -0.5)
+                h = nn.elementwise_add(
+                    h, proj(merge(att), D, name + "_smha_o"))
+                nx2 = _prenorm(h, name + "_cattn")
+                q2 = heads(proj(nx2, dh * n_head, name + "_cmha_q"))
+                ctx = fluid.layers.scaled_dot_product_attention(
+                    q2, pvar("gen_kcross_%d" % i, [B, n_head, T, dh]),
+                    pvar("gen_vcross_%d" % i, [B, n_head, T, dh]),
+                    mask=src_mask, sm_scale=dh ** -0.5)
+                h = nn.elementwise_add(
+                    h, proj(merge(ctx), D, name + "_cmha_o"))
+                ff = _ffn(_prenorm(h, name + "_ffn"), D, d_inner,
+                          name + "_ffn")
+                h = nn.elementwise_add(h, ff)
+            h = _prenorm(h, "dec_final")
+            logits = nn.fc(h, trg_vocab_size, num_flatten_dims=2,
+                           name="proj_logits")
+    return prepare, step, logits.name
+
+
+def _cached_step_feed(trg, t, d_model):
+    return {"cur_tok": trg[:, t:t + 1],
+            "pe_row": np.tile(position_encoding_row(t, d_model)[None],
+                              (trg.shape[0], 1, 1)),
+            "gen_pos": np.asarray([t], np.int64)}
+
+
+def cached_greedy_generate(exe, prepare_prog, step_prog, logits_name, src,
+                           src_len, max_length, d_model, bos_id=1, eos_id=2,
+                           scope=None):
+    """Greedy decode through the KV-cached step program: the prepare
+    program once, then one ``[B, 1]`` token a step. Returns what
+    ``greedy_generate`` returns."""
+    bs = src.shape[0]
+    exe.run(prepare_prog, feed={"src_word": src, "src_len": src_len},
+            fetch_list=[], scope=scope)
+    trg = np.full((bs, max_length), eos_id, np.int64)
+    trg[:, 0] = bos_id
+    done = np.zeros(bs, bool)
+    for t in range(max_length - 1):
+        (lg,) = exe.run(step_prog, feed=_cached_step_feed(trg, t, d_model),
+                        fetch_list=[logits_name], scope=scope)
+        nxt = np.where(done, eos_id, np.asarray(lg)[:, 0, :].argmax(-1))
+        trg[:, t + 1] = nxt
+        done |= nxt == eos_id
+        if done.all():
+            break
+    return trg
+
+
+def build_cache_reorder(batch_size, max_length, n_layer, n_head, d_model):
+    """The beam companion of ``build_cached_decoder``: permute every
+    self-attention cache's batch rows by the fed ``beam_parent_rows``
+    ``[B, 1]`` (survivors take their parent's cache). Cross caches and
+    masks are equal across a source's beams, so only the self caches
+    move."""
+    nn = fluid.layers
+    B, T = int(batch_size), int(max_length)
+    dh = d_model // n_head
+    prog = fluid.Program()
+    with fluid.program_guard(prog, fluid.Program()):
+        blk = prog.global_block()
+        parent = nn.reshape(
+            nn.data("beam_parent_rows", shape=[1], dtype="int64"),
+            shape=[-1])
+        for i in range(n_layer):
+            for kind in ("k", "v"):
+                cache = blk.create_var(
+                    name="gen_%scache_%d" % (kind, i),
+                    shape=[B, n_head, T, dh], dtype="float32",
+                    persistable=True)
+                nn.assign(nn.gather(cache, parent), output=cache)
+    return prog
+
+
+def cached_beam_generate(exe, prepare_prog, step_prog, reorder_prog,
+                         logits_name, src, src_len, max_length, d_model,
+                         beam_size=4, bos_id=1, eos_id=2, len_penalty=0.6,
+                         scope=None):
+    """Beam search over the KV-cached step program (build the cached
+    decoder with ``batch_size = B * beam_size``): each step's selection is
+    ``beam_step``, and the survivors take their parent's caches through
+    the reorder program. Returns what ``beam_generate`` returns."""
+    bs = src.shape[0]
+    K = int(beam_size)
+    exe.run(prepare_prog, feed={"src_word": np.repeat(src, K, axis=0),
+                                "src_len": np.repeat(src_len, K, axis=0)},
+            fetch_list=[], scope=scope)
+    trg = np.full((bs * K, max_length), eos_id, np.int64)
+    trg[:, 0] = bos_id
+    pre_ids = np.full((bs, K), bos_id, np.int64)
+    pre_scores = np.full((bs, K), -1e9, np.float32)
+    pre_scores[:, 0] = 0.0
+    rows = np.arange(bs)[:, None]
+    for t in range(max_length - 1):
+        (lg,) = exe.run(step_prog, feed=_cached_step_feed(trg, t, d_model),
+                        fetch_list=[logits_name], scope=scope)
+        step = _log_softmax_rows(np.asarray(lg)[:, 0, :].astype(np.float64))
+        token, sel_scores, parent = _beam_select(
+            pre_ids, pre_scores, step.reshape(bs, K, -1).astype(np.float32),
+            eos_id)
+        global_rows = (rows * K + parent).reshape(-1).astype(np.int64)
+        exe.run(reorder_prog, feed={"beam_parent_rows": global_rows[:, None]},
+                fetch_list=[], scope=scope)
+        trg_bk = trg.reshape(bs, K, max_length)[rows, parent]
+        trg_bk[:, :, t + 1] = token
+        trg = trg_bk.reshape(bs * K, max_length)
+        pre_ids, pre_scores = token, sel_scores
+        if (token == eos_id).all():
+            break
+    return _pick_best_beam(trg, pre_scores, bs, K, max_length, eos_id,
+                           len_penalty)
 
 
 def _sampler_attrs(sampler):
@@ -429,19 +738,23 @@ def build_paged_slot_decoder(num_slots, src_vocab_size=1000,
     with ``fetches = {"token", "spec_token_seq", "spec_accept_len"}``;
     the plain ``step_prog`` stays as the ``FLAGS_speculative=off`` oracle.
 
+    ``beam_width=K`` (K >= 2) builds the beam variant: the slots become
+    ``S / K`` lanes of K aligned hypotheses, the step program runs
+    ``slot_beam_search`` instead of the sampler (one top-K lattice per
+    lane, the dense ``beam_search`` op's ``beam_step``), and the
+    hypothesis reorder runs in the program as a parent gather of the
+    page-table rows, so the host only rebinds refcounts. Beam adds the
+    ``pgd_score [S, 1]`` state (admit and join take a ``start_score [1,
+    1]`` feed: 0 for hypothesis 0, -1e9 for the rest), done hypotheses'
+    K/V writes go to the trash page, and the last return value is the
+    fetch dict ``{"token", "parent", "score", "logits"}``. A sampler
+    other than greedy, ``speculative`` with a beam and ``S % K != 0``
+    raise the JAX package's ``ValueError``s.
+
     ``sampler`` sets the token rule of the step and of the verify's
-    accept walk (``_sampler_attrs``). Beam decode (``beam_width > 1``,
-    ROADMAP.md A7) raises here. Build under the training
+    accept walk (``_sampler_attrs``). Build under the training
     ``build()``'s fresh ``unique_name`` scope; parameters bind by
     name."""
-    if int(beam_width) != 1:
-        raise NotImplementedError(
-            "beam decode (beam_width > 1) is not ported yet (ROADMAP.md "
-            "A7: ops/beam_search_ops.py and the lane-tiled session)")
-    n_spec = int(speculative)
-    if n_spec < 0:
-        raise ValueError("speculative must be >= 0, got %d" % n_spec)
-    samp = _sampler_attrs(sampler)
     nn = fluid.layers
     S, T, D = int(num_slots), int(max_length), int(d_model)
     dh = D // n_head
@@ -449,6 +762,28 @@ def build_paged_slot_decoder(num_slots, src_vocab_size=1000,
     npp = pages_for(T, ps)
     P = int(num_pages) if num_pages else 1 + S * npp
     G = int(num_groups) if num_groups else S
+    K = int(beam_width)
+    if K < 1:
+        raise ValueError("beam_width must be >= 1, got %d" % K)
+    beam = K > 1
+    if beam and S % K:
+        raise ValueError(
+            "beam_width=%d does not tile num_slots=%d into aligned "
+            "beam lanes" % (K, S))
+    samp = _sampler_attrs(sampler)
+    if beam and samp["strategy"] != "greedy":
+        raise ValueError(
+            "beam_width > 1 replaces token sampling with the beam "
+            "lattice — a stochastic sampler (%r) cannot compose with "
+            "it" % (samp["strategy"],))
+    n_spec = int(speculative)
+    if n_spec < 0:
+        raise ValueError("speculative must be >= 0, got %d" % n_spec)
+    if n_spec and beam:
+        raise ValueError(
+            "speculative decode verifies the SAMPLER stream — it does "
+            "not compose with beam_width > 1 (the lattice already "
+            "scores full hypothesis sets per step)")
 
     def heads(x):
         return nn.transpose(nn.reshape(x, shape=[0, 0, n_head, dh]),
@@ -533,6 +868,9 @@ def build_paged_slot_decoder(num_slots, src_vocab_size=1000,
                     nn.fill_constant([S, 1], "int64", bos_id), "int64")
             persist("pgd_done",
                     nn.fill_constant([S, 1], "int64", 1), "int64")
+            if beam:
+                persist("pgd_score",
+                        nn.fill_constant([S, 1], "float32", 0.0))
 
         def slot_state_feeds():
             """The feeds admit/join share for one member's registration."""
@@ -543,16 +881,22 @@ def build_paged_slot_decoder(num_slots, src_vocab_size=1000,
             page_row = nn.data("page_row", shape=[npp], dtype="int64")
             start_tok = nn.data("start_tok", shape=[1], dtype="int64")
             start_pos = nn.data("start_pos", shape=[1], dtype="int64")
-            return slot, gidx, page_row, start_tok, start_pos
+            if not beam:
+                return slot, gidx, page_row, start_tok, start_pos
+            # the lane's accumulated log-prob seed: 0 for hypothesis 0,
+            # -1e9 for the rest (first-step duplicate suppression)
+            start_score = nn.data("start_score", shape=[1], dtype="float32")
+            return (slot, gidx, page_row, start_tok, start_pos,
+                    start_score)
 
         def register_member(blk, slot, gidx, page_row, start_tok,
-                            start_pos):
+                            start_pos, start_score=None):
             """Install one slot's group id, table row and loop state."""
-            def srow(name, value):
+            def srow(name, value, dtype="int64"):
                 p = blk.create_var(
                     name=name,
                     shape=[S, npp] if name == "pgd_table" else [S, 1],
-                    dtype="int64", persistable=True)
+                    dtype=dtype, persistable=True)
                 nn.dynamic_update_slice(p, value, slot, axis=0, out=p)
 
             srow("pgd_group_of", nn.reshape(gidx, shape=[1, 1]))
@@ -560,6 +904,8 @@ def build_paged_slot_decoder(num_slots, src_vocab_size=1000,
             srow("pgd_tok", start_tok)
             srow("pgd_pos", start_pos)
             srow("pgd_done", nn.fill_constant([1, 1], "int64", 0))
+            if start_score is not None:
+                srow("pgd_score", start_score, "float32")
 
         admit = fluid.Program()
         with fluid.program_guard(admit, fluid.Program()):
@@ -674,6 +1020,15 @@ def build_paged_slot_decoder(num_slots, src_vocab_size=1000,
             lengths = nn.elementwise_mul(
                 fluid.layers.increment(pos, value=1, in_place=False),
                 live_row)
+            if beam:
+                score = pvar("pgd_score", [S, 1])
+                # a DONE hypothesis writes to the trash page: after a
+                # reorder it may share its write page with a survivor
+                # (both took one parent's rows), so the masked write keeps
+                # shared page bits unchanged without a copy-on-write
+                write_table = nn.elementwise_mul(ptable, live_row)
+            else:
+                write_table = ptable
             emb = nn.embedding(input=tok, size=[trg_vocab_size, D],
                                param_attr=fluid.ParamAttr(name="trg_emb"))
             emb = nn.reshape(emb, shape=[0, 1, D])  # [S, 1, D]
@@ -684,15 +1039,29 @@ def build_paged_slot_decoder(num_slots, src_vocab_size=1000,
 
             def write_and_attend(q, k1, v1, kpool, vpool):
                 kpool, vpool = fluid.layers.paged_kv_write(
-                    kpool, vpool, k1, v1, ptable, pos)
+                    kpool, vpool, k1, v1, write_table, pos)
                 return fluid.layers.paged_attention(
                     q, kpool, vpool, ptable, lengths, sm_scale=dh ** -0.5)
 
             logits = decode_stack(pvar, h, group_of, src_mask,
                                   write_and_attend)
-            tok_new, pos_new, done_new = fluid.layers.slot_decode_sample(
-                logits, pos, done=done, eos_id=eos_id, max_length=T,
-                **samp)
+            if beam:
+                (tok_new, pos_new, done_new, score_new,
+                 parent) = fluid.layers.slot_beam_search(
+                    logits, tok, pos, done, score, beam_width=K,
+                    eos_id=eos_id, max_length=T)
+                # the zero-copy reorder: each survivor takes its parent's
+                # page-table ROW in the program (the op already gathered
+                # pos / done and chose token / score), so the host only
+                # rebinds refcounts
+                nn.assign(nn.gather(ptable, nn.reshape(parent, shape=[-1])),
+                          output=ptable)
+                nn.assign(score_new, output=score)
+            else:
+                tok_new, pos_new, done_new = \
+                    fluid.layers.slot_decode_sample(
+                        logits, pos, done=done, eos_id=eos_id,
+                        max_length=T, **samp)
             # thread the loop state: the next iteration embeds the token
             # chosen here, no host in the loop
             nn.assign(tok_new, output=tok)
@@ -782,6 +1151,10 @@ def build_paged_slot_decoder(num_slots, src_vocab_size=1000,
                        "spec_token_seq": spec_seq.name,
                        "spec_accept_len": spec_acc.name}
             return init, admit, join, prefill, table, step, spec, fetches
+    if beam:
+        fetches = {"token": tok_new.name, "parent": parent.name,
+                   "score": score_new.name, "logits": logits.name}
+        return init, admit, join, prefill, table, step, fetches
     return init, admit, join, prefill, table, step, tok_new.name
 
 

@@ -18,6 +18,7 @@ from paddle_tpu_torch.ops import subblock_ops  # noqa: F401
 from paddle_tpu_torch.ops import attention_ops  # noqa: F401
 from paddle_tpu_torch.ops import sequence_ops  # noqa: F401
 from paddle_tpu_torch.ops import sampling_ops  # noqa: F401
+from paddle_tpu_torch.ops import beam_search_ops  # noqa: F401
 from paddle_tpu_torch.ops import speculative_ops  # noqa: F401
 from paddle_tpu_torch.ops import optimizer_ops  # noqa: F401
 from paddle_tpu_torch.ops import metric_ops  # noqa: F401

@@ -1,13 +1,14 @@
-"""Recurrent ops over dense-padded sequences: dynamic_lstm, dynamic_gru.
+"""Recurrent ops over dense-padded sequences: dynamic_lstm, dynamic_gru,
+dynamic_lstmp, lstm_unit, gru_unit and row_conv.
 
-Counterpart of ``paddle_tpu/ops/rnn_ops.py`` for the two ops of the RNN
-slice, with the same inputs, outputs, attrs and dense-shape contract:
+Counterpart of ``paddle_tpu/ops/rnn_ops.py``, with the same inputs,
+outputs, attrs and dense-shape contract:
 Input ``[B, T, gates * D]`` (the projected input x @ W_x), Weight the
 recurrence weights, Bias ``[1, gates * D]`` (plus the three peephole
 vectors for an LSTM with ``use_peepholes``), an optional ``[B]`` Length
 that masks the padded steps.
 
-Routing. On a CUDA tensor both ops launch their hand-written kernel
+Routing. On a CUDA tensor dynamic_lstm and dynamic_gru launch their hand-written kernel
 (``kernels/lstm_cell.py``, ``kernels/gru_cell.py``) whatever
 ``FLAGS_use_pallas_lstm`` / ``FLAGS_use_pallas_gru`` say and whether or
 not H0 / C0 are given: a loop of small ops on the card would be the plain
@@ -27,7 +28,11 @@ import torch
 from paddle_tpu_torch import flags
 from paddle_tpu_torch.core.op_registry import register_op
 from paddle_tpu_torch.kernels.gru_cell import fused_gru, gru_reference
-from paddle_tpu_torch.kernels.lstm_cell import fused_lstm, lstm_reference
+from paddle_tpu_torch.kernels.lstm_cell import (
+    _ACTS,
+    fused_lstm,
+    lstm_reference,
+)
 
 
 def _step_mask(ins, x):
@@ -154,4 +159,158 @@ register_op(
     lower=_lower_dynamic_gru,
     no_grad_inputs=("Length",),
     infer_shape=_infer_rnn_shapes(("Hidden",)),
+)
+
+
+# -- the plain recurrent ops: dynamic_lstmp, lstm_unit, gru_unit, row_conv --
+# The JAX package runs these four as lax.scan or jnp code with no Pallas
+# kernel (rnn_ops.py:182, 349, 372, 421), so plain PyTorch is their port;
+# their gradients are autograd's over the lowering, the registry's usual
+# route.
+
+# gru_unit's integer activation codes (gru_unit_op.cc)
+_ACT_CODES = {0: "identity", 1: "sigmoid", 2: "tanh", 3: "relu"}
+
+
+def _act(name):
+    return _ACTS[name or "tanh"]
+
+
+def _masked(new, old, m_t):
+    return new if m_t is None else new * m_t + old * (1.0 - m_t)
+
+
+def _lower_dynamic_lstmp(ctx, ins, attrs):
+    x = ins["Input"][0]  # [B, T, 4D]
+    w = ins["Weight"][0]  # [P, 4D]: the recurrence over the projection
+    w_proj = ins["ProjWeight"][0]  # [D, P]
+    B, T = x.shape[0], x.shape[1]
+    d, p = w_proj.shape[0], w_proj.shape[1]
+    gate_act = _act(attrs.get("gate_activation", "sigmoid"))
+    cell_act = _act(attrs.get("cell_activation", "tanh"))
+    cand_act = _act(attrs.get("candidate_activation", "tanh"))
+    proj_act = _act(attrs.get("proj_activation", "identity"))
+    bias = ins.get("Bias", [None])[0]
+    w_ic = w_fc = w_oc = None
+    if bias is not None:
+        bias = bias.reshape(-1)
+        b_gate = bias[:4 * d]
+        if attrs.get("use_peepholes", True):
+            w_ic, w_fc, w_oc = (bias[4 * d:5 * d], bias[5 * d:6 * d],
+                                bias[6 * d:7 * d])
+    else:
+        b_gate = x.new_zeros((4 * d,))
+    mask = _step_mask(ins, x)
+    r = x.new_zeros((B, p))
+    c = x.new_zeros((B, d))
+    rs, cs = [], []
+    for t in range(T):
+        m_t = mask[:, t:t + 1] if mask is not None else None
+        gates = x[:, t] + r @ w + b_gate
+        gi, gf = gates[:, 0 * d:1 * d], gates[:, 1 * d:2 * d]
+        gc, go = gates[:, 2 * d:3 * d], gates[:, 3 * d:4 * d]
+        if w_ic is not None:
+            gi = gi + c * w_ic
+            gf = gf + c * w_fc
+        c_new = gate_act(gf) * c + gate_act(gi) * cand_act(gc)
+        if w_oc is not None:
+            go = go + c_new * w_oc
+        h_new = gate_act(go) * cell_act(c_new)
+        r = _masked(proj_act(h_new @ w_proj), r, m_t)
+        c = _masked(c_new, c, m_t)
+        rs.append(r)
+        cs.append(c)
+    return {"Projection": torch.stack(rs, dim=1),
+            "Cell": torch.stack(cs, dim=1)}
+
+
+register_op(
+    "dynamic_lstmp",
+    inputs=["Input", "Weight", "ProjWeight", "Bias", "Length"],
+    outputs=["Projection", "Cell"],
+    attrs={
+        "use_peepholes": True,
+        "gate_activation": "sigmoid",
+        "cell_activation": "tanh",
+        "candidate_activation": "tanh",
+        "proj_activation": "identity",
+    },
+    lower=_lower_dynamic_lstmp,
+    no_grad_inputs=("Length",),
+)
+
+
+def _lower_lstm_unit(ctx, ins, attrs):
+    x = ins["X"][0]  # [B, 4D] pre-projected gates
+    c_prev = ins["C_prev"][0]  # [B, D]
+    d = c_prev.shape[1]
+    i = torch.sigmoid(x[:, 0 * d:1 * d])
+    f = torch.sigmoid(x[:, 1 * d:2 * d] + attrs.get("forget_bias", 0.0))
+    g = torch.tanh(x[:, 2 * d:3 * d])
+    o = torch.sigmoid(x[:, 3 * d:4 * d])
+    c = f * c_prev + i * g
+    return {"C": c, "H": o * torch.tanh(c)}
+
+
+register_op(
+    "lstm_unit",
+    inputs=["X", "C_prev"],
+    outputs=["C", "H"],
+    attrs={"forget_bias": 0.0},
+    lower=_lower_lstm_unit,
+)
+
+
+def _unit_act(value, default):
+    """An activation attr of gru_unit: an integer code or a name."""
+    if isinstance(value, int) and not isinstance(value, bool):
+        return _act(_ACT_CODES.get(value, default))
+    return _act(value)
+
+
+def _lower_gru_unit(ctx, ins, attrs):
+    x = ins["Input"][0]  # [B, 3D] projected input
+    h_prev = ins["HiddenPrev"][0]  # [B, D]
+    w = ins["Weight"][0]  # [D, 3D]
+    d = h_prev.shape[1]
+    bias = ins.get("Bias", [None])[0]
+    b = bias.reshape(-1) if bias is not None else x.new_zeros((3 * d,))
+    gate_act = _unit_act(attrs.get("gate_activation", 1), "sigmoid")
+    cand_act = _unit_act(attrs.get("activation", 2), "tanh")
+    g = x[:, :2 * d] + h_prev @ w[:, :2 * d] + b[:2 * d]
+    u = gate_act(g[:, :d])
+    r = gate_act(g[:, d:])
+    c = cand_act(x[:, 2 * d:] + (r * h_prev) @ w[:, 2 * d:] + b[2 * d:])
+    h = u * h_prev + (1.0 - u) * c
+    return {"Gate": torch.cat([u, r, c], dim=1),
+            "ResetHiddenPrev": r * h_prev, "Hidden": h}
+
+
+register_op(
+    "gru_unit",
+    inputs=["Input", "HiddenPrev", "Weight", "Bias"],
+    outputs=["Gate", "ResetHiddenPrev", "Hidden"],
+    attrs={"activation": 2, "gate_activation": 1},
+    lower=_lower_gru_unit,
+    intermediate_outputs=("Gate", "ResetHiddenPrev"),
+)
+
+
+def _lower_row_conv(ctx, ins, attrs):
+    x = ins["X"][0]  # [B, T, D]
+    f = ins["Filter"][0]  # [future_context + 1, D]
+    k, T = f.shape[0], x.shape[1]
+    # out[t] = sum_j x[t + j] * f[j], zeros past the end
+    padded = torch.nn.functional.pad(x, (0, 0, 0, k - 1))
+    out = torch.zeros_like(x)
+    for j in range(int(k)):
+        out = out + padded[:, j:j + T, :] * f[j][None, None, :]
+    return {"Out": out}
+
+
+register_op(
+    "row_conv",
+    inputs=["X", "Filter"],
+    outputs=["Out"],
+    lower=_lower_row_conv,
 )

@@ -1,12 +1,13 @@
-"""The teacher-forced attention-LSTM decoder op: attention_lstm.
+"""The attention-LSTM decoder ops: attention_lstm (teacher-forced) and
+attention_lstm_beam_decode (whole-loop beam generation).
 
-Counterpart of ``paddle_tpu/ops/seq2seq_ops.py`` ``attention_lstm``
-(attention_lstm_op.cc parity): per target step, one read of simple
-attention over the encoder states, then an LSTM cell on [h, context,
-x_t]. The JAX package runs it as one ``lax.scan`` with no Pallas kernel,
-so the port runs it as a plain loop of PyTorch ops. The whole-loop beam
-decoder (``attention_lstm_beam_decode``) waits for the beam-decode
-slice.
+Counterpart of ``paddle_tpu/ops/seq2seq_ops.py`` (attention_lstm_op.cc
+parity): per target step, one read of simple attention over the encoder
+states, then an LSTM cell on [h, context, x_t]. The JAX package runs both
+as one ``lax.scan`` with no Pallas kernel, so the port runs them as plain
+loops of PyTorch ops. The beam decoder tiles the encoder state over the
+beam (``[B * K, ...]`` rows), selects with ``beam_search_ops.beam_step``
+each step, reorders ``h`` and ``c`` by parent, and backtracks at the end.
 
 Attention form (simple_attention in the reference benchmark):
   e[b,s]   = tanh(enc_proj[b,s] @ Wa_e + (h @ Ws) @ Wa_s)
@@ -19,8 +20,7 @@ Attention form (simple_attention in the reference benchmark):
 import torch
 
 from paddle_tpu_torch.core.op_registry import register_op
-
-NEG_INF = -1e9  # the masked score (beam_search_ops.py _NEG_INF)
+from paddle_tpu_torch.ops.beam_search_ops import NEG_INF, backtrack, beam_step
 
 
 def _enc_mask(enc_len, s_len, dtype):
@@ -96,4 +96,66 @@ register_op(
     lower=_lower_attention_lstm,
     no_grad_inputs=("EncoderLen",),
     intermediate_outputs=("Cell", "AttentionWeight"),
+)
+
+
+def _lower_attention_lstm_beam_decode(ctx, ins, attrs):
+    enc_vec = ins["EncoderVec"][0]  # [B, S, C]
+    enc_proj = ins["EncoderProj"][0]  # [B, S, D]
+    h0 = ins["H0"][0]  # [B, D]
+    w_state = ins["StateProjW"][0]
+    w_attn = ins["AttnW"][0]
+    cell_w = ins["CellW"][0]
+    cell_b = ins["CellB"][0].reshape(-1)
+    emb = ins["Embedding"][0]  # [V, M]
+    out_w = ins["OutW"][0]  # [D, V]
+    out_b = ins["OutB"][0].reshape(-1)
+    enc_len = ins.get("EncoderLen", [None])[0]
+    K = int(attrs["beam_size"])
+    T = int(attrs["max_len"])
+    B, S = enc_vec.shape[0], enc_vec.shape[1]
+    dtype = enc_vec.dtype
+
+    def tile(t):  # [B, ...] -> [B * K, ...]
+        return torch.repeat_interleave(t, K, dim=0)
+
+    enc_vec_k, enc_proj_k = tile(enc_vec), tile(enc_proj)
+    mask = _enc_mask(enc_len, S, dtype)
+    mask_k = tile(mask) if mask is not None else None
+    h = tile(h0)
+    c = torch.zeros_like(h)
+    prev = torch.full((B, K), int(attrs["start_id"]), dtype=torch.int64,
+                      device=enc_vec.device)
+    # only beam 0 is live at the start: the first top-K is not K copies
+    scores = torch.full((B, K), NEG_INF, dtype=dtype, device=enc_vec.device)
+    scores[:, 0] = 0.0
+    rows = (torch.arange(B, device=enc_vec.device)[:, None] * K)
+    ids_seq, parent_seq = [], []
+    for _ in range(T):
+        x_t = emb[prev.reshape(-1)]
+        context, _alpha = _attend(h, enc_vec_k, enc_proj_k, w_state, w_attn,
+                                  mask_k)
+        h_new, c_new = _lstm_cell(h, c, x_t, context, cell_w, cell_b)
+        logp = torch.log_softmax(h_new @ out_w + out_b, dim=1)
+        prev, scores, parent = beam_step(prev, scores, logp.reshape(B, K, -1),
+                                         int(attrs["end_id"]))
+        # the recurrent state follows the surviving beams
+        src_rows = (rows + parent).reshape(-1)
+        h, c = h_new[src_rows], c_new[src_rows]
+        ids_seq.append(prev)
+        parent_seq.append(parent)
+    sentences = backtrack(torch.stack(ids_seq), torch.stack(parent_seq))
+    return {"SentenceIds": sentences, "SentenceScores": scores}
+
+
+register_op(
+    "attention_lstm_beam_decode",
+    inputs=[
+        "EncoderVec", "EncoderProj", "H0", "StateProjW", "AttnW", "CellW",
+        "CellB", "Embedding", "OutW", "OutB", "EncoderLen",
+    ],
+    outputs=["SentenceIds", "SentenceScores"],
+    attrs={"beam_size": 4, "max_len": 32, "start_id": 1, "end_id": 2},
+    lower=_lower_attention_lstm_beam_decode,
+    grad=None,
 )

@@ -18,8 +18,13 @@ Endpoints (one JSON line per request):
   flushed to the socket as each decode dispatch (``step()``) completes.
   ``n > 1`` forks a best-of-N group through ``admit_group`` and
   ``prefix_tokens`` rides the prefix cache. Solo requests queue in the
-  session's backlog; forks are admit-or-reject. ``beam=true`` is
-  refused with a typed error (beam decode is ROADMAP.md A7).
+  session's backlog; forks are admit-or-reject. ``beam=true`` admits one
+  beam lane of a beam session (admit-or-reject): its ``admitted`` event
+  carries ``beam``, ``beam_width`` and the claim ``id``, each dispatch
+  sends one ``beam`` survivor chunk (parents, tokens, scores, done), and
+  a final ``beam_end`` carries the n-best, rescored under the GNMT length
+  penalty when the request gives ``len_penalty``. ``n > 1`` with
+  ``beam`` and ``len_penalty`` without it are typed rejects.
 * ``metrics`` — the process's Prometheus scrape; ``health`` — the
   ``HealthMonitor`` states; ``stats`` / ``take_result`` — introspection
   and banked-result claims; ``trace`` — a completed request trace.
@@ -59,6 +64,7 @@ from paddle_tpu_torch.distributed.master import (
     close_json_server,
     serve_json_lines,
 )
+from paddle_tpu_torch.models.transformer import gnmt_rescore_nbest
 from paddle_tpu_torch.observability import lock_witness
 from paddle_tpu_torch.observability import tracing as _tracing
 from paddle_tpu_torch.observability.metrics_registry import (
@@ -132,7 +138,8 @@ class _Stream(object):
     """One wire generate stream: the handler thread consumes ``q``;
     the decode worker produces into it and tracks the live slots."""
 
-    __slots__ = ("q", "spec", "cancelled", "live", "rid", "done")
+    __slots__ = ("q", "spec", "cancelled", "live", "rid", "done",
+                 "beam_lane", "beam_rid")
 
     def __init__(self, spec):
         self.q = queue.Queue()
@@ -141,6 +148,8 @@ class _Stream(object):
         self.live = {}         # slot -> member index
         self.rid = None        # session request id when deferred
         self.done = False
+        self.beam_lane = None  # beam streams: the lane this stream owns
+        self.beam_rid = None   # ... and its banked-result claim id
 
 
 class _DecodeWorker(object):
@@ -165,6 +174,7 @@ class _DecodeWorker(object):
         self._stop = False
         self._drain = True
         self._slot_stream = {}   # slot -> (stream, member)
+        self._beam_stream = {}   # lane -> stream (beam generations)
         self._rid_stream = {}    # rid -> stream (queued, not yet admitted)
         self._prev_pos = {}      # slot -> last streamed position
         self._max_backlog = int(max_backlog)
@@ -285,7 +295,7 @@ class _DecodeWorker(object):
                 progressed = True
             if (stop and drain and not s.active_slots
                     and not s.pending_requests and not self._slot_stream
-                    and not self._rid_stream):
+                    and not self._rid_stream and not self._beam_stream):
                 self._fail_ops()
                 return
             if not progressed:
@@ -344,9 +354,13 @@ class _DecodeWorker(object):
             progressed = True
         return progressed
 
+    def _tracked_streams(self):
+        return set(list(st for st, _m in self._slot_stream.values())
+                   + list(self._beam_stream.values()))
+
     def _fail_tracked(self, exc):
         wire = error_to_wire(exc)
-        for stream in set(st for st, _m in self._slot_stream.values()):
+        for stream in self._tracked_streams():
             # teardown marks the stream done; the terminal error line
             # must still be delivered (a tracked stream has not yet
             # seen a terminal event — it was live until this failure)
@@ -359,7 +373,21 @@ class _DecodeWorker(object):
         tid = spec.get("trace_id")
         t_admit = time.time() if tid else 0.0
         try:
-            if spec["n"] == 1:
+            if spec.get("beam"):
+                # a beam request: admit-or-reject into one lane (its K x
+                # worst-case reservation never queues); the survivor
+                # chunks stream from _step_once, the n-best from the
+                # session's result bank
+                lane = s.admit_beam(spec["src"], spec["src_len"],
+                                    prefix_tokens=spec["prefix"])
+                stream.beam_lane = lane
+                stream.beam_rid = s.register_beam_owner(lane)
+                self._beam_stream[lane] = stream
+                for k, slot in enumerate(s.beam_slots(lane)):
+                    stream.live[slot] = k
+                self._trace_admitted(stream, t_admit, kind="beam")
+                stream.q.put(self._admitted_event(stream))
+            elif spec["n"] == 1:
                 # the shed answer at the WIRE edge: a shed session
                 # refuses with the typed retriable DegradedError
                 # (retry-after hint) instead of silently parking the
@@ -405,9 +433,9 @@ class _DecodeWorker(object):
             stream.q.put(error_to_wire(exc))
 
     def _trace_admitted(self, stream, t_admit, kind):
-        """Direct admissions (fork groups) bypass the session queue, so
-        their admit span and slot->trace binding are emitted here;
-        queued solos get both from ``admit_pending``."""
+        """Direct admissions (fork groups, beam lanes) bypass the session
+        queue, so their admit span and slot->trace binding are emitted
+        here; queued solos get both from ``admit_pending``."""
         tid = stream.spec.get("trace_id")
         if not tid:
             return
@@ -443,6 +471,10 @@ class _DecodeWorker(object):
             # solo streams carry their rid (the (rid, seq) splice key of
             # the wire grammar; fork groups have no single rid)
             ev["id"] = int(stream.rid)
+        if stream.beam_lane is not None:
+            ev["beam"] = int(stream.beam_lane)
+            ev["beam_width"] = int(s.beam_width)
+            ev["id"] = int(stream.beam_rid)
         return ev
 
     def _final_tokens(self, trg, prev):
@@ -455,9 +487,61 @@ class _DecodeWorker(object):
                 return trg[prev + 1:idx + 1]
         return trg[prev + 1:s._T]
 
+    def _step_beams(self):
+        """The beam streams' part of one dispatch: one survivor chunk per
+        live lane (parents, tokens, scores, done flags), and for a lane
+        that finished its last chunk, then the n-best (``beam_end``) from
+        the session's bank and ``end``."""
+        s = self._s
+        for lane, ev in s.last_beam_events.items():
+            stream = self._beam_stream.get(lane)
+            if stream is None or stream.cancelled.is_set():
+                continue
+            stream.q.put({"ok": True, "event": "beam",
+                          "parents": [int(p) for p in ev["parents"]],
+                          "tokens": [int(t) for t in ev["tokens"]],
+                          "scores": [float(x) for x in ev["scores"]],
+                          "done": [bool(d) for d in ev["done"]]})
+        for lane, fin in s.last_finished_beams.items():
+            stream = self._beam_stream.pop(lane, None)
+            if stream is None:
+                continue  # no stream waits: the n-best stays banked
+            stream.live.clear()
+            res = s.take_beam_result(stream.beam_rid)
+            if res is None:
+                res = fin
+            stream.beam_lane = None
+            if stream.cancelled.is_set():
+                continue
+            stream.q.put({"ok": True, "event": "beam",
+                          "parents": [int(p) for p in fin["parents"]],
+                          "tokens": [int(t) for t in fin["step_tokens"]],
+                          "scores": [float(x) for x in fin["step_scores"]],
+                          "done": [True] * len(fin["parents"])})
+            end_ev = {"ok": True, "event": "beam_end",
+                      "tokens": [[int(t) for t in row]
+                                 for row in res["tokens"]],
+                      "scores": [float(x) for x in res["scores"]]}
+            lp = stream.spec.get("len_penalty")
+            if lp is not None:
+                # GNMT rescoring: the n-best reordered under the penalized
+                # scores; ``order`` lets a client realign its survivor
+                # replay
+                order, toks, pscores = gnmt_rescore_nbest(
+                    res["tokens"], res["scores"], s._eos, lp)
+                end_ev["tokens"] = [[int(t) for t in row] for row in toks]
+                end_ev["scores"] = [float(x) for x in pscores]
+                end_ev["order"] = [int(i) for i in order]
+                end_ev["len_penalty"] = float(lp)
+            stream.q.put(end_ev)
+            stream.done = True
+            stream.q.put({"ok": True, "event": "end"})
+
     def _step_once(self):
         s = self._s
         finished = s.step()
+        if s.beam_width > 1:
+            self._step_beams()
         for slot in list(self._slot_stream):
             stream, member = self._slot_stream[slot]
             prev = self._prev_pos[slot]
@@ -535,9 +619,14 @@ class _DecodeWorker(object):
         after this), a queued request leaves the backlog."""
         s = self._s
         stream.done = True
+        if stream.beam_lane is not None:
+            self._beam_stream.pop(stream.beam_lane, None)
+            stream.beam_lane = None
         for slot in list(stream.live):
             self._slot_stream.pop(slot, None)
             self._prev_pos.pop(slot, None)
+            # on a beam session the first cancel releases the whole lane;
+            # the siblings' cancels return False
             self._safe_cancel(slot)
         stream.live.clear()
         if stream.rid is not None:
@@ -547,7 +636,7 @@ class _DecodeWorker(object):
 
     def _abort_all(self):
         closed = ServerClosedError("frontend closed before completion")
-        for stream in set(st for st, _m in self._slot_stream.values()):
+        for stream in self._tracked_streams():
             self._teardown(stream)
             stream.q.put(error_to_wire(closed))
         for stream in list(self._rid_stream.values()):
@@ -782,19 +871,28 @@ class ServingFrontend(object):
                 yield error_to_wire(
                     ServerClosedError("frontend is closed"))
                 return
-            if req.get("beam") or req.get("len_penalty") is not None:
-                self._observe("generate", "error", t0)
-                yield error_to_wire(NotImplementedError(
-                    "beam decode over the wire is not ported yet "
-                    "(ROADMAP.md A7); send beam=false"))
-                return
             spec = {
                 "src": decode_array(req["src"]),
                 "src_len": (None if req.get("src_len") is None
                             else int(req["src_len"])),
                 "n": int(req.get("n", 1)),
                 "prefix": req.get("prefix_tokens"),
+                "beam": bool(req.get("beam", False)),
+                "len_penalty": (None if req.get("len_penalty") is None
+                                else float(req["len_penalty"])),
             }
+            if spec["beam"] and spec["n"] != 1:
+                self._observe("generate", "error", t0)
+                yield error_to_wire(ServingError(
+                    "beam=true uses the session's beam_width; it does "
+                    "not compose with n > 1 fork groups"))
+                return
+            if spec["len_penalty"] is not None and not spec["beam"]:
+                self._observe("generate", "error", t0)
+                yield error_to_wire(ServingError(
+                    "len_penalty rescores a beam n-best; it needs "
+                    "beam=true"))
+                return
             spec["trace_id"] = tr.id if tr is not None else None
             stream = _Stream(spec)
             conn.state.setdefault("streams", set()).add(stream)
@@ -827,14 +925,14 @@ class ServingFrontend(object):
                     outcome = _outcome(error_from_wire(msg))
                     yield msg
                     return
-                if msg.get("event") == "tokens" and not first_token:
+                if msg.get("event") in ("tokens", "beam") and not first_token:
                     first_token = True
                     if tr is not None:
                         tr.mark("first_token")
                     _fe_ttft.observe(
                         time.monotonic() - t0,
                         exemplar=(tr.id if tr is not None else None))
-                if tr is not None and msg.get("event") == "tokens":
+                if tr is not None and msg.get("event") in ("tokens", "beam"):
                     # the span brackets the substrate's write+flush of
                     # this chunk: t1 lands when the generator resumes
                     sp = tr.begin("wire.flush",
@@ -923,6 +1021,17 @@ class ServingFrontend(object):
                                else encode_array(np.asarray(tokens)))}
             if tokens is not None and tid:
                 resp["trace_id"] = tid
+            if tokens is None:
+                # the id may name a banked beam n-best (the claim id of
+                # the beam's 'admitted' event): a beam whose stream died
+                # finishes into the beam bank, claimable here
+                beam = self._session.take_beam_result(rid)
+                if beam is not None:
+                    resp = {"ok": True,
+                            "tokens": encode_array(
+                                np.asarray(beam["tokens"])),
+                            "scores": encode_array(
+                                np.asarray(beam["scores"]))}
         except Exception as exc:  # noqa: BLE001 - typed to the wire
             self._observe("take_result", _outcome(exc), t0)
             return error_to_wire(exc)

@@ -36,8 +36,23 @@ tracing (``enqueue(..., trace_id=)``), the chaos sites ``serve.admit``
 and ``serve.dispatch`` with the classified retry around an admission,
 and ``in_dispatch``. Token selection is greedy or sampled
 (``Sampler``: temperature or top-k, drawn from jax's threefry stream as
-the JAX package draws it). Not ported yet (ROADMAP.md): decode snapshots
-(A8's second half), beam decode (A7), the session's metrics, the prefix
+the JAX package draws it).
+
+Beam search (``beam_width=K``, ``paged=True``, ``steps=1``): the slots
+form ``S / K`` beam lanes of K aligned hypotheses. Each dispatch runs one
+top-K lattice per lane (``slot_beam_search``, the dense ``beam_search``
+op's ``beam_step``) and the hypothesis reorder in the program, as a
+parent gather of the page-table rows; the host only rebinds refcounts
+(every survivor references its parent's pages, then the old lists
+deref), so a pure permutation moves no K/V byte, and copy-on-write fires
+only when a duplicated parent's write page is next written.
+``FLAGS_beam_reorder=reference`` is the copy-reorder oracle: every moved
+hypothesis copies its parent's pages into fresh ones (counted in
+``beam_reorder_pages``); its tokens and scores equal the rebind path's.
+The step goes through ``Executor.run_multi_step`` (one step, captured on
+a card like the greedy step) and the host reads back only the tokens,
+parents and scores. Not ported yet (ROADMAP.md): decode snapshots, beam
+sessions' included (A8's second half), the session's metrics, the prefix
 cache's gauges among them (A9).
 """
 
@@ -134,6 +149,14 @@ class SlotDecodeSession(object):
     ``spec_accepted`` count verify dispatches, draft tokens offered and
     draft tokens committed. See ``serving/speculative.py``.
 
+    ``beam_width=K`` (``paged=True``, ``steps=1``, ``num_slots`` a
+    multiple of K, greedy only, no speculation) makes a beam session:
+    ``admit_beam`` claims a lane of K aligned slots for one source,
+    ``step()`` advances every lane one lattice step, and a finished
+    lane's n-best goes to ``take_beam_result`` (after
+    ``register_beam_owner``) or ``generate_beam``. The solo and fork
+    admissions and the queue refuse.
+
     ``degradation`` (a dict of ``HealthMonitor`` thresholds, or True for
     the defaults) arms the healthy -> brownout -> shed machine over the
     tighter of page reservations / capacity and live slots / slots:
@@ -148,10 +171,6 @@ class SlotDecodeSession(object):
                  page_size=8, num_pages=None, num_groups=None, steps=1,
                  sampler=None, prefix_cache_pages=0, degradation=None,
                  beam_width=1, speculative=None, **decoder_cfg):
-        if int(beam_width) != 1:
-            raise NotImplementedError(
-                "beam decode (beam_width > 1) is not ported yet (ROADMAP.md "
-                "A7: ops/beam_search_ops.py and the lane-tiled session)")
         # speculative decode config: int K (n-gram drafter) or a dict
         # {"k": K, "drafter": "ngram"|"model", ...drafter kwargs}
         if speculative is None:
@@ -176,6 +195,29 @@ class SlotDecodeSession(object):
                 "speculative decode needs steps=1: drafting and accept "
                 "bookkeeping happen on the host BETWEEN dispatches (each "
                 "dispatch already advances up to k + 1 tokens)")
+        if self._spec_k and int(beam_width) > 1:
+            raise ValueError(
+                "speculative decode verifies the sampler stream — it does "
+                "not compose with beam_width > 1")
+        self._beam_width = int(beam_width)
+        if self._beam_width < 1:
+            raise ValueError("beam_width must be >= 1, got %d"
+                             % self._beam_width)
+        if self._beam_width > 1:
+            if not paged:
+                raise ValueError(
+                    "beam_width > 1 needs paged=True — the zero-copy "
+                    "reorder IS the page-table indirection")
+            if int(steps) != 1:
+                raise ValueError(
+                    "beam_width > 1 needs steps=1: the reorder's refcount "
+                    "rebinds (and COW of a duplicated parent's write page) "
+                    "happen on the host BETWEEN dispatches — a multi-token "
+                    "loop would write through unprovisioned, un-COWed rows")
+            if int(num_slots) % self._beam_width:
+                raise ValueError(
+                    "beam_width=%d does not tile num_slots=%d into aligned "
+                    "beam lanes" % (self._beam_width, int(num_slots)))
         self._exe = exe
         self._scope = scope
         self._S, self._T, self._D = int(num_slots), int(max_length), \
@@ -195,6 +237,17 @@ class SlotDecodeSession(object):
         self.decode_steps = 0    # step-program iterations run
         self._spec_drafter = None
         self._prefix_cache = None
+        # beam bookkeeping: lanes of K aligned slots
+        self._beam_live = {}      # lane -> {"slots": [...]}
+        self._free_lanes = (list(range(self._S // self._beam_width - 1,
+                                       -1, -1))
+                            if self._beam_width > 1 else [])
+        self._beam_events = {}    # lane -> last step's survivor event
+        self._last_finished_beams = {}  # lane -> n-best payload
+        self._beam_owner = {}     # lane -> request id
+        self._beam_results = {}   # request id -> {"tokens", "scores"}
+        self.beam_reorder_pages = 0  # page copies of the reorder oracle
+        self.beam_cow_copies = 0     # COW splits charged to beam decode
         # request tracing: rid -> trace id for traced queued requests,
         # slot -> trace id for the step loop; COW copies per slot of the
         # current step window
@@ -245,7 +298,8 @@ class SlotDecodeSession(object):
             num_slots, max_length=max_length, d_model=d_model,
             page_size=self._ps, num_pages=self._P, num_groups=self._G,
             bos_id=bos_id, eos_id=eos_id, sampler=sampler,
-            speculative=self._spec_k, **decoder_cfg)
+            beam_width=self._beam_width, speculative=self._spec_k,
+            **decoder_cfg)
         if self._spec_k:
             (self._init_prog, self._admit_prog, self._join_prog,
              self._prefill_prog, self._table_prog, self._step_prog,
@@ -256,6 +310,11 @@ class SlotDecodeSession(object):
             (self._init_prog, self._admit_prog, self._join_prog,
              self._prefill_prog, self._table_prog, self._step_prog,
              self._fetch_name) = built
+        if self._beam_width > 1:
+            # the beam build returns a fetch-name dict (token / parent /
+            # score / logits); a step fetches the first three
+            self._beam_fetches = dict(self._fetch_name)
+            self._fetch_name = self._beam_fetches["token"]
         self._run(self._init_prog, {
             "pe_table": transformer.position_encoding_table(self._T,
                                                             self._D)}, [])
@@ -689,6 +748,11 @@ class SlotDecodeSession(object):
             raise ValueError(
                 "admit_group needs paged=True — the dense layout has "
                 "no shareable KV state")
+        if self._beam_width > 1:
+            raise ValueError(
+                "this is a beam session (beam_width=%d): slots are "
+                "lane-tiled — admissions go through admit_beam()"
+                % self._beam_width)
         n = int(n)
         if n < 1:
             raise ValueError("admit_group needs n >= 1, got %d" % n)
@@ -706,8 +770,14 @@ class SlotDecodeSession(object):
         finally:
             self._end_op()
 
-    def _admit_group_attempt(self, src, n, src_len, prefix_tokens):
-        if len(self._free) < n:
+    def _admit_group_attempt(self, src, n, src_len, prefix_tokens,
+                             slots_override=None):
+        # a beam admission hands the lane's aligned slots in, already off
+        # the free stack (the caller returns the lane if this rolls back)
+        pending_slots = (deque(slots_override)
+                         if slots_override is not None else None)
+        beam = self._beam_width > 1
+        if pending_slots is None and len(self._free) < n:
             raise NoFreeSlotError(
                 "admit_group(n=%d): only %d of %d slots free; step() until "
                 "more free" % (n, len(self._free), self._S))
@@ -741,7 +811,8 @@ class SlotDecodeSession(object):
         k_full = (L - 1) // self._ps  # prefix pages that end up full
         try:
             # member 0: encoder forward and (any) prefill
-            slot0 = self._take_slot()
+            slot0 = (pending_slots.popleft() if pending_slots is not None
+                     else self._take_slot())
             slots.append(slot0)
             cached = []
             if self._prefix_cache is not None and L > 1:
@@ -761,6 +832,10 @@ class SlotDecodeSession(object):
                 "page_row": self._page_row(pages),
             }
             feed.update(start_feed)
+            if beam:
+                # hypothesis 0 seeds the lane's lattice at score 0, the
+                # rest ride at -1e9 (the dense beam convention)
+                feed["start_score"] = np.asarray([[0.0]], "float32")
             if _chaos.ENABLED:
                 # slots popped, pages provisioned, nothing dispatched: a
                 # fault here must roll the whole group back
@@ -791,7 +866,8 @@ class SlotDecodeSession(object):
             # (sharing an empty page would only buy a certain COW copy).
             shared = pages[:pages_for(max(L - 1, 0), self._ps)]
             for _ in range(1, n):
-                s = self._take_slot()
+                s = (pending_slots.popleft() if pending_slots is not None
+                     else self._take_slot())
                 slots.append(s)
                 mpages = []
                 for pg in shared:
@@ -805,18 +881,24 @@ class SlotDecodeSession(object):
                     "page_row": self._page_row(mpages),
                 }
                 jfeed.update(start_feed)
+                if beam:
+                    jfeed["start_score"] = np.asarray([[-1e9]], "float32")
                 self._run(self._join_prog, jfeed, [])
         except BaseException:
-            self._rollback_admission(slots, gid, n)
+            self._rollback_admission(slots, gid, n,
+                                     restore_free=pending_slots is None)
             raise
         self._group_members[gid] = set(slots)
-        for s in slots:
+        for k, s in enumerate(slots):
             trg = np.full(self._T, self._eos, dtype="int64")
             trg[:L] = prefix
             self._live[s] = {"trg": trg, "pos": L - 1}
+            if beam:
+                self._live[s]["done"] = False
+                self._live[s]["score"] = 0.0 if k == 0 else -1e9
         return slots
 
-    def _rollback_admission(self, slots, gid, n):
+    def _rollback_admission(self, slots, gid, n, restore_free=True):
         """A failed admission must leave NO device table row pointing at
         pages that go back to the free list: each admitted slot's row is
         pointed at the trash page FIRST (the order ``_release_pages``
@@ -825,7 +907,8 @@ class SlotDecodeSession(object):
         reservation capacity): a smaller pool can be lived with, a
         recycled page that a stale row writes cannot. The free slots are
         restored exactly, so a retried admission lands in the same
-        slots."""
+        slots (a beam lane's admission, ``restore_free=False``, returns its
+        slots itself)."""
         for s in slots:
             pages = self._slot_pages.pop(s, None)
             self._slot_group.pop(s, None)
@@ -838,10 +921,271 @@ class SlotDecodeSession(object):
                 continue
             for pg in pages:
                 self._pool.deref(pg)
-        for s in reversed(slots):
-            self._free.append(s)
+        if restore_free:
+            for s in reversed(slots):
+                self._free.append(s)
         self._free_groups.append(gid)
         self._reserved_pages -= n * pages_for(self._T, self._ps)
+
+    # -- beam decode ---------------------------------------------------------
+    @property
+    def beam_width(self):
+        return self._beam_width
+
+    @property
+    def free_beams(self):
+        """Unoccupied beam lanes (beam sessions)."""
+        return len(self._free_lanes) if self._beam_width > 1 else 0
+
+    @property
+    def active_beams(self):
+        """Lane ids currently decoding (beam sessions)."""
+        return sorted(self._beam_live) if self._beam_width > 1 else []
+
+    def beam_slots(self, beam_id):
+        """The K aligned slots of one live beam lane; hypothesis order is
+        slot order (top-K keeps the survivors score-sorted)."""
+        return list(self._beam_live[int(beam_id)]["slots"])
+
+    def admit_beam(self, src, src_len=None, prefix_tokens=None):
+        """Claim one beam LANE (``beam_width`` aligned slots) for one
+        source: one encoder forward into a fresh cross-K/V group, one
+        causal prefill for a forced prefix (prefix-cache hits provision
+        by reference, and all K hypotheses share the prefix pages),
+        hypothesis 0 seeded at score 0 and the rest at -1e9. Returns the
+        beam id (the lane index). Raises :class:`NoFreeSlotError` when
+        every lane is occupied, and ``admit_group``'s page and group
+        rejects, each with a full rollback. Beams never queue."""
+        if self._beam_width < 2:
+            raise ValueError(
+                "admit_beam needs a beam session — build with "
+                "beam_width >= 2")
+        self._gate_admission(self._beam_width)
+        self._begin_op()
+        try:
+            return _retry.call(
+                lambda: self._admit_beam_attempt(src, src_len,
+                                                 prefix_tokens),
+                origin="serve.admit")
+        finally:
+            self._end_op()
+
+    def _admit_beam_attempt(self, src, src_len, prefix_tokens):
+        if not self._free_lanes:
+            raise NoFreeSlotError(
+                "all %d beam lanes occupied; step() until one finishes"
+                % (self._S // self._beam_width))
+        K = self._beam_width
+        lane = self._free_lanes.pop()
+        slots = [lane * K + k for k in range(K)]
+        for s in slots:
+            self._free.remove(s)
+        try:
+            self._admit_group_attempt(src, K, src_len, prefix_tokens,
+                                      slots_override=slots)
+        except BaseException:
+            # pages and group are rolled back; the lane returns whole
+            for s in reversed(slots):
+                self._free.append(s)
+            self._free_lanes.append(lane)
+            raise
+        self._beam_live[lane] = {"slots": slots}
+        return lane
+
+    def register_beam_owner(self, beam_id):
+        """Attach a request id to a live beam: when it finishes, its
+        n-best lands in the beam result bank under this id. Returns the
+        id (drawn from the counter solo requests draw from)."""
+        lane = int(beam_id)
+        if lane not in self._beam_live:
+            raise ValueError("beam %d is not live" % lane)
+        rid = self._next_req
+        self._next_req += 1
+        self._beam_owner[lane] = rid
+        return rid
+
+    def take_beam_result(self, request_id):
+        """Claim (and remove) a finished beam's n-best by request id:
+        ``{"tokens": [K, T] int64 (score-descending), "scores": [K]
+        float32}``, or None if unknown or unfinished."""
+        if not self._beam_results:
+            return None
+        return self._beam_results.pop(int(request_id), None)
+
+    @property
+    def last_beam_events(self):
+        """The LAST dispatch's survivors per live lane: ``{lane:
+        {"parents", "tokens", "scores", "done"}}`` (what a streaming
+        frontend sends per dispatch). Lanes that finished are in
+        :attr:`last_finished_beams` instead."""
+        return self._beam_events
+
+    @property
+    def last_finished_beams(self):
+        """The beams the LAST step completed: ``{lane: {"tokens" [K, T],
+        "scores" [K], "slots", "parents", "step_tokens",
+        "step_scores"}}`` in score-descending hypothesis order."""
+        return self._last_finished_beams
+
+    def _reorder_lane(self, slots, perm):
+        """One lane's parent permutation on the host. The device already
+        gathered the page-table rows; here the refcounts catch up: each
+        survivor references its parent's pages, then every old list
+        derefs (new lists first, so no page's count passes through 0). A
+        pure permutation leaves every refcount as it was: no page moves,
+        frees or is copied. Under ``FLAGS_beam_reorder=reference`` every
+        survivor with ``perm[k] != k`` instead COPIES its parent's
+        resident pages into fresh private ones (one coalesced dispatch,
+        counted in ``beam_reorder_pages``): the copy-reorder oracle."""
+        K = len(slots)
+        old_pages = [self._slot_pages[s] for s in slots]
+        new_pages = []
+        for k in range(K):
+            lst = list(old_pages[perm[k]])
+            for pg in lst:
+                self._pool.ref(pg)
+            new_pages.append(lst)
+        for lst in old_pages:
+            for pg in lst:
+                self._pool.deref(pg)
+        for k, s in enumerate(slots):
+            self._slot_pages[s] = new_pages[k]
+        if flags.get("beam_reorder") != "reference":
+            return
+        # every destination page is acquired BEFORE any slot's list
+        # changes: a NoFreePageError mid-plan leaves the rebound refcounts
+        # as they stand (the fresh pages just go back)
+        window = []
+        fresh_lists = {}
+        try:
+            for k, s in enumerate(slots):
+                if perm[k] == k:
+                    continue
+                fresh = []
+                for pg in self._slot_pages[s]:
+                    dst = self._acquire_page()
+                    window.append((s, pg, dst))
+                    fresh.append(dst)
+                fresh_lists[s] = fresh
+        except BaseException:
+            for _s, _src, dst in window:
+                self._pool.deref(dst)  # acquired at refcount 1
+            raise
+        for s, fresh in fresh_lists.items():
+            self._slot_pages[s] = fresh
+        if window:
+            self._dispatch_cow(window)  # derefs the sources once it lands
+            self.beam_reorder_pages += len(window)
+
+    def _step_beam(self):
+        # copy-on-write and provisioning for LIVE hypotheses only: a done
+        # hypothesis writes to the trash page in the program
+        before_pairs = self.cow_pairs
+        self._dispatch_cow(self._cow_window(
+            [(s, st["pos"]) for s, st in self._live.items()
+             if not st["done"]]))
+        # write-page splits of duplicated parents; the oracle's reorder
+        # copies count apart (beam_reorder_pages)
+        self.beam_cow_copies += self.cow_pairs - before_pairs
+        extras = list(getattr(self, "_extra_step_fetches", ()))
+        out = self._exe.run_multi_step(
+            self._step_prog, 1, feed={},
+            fetch_list=[self._beam_fetches["token"],
+                        self._beam_fetches["parent"],
+                        self._beam_fetches["score"]] + extras,
+            scope=self._scope, stack_fetches=True)
+        self.decode_steps += 1
+        # test hook: extra fetches (the step's logits for the offline
+        # lattice check) ride the same dispatch
+        self.last_extra_fetches = [np.asarray(x)[0] for x in out[3:]]
+        toks = np.asarray(out[0]).reshape(self._S)
+        parents = np.asarray(out[1]).reshape(self._S)
+        scores = np.asarray(out[2]).reshape(self._S)
+        K = self._beam_width
+        finished = {}
+        self._beam_events = {}
+        self._last_finished_beams = {}
+        for lane in sorted(self._beam_live):
+            slots = self._beam_live[lane]["slots"]
+            perm = [int(parents[s]) - slots[0] for s in slots]
+            old = [self._live[s] for s in slots]
+            if perm != list(range(K)):
+                self._reorder_lane(slots, perm)
+            new_states = []
+            for k, s in enumerate(slots):
+                parent = old[perm[k]]
+                tok = int(toks[s])
+                sc = float(scores[s])
+                if parent["done"]:
+                    # a frozen hypothesis carried forward unchanged (its
+                    # lattice candidate was (eos, score))
+                    st = {"trg": parent["trg"].copy(), "pos": parent["pos"],
+                          "done": True, "score": sc}
+                else:
+                    pos = min(parent["pos"] + 1, self._T - 1)
+                    trg = parent["trg"].copy()
+                    trg[pos] = tok
+                    st = {"trg": trg, "pos": pos,
+                          "done": (tok == self._eos
+                                   or parent["pos"] + 1 >= self._T - 1),
+                          "score": sc}
+                new_states.append(st)
+            for k, s in enumerate(slots):
+                self._live[s] = new_states[k]
+            step_tokens = [int(toks[s]) for s in slots]
+            step_scores = [float(scores[s]) for s in slots]
+            if all(st["done"] for st in new_states):
+                tokens = np.stack([st["trg"] for st in new_states])
+                lane_scores = np.asarray([st["score"] for st in new_states],
+                                         "float32")
+                self._last_finished_beams[lane] = {
+                    "tokens": tokens, "scores": lane_scores,
+                    "slots": list(slots),
+                    # the final survivor chunk: a streaming frontend sends
+                    # it before the n-best
+                    "parents": perm, "step_tokens": step_tokens,
+                    "step_scores": step_scores,
+                }
+                for s in slots:
+                    finished[s] = self._live.pop(s)["trg"]
+                    self._free.append(s)
+                    self._release_pages(s)
+                del self._beam_live[lane]
+                self._free_lanes.append(lane)
+                rid = self._beam_owner.pop(lane, None)
+                if rid is not None:
+                    self._beam_results[rid] = {"tokens": tokens,
+                                               "scores": lane_scores}
+            else:
+                self._beam_events[lane] = {
+                    "parents": perm, "tokens": step_tokens,
+                    "scores": step_scores,
+                    "done": [bool(st["done"]) for st in new_states],
+                }
+        return finished
+
+    def generate_beam(self, src, src_len=None, prefix_tokens=None,
+                      len_penalty=None):
+        """Run ONE beam to completion on a dedicated session and return
+        ``(tokens [K, T] int64, scores [K] float32)`` in score-descending
+        hypothesis order (bos-led, eos-padded rows). With ``len_penalty``
+        the n-best is reordered under the GNMT length penalty
+        (``transformer.gnmt_rescore_nbest``, the formula the offline
+        ``beam_generate`` picks with) and the scores returned are the
+        penalized ones. Lanes that finish meanwhile go to nobody: use
+        :meth:`register_beam_owner` and :meth:`take_beam_result` for
+        concurrent consumers."""
+        lane = self.admit_beam(src, src_len=src_len,
+                               prefix_tokens=prefix_tokens)
+        rid = self.register_beam_owner(lane)
+        while lane in self._beam_live:
+            self.step()
+        out = self.take_beam_result(rid)
+        if len_penalty is None:
+            return out["tokens"], out["scores"]
+        _order, tokens, scores = transformer.gnmt_rescore_nbest(
+            out["tokens"], out["scores"], self._eos, float(len_penalty))
+        return tokens, scores
 
     def cancel(self, slot):
         """Abort one in-flight sequence (the frontend's disconnect and
@@ -850,10 +1194,31 @@ class SlotDecodeSession(object):
         ``_release_pages`` order), its group loses a member and any
         request ownership is dropped WITHOUT banking a result. Returns
         True when the slot was live. Call between dispatches;
-        :attr:`pool_conserved` holds afterwards."""
+        :attr:`pool_conserved` holds afterwards.
+
+        On a beam session a slot is one hypothesis of a lane, and a lane
+        is one request: cancelling any member releases the WHOLE beam
+        (every sibling slot, the lane and its owner binding; nothing
+        banks)."""
         slot = int(slot)
         if slot not in self._live:
             return False
+        if self._beam_width > 1:
+            lane = slot // self._beam_width
+            binfo = self._beam_live.pop(lane, None)
+            if binfo is None:
+                return False
+            ok = True
+            for s in binfo["slots"]:
+                if s in self._live:
+                    ok = self._cancel_one(s) and ok
+            self._free_lanes.append(lane)
+            self._beam_events.pop(lane, None)
+            self._beam_owner.pop(lane, None)  # cancelled, never banked
+            return ok
+        return self._cancel_one(slot)
+
+    def _cancel_one(self, slot):
         self._begin_op()
         try:
             del self._live[slot]
@@ -908,6 +1273,8 @@ class SlotDecodeSession(object):
                 _chaos.fault("serve.dispatch", step=self.steps_done)
             if not self._paged:
                 out = self._step_dense()
+            elif self._beam_width > 1:
+                out = self._step_beam()
             # the oracle: FLAGS_speculative=off routes this very session
             # through the plain sequential step, and flips mid-stream
             elif self._spec_k and flags.get("speculative") != "off":
@@ -1036,6 +1403,10 @@ class SlotDecodeSession(object):
         queued requests as capacity frees. Returns a request id
         (monotonic per session). ``trace_id`` binds the request to an
         in-flight request trace (``observability/tracing.py``)."""
+        if self._beam_width > 1:
+            raise ValueError(
+                "beam sessions are admit-or-reject (admit_beam): a beam's "
+                "K x worst-case reservation is too large to queue")
         rid = self._next_req
         self._next_req += 1
         entry = {

@@ -9,15 +9,25 @@ programs, name counters and global scope of this package (the JAX
 package's conftest resets only its own). The control-flow builders
 (``while_loss`` to ``lod_array``, and ``control_flow_cases``) build one
 construct each through either package.
+
+Under pytest-xdist (``PYTEST_XDIST_WORKER_COUNT`` set) importing this
+module caps torch's intra-op threads at the worker's share of the cores,
+so that N workers do not each start one thread per core.
 """
 
 import contextlib
 import hashlib
+import os
 
 import numpy as np
 import torch
 
 from paddle_tpu_torch.framework import Parameter
+
+_XDIST_WORKERS = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+if _XDIST_WORKERS:
+    torch.set_num_threads(
+        max(1, (os.cpu_count() or 1) // max(1, int(_XDIST_WORKERS))))
 
 
 def _seed_of(name):

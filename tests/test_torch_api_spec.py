@@ -75,7 +75,6 @@ MISSING_NAMES = {
     "paddle_tpu.io.save_checkpoint": "A item 7",
     "paddle_tpu.layers.attention.label_smooth": "A item 3",
     "paddle_tpu.layers.attention.rotary_position_embedding": "A item 3",
-    "paddle_tpu.layers.attention.slot_beam_search": "A item 2",
     "paddle_tpu.layers.io.Preprocessor": "A item 8",
     "paddle_tpu.layers.io.Preprocessor.block": "A item 8",
     "paddle_tpu.layers.io.Preprocessor.inputs": "A item 8",
@@ -88,13 +87,6 @@ MISSING_NAMES = {
     "paddle_tpu.layers.io.read_file": "A item 8",
     "paddle_tpu.layers.io.shuffle": "A item 8",
     "paddle_tpu.layers.nn.Print": "A item 3",
-    "paddle_tpu.layers.rnn.attention_lstm_beam_decode": "A item 2",
-    "paddle_tpu.layers.rnn.beam_search": "A item 2",
-    "paddle_tpu.layers.rnn.beam_search_decode": "A item 2",
-    "paddle_tpu.layers.rnn.dynamic_lstmp": "A item 2",
-    "paddle_tpu.layers.rnn.gru_unit": "A item 2",
-    "paddle_tpu.layers.rnn.lstm_unit": "A item 2",
-    "paddle_tpu.layers.rnn.row_conv": "A item 2",
     "paddle_tpu.layers.tensor.create_global_var": "A item 3",
     "paddle_tpu.layers.tensor.create_tensor": "A item 3",
     "paddle_tpu.layers.tensor.has_inf": "A item 3",
@@ -103,11 +95,6 @@ MISSING_NAMES = {
     "paddle_tpu.layers.tensor.load": "A item 3",
     "paddle_tpu.layers.tensor.sum": "A item 3",
 }
-# the session's beam surface
-MISSING_NAMES.update(
-    ("paddle_tpu.serving.generation.SlotDecodeSession." + n, "A item 2")
-    for n in ("admit_beam", "beam_slots", "generate_beam",
-              "register_beam_owner", "take_beam_result"))
 # observability.memory's ledger and plan
 MISSING_NAMES.update(
     ("paddle_tpu.observability.memory." + n, "A item 6") for n in (
@@ -215,7 +202,7 @@ def test_port_spec_lines_match_api_spec(port_lines):
     assert not stale, "allowed absences the port now has (remove them):" \
         "\n  " + "\n  ".join("%s (%s)" % s for s in stale[:30])
     matched = sum(1 for line in spec if line in port_lines)
-    assert matched >= 579, matched
+    assert matched >= 592, matched
 
 
 def test_deliberate_differences_add_only_trailing_parameters(port_lines):
@@ -285,5 +272,19 @@ def test_slot_decode_session_signature():
     tail = params[params.index("prefix_cache_pages"):]
     assert tail == ["prefix_cache_pages", "degradation", "beam_width",
                     "speculative", "decoder_cfg"], tail
-    with pytest.raises(NotImplementedError, match="A7"):
+    # beam sessions are ported: a paged beam session builds (its init
+    # and copy-on-write programs run) with its lanes free, and a
+    # mis-built one raises the JAX package's ValueErrors
+    import paddle_tpu_torch as fluid
+
+    with pytest.raises(ValueError, match="paged=True"):
         SlotDecodeSession(None, 2, beam_width=4)
+    with pytest.raises(ValueError, match="tile"):
+        SlotDecodeSession(None, 6, beam_width=4, paged=True)
+    sess = SlotDecodeSession(
+        fluid.Executor(fluid.CPUPlace()), 4, max_length=8, d_model=16,
+        paged=True, page_size=4, beam_width=2, scope=fluid.Scope(),
+        src_vocab_size=10, trg_vocab_size=10, n_layer=1, n_head=2,
+        d_inner=32)
+    assert (sess.beam_width, sess.free_beams, sess.active_beams) == (
+        2, 2, [])

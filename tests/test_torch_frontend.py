@@ -2,13 +2,14 @@
 (``serving/frontend.py`` + ``serving/client.py``) and the JSON-lines
 substrate under it (``distributed/master.py``).
 
-Mirrors tests/test_frontend.py except its beam, SIGTERM / snapshot and
-fleet-coordinator tests (beam decode is ROADMAP.md A7, snapshots and the
-coordinator A8's second half): the substrate (dict dispatch, streaming,
+Mirrors tests/test_frontend.py except its SIGTERM / snapshot and
+fleet-coordinator tests (snapshots and the coordinator are A8's second
+half): the substrate (dict dispatch, streaming,
 connection callbacks), the wire codec (bit-exact arrays, typed errors),
 unary ``predict`` (parity, deadlines, shed), streaming ``generate``
 (per-dispatch chunks, best-of-N and prefix reuse over the wire, a
-backlog over more streams than slots), disconnect and in-band cancel
+backlog over more streams than slots, beam streams and their GNMT
+rescoring), disconnect and in-band cancel
 reclamation (``pool_conserved`` afterwards), the ``net.*`` chaos sites,
 the ops endpoints and the typed refusals of what the port does not
 serve yet. Decode is greedy, so every wire stream must EQUAL the same
@@ -420,11 +421,13 @@ def test_generate_best_of_and_prefix_reuse_over_the_wire(trained):
 
 
 def test_beam_request_is_refused_typed_not_hung(trained):
+    """A beam request to a session built without beam lanes is refused
+    with a typed error at once, and the connection serves on."""
     sess = _paged(trained)
     with ServingFrontend(session=sess) as fe:
         cl = ServingClient(fe.address)
         t0 = time.monotonic()
-        with pytest.raises(ServingError, match="beam decode"):
+        with pytest.raises(ServingError, match="beam session"):
             cl.generate_beam(trained["src"][0], src_len=SEQ)
         assert time.monotonic() - t0 < 10.0
         # the connection and the worker serve on
@@ -432,6 +435,91 @@ def test_beam_request_is_refused_typed_not_hung(trained):
         assert out.shape == (1, SEQ)
         cl.close()
     assert _drained(sess)
+
+
+def _beam_session(trained):
+    args = dict(num_slots=S, max_length=SEQ, d_model=D, paged=True,
+                page_size=4, beam_width=2,
+                scope=trained["scope"].new_scope())
+    args.update(CFG)
+    return SlotDecodeSession(trained["exe"], **args)
+
+
+def test_generate_beam_over_the_wire_matches_in_process(trained):
+    """The beam grammar (``admitted`` with the beam's metadata, one
+    ``beam`` survivor chunk a dispatch, a final ``beam_end`` n-best)
+    reassembles equal to the in-process ``generate_beam``; ``n > 1`` with
+    ``beam`` is a typed reject; a severed beam stream frees its whole
+    lane; a beam that finishes with no stream banks its n-best, which
+    the wire ``take_result`` claims."""
+    src = trained["src"]
+    sess = _beam_session(trained)
+    with ServingFrontend(session=sess) as fe:
+        cl = ServingClient(fe.address)
+        events = []
+        got_t, got_s = cl.generate_beam(src[0], src_len=SEQ,
+                                        on_event=events.append)
+        kinds = [e["event"] for e in events]
+        assert kinds[0] == "admitted" and kinds[-2:] == ["beam_end", "end"]
+        adm = events[0]
+        assert adm["beam_width"] == 2 and len(adm["slots"]) == 2
+        beam_events = [e for e in events if e["event"] == "beam"]
+        assert len(beam_events) >= 3
+        assert all(len(e["parents"]) == 2 and len(e["tokens"]) == 2
+                   for e in beam_events)
+        with pytest.raises(ServingError):
+            list(cl.generate(src[0], src_len=SEQ, n=2, beam=True))
+        gen = cl.generate(src[1], src_len=SEQ, beam=True)
+        assert next(gen)["event"] == "admitted"
+        cl.close()  # severed socket: the close hook cancels the beam
+    assert _drained(sess)
+    assert sess.free_beams == S // 2 and sess.pool_conserved
+    want_t, want_s = sess.generate_beam(src[0], SEQ)
+    np.testing.assert_array_equal(got_t, want_t)
+    np.testing.assert_array_equal(got_s, want_s)
+    lane = sess.admit_beam(src[1], SEQ)
+    rid = sess.register_beam_owner(lane)
+    while lane in sess.active_beams:
+        sess.step()
+    with ServingFrontend(session=sess) as fe2:
+        cl2 = ServingClient(fe2.address)
+        bt, bs = cl2.take_result(rid)
+        cl2.close()
+    assert sess.take_beam_result(rid) is None  # claimed over the wire
+    np.testing.assert_array_equal(bt, sess.generate_beam(src[1], SEQ)[0])
+    assert bs.shape == (2,)
+
+
+def test_beam_len_penalty_rescoring_wire_matches_in_process(trained):
+    """``len_penalty`` on a beam request rescores the final n-best
+    (``beam_end`` carries the penalized order); the wire result equals
+    the in-process ``generate_beam(len_penalty=...)``, which is
+    ``gnmt_rescore_nbest`` over the raw n-best; ``len_penalty`` without
+    ``beam`` is a typed reject."""
+    src = trained["src"]
+    sess = _beam_session(trained)
+    with ServingFrontend(session=sess) as fe:
+        cl = ServingClient(fe.address)
+        events = []
+        got_t, got_s = cl.generate_beam(src[0], src_len=SEQ,
+                                        len_penalty=2.0,
+                                        on_event=events.append)
+        end = [e for e in events if e["event"] == "beam_end"][0]
+        assert end["len_penalty"] == 2.0
+        assert sorted(end["order"]) == [0, 1]
+        with pytest.raises(ServingError, match="beam=true"):
+            list(cl.generate(src[0], src_len=SEQ, len_penalty=0.6))
+        cl.close()
+    assert _drained(sess)
+    want_t, want_s = sess.generate_beam(src[0], SEQ, len_penalty=2.0)
+    np.testing.assert_array_equal(got_t, want_t)
+    np.testing.assert_array_equal(got_s, want_s)
+    raw_t, raw_s = sess.generate_beam(src[0], SEQ)
+    order, re_t, re_s = transformer.gnmt_rescore_nbest(raw_t, raw_s,
+                                                       sess._eos, 2.0)
+    np.testing.assert_array_equal(re_t, want_t)
+    np.testing.assert_array_equal(re_s, want_s)
+    assert sorted(int(i) for i in order) == [0, 1]
 
 
 def test_generate_backlog_exceeding_slots_completes_concurrently(

@@ -145,8 +145,18 @@ def test_verify_and_draft_programs_equal_jax_op_for_op():
 
 
 def test_build_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A7"):
-        t_transformer.build_paged_slot_decoder(2, beam_width=2)
+    # a beam build is ported: its step program equals the JAX package's
+    # op for op; speculation with a beam is refused as the JAX package
+    # refuses it
+    with j_unique_name.guard({}):
+        jbeam = j_transformer.build_paged_slot_decoder(2, beam_width=2)
+    with t_unique_name.guard({}):
+        tbeam = t_transformer.build_paged_slot_decoder(2, beam_width=2)
+    assert tbeam[6] == jbeam[6]
+    assert _signature(tbeam[5]) == _signature(jbeam[5])
+    with pytest.raises(ValueError, match="compose"):
+        t_transformer.build_paged_slot_decoder(2, beam_width=2,
+                                               speculative=2)
     # a sampled speculative build is ported: its step and verify programs
     # equal the JAX package's op for op, the sampler's attrs included
     samp = {"strategy": "top_k", "top_k": 3, "temperature": 0.7, "seed": 4}
