@@ -518,6 +518,57 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    (names and integer codes) and ``row_conv``, forward and gradient,
    card against CPU within 1e-5 of max(1, the largest value).
    Each new phase prints its seconds; the script prints its total.
+23. Decode snapshots, the last op types and the metrics. Right after
+   ``beam_wire``, on step 4's weights: ``snapshot``: step 4's session
+   (32 slots, page 16, steps 8, greedy) with the prefix cache on: 4 fork
+   groups of 2 sharing a 20-token forced prefix (two groups a source, so
+   the second hits the cache) and the 64 requests queued behind them,
+   cut after 3 ``pump()`` rounds. ``save()`` there prints the live pages
+   and groups against the pool, the bytes written, the capture ms (the
+   device gather and the pinned host copy) beside its bound (the live
+   bytes over a pinned device-to-host rate the phase measures first), the
+   write ms; a ``save_async`` of the same step, written while the session
+   decodes on, has the sync save's digests; ``tools/ckpt_inspect.py
+   --verify`` exits 0 on it; a fresh session in a fresh child scope
+   restores it (restore ms) and runs to the end, its first steps eager,
+   then captured: every stream (forks included) bit-equal to the
+   uninterrupted session's, both pools conserved with 0 leaked. Then the
+   same for the first 32 requests top-k sampled (cut after 2 rounds) and
+   for 8 beam lanes (K 4) on ``beam_serve``'s raised-eos scope, cut after
+   40 steps or at the first done hypothesis past them (tokens and scores
+   bit-equal). Each mode's window counts its launches (paged_decode and
+   flash_fwd gated > 0). ``snapshot wire``: two frontends on the card
+   with snapshot managers; 4 requests stream from A, A's decode worker is
+   held after its 3rd ``step()`` while ``snapshot`` is asked over the
+   socket (the payload base64 per file: a smaller load than the
+   snapshot phase's, the payload being one JSON line), the payload is
+   ``restore``d into B and each client ``attach``es there by rid: the
+   spliced streams and A's own equal step 4's; payload bytes, snapshot
+   and restore ms, the attach gap; a restore onto B while it decodes
+   answers ``MigrationBusyError``. ``sigterm``: a child process runs
+   step 4's session behind a frontend with a snapshot manager (both with
+   signal handlers), queues 16 requests and, after 2 ``step()`` calls,
+   gets SIGTERM: it must die by the signal (return code -15) with a
+   final snapshot that ``--verify`` passes; a second child restores it
+   and finishes: its 16 rows equal step 4's. After step 19's phases,
+   ``metrics``: ``evaluator.ChunkEvaluator`` on the card over the role
+   labeller's decoded paths (two batches of 16) gives chunk_eval's own
+   F1, and ``evaluator.DetectionMAP`` over the SSD eval head's
+   detections gives detection_map's mAP (in graph and accumulated). At
+   the end, ``op breadth 3``: label_smooth, rotary_embedding and
+   fused_elemwise_activation (each activation) at Transformer-base's
+   shapes card against CPU within 1e-5 of the largest value (gradients
+   too), print's text equal; the Transformer-base train program (dropout
+   0.1) through ``fuse_elewise_add_act``, 3 Adam steps fused against
+   unfused from one state (losses within 1e-5 relative, op counts and
+   step ms); ``delete_dropout`` in an ``AnalysisConfig`` Predictor of
+   the saved inference program (its dropout ops set to upscale_in_train,
+   the variant the pass removes): logits bit-equal to the Predictor
+   without it; save / load and save_combine / load_combine files of the
+   card and the CPU bit-equal, and the Transformer-base train program's
+   float32 persistables (parameters, Adam moments, learning rate)
+   through save_combine and load_combine on the card bit-equal (MB,
+   MB/s).
 
 Every profiler trace (``trace_call``) is held to what ran while it was
 taken: each kernel-launch call of the traced call must have its kernel,
@@ -544,7 +595,8 @@ and crf_viterbi the srl phase's, ctc_loss the crnn phase's; lstm_cell
 and gru_cell gain a row at the role labeller's and CRNN's shapes,
 lstm_cell two at the encoder-decoder's; the beam phases' launches join
 flash_fwd's serving rows, paged_decode's ``paged_decode_beam`` row and
-lstm_cell's MT and encoder-decoder rows);
+lstm_cell's MT and encoder-decoder rows; the snapshot phases' sessions
+join the serving rows too, the beam snapshot's paged_decode_beam);
 the last line is ``{"ok": true, "device": {...}}``. Any failure exits nonzero
 before that line. The script needs one CUDA card and the rest of the
 repository beside it: without either it fails at once.
@@ -846,6 +898,29 @@ MT_BEAM_RUNS = 5       # build_generator runs timed on the card
 BOOK_BEAM_K, BOOK_BEAM_LEN, BOOK_END_ID = 2, 8, 10
 BOOK_BEAM_BATCH, BOOK_BEAM_RUNS = 64, 5
 RNN_OPS_TOL = 1e-5     # relative to max(1, the largest value)
+# step 23: decode snapshots. snapshot: the serve phase's session with the
+# prefix cache on, SNAP_FORKS fork groups of SNAP_FORK_N sharing a
+# SNAP_FORK_PREFIX-token forced prefix (two groups a source) and the 64
+# requests queued behind them, cut after SNAP_AT pump rounds; the first
+# 32 requests top-k sampled, cut after 2 rounds; SNAP_BEAM_LANES beam
+# lanes admitted at once on beam_serve's raised-eos scope, cut after
+# SNAP_BEAM_AT steps or, past them, at the first done hypothesis (at
+# most SNAP_MAX_EXTRA more)
+SNAP_FORKS, SNAP_FORK_N, SNAP_FORK_PREFIX = 4, 2, 20
+SNAP_CACHE_PAGES, SNAP_AT = 16, 3
+SNAP_SAMPLED_REQUESTS, SNAP_SAMPLED_AT = 32, 2
+SNAP_BEAM_LANES, SNAP_BEAM_AT, SNAP_MAX_EXTRA = 8, 40, 100
+D2H_PROBE_BYTES = 256 << 20   # the pinned copy that bounds a capture
+# snapshot wire: streams from frontend A, cut after A's SNAP_WIRE_AT-th
+# step() (a smaller load than the snapshot phase's: the payload crosses
+# the socket as base64 JSON)
+SNAP_WIRE_REQUESTS, SNAP_WIRE_AT = 4, 3
+# sigterm: requests the child queues, its step() calls before the signal
+SIGTERM_REQUESTS, SIGTERM_AT, SIGTERM_TIMEOUT = 16, 2, 300
+# op breadth 3: the new op types card against CPU (relative to the
+# largest value); the fused train program's losses against the unfused
+OPS3_TOL, FUSE_STEPS, FUSE_TOL = 1e-5, 3, 1e-5
+FUSE_TIMED = 8     # steps of each program timed after those, in turns
 # the names of matrix-product kernels in a profile (cuBLAS's GEMMs and
 # cuDNN's implicit-GEMM convolutions)
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
@@ -6837,7 +6912,9 @@ def ssd_phase(np, torch, fluid, kernels):
     return dict(rate=rate, step_ms=mean_ms, peak=peak, busy=busy,
                 launches={"greedy_nms": counts["greedy_nms"],
                           "det_match": counts["det_match"]},
-                timing=timing)
+                timing=timing,
+                eval=dict(out=out, m_ap=m_ap, gt_label=feed["gt_label"],
+                          gt_box=feed["gt_box"], attrs=map_attrs))
 
 
 def ssd_card_vs_cpu_phase(np, torch, fluid):
@@ -7659,7 +7736,11 @@ def srl_phase(np, torch, fluid, kernels):
         fail("the role labeller's Viterbi path leaves 0..%d or is not 0 "
              "past a length" % (SRL_LABELS - 1))
     run["launches"]["crf_viterbi"] += vit
-    run.update(f1=f1, eval_ms=eval_ms)
+    chunk = [o for o in test.global_block().ops if o.type == "chunk_eval"]
+    run.update(f1=f1, eval_ms=eval_ms, eval=dict(
+        path=path, target=feed["target"], length=feed["length"], f1=f1,
+        counts=(int(n_inf[0]), int(n_lab[0]), int(n_cor[0])),
+        num_chunk_types=chunk[0].attrs["num_chunk_types"]))
     return run
 
 
@@ -9952,6 +10033,997 @@ def rnn_ops_sweep_phase(np, torch, fluid):
           "%.1f s" % (worst, RNN_OPS_TOL, time.perf_counter() - t_phase))
 
 
+# -- step 23: decode snapshots, the last op types, the metrics ----------------
+
+def pinned_d2h_rate(torch):
+    """Bytes a second of one device-to-host copy into pinned memory
+    (D2H_PROBE_BYTES, the best of 5, timed by CUDA events): the rate a
+    snapshot's host copy is bounded by."""
+    src = torch.empty(D2H_PROBE_BYTES // 4, device="cuda")
+    dst = torch.empty(src.shape, pin_memory=True)
+    dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        dst.copy_(src, non_blocking=True)
+        b.record()
+        b.synchronize()
+        best = min(best, a.elapsed_time(b))
+    return D2H_PROBE_BYTES / (best / 1e3)
+
+
+def ckpt_verify(step_dir):
+    """``tools/ckpt_inspect.py <dir> --verify`` as it stands: (exit code,
+    its last output line)."""
+    r = subprocess.run([sys.executable, os.path.join(HERE, "tools",
+                                                     "ckpt_inspect.py"),
+                        step_dir, "--verify"], capture_output=True,
+                       text=True, timeout=300)
+    last = (r.stdout.strip().splitlines() or [""])[-1]
+    return r.returncode, last
+
+
+def dir_size(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def snap_session(exe, scope, sampler=None, cache_pages=0):
+    """The serve phase's session (greedy unless ``sampler``), with the
+    prefix cache on when ``cache_pages``."""
+    from paddle_tpu_torch.serving.generation import SlotDecodeSession
+
+    return SlotDecodeSession(
+        exe, num_slots=NUM_SLOTS, max_length=MAX_LEN, d_model=D_MODEL,
+        paged=True, page_size=PAGE_SIZE, steps=STEPS, eos_id=EOS,
+        scope=scope.new_scope(), prefix_cache_pages=cache_pages,
+        sampler=sampler, src_vocab_size=VOCAB, trg_vocab_size=VOCAB,
+        n_layer=N_LAYER, n_head=N_HEAD, d_inner=D_INNER)
+
+
+def pump_round(sess, st):
+    """One ``pump()`` round that also keeps the rows of the fork slots
+    (``st["forks"]``: slot -> key), which no request id owns."""
+    sess.admit_pending()
+    for slot, toks in sess.step().items():
+        rid = sess._owner.pop(slot, None)
+        if rid is not None:
+            st["done"][rid] = toks
+        elif slot in st["forks"]:
+            st["done"][st["forks"].pop(slot)] = toks
+
+
+def queue_drive(np, reqs, n, forks):
+    """start / advance / finish of a queued load: ``forks`` fork groups
+    of SNAP_FORK_N sharing a forced prefix (two groups a source and
+    prefix, so the second hits the prefix cache), then ``n`` requests
+    enqueued (a backlog past the slots)."""
+    src, lens, prefixes = reqs
+
+    def start(sess):
+        st = {"done": {}, "forks": {}, "want": n}
+        for g in range(forks):
+            i = g // 2
+            pfx = [int(t) for t in np.random.RandomState(SEED + i).randint(
+                3, VOCAB, SNAP_FORK_PREFIX)]
+            for k, slot in enumerate(sess.admit_group(
+                    src[i], n=SNAP_FORK_N, src_len=int(lens[i]),
+                    prefix_tokens=pfx)):
+                st["forks"][slot] = "fork %d.%d" % (g, k)
+            st["want"] += SNAP_FORK_N
+        for i in range(n):
+            sess.enqueue(src[i], lens[i], prefixes[i])
+        return st
+
+    def finish(sess, st):
+        while len(st["done"]) < st["want"]:
+            pump_round(sess, st)
+        return st["done"]
+
+    return start, pump_round, finish
+
+
+def beam_drive(reqs, lanes):
+    src, lens, prefixes = reqs
+
+    def start(sess):
+        st = {"owners": {}, "done": {}}
+        for i in range(lanes):
+            lane = sess.admit_beam(src[i], lens[i],
+                                   prefix_tokens=prefixes[i])
+            st["owners"][sess.register_beam_owner(lane)] = i
+        return st
+
+    def advance(sess, st):
+        sess.step()
+        for rid in list(st["owners"]):
+            r = sess.take_beam_result(rid)
+            if r is not None:
+                st["done"][st["owners"].pop(rid)] = r
+
+    def finish(sess, st):
+        while st["owners"]:
+            advance(sess, st)
+        return st["done"]
+
+    return start, advance, finish
+
+
+def same_stream(a, b):
+    if isinstance(a, dict):
+        return (np_equal(a["tokens"], b["tokens"])
+                and np_equal(a["scores"], b["scores"]))
+    return np_equal(a, b)
+
+
+def np_equal(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and bool((a == b).all())
+
+
+def snapshot_case(torch, label, make, drive, at, root, rate, kernels,
+                  mid_check=None, until=None, async_check=False):
+    """One mode of the ``snapshot`` phase: a session driven ``at``
+    rounds, snapshotted (``save()``), then run on to its end (the
+    uninterrupted run: a save reads the session and changes nothing),
+    and a fresh session restored from the snapshot run to its end:
+    every stream bit-equal, the pool conserved with 0 leaked, the unmodified
+    ``ckpt_inspect.py --verify`` exit 0. ``async_check``: a
+    ``save_async`` of the same step, taken while decoding goes on, with
+    digests equal to the sync save's. Returns the launches of the
+    window (both sessions' drives, counts reset just before)."""
+    import copy
+
+    from paddle_tpu_torch.resilience.checkpoint import read_manifest
+    from paddle_tpu_torch.serving.snapshot import DecodeSnapshotManager
+
+    start, advance, finish = drive
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.reset()
+    victim = make()
+    st = start(victim)
+    for _ in range(at):
+        advance(victim, st)
+    extra = 0
+    while until is not None and not until(victim) and extra < SNAP_MAX_EXTRA:
+        advance(victim, st)
+        extra += 1
+    if mid_check is not None:
+        mid_check(victim)
+    if not victim._live:
+        fail("snapshot %s: nothing live at the cut" % label)
+    snap_dir = os.path.join(root, label)
+    mgr = DecodeSnapshotManager(victim, snap_dir, max_to_keep=4)
+    torch.cuda.synchronize()
+    path = mgr.save(serial=1)
+    cap_ms, write_ms = (1e3 * mgr.last_capture_seconds,
+                        1e3 * mgr.last_save_seconds)
+    nbytes = dir_size(path)
+    live_bytes = mgr.last_capture_bytes
+    n_pages, n_groups = len(victim._pool._ref), len(victim._group_members)
+    n_live, n_queued = len(victim._live), len(victim.pending_requests)
+    saved_st = copy.deepcopy(st)
+    if async_check:
+        # the same step again, written while the victim decodes on
+        mgr.save_async(serial=2)
+    want = finish(victim, st)
+    mgr.wait()
+    rc, verdict = ckpt_verify(path)
+    restored = make()
+    mgr2 = DecodeSnapshotManager(restored, snap_dir)
+    torch.cuda.synchronize()
+    if mgr2.restore(serial=1) is None:
+        fail("snapshot %s: the restore found no verified serial" % label)
+    torch.cuda.synchronize()
+    restore_ms = 1e3 * mgr2.last_restore_seconds
+    got = finish(restored, saved_st)
+    torch.cuda.synchronize()
+    launches = kernel_counts(kernels)
+    digests_equal = None
+    if async_check:
+        if mgr.last_error is not None:
+            fail("snapshot %s: the async save failed: %r"
+                 % (label, mgr.last_error))
+        va = read_manifest(os.path.join(snap_dir, "checkpoint_2"))["vars"]
+        vs = read_manifest(path)["vars"]
+        digests_equal = {n: v["sha256"] for n, v in va.items()} == {
+            n: v["sha256"] for n, v in vs.items()}
+    equal = sum(same_stream(got[k], want[k]) for k in want)
+    for s in (victim, restored):
+        if s._prefix_cache is not None:
+            s.clear_prefix_cache()
+    conserved = all(s.pool_conserved and s.pages_in_use == 0
+                    and s._leaked_pages == 0 for s in (victim, restored))
+    mgr.close(save=False)
+    mgr2.close(save=False)
+    print("snapshot %s: after %d rounds: live pages %d of %d, live groups %d of "
+          "%d, %d live slots, %d queued; bytes written %d (pools gathered "
+          "%d); capture %.1f ms (device gather and pinned host copy; bound "
+          "%.1f ms: the live bytes at the measured %.2f GB/s pinned "
+          "device-to-host rate), write %.1f ms, restore %.1f ms; "
+          "ckpt_inspect --verify exit %d (%s)"
+          % (label, at + extra, n_pages, victim._P - 1, n_groups, victim._G,
+             n_live, n_queued, nbytes, live_bytes, cap_ms, 1e3 * live_bytes / rate,
+             rate / 1e9, write_ms, restore_ms, rc, verdict))
+    print("snapshot %s: %d of %d streams bit-equal to the uninterrupted run "
+          "after the restore (eager first steps, then captured); pools "
+          "conserved, 0 leaked: %s%s; launches paged_decode %d, flash_fwd "
+          "%d" % (label, equal, len(want), conserved,
+                  "" if digests_equal is None else
+                  "; save_async digests equal the sync save's: %s"
+                  % digests_equal, launches["paged_decode"],
+                  launches["flash_fwd"]))
+    if equal != len(want) or len(got) != len(want):
+        fail("snapshot %s: %d of %d restored streams differ from the "
+             "uninterrupted run" % (label, len(want) - equal, len(want)))
+    if not conserved or rc != 0 or digests_equal is False:
+        fail("snapshot %s: conserved %s, ckpt_inspect exit %d, async "
+             "digests equal %s" % (label, conserved, rc, digests_equal))
+    if not launches["paged_decode"] or not launches["flash_fwd"]:
+        fail("snapshot %s: the sessions did not launch paged_decode and "
+             "flash_fwd" % label)
+    return launches
+
+
+def snapshot_phase(np, torch, exe, scope, bscope, kernels):
+    """``snapshot`` (module docstring, step 23): the greedy session with
+    the prefix cache (fork groups sharing prefixes, a backlog; and a
+    ``save_async`` at the cut), a top-k sampled one and a beam one on
+    ``beam_serve``'s raised-eos scope. Returns each mode's launches."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.serving.generation import Sampler
+
+    t_phase = time.perf_counter()
+    rate = pinned_d2h_rate(torch)
+    print("snapshot: pinned device-to-host copy %.2f GB/s (%d MiB, best of "
+          "5)" % (rate / 1e9, D2H_PROBE_BYTES >> 20))
+    root = tempfile.mkdtemp(prefix="chip_smoke_snap_")
+    reqs = requests(np)
+    out = {}
+    try:
+        out["greedy"] = snapshot_case(
+            torch, "greedy", lambda: snap_session(
+                exe, scope, cache_pages=SNAP_CACHE_PAGES),
+            queue_drive(np, reqs, N_REQUESTS, SNAP_FORKS), SNAP_AT, root,
+            rate, kernels, mid_check=lambda s: (s._pending and (
+                s.shared_pages or s.cached_pages)) or fail(
+                "snapshot greedy: no backlog or shared page at the cut"),
+            async_check=True)
+        out["sampled"] = snapshot_case(
+            torch, "sampled", lambda: snap_session(
+                exe, scope, sampler=Sampler(**SAMPLED)),
+            queue_drive(np, reqs, SNAP_SAMPLED_REQUESTS, 0),
+            SNAP_SAMPLED_AT, root, rate, kernels)
+
+        def some_done(s):
+            done = sum(bool(st["done"]) for st in s._live.values())
+            print("snapshot beam: %d of %d live hypotheses done at the cut"
+                  % (done, len(s._live)))
+            if not done:
+                fail("snapshot beam: no hypothesis is done at the cut")
+
+        out["beam"] = snapshot_case(
+            torch, "beam", lambda: beam_session(exe, bscope.new_scope()),
+            beam_drive(beam_requests(np), SNAP_BEAM_LANES),
+            SNAP_BEAM_AT, root, rate, kernels, mid_check=some_done,
+            until=lambda s: any(st["done"] for st in s._live.values()))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("snapshot: %.1f s" % (time.perf_counter() - t_phase))
+    return out
+
+
+class StepGate(object):
+    """Holds a session's decode worker, once armed, after its next ``n``
+    ``step()`` calls until released: a mid-stream quiesce point the
+    phase chooses (armed once every stream is open, so no stream waits
+    for its admission behind the held worker)."""
+
+    def __init__(self, sess):
+        import threading
+
+        self.held, self.release = threading.Event(), threading.Event()
+        self._sess, self._at = sess, None
+        step = sess.step
+
+        def gated():
+            out = step()
+            if (self._at is not None and not self.held.is_set()
+                    and sess.steps_done >= self._at):
+                self.held.set()
+                self.release.wait(120)
+            return out
+
+        sess.step = gated
+
+    def arm(self, n):
+        self._at = self._sess.steps_done + n
+
+
+def snapshot_wire_phase(np, torch, exe, scope, kernels, serve_out):
+    """``snapshot wire`` (module docstring, step 23): SNAP_WIRE_REQUESTS
+    streams from frontend A, ``snapshot`` of A over the socket at a
+    mid-stream quiesce point (A's decode worker held after its
+    SNAP_WIRE_AT-th step() once every stream is open), ``restore`` of the
+    payload into frontend B,
+    the client's ``attach`` to B; the spliced streams against the serve
+    phase's; ``MigrationBusyError`` from a busy B. Returns the window's
+    launches."""
+    import shutil
+    import tempfile
+    import threading
+
+    from paddle_tpu_torch.serving.client import (
+        MigrationBusyError,
+        ServingClient,
+    )
+    from paddle_tpu_torch.serving.frontend import ServingFrontend
+    from paddle_tpu_torch.serving.snapshot import DecodeSnapshotManager
+
+    t_phase = time.perf_counter()
+    src, lens, prefixes = requests(np)
+    n = SNAP_WIRE_REQUESTS
+    root = tempfile.mkdtemp(prefix="chip_smoke_wire_")
+    sa, sb = snap_session(exe, scope), snap_session(exe, scope)
+    gate, busy_gate = StepGate(sa), StepGate(sb)
+    ma = DecodeSnapshotManager(sa, os.path.join(root, "a"))
+    mb = DecodeSnapshotManager(sb, os.path.join(root, "b"))
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.reset()
+    try:
+        with ServingFrontend(session=sa, snapshot_manager=ma) as fa, \
+                ServingFrontend(session=sb, snapshot_manager=mb) as fb:
+            clients = [ServingClient(fa.address, timeout_s=120.0)
+                       for _ in range(n)]
+            streams = [cl.generate(src[i], src_len=int(lens[i]),
+                                   prefix_tokens=prefixes[i])
+                       for i, cl in enumerate(clients)]
+            rids = [next(s)["id"] for s in streams]
+            gate.arm(SNAP_WIRE_AT)
+            if not gate.held.wait(120):
+                fail("snapshot wire: frontend A never reached step %d"
+                     % SNAP_WIRE_AT)
+            ctl = ServingClient(fa.address, timeout_s=120.0)
+            box = {}
+
+            def snap():
+                t0 = time.perf_counter()
+                box.update(ctl._request(method="snapshot"))
+                box["ms"] = 1e3 * (time.perf_counter() - t0)
+
+            t = threading.Thread(target=snap)
+            t.start()
+            time.sleep(0.2)
+            gate.release.set()
+            t.join(300)
+            payload = sum(len(v) for v in box.get("files", {}).values())
+            a_rows = []
+            for s in streams:  # A runs on to the end of each stream
+                toks = []
+                for ev in s:
+                    if ev["event"] == "tokens":
+                        toks += [int(x) for x in ev["tokens"]]
+                a_rows.append(toks)
+            clb = ServingClient(fb.address, timeout_s=300.0)
+            t0 = time.perf_counter()
+            resp = clb._request(method="restore", dir=box["dir"],
+                                files=box["files"])
+            restore_ms = 1e3 * (time.perf_counter() - t0)
+            b_rows, gaps = [], []
+            for rid in rids:
+                cl = ServingClient(fb.address, timeout_s=120.0)
+                t0 = time.perf_counter()
+                first = cl._reattach(rid)
+                gaps.append(1e3 * (time.perf_counter() - t0))
+                toks = [int(x) for x in first["tokens"]]
+                for ev in cl._stream_events(cl._recv_line()):
+                    if ev["event"] == "tokens":
+                        toks += [int(x) for x in ev["tokens"]]
+                    if ev["event"] == "end":
+                        break
+                b_rows.append(toks)
+                cl.close()
+            busy = ServingClient(fb.address, timeout_s=120.0)
+            bstream = busy.generate(src[n], src_len=int(lens[n]),
+                                    prefix_tokens=prefixes[n])
+            next(bstream)
+            busy_gate.arm(1)
+            busy_gate.held.wait(120)
+            err = {}
+
+            def restore_busy():
+                try:
+                    ServingClient(fb.address, timeout_s=300.0)._request(
+                        method="restore", dir=box["dir"], files=box["files"])
+                except Exception as exc:  # noqa: BLE001 - the typed error
+                    err["exc"] = exc
+
+            t = threading.Thread(target=restore_busy)
+            t.start()
+            time.sleep(0.2)
+            busy_gate.release.set()
+            t.join(300)
+            for _ev in bstream:
+                pass
+            for cl in clients + [ctl, clb, busy]:
+                cl.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches = kernel_counts(kernels)
+
+    def row(toks, p):
+        r = np.full(MAX_LEN, EOS, "int64")
+        r[0] = 1
+        body = ([int(t) for t in p] if p else []) + toks
+        r[1:1 + len(body)] = body[:MAX_LEN - 1]
+        return r
+
+    # B's resumed event replays from position 1 (the forced prefix
+    # included); A's tokens events carry what it decoded
+    a_equal = sum(np_equal(row(a_rows[i], prefixes[i]), serve_out[i])
+                  for i in range(n))
+    b_equal = sum(np_equal(row(b_rows[i], None), serve_out[i])
+                  for i in range(n))
+    print("snapshot wire: %d streams, %d slots live and %d queued at the "
+          "snapshot (step() %d of A); payload %d bytes base64 (%d files); "
+          "snapshot %.1f ms over the socket, restore %.1f ms, attach gap "
+          "(each attach to its resumed event) %s ms; spliced streams "
+          "equal to the serve phase's %d of %d, A's own %d of %d; "
+          "MigrationBusyError from a busy B: %s"
+          % (n, len(resp.get("live", [])), len(resp.get("pending", [])),
+             SNAP_WIRE_AT, payload, len(box.get("files", {})), box["ms"],
+             restore_ms, ["%.1f" % g for g in gaps], b_equal, n, a_equal, n,
+             type(err.get("exc")).__name__))
+    if b_equal != n or a_equal != n:
+        fail("snapshot wire: a spliced stream differs from the "
+             "uninterrupted one")
+    if not isinstance(err.get("exc"), MigrationBusyError):
+        fail("snapshot wire: a restore onto a busy frontend answered %r"
+             % (err.get("exc"),))
+    print("snapshot wire: %.1f s" % (time.perf_counter() - t_phase))
+    return launches
+
+
+_SIGTERM_CHILD = r"""
+import os, sys, time
+import numpy as np
+sys.path.insert(0, os.getcwd())
+import chip_smoke as cs
+import paddle_tpu_torch as fluid
+from paddle_tpu_torch.kernels import build as kbuild
+from paddle_tpu_torch.serving.frontend import ServingFrontend
+from paddle_tpu_torch.serving.snapshot import DecodeSnapshotManager
+
+mode, snap_dir = sys.argv[1], sys.argv[2]
+kbuild.build()
+exe, scope = fluid.Executor(), fluid.Scope()
+cs.build_model(fluid, exe, scope)
+sess = cs.session(exe, scope.new_scope(), cs.NUM_SLOTS)
+src, lens, prefixes = cs.requests(np)
+n = cs.SIGTERM_REQUESTS
+if mode == "victim":
+    # the manager's handlers first, the frontend's on top: a SIGTERM
+    # stops the transport, then chains into the snapshot path
+    mgr = DecodeSnapshotManager(sess, snap_dir, install_signal_handlers=True)
+    fe = ServingFrontend(session=sess, install_signal_handlers=True)
+    fe._decode.call(lambda: [sess.enqueue(src[i], lens[i], prefixes[i])
+                             for i in range(n)])
+    while fe._decode.call(lambda: sess.steps_done) < cs.SIGTERM_AT:
+        time.sleep(0.005)
+    print("READY", flush=True)
+    while True:
+        time.sleep(0.1)
+else:
+    mgr = DecodeSnapshotManager(sess, snap_dir)
+    t0 = time.perf_counter()
+    manifest = mgr.restore()
+    restore_s = time.perf_counter() - t0
+    out = {}
+    for rid in range(n):
+        r = sess.take_result(rid)
+        if r is not None:
+            out[rid] = r
+    banked = len(out)
+    while len(out) < n:
+        out.update(sess.pump())
+    np.savez(os.path.join(snap_dir, "restored.npz"),
+             **{"r%d" % k: v for k, v in out.items()})
+    print("RESTORED serial %d steps_done %d banked %d restore_ms %.1f"
+          % (manifest["serial"], manifest["step"], banked, 1e3 * restore_s),
+          flush=True)
+"""
+
+
+def sigterm_phase(np, torch, serve_out):
+    """``sigterm`` (module docstring, step 23): a child process on the
+    card serves SIGTERM_REQUESTS queued requests through a frontend with
+    a snapshot manager; SIGTERM once it has stepped SIGTERM_AT times:
+    it must die by the signal with a final snapshot that passes
+    ``--verify``; a second child restores the snapshot and finishes, its
+    streams equal to the serve phase's."""
+    import shutil
+    import signal
+    import tempfile
+
+    from paddle_tpu_torch.resilience.checkpoint import (
+        complete_serials,
+        read_manifest,
+    )
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_sigterm_")
+    try:
+        t0 = time.perf_counter()
+        victim = subprocess.Popen(
+            [sys.executable, "-c", _SIGTERM_CHILD, "victim", root],
+            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        try:
+            line = victim.stdout.readline().strip()
+            if line != "READY":
+                victim.kill()
+                fail("sigterm: the child did not get ready: %r %s"
+                     % (line, victim.stderr.read()[-2000:]))
+            ready_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            victim.send_signal(signal.SIGTERM)
+            _out, err = victim.communicate(timeout=SIGTERM_TIMEOUT)
+            die_ms = 1e3 * (time.perf_counter() - t1)
+        finally:
+            if victim.poll() is None:
+                victim.kill()
+                victim.wait()
+        serials = complete_serials(root)
+        if victim.returncode != -signal.SIGTERM or not serials:
+            fail("sigterm: the child exited %s with serials %s: %s"
+                 % (victim.returncode, serials, err[-2000:]))
+        step_dir = os.path.join(root, "checkpoint_%d" % serials[-1])
+        meta = read_manifest(step_dir)["extra"]["decode_snapshot"]
+        nbytes = dir_size(step_dir)
+        rc, verdict = ckpt_verify(step_dir)
+        second = subprocess.run(
+            [sys.executable, "-c", _SIGTERM_CHILD, "restore", root],
+            cwd=HERE, capture_output=True, text=True,
+            timeout=SIGTERM_TIMEOUT)
+        if second.returncode != 0:
+            fail("sigterm: the restoring child failed: %s"
+                 % second.stderr[-2000:])
+        got = np.load(os.path.join(root, "restored.npz"))
+        equal = sum(np_equal(got["r%d" % i], serve_out[i])
+                    for i in range(SIGTERM_REQUESTS))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("sigterm: the child stepped %d times (ready after %.1f s), died "
+          "by the signal (return code %d) %.0f ms after SIGTERM with serial "
+          "%d banked: %d live, %d queued, %d bytes; ckpt_inspect --verify "
+          "exit %d (%s); the restoring child: %s; %d of %d streams equal to "
+          "the serve phase's"
+          % (SIGTERM_AT, ready_s, victim.returncode, die_ms, serials[-1],
+             len(meta["live"]), len(meta["pending"]), nbytes, rc, verdict,
+             (second.stdout.strip().splitlines() or [""])[-1], equal,
+             SIGTERM_REQUESTS))
+    if rc != 0 or equal != SIGTERM_REQUESTS or not (meta["live"]
+                                                    or meta["pending"]):
+        fail("sigterm: verify exit %d, %d of %d streams equal, live %s "
+             "pending %s" % (rc, equal, SIGTERM_REQUESTS, meta["live"],
+                             meta["pending"]))
+    print("sigterm: %.1f s" % (time.perf_counter() - t_phase))
+
+
+def ops3_sweep_cases(np, fluid):
+    """The five op types with no file behind them, at the CPU tests' and
+    at Transformer-base's shapes: label_smooth (uniform and with a
+    prior, the train step's [64 x 256, 32000]), rotary_embedding ([64,
+    8, 256, 64] queries and keys, with a Position offset),
+    fused_elemwise_activation (the FFN's [64, 256, 2048] bias add, each
+    activation) and print."""
+    cases = []
+    add = sweep_case_adder(np, fluid, cases)
+    rng = np.random.RandomState(QUANT_SEED + 23)
+    L = fluid.layers
+    lab = np.eye(VOCAB, dtype="float32")[rng.randint(0, VOCAB, 4 * 64)]
+    add("label_smooth [256,32000]", {"lab": lab},
+        lambda v: [L.label_smooth(v["lab"], epsilon=LABEL_SMOOTH)], ["lab"])
+    prior = rng.dirichlet(np.ones(64)).astype("float32")[None, None, :]
+    add("label_smooth prior [8,64]",
+        {"lab": np.eye(64, dtype="float32")[rng.randint(0, 64, 8)],
+         "prior": np.repeat(prior[0], 8, 0)},
+        lambda v: [L.label_smooth(v["lab"], prior_dist=v["prior"],
+                                  epsilon=0.2)], ["lab"])
+    dh = D_MODEL // N_HEAD
+    qk = {"q": rng.randn(16, N_HEAD, MAX_LEN, dh).astype("float32"),
+          "k": rng.randn(16, N_HEAD, MAX_LEN, dh).astype("float32")}
+    add("rotary_embedding [16,8,256,64]", qk,
+        lambda v: list(L.rotary_position_embedding(v["q"], v["k"])),
+        ["q", "k"])
+    add("rotary_embedding position [16,8,256,64]",
+        dict(qk, pos=np.asarray([[37]], "int64")),
+        lambda v: list(L.rotary_position_embedding(
+            v["q"], v["k"], position=L.reshape(v["pos"], [1]))), ["q"])
+    x = rng.randn(16, MAX_LEN, D_INNER).astype("float32")
+    bias = rng.randn(1, D_INNER).astype("float32")
+    for act in ("relu", "tanh", "sigmoid", "gelu"):
+        def fused(v, act=act):
+            return sweep_raw(fluid, "fused_elemwise_activation",
+                             {"X": v["x"], "Y": L.reshape(v["b"], [D_INNER])},
+                             ["Out", "IntermediateOut"],
+                             {"functor_list": ["elementwise_add", act],
+                              "axis": -1})
+        add("fused_elemwise_activation %s [16,256,2048]" % act,
+            {"x": x, "b": bias}, fused, ["x"])
+    return cases
+
+
+def print_text(np, fluid, place, x):
+    """What a ``Print`` of ``x`` writes when it runs on ``place`` (and
+    its pass-through output)."""
+    import contextlib
+    import io as _io
+
+    from paddle_tpu_torch import unique_name
+
+    main, startup = fluid.Program(), fluid.Program()
+    with unique_name.guard({}), fluid.program_guard(main, startup):
+        out = fluid.layers.Print(fluid.layers.data("x", list(x.shape[1:])),
+                                 message="ops3")
+    buf = _io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        (val,) = fluid.Executor(place).run(main, feed={"x": x},
+                                           fetch_list=[out])
+    return buf.getvalue(), np.asarray(val)
+
+
+def save_load_program(fluid, names, shapes, path, load):
+    """Data variables named ``names`` saved by ``save`` (the first) and
+    ``save_combine`` (all) to ``path`` + ``one`` / ``bundle``, or, with
+    ``load``, those files read back by ``load`` and ``load_combine``:
+    (program, fetch list)."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.layer_helper import LayerHelper
+
+    main, startup = fluid.Program(), fluid.Program()
+    with unique_name.guard({}), fluid.program_guard(main, startup):
+        if load:
+            fetch = [fluid.layers.load(path + "one.npy")]
+            helper = LayerHelper("load_combine")
+            outs = [helper.create_variable_for_type_inference("float32")
+                    for _ in names]
+            helper.append_op(type="load_combine", outputs={"Out": outs},
+                             attrs={"file_path": path + "bundle"})
+            return main, fetch + outs
+        ins = [fluid.layers.data(n, list(shapes[n]), append_batch_size=False)
+               for n in names]
+        fetch = []
+        for op_type, xs, suffix in (("save", ins[:1], "one"),
+                                    ("save_combine", ins, "bundle")):
+            helper = LayerHelper(op_type)
+            outs = [helper.create_variable_for_type_inference("float32")
+                    for _ in xs]
+            helper.append_op(type=op_type, inputs={"X": xs},
+                             outputs={"Out": outs},
+                             attrs={"file_path": path + suffix})
+            fetch.append(outs[0])
+    return main, fetch
+
+
+def ops3_files(np, fluid, root, arrays, devices):
+    """``arrays`` (name -> float32 array) through ``save_load_program`` on
+    each of ``devices`` ((label, place) pairs): each device's files, the
+    values each loads back (from the first device's files), the seconds
+    of the save run and of the load run, and whether the loads equal
+    ``arrays`` bit for bit."""
+    names = sorted(arrays)
+    shapes = {n: arrays[n].shape for n in names}
+    first = os.path.join(root, devices[0][0]) + "/"
+    out = {}
+    for dev, place in devices:
+        path = os.path.join(root, dev) + "/"
+        exe = fluid.Executor(place)
+        prog, fetch = save_load_program(fluid, names, shapes, path, False)
+        t0 = time.perf_counter()
+        exe.run(prog, feed=arrays, fetch_list=fetch)
+        save_s = time.perf_counter() - t0
+        files = [np.load(path + "one.npy")]
+        with np.load(path + "bundle.npz") as z:
+            files += [z["arg_%d" % i] for i in range(len(names))]
+        prog, fetch = save_load_program(fluid, names, shapes, first, True)
+        t0 = time.perf_counter()
+        vals = [np.asarray(v) for v in exe.run(prog, fetch_list=fetch)]
+        out[dev] = dict(files=files, loaded=vals, save_s=save_s,
+                        load_s=time.perf_counter() - t0)
+        exe.close()
+    want = [arrays[names[0]]] + [arrays[n] for n in names]
+    for r in out.values():
+        r["round_trip"] = all(np_equal(a, b) for a, b in zip(r["loaded"],
+                                                             want))
+    return out
+
+
+def ops3_phase(np, torch, fluid):
+    """``op breadth 3`` (module docstring, step 23)."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.core.passes import apply_pass
+    from paddle_tpu_torch.inference import (
+        AnalysisConfig,
+        create_paddle_predictor,
+    )
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.testing import set_deterministic_params
+
+    t_phase = time.perf_counter()
+    worst, n_ops = run_sweep(np, fluid, ops3_sweep_cases(np, fluid),
+                             "ops3", tol=OPS3_TOL, relative=True)
+    x = np.random.RandomState(QUANT_SEED + 25).randn(4, 8).astype("float32")
+    (ctext, cval), (htext, hval) = (print_text(np, fluid, place, x) for place
+                                    in (fluid.CUDAPlace(0), fluid.CPUPlace()))
+    print("ops3 print [4,8]: the card wrote %d characters, equal to the "
+          "CPU's %s; output equal to the input %s"
+          % (len(ctext), ctext == htext, np_equal(cval, x)
+             and np_equal(hval, x)))
+    if not ctext.startswith("ops3 [[") or ctext != htext or not (
+            np_equal(cval, x) and np_equal(hval, x)):
+        fail("ops3: print wrote %r on the card, %r on the CPU"
+             % (ctext[:60], htext[:60]))
+    n_ops.add("print")
+    # fuse_elewise_add_act on the Transformer-base train program
+    main, startup, loss, logits = ops3_train_program(fluid)
+    fused = main.clone()
+    apply_pass(fused, "fuse_elewise_add_act")
+    counts = {}
+    for label, prog in (("unfused", main), ("fused", fused)):
+        types = [op.type for op in prog.global_block().ops]
+        counts[label] = (len(types), types.count("fused_elemwise_activation"),
+                         types.count("fused_elemwise_activation_grad"))
+    scope = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope)
+    set_deterministic_params(main, scope, parameters_only=True)
+    feed = train_feed(np, TRAIN_BATCH)
+    runs = {}
+    for label, prog in (("unfused", main), ("fused", fused)):
+        runs[label] = (prog, cpu_copy(np, fluid, main, scope,
+                                      device="cuda"), fluid.Executor())
+    losses = {label: [] for label in runs}
+    times = {label: [] for label in runs}
+    # FUSE_STEPS steps each for the losses, then FUSE_TIMED more each, the
+    # two programs in turns (unfused, fused, fused, unfused, ...)
+    order = [("unfused", "fused"), ("fused", "unfused")]
+    for i in range(FUSE_STEPS + FUSE_TIMED):
+        for label in (order[i % 2] if i >= FUSE_STEPS else order[0]):
+            prog, sc, ex = runs[label]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (lv,) = ex.run(prog, feed=feed, fetch_list=[loss], scope=sc)
+            lv = float(np.asarray(lv).reshape(-1)[0])
+            if i < FUSE_STEPS:
+                losses[label].append(lv)
+            else:
+                times[label].append(1e3 * (time.perf_counter() - t0))
+    for _prog, _sc, ex in runs.values():
+        ex.close()
+    # the unfused run's scope: its Adam moments have moved
+    trained = runs["unfused"][1]
+    runs = None
+    ms = {label: float(np.median(t)) for label, t in times.items()}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["fused"],
+                                                   losses["unfused"]))
+    print("ops3 fuse_elewise_add_act (Transformer-base train program, "
+          "dropout %.1f, batch %d): ops %d -> %d (%d fused forward, %d fused "
+          "grad); %d steps: losses %s against %s, max relative diff %.2e "
+          "(tol %.0e); step ms over %d more steps each in turns: median "
+          "%.1f fused (%.1f..%.1f), %.1f unfused (%.1f..%.1f)"
+          % (DROPOUT, TRAIN_BATCH, counts["unfused"][0], counts["fused"][0],
+             counts["fused"][1], counts["fused"][2], FUSE_STEPS,
+             ["%.6f" % v for v in losses["fused"]],
+             ["%.6f" % v for v in losses["unfused"]], rel, FUSE_TOL,
+             FUSE_TIMED, ms["fused"], min(times["fused"]),
+             max(times["fused"]), ms["unfused"], min(times["unfused"]),
+             max(times["unfused"])))
+    if not rel <= FUSE_TOL or not counts["fused"][1] or not \
+            counts["fused"][2]:
+        fail("ops3: the fused train program's losses differ by %.3e" % rel)
+    # delete_dropout through the Predictor, and save_combine /
+    # load_combine of the persistables
+    infer = transformer.build_inference(main, logits)
+    n_drop = 0
+    for op in infer.global_block().ops:
+        if op.type == "dropout":
+            # the variant the pass deletes (an identity at is_test)
+            op.attrs["dropout_implementation"] = "upscale_in_train"
+            n_drop += 1
+    infer._bump_version()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ops3_")
+    try:
+        pfeed = predictor_feed(np, PRED_BATCH)
+        fluid.io.save_inference_model(root + "/model", list(pfeed),
+                                      [logits], fluid.Executor(),
+                                      main_program=infer, scope=scope)
+        outs = {}
+        for label, extra in (("without", []), ("with", ["delete_dropout"])):
+            pred = create_paddle_predictor(AnalysisConfig(
+                root + "/model", extra_passes=extra))
+            left = sum(op.type == "dropout"
+                       for op in pred._program.global_block().ops)
+            outs[label] = (pred.run(pfeed)[0], left)
+        equal = np_equal(outs["with"][0], outs["without"][0])
+        print("ops3 delete_dropout (Transformer-base Predictor, %d dropout "
+              "ops at is_test, upscale_in_train): dropout ops left %d with "
+              "the pass, %d without; logits %s bit-equal %s"
+              % (n_drop, outs["with"][1], outs["without"][1],
+                 list(outs["with"][0].shape), equal))
+        if not equal or outs["with"][1] or not n_drop:
+            fail("ops3: delete_dropout changed the Predictor's outputs or "
+                 "left a dropout")
+        rng = np.random.RandomState(QUANT_SEED + 24)
+        small = {"a": rng.randn(4, 8).astype("float32"),
+                 "b": rng.randn(3).astype("float32")}
+        both = ops3_files(np, fluid, os.path.join(root, "small"), small,
+                          (("card", fluid.CUDAPlace(0)),
+                           ("cpu", fluid.CPUPlace())))
+        files_equal = all(np_equal(a, b) for a, b in zip(
+            both["card"]["files"], both["cpu"]["files"]))
+        loads_equal = all(r["round_trip"] for r in both.values())
+        # every float32 persistable of the train program: parameters,
+        # Adam's moments and beta powers, the learning rate
+        persist = {}
+        for v in main.global_block().vars.values():
+            val = trained.get_value(v.name) if v.persistable else None
+            if val is not None and getattr(val, "dtype", None) == \
+                    torch.float32:
+                persist[v.name] = val.cpu().numpy()
+        big = ops3_files(np, fluid, os.path.join(root, "big"), persist,
+                         (("card", fluid.CUDAPlace(0)),))["card"]
+        mb = sum(a.nbytes for a in persist.values()) / 2 ** 20
+        print("ops3 save / save_combine / load / load_combine: card and CPU "
+              "files bit-equal %s (values and dtypes), each side's loads "
+              "bit-equal %s; the %d float32 persistables of the "
+              "Transformer-base train program (%.1f MB: parameters, Adam "
+              "moments, learning rate) through save_combine and "
+              "load_combine on the card: round trip bit-equal %s, save run "
+              "%.3f s (%.0f MB/s), load run %.3f s (%.0f MB/s)"
+              % (files_equal, loads_equal, len(persist), mb,
+                 big["round_trip"], big["save_s"], mb / big["save_s"],
+                 big["load_s"], mb / big["load_s"]))
+        if not (files_equal and loads_equal and big["round_trip"]):
+            fail("ops3: the save / load files or values differ")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("ops3: %d op types swept, worst %.2e; %.1f s"
+          % (len(n_ops), worst, time.perf_counter() - t_phase))
+
+
+def ops3_train_program(fluid):
+    """``build_train``'s program (dropout on), with its logits variable:
+    (main, startup, loss, logits)."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = TRAIN_SEED
+    with unique_name.guard({}), fluid.program_guard(main, startup):
+        loss, _, extras = transformer.build(
+            src_vocab_size=VOCAB, trg_vocab_size=VOCAB, max_length=MAX_LEN,
+            n_layer=N_LAYER, n_head=N_HEAD, d_model=D_MODEL,
+            d_inner=D_INNER, dropout=DROPOUT, label_smooth_eps=LABEL_SMOOTH)
+        fluid.optimizer.Adam(learning_rate=LR).minimize(loss)
+    return main, startup, loss, extras["logits"]
+
+
+def metrics_phase(np, fluid, srl_run, ssd_run):
+    """``metrics`` (module docstring, step 23): the in-program evaluators
+    on the card over the srl and ssd phases' card fetches, and over the
+    same gold data with a share of it corrupted (so that the scores are
+    neither 0 nor 1): each accumulated over two half batches against the
+    in-graph metric of the whole batch."""
+    from paddle_tpu_torch import unique_name
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(SEED + 7)
+    s = srl_run["eval"]
+    main, startup = fluid.Program(), fluid.Program()
+    with unique_name.guard({}), fluid.program_guard(main, startup):
+        L = fluid.layers
+        ev = fluid.evaluator.ChunkEvaluator(
+            L.data("path", [SRL_LEN], dtype="int64"),
+            L.data("target", [SRL_LEN], dtype="int64"), "IOB",
+            s["num_chunk_types"], length=L.data("length", [1],
+                                                dtype="int64"))
+    ex = fluid.Executor()
+    ex.run(startup)
+    half = SRL_BATCH // 2
+
+    def chunk(path):
+        """(accumulated (P, R, F1), counts, the whole batch's in-graph
+        F1)."""
+        feed = {"path": path, "target": s["target"], "length": s["length"]}
+        ev.reset()
+        for sl in (slice(0, half), slice(half, SRL_BATCH)):
+            ev.update(ex.run(main, feed={k: v[sl] for k, v in feed.items()},
+                             fetch_list=ev.metrics))
+        counts = (ev.num_infer_chunks, ev.num_label_chunks,
+                  ev.num_correct_chunks)
+        whole = ex.run(main, feed=feed, fetch_list=ev.batch_metrics)
+        return ev.eval(), counts, float(np.asarray(whole[2]).reshape(-1)[0])
+
+    dec, dec_counts, _ = chunk(s["path"])
+    noisy = s["target"].copy()
+    flip = rng.rand(*noisy.shape) < 0.2
+    noisy[flip] = rng.randint(0, SRL_LABELS, int(flip.sum()))
+    cor, cor_counts, cor_f1 = chunk(noisy)
+    chunk_ok = (abs(dec[2] - s["f1"]) <= 1e-6 and dec_counts == s["counts"]
+                and abs(cor[2] - cor_f1) <= 1e-6 and 0.0 < cor[2] < 1.0)
+    d = ssd_run["eval"]
+    main, startup = fluid.Program(), fluid.Program()
+    with unique_name.guard({}), fluid.program_guard(main, startup):
+        L = fluid.layers
+        ev2 = fluid.evaluator.DetectionMAP(
+            L.data("d", list(d["out"].shape[1:])),
+            L.data("l", [SSD_MAX_GT], dtype="int32"),
+            L.data("b", [SSD_MAX_GT, 4]), class_num=SSD_CLASSES,
+            background_label=d["attrs"].get("background_label", 0),
+            overlap_threshold=d["attrs"].get("overlap_threshold", 0.5),
+            evaluate_difficult=d["attrs"].get("evaluate_difficult", True),
+            ap_version=d["attrs"].get("ap_version", "integral"))
+    ex = fluid.Executor()
+    ex.run(startup)
+
+    def det_map(det):
+        """(accumulated mAP over two half batches, the whole batch's
+        in-graph mAP)."""
+        ev2.reset()
+        for sl in (slice(0, SSD_BATCH // 2), slice(SSD_BATCH // 2, None)):
+            ev2.update(det[sl], d["gt_label"][sl], d["gt_box"][sl])
+        (whole,) = ex.run(main, feed={"d": det, "l": d["gt_label"],
+                                      "b": d["gt_box"]},
+                          fetch_list=ev2.metrics)
+        return ev2.eval(), float(np.asarray(whole).reshape(-1)[0])
+
+    acc, batch_map = det_map(d["out"])
+    # detections from the gold boxes: each jittered, some relabelled, at
+    # random scores, the rest of the rows padding
+    gold = np.zeros_like(d["out"])
+    gold[:, :, 0] = -1
+    for i in range(SSD_BATCH):
+        m = int((d["gt_label"][i] >= 0).sum())
+        lab = d["gt_label"][i, :m].astype("float32")
+        lab[rng.rand(m) < 0.3] = rng.randint(1, SSD_CLASSES, 1)[0]
+        gold[i, :m, 0] = lab
+        gold[i, :m, 1] = rng.rand(m)
+        gold[i, :m, 2:] = d["gt_box"][i, :m] + rng.normal(0, 0.03, (m, 4))
+    gold_acc, gold_batch = det_map(gold)
+    map_ok = (abs(acc - d["m_ap"]) <= 1e-5
+              and abs(batch_map - d["m_ap"]) <= 1e-6
+              and abs(gold_acc - gold_batch) <= 1e-5
+              and 0.0 < gold_batch < 1.0)
+    print("metrics: evaluator.ChunkEvaluator over the srl decode (2 "
+          "batches of %d): P %.6f R %.6f F1 %.6f, counts (inferred, "
+          "labelled, correct) %s, chunk_eval's own F1 %.6f and counts %s; "
+          "over the gold tags with 20%% replaced: F1 %.6f accumulated, "
+          "%.6f in graph over the batch, counts %s: equal %s"
+          % (half, dec[0], dec[1], dec[2], dec_counts, s["f1"],
+             s["counts"], cor[2], cor_f1, cor_counts, chunk_ok))
+    print("metrics: evaluator.DetectionMAP over the ssd eval head's "
+          "detections: accumulated mAP %.6f (2 batches of %d), in graph "
+          "over the batch %.6f, detection_map's own %.6f; over jittered "
+          "gold boxes (30%% relabelled): %.6f accumulated, %.6f in graph: "
+          "equal %s; %.1f s" % (acc, SSD_BATCH // 2, batch_map, d["m_ap"],
+                                gold_acc, gold_batch, map_ok,
+                                time.perf_counter() - t_phase))
+    if not (chunk_ok and map_ok):
+        fail("metrics: the evaluators differ from the in-graph metrics")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "paddle_tpu_torch")):
         fail("paddle_tpu_torch/ is not beside chip_smoke.py: run it from "
@@ -10086,11 +11158,20 @@ def main():
         beam_serve_phase(np, torch, exe, scope, KERNELS, worst)
     beam_wire_launches = beam_wire_phase(np, torch, beam_sess, KERNELS,
                                          beam_want)
+    # beam_serve's scope with the bias raised at eos: the beam snapshot's
+    bscope = beam_sess._scope._parent
     beam_sess = None
+    mark("beam_serve, beam_wire")
+    snap_launches = snapshot_phase(np, torch, exe, scope, bscope, KERNELS)
+    bscope = None
+    snap_wire_launches = snapshot_wire_phase(np, torch, exe, scope, KERNELS,
+                                             serve_out)
+    sigterm_phase(np, torch, serve_out)
+    mark("snapshot, snapshot wire, sigterm")
     scope = main_prog = None
     torch.cuda.empty_cache()
     beam_card_vs_cpu_phase(np, torch, fluid, exe)
-    mark("beam_serve, beam_wire, beam_card_vs_cpu")
+    mark("beam_card_vs_cpu")
     torch.cuda.empty_cache()
     train = train_phase(np, torch, fluid, exe, KERNELS)
     train_launches = train["launches"]
@@ -10200,6 +11281,8 @@ def main():
     nlp_card_vs_cpu_phase(np, torch, fluid)
     nlp_sweep_phase(np, fluid)
     mark("srl, crnn, nlp card vs cpu, nlp sweep")
+    metrics_phase(np, fluid, srl_run, ssd_run)
+    mark("metrics")
     torch.cuda.empty_cache()
     vision_quant_sweep_phase(np, torch, fluid)
     seq_sweep_phase(np, torch, fluid)
@@ -10224,6 +11307,9 @@ def main():
     book_beam_launches = book_beam_phase(np, torch, fluid, KERNELS)
     rnn_ops_sweep_phase(np, torch, fluid)
     mark("book_beam, rnn_ops_sweep")
+    torch.cuda.empty_cache()
+    ops3_phase(np, torch, fluid)
+    mark("op breadth 3")
     print("phase seconds (since the card check, at the end of each): %s"
           % json.dumps(marks))
     print("script total: %.1f s since the card check"
@@ -10279,7 +11365,9 @@ def main():
         return out
 
     serving = (launches, graph_launches, prefix_launches, dense_launches,
-               spec_launches, fe_launches, beam_launches, beam_wire_launches)
+               spec_launches, fe_launches, beam_launches, beam_wire_launches,
+               snap_launches["greedy"], snap_launches["sampled"],
+               snap_launches["beam"], snap_wire_launches)
 
     def both(label):
         """The launches at ``label`` over every serving window."""
@@ -10295,7 +11383,8 @@ def main():
         ("flash_fwd_switch", switch_launches["flash_fwd"])],
         "the launches at this shape class in the serving runs' request "
         "windows (captured, eager, prefix cache, dense, speculative, the "
-        "frontend, beam in process and over the wire), the training "
+        "frontend, beam in process and over the wire, the snapshot "
+        "phases' sessions and restored sessions), the training "
         "phase's or the switch phase's timed steps, counted by the wrapper "
         "where it launches")
     # the causal calls of those request windows: the decoder over a
@@ -10459,10 +11548,11 @@ def main():
              shapes=shape_rows(timing, [
                  ("paged_decode", 0), ("paged_decode_ragged", 0),
                  ("paged_decode_beam", beam_launches["paged_decode"]
-                  + beam_wire_launches["paged_decode"])],
-                 "the beam_serve and beam_wire request windows (8 lanes of "
-                 "4 hypotheses sharing their parents' pages), counted by "
-                 "the wrapper where it launches")),
+                  + beam_wire_launches["paged_decode"]
+                  + snap_launches["beam"]["paged_decode"])],
+                 "the beam_serve, beam_wire and beam snapshot request "
+                 "windows (8 lanes of 4 hypotheses sharing their parents' "
+                 "pages), counted by the wrapper where it launches")),
         dict(name="tree_decode", route="cuda",
              source="paddle_tpu_torch/csrc/tree_decode.cu",
              replaces="paddle_tpu/kernels/paged_attention.py:386",

@@ -19,6 +19,7 @@ from paddle_tpu_torch import ops  # noqa: F401  (registers every lowering)
 from paddle_tpu_torch import flags, initializer, layers, unique_name  # noqa: F401
 from paddle_tpu_torch import backward, clip, optimizer, regularizer  # noqa: F401
 from paddle_tpu_torch import analysis, inference, io, nets  # noqa: F401
+from paddle_tpu_torch import average, evaluator, metrics  # noqa: F401
 from paddle_tpu_torch import resilience, serving, transpiler  # noqa: F401
 from paddle_tpu_torch.backward import append_backward, calc_gradient  # noqa: F401
 from paddle_tpu_torch.core import passes  # noqa: F401

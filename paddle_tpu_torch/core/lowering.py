@@ -117,7 +117,9 @@ class BlockLowerer(object):
         """{forward op index: grad op index}: each ``<type>_grad`` op with
         the nearest earlier unpaired op of ``type`` whose input slots name
         the variables of the grad op's same-named inputs, and whose output
-        slots do too (what backward.py builds the grad op from)."""
+        slots do too (what backward.py builds the grad op from; an
+        intermediate output the grad op does not read, as
+        fuse_elewise_add_act's synthesized grad op, is skipped)."""
         ops = self.block.ops
         pairs = {}
         for j, gop in enumerate(ops):
@@ -133,6 +135,8 @@ class BlockLowerer(object):
                         and all(op.input(s) == gop.input(s)
                                 for s in fdef.input_slots())
                         and all(op.output(s) == gop.input(s)
+                                or (s in fdef.intermediate_outputs
+                                    and not gop.input(s))
                                 for s in fdef.output_slots())):
                     pairs[i] = j
                     break

@@ -14,7 +14,10 @@ returning a new Program). Register with :func:`register_pass`; run with
 ``fuse_batch_norm`` folds conv (+ bias) + batch_norm
 (``transpiler.InferenceTranspiler``); ``seqconv_eltadd_relu_fuse``
 collapses sequence_conv + elementwise_add(bias) + relu into
-``fusion_seqconv_eltadd_relu``.
+``fusion_seqconv_eltadd_relu``; ``fuse_elewise_add_act`` collapses
+elementwise_add + activation (and its grad pair) into
+``fused_elemwise_activation``; ``delete_dropout`` turns an inference
+dropout into an ``assign``.
 """
 
 import inspect
@@ -400,5 +403,132 @@ def _seqconv_eltadd_relu_fuse(program, scope=None, feed_names=None,
                 for label in ("mid", "mid2"):
                     block.vars.pop(m.var(label), None)
                 changed = True
+    program._bump_version()
+    return program
+
+
+@register_pass("fuse_elewise_add_act")
+def _fuse_elewise_add_act(program, scope=None, **kwargs):
+    """elementwise_add + activation -> fused_elemwise_activation
+    (fuse_elewise_add_act_pass.cc role), forward and backward.
+
+    The fused op exports the sum as IntermediateOut under the add
+    output's name, so its other readers keep resolving. The grad pair
+    act_grad + elementwise_add_grad collapses into one synthesized
+    fused_elemwise_activation_grad when the intermediate gradient flows
+    nowhere else; the executor's forward tape pairs it with the fused
+    op (``BlockLowerer.grad_pairs``)."""
+    acts = ("relu", "tanh", "sigmoid", "gelu")
+    for block in program.blocks:
+        changed = True
+        while changed:
+            changed = False
+            pat = GraphPatternDetector()
+            pat.op("add", "elementwise_add",
+                   inputs={"X": "x", "Y": "y"}, outputs={"Out": "mid"})
+            pat.op("act", acts, inputs={"X": "mid"}, outputs={"Out": "out"})
+            for m, live in _live_matches(pat, block):
+                if not live:
+                    changed = True
+                    continue
+                act_type = m.op("act").type
+                add_op = m.op("add")
+                axis = add_op.attrs.get("axis", -1)
+                i_add, i_act = m.op_index("add"), m.op_index("act")
+                for i in sorted((i_add, i_act), reverse=True):
+                    block.remove_op(i)
+                block.insert_op(
+                    i_add, "fused_elemwise_activation",
+                    inputs={"X": [m.var("x")], "Y": [m.var("y")]},
+                    outputs={"Out": [m.var("out")],
+                             "IntermediateOut": [m.var("mid")]},
+                    attrs=dict(
+                        _role_attrs(add_op),
+                        functor_list=["elementwise_add", act_type],
+                        axis=axis, save_intermediate_out=True))
+                _fuse_add_act_grad_pair(block, m, act_type, axis)
+                changed = True
+    program._bump_version()
+    return program
+
+
+def _role_attrs(src_op):
+    """The OpRole (and role-var) attrs of a replaced op, carried onto its
+    fused replacement."""
+    from paddle_tpu_torch.framework import (
+        OP_ROLE_ATTR_NAME,
+        OP_ROLE_VAR_ATTR_NAME,
+    )
+
+    return {k: src_op.attrs[k] for k in (OP_ROLE_ATTR_NAME,
+                                         OP_ROLE_VAR_ATTR_NAME)
+            if k in src_op.attrs}
+
+
+def _fuse_add_act_grad_pair(block, m, act_type, axis):
+    """Collapse the backward twin of a fused add + act pair, if present."""
+    from paddle_tpu_torch.core.op_registry import ensure_auto_grad_op
+
+    gpat = GraphPatternDetector()
+    gpat.op("act_grad", act_type + "_grad",
+            inputs={"X": "mid", "Out@GRAD": "dout"},
+            outputs={"X@GRAD": "dmid"})
+    gpat.op("add_grad", "elementwise_add_grad",
+            inputs={"X": "x", "Y": "y", "Out@GRAD": "dmid"})
+    for gm in gpat.detect(block):
+        if (gm.var("mid") != m.var("mid") or gm.var("x") != m.var("x")
+                or gm.var("y") != m.var("y")):
+            continue
+        # the intermediate gradient must flow nowhere else
+        dmid = gm.var("dmid")
+        if [i for i, _, _ in consumers(block, dmid)] != [
+                gm.op_index("add_grad")]:
+            continue
+        add_g = gm.op("add_grad")
+        dx, dy = add_g.output("X@GRAD"), add_g.output("Y@GRAD")
+        ensure_auto_grad_op("fused_elemwise_activation")
+        i_ag, i_eg = gm.op_index("act_grad"), gm.op_index("add_grad")
+        for i in sorted((i_ag, i_eg), reverse=True):
+            block.remove_op(i)
+        outputs = {}
+        if any(dx):
+            outputs["X@GRAD"] = dx
+        if any(dy):
+            outputs["Y@GRAD"] = dy
+        block.insert_op(
+            i_ag, "fused_elemwise_activation_grad",
+            inputs={"X": [gm.var("x")], "Y": [gm.var("y")],
+                    "Out": [m.var("out")], "Out@GRAD": [gm.var("dout")]},
+            outputs=outputs,
+            attrs=dict(_role_attrs(add_g),
+                       functor_list=["elementwise_add", act_type],
+                       axis=axis, save_intermediate_out=True))
+        block.vars.pop(dmid, None)
+        return
+
+
+@register_pass("delete_dropout")
+def _delete_dropout(program, scope=None, **kwargs):
+    """Neutralize inference-mode dropout (the identity at is_test with
+    upscale_in_train), in every block: later readers read the dropout's
+    input, and the op becomes an ``assign``, so fetching the old output
+    name still works. The dead Mask var is dropped."""
+    for block in program.blocks:
+        for i, op in enumerate(block.ops):
+            if not (op.type == "dropout"
+                    and op.attrs.get("is_test", False)
+                    and op.attrs.get("dropout_implementation")
+                    == "upscale_in_train"):
+                continue
+            src, dst = op.input("X")[0], op.output("Out")[0]
+            for mask in op.output("Mask"):
+                block.vars.pop(mask, None)
+            for later in block.ops[i + 1:]:
+                for slot, names in list(later.inputs.items()):
+                    later.inputs[slot] = [src if n == dst else n
+                                          for n in names]
+            op.type = "assign"
+            op.inputs = {"X": [src]}
+            op.outputs = {"Out": [dst]}
     program._bump_version()
     return program

@@ -145,3 +145,26 @@ def device_dtype(dtype):
     """The torch dtype a value of ``dtype`` takes on the device. Unlike
     the JAX package (x64 off narrows int64 to int32), int64 stays int64."""
     return _TORCH[canonical_dtype(dtype)]
+
+
+
+def jax_host_array(value):
+    """A host numpy copy of ``value`` (tensor or array) in the dtype the
+    JAX package holds it: a device int64 is int32 there (x64 off), so an
+    int64 tensor whose values fit int32 comes back int32, as the JAX
+    package's files carry it. Host numpy arrays keep their dtype, as
+    they do there."""
+    import numpy as np
+
+    if not isinstance(value, torch.Tensor):
+        return np.array(value)
+    t = value.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16).copy()
+    arr = t.numpy().copy()
+    if arr.dtype == np.int64 and (
+            not arr.size or (arr.min() >= -2 ** 31 and arr.max() < 2 ** 31)):
+        arr = arr.astype(np.int32)
+    return arr

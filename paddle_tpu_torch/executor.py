@@ -83,6 +83,7 @@ from paddle_tpu_torch.observability import telemetry as _telemetry
 from paddle_tpu_torch.core import prng
 from paddle_tpu_torch.core.lowering import BlockLowerer
 from paddle_tpu_torch.kernels import build as _kbuild
+from paddle_tpu_torch.ops.io_ops import HOST_IO_OPS
 from paddle_tpu_torch.core.scope import Scope
 from paddle_tpu_torch.core.types import (
     CUDAPlace,
@@ -643,17 +644,20 @@ class Executor(object):
 def _refuse_host_reads(program):
     """A captured loop cannot read the card on the host: refuse, naming
     the op, a program that holds an unbounded ``while`` (its condition
-    is read every iteration) or a ``cond`` (its predicate), in any
-    block. A bounded ``while`` (``max_iterations > 0``) reads nothing
-    and is captured."""
+    is read every iteration), a ``cond`` (its predicate) or a host I/O
+    op (``print``, ``save``, ``load`` and the combined pair:
+    ``ops.io_ops.HOST_IO_OPS``), in any block. A bounded ``while``
+    (``max_iterations > 0``) reads nothing and is captured."""
     for block in program.blocks:
         for i, op in enumerate(block.ops):
             if op.type == "cond" or (
                     op.type == "while"
-                    and not op.attrs.get("max_iterations", 0)):
+                    and not op.attrs.get("max_iterations", 0)) or (
+                    op.type in HOST_IO_OPS):
                 what = ("reads its predicate" if op.type == "cond" else
                         "reads its condition every iteration "
-                        "(max_iterations=0)")
+                        "(max_iterations=0)" if op.type == "while" else
+                        "reads or writes a value")
                 raise RuntimeError(
                     "run_multi_step cannot capture program %#x: op %r "
                     "(block %d, op %d) %s on the host, which a CUDA graph "

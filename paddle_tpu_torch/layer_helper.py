@@ -81,6 +81,9 @@ class LayerHelper(object):
             init(sp, startup_block)
         return param
 
+    def create_variable(self, *args, **kwargs):
+        return self.block.create_var(*args, **kwargs)
+
     def create_global_variable(self, shape, dtype, persistable=True,
                                name=None, initializer=None,
                                stop_gradient=True):

@@ -21,7 +21,9 @@ __all__ = [
     "slot_decode_sample",
     "slot_beam_search",
     "slot_speculative_accept",
+    "label_smooth",
     "add_position_encoding",
+    "rotary_position_embedding",
     "moe_ffn",
 ]
 
@@ -404,3 +406,32 @@ def moe_ffn(x, num_experts, d_hidden, top_k=1, capacity_factor=1.25,
                "capacity_factor": float(capacity_factor), "act": act},
     )
     return out, aux
+
+
+def rotary_position_embedding(q, k, position=None, base=10000.0,
+                              name=None):
+    """RoPE over [batch, heads, seq, head_dim] q/k (rotate-half
+    convention); returns (q_rot, k_rot). ``position``: an optional [1]
+    offset for KV-cached decoding."""
+    helper = LayerHelper("rope", name=name)
+    q_out = helper.create_variable_for_type_inference(q.dtype)
+    k_out = helper.create_variable_for_type_inference(k.dtype)
+    inputs = {"Q": [q], "K": [k]}
+    if position is not None:
+        inputs["Position"] = [position]
+    helper.append_op(type="rotary_embedding", inputs=inputs,
+                     outputs={"QOut": [q_out], "KOut": [k_out]},
+                     attrs={"base": float(base)})
+    return q_out, k_out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
+    helper = LayerHelper("label_smooth", name=name)
+    out = helper.create_variable_for_type_inference(label.dtype)
+    inputs = {"X": [label]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist]
+    helper.append_op(type="label_smooth", inputs=inputs,
+                     outputs={"Out": [out]},
+                     attrs={"epsilon": float(epsilon)})
+    return out

@@ -86,6 +86,7 @@ __all__ = [
     "lod_reset",
     "fake_quantize_abs_max",
     "sequence_expand",
+    "Print",
 ]
 
 
@@ -447,6 +448,20 @@ def topk(input, k, name=None):
                      outputs={"Out": [values], "Indices": [indices]},
                      attrs={"k": k})
     return values, indices
+
+
+def Print(input, first_n=-1, message=None, summarize=-1,
+          print_tensor_name=True, print_tensor_type=True,
+          print_tensor_shape=True, print_tensor_lod=True,
+          print_phase="both", name=None):
+    """Debug print of a tensor when the op runs (print_op.cc surface):
+    the message (default: the input's name), then the value."""
+    helper = LayerHelper("print", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="print", inputs={"In": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"message": message or input.name})
+    return out
 
 
 def random_crop(x, shape, seed=None, name=None):

@@ -1,7 +1,8 @@
 """Tensor layers: fill_constant (and its batch-size-like, ones, zeros,
-zeros_like), assign (and assign_numpy), cast, concat, sums,
-create_parameter, reverse, argmax, argmin, argsort, range,
-pad_constant_like, crop.
+zeros_like), assign (and assign_numpy), cast, concat, sums, sum,
+create_tensor, create_parameter, create_global_var, reverse, argmax,
+argmin, argsort, range, pad_constant_like, crop, load, isfinite,
+has_inf, has_nan.
 
 Counterpart of ``paddle_tpu/layers/tensor.py`` for the layers whose ops
 the port registers.
@@ -15,7 +16,25 @@ from paddle_tpu_torch.layer_helper import LayerHelper
 __all__ = ["assign", "assign_numpy", "cast", "concat", "create_parameter",
            "fill_constant", "fill_constant_batch_size_like", "ones", "zeros",
            "zeros_like", "sums", "reverse", "argmax", "argmin", "argsort",
-           "range", "pad_constant_like", "crop"]
+           "range", "pad_constant_like", "crop", "create_tensor",
+           "create_global_var", "has_inf", "has_nan", "isfinite", "sum",
+           "load"]
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    helper = LayerHelper("create_tensor", name=name)
+    return helper.create_variable(name=helper.name, dtype=dtype,
+                                  persistable=persistable)
+
+
+def create_global_var(shape, value, dtype, persistable=False, force_cpu=False,
+                      name=None):
+    from paddle_tpu_torch import initializer
+
+    helper = LayerHelper("global_var", name=name)
+    return helper.create_global_variable(
+        shape=shape, dtype=dtype, persistable=persistable, name=name,
+        initializer=initializer.ConstantInitializer(value))
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -191,4 +210,46 @@ def crop(x, shape=None, offsets=None, name=None):
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op(type="crop", inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs={"shape": list(shape), "offsets": offsets})
+    return out
+
+
+def isfinite(x):
+    helper = LayerHelper("isfinite")
+    out = helper.create_variable_for_type_inference("bool")
+    helper.append_op(type="isfinite", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def has_inf(x):
+    helper = LayerHelper("isinf")
+    out = helper.create_variable_for_type_inference("bool",
+                                                    stop_gradient=True)
+    helper.append_op(type="isinf", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def has_nan(x):
+    helper = LayerHelper("isnan")
+    out = helper.create_variable_for_type_inference("bool",
+                                                    stop_gradient=True)
+    helper.append_op(type="isnan", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def sum(x, name=None):
+    """Elementwise sum of a list of tensors (sum_op.cc layer surface; the
+    op ``sums`` appends)."""
+    return sums(x if isinstance(x, (list, tuple)) else [x])
+
+
+def load(file_path, dtype=None, name=None):
+    """A variable saved by ``io.save_vars`` (load_op.cc layer surface),
+    read when the program first runs and cast to ``dtype`` when given
+    (else the file's dtype); shape inference takes the shape from the
+    file."""
+    helper = LayerHelper("load", name=name)
+    out = helper.create_variable_for_type_inference(dtype or "float32")
+    helper.append_op(type="load", outputs={"Out": [out]},
+                     attrs={"file_path": file_path, "dtype": dtype or ""})
     return out

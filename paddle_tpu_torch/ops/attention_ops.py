@@ -1,6 +1,6 @@
 """Attention ops: scaled_dot_product_attention, grouped_cross_attention,
-paged_attention, paged_tree_attention, the paged KV writes and
-add_position_encoding.
+paged_attention, paged_tree_attention, the paged KV writes,
+add_position_encoding, label_smooth and rotary_embedding.
 
 Counterpart of ``paddle_tpu/ops/attention_ops.py`` for the ops this slice
 runs. The attention ops call the hand-written kernels
@@ -261,4 +261,67 @@ register_op(
     outputs=["Out"],
     attrs={"alpha": 1.0, "beta": 1.0},
     lower=_lower_position_encoding,
+)
+
+
+def _lower_label_smooth(ctx, ins, attrs):
+    """``(1 - eps) * x + eps * prior`` (``prior`` uniform over the last
+    axis when no ``PriorDist`` is given)."""
+    x = ins["X"][0]
+    eps = float(attrs.get("epsilon", 0.0))
+    dist = ins.get("PriorDist", [None])[0]
+    if dist is not None:
+        return (1.0 - eps) * x + eps * dist
+    return (1.0 - eps) * x + eps / x.shape[-1]
+
+
+register_op(
+    "label_smooth",
+    inputs=["X", "PriorDist"],
+    outputs=["Out"],
+    attrs={"epsilon": 0.0},
+    lower=_lower_label_smooth,
+)
+
+
+def _lower_rotary_embedding(ctx, ins, attrs):
+    """Rotary position embedding (rotate-half convention) of [B, H, T,
+    d] queries and keys, computed in float32 and cast back. ``Position``
+    ([1]) is a float offset of the positions (KV-cached decoding feeds
+    the current step); without it positions are 0..T-1."""
+    q, k = ins["Q"][0], ins["K"][0]
+    base = float(attrs.get("base", 10000.0))
+    d = q.shape[-1]
+    if d % 2 != 0:
+        raise ValueError(
+            "rotary_embedding needs an even head_dim (rotate-half "
+            "pairs dimensions); got %d" % d)
+    half = d // 2
+    pos_in = ins.get("Position", [None])[0]
+    offset = (pos_in.reshape(()).to(torch.float32) if pos_in is not None
+              else torch.zeros((), dtype=torch.float32, device=q.device))
+    inv_freq = torch.pow(base, -torch.arange(
+        0, half, dtype=torch.float32, device=q.device) / half)
+
+    def rotate(x):
+        pos = offset + torch.arange(x.shape[2], dtype=torch.float32,
+                                    device=x.device)
+        ang = pos[:, None] * inv_freq[None, :]  # [T, half]
+        cos = torch.cat([torch.cos(ang), torch.cos(ang)], -1)
+        sin = torch.cat([torch.sin(ang), torch.sin(ang)], -1)
+        x1, x2 = x[..., :half], x[..., half:]
+        rotated = torch.cat([-x2, x1], -1)
+        return (x.to(torch.float32) * cos[None, None]
+                + rotated.to(torch.float32) * sin[None, None]).to(x.dtype)
+
+    return {"QOut": rotate(q), "KOut": rotate(k)}
+
+
+register_op(
+    "rotary_embedding",
+    inputs=["Q", "K", "Position"],
+    outputs=["QOut", "KOut"],
+    attrs={"base": 10000.0},
+    lower=_lower_rotary_embedding,
+    no_grad_inputs=("Position",),
 )

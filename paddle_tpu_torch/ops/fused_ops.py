@@ -1,10 +1,12 @@
-"""Fused ops that the inference passes (``core/passes.py``) produce: fc,
-fusion_lstm, fusion_gru, fused_embedding_fc_lstm,
-fusion_seqconv_eltadd_relu and fusion_seqexpand_concat_fc.
+"""Fused ops that the passes (``core/passes.py``) produce: fc,
+fused_elemwise_activation, fusion_lstm, fusion_gru,
+fused_embedding_fc_lstm, fusion_seqconv_eltadd_relu and
+fusion_seqexpand_concat_fc.
 
-Counterpart of ``paddle_tpu/ops/fused_ops.py`` for these six (the
-reference's fc_op, fusion_{lstm,gru}_op and fusion_seq* ops, targets of
-fc_fuse_pass.cc, fc_{lstm,gru}_fuse_pass.cc and
+Counterpart of ``paddle_tpu/ops/fused_ops.py`` for these seven (the
+reference's fc_op, fused_elemwise_activation_op, fusion_{lstm,gru}_op
+and fusion_seq* ops, targets of fc_fuse_pass.cc,
+fuse_elewise_add_act_pass.cc, fc_{lstm,gru}_fuse_pass.cc and
 seqconv_eltadd_relu_fuse_pass.cc). Each is a composition of the ops it
 replaces: the projection is one matrix product, and the recurrence goes
 through ``dynamic_lstm`` / ``dynamic_gru``'s lowering, so on the card a
@@ -16,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.core.op_registry import register_op
-from paddle_tpu_torch.ops.common import flatten_to_2d
+from paddle_tpu_torch.ops.common import broadcast_y, flatten_to_2d
 from paddle_tpu_torch.ops.rnn_ops import (
     _infer_rnn_shapes,
     _lower_dynamic_gru,
@@ -54,6 +56,31 @@ register_op(
     outputs=["Out"],
     attrs={"in_num_col_dims": 1, "activation_type": ""},
     lower=_lower_fc,
+)
+
+
+def _lower_fused_elemwise_activation(ctx, ins, attrs):
+    """``act(x + y)`` (functor_list ``["elementwise_add", act]``); the sum
+    is exported as ``IntermediateOut``, so the add output's other
+    readers keep resolving (fuse_elewise_add_act's target)."""
+    functors = list(attrs.get("functor_list", []))
+    if len(functors) != 2 or functors[0] != "elementwise_add":
+        raise ValueError(
+            "fused_elemwise_activation supports functor_list "
+            "['elementwise_add', <act>]; got %r" % (functors,))
+    act = _ACT[functors[1]]
+    x, y = ins["X"][0], ins["Y"][0]
+    mid = x + broadcast_y(x, y, attrs.get("axis", -1))
+    return {"Out": act(mid), "IntermediateOut": mid}
+
+
+register_op(
+    "fused_elemwise_activation",
+    inputs=["X", "Y"],
+    outputs=["Out", "IntermediateOut"],
+    attrs={"functor_list": [], "axis": -1, "save_intermediate_out": True},
+    intermediate_outputs=("IntermediateOut",),
+    lower=_lower_fused_elemwise_activation,
 )
 
 

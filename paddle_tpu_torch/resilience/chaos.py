@@ -42,8 +42,13 @@ wire sites of ``distributed/master.py``'s ``serve_json_lines``:
 read; the client must reconnect) and ``net.send`` (fail a response
 write, severing the connection; the client retries a unary call or
 raises a typed StreamBrokenError on a broken stream, never hangs).
-``master.call`` is the MasterClient RPC. The JAX package's training,
-checkpoint, router and migration sites come with their modules.
+``master.call`` is the MasterClient RPC. ``ckpt.write`` (after a
+checkpoint's var files, before the manifest and rename: a kill here
+leaves a temp dir a restart must ignore) and ``snapshot.write``
+(between a decode snapshot's var files, beside the inherited
+``ckpt.write``) are the checkpoint and snapshot sites. The JAX
+package's training, router and migration sites come with their
+modules.
 
 Determinism: each clause owns a ``random.Random`` seeded by
 ``(seed, clause index)``, advanced once per visit to its site — a fixed

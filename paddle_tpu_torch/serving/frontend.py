@@ -28,9 +28,22 @@ Endpoints (one JSON line per request):
 * ``metrics`` — the process's Prometheus scrape; ``health`` — the
   ``HealthMonitor`` states; ``stats`` / ``take_result`` — introspection
   and banked-result claims; ``trace`` — a completed request trace.
-* ``snapshot`` / ``restore`` / ``attach`` answer the typed "this frontend
-  has no snapshot manager" error: decode snapshots and the router's
-  migration protocol are ROADMAP.md A8's second half.
+* ``snapshot`` — a quiesced synchronous decode snapshot whose files ride
+  the wire (base64 per file); ``restore`` — install such a payload into
+  this frontend's session (``MigrationBusyError`` unless it is
+  quiesced; the in-flight async snapshot writer is joined first);
+  ``attach`` — re-bind a stream to a solo request by rid (banked, live
+  or pending), replaying its tokens from position 1 in a ``resumed``
+  event; the client trims against its own ``next_seq``. Without a
+  ``snapshot_manager`` the first two answer a typed error.
+
+Preemption: construct the ``DecodeSnapshotManager(
+install_signal_handlers=True)`` first, then the frontend with
+``install_signal_handlers=True``: on SIGTERM the frontend stops the
+transport and chains to the manager, which finishes the in-flight
+dispatch, banks a final snapshot (live slots and the queued backlog)
+and re-raises, so the process dies by the signal with the work
+recoverable.
 
 Disconnect safety: a client that dies (or cancels) mid-stream costs the
 pool nothing. Three hooks converge on one teardown — the substrate's
@@ -48,10 +61,12 @@ neither fails the capture nor enters the graph. Handler threads only
 move messages between the worker and their sockets.
 """
 
+import base64
 import json
 import os
 import queue
 import select
+import shutil
 import signal
 import socket
 import threading
@@ -72,6 +87,7 @@ from paddle_tpu_torch.observability.metrics_registry import (
     SERVING_BUCKETS,
 )
 from paddle_tpu_torch.serving.client import (
+    MigrationBusyError,
     decode_array,
     encode_array,
     error_from_wire,
@@ -373,7 +389,9 @@ class _DecodeWorker(object):
         tid = spec.get("trace_id")
         t_admit = time.time() if tid else 0.0
         try:
-            if spec.get("beam"):
+            if spec.get("attach") is not None:
+                self._attach_stream(stream)
+            elif spec.get("beam"):
                 # a beam request: admit-or-reject into one lane (its K x
                 # worst-case reservation never queues); the survivor
                 # chunks stream from _step_once, the n-best from the
@@ -431,6 +449,65 @@ class _DecodeWorker(object):
         except Exception as exc:  # noqa: BLE001 - typed to the wire
             stream.done = True
             stream.q.put(error_to_wire(exc))
+
+    def _attach_stream(self, stream):
+        """Re-bind a wire stream to an EXISTING solo request by rid —
+        the router's failover/drain splice point. The first event is
+        ``resumed`` replaying the request's tokens from absolute
+        position 1 (trg index 0 is bos); the consumer trims against its
+        own ``next_seq``, which handles both a snapshot BEHIND the
+        delivered stream (overlap) and a drain snapshot AHEAD of the
+        relay (gap-fill) with one splice. Every ``resumed`` variant
+        carries ``bos`` — a router synthesizes a correct admission
+        from it when a stream failed over before its admission event
+        reached the client. Three states attach cleanly:
+        banked (finished headless — replay + end), live (track the slot
+        mid-flight), pending (wait for admission like a fresh enqueue).
+        """
+        s = self._s
+        rid = int(stream.spec["attach"])
+        if rid in s._results:
+            trg = s.take_result(rid)
+            toks = self._final_tokens(trg, 0)
+            stream.done = True
+            stream.q.put({
+                "ok": True, "event": "resumed", "id": rid, "seq": 1,
+                "bos": int(s._bos),
+                "tokens": [int(t) for t in toks], "finished": True,
+                "max_length": int(s._T), "eos": int(s._eos)})
+            stream.q.put({"ok": True, "event": "end", "id": rid})
+            return
+        slot = next((sl for sl, r in s._owner.items() if r == rid),
+                    None)
+        if slot is not None:
+            if slot in self._slot_stream:
+                raise ServingError(
+                    "request %d already has a live stream" % rid)
+            stream.rid = rid
+            self._track(stream, {slot: 0})
+            pos = s._live[slot]["pos"]
+            stream.q.put({
+                "ok": True, "event": "resumed", "id": rid, "seq": 1,
+                "bos": int(s._bos),
+                "tokens": [int(t)
+                           for t in s._live[slot]["trg"][1:pos + 1]],
+                "finished": False,
+                "max_length": int(s._T), "eos": int(s._eos)})
+            return
+        if rid in s.pending_requests:
+            pend = next((p for p in s._pending if p["id"] == rid), None)
+            if pend is not None:
+                stream.spec["prefix"] = pend.get("prefix")
+            stream.rid = rid
+            self._rid_stream[rid] = stream
+            stream.q.put({
+                "ok": True, "event": "resumed", "id": rid, "seq": 1,
+                "bos": int(s._bos),
+                "tokens": [], "finished": False,
+                "max_length": int(s._T), "eos": int(s._eos)})
+            return
+        raise ServingError("unknown request id %d (not banked, live or "
+                           "pending on this frontend)" % rid)
 
     def _trace_admitted(self, stream, t_admit, kind):
         """Direct admissions (fork groups, beam lanes) bypass the session
@@ -667,11 +744,14 @@ class ServingFrontend(object):
     install_signal_handlers : bool
         SIGTERM/SIGINT stop the transport and CHAIN to the previously
         installed handler (with none, the process dies by the signal).
-    snapshot_manager : None
-        The JAX package's decode snapshot manager arms the
-        ``snapshot``/``restore``/``attach`` endpoints; the port has
-        none yet (ROADMAP.md A8's second half), so it must stay None
-        and those endpoints answer a typed error.
+        Install a ``DecodeSnapshotManager``'s handlers first: then a
+        preempted frontend banks its session (live slots and backlog) at
+        the next quiesce point and dies by the signal.
+    snapshot_manager : serving.snapshot.DecodeSnapshotManager, optional
+        Arms the ``snapshot``/``restore``/``attach`` wire endpoints (the
+        migration protocol). Both snapshot and restore run on the decode
+        worker between dispatches; ``restore`` refuses a session that is
+        not quiesced with the typed retriable ``MigrationBusyError``.
     ssl_context, auth_token :
         Passed through to ``serve_json_lines`` — TLS and bearer auth on
         the frontend's wire (default: both off, wire unchanged).
@@ -685,12 +765,9 @@ class ServingFrontend(object):
             raise ValueError(
                 "ServingFrontend needs a BatchingServer (predict), a "
                 "SlotDecodeSession (generate), or both")
-        if snapshot_manager is not None:
-            raise ValueError(
-                "decode snapshots are not ported yet (ROADMAP.md A8's "
-                "second half): snapshot_manager must be None")
         self._batching = server
         self._session = session
+        self._snap_mgr = snapshot_manager
         self._decode = (_DecodeWorker(session,
                                       max_backlog=max_stream_backlog)
                         if session is not None else None)
@@ -778,9 +855,12 @@ class ServingFrontend(object):
             return {"ok": True, "stats": self.stats()}
         if method == "take_result":
             return self._take_result(req)
-        if method in ("attach", "snapshot", "restore"):
-            return error_to_wire(ServingError(
-                "this frontend has no snapshot manager"))
+        if method == "attach":
+            return self._attach(req, conn)
+        if method == "snapshot":
+            return self._snapshot(req)
+        if method == "restore":
+            return self._restore(req)
         if method == "trace":
             # completed-trace lookup by id: ring-resident records only
             # (in-flight ids surface through blackbox dumps instead)
@@ -1036,6 +1116,164 @@ class ServingFrontend(object):
             self._observe("take_result", _outcome(exc), t0)
             return error_to_wire(exc)
         self._observe("take_result", "ok", t0)
+        return resp
+
+    # -- migration endpoints -------------------------------------------------
+
+    def _attach(self, req, conn):
+        """Streaming re-attach to an existing solo request by rid — the
+        router's failover/drain splice endpoint. The first event is
+        ``resumed`` replaying the request's tokens from absolute
+        position 1; after that the stream behaves exactly like
+        ``generate`` (the same consume loop, cancel/EOF polling and
+        teardown discipline)."""
+        t0 = time.monotonic()
+        outcome = "error"
+        stream = None
+        try:
+            if self._decode is None:
+                self._observe("attach", "error", t0)
+                yield error_to_wire(ServingError(
+                    "this frontend serves no decode session"))
+                return
+            if self._closed:
+                outcome = "closed"
+                self._observe("attach", "closed", t0)
+                yield error_to_wire(
+                    ServerClosedError("frontend is closed"))
+                return
+            spec = {"attach": int(req["id"]), "n": 1, "prefix": None,
+                    "beam": False, "trace_id": None}
+            stream = _Stream(spec)
+            conn.state.setdefault("streams", set()).add(stream)
+            with self._mu:
+                self._active_streams += 1
+            self._decode.submit(stream)
+            while True:
+                try:
+                    msg = stream.q.get(timeout=self._poll)
+                except queue.Empty:
+                    verdict = self._poll_conn(conn)
+                    if verdict == "cancel":
+                        self._decode.cancel(stream)
+                        outcome = "cancelled"
+                        yield {"ok": True, "event": "cancelled"}
+                        return
+                    if verdict == "eof":
+                        self._decode.cancel(stream)
+                        outcome = "disconnect"
+                        return
+                    continue
+                if not msg.get("ok", False):
+                    outcome = _outcome(error_from_wire(msg))
+                    yield msg
+                    return
+                yield msg
+                if msg.get("event") == "end":
+                    outcome = "ok"
+                    return
+        except GeneratorExit:
+            outcome = "disconnect"
+            if stream is not None:
+                self._decode.cancel(stream)
+            raise
+        finally:
+            if stream is not None:
+                streams = conn.state.get("streams")
+                if streams is not None:
+                    streams.discard(stream)
+                with self._mu:
+                    self._active_streams -= 1
+                self._observe("attach", outcome, t0)
+
+    def _snapshot(self, req):
+        """Quiesced synchronous snapshot with the payload returned ON
+        THE WIRE (base64 per file): the router's planned-drain path
+        ships it to the target frontend's ``restore``. Executes on the
+        decode worker between dispatches — never mid-dispatch."""
+        t0 = time.monotonic()
+        try:
+            if self._snap_mgr is None or self._decode is None:
+                raise ServingError(
+                    "this frontend has no snapshot manager")
+            path = self._decode.call(self._snap_mgr.save)
+            files = {}
+            for name in sorted(os.listdir(path)):
+                with open(os.path.join(path, name), "rb") as f:
+                    files[name] = base64.b64encode(
+                        f.read()).decode("ascii")
+            resp = {"ok": True, "dir": os.path.basename(path),
+                    "files": files}
+        except Exception as exc:  # noqa: BLE001 - typed to the wire
+            self._observe("snapshot", _outcome(exc), t0)
+            return error_to_wire(exc)
+        self._observe("snapshot", "ok", t0)
+        return resp
+
+    def _restore(self, req):
+        """Install a SHIPPED snapshot payload into this frontend's
+        session — the migration landing. Refuses unless the session is
+        fully quiesced (no live slots, no backlog, no tracked streams):
+        a restore is a whole-session replace, and landing one on live
+        work would destroy it AND break the (seed, slot, position)
+        sampling keys migrated streams rely on for bit-exactness. The
+        typed ``MigrationBusyError`` is transient BY TYPE, so the
+        router's classified retry simply re-asks after the target
+        drains."""
+        t0 = time.monotonic()
+        try:
+            mgr = self._snap_mgr
+            if mgr is None or self._decode is None:
+                raise ServingError(
+                    "this frontend has no snapshot manager")
+            dirname = os.path.basename(str(req.get("dir", "")))
+            if not dirname.startswith("checkpoint_"):
+                raise ServingError(
+                    "restore needs a checkpoint_<serial> dir name")
+            serial = int(dirname.rsplit("_", 1)[-1])
+            files = req.get("files") or {}
+
+            def _install():
+                w = self._decode
+                s = self._session
+                if (w._slot_stream or w._beam_stream or w._rid_stream
+                        or s.active_slots or s.pending_requests):
+                    raise MigrationBusyError(
+                        "restore target is not quiesced (live slots, "
+                        "backlog or tracked streams present) — drain "
+                        "first, then re-ask")
+                # join the in-flight async snapshot writer first: this
+                # frontend's own periodic save may still be writing a
+                # checkpoint whose step-derived serial COLLIDES with
+                # the shipped one (two members working the same load
+                # reach the same step counts), and installing into the
+                # directory it is writing tears both
+                mgr.wait()
+                step_dir = os.path.join(mgr.checkpoint_dir, dirname)
+                if os.path.isdir(step_dir):
+                    shutil.rmtree(step_dir)
+                os.makedirs(step_dir)
+                for name, b64 in files.items():
+                    fname = os.path.basename(str(name))
+                    with open(os.path.join(step_dir, fname), "wb") as f:
+                        f.write(base64.b64decode(b64))
+                manifest = mgr.restore(serial=serial)
+                if manifest is None:
+                    raise ServingError(
+                        "shipped snapshot %s failed verification"
+                        % dirname)
+                return {"ok": True, "serial": int(serial),
+                        "live": sorted(int(r)
+                                       for r in s._owner.values()),
+                        "pending": [int(r)
+                                    for r in s.pending_requests],
+                        "banked": sorted(int(r) for r in s._results)}
+
+            resp = self._decode.call(_install, timeout=120.0)
+        except Exception as exc:  # noqa: BLE001 - typed to the wire
+            self._observe("restore", _outcome(exc), t0)
+            return error_to_wire(exc)
+        self._observe("restore", "ok", t0)
         return resp
 
     def _health(self):

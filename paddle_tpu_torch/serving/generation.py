@@ -51,9 +51,18 @@ hypothesis copies its parent's pages into fresh ones (counted in
 ``beam_reorder_pages``); its tokens and scores equal the rebind path's.
 The step goes through ``Executor.run_multi_step`` (one step, captured on
 a card like the greedy step) and the host reads back only the tokens,
-parents and scores. Not ported yet (ROADMAP.md): decode snapshots, beam
-sessions' included (A8's second half), the session's metrics, the prefix
-cache's gauges among them (A9).
+parents and scores.
+
+Snapshots (``serving/snapshot.py``): the public ops run inside a
+dispatch window (``_begin_op`` / ``_end_op``); when the outermost window
+closes, the session calls ``_after_dispatch`` (the snapshot manager's
+quiesce hook: a deferred SIGTERM's final snapshot, or a periodic one).
+The host books a snapshot reads beside the device state are the JAX
+package's: ``_pending`` (``pending_requests``), ``_results``,
+``_beam_results``, ``_trace_ids``, the leak ledger (``_leaked_pages`` and
+``_leaked_page_ids``) and, on a beam session, ``_last_parents`` (each
+lane's last parent permutation). Not ported yet (ROADMAP.md): the
+session's metrics, the prefix cache's gauges among them (A9).
 """
 
 import hashlib
@@ -220,6 +229,7 @@ class SlotDecodeSession(object):
                     "beam lanes" % (self._beam_width, int(num_slots)))
         self._exe = exe
         self._scope = scope
+        self._sampler = sampler
         self._S, self._T, self._D = int(num_slots), int(max_length), \
             int(d_model)
         self._bos, self._eos = int(bos_id), int(eos_id)
@@ -245,6 +255,7 @@ class SlotDecodeSession(object):
         self._beam_events = {}    # lane -> last step's survivor event
         self._last_finished_beams = {}  # lane -> n-best payload
         self._beam_owner = {}     # lane -> request id
+        self._last_parents = {}   # lane -> last local parent permutation
         self._beam_results = {}   # request id -> {"tokens", "scores"}
         self.beam_reorder_pages = 0  # page copies of the reorder oracle
         self.beam_cow_copies = 0     # COW splits charged to beam decode
@@ -257,6 +268,9 @@ class SlotDecodeSession(object):
         # public ops (admit/step/cancel) run inside a dispatch window;
         # ``in_dispatch`` tells a caller not to act on half-updated books
         self._dispatch_depth = 0
+        # called when the outermost window closes (the quiesce point a
+        # DecodeSnapshotManager snapshots at)
+        self._after_dispatch = None
         # graceful degradation, opt-in: None keeps the typed rejects
         # (NoFreeSlot/NoFreePage/NoFreeGroup) as the only admission
         # control
@@ -335,6 +349,7 @@ class SlotDecodeSession(object):
         # can never write into a recycled page) shrink the capacity.
         self._reserved_pages = 0
         self._leaked_pages = 0
+        self._leaked_page_ids = set()
         self.cow_dispatches = 0   # coalesced COW / rebind dispatches
         self.cow_pairs = 0        # real (src, dst) page copies dispatched
         # the copy-on-write / growth-rebind programs form a bucket ladder
@@ -389,6 +404,10 @@ class SlotDecodeSession(object):
 
     def _end_op(self):
         self._dispatch_depth -= 1
+        if self._dispatch_depth == 0 and self._after_dispatch is not None:
+            # the quiesce point: a snapshot manager banks a final
+            # snapshot or takes a periodic one here, never mid-dispatch
+            self._after_dispatch()
 
     @property
     def in_dispatch(self):
@@ -555,6 +574,7 @@ class SlotDecodeSession(object):
                 pages = self._slot_pages[slot]
                 pages[pages.index(dst_pg)] = src_pg
                 self._leaked_pages += 1  # stays allocated for good
+                self._leaked_page_ids.add(dst_pg)
             raise
         for _slot, src_pg, _dst in copies:
             self._pool.deref(src_pg)
@@ -918,6 +938,7 @@ class SlotDecodeSession(object):
                 self._write_table_row(s, [])
             except BaseException:
                 self._leaked_pages += len(set(pages))
+                self._leaked_page_ids.update(pages)
                 continue
             for pg in pages:
                 self._pool.deref(pg)
@@ -990,6 +1011,7 @@ class SlotDecodeSession(object):
             self._free_lanes.append(lane)
             raise
         self._beam_live[lane] = {"slots": slots}
+        self._last_parents[lane] = list(range(K))
         return lane
 
     def register_beam_owner(self, beam_id):
@@ -1132,6 +1154,7 @@ class SlotDecodeSession(object):
                 new_states.append(st)
             for k, s in enumerate(slots):
                 self._live[s] = new_states[k]
+            self._last_parents[lane] = perm
             step_tokens = [int(toks[s]) for s in slots]
             step_scores = [float(scores[s]) for s in slots]
             if all(st["done"] for st in new_states):
@@ -1151,6 +1174,7 @@ class SlotDecodeSession(object):
                     self._free.append(s)
                     self._release_pages(s)
                 del self._beam_live[lane]
+                self._last_parents.pop(lane, None)
                 self._free_lanes.append(lane)
                 rid = self._beam_owner.pop(lane, None)
                 if rid is not None:
@@ -1213,6 +1237,7 @@ class SlotDecodeSession(object):
                 if s in self._live:
                     ok = self._cancel_one(s) and ok
             self._free_lanes.append(lane)
+            self._last_parents.pop(lane, None)
             self._beam_events.pop(lane, None)
             self._beam_owner.pop(lane, None)  # cancelled, never banked
             return ok
@@ -1234,6 +1259,7 @@ class SlotDecodeSession(object):
                     # the group and reservation books still close
                     pages = self._slot_pages.pop(slot)
                     self._leaked_pages += len(set(pages))
+                    self._leaked_page_ids.update(pages)
                     gid = self._slot_group.pop(slot, None)
                     members = self._group_members.get(gid)
                     if members is not None:

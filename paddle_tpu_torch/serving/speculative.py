@@ -41,6 +41,9 @@ unreachable — never wrong, just a wasted tree node.
 
 import numpy as np
 
+from paddle_tpu_torch.core.types import jax_host_array
+from paddle_tpu_torch.resilience.checkpoint import restored_value
+
 __all__ = ["NgramDrafter", "DraftModelDrafter", "chain_tree",
            "tree_from_parents"]
 
@@ -222,15 +225,16 @@ class DraftModelDrafter(object):
         """The draft transformer's own parameter arrays, as host COPIES:
         ``tensor.cpu().numpy()`` of a CPU tensor shares the tensor's
         memory, and a later in-place update would change the array."""
-        return {n: np.array(
-            self._live_scope.get_value(n).detach().cpu().numpy())
-            for n in self._param_names}
+        return {n: jax_host_array(self._live_scope.get_value(n))
+                for n in self._param_names}
 
     def load_param_arrays(self, arrays):
-        """Overwrite the draft params with a snapshot's arrays so the
-        restored drafter proposes exactly what the victim's would."""
+        """Overwrite the draft params with a snapshot's arrays (tensors
+        of the dtype and on the device of the values they replace) so
+        the restored drafter proposes exactly what the victim's would."""
         for n, arr in arrays.items():
-            self._live_scope.set_value(n, np.array(arr))
+            self._live_scope.set_value(n, restored_value(
+                arr, self._live_scope.get_value(n)))
 
     def _run_step(self, tok, pos, live):
         (out,) = self._exe.run(

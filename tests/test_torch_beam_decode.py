@@ -19,8 +19,12 @@
     ``cached_beam_generate`` equal the JAX package's (the twins of
     ``tests/test_attention.py``'s cached-decode cases).
 
-The decode snapshot and ``ckpt_inspect`` cases of
-``tests/test_beam_decode.py`` wait for the port's snapshots (ROADMAP A).
+- a beam session snapshotted mid-flight (a lane 3 dispatches old beside
+  a fresh one) restores into a fresh session that finishes both beams
+  bit-identically to the uninterrupted run, a drifted beam width is the
+  typed ``SnapshotMismatchError``, and ``tools/ckpt_inspect.py --verify``
+  reads the beam state and catches a tampered lane binding (the twins
+  of ``tests/test_beam_decode.py``'s snapshot cases).
 """
 
 import numpy as np
@@ -415,3 +419,97 @@ def test_cached_greedy_and_beam_equal_full_and_jax(trained):
         tp = t_transformer.build_cached_decoder(4, **cfg)
     for a, b in zip(jp[:2], tp[:2]):
         assert _signature(b) == _signature(a)
+
+
+# -- decode snapshots (tests/test_beam_decode.py twins) -----------------------
+
+def test_snapshot_restores_mid_beam_bit_exact(trained, tmp_path):
+    import glob
+    import json
+    import os
+
+    from paddle_tpu_torch.serving.snapshot import (
+        DecodeSnapshotManager,
+        SnapshotMismatchError,
+    )
+
+    src = trained["src"]
+
+    def start(sess):
+        a = sess.admit_beam(src[0], SEQ)
+        ra = sess.register_beam_owner(a)
+        for _ in range(3):
+            sess.step()
+        b = sess.admit_beam(src[1], SEQ - 2)
+        return ra, sess.register_beam_owner(b)
+
+    oracle = _tbeam(trained)
+    rids = start(oracle)
+    while oracle.active_beams:
+        oracle.step()
+    want = [oracle.take_beam_result(r) for r in rids]
+
+    victim = _tbeam(trained)
+    assert start(victim) == rids
+    mgr = DecodeSnapshotManager(victim, str(tmp_path))
+    mgr.save()
+    mgr.close(save=False)
+    restored = _tbeam(trained)
+    mgr2 = DecodeSnapshotManager(restored, str(tmp_path))
+    assert mgr2.restore() is not None
+    assert restored._last_parents == victim._last_parents
+    while restored.active_beams:
+        restored.step()
+    for r, w in zip(rids, want):
+        g = restored.take_beam_result(r)
+        np.testing.assert_array_equal(g["tokens"], w["tokens"])
+        np.testing.assert_array_equal(g["scores"], w["scores"])
+    assert restored.pool_conserved
+    mgr2.close(save=False)
+
+    step_dir = sorted(glob.glob(str(tmp_path / "checkpoint_*")))[-1]
+    mpath = os.path.join(step_dir, "__manifest__.json")
+    with open(mpath) as f:
+        manifest = json.load(f)
+    manifest["extra"]["decode_snapshot"]["config"]["beam_width"] = 2
+    with open(mpath, "w") as f:
+        json.dump(manifest, f)
+    with pytest.raises(SnapshotMismatchError):
+        DecodeSnapshotManager(restored, str(tmp_path)).restore()
+
+
+def test_ckpt_inspect_prints_and_verifies_beam_state(trained, tmp_path):
+    import glob
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from paddle_tpu_torch.serving.snapshot import DecodeSnapshotManager
+
+    sess = _tbeam(trained)
+    sess.admit_beam(trained["src"][0], SEQ)
+    for _ in range(2):
+        sess.step()
+    mgr = DecodeSnapshotManager(sess, str(tmp_path))
+    mgr.save()
+    mgr.close(save=False)
+    step_dir = sorted(glob.glob(str(tmp_path / "checkpoint_*")))[-1]
+    tool = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "ckpt_inspect.py")
+    r = subprocess.run([sys.executable, tool, step_dir, "--verify"],
+                       capture_output=True, text=True)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "beam: width=4" in r.stdout and "lane 0:" in r.stdout
+    mpath = os.path.join(step_dir, "__manifest__.json")
+    with open(mpath) as f:
+        manifest = json.load(f)
+    ds = manifest["extra"]["decode_snapshot"]
+    lane0 = sorted(ds["beam"]["lanes"])[0]
+    ds["beam"]["lanes"][lane0]["slots"][-1] = S - 1  # a free slot
+    with open(mpath, "w") as f:
+        json.dump(manifest, f)
+    r = subprocess.run([sys.executable, tool, step_dir, "--verify"],
+                       capture_output=True, text=True)
+    assert r.returncode == 2, r.stdout + r.stderr
+    assert "beam" in r.stdout

@@ -2,22 +2,30 @@
 (``serving/frontend.py`` + ``serving/client.py``) and the JSON-lines
 substrate under it (``distributed/master.py``).
 
-Mirrors tests/test_frontend.py except its SIGTERM / snapshot and
-fleet-coordinator tests (snapshots and the coordinator are A8's second
-half): the substrate (dict dispatch, streaming,
+Mirrors tests/test_frontend.py except its fleet-coordinator tests (the
+coordinator is A item 5's second half): the substrate (dict dispatch,
+streaming,
 connection callbacks), the wire codec (bit-exact arrays, typed errors),
 unary ``predict`` (parity, deadlines, shed), streaming ``generate``
 (per-dispatch chunks, best-of-N and prefix reuse over the wire, a
 backlog over more streams than slots, beam streams and their GNMT
 rescoring), disconnect and in-band cancel
 reclamation (``pool_conserved`` afterwards), the ``net.*`` chaos sites,
-the ops endpoints and the typed refusals of what the port does not
-serve yet. Decode is greedy, so every wire stream must EQUAL the same
+the ops endpoints, the migration endpoints (``snapshot`` on one
+frontend, ``restore`` on a second, the client's ``attach`` there: the
+spliced stream equals the uninterrupted one; ``MigrationBusyError`` on a
+busy target; typed errors without a snapshot manager) and a SIGTERM'd
+frontend child that banks its backlog and dies by the signal
+(``slow``, as the reference marks it). Decode is greedy, so every wire stream must EQUAL the same
 request through an in-process session (an oracle) on the same weights:
 a 2-layer, d_model 64 Transformer trained a few Adam steps on a copy
 task, so that different sources decode differently.
 """
 
+import os
+import signal
+import subprocess
+import sys
 import threading
 import time
 
@@ -658,16 +666,256 @@ def test_bad_request_is_typed_and_worker_survives(trained):
 
 
 def test_snapshot_endpoints_are_typed_refusals(trained):
+    """Without a snapshot manager, ``snapshot`` and ``restore`` answer the
+    typed error; ``attach`` of a rid this frontend does not hold answers
+    a typed error too (it needs no manager)."""
     sess = _paged(trained)
-    with pytest.raises(ValueError, match="snapshot"):
-        ServingFrontend(session=sess, snapshot_manager=object())
     with ServingFrontend(session=sess) as fe:
         cl = ServingClient(fe.address)
-        for method in ("snapshot", "restore", "attach"):
+        for method in ("snapshot", "restore"):
             with pytest.raises(ServingError,
                                match="no snapshot manager"):
                 cl._request(method=method, id=0)
+        with pytest.raises(ServingError, match="unknown request id"):
+            cl._request(method="attach", id=99)
         cl.close()
+
+
+class _Gate(object):
+    """Holds a session's decode worker, once armed, after its next ``n``
+    dispatches until released: a deterministic mid-stream point (armed
+    once every stream is open, so none waits for its admission behind
+    the held worker)."""
+
+    def __init__(self, sess):
+        self.held = threading.Event()
+        self.release = threading.Event()
+        self._sess, self._at = sess, None
+        orig = sess.step
+
+        def step():
+            out = orig()
+            if (self._at is not None and not self.held.is_set()
+                    and sess.steps_done >= self._at):
+                self.held.set()
+                self.release.wait(60)
+            return out
+
+        sess.step = step
+
+    def arm(self, n):
+        self._at = self._sess.steps_done + n
+
+
+def _padded(src, length):
+    out = np.zeros((len(src), length), "int64")
+    out[:, :src.shape[1]] = src
+    return out
+
+
+def _oracle(trained, src, **kw):
+    sess = _paged(trained, **kw)
+    return [sess.generate(src[i:i + 1], [SEQ])[0] for i in range(len(src))]
+
+
+def test_snapshot_restore_attach_across_frontends(trained, tmp_path):
+    """Streams from frontend A, a ``snapshot`` of A over the socket at a
+    mid-stream quiesce point, a ``restore`` of the payload into frontend
+    B, and the client's ``attach`` to B by rid: every spliced stream
+    equals the uninterrupted session's, and B ends conserved."""
+    from paddle_tpu_torch.serving.snapshot import DecodeSnapshotManager
+
+    kw = dict(max_length=16, steps=1)
+    src = _padded(trained["src"][:3], 16)
+    want = _oracle(trained, src, **kw)
+    sa, sb = _paged(trained, **kw), _paged(trained, **kw)
+    gate = _Gate(sa)
+    ma = DecodeSnapshotManager(sa, str(tmp_path / "a"))
+    mb = DecodeSnapshotManager(sb, str(tmp_path / "b"))
+    with ServingFrontend(session=sa, snapshot_manager=ma) as fa, \
+            ServingFrontend(session=sb, snapshot_manager=mb) as fb:
+        clients = [ServingClient(fa.address) for _ in src]
+        streams = [cl.generate(src[i], src_len=SEQ)
+                   for i, cl in enumerate(clients)]
+        firsts = [next(st) for st in streams]  # the admitted events
+        rids = [ev["id"] for ev in firsts]
+        gate.arm(3)
+        assert gate.held.wait(60)
+        ctl = ServingClient(fa.address)
+        box = {}
+        t = threading.Thread(target=lambda: box.update(
+            ctl._request(method="snapshot")))
+        t.start()
+        time.sleep(0.2)
+        gate.release.set()
+        t.join(60)
+        assert box.get("ok") and box["dir"].startswith("checkpoint_")
+        delivered = []
+        for st in streams:  # A's own streams, to their end
+            toks = []
+            for ev in st:
+                if ev["event"] == "tokens":
+                    toks += [int(x) for x in ev["tokens"]]
+                if ev["event"] == "end":
+                    break
+            delivered.append(toks)
+        clb = ServingClient(fb.address)
+        resp = clb._request(method="restore", dir=box["dir"],
+                            files=box["files"])
+        assert sorted(resp["live"] + resp["pending"]) == sorted(rids)
+        for i, rid in enumerate(rids):
+            cl = ServingClient(fb.address)
+            first = cl._reattach(rid)
+            assert first["event"] == "resumed"
+            got = [int(x) for x in first["tokens"]]
+            for ev in cl._stream_events(cl._recv_line()):
+                if ev["event"] == "tokens":
+                    got += [int(x) for x in ev["tokens"]]
+                if ev["event"] == "end":
+                    break
+            # B replays from position 1: it covers what A delivered up
+            # to the snapshot, then goes on to the uninterrupted stream
+            full = [1] + got
+            np.testing.assert_array_equal(
+                full + [2] * (len(want[i]) - len(full)), want[i])
+            # A ran on after the snapshot: its own stream is the same
+            mine = [1] + delivered[i]
+            np.testing.assert_array_equal(
+                mine + [2] * (len(want[i]) - len(mine)), want[i])
+            cl.close()
+        assert _drained(sb)
+        for cl in clients + [ctl, clb]:
+            cl.close()
+
+
+def test_restore_onto_busy_frontend_is_migration_busy(trained, tmp_path):
+    from paddle_tpu_torch.serving.client import MigrationBusyError
+    from paddle_tpu_torch.serving.snapshot import DecodeSnapshotManager
+
+    kw = dict(max_length=16, steps=1)
+    sa, sb = _paged(trained, **kw), _paged(trained, **kw)
+    ma = DecodeSnapshotManager(sa, str(tmp_path / "a"))
+    mb = DecodeSnapshotManager(sb, str(tmp_path / "b"))
+    gate = _Gate(sb)
+    with ServingFrontend(session=sa, snapshot_manager=ma) as fa, \
+            ServingFrontend(session=sb, snapshot_manager=mb) as fb:
+        snap = ServingClient(fa.address)._request(method="snapshot")
+        busy = ServingClient(fb.address)
+        stream = busy.generate(_padded(trained["src"][:1], 16)[0],
+                               src_len=SEQ)
+        next(stream)
+        gate.arm(1)
+        assert gate.held.wait(60)
+        box = {}
+
+        def restore():
+            try:
+                ServingClient(fb.address)._request(
+                    method="restore", dir=snap["dir"], files=snap["files"])
+            except Exception as exc:  # noqa: BLE001 - the typed error
+                box["exc"] = exc
+
+        t = threading.Thread(target=restore)
+        t.start()
+        time.sleep(0.2)
+        gate.release.set()
+        t.join(60)
+        assert isinstance(box.get("exc"), MigrationBusyError)
+        for _ev in stream:
+            pass
+        assert _drained(sb)
+        busy.close()
+
+
+_CHILD = r"""
+import os, sys, time
+import numpy as np
+import paddle_tpu_torch as fluid
+from paddle_tpu_torch.models import transformer
+from paddle_tpu_torch.serving.frontend import ServingFrontend
+from paddle_tpu_torch.serving.generation import Sampler, SlotDecodeSession
+from paddle_tpu_torch.serving.snapshot import DecodeSnapshotManager
+
+snap_dir = sys.argv[1]
+VOCAB, SEQ, D, S = 24, 8, 32, 4
+CFG = dict(src_vocab_size=VOCAB, trg_vocab_size=VOCAB, n_layer=1,
+           n_head=2, d_inner=64)
+main, startup = fluid.Program(), fluid.Program()
+main.random_seed = 41; startup.random_seed = 41
+with fluid.program_guard(main, startup):
+    transformer.build(dropout=0.0, label_smooth_eps=0.0,
+                      max_length=SEQ, d_model=D, **CFG)
+exe = fluid.Executor(fluid.CPUPlace())
+exe.run(startup)
+# one token a dispatch over 32 positions: the backlog outlasts the signal
+sess = SlotDecodeSession(exe, num_slots=S, max_length=4 * SEQ, d_model=D,
+                         paged=True, page_size=4, steps=1,
+                         sampler=Sampler(seed=3), **CFG)
+# the manager's handlers first, the frontend's on top: a SIGTERM stops
+# the transport, then chains into the snapshot path
+mgr = DecodeSnapshotManager(sess, snap_dir, install_signal_handlers=True)
+fe = ServingFrontend(session=sess, install_signal_handlers=True)
+print("PORT %d" % fe.port, flush=True)
+while True:
+    time.sleep(0.1)
+"""
+
+
+@pytest.mark.slow
+def test_sigterm_frontend_banks_backlog_and_dies_by_signal(tmp_path):
+    from paddle_tpu_torch.resilience.checkpoint import (
+        complete_serials,
+        read_manifest,
+    )
+
+    snap_dir = str(tmp_path / "snap")
+    env = dict(os.environ)
+    env.pop("FLAGS_chaos_spec", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _CHILD, snap_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=os.path.join(os.path.dirname(__file__), os.pardir))
+    threads = []
+    try:
+        line = proc.stdout.readline().strip()
+        assert line.startswith("PORT "), (line, proc.stderr.read())
+        port = int(line.split()[1])
+        src = _padded(np.random.RandomState(7).randint(3, 24, (8, 8)), 32)
+
+        # a backlog bigger than the pool; the signal lands once the
+        # first 8 streams are answered (some live, the rest queued)
+        opened = threading.Semaphore(0)
+
+        def streamer(i):
+            cl = ServingClient(("127.0.0.1", port), timeout_s=60.0)
+            try:
+                for n, _ev in enumerate(cl.generate(src[i % 8],
+                                                    src_len=8)):
+                    if n == 0:
+                        opened.release()
+            except Exception:  # noqa: BLE001 - severed by the SIGTERM
+                pass
+            finally:
+                cl.close()
+
+        threads = [threading.Thread(target=streamer, args=(i,))
+                   for i in range(32)]
+        for t in threads:
+            t.start()
+        for _ in range(8):
+            assert opened.acquire(timeout=60)
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        proc.kill()
+        for t in threads:
+            t.join(timeout=30)
+    assert proc.returncode == -signal.SIGTERM, (proc.returncode, err)
+    serials = complete_serials(snap_dir)
+    assert serials, "no final snapshot banked on SIGTERM: %s" % err
+    meta = read_manifest(os.path.join(
+        snap_dir, "checkpoint_%d" % serials[-1]))["extra"]["decode_snapshot"]
+    assert meta["live"] or meta["pending"]
 
 
 # ---------------------------------------------------------------------------
