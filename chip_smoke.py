@@ -525,10 +525,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    the second hits the cache) and the 64 requests queued behind them,
    cut after 3 ``pump()`` rounds. ``save()`` there prints the live pages
    and groups against the pool, the bytes written, the capture ms (the
-   device gather and the pinned host copy) beside its bound (the live
-   bytes over a pinned device-to-host rate the phase measures first), the
-   write ms; a ``save_async`` of the same step, written while the session
-   decodes on, has the sync save's digests; ``tools/ckpt_inspect.py
+   device gather, the manager's pinned staging allocated, the host copy)
+   beside its bound (the live bytes over a pinned device-to-host rate the
+   phase measures first), the write ms, and the capture's split (gather,
+   fresh pinned buffers, pinned copy, a plain ``.cpu()``); a
+   ``save_async`` of the same step, written while the session decodes
+   on, has the sync save's digests and prints its capture (the staging
+   reused); ``tools/ckpt_inspect.py
    --verify`` exits 0 on it; a fresh session in a fresh child scope
    restores it (restore ms) and runs to the end, its first steps eager,
    then captured: every stream (forks included) bit-equal to the
@@ -10055,6 +10058,46 @@ def pinned_d2h_rate(torch):
     return D2H_PROBE_BYTES / (best / 1e3)
 
 
+def capture_split(torch, mgr, reps=3):
+    """A capture's host-clock split at the session's cut, ``reps`` times
+    over (ms lists): ``gather`` the live rows on the card
+    (``_gather_live``, synchronized), ``pinned alloc`` fresh pinned host
+    buffers for them, ``pinned copy`` a non-blocking copy into those and
+    one wait, ``plain cpu`` a ``.cpu()`` of each row (pageable memory).
+    The session is read, not changed."""
+    s = mgr._session
+    scope = mgr._live_scope()
+    pages, groups = sorted(s._pool._ref), sorted(s._group_members)
+    out = {k: [] for k in ("gather", "pinned alloc", "pinned copy",
+                           "plain cpu")}
+
+    def ms(t):
+        return 1e3 * (time.perf_counter() - t)
+
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _names, rows = mgr._gather_live(scope, pages, groups)
+        torch.cuda.synchronize()
+        out["gather"].append(ms(t))
+        t = time.perf_counter()
+        hosts = [torch.empty(r.shape, dtype=r.dtype, pin_memory=True)
+                 for r in rows]
+        out["pinned alloc"].append(ms(t))
+        t = time.perf_counter()
+        for h, r in zip(hosts, rows):
+            h.copy_(r, non_blocking=True)
+        torch.cuda.synchronize()
+        out["pinned copy"].append(ms(t))
+        t = time.perf_counter()
+        plain = [r.cpu() for r in rows]
+        out["plain cpu"].append(ms(t))
+        if not all(torch.equal(h, c) for h, c in zip(hosts, plain)):
+            fail("capture split: the pinned and plain copies differ")
+        del hosts, plain, rows
+    return out
+
+
 def ckpt_verify(step_dir):
     """``tools/ckpt_inspect.py <dir> --verify`` as it stands: (exit code,
     its last output line)."""
@@ -10167,7 +10210,8 @@ def np_equal(a, b):
 
 
 def snapshot_case(torch, label, make, drive, at, root, rate, kernels,
-                  mid_check=None, until=None, async_check=False):
+                  mid_check=None, until=None, async_check=False,
+                  split=False):
     """One mode of the ``snapshot`` phase: a session driven ``at``
     rounds, snapshotted (``save()``), then run on to its end (the
     uninterrupted run: a save reads the session and changes nothing),
@@ -10175,8 +10219,9 @@ def snapshot_case(torch, label, make, drive, at, root, rate, kernels,
     every stream bit-equal, the pool conserved with 0 leaked, the unmodified
     ``ckpt_inspect.py --verify`` exit 0. ``async_check``: a
     ``save_async`` of the same step, taken while decoding goes on, with
-    digests equal to the sync save's. Returns the launches of the
-    window (both sessions' drives, counts reset just before)."""
+    digests equal to the sync save's. ``split``: print
+    ``capture_split`` at the cut, after the save. Returns the launches
+    of the window (both sessions' drives, counts reset just before)."""
     import copy
 
     from paddle_tpu_torch.resilience.checkpoint import read_manifest
@@ -10208,10 +10253,19 @@ def snapshot_case(torch, label, make, drive, at, root, rate, kernels,
     live_bytes = mgr.last_capture_bytes
     n_pages, n_groups = len(victim._pool._ref), len(victim._group_members)
     n_live, n_queued = len(victim._live), len(victim.pending_requests)
+    if split:
+        print("snapshot %s: capture split at the cut, host clock, ms over "
+              "3 repetitions (%d bytes in %d rows): %s"
+              % (label, live_bytes, len(mgr._gathered_names()),
+                 {k: ["%.3f" % x for x in v]
+                  for k, v in capture_split(torch, mgr).items()}))
     saved_st = copy.deepcopy(st)
+    cap2_ms = None
     if async_check:
-        # the same step again, written while the victim decodes on
+        # the same step again, written while the victim decodes on; its
+        # capture reuses the pinned staging the first one allocated
         mgr.save_async(serial=2)
+        cap2_ms = 1e3 * mgr.last_capture_seconds
     want = finish(victim, st)
     mgr.wait()
     rc, verdict = ckpt_verify(path)
@@ -10244,7 +10298,8 @@ def snapshot_case(torch, label, make, drive, at, root, rate, kernels,
     mgr2.close(save=False)
     print("snapshot %s: after %d rounds: live pages %d of %d, live groups %d of "
           "%d, %d live slots, %d queued; bytes written %d (pools gathered "
-          "%d); capture %.1f ms (device gather and pinned host copy; bound "
+          "%d); capture %.1f ms (device gather, pinned staging allocated, "
+          "host copy; bound "
           "%.1f ms: the live bytes at the measured %.2f GB/s pinned "
           "device-to-host rate), write %.1f ms, restore %.1f ms; "
           "ckpt_inspect --verify exit %d (%s)"
@@ -10256,8 +10311,9 @@ def snapshot_case(torch, label, make, drive, at, root, rate, kernels,
           "conserved, 0 leaked: %s%s; launches paged_decode %d, flash_fwd "
           "%d" % (label, equal, len(want), conserved,
                   "" if digests_equal is None else
-                  "; save_async digests equal the sync save's: %s"
-                  % digests_equal, launches["paged_decode"],
+                  "; save_async digests equal the sync save's: %s, its "
+                  "capture %.1f ms (pinned staging reused)"
+                  % (digests_equal, cap2_ms), launches["paged_decode"],
                   launches["flash_fwd"]))
     if equal != len(want) or len(got) != len(want):
         fail("snapshot %s: %d of %d restored streams differ from the "
@@ -10296,7 +10352,7 @@ def snapshot_phase(np, torch, exe, scope, bscope, kernels):
             rate, kernels, mid_check=lambda s: (s._pending and (
                 s.shared_pages or s.cached_pages)) or fail(
                 "snapshot greedy: no backlog or shared page at the cut"),
-            async_check=True)
+            async_check=True, split=True)
         out["sampled"] = snapshot_case(
             torch, "sampled", lambda: snap_session(
                 exe, scope, sampler=Sampler(**SAMPLED)),

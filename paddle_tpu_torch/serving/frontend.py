@@ -914,16 +914,11 @@ class ServingFrontend(object):
 
     def _generate(self, req, conn):
         """Streaming dispatch: a GENERATOR the substrate drains line by
-        line. Decode-worker messages flow to the socket as produced; the
-        handler polls its connection for an in-band cancel or EOF when
-        the stream idles and, on a busy stream, once a poll interval
-        (the JAX package's handler polls only an idle stream, so a
-        cancel there waits for a pause); a failed write surfaces as
+        line, through ``_consume``; a failed write surfaces as
         ``GeneratorExit`` — every exit path funnels the stream into the
         worker's teardown."""
         t0 = time.monotonic()
         outcome = "error"
-        first_token = False
         stream = None
         tr = None
         if _tracing.ENABLED:
@@ -979,51 +974,8 @@ class ServingFrontend(object):
             with self._mu:
                 self._active_streams += 1
             self._decode.submit(stream)
-            last_poll = time.monotonic()
-            while True:
-                try:
-                    msg = stream.q.get(timeout=self._poll)
-                except queue.Empty:
-                    msg = None
-                if msg is None or time.monotonic() - last_poll >= self._poll:
-                    # a busy stream is polled too, once a poll interval:
-                    # a cancel must not wait for the stream to go idle
-                    last_poll = time.monotonic()
-                    verdict = self._poll_conn(conn)
-                    if verdict == "cancel":
-                        self._decode.cancel(stream)
-                        outcome = "cancelled"
-                        yield {"ok": True, "event": "cancelled"}
-                        return
-                    if verdict == "eof":
-                        self._decode.cancel(stream)
-                        outcome = "disconnect"
-                        return
-                if msg is None:
-                    continue
-                if not msg.get("ok", False):
-                    outcome = _outcome(error_from_wire(msg))
-                    yield msg
-                    return
-                if msg.get("event") in ("tokens", "beam") and not first_token:
-                    first_token = True
-                    if tr is not None:
-                        tr.mark("first_token")
-                    _fe_ttft.observe(
-                        time.monotonic() - t0,
-                        exemplar=(tr.id if tr is not None else None))
-                if tr is not None and msg.get("event") in ("tokens", "beam"):
-                    # the span brackets the substrate's write+flush of
-                    # this chunk: t1 lands when the generator resumes
-                    sp = tr.begin("wire.flush",
-                                  tokens=len(msg.get("tokens", ())))
-                    yield msg
-                    tr.end(sp)
-                else:
-                    yield msg
-                if msg.get("event") == "end":
-                    outcome = "ok"
-                    return
+            outcome = yield from self._consume(stream, conn, tr=tr,
+                                               t_ttft=t0)
         except GeneratorExit:
             # the substrate closed us: the client's socket died mid-
             # write — tear the generation down, return the capacity
@@ -1047,6 +999,55 @@ class ServingFrontend(object):
                 # closes stragglers), so the ring never holds a trace
                 # with dangling open spans
                 _tracing.finish(tr, outcome=outcome)
+
+    def _consume(self, stream, conn, tr=None, t_ttft=None):
+        """Relay a submitted stream's decode-worker messages to the wire
+        until a terminal event; returns the outcome. The connection is
+        polled for an in-band cancel or EOF when the stream idles and,
+        on a busy stream, once a poll interval (the JAX package's
+        handler polls only an idle stream, so a cancel there waits for a
+        pause). ``t_ttft`` (a fresh generation's start) observes the
+        time to its first token; a re-attach passes None."""
+        first_token = t_ttft is None
+        last_poll = time.monotonic()
+        while True:
+            try:
+                msg = stream.q.get(timeout=self._poll)
+            except queue.Empty:
+                msg = None
+            if msg is None or time.monotonic() - last_poll >= self._poll:
+                last_poll = time.monotonic()
+                verdict = self._poll_conn(conn)
+                if verdict == "cancel":
+                    self._decode.cancel(stream)
+                    yield {"ok": True, "event": "cancelled"}
+                    return "cancelled"
+                if verdict == "eof":
+                    self._decode.cancel(stream)
+                    return "disconnect"
+            if msg is None:
+                continue
+            if not msg.get("ok", False):
+                yield msg
+                return _outcome(error_from_wire(msg))
+            if msg.get("event") in ("tokens", "beam") and not first_token:
+                first_token = True
+                if tr is not None:
+                    tr.mark("first_token")
+                _fe_ttft.observe(
+                    time.monotonic() - t_ttft,
+                    exemplar=(tr.id if tr is not None else None))
+            if tr is not None and msg.get("event") in ("tokens", "beam"):
+                # the span brackets the substrate's write+flush of
+                # this chunk: t1 lands when the generator resumes
+                sp = tr.begin("wire.flush",
+                              tokens=len(msg.get("tokens", ())))
+                yield msg
+                tr.end(sp)
+            else:
+                yield msg
+            if msg.get("event") == "end":
+                return "ok"
 
     def _poll_conn(self, conn):
         """'cancel' when the client sent an in-band cancel line, 'eof'
@@ -1149,29 +1150,7 @@ class ServingFrontend(object):
             with self._mu:
                 self._active_streams += 1
             self._decode.submit(stream)
-            while True:
-                try:
-                    msg = stream.q.get(timeout=self._poll)
-                except queue.Empty:
-                    verdict = self._poll_conn(conn)
-                    if verdict == "cancel":
-                        self._decode.cancel(stream)
-                        outcome = "cancelled"
-                        yield {"ok": True, "event": "cancelled"}
-                        return
-                    if verdict == "eof":
-                        self._decode.cancel(stream)
-                        outcome = "disconnect"
-                        return
-                    continue
-                if not msg.get("ok", False):
-                    outcome = _outcome(error_from_wire(msg))
-                    yield msg
-                    return
-                yield msg
-                if msg.get("event") == "end":
-                    outcome = "ok"
-                    return
+            outcome = yield from self._consume(stream, conn)
         except GeneratorExit:
             outcome = "disconnect"
             if stream is not None:

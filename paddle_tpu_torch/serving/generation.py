@@ -75,6 +75,7 @@ from paddle_tpu_torch import flags
 from paddle_tpu_torch.analysis.lint import suggest_buckets
 from paddle_tpu_torch.kernels.paged_attention import pages_for
 from paddle_tpu_torch.models import transformer
+from paddle_tpu_torch.observability import lock_witness
 from paddle_tpu_torch.observability import tracing as _tracing
 from paddle_tpu_torch.resilience import chaos as _chaos
 from paddle_tpu_torch.resilience import retry as _retry
@@ -268,6 +269,11 @@ class SlotDecodeSession(object):
         # public ops (admit/step/cancel) run inside a dispatch window;
         # ``in_dispatch`` tells a caller not to act on half-updated books
         self._dispatch_depth = 0
+        # taken to open the outermost window: a thread other than the
+        # owner holds it to keep the owner out of a dispatch (the
+        # snapshot manager's idle finalize)
+        self._window_lock = lock_witness.make_lock(
+            "serving.generation.window")
         # called when the outermost window closes (the quiesce point a
         # DecodeSnapshotManager snapshots at)
         self._after_dispatch = None
@@ -400,7 +406,8 @@ class SlotDecodeSession(object):
 
     # -- dispatch window and degradation -------------------------------------
     def _begin_op(self):
-        self._dispatch_depth += 1
+        with self._window_lock:
+            self._dispatch_depth += 1
 
     def _end_op(self):
         self._dispatch_depth -= 1

@@ -16,7 +16,8 @@ writer, quarantine of corrupt serials):
   ``pgd_kpool_i__live`` (the pages with a nonzero refcount, in page-id
   order) and the cross-attention pools as their live group rows. The
   gather runs on the device (``index_select``) and only the live rows
-  cross to the host, through pinned buffers; dead pages are never read
+  cross to the host, through pinned staging buffers that the manager
+  keeps across captures; dead pages are never read
   (the admit contract), so they are not state. Int64 loop state is
   written int32, as the JAX package holds it.
 * **Host allocator state, exactly.** The refcounted ``PagePool`` (free
@@ -108,23 +109,6 @@ def _sampler_state(sampler):
     return dict(sampler)
 
 
-def _rows_to_host(tensors):
-    """Host numpy copies of device tensors: on a card each goes through a
-    pinned buffer with a non-blocking copy, one wait for all of them; on
-    the CPU a copy (``index_select`` already made one)."""
-    if not tensors:
-        return []
-    if tensors[0].device.type != "cuda":
-        return [t.numpy() for t in tensors]
-    hosts = []
-    for t in tensors:
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        h.copy_(t, non_blocking=True)
-        hosts.append(h)
-    torch.cuda.current_stream(tensors[0].device).synchronize()
-    return [h.numpy() for h in hosts]
-
-
 class DecodeSnapshotManager(CheckpointManager):
     """Snapshot / restore one paged :class:`SlotDecodeSession`.
 
@@ -165,6 +149,11 @@ class DecodeSnapshotManager(CheckpointManager):
         self._stop_signum = None
         self._closed = False
         self._finalizing = threading.Lock()
+        # var name -> pinned host buffer its live rows are copied into,
+        # kept across captures (a fresh pinned allocation costs many
+        # times the copy); a capture waits for the previous writer, the
+        # one reader of these buffers
+        self._staging = {}
         # the thread that drives the session (the last to close a
         # dispatch window): a frontend's decode worker, or the caller's
         self._owner = None
@@ -210,6 +199,43 @@ class DecodeSnapshotManager(CheckpointManager):
                     for k in ("kpool", "vpool")]
         return out
 
+    def _gather_live(self, scope, live_pages, live_groups):
+        """(file names, device tensors): the live rows of every gathered
+        pool, selected on the pool's device."""
+        names, rows = [], []
+        index = {}
+        for name, kind in self._gathered_names():
+            ids = live_pages if kind == "pages" else live_groups
+            if not ids:
+                continue
+            pool = scope.get_value(name)
+            key = (kind, pool.device)
+            if key not in index:
+                index[key] = torch.as_tensor(ids, dtype=torch.int64,
+                                             device=pool.device)
+            names.append(name + "__live")
+            rows.append(pool.index_select(0, index[key]))
+        return names, rows
+
+    def _rows_to_host(self, names, rows):
+        """Host numpy arrays of the gathered rows: on a card each row goes
+        by a non-blocking copy into its pinned staging buffer (grown when
+        the live rows outgrow it), one wait for all of them; on the CPU
+        the ``index_select`` copies themselves."""
+        if not rows or rows[0].device.type != "cuda":
+            return [r.numpy() for r in rows]
+        hosts = []
+        for name, r in zip(names, rows):
+            buf = self._staging.get(name)
+            if buf is None or buf.shape[0] < r.shape[0]:
+                buf = torch.empty(r.shape, dtype=r.dtype, pin_memory=True)
+                self._staging[name] = buf
+            h = buf[:r.shape[0]]
+            h.copy_(r, non_blocking=True)
+            hosts.append(h)
+        torch.cuda.current_stream(rows[0].device).synchronize()
+        return [h.numpy() for h in hosts]
+
     def _capture(self):
         """(vars dict, dialect meta): the consistent host and device
         image of the session, taken on the calling thread (the only part
@@ -229,20 +255,8 @@ class DecodeSnapshotManager(CheckpointManager):
             snap[name] = jax_host_array(scope.get_value(name))
         live_pages = sorted(s._pool._ref)
         live_groups = sorted(s._group_members)
-        names, rows = [], []
-        index = {}
-        for name, kind in self._gathered_names():
-            ids = live_pages if kind == "pages" else live_groups
-            if not ids:
-                continue
-            pool = scope.get_value(name)
-            key = (kind, pool.device)
-            if key not in index:
-                index[key] = torch.as_tensor(ids, dtype=torch.int64,
-                                             device=pool.device)
-            names.append(name + "__live")
-            rows.append(pool.index_select(0, index[key]))
-        hosts = _rows_to_host(rows)
+        names, rows = self._gather_live(scope, live_pages, live_groups)
+        hosts = self._rows_to_host(names, rows)
         self.last_capture_bytes = int(sum(h.nbytes for h in hosts))
         snap.update(zip(names, hosts))
         trg = np.full((s._S, s._T), s._eos, dtype="int64")
@@ -346,13 +360,15 @@ class DecodeSnapshotManager(CheckpointManager):
         return meta
 
     def _prepare(self, step, serial, extra):
+        # the previous writer reads the staging buffers this capture
+        # fills: it finishes first
+        self.wait()
         snap, meta = self._capture()
         rng = self._rng_state()
         step = int(self._session.steps_done if step is None else step)
         serial = int(step if serial is None else serial)
         payload = dict(extra or {})
         payload[DIALECT] = meta
-        self.wait()
         return snap, rng, step, serial, payload
 
     def save(self, step=None, serial=None, extra=None):
@@ -644,8 +660,12 @@ class DecodeSnapshotManager(CheckpointManager):
         # else: _on_quiesce finalizes once the in-flight window closes
 
     def _finalize_if_idle(self):
-        if not self._closed and not self._session.in_dispatch:
-            self._finalize_and_reraise()
+        # the owner opens a dispatch window only under the session's
+        # window lock: held from the idle check to the end of the final
+        # save, it keeps the owner from tearing the capture
+        with self._session._window_lock:
+            if not self._closed and not self._session.in_dispatch:
+                self._finalize_and_reraise()
 
     def should_stop(self):
         """True once a preemption signal landed (pollable by a serving
@@ -689,6 +709,7 @@ class DecodeSnapshotManager(CheckpointManager):
                 pass
         else:
             self.wait()
+        self._staging = {}
         self._uninstall_signal_handlers()
         if self._session._after_dispatch is self._on_quiesce:
             self._session._after_dispatch = None

@@ -827,6 +827,44 @@ def test_restore_onto_busy_frontend_is_migration_busy(trained, tmp_path):
         busy.close()
 
 
+def test_cancel_reaches_busy_reattached_stream(trained):
+    """A re-attached stream whose tokens never pause hears an in-band
+    cancel within a poll interval. The poll interval is several
+    dispatches long here, so a handler that polled only an idle stream
+    would relay the request to its end and never cancel it."""
+    kw = dict(max_length=32, steps=1, eos_id=0)
+    sess = _paged(trained, **kw)
+    orig = sess.step
+
+    def step():
+        out = orig()
+        time.sleep(0.05)
+        return out
+
+    sess.step = step
+    src = _padded(trained["src"][:1], 32)[0]
+    with ServingFrontend(session=sess, stream_poll_s=0.4) as fe:
+        rid = fe._decode.call(lambda: sess.enqueue(src, SEQ))
+        cl = ServingClient(fe.address)
+        first = cl._reattach(rid)
+        assert first["event"] == "resumed" and not first["finished"]
+        cl._send_line({"method": "cancel"})
+        kinds, got = [], len(first["tokens"])
+        while True:
+            ev = cl._recv_line()
+            assert ev.get("ok"), ev
+            kinds.append(ev["event"])
+            if ev["event"] == "tokens":
+                got += len(ev["tokens"])
+            if ev["event"] in ("end", "cancelled"):
+                break
+        assert kinds[-1] == "cancelled", kinds
+        assert got < 31, got
+        assert _drained(sess)
+        assert rid not in sess._results  # cancelled, not banked
+        cl.close()
+
+
 _CHILD = r"""
 import os, sys, time
 import numpy as np

@@ -343,6 +343,43 @@ def test_save_async_equals_sync_save_and_copies_state(trained, tmp_path):
     assert all(va[n]["sha256"] == vs[n]["sha256"] for n in va)
 
 
+def test_idle_finalize_keeps_the_owner_out_of_a_dispatch(
+        trained, tmp_path, monkeypatch):
+    """A deferred SIGTERM whose owner thread went idle is finalized from
+    a timer thread; the owner cannot open a dispatch window between the
+    idle check and the end of the final save."""
+    import threading
+
+    sess = _paged(trained)
+    sess.admit(trained["src"][0], int(trained["src_len"][0]))
+    mgr = DecodeSnapshotManager(sess, str(tmp_path / "snap"))
+    kills = []
+    monkeypatch.setattr(os, "kill", lambda pid, sig: kills.append(sig))
+    entered = threading.Event()
+
+    def dispatch():
+        sess._begin_op()
+        entered.set()
+        sess._end_op()
+
+    owner = threading.Thread(target=dispatch)
+    seen = {}
+    orig_save = mgr.save
+
+    def save(*a, **k):
+        owner.start()
+        seen["entered_mid_save"] = entered.wait(0.3)
+        return orig_save(*a, **k)
+
+    monkeypatch.setattr(mgr, "save", save)
+    mgr._stop_signum = signal.SIGTERM
+    mgr._finalize_if_idle()
+    owner.join(10)
+    assert seen == {"entered_mid_save": False}
+    assert entered.is_set() and kills == [signal.SIGTERM]
+    assert mgr.latest_serial() is not None
+
+
 _CHILD = r"""
 import os, sys, time
 import numpy as np
